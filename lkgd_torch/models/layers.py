@@ -1,0 +1,265 @@
+"""Common layers of the port (counterpart of ``lkgd_tpu/models/layers.py``).
+
+Activations are channels-last, as in the JAX package: images ``(N, H, W, C)``, tokens
+``(N, S, C)``. Convolutions run on the ``(N, C, H, W)`` view of that memory, which is
+PyTorch's ``channels_last`` format, so a GroupNorm input is physically ``(N, M, C)`` and
+reaches the kernel as a view. Parameter names are diffusers' (``to_out.0``,
+``ff.net.0.proj``, ...), so the state dicts exported from the JAX package load with
+``load_state_dict(strict=True)``.
+
+Modules are built without touching any random generator (``materialize``) and filled
+either from a state dict or by ``init_params`` from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from lkgd_torch.ops.attention import dot_product_attention
+from lkgd_torch.ops.group_norm import group_norm
+
+
+# --------------------------------------------------------------------------- building
+def materialize(factory: Callable[[], nn.Module], device, dtype: torch.dtype) -> nn.Module:
+    """Build ``factory()`` on the meta device, then allocate its parameters (uninitialised)
+    on ``device`` in ``dtype``, 4-D convolution weights channels-last. Fill them with
+    ``init_params`` or ``load_state_dict``."""
+    with torch.device("meta"):
+        module = factory().to(dtype=dtype)
+        for p in module.parameters():
+            if p.dim() == 4:
+                p.data = p.data.contiguous(memory_format=torch.channels_last)
+    return module.to_empty(device=device)  # empty_like keeps the strides
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator`` only, shaped as the JAX modules initialise them:
+    linear and convolution weights normal with std fan_in^-1/2, biases zero, norm scales
+    one; modules with parameters of their own fill them in ``init_extra(generator)``."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        if hasattr(m, "init_extra"):
+            m.init_extra(generator)
+
+
+# --------------------------------------------------------------------------- embeddings
+def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
+                           flip_sin_to_cos: bool = True, downscale_freq_shift: float = 0.0,
+                           max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal embeddings (diffusers ``Timesteps``), always fp32."""
+    half_dim = embedding_dim // 2
+    exponent = -math.log(max_period) * torch.arange(half_dim, dtype=torch.float32,
+                                                    device=timesteps.device)
+    exponent = exponent / (half_dim - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half_dim:], emb[:, :half_dim]], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """2-layer SiLU MLP over the sinusoidal embedding (diffusers ``TimestepEmbedding``)."""
+
+    def __init__(self, in_dim: int, time_embed_dim: int, out_dim: Optional[int] = None):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
+
+    def forward(self, sample: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+# --------------------------------------------------------------------------- convolutions
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` taking and returning channels-last ``(N, H, W, C)`` tensors."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class TemporalConv(nn.Conv3d):
+    """diffusers' (3, 1, 1) ``Conv3d`` over frames (weight ``(O, I, 3, 1, 1)``), applied to
+    ``(B, T, M, C)`` as a (3, 1) convolution over (T, M) with frame padding 1 — the JAX
+    package's ``nn.Conv((3, 1))`` over its ``(B, T, HW, C)`` layout."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, (3, 1, 1), padding=(1, 0, 0))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight[..., 0], self.bias, padding=(1, 0))
+        return y.permute(0, 2, 3, 1)
+
+
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsample of ``(N, H, W, C)``, kept channels-last."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+
+
+# --------------------------------------------------------------------------- attention
+def _out_proj(inner: int, query_dim: int) -> nn.ModuleList:
+    return nn.ModuleList([nn.Linear(inner, query_dim)])  # diffusers' to_out.0
+
+
+class Attention(nn.Module):
+    """diffusers ``Attention`` as SVD configures it: no q/k/v bias, output projection with
+    bias, scale head_dim^-0.5 (``lkgd_tpu/models/layers.py:133-186``)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim or query_dim, inner, bias=False)
+        self.to_out = _out_proj(inner, query_dim)
+
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+        b, sq = hidden_states.shape[:2]
+        if ctx.shape[1] == 1:
+            # one key (SVD cross-attention on the CLIP token): softmax over one key is 1,
+            # so attention is exactly to_out(v) broadcast over the queries
+            out = self.to_out[0](self.to_v(ctx))
+            return out.expand(b, sq, out.shape[-1])
+        q = self.to_q(hidden_states).view(b, sq, self.heads, self.dim_head)
+        k = self.to_k(ctx).view(b, ctx.shape[1], self.heads, self.dim_head)
+        v = self.to_v(ctx).view(b, ctx.shape[1], self.heads, self.dim_head)
+        out = dot_product_attention(q, k, v)
+        return self.to_out[0](out.reshape(b, sq, self.heads * self.dim_head))
+
+
+class FrameAxisAttention(nn.Module):
+    """Attention over the frame axis of spatial-major ``(B*T, HW, C)`` tokens, parameters
+    as :class:`Attention` (``lkgd_tpu/models/layers.py:189-287``), in the token-major form:
+    one transpose each way around a ``(B*HW*heads, T, D)`` attention core.
+
+    ``encoder_hidden_states``: None (self-attention over frames) or, with
+    ``per_sample_ctx=True``, a per-sample single-token ``(B, 1, kv_dim)`` context (SVD's
+    CLIP embedding; longer per-sample contexts are not ported)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim or query_dim, inner, bias=False)
+        self.to_out = _out_proj(inner, query_dim)
+
+    def forward(self, hidden_states: torch.Tensor, num_frames: int,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                per_sample_ctx: bool = False) -> torch.Tensor:
+        bt, hw, _ = hidden_states.shape
+        b, heads, d = bt // num_frames, self.heads, self.dim_head
+        ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+        if per_sample_ctx:
+            if ctx.shape[1] != 1:
+                raise NotImplementedError("per-sample contexts longer than one token")
+            # one key per sample: attention is to_out(v) broadcast over frames and pixels
+            out = self.to_out[0](self.to_v(ctx))  # (B, 1, C)
+            out = out[:, None].expand(b, num_frames, hw, out.shape[-1])
+            return out.reshape(bt, hw, out.shape[-1])
+
+        def to_tok(x):
+            x = x.view(b, num_frames, hw, heads, d)
+            return x.permute(0, 2, 3, 1, 4).reshape(b * hw * heads, num_frames, d)
+
+        qt = to_tok(self.to_q(hidden_states))
+        kt, vt = to_tok(self.to_k(ctx)), to_tok(self.to_v(ctx))
+        logits = torch.bmm(qt.float(), kt.float().transpose(1, 2)) * d ** -0.5
+        probs = torch.softmax(logits, dim=-1).to(vt.dtype)
+        out = torch.bmm(probs, vt).view(b, hw, heads, num_frames, d).permute(0, 3, 1, 2, 4)
+        return self.to_out[0](out.reshape(bt, hw, heads * d))
+
+
+# --------------------------------------------------------------------------- feed-forward
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, inner_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, inner_dim * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)  # exact erf GELU, as the reference
+
+
+class FeedForward(nn.Module):
+    """GEGLU MLP (diffusers ``FeedForward``, activation "geglu", mult 4); ``net.1`` is
+    diffusers' parameter-free dropout slot."""
+
+    def __init__(self, dim: int, mult: int = 4, dim_out: Optional[int] = None):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
+                                  nn.Linear(inner, dim_out or dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+# --------------------------------------------------------------------------- mixers
+class AlphaBlender(nn.Module):
+    """Learned scalar spatial/temporal mixer (diffusers ``AlphaBlender``,
+    "learned_with_images"): rows flagged in ``image_only_indicator`` mix purely spatially,
+    video rows with sigmoid(mix_factor)."""
+
+    def __init__(self, alpha: float = 0.5, switch_spatial_to_temporal_mix: bool = False):
+        super().__init__()
+        self.alpha = alpha
+        self.switch = switch_spatial_to_temporal_mix
+        self.mix_factor = nn.Parameter(torch.full((1,), alpha))
+
+    def init_extra(self, generator: torch.Generator) -> None:
+        self.mix_factor.fill_(self.alpha)
+
+    def forward(self, x_spatial: torch.Tensor, x_temporal: torch.Tensor,
+                image_only_indicator: torch.Tensor) -> torch.Tensor:
+        alpha = torch.where(image_only_indicator.bool(), torch.ones_like(self.mix_factor),
+                            torch.sigmoid(self.mix_factor))  # (B, T)
+        if x_spatial.dim() == 4:  # (B, T, HW, C) resblock layout
+            alpha = alpha[:, :, None, None]
+        elif x_spatial.dim() == 3:  # (B*T, HW, C) transformer layout
+            alpha = alpha.reshape(-1)[:, None, None]
+        else:
+            raise ValueError(f"AlphaBlender: unsupported ndim {x_spatial.dim()}")
+        alpha = alpha.to(x_spatial.dtype)
+        if self.switch:
+            alpha = 1.0 - alpha
+        return alpha * x_spatial + (1.0 - alpha) * x_temporal
+
+
+# --------------------------------------------------------------------------- norms
+class GroupNorm(nn.Module):
+    """GroupNorm over the channel (last) axis with an optional fused SiLU, backed by the
+    GroupNorm kernels: ``(N, ..., C)`` is normalised as ``(N, M, C)``."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 act: Optional[str] = None):
+        super().__init__()
+        self.num_groups, self.eps, self.act = num_groups, eps, act
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[0], x.shape[-1]
+        y = group_norm(x.reshape(n, -1, c), self.weight, self.bias,
+                       num_groups=self.num_groups, eps=self.eps, act=self.act)
+        return y.view(x.shape)
+

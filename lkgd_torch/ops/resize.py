@@ -1,0 +1,90 @@
+"""Antialiased bicubic resize as two precomputed matrix products (counterpart of
+``lkgd_tpu/ops/resize.py`` ``resize_with_antialiasing``).
+
+The reference's CLIP conditioning blurs with a gaussian (sigma from the downscale factor,
+reflect padding) and then resizes bicubically (a = -0.75, align_corners=True). Both are
+fixed linear operators for given sizes, composed on the host in float64 into one
+(out, in) matrix per axis: ``out = M_h @ img @ M_w^T``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
+    x = np.arange(ksize, dtype=np.float64) - ksize // 2
+    if ksize % 2 == 0:
+        x = x + 0.5
+    g = np.exp(-(x**2) / (2.0 * sigma**2))
+    return g / g.sum()
+
+
+def _reflect_index(idx: np.ndarray, n: int) -> np.ndarray:
+    """torch ``F.pad(mode="reflect")`` indexing (no edge repeat)."""
+    idx = np.abs(idx)
+    idx = np.where(idx >= n, 2 * (n - 1) - idx, idx)
+    return np.clip(idx, 0, n - 1)
+
+
+def _blur_matrix(n: int, sigma: float, ksize: int) -> np.ndarray:
+    kernel = _gaussian_kernel(ksize, sigma)
+    m = np.zeros((n, n), dtype=np.float64)
+    half = ksize // 2
+    for j, w in enumerate(kernel):
+        m[np.arange(n), _reflect_index(np.arange(n) + (j - half), n)] += w
+    return m
+
+
+def _cubic_weights(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """torch bicubic convolution weights of the 4 taps around fractional position t."""
+
+    def c1(x):  # |x| <= 1
+        return ((a + 2) * x - (a + 3)) * x * x + 1
+
+    def c2(x):  # 1 < |x| < 2
+        return ((a * x - 5 * a) * x + 8 * a) * x - 4 * a
+
+    return np.stack([c2(t + 1.0), c1(t), c1(1.0 - t), c2(2.0 - t)], axis=-1)
+
+
+def _bicubic_matrix(out_n: int, in_n: int) -> np.ndarray:
+    """align_corners=True bicubic interpolation matrix (out_n, in_n)."""
+    if out_n == 1 or in_n == 1:
+        x = np.zeros(out_n)
+    else:
+        x = np.arange(out_n, dtype=np.float64) * (in_n - 1) / (out_n - 1)
+    x0 = np.floor(x).astype(np.int64)
+    w = _cubic_weights(x - x0)
+    m = np.zeros((out_n, in_n), dtype=np.float64)
+    for k in range(4):
+        m[np.arange(out_n), np.clip(x0 + k - 1, 0, in_n - 1)] += w[:, k]
+    return m
+
+
+@functools.lru_cache(maxsize=32)
+def resize_matrices(in_h: int, in_w: int, out_h: int, out_w: int):
+    """Composed blur + bicubic matrices (out_h, in_h) and (out_w, in_w), fp32 numpy."""
+    factors = (in_h / out_h, in_w / out_w)
+    sigmas = (max((factors[0] - 1.0) / 2.0, 0.001), max((factors[1] - 1.0) / 2.0, 0.001))
+    ks = [int(max(2.0 * 2 * s, 3)) for s in sigmas]
+    ks = [k + 1 if k % 2 == 0 else k for k in ks]
+    m_h = _bicubic_matrix(out_h, in_h) @ _blur_matrix(in_h, sigmas[0], ks[0])
+    m_w = _bicubic_matrix(out_w, in_w) @ _blur_matrix(in_w, sigmas[1], ks[1])
+    return m_h.astype(np.float32), m_w.astype(np.float32)
+
+
+def resize_with_antialiasing(images: torch.Tensor, size) -> torch.Tensor:
+    """(..., H, W, C) -> (..., size[0], size[1], C), fp32 inside, in images.dtype."""
+    out_h, out_w = size
+    in_h, in_w = images.shape[-3], images.shape[-2]
+    if (in_h, in_w) == (out_h, out_w):
+        return images
+    m_h, m_w = (torch.from_numpy(m).to(images.device)
+                for m in resize_matrices(in_h, in_w, out_h, out_w))
+    x = torch.einsum("oh,...hwc->...owc", m_h, images.float())
+    x = torch.einsum("ow,...hwc->...hoc", m_w, x)
+    return x.to(images.dtype)

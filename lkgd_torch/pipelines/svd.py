@@ -1,0 +1,206 @@
+"""Stable Video Diffusion image-to-video, base mode (counterpart of
+``lkgd_tpu/pipelines/svd.py`` ``StableVideoDiffusionPipeline``).
+
+Stages, as in the JAX package: CLIP-H embedding of the antialiased 224^2 resize, VAE
+``encode_mode`` of the noise-augmented frame, a CFG-doubled loop of Euler-Karras steps over
+the UNet (a Python loop where JAX had ``lax.scan``), and an equal-chunked temporal VAE
+decode. Layouts at the public methods are the JAX package's: images ``(B, H, W, 3)`` in
+[0, 1], latents ``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
+
+Randomness comes only from the ``torch.Generator`` passed in, or from pre-drawn standard
+normals (``noise_aug=``, ``initial_noise=``) — the hook the parity tests use, since torch
+and JAX generators never agree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lkgd_torch.models.clip_vision import CLIPVisionModelWithProjection, clip_normalize
+from lkgd_torch.models.configs import CLIPVisionConfig, SVDUNetConfig, TemporalVAEConfig
+from lkgd_torch.models.layers import init_params, materialize
+from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
+from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+from lkgd_torch.ops.resize import resize_with_antialiasing
+from lkgd_torch.schedulers.euler_discrete import EulerDiscreteConfig, EulerDiscreteScheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class SVDPipelineConfig:
+    """Generation settings, defaults as in the JAX package."""
+
+    height: int = 576
+    width: int = 1024
+    num_frames: int = 14
+    num_inference_steps: int = 25
+    min_guidance_scale: float = 1.0
+    max_guidance_scale: float = 3.0
+    fps: int = 7
+    motion_bucket_id: int = 127
+    noise_aug_strength: float = 0.02
+    decode_chunk_size: int = 7
+    do_classifier_free_guidance: bool = True
+    # not ported yet: only the defaults are accepted
+    sequential_cfg: bool = False
+    deep_cache_interval: int = 1
+
+    def __post_init__(self):
+        if self.sequential_cfg or self.deep_cache_interval != 1:
+            raise NotImplementedError("sequential_cfg and deep_cache_interval are not ported "
+                                      "to lkgd_torch yet")
+
+
+def equal_chunks(n: int, max_chunk: int) -> int:
+    """Largest divisor of n that is <= max_chunk (equal-shape decode chunks)."""
+    for c in range(min(max_chunk, n), 0, -1):
+        if n % c == 0:
+            return c
+    return n
+
+
+class StableVideoDiffusionPipeline:
+    """Image -> video. The models are allocated on ``device`` in ``dtype`` with
+    uninitialised weights: fill them with ``init_params(generator)`` or
+    ``<model>.load_state_dict(...)``."""
+
+    def __init__(
+        self,
+        config: SVDPipelineConfig = SVDPipelineConfig(),
+        unet_config: SVDUNetConfig = SVDUNetConfig(),
+        vae_config: TemporalVAEConfig = TemporalVAEConfig(),
+        clip_config: CLIPVisionConfig = CLIPVisionConfig(),
+        scheduler_config: EulerDiscreteConfig = EulerDiscreteConfig.svd(),
+        dtype: torch.dtype = torch.bfloat16,
+        device="cpu",
+    ):
+        self.config = config
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.unet = materialize(lambda: UNetSpatioTemporalCondition(unet_config),
+                                self.device, dtype)
+        self.vae = materialize(lambda: AutoencoderKLTemporalDecoder(vae_config),
+                               self.device, dtype)
+        self.image_encoder = materialize(lambda: CLIPVisionModelWithProjection(clip_config),
+                                         self.device, dtype)
+        for model in self.models:
+            model.eval().requires_grad_(False)
+        self.scheduler = EulerDiscreteScheduler(scheduler_config)
+        self.schedule = self.scheduler.set_timesteps(config.num_inference_steps, self.device)
+        self.vae_scaling = vae_config.scaling_factor
+        vae_scale_factor = 2 ** (len(vae_config.block_out_channels) - 1)
+        self.latent_height = config.height // vae_scale_factor
+        self.latent_width = config.width // vae_scale_factor
+
+    @property
+    def models(self):
+        return (self.unet, self.vae, self.image_encoder)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """Random weights at the configured shapes, drawn from ``generator`` only."""
+        for model in self.models:
+            init_params(model, generator)
+
+    # ------------------------------------------------------------------ conditioning
+    def _encode_clip(self, image: torch.Tensor) -> torch.Tensor:
+        """[0,1] (B,H,W,3) -> CLIP image embeddings (B, 1, D): [-1,1] -> antialiased
+        224^2 -> [0,1] -> CLIP normalise -> vision tower."""
+        size = self.image_encoder.config.image_size
+        x = resize_with_antialiasing(image * 2.0 - 1.0, (size, size))
+        x = clip_normalize((x + 1.0) / 2.0)
+        return self.image_encoder(x.to(self.dtype))[:, None, :]
+
+    def _add_time_ids(self, batch_size: int) -> torch.Tensor:
+        cfg = self.config
+        ids = torch.tensor([[cfg.fps - 1, cfg.motion_bucket_id, cfg.noise_aug_strength]],
+                           dtype=torch.float32, device=self.device)
+        return ids.repeat(batch_size, 1)
+
+    def _guidance_scale(self, batch_size: int) -> torch.Tensor:
+        cfg = self.config
+        g = torch.linspace(cfg.min_guidance_scale, cfg.max_guidance_scale, cfg.num_frames,
+                           device=self.device)
+        return g[None].repeat(batch_size, 1)[..., None, None, None]  # (B, T, 1, 1, 1)
+
+    def _normal(self, shape, generator: torch.Generator, given: Optional[torch.Tensor]):
+        if given is not None:
+            return given.to(self.device, torch.float32)
+        return torch.randn(shape, generator=generator, device=self.device)
+
+    # ------------------------------------------------------------------ generation
+    @torch.inference_mode()
+    def denoise(self, image: torch.Tensor, generator: Optional[torch.Generator] = None,
+                noise_aug: Optional[torch.Tensor] = None,
+                initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """image: [0,1] (B, H, W, 3) -> denoised latents (B, T, h, w, 4) fp32.
+
+        ``noise_aug`` / ``initial_noise``: pre-drawn standard normals of the image's and the
+        latents' shape, in place of draws from ``generator``."""
+        cfg = self.config
+        cfg_rows = 2 if cfg.do_classifier_free_guidance else 1
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        image = image.to(self.device, torch.float32)
+        batch_size = image.shape[0]
+
+        image_embeddings = self._encode_clip(image)
+        image_m11 = image * 2.0 - 1.0
+        noise = self._normal(image.shape, generator, noise_aug)
+        image_latents = self.vae.encode_mode((image_m11 + cfg.noise_aug_strength * noise)
+                                             .to(self.dtype))
+        if cfg.do_classifier_free_guidance:
+            image_embeddings = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
+            image_latents = torch.cat([torch.zeros_like(image_latents), image_latents])
+        image_latents = image_latents[:, None].expand(-1, cfg.num_frames, -1, -1, -1)
+        added_time_ids = self._add_time_ids(batch_size * cfg_rows)
+
+        shape = (batch_size, cfg.num_frames, self.latent_height, self.latent_width, 4)
+        latents = self._normal(shape, generator, initial_noise) * self.schedule.init_noise_sigma
+        guidance = self._guidance_scale(batch_size)
+        for i in range(self.schedule.num_steps):
+            model_in = torch.cat([latents] * cfg_rows)
+            model_in = self.scheduler.scale_model_input(self.schedule, model_in, i)
+            model_in = torch.cat([model_in.to(self.dtype), image_latents], dim=-1)
+            noise_pred = self.unet(model_in, self.schedule.timesteps[i], image_embeddings,
+                                   added_time_ids).float()
+            if cfg.do_classifier_free_guidance:
+                uncond, cond = noise_pred.chunk(2)
+                noise_pred = uncond + guidance * (cond - uncond)
+            latents, _ = self.scheduler.step(self.schedule, noise_pred, i, latents)
+        return latents
+
+    @torch.inference_mode()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """(B, T, h, w, 4) -> [0,1] frames (B, T, H, W, 3) fp32, decoded in equal chunks of
+        frames (each chunk one temporal decode)."""
+        cfg = self.config
+        b, t = latents.shape[:2]
+        chunk = equal_chunks(t, cfg.decode_chunk_size)
+        z = (latents.to(self.device, torch.float32) / self.vae_scaling).to(self.dtype)
+        z = z.reshape(b * t // chunk, chunk, *latents.shape[2:])
+        frames = torch.cat([self.vae.decode(zc, chunk) for zc in z])
+        frames = frames.reshape(b, t, cfg.height, cfg.width, 3)
+        return torch.clamp(frames.float() / 2.0 + 0.5, 0.0, 1.0)
+
+    def generate(self, image: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 noise_aug: Optional[torch.Tensor] = None,
+                 initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Denoise, then decode: [0,1] (B, H, W, 3) -> frames (B, T, H, W, 3)."""
+        return self.decode_latents(self.denoise(image, generator, noise_aug, initial_noise))
+
+    def __call__(self, image, generator: Optional[torch.Generator] = None,
+                 output_type: str = "np", noise_aug: Optional[torch.Tensor] = None,
+                 initial_noise: Optional[torch.Tensor] = None):
+        """image: array or tensor (B, H, W, 3) or (H, W, 3) in [0,1] at pipeline size.
+        ``output_type``: "np" frames, "pt" frames tensor, "latent" latents tensor."""
+        image = torch.as_tensor(np.asarray(image) if not torch.is_tensor(image) else image,
+                                dtype=torch.float32)
+        if image.dim() == 3:
+            image = image[None]
+        if output_type == "latent":
+            return self.denoise(image, generator, noise_aug, initial_noise)
+        frames = self.generate(image, generator, noise_aug, initial_noise)
+        return frames.cpu().numpy() if output_type == "np" else frames

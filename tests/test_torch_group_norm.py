@@ -1,0 +1,92 @@
+"""The port's GroupNorm (``lkgd_torch.ops.group_norm``) against ``lkgd_tpu.ops.group_norm``:
+the Pallas kernels run in interpret mode (``group_norm(..., interpret=True)``) and the XLA
+form ``group_norm_xla``, at fp32. On the CPU the port runs the plain versions of its
+kernels; ``fold_chunk_stats``, which merges the CUDA stats kernel's per-chunk statistics,
+is checked here on statistics computed chunk by chunk in PyTorch.
+
+Tolerance rtol 2e-5, atol 2e-5: fp32 statistics summed in another order (the Pallas path
+is one-pass, the port's plain fp32 form two-pass, as the XLA form)."""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from lkgd_tpu.ops import group_norm as jgn  # noqa: E402
+
+from lkgd_torch.ops import group_norm as tgn  # noqa: E402
+
+SHAPES = {"spatial": (4, 64, 64), "temporal": (2, 4 * 64, 64), "unet level": (2, 144, 320)}
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * 2.0 + 0.5).astype(np.float32)
+    w = (rng.normal(size=shape[-1:]) * 0.1 + 1.0).astype(np.float32)
+    b = (rng.normal(size=shape[-1:]) * 0.1).astype(np.float32)
+    return x, w, b
+
+
+def _port(x, w, b, **kw):
+    return tgn.group_norm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                          num_groups=32, **kw).numpy()
+
+
+@pytest.mark.parametrize("layout", sorted(SHAPES))
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_matches_pallas_interpret_and_xla(layout, act, eps):
+    x, w, b = _inputs(SHAPES[layout])
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    pallas = np.asarray(jgn.group_norm(*args, num_groups=32, eps=eps, act=act, interpret=True))
+    xla = np.asarray(jgn.group_norm_xla(*args, num_groups=32, eps=eps, act=act))
+    got = _port(x, w, b, eps=eps, act=act)
+    np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, xla, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_ragged_rows_match_xla(act):
+    """M = 1001 is a multiple of no chunk: the Pallas path refuses it, the port's kernels
+    mask the short last chunk."""
+    x, w, b = _inputs((3, 1001, 96), seed=1)
+    want = np.asarray(jgn.group_norm_xla(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                         num_groups=32, eps=1e-5, act=act))
+    np.testing.assert_allclose(_port(x, w, b, eps=1e-5, act=act), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(3, 1001, 96), (28, 9216 // 16, 320), (1, 5000, 64)])
+def test_fold_of_chunk_statistics(shape):
+    """Per-chunk (mean, M2) as the stats kernel writes them, folded with Chan's formula,
+    give the plain two-pass affine."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs(shape, seed=2))
+    n, m, c = shape
+    rows, n_chunks = tgn.chunk_plan(n, m, c)
+    assert (n_chunks - 1) * rows < m <= n_chunks * rows
+    chunks = [x[:, i * rows:(i + 1) * rows] for i in range(n_chunks)]
+    mean = torch.stack([ch.mean(dim=1) for ch in chunks], dim=1)
+    m2 = torch.stack([((ch - ch.mean(dim=1, keepdim=True)) ** 2).sum(dim=1) for ch in chunks],
+                     dim=1)
+    got = tgn.fold_chunk_stats(mean, m2, rows, m, w, b, num_groups=32, eps=1e-5)
+    want = tgn.group_norm_affine_plain(x, w, b, num_groups=32, eps=1e-5)
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g, wt, rtol=2e-5, atol=2e-5)
+
+
+def test_module_reshapes_channels_last_input():
+    """layers.GroupNorm normalises (N, H, W, C) as (N, H*W, C), SiLU fused, like the JAX
+    module on the same weights."""
+    from lkgd_tpu.models.layers import GroupNorm as JaxGroupNorm
+    from lkgd_torch.models.layers import GroupNorm
+
+    x, w, b = _inputs((2, 6, 6, 64), seed=3)
+    mod = GroupNorm(64, 32, 1e-6, act="silu")
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(w))
+        mod.bias.copy_(torch.from_numpy(b))
+        got = mod(torch.from_numpy(x)).numpy()
+    want = np.asarray(JaxGroupNorm(32, 1e-6, act="silu").apply(
+        {"params": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}}, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)

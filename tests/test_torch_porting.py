@@ -1,0 +1,152 @@
+"""lkgd_torch weight porting: the numpy ``from_flax_params`` against the JAX package's
+``export_state_dict``, strict loads into the port's modules, and the port's independence
+from jax. Also holds the helpers the other ``test_torch_*`` files share: the tiny
+configs of ``tests/test_pipeline_torch_oracle.py`` and JAX->port weight loading."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from lkgd_tpu.models.clip_vision import CLIPVisionConfig as JaxCLIPConfig  # noqa: E402
+from lkgd_tpu.models.configs import SVDUNetConfig as JaxUNetConfig  # noqa: E402
+from lkgd_tpu.models.vae_temporal import TemporalVAEConfig as JaxVAEConfig  # noqa: E402
+from lkgd_tpu.pipelines.svd import SVDPipelineConfig as JaxPipeConfig  # noqa: E402
+from lkgd_tpu.pipelines.svd import StableVideoDiffusionPipeline as JaxPipeline  # noqa: E402
+from lkgd_tpu.utils.porting import (clip_export_key_map, export_state_dict,  # noqa: E402
+                                    svd_export_key_map, vae_export_key_map)
+
+from lkgd_torch.models import configs as tcfg  # noqa: E402
+from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline  # noqa: E402
+from lkgd_torch.utils.porting import clip_key_map, from_flax_params, vae_key_map  # noqa: E402
+
+# the tiny end-to-end configuration of tests/test_pipeline_torch_oracle.py:35-46
+H = W = 48
+T, STEPS = 4, 3
+TINY_UNET = dict(
+    block_out_channels=(32, 64),
+    down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
+    up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
+    layers_per_block=1, num_attention_heads=(2, 4), cross_attention_dim=64)
+TINY_CLIP = dict(image_size=32, patch_size=8, hidden_size=64, num_layers=2, num_heads=2,
+                 intermediate_size=128, projection_dim=64)
+TINY_VAE = dict(block_out_channels=(32, 64), layers_per_block=1)
+TINY_PIPE = dict(height=H, width=W, num_frames=T, num_inference_steps=STEPS,
+                 decode_chunk_size=2)
+KEY_MAPS = {"unet": None, "vae": vae_key_map, "image_encoder": clip_key_map}
+EXPORT_MAPS = {"unet": svd_export_key_map, "vae": vae_export_key_map,
+               "image_encoder": clip_export_key_map}
+
+
+def flatten(params) -> dict:
+    """A flax tree as ``/``-joined paths -> numpy leaves."""
+    return {"/".join(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
+
+
+def randomize(params, seed=11, scale=0.15):
+    """Random normals in every leaf of ``params`` (arrays or shape structs); zero-init
+    leaves would hide their subgraphs."""
+    leaves, treedef = jax.tree.flatten(params)
+    rng = np.random.default_rng(seed)
+    return jax.tree.unflatten(treedef, [
+        jnp.asarray(rng.normal(size=np.shape(l), scale=scale), jnp.float32) for l in leaves])
+
+
+def port_state_dict(params, key_map=None) -> dict:
+    """A flax param tree -> the port's state dict, through the numpy porter."""
+    return from_flax_params(flatten(params), key_map=key_map)
+
+
+def tiny_jax_pipeline() -> JaxPipeline:
+    return JaxPipeline(config=JaxPipeConfig(**TINY_PIPE),
+                       unet_config=JaxUNetConfig(**TINY_UNET),
+                       vae_config=JaxVAEConfig(**TINY_VAE),
+                       clip_config=JaxCLIPConfig(**TINY_CLIP), dtype=jnp.float32)
+
+
+def tiny_torch_pipeline(device="cpu") -> StableVideoDiffusionPipeline:
+    return StableVideoDiffusionPipeline(
+        config=SVDPipelineConfig(**TINY_PIPE), unet_config=tcfg.SVDUNetConfig(**TINY_UNET),
+        vae_config=tcfg.TemporalVAEConfig(**TINY_VAE),
+        clip_config=tcfg.CLIPVisionConfig(**TINY_CLIP), dtype=torch.float32, device=device)
+
+
+def load_jax_params(pipe: StableVideoDiffusionPipeline, params) -> None:
+    """Load the JAX pipeline's params into the port pipeline, strictly."""
+    for name, model in zip(("unet", "vae", "image_encoder"), pipe.models):
+        model.load_state_dict(port_state_dict(params[name], KEY_MAPS[name]), strict=True)
+
+
+def tiny_jax_params(pipe: JaxPipeline, seed: int = 11):
+    """Random params for the tiny JAX pipeline; the tree's shapes come from eval_shape
+    (tracing only), its values from numpy."""
+    return randomize(jax.eval_shape(pipe.init_params, jax.random.PRNGKey(0)), seed=seed)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return tiny_jax_params(tiny_jax_pipeline())
+
+
+@pytest.mark.parametrize("model", ["unet", "vae", "image_encoder"])
+def test_from_flax_params_matches_export(jax_params, model):
+    """Same names and identical values as the JAX package's exporter."""
+    want = export_state_dict(jax_params[model], key_map=EXPORT_MAPS[model])
+    got = port_state_dict(jax_params[model], KEY_MAPS[model])
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), value, err_msg=name)
+
+
+def test_strict_load_into_port_modules(jax_params):
+    pipe = tiny_torch_pipeline()
+    load_jax_params(pipe, jax_params)  # strict=True raises on any missing/extra name
+    got = pipe.unet.state_dict()["down_blocks.0.resnets.0.temporal_res_block.conv1.weight"]
+    want = export_state_dict(jax_params["unet"])[
+        "down_blocks.0.resnets.0.temporal_res_block.conv1.weight"]
+    assert got.shape == want.shape == (32, 32, 3, 1, 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_init_params_is_seeded_and_shaped():
+    """Random weights come from the generator alone: equal seeds, equal weights."""
+    a, b = tiny_torch_pipeline(), tiny_torch_pipeline()
+    a.init_params(torch.Generator().manual_seed(3))
+    b.init_params(torch.Generator().manual_seed(3))
+    for (name, pa), pb in zip(a.unet.state_dict().items(), b.unet.state_dict().values()):
+        assert torch.equal(pa, pb), name
+        assert torch.isfinite(pa).all(), name
+    mix = a.unet.state_dict()["down_blocks.0.resnets.0.time_mixer.mix_factor"]
+    assert mix.item() == 0.5
+
+
+def test_port_imports_no_jax():
+    """The machine with the card has no JAX: the port and the host IO it shares with the
+    JAX package must import without pulling jax or flax in."""
+    code = ("import sys, lkgd_torch.pipelines.svd, lkgd_torch.cli.run_inference_svd, "
+            "lkgd_tpu.data.video_io; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("field,value", [("knowledge_fusion", True), ("joint", object()),
+                                         ("lora", object())])
+def test_unported_unet_options_raise(field, value):
+    with pytest.raises(NotImplementedError):
+        tcfg.SVDUNetConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("sequential_cfg", True), ("deep_cache_interval", 2)])
+def test_unported_pipeline_options_raise(field, value):
+    with pytest.raises(NotImplementedError):
+        SVDPipelineConfig(**{field: value})
