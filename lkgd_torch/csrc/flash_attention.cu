@@ -12,6 +12,13 @@
 //     only the tiles whose bound was too loose (the TPU wrapper's lax.cond, decided on
 //     the device per tile, with no host synchronisation). Launched with no minimums it is
 //     the plain max-tracking kernel (LKGD_FLASH_MAXTRACK=1).
+//   * LSE=true is the training forward (D <= 128): with BOUND=true it ports
+//     _flash_bound_lse_kernel (driven by _flash_fwd_lse_bhsd), with BOUND=false
+//     _flash_fwd_lse_kernel (driven by _flash_fwd_lse_maxtrack_bhsd). Each also writes the
+//     log2-domain logsumexp of every row's scaled logits, (B*H, S_q) fp32, that the
+//     backward kernels (flash_attention_bwd.cu) recompute the probabilities from. The
+//     guard is the same as above: JAX's min(lse + t) > -110 is min log2(l) > -110. The
+//     LSE write is one fp32 per row, nothing next to the S^2*D products.
 //
 // What bounds it on the H100: tensor-core FLOPs. One UNet level-0 call (S=9216, D=64,
 // B*H=140) is 4*S^2*D*B*H = 3.05 TFLOP; its inputs are 24 MB. The design keeps the
@@ -28,29 +35,25 @@
 //   * D > 128 (the VAE's D=512): flash_fwd_kernel uses nvcuda::wmma fragments and keeps
 //     the score tile, probabilities and output accumulator in shared memory (a warp's
 //     16x512 fp32 accumulator cannot live in registers);
-//   * q, k, v and the output are read and written as (B, S, H, D) through their strides,
-//     so the head split/merge copies of the TPU path (_split_heads/_merge_heads) vanish;
+//   * q, k, v and the output are read and written as (B, S, H, D) through their strides:
+//     the inference forward takes the projections' views as they are, the training
+//     forward the head-major copies of relayout_heads.cu (_split_heads/_merge_heads);
 //   * a ragged S is handled in the kernel: rows and keys past the end load as zeros and
 //     the keys are masked to -inf (the TPU's _mask_if_padded), D is zero-padded in shared
 //     memory up to the tile width.
 // TMA loads, wgmma and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace lkgd;
 using namespace nvcuda;
 
 constexpr float kGuard = 0x1p-110f;  // smallest row sum the bound kernel may leave
-
-struct Strides {
-  long long b, s, h;  // in elements; the D stride is 1
-};
 
 struct FlashArgs {
   const bf16* q;
@@ -63,6 +66,7 @@ struct FlashArgs {
   const float* t;        // (B*H, s_q) minus the logit bound, log2 domain (bound kernel)
   float* tile_min;       // (B*H, n_q_tiles): written by the bound kernel, read as the guard
   int* recomputed;       // count of tiles the guarded max-tracking launch recomputed
+  float* lse;            // (B*H, s_q) log2-domain logsumexp, or null (inference forward)
 };
 
 template <int DP, int NW, int BK>
@@ -255,76 +259,11 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const FlashArgs a) {
 }
 
 // ---------------------------------------------------------------- D <= 128: registers
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16-byte global->shared copy; with ok == false nothing is read and the 16 bytes are zero
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-constexpr int kRegRows = 64;  // query rows a block (4 warps x 16)
-constexpr int kRegKeys = 64;  // keys a K/V tile
-
-template <int DP>
-struct RegSmem {
-  static constexpr int LD = DP + 8;  // padded row: conflict-free fragment loads
-  static constexpr size_t tile = size_t(kRegRows) * LD * sizeof(bf16);
-  static constexpr size_t total = 5 * tile;  // Q + two stages of (K, V)
-};
-
-// rows [row0, row0 + 64) of a strided (S, D) slice -> a (64, LD) shared tile, async
-template <int DP>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
-                                                long long row_stride, int row0, int s_total,
-                                                int d) {
-  constexpr int VPR = DP / 8;
-  constexpr int LD = RegSmem<DP>::LD;
-  for (int i = threadIdx.x; i < kRegRows * VPR; i += 128) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = row0 + r < s_total && c < d;
-    const bf16* src = ok ? base + (long long)(row0 + r) * row_stride + c : base;
-    cp_async_16(dst + r * LD + c, src, ok);
-  }
-}
-
-template <int DP, bool BOUND>
+template <int DP, bool BOUND, bool LSE>
 __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
-  using L = RegSmem<DP>;
-  constexpr int LD = L::LD;
+  constexpr int LD = RegTile<DP>::LD;
   constexpr int KC = DP / 16;        // 16-wide chunks of D (Q K^T depth)
-  constexpr int NS = kRegKeys / 8;   // 8-wide score tiles of a warp's 16 x 64 scores
+  constexpr int NS = kTileRows / 8;  // 8-wide score tiles of a warp's 16 x 64 scores
   constexpr int ND = DP / 8;         // 8-wide output tiles of a warp's 16 x DP output
 
   if (!BOUND && a.tile_min != nullptr) {
@@ -334,8 +273,8 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::tile);      // stages 0, 1
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * L::tile);  // stages 0, 1
+  bf16* sK = reinterpret_cast<bf16*>(smem + RegTile<DP>::bytes);      // stages 0, 1
+  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * RegTile<DP>::bytes);  // stages 0, 1
   __shared__ float warp_min[4];
 
   const int bh = blockIdx.x / a.n_q_tiles;
@@ -344,11 +283,11 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
   const bf16* qb = a.q + b * a.qs.b + h * a.qs.h;
   const bf16* kb = a.k + b * a.ks.b + h * a.ks.h;
   const bf16* vb = a.v + b * a.vs.b + h * a.vs.h;
-  const int q0 = qt * kRegRows;
+  const int q0 = qt * kTileRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group and column pair
   const int wr = warp * 16;
-  const int n_tiles = (a.s_k + kRegKeys - 1) / kRegKeys;
+  const int n_tiles = (a.s_k + kTileRows - 1) / kTileRows;
 
   load_tile_async<DP>(sQ, qb, a.qs.s, q0, a.s_q, a.d);
   load_tile_async<DP>(sK, kb, a.ks.s, 0, a.s_k, a.d);
@@ -372,9 +311,9 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
     if (j + 1 < n_tiles) {  // prefetch the next K/V tile into the other stage
-      load_tile_async<DP>(sK + (st ^ 1) * kRegRows * LD, kb, a.ks.s, (j + 1) * kRegKeys,
+      load_tile_async<DP>(sK + (st ^ 1) * kTileRows * LD, kb, a.ks.s, (j + 1) * kTileRows,
                           a.s_k, a.d);
-      load_tile_async<DP>(sV + (st ^ 1) * kRegRows * LD, vb, a.vs.s, (j + 1) * kRegKeys,
+      load_tile_async<DP>(sV + (st ^ 1) * kTileRows * LD, vb, a.vs.s, (j + 1) * kTileRows,
                           a.s_k, a.d);
       cp_async_commit();
       cp_async_wait<1>();
@@ -384,16 +323,10 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
     __syncthreads();
     if (j == 0) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const bf16* q = sQ + (wr + g) * LD + kc * 16 + 2 * t4;
-        qf[kc][0] = lds32(q);
-        qf[kc][1] = lds32(q + 8 * LD);
-        qf[kc][2] = lds32(q + 8);
-        qf[kc][3] = lds32(q + 8 * LD + 8);
-      }
+      for (int kc = 0; kc < KC; ++kc) load_a_frag<LD>(qf[kc], sQ, wr, kc, g, t4);
     }
-    const bf16* K = sK + st * kRegRows * LD;
-    const bf16* V = sV + st * kRegRows * LD;
+    const bf16* K = sK + st * kTileRows * LD;
+    const bf16* V = sV + st * kTileRows * LD;
 
     // scores: a warp's 16 rows x 64 keys, fp32 in registers
     float s[NS][4];
@@ -408,7 +341,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
     }
 
     // softmax numerators in the exp2 domain; element e of a tile is row g + 8*(e/2)
-    const int k0 = j * kRegKeys;
+    const int k0 = j * kTileRows;
 #pragma unroll
     for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -451,25 +384,16 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
 
     // O += P V: the score accumulators of keys 16kc..16kc+15 are the A operand
 #pragma unroll
-    for (int kc = 0; kc < kRegKeys / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const int mi = lane >> 3;  // which 8x8 matrix this lane addresses
-      const bf16* vrow = V + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vrow + n * 8);
-        mma_16816(o[n], pa, vf[0], vf[1]);
-        mma_16816(o[n + 1], pa, vf[2], vf[3]);
-      }
+    for (int kc = 0; kc < kTileRows / 16; ++kc) {
+      uint32_t pa[4];
+      acc_to_a_frag(pa, s, kc);
+      mma_a_by_rows<DP>(o, pa, V, kc, lane);
     }
     __syncthreads();  // this stage is refilled by the next iteration's prefetch
   }
 
-  // out = O / l through the output strides
+  // out = O / l through the output strides; with LSE, the log2-domain logsumexp of each
+  // row's scaled logits: log2(l) - t (bound: t is minus the subtracted bound) or m + log2(l)
   bf16* ob = a.o + b * a.os.b + h * a.os.h;
   float mn = INFINITY;
 #pragma unroll
@@ -488,6 +412,8 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
         *reinterpret_cast<uint32_t*>(ob + (long long)row * a.os.s + col) =
             pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
+    if (LSE && t4 == 0)
+      a.lse[(long long)bh * a.s_q + row] = BOUND ? log2f(l) - t_r[r] : m_r[r] + log2f(l);
   }
   if (BOUND) {
 #pragma unroll
@@ -500,10 +426,10 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
   }
 }
 
-template <int DP, bool BOUND>
+template <int DP, bool BOUND, bool LSE>
 cudaError_t launch_mma(const FlashArgs& a, long long blocks, cudaStream_t stream) {
-  auto kernel = flash_fwd_mma_kernel<DP, BOUND>;
-  const int bytes = int(RegSmem<DP>::total);
+  auto kernel = flash_fwd_mma_kernel<DP, BOUND, LSE>;
+  const int bytes = int(5 * RegTile<DP>::bytes);  // Q + two stages of (K, V)
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -525,10 +451,16 @@ cudaError_t launch(const FlashArgs& a, long long blocks, cudaStream_t stream) {
 // Plan by D padded to DP: registers up to 128 (64 query rows a block; shared memory 45 KB
 // at DP=64, 85 KB at 128), shared-memory accumulators above (140 KB at DP=256 with 64
 // rows, 166 KB at 512 with 32 rows).
+// With an lse output (the training forward) only D <= 128 is built.
 template <bool BOUND>
 cudaError_t dispatch(const FlashArgs& a, long long blocks, cudaStream_t s) {
-  if (a.d <= 64) return launch_mma<64, BOUND>(a, blocks, s);
-  if (a.d <= 128) return launch_mma<128, BOUND>(a, blocks, s);
+  if (a.lse != nullptr) {
+    if (a.d <= 64) return launch_mma<64, BOUND, true>(a, blocks, s);
+    if (a.d <= 128) return launch_mma<128, BOUND, true>(a, blocks, s);
+    return cudaErrorInvalidValue;
+  }
+  if (a.d <= 64) return launch_mma<64, BOUND, false>(a, blocks, s);
+  if (a.d <= 128) return launch_mma<128, BOUND, false>(a, blocks, s);
   if (a.d <= 256) return launch<256, 4, 32, BOUND>(a, blocks, s);
   return launch<512, 2, 32, BOUND>(a, blocks, s);
 }
@@ -542,11 +474,12 @@ int lkgd_flash_block_rows(int d) { return d <= 256 ? 64 : 32; }
 
 // q, k, v, o: (B, S, H, D) bf16 with strides[12] = (b, s, h) element strides of q, k, v, o.
 // bound=1: the bound kernel (t and tile_min required). bound=0: the max-tracking kernel,
-// guarded by tile_min when it is not null.
+// guarded by tile_min when it is not null. lse: null, or (B*H, s_q) fp32 for the training
+// forward's log2-domain logsumexp (D <= 128 only).
 int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides,
                    int batch, int heads, int s_q, int s_k, int d, float scale_log2,
-                   const float* t, float* tile_min, int* recomputed, int bound, int device,
-                   void* stream) {
+                   const float* t, float* tile_min, int* recomputed, float* lse, int bound,
+                   int device, void* stream) {
   if (d <= 0 || d > 512 || d % 8 != 0) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
@@ -569,6 +502,7 @@ int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const l
   a.t = t;
   a.tile_min = tile_min;
   a.recomputed = recomputed;
+  a.lse = lse;
   const long long blocks = (long long)batch * heads * a.n_q_tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return int(bound ? dispatch<true>(a, blocks, s) : dispatch<false>(a, blocks, s));

@@ -1,5 +1,9 @@
 """Spatio-temporal UNet building blocks of the port (counterpart of
-``lkgd_tpu/models/blocks_svd.py``), base configuration: no joint attention, no LoRA.
+``lkgd_tpu/models/blocks_svd.py``), without joint attention.
+
+LoRA adapters are resolved by the ``LoraRouter`` on the same diffusers-style paths as in
+the JAX package (``down_blocks.0.attentions.1.temporal_transformer_blocks.0.attn1``,
+``mid_block.attentions.0...``); the temporal blocks' cross-attention takes none, as there.
 
 Layout: hidden states ``(B*T, H, W, C)`` channels-last; temb ``(B*T, temb_channels)``;
 image_only_indicator ``(B, T)``; spatial attention tokens ``(B*T, H*W, C)``.
@@ -16,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lkgd_torch.models.configs import EMPTY_ROUTER, LoraRouter
 from lkgd_torch.models.layers import (
     AlphaBlender,
     Attention,
@@ -115,12 +120,14 @@ class Upsample2D(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """Spatial transformer block: self-attention, cross-attention, GEGLU feed-forward."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024):
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024,
+                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = ""):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
-        self.attn1 = Attention(dim, heads, dim_head)
+        self.attn1 = Attention(dim, heads, dim_head, adapters=lora.adapters(f"{block_path}.attn1"))
         self.norm2 = nn.LayerNorm(dim)
-        self.attn2 = Attention(dim, heads, dim_head, kv_dim=cross_attention_dim)
+        self.attn2 = Attention(dim, heads, dim_head, kv_dim=cross_attention_dim,
+                               adapters=lora.adapters(f"{block_path}.attn2"))
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
@@ -134,12 +141,14 @@ class TemporalBasicTransformerBlock(nn.Module):
     """Temporal transformer block on spatial-major ``(B*T, HW, C)`` tokens: ff_in, frame
     self-attention, per-sample cross-attention, feed-forward."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024):
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024,
+                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = ""):
         super().__init__()
         self.norm_in = nn.LayerNorm(dim)
         self.ff_in = FeedForward(dim)
         self.norm1 = nn.LayerNorm(dim)
-        self.attn1 = FrameAxisAttention(dim, heads, dim_head)
+        self.attn1 = FrameAxisAttention(dim, heads, dim_head,
+                                        adapters=lora.adapters(f"{block_path}.attn1"))
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = FrameAxisAttention(dim, heads, dim_head, kv_dim=cross_attention_dim)
         self.norm3 = nn.LayerNorm(dim)
@@ -158,7 +167,8 @@ class TransformerSpatioTemporalModel(nn.Module):
     """GroupNorm + proj_in + interleaved spatial/temporal blocks + AlphaBlender + proj_out."""
 
     def __init__(self, channels: int, num_layers: int, heads: int,
-                 cross_attention_dim: int = 1024):
+                 cross_attention_dim: int = 1024, lora: LoraRouter = EMPTY_ROUTER,
+                 block_path: str = ""):
         super().__init__()
         dim_head = channels // heads
         inner = heads * dim_head
@@ -166,11 +176,13 @@ class TransformerSpatioTemporalModel(nn.Module):
         self.proj_in = nn.Linear(channels, inner)
         self.time_pos_embed = TimestepEmbedding(inner, inner * 4, out_dim=inner)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)
-             for _ in range(num_layers)])
+            [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, lora,
+                                   f"{block_path}.transformer_blocks.{i}")
+             for i in range(num_layers)])
         self.temporal_transformer_blocks = nn.ModuleList(
-            [TemporalBasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)
-             for _ in range(num_layers)])
+            [TemporalBasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, lora,
+                                           f"{block_path}.temporal_transformer_blocks.{i}")
+             for i in range(num_layers)])
         self.time_mixer = AlphaBlender(0.5)  # one blender shared by all layers
         self.proj_out = nn.Linear(inner, channels)
 
@@ -198,14 +210,17 @@ class TransformerSpatioTemporalModel(nn.Module):
 class CrossAttnDownBlockSpatioTemporal(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_layers: int, eps: float,
                  transformer_layers: int, heads: int, cross_attention_dim: int,
-                 add_downsample: bool, temb_channels: int):
+                 add_downsample: bool, temb_channels: int, lora: LoraRouter = EMPTY_ROUTER,
+                 block_path: str = ""):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(in_channels if i == 0 else out_channels, out_channels,
                                     temb_channels, eps) for i in range(num_layers)])
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(out_channels, transformer_layers, heads,
-                                            cross_attention_dim) for _ in range(num_layers)])
+                                            cross_attention_dim, lora,
+                                            f"{block_path}.attentions.{i}")
+             for i in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
 
@@ -244,13 +259,15 @@ class DownBlockSpatioTemporal(nn.Module):
 
 class UNetMidBlockSpatioTemporal(nn.Module):
     def __init__(self, channels: int, transformer_layers: int, eps: float, heads: int,
-                 cross_attention_dim: int, temb_channels: int):
+                 cross_attention_dim: int, temb_channels: int, lora: LoraRouter = EMPTY_ROUTER,
+                 block_path: str = "mid_block"):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(channels, channels, temb_channels, eps) for _ in range(2)])
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(channels, transformer_layers, heads,
-                                            cross_attention_dim)])
+                                            cross_attention_dim, lora,
+                                            f"{block_path}.attentions.0")])
 
     def forward(self, x, temb, encoder_hidden_states, image_only_indicator):
         x = self.resnets[0](x, temb, image_only_indicator)
@@ -293,7 +310,8 @@ class UpBlockSpatioTemporal(nn.Module):
 class CrossAttnUpBlockSpatioTemporal(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, prev_output_channels: int,
                  num_layers: int, eps: float, transformer_layers: int, heads: int,
-                 cross_attention_dim: int, add_upsample: bool, temb_channels: int):
+                 cross_attention_dim: int, add_upsample: bool, temb_channels: int,
+                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = ""):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(cin, out_channels, temb_channels, eps)
@@ -301,7 +319,9 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
                                        num_layers)])
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(out_channels, transformer_layers, heads,
-                                            cross_attention_dim) for _ in range(num_layers)])
+                                            cross_attention_dim, lora,
+                                            f"{block_path}.attentions.{i}")
+             for i in range(num_layers)])
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
 
     def forward(self, x, res_samples, temb, encoder_hidden_states, image_only_indicator):

@@ -8,6 +8,8 @@ the flash threshold, so attention runs the plain form.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -20,10 +22,17 @@ CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
+@functools.lru_cache(maxsize=8)
+def _clip_stats(dtype: torch.dtype, device: torch.device):
+    """CLIP mean and std on ``device``, copied there once: a copy from the host waits for
+    the device's queue to drain."""
+    return (torch.tensor(CLIP_IMAGE_MEAN, dtype=dtype, device=device),
+            torch.tensor(CLIP_IMAGE_STD, dtype=dtype, device=device))
+
+
 def clip_normalize(images: torch.Tensor) -> torch.Tensor:
     """Normalise [0, 1] (B, H, W, 3) images with CLIP mean/std."""
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=images.dtype, device=images.device)
+    mean, std = _clip_stats(images.dtype, images.device)
     return (images - mean) / std
 
 

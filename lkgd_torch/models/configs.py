@@ -1,18 +1,58 @@
-"""Static model configurations of the port (base fields only).
+"""Static model configurations of the port.
 
-Counterparts of ``lkgd_tpu/models/configs.py`` ``SVDUNetConfig`` (:96-160),
-``lkgd_tpu/models/vae_temporal.py`` ``TemporalVAEConfig`` (:30-37) and
-``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig`` (:22-41). The JAX configs cannot
-be imported here (they reach flax), so the port carries its own with the same field names
-and defaults. Of the LKGD extensions of the JAX UNet config, knowledge fusion, joint
-attention and LoRA routing are fields that raise ``NotImplementedError`` when set; the
-rest (dual conditioning, a y input head, remat) are absent.
+Counterparts of ``lkgd_tpu/models/configs.py`` ``LoraRule`` / ``LoraRouter`` (:58-93) and
+``SVDUNetConfig`` (:96-160), ``lkgd_tpu/models/vae_temporal.py`` ``TemporalVAEConfig``
+(:30-37) and ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig`` (:22-41). The JAX
+configs cannot be imported here (they reach flax), so the port carries its own with the
+same field names and defaults. Of the LKGD extensions of the JAX UNet config, knowledge
+fusion, LoRA routing and remat are ported; joint attention is a field that raises
+``NotImplementedError`` when set; the rest (dual conditioning, a y input head) are absent.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 from typing import Optional, Tuple
+
+from lkgd_torch.models.layers import LoraSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraRule:
+    """Route an adapter onto the projections whose diffusers-style path matches
+    ``pattern`` (fnmatch, or a plain substring). ``streams`` is the static row mask."""
+
+    pattern: str
+    name: str
+    rank: int = 4
+    alpha: float = 4.0
+    streams: Tuple[int, ...] = ()
+    projections: Tuple[str, ...] = ("to_q", "to_k", "to_v")
+
+    def matches(self, path: str, projection: str) -> bool:
+        if projection not in self.projections:
+            return False
+        full = f"{path}.{projection}"
+        return fnmatch.fnmatch(full, self.pattern) or self.pattern in full
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraRouter:
+    rules: Tuple[LoraRule, ...] = ()
+
+    def resolve(self, path: str, projection: str) -> Tuple[LoraSpec, ...]:
+        """The adapters of one projection (the joint branch's inverted stream masks come
+        with joint attention, which is not ported)."""
+        return tuple(LoraSpec(rule.name, rule.rank, rule.alpha, rule.streams)
+                     for rule in self.rules if rule.matches(path, projection))
+
+    def adapters(self, path: str) -> dict:
+        """The specs of every projection of the attention at ``path``, keyed by name."""
+        return {proj: self.resolve(path, proj) for proj in ("to_q", "to_k", "to_v", "to_out")}
+
+
+EMPTY_ROUTER = LoraRouter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +87,17 @@ class SVDUNetConfig:
     resnet_eps: float = 1e-5
     resnet_eps_cross: Optional[float] = None  # CrossAttn{Down,Up} blocks (None -> resnet_eps)
     resnet_eps_up: Optional[float] = None     # plain UpBlockSpatioTemporal (None -> resnet_eps)
-    # LKGD extensions of the JAX config, not ported yet: only the defaults are accepted
-    knowledge_fusion: bool = False
-    joint: None = None
-    lora: None = None
+    # LKGD extensions
+    knowledge_fusion: bool = False  # quaternion latent-knowledge fusion on the context
+    lora: LoraRouter = EMPTY_ROUTER
+    # gradient checkpointing: recompute each down, mid and up block in the backward pass
+    remat: bool = False
+    joint: None = None  # joint attention: not ported yet, only the default is accepted
 
     def __post_init__(self):
-        for name in ("knowledge_fusion", "joint", "lora"):
-            if getattr(self, name):
-                raise NotImplementedError(f"SVDUNetConfig.{name} is not ported to lkgd_torch yet")
+        if self.joint:
+            raise NotImplementedError("SVDUNetConfig.joint (joint attention, the trans API) is "
+                                      "not ported to lkgd_torch yet (ROADMAP.md Queue 1, item 8)")
 
     @property
     def time_embed_dim(self) -> int:

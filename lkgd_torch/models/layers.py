@@ -9,12 +9,18 @@ reaches the kernel as a view. Parameter names are diffusers' (``to_out.0``,
 
 Modules are built without touching any random generator (``materialize``) and filled
 either from a state dict or by ``init_params`` from an explicit ``torch.Generator``.
+
+LoRA adapters are part of a projection (``DenseWithLora``), statically routed as in the
+JAX package: ``y = x W + sum_a gate_a * (x A_a) B_a * alpha_a / rank_a``, with
+parameters ``lora_<name>_A`` (in, rank) and ``lora_<name>_B`` (rank, out), the names and
+layouts the JAX package's ``export_state_dict`` writes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,13 +31,18 @@ from lkgd_torch.ops.group_norm import group_norm
 
 
 # --------------------------------------------------------------------------- building
-def materialize(factory: Callable[[], nn.Module], device, dtype: torch.dtype) -> nn.Module:
+def materialize(factory: Callable[[], nn.Module], device, dtype: torch.dtype,
+                fp32: Optional[Callable[[str], bool]] = None) -> nn.Module:
     """Build ``factory()`` on the meta device, then allocate its parameters (uninitialised)
-    on ``device`` in ``dtype``, 4-D convolution weights channels-last. Fill them with
-    ``init_params`` or ``load_state_dict``."""
+    on ``device`` in ``dtype``, 4-D convolution weights channels-last. ``fp32``: a predicate
+    on parameter names whose parameters stay float32 whatever ``dtype`` is (trained
+    parameters, cast to the compute dtype at use). Fill them with ``init_params`` or
+    ``load_state_dict``."""
     with torch.device("meta"):
         module = factory().to(dtype=dtype)
-        for p in module.parameters():
+        for name, p in module.named_parameters():
+            if fp32 is not None and fp32(name):
+                p.data = p.data.float()
             if p.dim() == 4:
                 p.data = p.data.contiguous(memory_format=torch.channels_last)
     return module.to_empty(device=device)  # empty_like keeps the strides
@@ -111,23 +122,87 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
 
 
+# --------------------------------------------------------------------------- LoRA
+@dataclasses.dataclass(frozen=True)
+class LoraSpec:
+    """One adapter on one projection. ``streams``: the static stream mask, entry s gating
+    the s-th contiguous block of rows; empty = every row."""
+
+    name: str
+    rank: int = 4
+    alpha: float = 4.0
+    streams: Tuple[int, ...] = ()
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.rank
+
+
+def stream_gate(mask: Sequence[int], rows: int, dtype, device=None) -> torch.Tensor:
+    """A stream-level 0/1 mask expanded to per-row gains (``rows // len(mask)`` each)."""
+    return torch.tensor(mask, dtype=dtype, device=device).repeat_interleave(rows // len(mask))
+
+
+class DenseWithLora(nn.Linear):
+    """``nn.Linear`` with zero or more statically routed LoRA adapters folded in. Adapter
+    factors are cast to the input's dtype at use, so they may be stored in fp32 beside a
+    bf16 weight."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 adapters: Tuple[LoraSpec, ...] = ()):
+        super().__init__(in_features, out_features, bias=bias)
+        self.adapters = tuple(adapters)
+        for spec in self.adapters:
+            setattr(self, f"lora_{spec.name}_A", nn.Parameter(torch.empty(in_features, spec.rank)))
+            setattr(self, f"lora_{spec.name}_B", nn.Parameter(torch.zeros(spec.rank, out_features)))
+
+    @torch.no_grad()
+    def init_extra(self, generator: torch.Generator) -> None:
+        """A: he_uniform (bound sqrt(6 / in)), B: zeros, as the JAX module."""
+        bound = math.sqrt(6.0 / self.in_features)
+        for spec in self.adapters:
+            a = getattr(self, f"lora_{spec.name}_A")
+            a.copy_(torch.rand(a.shape, generator=generator, device=a.device) * 2 * bound - bound)
+            getattr(self, f"lora_{spec.name}_B").zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        for spec in self.adapters:
+            a = getattr(self, f"lora_{spec.name}_A").to(x.dtype)
+            b = getattr(self, f"lora_{spec.name}_B").to(x.dtype)
+            delta = (x @ a) @ b * spec.scaling
+            if spec.streams:
+                gate = stream_gate(spec.streams, x.shape[0], x.dtype, x.device)
+                delta = delta * gate.view(-1, *(1,) * (x.dim() - 1))
+            y = y + delta
+        return y
+
+
 # --------------------------------------------------------------------------- attention
-def _out_proj(inner: int, query_dim: int) -> nn.ModuleList:
-    return nn.ModuleList([nn.Linear(inner, query_dim)])  # diffusers' to_out.0
+_NO_ADAPTERS = {"to_q": (), "to_k": (), "to_v": (), "to_out": ()}
+
+
+def _projections(module: nn.Module, query_dim: int, inner: int, kv_dim: Optional[int],
+                 adapters: Optional[dict]) -> None:
+    """to_q/to_k/to_v (no bias) and to_out.0 (diffusers' names), with the LoRA adapters
+    ``adapters[projection]`` resolved for each."""
+    ad = {**_NO_ADAPTERS, **(adapters or {})}
+    module.to_q = DenseWithLora(query_dim, inner, bias=False, adapters=ad["to_q"])
+    module.to_k = DenseWithLora(kv_dim or query_dim, inner, bias=False, adapters=ad["to_k"])
+    module.to_v = DenseWithLora(kv_dim or query_dim, inner, bias=False, adapters=ad["to_v"])
+    module.to_out = nn.ModuleList([DenseWithLora(inner, query_dim, adapters=ad["to_out"])])
 
 
 class Attention(nn.Module):
     """diffusers ``Attention`` as SVD configures it: no q/k/v bias, output projection with
-    bias, scale head_dim^-0.5 (``lkgd_tpu/models/layers.py:133-186``)."""
+    bias, scale head_dim^-0.5 (``lkgd_tpu/models/layers.py:133-186``). ``adapters``: LoRA
+    specs per projection name (``to_q``, ``to_k``, ``to_v``, ``to_out``)."""
 
-    def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None):
+    def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None,
+                 adapters: Optional[dict] = None):
         super().__init__()
-        inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(kv_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(kv_dim or query_dim, inner, bias=False)
-        self.to_out = _out_proj(inner, query_dim)
+        _projections(self, query_dim, heads * dim_head, kv_dim, adapters)
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -152,16 +227,14 @@ class FrameAxisAttention(nn.Module):
 
     ``encoder_hidden_states``: None (self-attention over frames) or, with
     ``per_sample_ctx=True``, a per-sample single-token ``(B, 1, kv_dim)`` context (SVD's
-    CLIP embedding; longer per-sample contexts are not ported)."""
+    CLIP embedding; longer per-sample contexts are not ported). ``adapters`` as for
+    :class:`Attention`."""
 
-    def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None):
+    def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None,
+                 adapters: Optional[dict] = None):
         super().__init__()
-        inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(kv_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(kv_dim or query_dim, inner, bias=False)
-        self.to_out = _out_proj(inner, query_dim)
+        _projections(self, query_dim, heads * dim_head, kv_dim, adapters)
 
     def forward(self, hidden_states: torch.Tensor, num_frames: int,
                 encoder_hidden_states: Optional[torch.Tensor] = None,

@@ -1,15 +1,25 @@
-"""UNetSpatioTemporalCondition, base SVD configuration (counterpart of
-``lkgd_tpu/models/unet_svd.py``).
+"""UNetSpatioTemporalCondition (counterpart of ``lkgd_tpu/models/unet_svd.py``): the base
+SVD UNet with the LKGD knowledge fusion of the context (``config.knowledge_fusion``),
+LoRA adapters routed by ``config.lora`` and gradient checkpointing (``config.remat``).
 
 I/O as in the JAX package: ``sample`` ``(B, T, H, W, C_in)`` channels-last, ``timesteps``
 ``(B,)`` or a scalar (continuous 0.25*log(sigma) for SVD), ``encoder_hidden_states``
-``(B, L, D)``, ``added_time_ids`` ``(B, 3)``; returns ``(B, T, H, W, C_out)``.
+``(B, L, D)``, ``added_time_ids`` ``(B, 3)``, knowledge features ``(B, 1, K)`` or None;
+returns ``(B, T, H, W, C_out)``.
+
+With ``remat`` each down, mid and up block runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` when a gradient is being
+recorded, the counterpart of ``nn.remat``: its activations are recomputed in the backward
+pass instead of kept.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from lkgd_torch.models.blocks_svd import (
     CrossAttnDownBlockSpatioTemporal,
@@ -20,6 +30,7 @@ from lkgd_torch.models.blocks_svd import (
 )
 from lkgd_torch.models.configs import SVDUNetConfig
 from lkgd_torch.models.layers import Conv2d, GroupNorm, TimestepEmbedding, get_timestep_embedding
+from lkgd_torch.ops.fusion import LatentKnowledgeFusion
 
 
 class UNetSpatioTemporalCondition(nn.Module):
@@ -31,6 +42,8 @@ class UNetSpatioTemporalCondition(nn.Module):
         self.time_embedding = TimestepEmbedding(chans[0], cfg.time_embed_dim)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
                                                cfg.time_embed_dim)
+        self.knowledge_fusion = (LatentKnowledgeFusion(ctx_dim=cfg.cross_attention_dim)
+                                 if cfg.knowledge_fusion else None)
         self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
 
         eps_cross = cfg.resnet_eps_cross or cfg.resnet_eps
@@ -42,7 +55,8 @@ class UNetSpatioTemporalCondition(nn.Module):
                 self.down_blocks.append(CrossAttnDownBlockSpatioTemporal(
                     cin, chans[i], cfg.layers_per_block, eps_cross,
                     cfg.transformer_layers_per_block, cfg.num_attention_heads[i],
-                    cfg.cross_attention_dim, add_down, cfg.time_embed_dim))
+                    cfg.cross_attention_dim, add_down, cfg.time_embed_dim, cfg.lora,
+                    f"down_blocks.{i}"))
             elif block_type == "DownBlockSpatioTemporal":
                 self.down_blocks.append(DownBlockSpatioTemporal(
                     cin, chans[i], cfg.layers_per_block, cfg.resnet_eps, add_down,
@@ -52,7 +66,7 @@ class UNetSpatioTemporalCondition(nn.Module):
 
         self.mid_block = UNetMidBlockSpatioTemporal(
             chans[-1], cfg.transformer_layers_per_block, cfg.resnet_eps,
-            cfg.num_attention_heads[-1], cfg.cross_attention_dim, cfg.time_embed_dim)
+            cfg.num_attention_heads[-1], cfg.cross_attention_dim, cfg.time_embed_dim, cfg.lora)
 
         rev = tuple(reversed(chans))
         rev_heads = tuple(reversed(cfg.num_attention_heads))
@@ -65,7 +79,8 @@ class UNetSpatioTemporalCondition(nn.Module):
             if block_type == "CrossAttnUpBlockSpatioTemporal":
                 self.up_blocks.append(CrossAttnUpBlockSpatioTemporal(
                     cin, rev[i], prev, n_layers, eps_cross, cfg.transformer_layers_per_block,
-                    rev_heads[i], cfg.cross_attention_dim, add_up, cfg.time_embed_dim))
+                    rev_heads[i], cfg.cross_attention_dim, add_up, cfg.time_embed_dim,
+                    cfg.lora, f"up_blocks.{i}"))
             elif block_type == "UpBlockSpatioTemporal":
                 self.up_blocks.append(UpBlockSpatioTemporal(
                     cin, rev[i], prev, n_layers, cfg.resnet_eps_up or cfg.resnet_eps, add_up,
@@ -77,8 +92,16 @@ class UNetSpatioTemporalCondition(nn.Module):
         self.conv_norm_out = GroupNorm(chans[0], 32, 1e-5, act="silu")
         self.conv_out = Conv2d(chans[0], cfg.out_channels, 3, padding=1)
 
+    def _run(self, block: nn.Module, *args):
+        """``block(*args)``, checkpointed under ``remat`` while a gradient is recorded."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor, added_time_ids: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, added_time_ids: torch.Tensor,
+                domain_features: Optional[torch.Tensor] = None,
+                flow_features: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         batch_size, num_frames = sample.shape[:2]
@@ -90,6 +113,11 @@ class UNetSpatioTemporalCondition(nn.Module):
         add_embeds = get_timestep_embedding(added_time_ids.reshape(-1),
                                             cfg.addition_time_embed_dim)
         emb = emb + self.add_embedding(add_embeds.reshape(batch_size, -1).to(dtype))
+
+        # knowledge fusion of the context, before its per-frame copies
+        if self.knowledge_fusion is not None:
+            encoder_hidden_states = self.knowledge_fusion(
+                encoder_hidden_states, domain_features, flow_features, dtype=dtype)
 
         # flatten frames; per-frame copies of emb and context
         sample = sample.reshape(batch_size * num_frames, *sample.shape[2:]).to(dtype)
@@ -103,20 +131,23 @@ class UNetSpatioTemporalCondition(nn.Module):
         res_samples = (sample,)
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlockSpatioTemporal):
-                sample, outs = block(sample, emb, encoder_hidden_states, image_only_indicator)
+                sample, outs = self._run(block, sample, emb, encoder_hidden_states,
+                                         image_only_indicator)
             else:
-                sample, outs = block(sample, emb, image_only_indicator)
+                sample, outs = self._run(block, sample, emb, image_only_indicator)
             res_samples = res_samples + outs
 
-        sample = self.mid_block(sample, emb, encoder_hidden_states, image_only_indicator)
+        sample = self._run(self.mid_block, sample, emb, encoder_hidden_states,
+                           image_only_indicator)
 
         for block in self.up_blocks:
             n_layers = len(block.resnets)
             skips, res_samples = res_samples[-n_layers:], res_samples[:-n_layers]
             if isinstance(block, CrossAttnUpBlockSpatioTemporal):
-                sample = block(sample, skips, emb, encoder_hidden_states, image_only_indicator)
+                sample = self._run(block, sample, skips, emb, encoder_hidden_states,
+                                   image_only_indicator)
             else:
-                sample = block(sample, skips, emb, image_only_indicator)
+                sample = self._run(block, sample, skips, emb, image_only_indicator)
 
         sample = self.conv_out(self.conv_norm_out(sample))
         return sample.reshape(batch_size, num_frames, *sample.shape[1:])

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``lkgd_torch/csrc/*.cu`` carry a plain C interface (no PyTorch headers), so one ``nvcc``
-call compiles them in seconds into a shared library under ``lkgd_torch/_build/`` (listed
-in ``.gitignore``). The library's name holds a hash of the sources and flags: an edited
+``lkgd_torch/csrc/*.cu`` carry a plain C interface (no PyTorch headers). One ``nvcc`` per
+source, all started together, compiles them to objects in seconds; one more links them into
+a shared library under ``lkgd_torch/_build/`` (listed in ``.gitignore``). The library's
+name holds a hash of the sources, the shared headers (``*.cuh``) and the flags: an edited
 source builds anew, an unchanged one is reused. Pointers and the stream go in as Python
 ints from ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
 
@@ -22,22 +23,26 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
+              "-fPIC")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "lkgd_flash_block_rows": ([_I], _I),
     "lkgd_flash_fwd": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F,
-                        _P, _P, _P, _I, _I, _P], _I),
+                        _P, _P, _P, _P, _I, _I, _P], _I),
+    "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                                   _P], _I),
     "lkgd_gn_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P], _I),
+    "lkgd_relayout_heads": ([_P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _P], _I),
     "lkgd_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the nvcc call, None when reused
+build_seconds: float | None = None  # wall time of the nvcc calls, None when reused
 
 
 def _nvcc() -> str:
@@ -48,22 +53,38 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once and wait for all; raise with the stderr of any that fail."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)} ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` for sm_90a unless a library of the same sources exists."""
     global build_seconds
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES + HEADERS)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"liblkgd_kernels_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(SOURCES, objects)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
     build_seconds = time.perf_counter() - t0
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

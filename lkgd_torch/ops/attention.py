@@ -5,6 +5,11 @@ kernels: no mask, S_q and S_k >= 1024, D % 8 == 0 and D <= 512 (attention.py:25-
 flash_attention.py:507-513). Everything else (CLIP's 257 tokens, deep UNet levels, tests
 at small sizes) runs the plain matmul-softmax form of ``_xla_attention``. A flash call
 that cannot run raises: nothing falls back behind the caller's back.
+
+A flash call whose q, k or v requires a gradient (with grad mode on) goes through the
+autograd Function of the training kernels (7-10); every other one keeps the inference
+kernels (1/2). This mirrors JAX, whose primal is ``_flash_bhsd`` and whose VJP forward
+rule alone runs the LSE forward.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from lkgd_torch.ops.flash_attention import flash_attention
+from lkgd_torch.ops.flash_attention import flash_attention, flash_attention_differentiable
 
 FLASH_MIN_SEQ = 1024
 
@@ -39,5 +44,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax attention over (B, S, H, D) tensors; returns (B, S_q, H, D)."""
     if use_flash(q, k, mask):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return flash_attention_differentiable(q, k, v)
         return flash_attention(q, k, v)
     return plain_attention(q, k, v, mask)

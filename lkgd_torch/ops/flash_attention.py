@@ -1,6 +1,6 @@
-"""Flash-attention forward: the Hopper CUDA kernels and their plain PyTorch versions.
+"""Flash attention: the Hopper CUDA kernels and their plain PyTorch versions.
 
-Port of the inference kernels of ``lkgd_tpu/ops/flash_attention.py``:
+Port of the kernels of ``lkgd_tpu/ops/flash_attention.py``. The inference forward:
 
 * kernel 1, the bound kernel (``_flash_bound_kernel`` via ``_flash_bhsd``): softmax with a
   per-row Cauchy-Schwarz upper bound ``t_i = -scale*log2e*|q_i|*max_j|k_j|`` subtracted in
@@ -9,16 +9,33 @@ Port of the inference kernels of ``lkgd_tpu/ops/flash_attention.py``:
   online-max form. It is the bound kernel's fallback and, with ``LKGD_FLASH_MAXTRACK=1``,
   the kernel used outright.
 
+The training path, ``flash_attention_differentiable``, a ``torch.autograd.Function`` in the
+place of the JAX custom VJP ``_flash_core``:
+
+* kernel 7, the bound LSE forward (``_flash_bound_lse_kernel`` via ``_flash_fwd_lse_bhsd``)
+  and kernel 8, the max-tracking LSE forward (``_flash_fwd_lse_kernel`` via
+  ``_flash_fwd_lse_maxtrack_bhsd``): the forwards above that also write the log2-domain
+  logsumexp ``lse`` (B, H, S_q) fp32; kernel 8 is kernel 7's guard as kernel 2 is kernel
+  1's;
+* kernels 9 and 10 (``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` via
+  ``_flash_bwd_bhsd``): dq, and dk with dv, from the saved lse and ``delta =
+  rowsum(dO * O)`` (fp32, PyTorch, as JAX computes it). D <= 128 only; above, the
+  training wrappers raise;
+* kernels 5 and 6, the head split and merge copies (``_split_heads_kernel`` /
+  ``_merge_heads_kernel``, each the other's VJP): with more than one head the Function
+  splits q, k, v and dO into head-major copies and merges out, dq, dk and dv back, as
+  ``_flash_attention_local`` does around ``_flash_core``.
+
 The JAX wrapper reruns kernel 2 when the smallest row sum of the whole call is <= 2^-110
 (``lax.cond`` on the device). Here kernel 2 is always launched after kernel 1 with
 kernel 1's per-tile minimum row sums; each of its blocks returns at once unless its own
 tile's minimum is <= 2^-110, and only such tiles are recomputed. No host sync is needed,
 and the device counter ``recomputed_tiles(device)`` counts the recomputed tiles.
 
-Layout: ``(B, S, H, D)`` in and out. The kernels read q, k, v through their strides (a
-projection's ``view``, no head-split copy) and write ``(B, S, H, D)`` output. On a CPU
-tensor the wrapper runs the plain version; on a CUDA tensor it launches the kernels or
-raises.
+Layout: ``(B, S, H, D)`` in and out. The attention kernels read q, k, v through their
+strides and write outputs in q's layout: the inference forward takes a projection's
+``view`` as it is, the training Function head-major copies. On a CPU tensor the wrapper
+runs the plain version; on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -33,7 +50,10 @@ LOG2E = 1.4426950408889634
 GUARD = 2.0 ** -110  # smallest row sum the bound kernel may leave (flash_attention.py:471)
 
 # launches of each kernel since the last reset; read by chip_smoke.py
-launches = {"flash_bound": 0, "flash_maxtrack": 0}
+launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_bound_lse": 0,
+            "flash_maxtrack_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "split_heads": 0, "merge_heads": 0}
+TRAIN_MAX_D = 128  # head dims the LSE forward and backward kernels are built for
 _recomputed: dict[torch.device, torch.Tensor] = {}
 
 
@@ -89,6 +109,69 @@ def flash_attention_bound_plain(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def flash_fwd_lse_maxtrack_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Plain version of kernel 8: the max-tracking forward in fp32 and its log2-domain
+    logsumexp ``m + log2(l)``. Returns (out in q.dtype (B, S_q, H, D), lse (B, H, S_q))."""
+    scale2 = q.shape[-1] ** -0.5 * LOG2E
+    qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
+    s2 = qf @ kf.transpose(-1, -2) * scale2
+    m = s2.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s2 - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p @ vf) / l
+    return out.transpose(1, 2).to(q.dtype), (m + torch.log2(l))[..., 0]
+
+
+def flash_fwd_lse_bound_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Plain version of kernel 7 with its guard: exp2(s + t) with the Cauchy-Schwarz bound
+    t, lse = log2(l) - t; rows whose sum is not > 2^-110 take kernel 8's result."""
+    scale2 = q.shape[-1] ** -0.5 * LOG2E
+    qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
+    t = bound_t(q, k)[..., None]
+    p = torch.exp2(qf @ kf.transpose(-1, -2) * scale2 + t)
+    l = p.sum(dim=-1, keepdim=True)
+    out, lse = (p @ vf) / l, torch.log2(l) - t
+    bad = ~(l > GUARD)
+    if bad.any():
+        out_m, lse_m = flash_fwd_lse_maxtrack_plain(q, k, v)
+        out = torch.where(bad, _heads_first(out_m), out)
+        lse = torch.where(bad, lse_m[..., None], lse)
+    return out.transpose(1, 2).to(q.dtype), lse[..., 0]
+
+
+def _bwd_probs_plain(q, k, v, do, lse, delta):
+    """fp32 (B, H, S, D) q, k, dO and the (B, H, S_q, S_k) P = exp2(s' - lse) and
+    dS = P (dO V^T - delta) that both backward kernels recompute."""
+    scale2 = q.shape[-1] ** -0.5 * LOG2E
+    qf, kf, vf, dof = (_heads_first(x) for x in (q, k, v, do))
+    p = torch.exp2(qf @ kf.transpose(-1, -2) * scale2 - lse[..., None])
+    return qf, kf, dof, p, p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+
+
+def flash_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                       lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 9 in fp32: dQ = scale dS K, (B, S_q, H, D) in q.dtype.
+    ``lse`` and ``delta`` are (B, H, S_q)."""
+    _, kf, _, _, ds = _bwd_probs_plain(q, k, v, do, lse, delta)
+    return (ds @ kf * q.shape[-1] ** -0.5).transpose(1, 2).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor, delta: torch.Tensor):
+    """Plain version of kernel 10 in fp32: dK = scale dS^T Q and dV = P^T dO, (B, S_k, H, D)
+    in k's and v's dtypes."""
+    qf, _, dof, p, ds = _bwd_probs_plain(q, k, v, do, lse, delta)
+    dk = ds.transpose(-1, -2) @ qf * q.shape[-1] ** -0.5
+    return dk.transpose(1, 2).to(k.dtype), (p.transpose(-1, -2) @ dof).transpose(1, 2).to(v.dtype)
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor):
+    """Plain version of kernels 9 and 10: dq, dk, dv as (B, S, H, D)."""
+    return (flash_bwd_dq_plain(q, k, v, do, lse, delta),
+            *flash_bwd_dkv_plain(q, k, v, do, lse, delta))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Non-causal softmax attention over ``(B, S, H, D)`` tensors, no mask.
 
@@ -101,8 +184,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _flash_cuda(q, k, v)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra) -> None:
+    """Raise on what the kernels do not take; ``extra``: (name, tensor) pairs laid out
+    like q (dO in the backward)."""
+    for name, x in (("q", q), ("k", k), ("v", v), *extra):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {x.device}, q on {q.device}")
         if x.dtype != torch.bfloat16:
@@ -122,14 +207,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8, <= 512")
 
 
-def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _check_train(q: torch.Tensor) -> None:
+    if q.shape[-1] > TRAIN_MAX_D:
+        raise NotImplementedError(
+            f"flash attention training kernels: head dim {q.shape[-1]} > {TRAIN_MAX_D} is not "
+            f"built yet (ROADMAP.md Queue 2, the D > 128 backward and LSE forward)")
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
+    """The inference forward (kernels 1/2) or, ``with_lse``, the training forward
+    (kernels 7/8) that also returns lse (B, H, S_q)."""
     from lkgd_torch.ops import _build
 
     _check(q, k, v)
+    if with_lse:
+        _check_train(q)
     lib = _build.library()
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
-    out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                         *out.stride()[:3])
     n_q_tiles = math.ceil(s_q / lib.lkgd_flash_block_rows(d))
@@ -139,22 +235,179 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counter = recomputed_tiles(q.device)
+    lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if with_lse
+           else None)
+    suffix = "_lse" if with_lse else ""
 
     def launch(bound: bool, t, tile_min):
         _build.check(lib.lkgd_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q,
             s_k, d, scale2, None if t is None else t.data_ptr(),
             None if tile_min is None else tile_min.data_ptr(), counter.data_ptr(),
-            int(bound), device, stream))
+            None if lse is None else lse.data_ptr(), int(bound), device, stream))
+        launches[("flash_bound" if bound else "flash_maxtrack") + suffix] += 1
 
-    if maxtrack_selected():
+    if not maxtrack_selected():
+        t = bound_t(q, k).contiguous()  # (B*H, S_q) rows
+        tile_min = torch.empty((b * h, n_q_tiles), dtype=torch.float32, device=q.device)
+        launch(True, t, tile_min)
+        launch(False, None, tile_min)  # the guard: recomputes only underflowed tiles
+    else:
         launch(False, None, None)
-        launches["flash_maxtrack"] += 1
-        return out
-    t = bound_t(q, k).contiguous()  # (B*H, S_q) rows
-    tile_min = torch.empty((b * h, n_q_tiles), dtype=torch.float32, device=q.device)
-    launch(True, t, tile_min)
-    launches["flash_bound"] += 1
-    launch(False, None, tile_min)  # the guard: recomputes only underflowed tiles
-    launches["flash_maxtrack"] += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The training forward: (out (B, S_q, H, D), lse (B, H, S_q) fp32, log2 domain).
+
+    CPU tensors: the plain version of the selected kernel. CUDA tensors: kernel 7 guarded
+    by kernel 8 (kernel 8 alone with ``LKGD_FLASH_MAXTRACK=1``), bf16 and D <= 128 only."""
+    if q.device.type == "cpu":
+        plain = (flash_fwd_lse_maxtrack_plain if maxtrack_selected()
+                 else flash_fwd_lse_bound_plain)
+        return plain(q, k, v)
+    return _flash_cuda(q, k, v, with_lse=True)
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+              lse: torch.Tensor, delta: torch.Tensor):
+    """dq, dk, dv (B, S, H, D) from the forward's lse and delta = rowsum(dO * O), both
+    (B, H, S_q) fp32: kernel 9 then kernel 10 (their plain versions on CPU tensors)."""
+    return flash_bwd_dq(q, k, v, do, lse, delta), *flash_bwd_dkv(q, k, v, do, lse, delta)
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                 lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """dq in q's layout. CPU tensors: ``flash_bwd_dq_plain``. CUDA tensors: kernel 9, bf16,
+    D <= 128."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _flash_bwd_cuda(q, k, v, do, lse, delta, dq, None, None)
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                  lse: torch.Tensor, delta: torch.Tensor):
+    """(dk, dv). CPU tensors: ``flash_bwd_dkv_plain``. CUDA tensors: kernel 10."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_bwd_cuda(q, k, v, do, lse, delta, None, dk, dv)
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
+    """Launch kernel 9 (``dq`` given) or kernel 10 (``dk`` and ``dv`` given)."""
+    from lkgd_torch.ops import _build
+
+    _check(q, k, v, ("dO", do))
+    _check_train(q)
+    b, s_q, h, d = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"flash_bwd: dO {tuple(do.shape)} is not shaped as q {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, s_q) or x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.device != q.device:
+            raise ValueError(f"flash_bwd: {name} must be a contiguous (B, H, S_q) float32 "
+                             f"tensor on q's device, got {tuple(x.shape)} {x.dtype}")
+    dkv = dq is None
+    outs = (q, dk, dv) if dkv else (dq, k, v)  # strides of the unused slots are not read
+    strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, do, *outs)
+                                         for s in x.stride()[:3]))
+    scale = d ** -0.5
+    device = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    _build.check(_build.library().lkgd_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), None if dkv else dq.data_ptr(), dk.data_ptr() if dkv else None,
+        dv.data_ptr() if dkv else None, strides, b, h, s_q, k.shape[1], d, scale,
+        scale * LOG2E, int(dkv), device, torch.cuda.current_stream(q.device).cuda_stream))
+    launches["flash_bwd_dkv" if dkv else "flash_bwd_dq"] += 1
+
+
+def split_heads_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 5: (B, S, H, D) -> (B, H, S, D), contiguous."""
+    return x.transpose(1, 2).contiguous()
+
+
+def merge_heads_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 6: (B, H, S, D) -> (B, S, H, D), contiguous."""
+    return x.transpose(1, 2).contiguous()
+
+
+def split_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, H, S, D) contiguous, the bytes of ``_split_heads``'s (B*H, S, D).
+    CPU tensors: ``split_heads_plain``. CUDA tensors: kernel 5."""
+    if x.device.type == "cpu":
+        return split_heads_plain(x)
+    return _relayout_cuda(x, split=True)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) -> (B, S, H, D) contiguous, the bytes of ``_merge_heads``'s (B, S, H*D).
+    CPU tensors: ``merge_heads_plain``. CUDA tensors: kernel 6."""
+    if x.device.type == "cpu":
+        return merge_heads_plain(x)
+    return _relayout_cuda(x.transpose(1, 2), split=False)
+
+
+def _relayout_cuda(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """Kernel 5 (``split``) or 6 reading the (B, S, H, D) view ``x`` through its strides;
+    writes a dense (B, H, S, D) or (B, S, H, D) tensor."""
+    from lkgd_torch.ops import _build
+
+    b, s, h, d = x.shape
+    size = x.element_size()
+    byte_strides = [st * size if n > 1 else 0 for st, n in zip(x.stride()[:3], x.shape[:3])]
+    if x.stride(-1) != 1 or (d * size) % 16 or any(st % 16 for st in byte_strides) \
+            or x.data_ptr() % 16:
+        raise ValueError(f"{'split' if split else 'merge'}_heads: rows of D must be 16-byte "
+                         f"aligned with a unit D stride, got shape {tuple(x.shape)} strides "
+                         f"{x.stride()} {x.dtype}")
+    out = torch.empty((b, h, s, d) if split else (b, s, h, d), dtype=x.dtype, device=x.device)
+    chunks = out.numel() * size // 16
+    if chunks >= 2 ** 31:
+        raise ValueError(f"{'split' if split else 'merge'}_heads: {chunks} chunks exceed 2^31")
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    _build.check(_build.library().lkgd_relayout_heads(
+        x.data_ptr(), out.data_ptr(), (ctypes.c_longlong * 3)(*byte_strides), b, s, h,
+        d * size // 16, int(split), device, torch.cuda.current_stream(x.device).cuda_stream))
+    launches["split_heads" if split else "merge_heads"] += 1
     return out
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention (the JAX custom VJP ``_flash_core`` with the head
+    relayouts of ``_flash_attention_local`` around it): the forward splits q, k, v into
+    head-major copies (kernel 5), runs kernels 7/8, saves the copies, out and lse, and merges
+    out back (kernel 6); the backward splits dO, computes delta = rowsum(dO * O) in fp32,
+    runs kernels 9 and 10 and merges dq, dk, dv. With one head, as in JAX, nothing is split
+    or merged."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.split = q.shape[2] > 1
+        if ctx.split:
+            q, k, v = (split_heads(x).transpose(1, 2) for x in (q, k, v))
+        out, lse = flash_fwd_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return merge_heads(out.transpose(1, 2)) if ctx.split else out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        if ctx.split:
+            g = split_heads(g).transpose(1, 2)
+        delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        grads = flash_bwd(q, k, v, g, lse, delta)
+        if ctx.split:
+            grads = tuple(merge_heads(x.transpose(1, 2)) for x in grads)
+        return grads
+
+
+def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor) -> torch.Tensor:
+    """``flash_attention`` with a gradient: kernels 5, 7/8 and 6 forward, 5, 9/10 and 6
+    backward."""
+    return FlashAttentionFunction.apply(q, k, v)

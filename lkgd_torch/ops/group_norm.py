@@ -14,6 +14,12 @@ every channel; ``fold_chunk_stats`` merges the chunks and the channels of each g
 plain PyTorch with Chan's formula (deterministic, no atomics) and folds in the affine.
 On a CPU tensor the wrapper runs ``group_norm_plain``; on a CUDA tensor it launches the
 kernels or raises.
+
+When a gradient is wanted (grad mode on and x, weight or bias requiring one) the call goes
+through ``GroupNormFunction``, the JAX package's custom VJP (``_make_op``,
+group_norm.py:97-114): the forward is the same kernels, the backward recomputes the plain
+formula and takes its VJP, as JAX's backward does with ``group_norm_xla``. JAX has no
+GroupNorm backward kernel, so the port has none either.
 """
 
 from __future__ import annotations
@@ -106,8 +112,33 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     """GroupNorm over ``(N, M, C)`` with an optional fused SiLU, in x.dtype."""
     if act not in (None, "silu"):
         raise ValueError(f"group_norm: unknown activation {act!r}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormFunction.apply(x, weight, bias, num_groups, eps, act)
     a, b = group_norm_affine(x, weight, bias, num_groups=num_groups, eps=eps)
     return group_norm_apply(x, a, b, act)
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """GroupNorm with a gradient: kernels 3/4 forward, the VJP of ``group_norm_plain``
+    recomputed from the saved inputs backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.options = dict(num_groups=num_groups, eps=eps, act=act)
+        a, b = group_norm_affine(x, weight, bias, num_groups=num_groups, eps=eps)
+        return group_norm_apply(x, a, b, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = group_norm_plain(*inputs, **ctx.options)
+        grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
 
 
 def chunk_plan(n: int, m: int, c: int):

@@ -1,10 +1,15 @@
-"""Antialiased bicubic resize as two precomputed matrix products (counterpart of
-``lkgd_tpu/ops/resize.py`` ``resize_with_antialiasing``).
+"""Image resizes as two precomputed matrix products, ``out = M_h @ img @ M_w^T``.
 
-The reference's CLIP conditioning blurs with a gaussian (sigma from the downscale factor,
-reflect padding) and then resizes bicubically (a = -0.75, align_corners=True). Both are
-fixed linear operators for given sizes, composed on the host in float64 into one
-(out, in) matrix per axis: ``out = M_h @ img @ M_w^T``.
+* ``resize_with_antialiasing`` (counterpart of ``lkgd_tpu/ops/resize.py``): the reference's
+  CLIP conditioning blurs with a gaussian (sigma from the downscale factor, reflect
+  padding) and then resizes bicubically (a = -0.75, align_corners=True). Both are fixed
+  linear operators for given sizes, composed on the host in float64 into one (out, in)
+  matrix per axis.
+* ``resize_bilinear``: ``jax.image.resize(..., method="bilinear")``, which the JAX
+  package's knowledge encoder uses. It antialiases when it downsamples: the triangle
+  kernel is widened by the downscale factor and the weights of each output are
+  renormalised (``jax._src.image.scale.compute_weight_mat``), which ``F.interpolate``'s
+  bilinear mode does not do.
 """
 
 from __future__ import annotations
@@ -77,14 +82,58 @@ def resize_matrices(in_h: int, in_w: int, out_h: int, out_w: int):
     return m_h.astype(np.float32), m_w.astype(np.float32)
 
 
+# The matrices reach a device once per size: a copy from the host waits for the device's
+# queue to drain, which would stall the host once per call.
+@functools.lru_cache(maxsize=32)
+def _antialias_matrices_on(in_h: int, in_w: int, out_h: int, out_w: int,
+                           device: torch.device):
+    return tuple(torch.from_numpy(m).to(device)
+                 for m in resize_matrices(in_h, in_w, out_h, out_w))
+
+
+@functools.lru_cache(maxsize=32)
+def _bilinear_matrix_on(in_n: int, out_n: int, device: torch.device,
+                        dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(bilinear_matrix(in_n, out_n)).to(device, dtype)
+
+
 def resize_with_antialiasing(images: torch.Tensor, size) -> torch.Tensor:
     """(..., H, W, C) -> (..., size[0], size[1], C), fp32 inside, in images.dtype."""
     out_h, out_w = size
     in_h, in_w = images.shape[-3], images.shape[-2]
     if (in_h, in_w) == (out_h, out_w):
         return images
-    m_h, m_w = (torch.from_numpy(m).to(images.device)
-                for m in resize_matrices(in_h, in_w, out_h, out_w))
+    m_h, m_w = _antialias_matrices_on(in_h, in_w, out_h, out_w, images.device)
     x = torch.einsum("oh,...hwc->...owc", m_h, images.float())
     x = torch.einsum("ow,...hwc->...hoc", m_w, x)
     return x.to(images.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def bilinear_matrix(in_n: int, out_n: int) -> np.ndarray:
+    """(out_n, in_n) fp32 weights of JAX's antialiased bilinear resize along one axis:
+    half-pixel centres, a triangle kernel of half-width max(in/out, 1), each row
+    renormalised to sum to one."""
+    inv_scale = in_n / out_n
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_n, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[:, None] - np.arange(in_n, dtype=np.float64)[None, :]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_n - 0.5)
+    return np.where(inside[:, None], w, 0.0).astype(np.float32)
+
+
+def resize_bilinear(images: torch.Tensor, size) -> torch.Tensor:
+    """(..., H, W, C) -> (..., size[0], size[1], C) as ``jax.image.resize(method=
+    "bilinear")``, in images.dtype."""
+    out_h, out_w = size
+    in_h, in_w = images.shape[-3], images.shape[-2]
+    if (in_h, in_w) == (out_h, out_w):
+        return images
+    m_h, m_w = (_bilinear_matrix_on(i, o, images.device, images.dtype)
+                for i, o in ((in_h, out_h), (in_w, out_w)))
+    x = torch.einsum("oh,...hwc->...owc", m_h, images)
+    return torch.einsum("ow,...hwc->...hoc", m_w, x)

@@ -1,0 +1,126 @@
+"""The training loop: checkpoints with rotation and resume, EMA, JSONL metrics, and the
+export of the trained parameters (counterpart of ``lkgd_tpu/training/trainer.py``).
+
+A checkpoint holds the step, the trainable parameters, the optimizer state and the EMA,
+written with ``torch.save`` (the card's machine has no orbax). Frozen parameters never
+change under the optimizer's mask, so a checkpoint leaves them out: on resume they come
+from the weights the model was built with, which must be the same ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from pathlib import Path
+from typing import Callable, Iterable, Optional
+
+import torch
+import torch.nn as nn
+
+from lkgd_torch.training.train_state import TrainState
+from lkgd_torch.utils.porting import save_safetensors
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    output_dir: str = "output"
+    max_steps: int = 1000
+    checkpoint_every: int = 500
+    checkpoints_total_limit: Optional[int] = 3
+    log_every: int = 10
+    seed: int = 42
+
+
+class Trainer:
+    """Runs ``train_step(state, batch, generator) -> (state, loss)`` over batches. Random
+    draws come from one ``torch.Generator`` on the model's device, seeded from
+    ``config.seed``."""
+
+    def __init__(self, train_step: Callable, state: TrainState, config: TrainerConfig):
+        self.train_step = train_step
+        self.state = state
+        self.config = config
+        device = next(state.unet.parameters()).device
+        self.generator = torch.Generator(device=device).manual_seed(config.seed)
+        self.checkpoint_dir = Path(config.output_dir) / "checkpoints"
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self._metrics_path = Path(config.output_dir) / "metrics.jsonl"
+
+    # ---------------------------------------------------------------- checkpointing
+    def _checkpoints(self):
+        """(step, path) of the saved checkpoints, oldest first."""
+        found = [(int(p.stem), p) for p in self.checkpoint_dir.glob("*.pt") if p.stem.isdigit()]
+        return sorted(found)
+
+    def save_checkpoint(self, step: int) -> Path:
+        state = self.state
+        blob = {"step": step,
+                "trainables": {n: p.detach() for n, p in state.trainables.items()},
+                "optimizer": state.optimizer.state_dict(),
+                "ema": state.ema_params}
+        path = self.checkpoint_dir / f"{step}.pt"
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+        limit = self.config.checkpoints_total_limit
+        if limit:
+            for _, old in self._checkpoints()[:-limit]:
+                old.unlink()
+        return path
+
+    def restore_latest(self) -> int:
+        """Resume from the newest checkpoint; returns its step (0 if there is none)."""
+        found = self._checkpoints()
+        if not found:
+            return 0
+        state = self.state
+        device = next(state.unet.parameters()).device
+        blob = torch.load(found[-1][1], map_location=device, weights_only=True)
+        with torch.no_grad():
+            for name, p in state.trainables.items():
+                p.copy_(blob["trainables"][name])
+        state.optimizer.load_state_dict(blob["optimizer"])
+        state.ema_params = blob["ema"]
+        state.step = int(blob["step"])
+        return state.step
+
+    # ---------------------------------------------------------------- loop
+    def _log(self, record: dict) -> None:
+        with open(self._metrics_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def fit(self, data: Iterable) -> TrainState:
+        cfg = self.config
+        start_step = self.state.step
+        t0 = time.time()
+        losses = []
+        for batch in data:
+            if self.state.step >= cfg.max_steps:
+                break
+            self.state, loss = self.train_step(self.state, batch, self.generator)
+            losses.append(loss)
+            step = self.state.step
+            if step % cfg.log_every == 0:
+                loss_val = torch.stack(losses).float().mean().item()
+                losses.clear()
+                dt, t0 = time.time() - t0, time.time()
+                self._log({"step": step, "train_loss": loss_val,
+                           "steps_per_sec": cfg.log_every / max(dt, 1e-9)})
+            if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                self.save_checkpoint(step)
+        if self.state.step > start_step:
+            self.save_checkpoint(self.state.step)
+        return self.state
+
+
+def export_trainable_safetensors(module: nn.Module, predicate: Callable[[str], bool],
+                                 path: str) -> int:
+    """Write the parameters whose names ``predicate`` selects (LoRA factors, knowledge
+    fusion) to a safetensors file, as fp32, under the names and layouts the JAX package's
+    ``export_trainable_safetensors`` gives them. Returns the number of tensors."""
+    tensors = {name: p.detach().float().cpu().numpy()
+               for name, p in module.named_parameters() if predicate(name)}
+    save_safetensors(tensors, path)
+    return len(tensors)

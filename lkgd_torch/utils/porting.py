@@ -9,11 +9,19 @@ arrays. The result loads into the port's modules with ``load_state_dict(strict=T
 Rules: Dense kernels (in, out) -> Linear (out, in); Conv kernels (kh, kw, I, O) ->
 (O, I, kh, kw); temporal (3, 1, I, O) kernels -> Conv3d (O, I, 3, 1, 1); ``scale`` ->
 ``weight``; list children ``name_3`` -> ``name.3``; ``to_out`` -> ``to_out.0``;
-``ff.net_0.proj`` / ``ff.net_2`` -> ``ff.net.0.proj`` / ``ff.net.2``.
+``ff.net_0.proj`` / ``ff.net_2`` -> ``ff.net.0.proj`` / ``ff.net.2``. Every other leaf keeps
+its name and layout: the LoRA factors ``lora_<name>_A`` (in, rank) / ``lora_<name>_B``
+(rank, out), and the knowledge fusion's depthwise ``weight``, quaternion factors and
+``texts*`` (its Dense kernels follow the kernel rule), exactly as the JAX exporter writes
+them.
+
+``save_safetensors`` writes a state dict in the safetensors format with numpy alone (the
+card's machine has no ``safetensors`` package).
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Callable, Dict, Mapping, Optional
 
@@ -80,10 +88,24 @@ def clip_key_map(key: str) -> str:
     return key  # visual_projection.*
 
 
+def vit_key_map(key: str) -> str:
+    """Generic export names of the JAX ViT -> timm ``vit_base_patch16_384`` names (the
+    inverse of ``lkgd_tpu/models/vit_mae.py`` ``timm_vit_key_map``)."""
+    if key.startswith("patch_embed."):
+        return key.replace("patch_embed.", "patch_embed.proj.", 1)
+    parts = key.split(".")
+    if parts[0] == "blocks" and parts[2] in ("qkv", "proj"):
+        return ".".join(parts[:2] + ["attn"] + parts[2:])
+    if parts[0] == "blocks" and parts[2] in ("fc1", "fc2"):
+        return ".".join(parts[:2] + ["mlp"] + parts[2:])
+    return key
+
+
 def from_flax_params(flat: Mapping[str, np.ndarray],
                      key_map: Optional[Callable[[str], str]] = None) -> Dict[str, torch.Tensor]:
     """``/``-path flax leaves -> the port's state dict. ``key_map``: ``vae_key_map`` for the
-    temporal VAE, ``clip_key_map`` for CLIP, None for the UNet."""
+    temporal VAE, ``clip_key_map`` for CLIP, ``vit_key_map`` for the knowledge ViT, None
+    for the UNet (LoRA and knowledge fusion included)."""
     out = {}
     for path, value in flat.items():
         parts = path.split("/")
@@ -95,3 +117,26 @@ def from_flax_params(flat: Mapping[str, np.ndarray],
             name = key_map(name)
         out[name] = torch.from_numpy(np.array(x, copy=True, order="C"))
     return out
+
+
+def save_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
+    """Write ``name -> float32 array`` as a safetensors file: an 8-byte little-endian header
+    length, a JSON header of dtype, shape and byte offsets (space-padded to 8 bytes), then
+    the arrays' little-endian bytes, back to back in name order."""
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        x = np.ascontiguousarray(tensors[name])
+        if x.dtype != np.float32:
+            raise TypeError(f"save_safetensors: {name} has dtype {x.dtype}, not float32")
+        data = x.astype("<f4", copy=False).tobytes()
+        header[name] = {"dtype": "F32", "shape": list(x.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        chunks.append(data)
+        offset += len(data)
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for data in chunks:
+            f.write(data)

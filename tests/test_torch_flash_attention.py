@@ -4,8 +4,16 @@ kernels of ``lkgd_tpu.ops.flash_attention`` run in TPU interpret mode on the CPU
 of its kernels; the CUDA kernels themselves are held against those plain versions in
 ``tests/test_torch_kernels_cuda.py`` on the card.
 
+The training path: the plain versions of kernels 7-10 (``flash_fwd_lse_bound_plain``,
+``flash_fwd_lse_maxtrack_plain``, ``flash_bwd_plain``) against ``_flash_fwd_lse_bhsd``,
+``_flash_fwd_lse_maxtrack_bhsd`` and ``_flash_bwd_bhsd``, padded S included; the plain
+versions of kernels 5 and 6 (``split_heads_plain``, ``merge_heads_plain``) against
+``_split_heads`` and ``_merge_heads`` (exact: they move bytes); and the autograd
+Function's gradients against ``jax.grad`` of ``flash_attention``.
+
 Tolerances: fp32 on both sides, the same exp2-domain arithmetic, summed in another order
-(rtol 1e-5, atol 1e-5; 2e-5 where the Pallas wrapper pads and masks)."""
+(rtol 1e-5, atol 1e-5; 2e-5 where the Pallas wrapper pads and masks; gradients, whose
+products run over every key or query, rtol 1e-4, atol 1e-5)."""
 
 import numpy as np
 import pytest
@@ -37,10 +45,14 @@ def _bhsd(x: np.ndarray) -> jnp.ndarray:
     return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
 
 
+def _as_bhsd(x: torch.Tensor) -> np.ndarray:
+    """A port (B, S, H, D) tensor -> numpy in the Pallas kernels' (B*H, S, D) layout."""
+    b, s, h, d = x.shape
+    return x.detach().numpy().transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
 def _port(fn, q, k, v) -> np.ndarray:
-    out = fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)).numpy()
-    b, s, h, d = out.shape
-    return out.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    return _as_bhsd(fn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)))
 
 
 @pytest.mark.parametrize("d", [64, 256])
@@ -138,3 +150,163 @@ def test_attention_hands_projection_views_to_flash(monkeypatch):
         x = seen[name]
         assert x._base is not None and x.shape == (1, 1024, 2, 16)
         assert x.stride() == (1024 * 32, 32, 16, 1), name
+
+
+# ------------------------------------------------------------------ training kernels
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _lse(lse: torch.Tensor) -> np.ndarray:
+    """The port's (B, H, S) lse -> the Pallas kernels' (B*H, 1, S)."""
+    b, h, s = lse.shape
+    return lse.numpy().reshape(b * h, 1, s)
+
+
+def _padded_bhsd(x: np.ndarray, s_pad: int) -> jnp.ndarray:
+    return _bhsd(np.pad(x, ((0, 0), (0, s_pad - x.shape[1]), (0, 0), (0, 0))))
+
+
+@pytest.mark.parametrize("s", [256, 300], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("kernel", ["bound", "maxtrack"])
+def test_lse_forward_plain_matches_pallas(monkeypatch, kernel, s):
+    """Kernels 7 and 8: the output and the log2-domain lse. S=300 runs the Pallas kernels
+    on keys padded to 384 and masked (kv_valid); the port's plain versions never pad."""
+    monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
+    q, k, v = _qkv(6, (1, s, 2, 64))
+    s_pad = -(-s // 128) * 128
+    kv_valid = s if s_pad != s else None
+    args = [_padded_bhsd(x, s_pad) for x in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        if kernel == "bound":
+            out_j, lse_j = jfa._flash_fwd_lse_bhsd(*args, 128, 128, kv_valid)
+        else:
+            out_j, lse_j = jfa._flash_fwd_lse_maxtrack_bhsd(*args, 128, 128, kv_valid)
+    plain = (tfa.flash_fwd_lse_bound_plain if kernel == "bound"
+             else tfa.flash_fwd_lse_maxtrack_plain)
+    out, lse = plain(*map(torch.from_numpy, (q, k, v)))
+    assert lse.shape == (1, 2, s) and lse.dtype == torch.float32
+    np.testing.assert_allclose(_as_bhsd(out), np.asarray(out_j)[:, :s], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_lse(lse), np.asarray(lse_j)[..., :s], rtol=1e-5, atol=1e-5)
+
+
+def test_lse_forward_underflow_fallback_matches_pallas(monkeypatch):
+    """The huge-norm input: kernel 7's rows underflow and take kernel 8's out and lse, as
+    the Pallas wrapper's lax.cond reruns the max-tracking kernel."""
+    monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
+    q, k, v = _qkv(4, (1, 256, 2, 32), scale=60.0)
+    with pltpu.force_tpu_interpret_mode():
+        out_j, lse_j = jfa._flash_fwd_lse_bhsd(_bhsd(q), _bhsd(k), _bhsd(v), 128, 128)
+    out, lse = tfa.flash_fwd_lse_bound_plain(*map(torch.from_numpy, (q, k, v)))
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    # logits of ~2e4 (test_underflow_fallback_matches_pallas): tolerances follow the scale
+    np.testing.assert_allclose(_as_bhsd(out), np.asarray(out_j),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(_lse(lse), np.asarray(lse_j), rtol=1e-6, atol=1e-2)
+
+
+@pytest.mark.parametrize("s", [256, 300], ids=["tiled", "ragged"])
+def test_backward_plain_matches_pallas(s):
+    """Kernels 9 and 10 from the same lse and delta: dq, dk and dv. With S=300 the Pallas
+    kernels see zero-padded rows (zero dO, masked keys) that are sliced off."""
+    q, k, v = _qkv(7, (1, s, 2, 64))
+    do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    s_pad = -(-s // 128) * 128
+    kv_valid = s if s_pad != s else None
+    qt, kt, vt, dot = (_padded_bhsd(x, s_pad) for x in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        out_j, lse_j = jfa._flash_fwd_lse_maxtrack_bhsd(qt, kt, vt, 128, 128, kv_valid)
+        delta_j = jnp.sum(dot * out_j, axis=-1)[:, None, :]
+        grads_j = jfa._flash_bwd_bhsd(qt, kt, vt, dot, lse_j, delta_j, 128, 128, kv_valid)
+    lse = torch.from_numpy(np.asarray(lse_j)[:, 0, :s].reshape(1, 2, s).copy())
+    delta = torch.from_numpy(np.asarray(delta_j)[:, 0, :s].reshape(1, 2, s).copy())
+    got = tfa.flash_bwd_plain(*map(torch.from_numpy, (q, k, v, do)), lse, delta)
+    for name, g, want in zip(("dq", "dk", "dv"), got, grads_j):
+        assert g.shape == q.shape, name
+        np.testing.assert_allclose(_as_bhsd(g), np.asarray(want)[:, :s],
+                                   err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("s", [256, 300], ids=["tiled", "ragged"])
+def test_function_grads_match_jax_grad(monkeypatch, s):
+    """The autograd Function (kernels 7/8 forward, 9/10 backward; their plain versions on
+    the CPU) against jax.grad through the custom VJP of ``flash_attention``."""
+    monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
+    q, k, v = _qkv(9, (2, s, 2, 32))
+    w = np.random.default_rng(10).normal(size=q.shape).astype(np.float32)
+
+    def loss_j(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v) * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss_j, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    inputs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention_differentiable(*inputs)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, x, g in zip(("dq", "dk", "dv"), inputs, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("grad,mode", [(True, "enabled"), (True, "no_grad"),
+                                       (False, "enabled")])
+def test_dispatch_routes_grad_calls_to_the_function(monkeypatch, grad, mode):
+    """A long-sequence call whose q, k or v requires a gradient, with grad mode on, goes
+    through the autograd Function (kernels 7-10); under no_grad, or with inputs that need
+    none, it keeps the inference forward (kernels 1/2)."""
+    routes = []
+    real_fn, real_inf = tattn.flash_attention_differentiable, tattn.flash_attention
+    monkeypatch.setattr(tattn, "flash_attention_differentiable",
+                        lambda *a: routes.append("function") or real_fn(*a))
+    monkeypatch.setattr(tattn, "flash_attention",
+                        lambda *a: routes.append("inference") or real_inf(*a))
+    q, k, v = (torch.from_numpy(x) for x in _qkv(11, (1, 1024, 1, 16)))
+    k.requires_grad_(grad)
+    with torch.set_grad_enabled(mode == "enabled"):
+        out = tattn.dot_product_attention(q, k, v)
+    want = "function" if grad and mode == "enabled" else "inference"
+    assert routes == [want]
+    assert out.requires_grad == (want == "function")
+    if want == "function":
+        (dk,) = torch.autograd.grad(out.square().sum(), (k,))
+        assert torch.isfinite(dk).all() and dk.shape == k.shape
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 3, 16), (1, 136, 5, 8)], ids=["tiled", "odd_heads"])
+def test_split_merge_heads_plain_match_pallas(shape):
+    """Kernels 5 and 6: (B, S, H*D) <-> (B*H, S, D) against the Pallas relayouts, and the
+    wrappers' round trip on a strided view (a slice of a fused projection)."""
+    b, s, h, d = shape
+    x = np.random.default_rng(12).normal(size=(b, s, 2 * h * d)).astype(np.float32)
+    view = torch.from_numpy(x)[..., h * d:].unflatten(-1, (h, d))  # (B, S, H, D), strided
+    dense = np.ascontiguousarray(x[..., h * d:])
+    with pltpu.force_tpu_interpret_mode():
+        split_j = np.asarray(jfa._split_heads(jnp.asarray(dense), h))
+        merge_j = np.asarray(jfa._merge_heads(jnp.asarray(split_j), h))
+    split = tfa.split_heads(view)
+    assert split.shape == (b, h, s, d) and split.is_contiguous()
+    np.testing.assert_array_equal(split.reshape(b * h, s, d).numpy(), split_j)
+    merged = tfa.merge_heads(split)
+    assert merged.shape == (b, s, h, d) and merged.is_contiguous()
+    np.testing.assert_array_equal(merged.reshape(b, s, h * d).numpy(), merge_j)
+    np.testing.assert_array_equal(merge_j, dense)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+def test_function_splits_and_merges_heads(monkeypatch, heads):
+    """With more than one head the Function splits q, k, v and dO and merges out, dq, dk,
+    dv (three splits and one merge forward, one split and three merges backward, as
+    _flash_attention_local's relayouts and their VJPs); with one head it does neither."""
+    calls = []
+    for name in ("split_heads", "merge_heads"):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda x, _n=name, _r=real: calls.append(_n) or _r(x))
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(13, (1, 64, heads, 16)))
+    out = tfa.flash_attention_differentiable(q, k, v)
+    assert out.shape == q.shape and out.is_contiguous()
+    forward = list(calls)
+    out.square().sum().backward()
+    n = 0 if heads == 1 else 3
+    assert forward == ["split_heads"] * n + ["merge_heads"] * (n // 3)
+    assert calls[len(forward):] == ["split_heads"] * (n // 3) + ["merge_heads"] * n
+    for x in (q, k, v):
+        assert x.grad.shape == x.shape and x.grad.is_contiguous()

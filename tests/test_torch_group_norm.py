@@ -4,8 +4,13 @@ form ``group_norm_xla``, at fp32. On the CPU the port runs the plain versions of
 kernels; ``fold_chunk_stats``, which merges the CUDA stats kernel's per-chunk statistics,
 is checked here on statistics computed chunk by chunk in PyTorch.
 
+``GroupNormFunction``, the op with a gradient, is held against ``jax.vjp`` of the JAX
+package's custom VJP (Pallas forward in interpret mode, backward through
+``group_norm_xla``) and of ``group_norm_xla`` itself.
+
 Tolerance rtol 2e-5, atol 2e-5: fp32 statistics summed in another order (the Pallas path
-is one-pass, the port's plain fp32 form two-pass, as the XLA form)."""
+is one-pass, the port's plain fp32 form two-pass, as the XLA form); the same for the
+gradients, which both sides take through the same two-pass formula."""
 
 import numpy as np
 import pytest
@@ -90,3 +95,40 @@ def test_module_reshapes_channels_last_input():
     want = np.asarray(JaxGroupNorm(32, 1e-6, act="silu").apply(
         {"params": {"scale": jnp.asarray(w), "bias": jnp.asarray(b)}}, jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("layout", ["spatial", "temporal"])
+def test_function_backward_matches_jax_vjp(layout, act):
+    x, w, b = _inputs(SHAPES[layout], seed=4)
+    g = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    kw = dict(num_groups=32, eps=1e-5, act=act)
+    _, vjp_pallas = jax.vjp(lambda *a: jgn.group_norm(*a, interpret=True, **kw), *args)
+    _, vjp_xla = jax.vjp(lambda *a: jgn.group_norm_xla(*a, **kw), *args)
+    inputs = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    y = tgn.group_norm(*inputs, **kw)
+    assert type(y.grad_fn).__name__ == "GroupNormFunctionBackward"
+    got = torch.autograd.grad(y, inputs, torch.from_numpy(g))
+    for want in (vjp_pallas(jnp.asarray(g)), vjp_xla(jnp.asarray(g))):
+        for name, gt, wt in zip(("dx", "dweight", "dbias"), got, want):
+            np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=2e-5, atol=2e-5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("needs", ["x", "weight", "none"])
+def test_function_only_where_a_gradient_is_wanted(needs):
+    """Frozen weights with an input that needs a gradient (the UNet under LoRA) still get
+    the Function, and only the grads asked for are made; with nothing requiring grad, or
+    under no_grad, the forward kernels run alone."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs((2, 64, 64), seed=6))
+    wanted = {"x": x, "weight": w}.get(needs)
+    if wanted is not None:
+        wanted.requires_grad_()
+    y = tgn.group_norm(x, w, b, num_groups=32, eps=1e-5, act="silu")
+    assert (y.grad_fn is not None) == (wanted is not None)
+    if wanted is not None:
+        (grad,) = torch.autograd.grad(y.square().sum(), (wanted,))
+        assert grad.shape == wanted.shape and torch.isfinite(grad).all()
+        with torch.no_grad():
+            assert tgn.group_norm(x, w, b, num_groups=32, eps=1e-5).grad_fn is None

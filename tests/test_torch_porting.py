@@ -14,6 +14,10 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+# the suite runs in several worker processes on a few cores: each worker imports every
+# test file, and two intra-op threads apiece keep torch from oversubscribing the cores
+torch.set_num_threads(2)
+
 from lkgd_tpu.models.clip_vision import CLIPVisionConfig as JaxCLIPConfig  # noqa: E402
 from lkgd_tpu.models.configs import SVDUNetConfig as JaxUNetConfig  # noqa: E402
 from lkgd_tpu.models.vae_temporal import TemporalVAEConfig as JaxVAEConfig  # noqa: E402
@@ -23,6 +27,7 @@ from lkgd_tpu.utils.porting import (clip_export_key_map, export_state_dict,  # n
                                     svd_export_key_map, vae_export_key_map)
 
 from lkgd_torch.models import configs as tcfg  # noqa: E402
+from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition  # noqa: E402
 from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline  # noqa: E402
 from lkgd_torch.utils.porting import clip_key_map, from_flax_params, vae_key_map  # noqa: E402
 
@@ -131,7 +136,7 @@ def test_port_imports_no_jax():
     """The machine with the card has no JAX: the port and the host IO it shares with the
     JAX package must import without pulling jax or flax in."""
     code = ("import sys, lkgd_torch.pipelines.svd, lkgd_torch.cli.run_inference_svd, "
-            "lkgd_tpu.data.video_io; "
+            "lkgd_torch.cli.train_svd_lora, lkgd_torch.data.datasets, lkgd_tpu.data.video_io; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -139,11 +144,24 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("field,value", [("knowledge_fusion", True), ("joint", object()),
-                                         ("lora", object())])
-def test_unported_unet_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        tcfg.SVDUNetConfig(**{field: value})
+@pytest.mark.parametrize("field,value,ported", [
+    pytest.param("knowledge_fusion", True, True, id="knowledge_fusion-True"),
+    pytest.param("joint", object(), False, id="joint-value1"),
+    pytest.param("lora", tcfg.LoraRouter((tcfg.LoraRule("*attn1.*", "x"),)), True,
+                 id="lora-value2")])
+def test_unported_unet_options_raise(field, value, ported):
+    """Joint attention is not ported and raises; knowledge fusion and LoRA routing, once
+    refused here as well, are ported now: the config takes them and the UNet builds."""
+    if not ported:
+        with pytest.raises(NotImplementedError):
+            tcfg.SVDUNetConfig(**{field: value})
+        return
+    config = tcfg.SVDUNetConfig(**TINY_UNET, **{field: value})
+    assert getattr(config, field) == value
+    with torch.device("meta"):
+        names = [n for n, _ in UNetSpatioTemporalCondition(config).named_parameters()]
+    assert any(n.startswith("knowledge_fusion.") if field == "knowledge_fusion"
+               else "lora_x_A" in n for n in names)
 
 
 @pytest.mark.parametrize("field,value", [("sequential_cfg", True), ("deep_cache_interval", 2)])
