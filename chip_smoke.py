@@ -9,13 +9,28 @@ each printing its own lines; any failure raises and the script exits non-zero:
 3. each kernel against its plain PyTorch version at the main path's shapes: bf16 inputs
    through the kernel, the plain version in fp32 on the same inputs (flash max |d| <=
    FLASH_TOL * max|ref|, GroupNorm max |d| <= 3e-2 in bf16 and <= 1e-5 in fp32), with
-   both times;
+   both times, the time of the PyTorch library call for the same function and the bound
+   (the least time the card could take); the flash and GroupNorm kernels also at the
+   frame-transition clip's shapes (56 and 4 rows), the plain flash version in row chunks;
+3b. the two microbenchmark kernels against their plain versions: the blocked matmul at
+   (258048, 320) x (320, 320 | 1280) and ragged shapes (max |d| <= 1e-2 * max|ref|), the
+   flash variants at (140, 9216, 64) in every mode with two tile shapes (max |d| <= 1e-2
+   * max|ref|, 3e-2 where exp2 runs in bf16), the plain version in chunks of rows;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
+4b. the tiny frame-transition pipeline (joint attention, flip, two stream-masked LoRA
+   adapters, every parameter random) the same way, batched and with ``sequential_cfg``;
 5. the full-size clip: 14 frames at 576x1024, 25 steps, CFG, bf16 random weights from a
    seeded generator; two clips (the first warms up), every kernel's launch count in the
    second, which must be > 0 for the four inference kernels and 0 for the four training
    ones (no gradient is asked for), and finite frames in [0, 1];
+5b. the full-size frame-transition clip through ``lkgd_torch/cli/run_inference_svd.py``'s
+   ``build_pipeline`` (``--mode trans --flip --temporal --lora-rank 4``): 2 streams x 14
+   frames at 576x1024, 25 steps, CFG batched as 56 UNet rows, bf16; a warm-up clip and a
+   timed one with the denoise/decode split, peak memory, launch counts and fallback
+   tiles; frames finite, the two streams different; one more clip with
+   ``sequential_cfg`` for its time and peak memory; then one UNet step under
+   ``torch.profiler`` for its device time by kind;
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
    backwards) against their plain versions at the fine-tune's shapes, ragged S and the
    huge-norm input that trips the LSE forward's fallback: split/merge bit-exact, out max
@@ -33,7 +48,15 @@ each printing its own lines; any failure raises and the script exits non-zero:
    moved, sampled frozen weights did not, every gradient finite; then three more steps
    under ``torch.profiler`` for the device's busy share of that window; and the exported
    safetensors read back. Neither window syncs the host inside it: losses stay on the
-   device until it ends, and the end-of-fit checkpoint falls after its closing event.
+   device until it ends, and the end-of-fit checkpoint falls after its closing event;
+9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
+   shapes, with the launch counts of their kernels.
+
+A line ``{"kernels": [...]}`` lists all twelve kernels with their launches on each path,
+error, time, the plain version's time, the library call's time and the bound, computed
+here from the shapes: the larger of the bytes moved over 3.35 TB/s and the operations
+over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products, 67
+TFLOP/s for fp32 arithmetic outside them).
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -73,10 +96,19 @@ REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     "flash_bwd_dkv": "lkgd_tpu/ops/flash_attention.py:246",
     "split_heads": "lkgd_tpu/ops/flash_attention.py:546",
     "merge_heads": "lkgd_tpu/ops/flash_attention.py:552",
+    "blocked_matmul": "experiments/matmul_microbench.py:89",
+    "flash_variant": "experiments/flash_variant_microbench.py:41",
 }
 INFERENCE = ("flash_bound", "flash_maxtrack", "gn_stats", "gn_apply")
 TRAINING = ("flash_bound_lse", "flash_maxtrack_lse", "flash_bwd_dq", "flash_bwd_dkv",
             "split_heads", "merge_heads")
+EXPERIMENTS = ("blocked_matmul", "flash_variant")
+# the two flash kernels that round exp2's argument and result to bf16
+VARIANT_TOL = {"base": 1e-2, "prescale": 1e-2, "noexp": 1e-2, "bf16exp": 3e-2,
+               "prescale_bf16exp": 3e-2}
+MATMUL_TOL = 1e-2  # of max|ref|: fp32 accumulation, one bf16 rounding of the output
+# the card's published peaks (H100 SXM): device memory, bf16 tensor cores, fp32 outside them
+PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
 SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention.cu",
            "flash_maxtrack": "lkgd_torch/csrc/flash_attention.cu",
            "gn_stats": "lkgd_torch/csrc/group_norm.cu",
@@ -86,7 +118,40 @@ SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention.cu",
            "flash_bwd_dq": "lkgd_torch/csrc/flash_attention_bwd.cu",
            "flash_bwd_dkv": "lkgd_torch/csrc/flash_attention_bwd.cu",
            "split_heads": "lkgd_torch/csrc/relayout_heads.cu",
-           "merge_heads": "lkgd_torch/csrc/relayout_heads.cu"}
+           "merge_heads": "lkgd_torch/csrc/relayout_heads.cu",
+           "blocked_matmul": "lkgd_torch/csrc/blocked_matmul.cu",
+           "flash_variant": "lkgd_torch/csrc/flash_variant.cu"}
+
+
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_BF16) -> dict:
+    """The least time the card could take: the larger of each input read and each output
+    written once over the memory rate, and the operations over their peak rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def flash_bound(shape, products: int = 2, tensors: int = 4, rows_fp32: int = 0) -> dict:
+    """Bound of an attention kernel over (B, S, H, D) bf16: ``products`` S x S x D matrix
+    products, ``tensors`` (B, S, H, D) arrays moved and ``rows_fp32`` (B, H, S) fp32 ones."""
+    b, s_, h, d = shape
+    return bound(products * 2 * b * h * s_ * s_ * d,
+                 tensors * b * s_ * h * d * 2 + rows_fp32 * b * h * s_ * 4)
+
+
+def sdpa_ms(q, k, v, reps: int = 5) -> float:
+    """The library's fused attention on the same (B, S, H, D) inputs."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return gpu_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
+
+
+def in_row_chunks(fn, tensors, rows: int = 2) -> torch.Tensor:
+    """``fn`` over chunks of ``rows`` leading rows of ``tensors``, joined: the plain flash
+    versions materialise (rows, H, S, S) fp32 logits, too much at 56 or 140 rows."""
+    n = tensors[0].shape[0]
+    return torch.cat([fn(*(x[i:i + rows] for x in tensors)) for i in range(0, n, rows)])
 
 
 def gpu_ms(fn, reps: int = 5) -> float:
@@ -153,11 +218,15 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     flash_cases = [("unet level 0", (2, 9216, 5, 64), 1.0),
                    ("unet level 1", (4, 2304, 10, 64), 1.0),
                    ("vae mid", (2, 9216, 1, 512), 1.0), ("ragged", (2, 1100, 5, 64), 1.0),
-                   ("fallback", (1, 1100, 2, 64), 60.0)]
+                   ("fallback", (1, 1100, 2, 64), 60.0),
+                   # the frame-transition clip: 4 x 14 rows, attn1 and attn1n alike
+                   ("trans level 0", (56, 9216, 5, 64), 1.0),
+                   ("trans level 1", (56, 2304, 10, 64), 1.0)]
     for label, shape, scale in flash_cases:
         q, k = randn(*shape, scale=scale).bfloat16(), randn(*shape, scale=scale).bfloat16()
         v = randn(*shape).bfloat16()
-        want = fa.flash_attention_maxtrack_plain(q.float(), k.float(), v.float())
+        want = in_row_chunks(lambda *a: fa.flash_attention_maxtrack_plain(
+            *(x.float() for x in a)), (q, k, v))
         for kernel in ("flash_bound", "flash_maxtrack"):
             if kernel == "flash_maxtrack":
                 os.environ["LKGD_FLASH_MAXTRACK"] = "1"
@@ -175,20 +244,29 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 os.environ.pop("LKGD_FLASH_MAXTRACK", None)
             plain = (fa.flash_attention_maxtrack_plain if kernel == "flash_maxtrack"
                      else fa.flash_attention_bound_plain)
-            plain_ms = gpu_ms(lambda: plain(q, k, v), reps=2)
+            plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v)), reps=2)
+            lib_ms, least = sdpa_ms(q, k, v), flash_bound(shape)
             print(f"[kernel] {kernel} {label} (B,S,H,D)={shape} x{scale}: max|d| {max_err:.3e} "
                   f"of max|ref| {ref_max:.3e} (tol {FLASH_TOL} x max|ref|) mean|d| "
-                  f"{mean_err:.3e} | {ms:.3f} ms, plain {plain_ms:.3f} ms | tiles recomputed "
-                  f"{recomputed}", flush=True)
+                  f"{mean_err:.3e} | {ms:.3f} ms, plain {plain_ms:.3f} ms (chunks of 2 rows), "
+                  f"library sdpa {lib_ms:.3f} ms, bound {least['bound_ms']:.3f} ms by "
+                  f"{least['bound_by']} | tiles recomputed {recomputed}", flush=True)
             assert np.isfinite(max_err) and max_err <= FLASH_TOL * ref_max, \
                 (kernel, label, max_err, ref_max)
             if label == "fallback" and kernel == "flash_bound":
                 assert recomputed > 0, "the huge-norm input must trip the fallback"
             if label == "unet level 0":
-                results[kernel] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+                results[kernel] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms, **least}
+        del q, k, v, want
+        torch.cuda.empty_cache()
+
+    import torch.nn.functional as F
 
     gn_cases = [("unet level 0 spatial", (28, 9216, 320), torch.bfloat16),
                 ("unet level 0 temporal", (2, 14 * 9216, 320), torch.bfloat16),
+                ("trans level 0 spatial", (56, 9216, 320), torch.bfloat16),
+                ("trans level 0 temporal", (4, 14 * 9216, 320), torch.bfloat16),
                 ("vae decode full res", (7, 576 * 1024, 128), torch.bfloat16),
                 ("ragged", (3, 1001, 96), torch.bfloat16),
                 ("unet level 0 spatial", (28, 9216, 320), torch.float32),
@@ -213,38 +291,130 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw))
             apply_ms = gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, act))
             apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, act))
+            # the library's GroupNorm (+ SiLU) on the same memory: (N, M, C) is the
+            # channels-last form of (N, C, M, 1)
+            x_nchw = x.view(shape[0], shape[1], 1, shape[2]).permute(0, 3, 1, 2)
+            lib_ms = gpu_ms(lambda: (F.silu if act else (lambda y: y))(
+                F.group_norm(x_nchw, 32, w, b, 1e-5)))
+            n_el, size = x.numel(), x.element_size()
+            # stats: x read once, (N, C) fp32 a and b written, ~3 fp32 operations an element;
+            # apply: x read, y written, a and b read, ~8 operations an element with SiLU
+            stats_least = bound(3 * n_el, n_el * size + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
+            apply_least = bound((8 if act else 2) * n_el,
+                                2 * n_el * size + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
             print(f"[kernel] group_norm {label} {tuple(shape)} {str(dtype)[6:]} act={act}: "
                   f"max|d| {err.max().item():.3e} mean|d| {err.mean().item():.3e} (tol {tol}) "
                   f"| stats+fold {stats_ms:.3f} ms, plain {stats_plain_ms:.3f} ms (affine "
-                  f"max|d| {stats_err:.3e}) | apply {apply_ms:.3f} ms, plain "
-                  f"{apply_plain_ms:.3f} ms (max|d| {apply_err:.3e})", flush=True)
+                  f"max|d| {stats_err:.3e}), bound {stats_least['bound_ms']:.3f} ms | apply "
+                  f"{apply_ms:.3f} ms, plain {apply_plain_ms:.3f} ms (max|d| {apply_err:.3e}), "
+                  f"bound {apply_least['bound_ms']:.3f} ms | library group_norm"
+                  f"{'+silu' if act else ''} (both passes) {lib_ms:.3f} ms", flush=True)
             assert err.max().item() <= tol, (label, dtype, act, err.max().item())
             assert apply_err <= tol, (label, dtype, act, apply_err)
             if label == "unet level 0 spatial" and dtype == torch.bfloat16 and act == "silu":
+                # library_ms is one call for both kernels' work: the same number in both
                 results["gn_stats"] = {"max_abs_err": stats_err, "ms": stats_ms,
-                                       "plain_ms": stats_plain_ms}
+                                       "plain_ms": stats_plain_ms, "library_ms": lib_ms,
+                                       **stats_least}
                 results["gn_apply"] = {"max_abs_err": apply_err, "ms": apply_ms,
-                                       "plain_ms": apply_plain_ms}
+                                       "plain_ms": apply_plain_ms, "library_ms": lib_ms,
+                                       **apply_least}
+        del x
+        torch.cuda.empty_cache()
     return results
 
 
+def phase_experiment_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Kernels 11 and 12 against their plain versions at the microbenchmarks' shapes;
+    returns their numbers at (258048, 320) x (320, 320) and at ``base``, tile 64 x 64."""
+    import torch.nn.functional as F
+
+    from lkgd_torch.ops import flash_variants as fv
+    from lkgd_torch.ops import matmul as mm
+
+    results = {}
+    for label, (m, k, n) in (("unet level 0 qkv", (258048, 320, 320)),
+                             ("unet level 0 ff", (258048, 320, 1280)),
+                             ("ragged M", (258000 + 7, 320, 320)),
+                             ("ragged M, K, N", (1000, 72, 200))):
+        x = torch.randn((m, k), device=dev, generator=gen).bfloat16()
+        w = torch.randn((k, n), device=dev, generator=gen).bfloat16()
+        got = mm.blocked_matmul(x, w)
+        torch.cuda.synchronize()
+        want = mm.blocked_matmul_plain(x.float(), w.float())
+        err, ref = (got.float() - want).abs().max().item(), want.abs().max().item()
+        del want
+        ms = gpu_ms(lambda: mm.blocked_matmul(x, w), reps=20)
+        plain_ms = gpu_ms(lambda: mm.blocked_matmul_plain(x, w))
+        lib_ms = gpu_ms(lambda: x @ w, reps=20)
+        least = bound(2 * m * k * n, 2 * (m * k + k * n + m * n))
+        print(f"[kernel] blocked_matmul {label} ({m},{k})x({k},{n}): max|d| {err:.3e} of "
+              f"max|ref| {ref:.3e} (tol {MATMUL_TOL} x max|ref|) | {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library x @ w {lib_ms:.3f} ms, bound "
+              f"{least['bound_ms']:.3f} ms by {least['bound_by']}", flush=True)
+        assert np.isfinite(err) and err <= MATMUL_TOL * ref, (label, err, ref)
+        if label == "unet level 0 qkv":
+            results["blocked_matmul"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "library_ms": lib_ms, **least}
+        del x, w, got
+        torch.cuda.empty_cache()
+
+    bh, s_, d = 140, 9216, 64
+    q, k, v = (torch.randn((bh, s_, d), device=dev, generator=gen).bfloat16() for _ in range(3))
+    t = fv.bound_t(q, k)
+    qt, kt, vt = (x[:, None] for x in (q, k, v))  # (B*H, 1, S, D) for the library call
+    lib_ms = gpu_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=3)
+    least = bound(4 * bh * s_ * s_ * d, 4 * bh * s_ * d * 2 + bh * s_ * 4)
+    for mode in fv.MODES:
+        def plain(*a, mode=mode):
+            return fv.flash_variant_plain(*a, mode)
+
+        want = in_row_chunks(plain, (q, k, v, t), rows=4).float()
+        plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v, t), rows=4), reps=1)
+        ref = want.abs().max().item()
+        for tile in ((64, 64), (128, 64)):
+            got = fv.flash_variant(q, k, v, t, mode, tile)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            ms = gpu_ms(lambda: fv.flash_variant(q, k, v, t, mode, tile), reps=3)
+            print(f"[kernel] flash_variant {mode} tile {tile[0]}x{tile[1]} (B*H,S,D)="
+                  f"{(bh, s_, d)}: max|d| {err:.3e} of max|ref| {ref:.3e} (tol "
+                  f"{VARIANT_TOL[mode]} x max|ref|) | {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                  f"(chunks of 4 rows), library sdpa {lib_ms:.3f} ms, bound "
+                  f"{least['bound_ms']:.3f} ms by {least['bound_by']}", flush=True)
+            assert np.isfinite(err) and err <= VARIANT_TOL[mode] * ref, (mode, tile, err, ref)
+            if mode == "base" and tile == (64, 64):
+                results["flash_variant"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                            "library_ms": lib_ms, **least}
+        del want
+    del q, k, v, t
+    torch.cuda.empty_cache()
+    return results
+
+
+def _tiny_widths():
+    """The tiny configuration of tests/test_pipeline_torch_oracle.py:35-46: UNet overrides,
+    VAE and CLIP configs."""
+    from lkgd_torch.models.configs import CLIPVisionConfig, TemporalVAEConfig
+
+    unet = dict(block_out_channels=(32, 64),
+                down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
+                up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
+                layers_per_block=1, num_attention_heads=(2, 4), cross_attention_dim=64)
+    return (unet, TemporalVAEConfig(block_out_channels=(32, 64), layers_per_block=1),
+            CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=64, num_layers=2,
+                             num_heads=2, intermediate_size=128, projection_dim=64))
+
+
 def _tiny_pipeline(device):
-    from lkgd_torch.models.configs import CLIPVisionConfig, SVDUNetConfig, TemporalVAEConfig
+    from lkgd_torch.models.configs import SVDUNetConfig
     from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline
 
-    # the tiny configuration of tests/test_pipeline_torch_oracle.py:35-46
+    unet, vae, clip = _tiny_widths()
     return StableVideoDiffusionPipeline(
         config=SVDPipelineConfig(height=48, width=48, num_frames=4, num_inference_steps=3,
                                  decode_chunk_size=2),
-        unet_config=SVDUNetConfig(
-            block_out_channels=(32, 64),
-            down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
-            up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
-            layers_per_block=1, num_attention_heads=(2, 4), cross_attention_dim=64),
-        vae_config=TemporalVAEConfig(block_out_channels=(32, 64), layers_per_block=1),
-        clip_config=CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=64,
-                                     num_layers=2, num_heads=2, intermediate_size=128,
-                                     projection_dim=64),
+        unet_config=SVDUNetConfig(**unet), vae_config=vae, clip_config=clip,
         dtype=torch.float32, device=device)
 
 
@@ -278,7 +448,6 @@ def phase_tiny(dev: torch.device) -> None:
 
 def phase_full(dev: torch.device) -> dict:
     from lkgd_torch.ops import flash_attention as fa
-    from lkgd_torch.ops import group_norm as gn
     from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline
 
     cfg = SVDPipelineConfig(height=576, width=1024, num_frames=14, num_inference_steps=25,
@@ -309,7 +478,7 @@ def phase_full(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if clip == 2:
-            launches = {**fa.launches, **gn.launches}
+            launches = _read_counts()
             recomputed = int(fa.recomputed_tiles(dev).item())
             peak = torch.cuda.max_memory_allocated(dev)
         print(f"[full] clip {clip}{' (warm-up)' if clip == 1 else ''}: {t2 - t0:.3f} s/clip "
@@ -324,18 +493,234 @@ def phase_full(dev: torch.device) -> dict:
           f"std {frames.std().item():.4f}", flush=True)
     for name in INFERENCE:
         assert launches.get(name, 0) > 0, f"kernel {name} was not launched by the main path"
-    for name in TRAINING:  # inference asks for no gradient: the training kernels stay idle
+    for name in TRAINING + EXPERIMENTS:  # no gradient is asked for, no microbenchmark runs
         assert launches.get(name, 0) == 0, f"kernel {name} was launched by inference"
     return launches
 
 
-def _zero_counts() -> None:
+def _all_counts() -> tuple:
     from lkgd_torch.ops import flash_attention as fa
+    from lkgd_torch.ops import flash_variants as fv
     from lkgd_torch.ops import group_norm as gn
+    from lkgd_torch.ops import matmul as mm
 
-    for counts in (fa.launches, gn.launches):
+    return fa.launches, gn.launches, mm.launches, fv.launches
+
+
+def _zero_counts() -> None:
+    for counts in _all_counts():
         for name in counts:
             counts[name] = 0
+
+
+def _read_counts() -> dict:
+    return {name: n for counts in _all_counts() for name, n in counts.items()}
+
+
+def _tiny_trans_pipeline(device, sequential_cfg: bool = False):
+    """The tiny widths through the inference CLI's ``build_pipeline`` in trans mode: joint
+    attention with flip, spatial and temporal, and the two stream-masked LoRA rules."""
+    from lkgd_torch.cli import run_inference_svd as cli
+
+    argv = ["--mode", "trans", "--image", "-", "--height", "48", "--width", "48",
+            "--num-frames", "4", "--num-inference-steps", "3", "--decode-chunk-size", "2",
+            "--flip", "--temporal", "--lora-rank", "2", "--dtype", "fp32", "--device",
+            str(device)] + (["--sequential-cfg"] if sequential_cfg else [])
+    return cli.build_pipeline(cli.make_parser().parse_args(argv), cli.Widths(*_tiny_widths()))
+
+
+def _randomize(pipe, seed: int) -> None:
+    """Every parameter random: the joint branch's post projections and the LoRA B factors
+    are zero at init, where a wrong branch would add nothing and pass every comparison."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for model in pipe.models:
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
+
+
+def phase_tiny_trans(dev: torch.device) -> None:
+    cpu = _tiny_trans_pipeline("cpu")
+    _randomize(cpu, 13)
+    rng = np.random.default_rng(6)
+    image = torch.from_numpy(rng.uniform(size=(2, 48, 48, 3)).astype(np.float32))
+    kw = dict(noise_aug=torch.from_numpy(rng.standard_normal((2, 48, 48, 3)).astype(np.float32)),
+              initial_noise=torch.from_numpy(
+                  rng.standard_normal((2, 4, 24, 24, 4)).astype(np.float32)))
+    lat_cpu = cpu.denoise(image, **kw)
+    frames_cpu = cpu.decode_latents(lat_cpu)
+    assert (lat_cpu[0] - lat_cpu[1]).abs().max().item() > 1e-3, "the streams must differ"
+    for sequential in (False, True):
+        gpu = _tiny_trans_pipeline(dev, sequential)
+        for src, dst in zip(cpu.models, gpu.models):
+            dst.load_state_dict(src.state_dict(), strict=True)
+        lat_gpu = gpu.denoise(image, **kw)
+        frames_gpu = gpu.decode_latents(lat_gpu)
+        torch.cuda.synchronize()
+        for name, got, want in (("latents", lat_gpu, lat_cpu),
+                                ("frames", frames_gpu, frames_cpu)):
+            got = got.cpu()
+            err = (got - want).abs().max().item()
+            print(f"[tiny-trans] {'sequential_cfg' if sequential else 'batched'} GPU vs batched "
+                  f"CPU fp32 {name} {tuple(want.shape)}: max|d| {err:.3e} (rtol 1e-4, atol "
+                  f"2e-4)", flush=True)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+
+
+_KINDS = (("flash attention kernels", ("flash_fwd",)),
+          ("GroupNorm kernels", ("gn_",)),
+          ("cuDNN convolutions", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
+          ("cuBLAS matrix products", ("gemm", "cutlass", "nvjet", "cublas", "gemv")),
+          ("LayerNorm", ("layer_norm", "LayerNorm")),
+          ("softmax", ("softmax",)),
+          ("copies and concatenations", ("copy", "Memcpy", "Memset", "cat", "Cat", "fill")),
+          ("reductions", ("reduce",)),
+          ("elementwise", ("elementwise", "vectorized")))
+
+
+def _device_time_by_kind(prof) -> tuple[float, dict, int]:
+    """Device ms, ms by kind of kernel (matched on the kernel's name) and the number of
+    device operations of a profile."""
+    from torch.autograd import DeviceType
+
+    total, kinds, count = 0.0, {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        total += ms
+        count += e.count
+        kind = next((name for name, words in _KINDS if any(w in e.key for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    return total, dict(sorted(kinds.items(), key=lambda kv: -kv[1])), count
+
+
+def phase_trans_full(dev: torch.device) -> dict:
+    """The full-width frame-transition clip: a warm-up and a timed, counted clip with
+    batched CFG (56 UNet rows), then one with ``sequential_cfg`` on the same weights."""
+    from lkgd_torch.cli import run_inference_svd as cli
+    from lkgd_torch.ops import flash_attention as fa
+
+    args = cli.make_parser().parse_args(
+        ["--mode", "trans", "--image", "-", "--joint-mask", "0,1,0,1", "--flip", "--temporal",
+         "--lora-rank", "4", "--decode-chunk-size", "14", "--seed", "0", "--device", str(dev),
+         "--sequential-cfg"])  # builds both UNet forms; each clip below picks one
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    cfg = pipe.config
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # conv1n (and the LoRA B factors) are zero at init, so the joint branch and the adapters
+    # would add nothing to the output: fill them with small seeded random values, so that the
+    # clip's values really pass through attn1n and a wrong branch would show
+    filled = 0
+    with torch.no_grad():
+        for name, p in pipe.unet.named_parameters():
+            if ".conv1n." in name or name.endswith("_B"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+                filled += 1
+    n_params = sum(p.numel() for m in pipe.models for p in m.parameters())
+    images = torch.rand((2, cfg.height, cfg.width, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[trans] {n_params / 1e9:.3f} B bf16 random params ({filled} conv1n and LoRA B "
+          f"tensors filled with 0.02 x normal), joint {pipe.unet.config.joint}, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    import dataclasses
+
+    def clip(seed: int, sequential: bool) -> dict:
+        """One clip from zeroed counters: its times, peaks, launch counts and outputs."""
+        pipe.config = dataclasses.replace(cfg, sequential_cfg=sequential)
+        _zero_counts()
+        fa.recomputed_tiles(dev).zero_()
+        torch.cuda.reset_peak_memory_stats(dev)
+        clip_gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents = pipe.denoise(images, clip_gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        denoise_peak = torch.cuda.max_memory_allocated(dev)
+        frames = pipe.decode_latents(latents)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return {"s": t2 - t0, "denoise_s": t1 - t0, "decode_s": t2 - t1,
+                "denoise_peak": denoise_peak, "peak": torch.cuda.max_memory_allocated(dev),
+                "launches": _read_counts(), "recomputed": int(fa.recomputed_tiles(dev).item()),
+                "latents": latents, "frames": frames}
+
+    runs = {}
+    for label, seed, sequential in (("warm-up, batched CFG (56 UNet rows)", 1, False),
+                                    ("batched CFG (56 UNet rows)", 2, False),
+                                    ("sequential_cfg (2 x 28 UNet rows)", 2, True)):
+        runs[label] = r = clip(seed, sequential)
+        print(f"[trans] {label}: {r['s']:.3f} s/clip = denoise {r['denoise_s']:.3f} s "
+              f"({cfg.num_inference_steps} steps) + decode {r['decode_s']:.3f} s | peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB (denoise alone {r['denoise_peak'] / 2**30:.2f} GiB) "
+              f"| launches { {k: v for k, v in r['launches'].items() if v} } | fallback tiles "
+              f"recomputed {r['recomputed']}", flush=True)
+    pipe.config = cfg
+    timed, seq = runs["batched CFG (56 UNet rows)"], runs["sequential_cfg (2 x 28 UNet rows)"]
+    launches, latents, frames = timed["launches"], timed["latents"], timed["frames"]
+    assert frames.shape == (2, cfg.num_frames, cfg.height, cfg.width, 3), frames.shape
+    assert torch.isfinite(latents).all() and torch.isfinite(frames).all(), "non-finite output"
+    assert frames.min().item() >= 0.0 and frames.max().item() <= 1.0
+    streams = (latents[0] - latents[1]).abs().max().item()
+    # the same seed through both forms: bf16 kernels see other batch shapes, so the forms
+    # agree loosely (a 25-step loop amplifies bf16 rounding); reported, and held finite
+    forms = (seq["latents"] - latents).abs().max().item()
+    print(f"[trans] timed clip: launches predicted flash 503 each, GroupNorm 2763 each | "
+          f"frames mean {frames.mean().item():.4f} std {frames.std().item():.4f} | streams "
+          f"differ by max {streams:.3f} in the latents | sequential_cfg vs batched latents "
+          f"max|d| {forms:.3f} of max|latent| {latents.abs().max().item():.3f} (bf16)",
+          flush=True)
+    assert streams > 1e-3, "the two streams must differ"
+    assert torch.isfinite(seq["frames"]).all(), "non-finite sequential_cfg output"
+    for name in INFERENCE:
+        assert launches.get(name, 0) > 0, f"kernel {name} was not launched by the trans clip"
+    for name in TRAINING + EXPERIMENTS:
+        assert launches.get(name, 0) == 0, f"kernel {name} was launched by the trans clip"
+    del frames, latents, runs, timed, seq
+
+    # one UNet step under the profiler: where the step's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = 2 * images.shape[0]
+    model_in = torch.randn((rows, cfg.num_frames, pipe.latent_height, pipe.latent_width, 8),
+                           generator=gen, device=dev).to(pipe.dtype)
+    emb = torch.randn((rows, 1, 1024), generator=gen, device=dev).to(pipe.dtype)
+    ids = pipe._add_time_ids(rows)
+    with torch.inference_mode():
+        pipe.unet(model_in, pipe.schedule.timesteps[5], emb, ids)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.unet(model_in, pipe.schedule.timesteps[5], emb, ids)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, kinds, n_ops = _device_time_by_kind(prof)
+    print(f"[trans] one UNet step under torch.profiler: wall {wall_ms:.1f} ms, device "
+          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% busy), {n_ops} device "
+          f"operations | " + ", ".join(f"{k} {v:.1f} ms ({100 * v / device_ms:.1f}%)"
+                                       for k, v in kinds.items()), flush=True)
+    assert device_ms > 0.0
+    return launches
+
+
+def phase_experiments(dev: torch.device) -> dict:
+    """The two microbenchmark entry points at their default (full) shapes."""
+    from lkgd_torch.experiments import flash_variant_microbench, matmul_microbench
+
+    _zero_counts()
+    rows = matmul_microbench.main(["--device", str(dev), "--reps", "20"])
+    assert all(r["ok"] for r in rows), rows
+    rows = flash_variant_microbench.main(["--device", str(dev), "--reps", "3"])
+    assert all(np.isfinite(r["ms"]) for r in rows), rows
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    print(f"[experiments] launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    for name in EXPERIMENTS:
+        assert launches.get(name, 0) > 0, f"kernel {name} was not launched by its entry point"
+    return launches
 
 
 def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
@@ -374,15 +759,29 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             plain_ms = gpu_ms(lambda: plain(q, k, v), reps=2)
             out_err = (out.float() - want_out).abs().max().item()
             lse_err = (lse - want_lse).abs().max().item()
+            lib_ms, least = sdpa_ms(q, k, v), flash_bound(shape, rows_fp32=1)
             print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} x{scale}: out max|d| "
                   f"{out_err:.3e} of max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x "
                   f"max|ref|) lse max|d| {lse_err:.3e} (tol {lse_tol:.3g}) | {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms | tiles recomputed {recomputed}", flush=True)
+                  f"{plain_ms:.3f} ms, library sdpa {lib_ms:.3f} ms, bound "
+                  f"{least['bound_ms']:.3f} ms by {least['bound_by']} | tiles recomputed "
+                  f"{recomputed}", flush=True)
             assert np.isfinite(out_err) and out_err <= out_tol, (kernel, label, out_err, out_tol)
             assert np.isfinite(lse_err) and lse_err <= lse_tol, (kernel, label, lse_err)
             if label == "fallback" and kernel == "flash_bound_lse":
                 assert recomputed > 0, "the huge-norm input must trip the fallback"
-            row[kernel] = {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms}
+            row[kernel] = {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, **least}
+
+        # the library's backward for kernels 9 and 10 together: autograd through its fused
+        # attention on the same inputs
+        import torch.nn.functional as F
+
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        lib_bwd_ms = gpu_ms(lambda: torch.autograd.grad(lib_out, leaves, do.transpose(1, 2),
+                                                        retain_graph=True))
+        del lib_out, leaves
 
         # the backward from the guarded forward's out and lse, as the autograd Function
         out, lse = fa.flash_fwd_lse(q, k, v)
@@ -400,19 +799,24 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 errs[name] = ((g.float() - w).abs().max().item(), w.abs().max().item())
             ms = gpu_ms(lambda: fn(*args))
             plain_ms = gpu_ms(lambda: plain(*args), reps=2)
+            # dq: 3 S x S x D products, q, k, v, dO in and dq out; dk/dv: 4 and 6; lse, delta
+            least = flash_bound(shape, products=2 + len(names), tensors=4 + len(names),
+                                rows_fp32=2)
             print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} x{scale}: " + ", ".join(
                 f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {GRAD_TOL} x max|ref|)"
-                for n, (e, m) in errs.items()) + f" | {ms:.3f} ms, plain {plain_ms:.3f} ms",
-                flush=True)
+                for n, (e, m) in errs.items()) + f" | {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {least['bound_ms']:.3f} ms by {least['bound_by']} | library sdpa "
+                f"backward (dq, dk and dv together) {lib_bwd_ms:.3f} ms", flush=True)
             for name, (e, m) in errs.items():
                 assert e <= GRAD_TOL * m, (kernel, label, name, e, m)
+            # library_ms is one backward for both kernels' work: the same number in both
             row[kernel] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": ms,
-                           "plain_ms": plain_ms}
+                           "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least}
         # one call of the Function: 3 splits, 7/8, 1 merge; then 1 split, 9, 10, 3 merges
         per_call = {"flash_bound_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                     "split_heads": 4, "merge_heads": 4}
-        fwd_bwd = sum(n * row[k]["ms"] for k, n in per_call.items())
-        plain_fwd_bwd = sum(n * row[k]["plain_ms"] for k, n in per_call.items())
+        fwd_bwd = sum(n * row[name]["ms"] for name, n in per_call.items())
+        plain_fwd_bwd = sum(n * row[name]["plain_ms"] for name, n in per_call.items())
         print(f"[train-kernel] {label}: fwd+bwd (kernels 5 x4 + 7/8 + 9 + 10 + 6 x4) "
               f"{fwd_bwd:.3f} ms, plain {plain_fwd_bwd:.3f} ms", flush=True)
         if label == "unet level 0":
@@ -435,12 +839,16 @@ def _relayout_check(fa, label: str, shape, randn) -> dict:
     for name, fn, plain, arg in (("split_heads", fa.split_heads, fa.split_heads_plain, x),
                                  ("merge_heads", fa.merge_heads, fa.merge_heads_plain, split)):
         ms, plain_ms = gpu_ms(lambda: fn(arg)), gpu_ms(lambda: plain(arg))
-        mb = arg.numel() * arg.element_size() / 2 ** 20
-        print(f"[train-kernel] {name} {label} (B,S,H,D)={shape} ({mb:.1f} MiB): max|d| "
-              f"{errs[name]:.3e} (tol 0: a copy) | {ms:.3f} ms, plain {plain_ms:.3f} ms",
+        nbytes = arg.numel() * arg.element_size()
+        least = bound(0, 2 * nbytes)  # each byte read once and written once
+        print(f"[train-kernel] {name} {label} (B,S,H,D)={shape} ({nbytes / 2 ** 20:.1f} MiB): "
+              f"max|d| {errs[name]:.3e} (tol 0: a copy) | {ms:.3f} ms, plain and library "
+              f"transpose().contiguous() {plain_ms:.3f} ms, bound {least['bound_ms']:.4f} ms",
               flush=True)
         assert errs[name] == 0.0, (name, label, errs[name])
-        row[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
+        # the plain version is the library call here
+        row[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": plain_ms, **least}
     return row
 
 
@@ -548,7 +956,6 @@ def phase_train_full(dev: torch.device) -> dict:
 
     from lkgd_torch.cli import train_svd_lora as cli
     from lkgd_torch.ops import flash_attention as fa
-    from lkgd_torch.ops import group_norm as gn
 
     with tempfile.TemporaryDirectory() as out_dir:
         args = cli.make_parser().parse_args([
@@ -621,7 +1028,7 @@ def phase_train_full(dev: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         step_s, cpu_s = window(1, 4)
-        launches = {**fa.launches, **gn.launches}
+        launches = _read_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         for h in hooks:
             h.remove()
@@ -680,7 +1087,7 @@ def phase_train_full(dev: torch.device) -> dict:
         for name, p in run.unet.named_parameters():
             if name in frozen:
                 assert torch.equal(p, frozen[name]), f"frozen {name} moved"
-        for name in REPLACES:
+        for name in INFERENCE + TRAINING:
             assert launches.get(name, 0) > 0, f"kernel {name} was not launched by training"
         assert busy > 0.0, busy
 
@@ -713,18 +1120,30 @@ def main() -> int:
     smi, kind = phase_device()
     phase_build()
     kernels = phase_kernels(dev, torch.Generator(device=dev).manual_seed(1234))
+    kernels.update(phase_experiment_kernels(dev, torch.Generator(device=dev).manual_seed(99)))
     phase_tiny(dev)
+    phase_tiny_trans(dev)
     clip_launches = phase_full(dev)
+    torch.cuda.empty_cache()
+    trans_launches = phase_trans_full(dev)
     torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
     phase_train_tiny(dev)
     train_launches = phase_train_full(dev)
-    # launches: the inference kernels' count from the clip, the training kernels' from the
-    # counted training steps; both paths' counts under launches_by_path
+    torch.cuda.empty_cache()
+    experiment_launches = phase_experiments(dev)
+    # launches: each kernel's count on the path that is its own (the inference kernels' from
+    # the base clip, the training kernels' from the counted training steps, the
+    # microbenchmark kernels' from their entry points); every path's count under
+    # launches_by_path
+    by_path = {"clip": clip_launches, "trans": trans_launches, "train": train_launches,
+               "experiments": experiment_launches}
+    own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
+           **dict.fromkeys(EXPERIMENTS, "experiments")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": (clip_launches if name in INFERENCE else train_launches)[name],
-         "launches_by_path": {"clip": clip_launches[name], "train": train_launches[name]},
+         "launches": by_path[own[name]][name],
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          **kernels[name]} for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

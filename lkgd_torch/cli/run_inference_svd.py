@@ -1,44 +1,53 @@
-"""Image-to-video inference with the PyTorch port, base mode (counterpart of
-``lkgd_tpu/cli/run_inference_svd.py`` ``--mode base``).
+"""Image-to-video inference with the PyTorch port (counterpart of
+``lkgd_tpu/cli/run_inference_svd.py``, modes ``base`` and ``trans``).
 
-Example::
+Examples::
 
+  # base image-to-video from one frame
   python -m lkgd_torch.cli.run_inference_svd --image frame.png --output out.gif \
-      --height 576 --width 1024 --num-frames 14 --device cuda
+      --height 576 --width 1024 --num-frames 14
 
-The weights are random, drawn from ``--seed`` at the real shapes (smoke and benchmark
-mode): loading a checkpoint (``--weights``) waits until one is in the repository.
+  # frame transition between two frames (two streams coupled by joint attention)
+  python -m lkgd_torch.cli.run_inference_svd --mode trans --image start.png \
+      --end-image end.png --joint-mask 0,1,0,1 --flip --lora-rank 4
+
+It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
+unless ``--device cpu`` is given. The weights are random, drawn from ``--seed`` at the real
+shapes (smoke and benchmark mode): loading a checkpoint (``--weights``) waits until one is
+in the repository. The modes ``smooth``, ``flow`` and ``controlnet`` are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
+import numpy as np
 import torch
 
+from lkgd_torch.models.configs import (CLIPVisionConfig, JointAttentionConfig, LoraRouter,
+                                       LoraRule, SVDUNetConfig, TemporalVAEConfig)
 from lkgd_torch.pipelines.svd import StableVideoDiffusionPipeline, SVDPipelineConfig
+from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
-def build_pipeline(args) -> StableVideoDiffusionPipeline:
-    config = SVDPipelineConfig(
-        height=args.height, width=args.width, num_frames=args.num_frames,
-        num_inference_steps=args.num_inference_steps,
-        min_guidance_scale=args.min_guidance_scale,
-        max_guidance_scale=args.max_guidance_scale, fps=args.fps,
-        motion_bucket_id=args.motion_bucket_id, noise_aug_strength=args.noise_aug_strength,
-        decode_chunk_size=args.decode_chunk_size)
-    pipe = StableVideoDiffusionPipeline(config=config, dtype=_DTYPES[args.dtype],
-                                        device=args.device)
-    print("random weights from --seed (no checkpoint is loaded)")
-    pipe.init_params(torch.Generator(device=pipe.device).manual_seed(args.seed))
-    return pipe
+@dataclasses.dataclass(frozen=True)
+class Widths:
+    """The models' widths: the published ones by default (SVD, its VAE, CLIP-H); the CPU
+    tests pass tiny ones. ``unet``: overrides of ``SVDUNetConfig`` fields."""
+
+    unet: dict = dataclasses.field(default_factory=dict)
+    vae: TemporalVAEConfig = TemporalVAEConfig()
+    clip: CLIPVisionConfig = CLIPVisionConfig()
 
 
-def main(argv=None) -> None:
+def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--mode", choices=["base", "trans"], default="base")
     p.add_argument("--image", required=True)
+    p.add_argument("--end-image", help="trans mode: the end frame (default: --image again)")
     p.add_argument("--output", default="output.gif")
     p.add_argument("--height", type=int, default=576)
     p.add_argument("--width", type=int, default=1024)
@@ -51,19 +60,76 @@ def main(argv=None) -> None:
     p.add_argument("--noise-aug-strength", type=float, default=0.02)
     p.add_argument("--decode-chunk-size", type=int, default=2)
     p.add_argument("--seed", type=int, default=23123134)  # reference default seed
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    # trans / joint options
+    p.add_argument("--joint-mask", default="0,1,0,1")
+    p.add_argument("--post-joint", choices=["conv", "scale", "conv_fuse"], default="conv")
+    p.add_argument("--flip", action="store_true")
+    p.add_argument("--temporal", action="store_true")
+    p.add_argument("--nospatial", action="store_true")
+    p.add_argument("--lora-rank", type=int, default=0)
+    p.add_argument("--knowledge-fusion", action="store_true")
+    p.add_argument("--sequential-cfg", action="store_true",
+                   help="run the two CFG halves one after the other: a lower peak of "
+                        "activation memory in the denoising loop")
+    p.add_argument("--device", default="cuda",
+                   help="the card by default; a run without one fails unless cpu is named")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16")
-    args = p.parse_args(argv)
+    return p
 
-    # numpy-only host IO shared with the JAX package (imports no jax)
-    from lkgd_tpu.data.video_io import load_input, process_frames, write_video
 
-    pipe = build_pipeline(args)
+def unet_config(args, widths: Widths = Widths()) -> SVDUNetConfig:
+    """The UNet of ``--mode``: in trans mode the joint topology and, with ``--lora-rank``,
+    the two stream-masked adapters (``yx_lora`` on the joint branch's ``attn1n`` for the
+    mask's streams, ``xy_lora`` on the temporal self-attention for the others)."""
+    joint, lora = None, LoraRouter()
+    if args.mode == "trans":
+        mask = tuple(int(x) for x in args.joint_mask.split(","))
+        joint = JointAttentionConfig(post=args.post_joint, flip=args.flip, mask=mask,
+                                     spatial=not args.nospatial, temporal=args.temporal)
+        if args.lora_rank:
+            inv = tuple(1 - m for m in mask)
+            lora = LoraRouter(rules=(
+                LoraRule("*attn1n*", "yx_lora", args.lora_rank, args.lora_rank, mask),
+                LoraRule("*temporal_transformer_blocks*attn1.*", "xy_lora", args.lora_rank,
+                         args.lora_rank, inv)))
+    return SVDUNetConfig(**{**widths.unet, "num_frames": args.num_frames, "joint": joint,
+                            "lora": lora, "knowledge_fusion": args.knowledge_fusion})
+
+
+def build_pipeline(args, widths: Widths = Widths()) -> StableVideoDiffusionPipeline:
+    config = SVDPipelineConfig(
+        height=args.height, width=args.width, num_frames=args.num_frames,
+        num_inference_steps=args.num_inference_steps,
+        min_guidance_scale=args.min_guidance_scale,
+        max_guidance_scale=args.max_guidance_scale, fps=args.fps,
+        motion_bucket_id=args.motion_bucket_id, noise_aug_strength=args.noise_aug_strength,
+        decode_chunk_size=args.decode_chunk_size, sequential_cfg=args.sequential_cfg)
+    cls = StableVideoDiffusionTransPipeline if args.mode == "trans" \
+        else StableVideoDiffusionPipeline
+    pipe = cls(config=config, unet_config=unet_config(args, widths), vae_config=widths.vae,
+               clip_config=widths.clip, dtype=_DTYPES[args.dtype], device=args.device)
+    print("random weights from --seed (no checkpoint is loaded)")
+    pipe.init_params(torch.Generator(device=pipe.device).manual_seed(args.seed))
+    return pipe
+
+
+def main(argv=None, widths: Widths = Widths()) -> None:
+    args = make_parser().parse_args(argv)
+
+    from lkgd_torch.data.video_io import load_input, process_frames, write_video
+
+    pipe = build_pipeline(args, widths)
     image = process_frames(load_input(args.image)[:1], args.height, args.width)
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
-    video = pipe(image, generator=generator)[0]
-    write_video(args.output, video, fps=args.fps)
-    print(f"wrote {args.output}: {video.shape}")
+    if args.mode == "trans":
+        end_frames = load_input(args.end_image or args.image)
+        end_image = process_frames(end_frames[-1:], args.height, args.width)[0]
+        video = pipe(image[0], end_image, generator=generator)
+        out = np.concatenate([video[0], video[1]], axis=2)  # the two streams side by side
+    else:
+        out = pipe(image, generator=generator)[0]
+    write_video(args.output, out, fps=args.fps)
+    print(f"wrote {args.output}: {out.shape}")
 
 
 if __name__ == "__main__":

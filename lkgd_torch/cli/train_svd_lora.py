@@ -34,6 +34,7 @@ from lkgd_torch.ops.resize import resize_with_antialiasing
 from lkgd_torch.training.train_state import (SVDTrainConfig, init_train_state, make_optimizer,
                                              make_svd_train_step)
 from lkgd_torch.training.trainer import Trainer, TrainerConfig, export_trainable_safetensors
+from lkgd_torch.utils.device import require_device
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 VAE_SCALING = 0.18215
@@ -69,7 +70,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="metrics go to output-dir/metrics.jsonl; the others are not ported yet")
     p.add_argument("--validation-image", action="append", default=[],
                    help="in-training validation sampling: not ported yet")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", default="cuda",
+                   help="the card by default; a run without one fails unless cpu is named")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
                    help="compute dtype and the dtype of the frozen weights (trained ones stay "
                         "fp32); the CUDA flash kernels take bf16 only")
@@ -119,7 +121,7 @@ def build(args, widths: Widths = Widths()) -> TrainRun:
     """Models with random weights from ``--seed``, the preprocessing, the train step and the
     trainer, for ``--mode lkgd``."""
     _refuse_unported(args)
-    device, dtype = torch.device(args.device), _DTYPES[args.dtype]
+    device, dtype = require_device(args.device), _DTYPES[args.dtype]
     unet_config = SVDUNetConfig(
         **{**widths.unet, "num_frames": args.num_frames, "knowledge_fusion": True,
            "remat": args.remat,

@@ -2,8 +2,8 @@
 ``MiniDataset`` and a loader with the contract of the JAX package's ``PrefetchLoader``
 that yields torch tensors on a device.
 
-Video decoding is the JAX package's numpy-only ``lkgd_tpu/data/video_io.py`` (it imports
-no jax; OpenCV is imported only when a clip is read).
+Video decoding is ``lkgd_torch/data/video_io.py`` (numpy; OpenCV is imported only when a
+clip is read).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from lkgd_tpu.data.video_io import process_frames, read_video_frames
+from lkgd_torch.data.video_io import process_frames, read_video_frames
+from lkgd_torch.utils.device import require_device
 
 
 class MiniDataset:
@@ -59,16 +60,17 @@ class PrefetchLoader:
     """Shuffled, batched, background-prefetched loader: one thread keeps ``prefetch``
     stacked numpy batches queued; each is handed out as torch tensors on ``device``
     (the keys in ``drop_keys`` stay lists). Iterates epoch after epoch until the consumer
-    stops; leaving the iteration stops the thread."""
+    stops; leaving the iteration stops the thread. ``device`` defaults to the card and
+    raises when there is none: name ``"cpu"`` to get CPU tensors."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 prefetch: int = 2, device="cpu", drop_keys: Sequence[str] = ("caption",)):
+                 prefetch: int = 2, device="cuda", drop_keys: Sequence[str] = ("caption",)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.drop_keys = set(drop_keys)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:

@@ -1,0 +1,67 @@
+"""Microbenchmark: the levers inside the bound-softmax flash forward, one at a time, at the
+UNet's dominant attention shape (counterpart of
+``experiments/flash_variant_microbench.py``).
+
+    python -m lkgd_torch.experiments.flash_variant_microbench
+
+Rows printed: the card's name and power limit; ``wrapper``, the production path
+(``flash_attention``: the bound in PyTorch, the bound kernel, the guarded max-tracking
+launch); then each mode of ``flash_variant`` (``base``, ``prescale``, ``bf16exp``,
+``prescale_bf16exp``, ``noexp``) at each tile shape, with its time, its rate over
+``4*S^2*D*B*H`` operations and ``max|d-base|`` against the ``base`` result of the first
+tile (``noexp`` is no softmax: nan). Defaults are UNet level 0 of a CFG-doubled 14-frame
+clip, ``(B*H, S, D) = (140, 9216, 64)``; ``--bh``, ``--s``, ``--d``, ``--tiles`` and
+``--reps`` set other sizes. The bound ``t`` is computed once, outside the timed calls, as
+the kernel takes it as an input. Each time is the mean over ``--reps`` launches after a
+warm-up, between CUDA events.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from lkgd_torch.experiments._timing import device_line, time_ms
+from lkgd_torch.ops.flash_attention import flash_attention
+from lkgd_torch.ops.flash_variants import MODES, TILES, bound_t, flash_variant
+from lkgd_torch.utils.device import require_device
+
+
+def main(argv=None) -> list:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--bh", type=int, default=140)
+    p.add_argument("--s", type=int, default=9216)
+    p.add_argument("--d", type=int, default=64)
+    p.add_argument("--tiles", nargs="+", default=[f"{q}x{k}" for q, k in TILES],
+                   help="query x key rows of a block, e.g. 64x64 128x64")
+    p.add_argument("--reps", type=int, default=8)
+    args = p.parse_args(argv)
+    device = require_device(args.device)
+    tiles = [tuple(int(v) for v in t.split("x")) for t in args.tiles]
+    print(device_line(device), flush=True)
+    generator = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn((args.bh, args.s, args.d), generator=generator,
+                           device=device).bfloat16() for _ in range(3))
+    t = bound_t(q, k)
+    flops = 4 * args.s * args.s * args.d * args.bh
+
+    ms = time_ms(lambda: flash_attention(q[:, :, None], k[:, :, None], v[:, :, None]), device,
+                 args.reps)
+    print(f"wrapper      : {ms:8.2f} ms {flops / ms / 1e9:6.1f} TF/s", flush=True)
+    ref = flash_variant(q, k, v, t, "base", tiles[0]).float()
+    rows = []
+    for mode in MODES:
+        for tile in tiles:
+            ms = time_ms(lambda: flash_variant(q, k, v, t, mode, tile), device, args.reps)
+            got = flash_variant(q, k, v, t, mode, tile).float()
+            err = (got - ref).abs().max().item() if mode != "noexp" else float("nan")
+            print(f"{mode:16s} ({tile[0]},{tile[1]}): {ms:8.2f} ms {flops / ms / 1e9:6.1f} "
+                  f"TF/s max|d-base|={err:.2e}", flush=True)
+            rows.append({"mode": mode, "tile": tile, "ms": ms, "max_abs_diff": err})
+    return rows
+
+
+if __name__ == "__main__":
+    main()

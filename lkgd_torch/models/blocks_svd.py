@@ -1,5 +1,11 @@
 """Spatio-temporal UNet building blocks of the port (counterpart of
-``lkgd_tpu/models/blocks_svd.py``), without joint attention.
+``lkgd_tpu/models/blocks_svd.py``), with the joint x<->y stream attention of the spatial
+and temporal transformer blocks.
+
+The joint branch's parameters sit directly on the transformer block under diffusers'
+names (``attn1n``, ``conv1n`` | ``scale1n``, ``norm1n``), with no scope of their own: the
+JAX exporter drops its ``joint.`` scope, and the exported state dicts load here with
+``strict=True``.
 
 LoRA adapters are resolved by the ``LoraRouter`` on the same diffusers-style paths as in
 the JAX package (``down_blocks.0.attentions.1.temporal_transformer_blocks.0.attn1``,
@@ -14,14 +20,15 @@ The JAX package's ``Upsample2D`` is nearest-2x followed by a 3x3 convolution; it
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lkgd_torch.models.configs import EMPTY_ROUTER, LoraRouter
+from lkgd_torch.models.configs import EMPTY_ROUTER, JointAttentionConfig, LoraRouter
 from lkgd_torch.models.layers import (
+    AdaLayerNormContinuous,
     AlphaBlender,
     Attention,
     Conv2d,
@@ -30,6 +37,7 @@ from lkgd_torch.models.layers import (
     GroupNorm,
     TemporalConv,
     TimestepEmbedding,
+    ZeroInitLinear,
     get_timestep_embedding,
     nearest_upsample_2x,
 )
@@ -116,39 +124,159 @@ class Upsample2D(nn.Module):
         return self.conv(nearest_upsample_2x(x))
 
 
+# ------------------------------------------------------------------ joint attention
+def _partner_streams(x: torch.Tensor, joint: JointAttentionConfig, num_frames: int,
+                     flip_frames: bool) -> torch.Tensor:
+    """The partner-stream context of ``x`` ``(rows, N, C)``, rows stream-major: stream
+    blocks swapped per the static mask and, with ``flip_frames`` and ``joint.flip``, the
+    frame axis reversed (frames are innermost in a stream's ``B*T`` rows). Built from
+    views, ``flip`` and ``stack`` alone: no index tensor, nothing copied from the host."""
+    s = len(joint.mask)
+    rows, n, c = x.shape
+    perm = joint.partner_perm
+    # alternating masks pair adjacent streams: the swap is the reverse of a size-2 axis
+    pair_swap = all(p == i ^ 1 for i, p in enumerate(perm))
+    if flip_frames and joint.flip:
+        if pair_swap:
+            xr = x.reshape(s // 2, 2, rows // s // num_frames, num_frames, n, c).flip(1, 3)
+        else:
+            xr = x.reshape(s, rows // s // num_frames, num_frames, n, c)
+            xr = torch.stack([xr[p] for p in perm]).flip(2)
+    elif pair_swap:
+        xr = x.reshape(s // 2, 2, rows // s, n, c).flip(1)
+    else:
+        xr = x.reshape(s, rows // s, n, c)
+        xr = torch.stack([xr[p] for p in perm])
+    return xr.reshape(rows, n, c)
+
+
+class JointBranchMixin:
+    """``attn1n`` + a zero-init post projection (``conv`` | ``scale`` | ``conv_fuse``), with
+    an optional AdaLN ``norm1n`` in front (``add_norm``). The branch's modules are
+    registered on the block that mixes this in. ``temporal=True``: the branch of a temporal
+    transformer block, where tokens stay ``(B*T, HW, C)`` and ``attn1n`` contracts the
+    frame axis. The K and V adapters of ``attn1n`` act on the partner stream and take
+    inverted stream masks; Q and ``to_out`` do not."""
+
+    def _init_joint(self, dim: int, heads: int, dim_head: int, joint: JointAttentionConfig,
+                    block_path: str, lora: LoraRouter, temporal: bool,
+                    temb_channels: int) -> None:
+        self.joint, self.joint_temporal = joint, temporal
+        if joint.add_norm:
+            self.norm1n = AdaLayerNormContinuous(dim, temb_channels)
+        attention = FrameAxisAttention if temporal else Attention
+        self.attn1n = attention(dim, heads, dim_head,
+                                adapters=lora.adapters(f"{block_path}.attn1n", invert_kv=True))
+        if joint.post == "conv":
+            self.conv1n = ZeroInitLinear(dim, dim, bias=False)
+        elif joint.post == "scale":
+            self.scale1n = nn.Parameter(torch.zeros(1, 1, dim))
+        else:  # conv_fuse: one linear over the x rows and y rows side by side
+            self.conv1n = ZeroInitLinear(2 * dim, 2 * dim, bias=False)
+
+    @torch.no_grad()
+    def init_extra(self, generator: torch.Generator) -> None:
+        if hasattr(self, "scale1n"):
+            self.scale1n.zero_()
+
+    def _joint_branch(self, norm_hidden_states: torch.Tensor, num_frames: int,
+                      flip_frames: bool, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        joint, x = self.joint, norm_hidden_states
+        if joint.add_norm:
+            if temb is None:
+                raise ValueError("add_norm joint attention requires temb conditioning")
+            x = self.norm1n(x, temb)
+        partner = _partner_streams(x, joint, num_frames, flip_frames)
+        if self.joint_temporal:
+            out = self.attn1n(x, num_frames, encoder_hidden_states=partner)
+        else:
+            out = self.attn1n(x, encoder_hidden_states=partner)
+        if joint.post == "conv":
+            return self.conv1n(out)
+        if joint.post == "scale":
+            return out * self.scale1n.to(out.dtype)
+        # conv_fuse: the y-stream rows beside the x-stream rows featurewise through one
+        # linear, and each half back to its streams
+        s = len(joint.mask)
+        rows, n, c = out.shape
+        blocks = out.reshape(s, rows // s, n, c)
+        ones = [i for i, m in enumerate(joint.mask) if m]
+        zeros = [i for i, m in enumerate(joint.mask) if not m]
+        x_part = torch.cat([blocks[i] for i in ones])
+        y_part = torch.cat([blocks[i] for i in zeros])
+        fx, fy = self.conv1n(torch.cat([x_part, y_part], dim=-1)).chunk(2, dim=-1)
+        fx, fy = fx.reshape(len(ones), rows // s, n, c), fy.reshape(len(zeros), rows // s, n, c)
+        fused = [None] * s
+        for j, i in enumerate(ones):
+            fused[i] = fx[j]
+        for j, i in enumerate(zeros):
+            fused[i] = fy[j]
+        return torch.stack(fused).reshape(rows, n, c)
+
+
+class JointAttentionBranch(nn.Module, JointBranchMixin):
+    """The joint branch alone (counterpart of the JAX ``JointAttentionBranch``)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, joint: JointAttentionConfig,
+                 block_path: str, lora: LoraRouter = EMPTY_ROUTER, temporal: bool = False,
+                 temb_channels: int = 1280):
+        super().__init__()
+        self._init_joint(dim, heads, dim_head, joint, block_path, lora, temporal, temb_channels)
+
+    def forward(self, norm_hidden_states: torch.Tensor, num_frames: int, flip_frames: bool,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._joint_branch(norm_hidden_states, num_frames, flip_frames, temb)
+
+
 # ------------------------------------------------------------------ transformer blocks
-class BasicTransformerBlock(nn.Module):
-    """Spatial transformer block: self-attention, cross-attention, GEGLU feed-forward."""
+class BasicTransformerBlock(nn.Module, JointBranchMixin):
+    """Spatial transformer block: self-attention (plus the joint branch, scaled by
+    ``joint_scale``), cross-attention, GEGLU feed-forward."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024,
-                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = ""):
+                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = "",
+                 joint: Optional[JointAttentionConfig] = None, temb_channels: int = 1280):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
         self.attn1 = Attention(dim, heads, dim_head, adapters=lora.adapters(f"{block_path}.attn1"))
+        self.has_joint = joint is not None and joint.spatial
+        if self.has_joint:
+            self._init_joint(dim, heads, dim_head, joint, block_path, lora, False, temb_channels)
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = Attention(dim, heads, dim_head, kv_dim=cross_attention_dim,
                                adapters=lora.adapters(f"{block_path}.attn2"))
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                num_frames: int = 1, joint_scale=1.0,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        norm_x = self.norm1(x)
+        attn_out = self.attn1(norm_x)
+        if self.has_joint:
+            attn_out = attn_out + self._joint_branch(norm_x, num_frames, True, temb) * joint_scale
+        x = x + attn_out
         x = x + self.attn2(self.norm2(x), encoder_hidden_states=encoder_hidden_states)
         return x + self.ff(self.norm3(x))
 
 
-class TemporalBasicTransformerBlock(nn.Module):
+class TemporalBasicTransformerBlock(nn.Module, JointBranchMixin):
     """Temporal transformer block on spatial-major ``(B*T, HW, C)`` tokens: ff_in, frame
-    self-attention, per-sample cross-attention, feed-forward."""
+    self-attention (plus the joint branch, added unscaled: ``joint_scale`` acts on the
+    spatial path only, as in the JAX package), per-sample cross-attention, feed-forward."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024,
-                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = ""):
+                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = "",
+                 joint: Optional[JointAttentionConfig] = None, temb_channels: int = 1280):
         super().__init__()
         self.norm_in = nn.LayerNorm(dim)
         self.ff_in = FeedForward(dim)
         self.norm1 = nn.LayerNorm(dim)
         self.attn1 = FrameAxisAttention(dim, heads, dim_head,
                                         adapters=lora.adapters(f"{block_path}.attn1"))
+        self.has_joint = joint is not None and joint.temporal
+        if self.has_joint:
+            self._init_joint(dim, heads, dim_head, joint, block_path, lora, True, temb_channels)
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = FrameAxisAttention(dim, heads, dim_head, kv_dim=cross_attention_dim)
         self.norm3 = nn.LayerNorm(dim)
@@ -157,7 +285,11 @@ class TemporalBasicTransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, num_frames: int,
                 time_context: torch.Tensor) -> torch.Tensor:
         x = x + self.ff_in(self.norm_in(x))  # is_res: time_mix_inner_dim == dim in SVD
-        x = x + self.attn1(self.norm1(x), num_frames)
+        norm_x = self.norm1(x)
+        attn_out = self.attn1(norm_x, num_frames)
+        if self.has_joint:  # the temporal branch takes no temb: add_norm cannot be met here
+            attn_out = attn_out + self._joint_branch(norm_x, num_frames, False)
+        x = x + attn_out
         x = x + self.attn2(self.norm2(x), num_frames, encoder_hidden_states=time_context,
                            per_sample_ctx=True)
         return x + self.ff(self.norm3(x))
@@ -168,7 +300,8 @@ class TransformerSpatioTemporalModel(nn.Module):
 
     def __init__(self, channels: int, num_layers: int, heads: int,
                  cross_attention_dim: int = 1024, lora: LoraRouter = EMPTY_ROUTER,
-                 block_path: str = ""):
+                 block_path: str = "", joint: Optional[JointAttentionConfig] = None,
+                 temb_channels: int = 1280):
         super().__init__()
         dim_head = channels // heads
         inner = heads * dim_head
@@ -177,17 +310,19 @@ class TransformerSpatioTemporalModel(nn.Module):
         self.time_pos_embed = TimestepEmbedding(inner, inner * 4, out_dim=inner)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, lora,
-                                   f"{block_path}.transformer_blocks.{i}")
+                                   f"{block_path}.transformer_blocks.{i}", joint, temb_channels)
              for i in range(num_layers)])
         self.temporal_transformer_blocks = nn.ModuleList(
             [TemporalBasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, lora,
-                                           f"{block_path}.temporal_transformer_blocks.{i}")
+                                           f"{block_path}.temporal_transformer_blocks.{i}",
+                                           joint, temb_channels)
              for i in range(num_layers)])
         self.time_mixer = AlphaBlender(0.5)  # one blender shared by all layers
         self.proj_out = nn.Linear(inner, channels)
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                image_only_indicator: torch.Tensor) -> torch.Tensor:
+                image_only_indicator: torch.Tensor, joint_scale=1.0,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         bf, hh, ww, c = x.shape
         num_frames = image_only_indicator.shape[-1]
         b = bf // num_frames
@@ -200,7 +335,7 @@ class TransformerSpatioTemporalModel(nn.Module):
         emb = self.time_pos_embed(get_timestep_embedding(frame_ids, h.shape[-1]).to(h.dtype))
         emb = emb[:, None, :]
         for block, temporal in zip(self.transformer_blocks, self.temporal_transformer_blocks):
-            h = block(h, encoder_hidden_states)
+            h = block(h, encoder_hidden_states, num_frames, joint_scale, temb)
             h_mix = temporal(h + emb, num_frames, time_context)
             h = self.time_mixer(h, h_mix, image_only_indicator)
         return self.proj_out(h).view(bf, hh, ww, c) + x
@@ -211,7 +346,7 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, num_layers: int, eps: float,
                  transformer_layers: int, heads: int, cross_attention_dim: int,
                  add_downsample: bool, temb_channels: int, lora: LoraRouter = EMPTY_ROUTER,
-                 block_path: str = ""):
+                 block_path: str = "", joint: Optional[JointAttentionConfig] = None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(in_channels if i == 0 else out_channels, out_channels,
@@ -219,16 +354,16 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(out_channels, transformer_layers, heads,
                                             cross_attention_dim, lora,
-                                            f"{block_path}.attentions.{i}")
+                                            f"{block_path}.attentions.{i}", joint, temb_channels)
              for i in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, encoder_hidden_states, image_only_indicator):
+    def forward(self, x, temb, encoder_hidden_states, image_only_indicator, joint_scale=1.0):
         outputs = []
         for resnet, attn in zip(self.resnets, self.attentions):
             x = resnet(x, temb, image_only_indicator)
-            x = attn(x, encoder_hidden_states, image_only_indicator)
+            x = attn(x, encoder_hidden_states, image_only_indicator, joint_scale, temb)
             outputs.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -260,18 +395,18 @@ class DownBlockSpatioTemporal(nn.Module):
 class UNetMidBlockSpatioTemporal(nn.Module):
     def __init__(self, channels: int, transformer_layers: int, eps: float, heads: int,
                  cross_attention_dim: int, temb_channels: int, lora: LoraRouter = EMPTY_ROUTER,
-                 block_path: str = "mid_block"):
+                 block_path: str = "mid_block", joint: Optional[JointAttentionConfig] = None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(channels, channels, temb_channels, eps) for _ in range(2)])
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(channels, transformer_layers, heads,
                                             cross_attention_dim, lora,
-                                            f"{block_path}.attentions.0")])
+                                            f"{block_path}.attentions.0", joint, temb_channels)])
 
-    def forward(self, x, temb, encoder_hidden_states, image_only_indicator):
+    def forward(self, x, temb, encoder_hidden_states, image_only_indicator, joint_scale=1.0):
         x = self.resnets[0](x, temb, image_only_indicator)
-        x = self.attentions[0](x, encoder_hidden_states, image_only_indicator)
+        x = self.attentions[0](x, encoder_hidden_states, image_only_indicator, joint_scale, temb)
         return self.resnets[1](x, temb, image_only_indicator)
 
 
@@ -311,7 +446,8 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, prev_output_channels: int,
                  num_layers: int, eps: float, transformer_layers: int, heads: int,
                  cross_attention_dim: int, add_upsample: bool, temb_channels: int,
-                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = ""):
+                 lora: LoraRouter = EMPTY_ROUTER, block_path: str = "",
+                 joint: Optional[JointAttentionConfig] = None):
         super().__init__()
         self.resnets = nn.ModuleList(
             [SpatioTemporalResBlock(cin, out_channels, temb_channels, eps)
@@ -320,16 +456,17 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
         self.attentions = nn.ModuleList(
             [TransformerSpatioTemporalModel(out_channels, transformer_layers, heads,
                                             cross_attention_dim, lora,
-                                            f"{block_path}.attentions.{i}")
+                                            f"{block_path}.attentions.{i}", joint, temb_channels)
              for i in range(num_layers)])
         self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
 
-    def forward(self, x, res_samples, temb, encoder_hidden_states, image_only_indicator):
+    def forward(self, x, res_samples, temb, encoder_hidden_states, image_only_indicator,
+                joint_scale=1.0):
         for resnet, attn in zip(self.resnets, self.attentions):
             x = torch.cat([x, res_samples[-1]], dim=-1)
             res_samples = res_samples[:-1]
             x = resnet(x, temb, image_only_indicator)
-            x = attn(x, encoder_hidden_states, image_only_indicator)
+            x = attn(x, encoder_hidden_states, image_only_indicator, joint_scale, temb)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x

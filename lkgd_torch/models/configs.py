@@ -1,12 +1,13 @@
 """Static model configurations of the port.
 
-Counterparts of ``lkgd_tpu/models/configs.py`` ``LoraRule`` / ``LoraRouter`` (:58-93) and
-``SVDUNetConfig`` (:96-160), ``lkgd_tpu/models/vae_temporal.py`` ``TemporalVAEConfig``
-(:30-37) and ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig`` (:22-41). The JAX
-configs cannot be imported here (they reach flax), so the port carries its own with the
-same field names and defaults. Of the LKGD extensions of the JAX UNet config, knowledge
-fusion, LoRA routing and remat are ported; joint attention is a field that raises
-``NotImplementedError`` when set; the rest (dual conditioning, a y input head) are absent.
+Counterparts of ``lkgd_tpu/models/configs.py`` ``JointAttentionConfig`` (:19-55),
+``LoraRule`` / ``LoraRouter`` (:58-93), ``SVDUNetConfig`` (:96-160) and
+``halve_stream_masks`` (:162-184), ``lkgd_tpu/models/vae_temporal.py``
+``TemporalVAEConfig`` (:30-37) and ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig``
+(:22-41). The port imports nothing of the JAX package, so it carries its own configs with
+the same field names and defaults. Of the LKGD extensions of the JAX UNet config, knowledge
+fusion, LoRA routing, remat and joint attention are ported; the rest (dual conditioning, a
+y input head) are absent.
 """
 
 from __future__ import annotations
@@ -16,6 +17,43 @@ import fnmatch
 from typing import Optional, Tuple
 
 from lkgd_torch.models.layers import LoraSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class JointAttentionConfig:
+    """Static description of the joint x<->y stream attention: a second self-attention
+    branch ``attn1n`` whose K and V come from the partner stream, followed by a zero-init
+    post projection, added to the main attention output (scaled by ``joint_scale`` in the
+    spatial blocks).
+
+    ``mask``: one 0/1 per stream of the stream-major batch; 1 marks the "y" streams. It
+    must hold as many 0s as 1s: the i-th 0-stream and the i-th 1-stream are partners. The
+    CFG-doubled trans batch uses ``(0, 1, 0, 1)``. ``flip``: reverse the partner's frame
+    axis before attending to it (spatial branch only). ``spatial`` / ``temporal``: which
+    transformer blocks carry the branch."""
+
+    post: str = "conv"  # conv | scale | conv_fuse
+    add_norm: bool = False
+    flip: bool = False
+    mask: Tuple[int, ...] = (0, 1)
+    spatial: bool = True
+    temporal: bool = False
+
+    def __post_init__(self):
+        if self.post not in ("conv", "scale", "conv_fuse"):
+            raise ValueError(f"unknown post processing type {self.post}")
+        if sum(self.mask) * 2 != len(self.mask):
+            raise ValueError(f"joint mask must be balanced, got {self.mask}")
+
+    @property
+    def partner_perm(self) -> Tuple[int, ...]:
+        """The permutation sending each stream to its partner."""
+        zeros = [i for i, m in enumerate(self.mask) if not m]
+        ones = [i for i, m in enumerate(self.mask) if m]
+        perm = [0] * len(self.mask)
+        for a, b in zip(zeros, ones):
+            perm[a], perm[b] = b, a
+        return tuple(perm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,15 +79,24 @@ class LoraRule:
 class LoraRouter:
     rules: Tuple[LoraRule, ...] = ()
 
-    def resolve(self, path: str, projection: str) -> Tuple[LoraSpec, ...]:
-        """The adapters of one projection (the joint branch's inverted stream masks come
-        with joint attention, which is not ported)."""
-        return tuple(LoraSpec(rule.name, rule.rank, rule.alpha, rule.streams)
-                     for rule in self.rules if rule.matches(path, projection))
+    def resolve(self, path: str, projection: str,
+                invert_streams: bool = False) -> Tuple[LoraSpec, ...]:
+        """The adapters of one projection. ``invert_streams``: each adapter's stream mask
+        becomes ``1 - streams`` (the joint branch's K and V act on the partner stream)."""
+        specs = []
+        for rule in self.rules:
+            if rule.matches(path, projection):
+                streams = rule.streams
+                if invert_streams and streams:
+                    streams = tuple(1 - int(s) for s in streams)
+                specs.append(LoraSpec(rule.name, rule.rank, rule.alpha, streams))
+        return tuple(specs)
 
-    def adapters(self, path: str) -> dict:
-        """The specs of every projection of the attention at ``path``, keyed by name."""
-        return {proj: self.resolve(path, proj) for proj in ("to_q", "to_k", "to_v", "to_out")}
+    def adapters(self, path: str, invert_kv: bool = False) -> dict:
+        """The specs of every projection of the attention at ``path``, keyed by name;
+        ``invert_kv`` inverts the stream masks of ``to_k`` and ``to_v``."""
+        return {proj: self.resolve(path, proj, invert_kv and proj in ("to_k", "to_v"))
+                for proj in ("to_q", "to_k", "to_v", "to_out")}
 
 
 EMPTY_ROUTER = LoraRouter()
@@ -92,16 +139,33 @@ class SVDUNetConfig:
     lora: LoraRouter = EMPTY_ROUTER
     # gradient checkpointing: recompute each down, mid and up block in the backward pass
     remat: bool = False
-    joint: None = None  # joint attention: not ported yet, only the default is accepted
-
-    def __post_init__(self):
-        if self.joint:
-            raise NotImplementedError("SVDUNetConfig.joint (joint attention, the trans API) is "
-                                      "not ported to lkgd_torch yet (ROADMAP.md Queue 1, item 8)")
+    joint: Optional[JointAttentionConfig] = None  # joint x<->y stream attention
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+
+def halve_stream_masks(cfg: SVDUNetConfig) -> SVDUNetConfig:
+    """The same UNet for a half batch (one side of classifier-free guidance).
+
+    Stream tuples (the joint mask, the LoRA row masks) describe the CFG-doubled stream-major
+    batch ``[*uncond_streams, *cond_streams]``; a sequential-CFG call sees one side only, so
+    tuples of even length >= 4 are cut to their first half. The parameters are unchanged:
+    masks are static routing, and a UNet built from either config takes the other's
+    weights."""
+
+    def half(t):
+        return t[: len(t) // 2] if t and len(t) >= 4 and len(t) % 2 == 0 else t
+
+    joint = cfg.joint
+    if joint is not None:
+        joint = dataclasses.replace(joint, mask=half(joint.mask))
+    lora = cfg.lora
+    if lora.rules:
+        lora = dataclasses.replace(lora, rules=tuple(
+            dataclasses.replace(r, streams=half(r.streams)) for r in lora.rules))
+    return dataclasses.replace(cfg, joint=joint, lora=lora)
 
 
 @dataclasses.dataclass(frozen=True)

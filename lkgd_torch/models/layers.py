@@ -19,6 +19,7 @@ layouts the JAX package's ``export_state_dict`` writes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -63,6 +64,30 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         if hasattr(m, "init_extra"):
             m.init_extra(generator)
+
+
+def share_parameters(src: nn.Module, dst: nn.Module) -> nn.Module:
+    """Make ``dst`` (the same architecture, built on the meta device) use ``src``'s very
+    parameters and buffers: the two modules then differ only in their static configuration
+    (stream masks), and loading or moving one loads or moves the other."""
+    for name, sub in src.named_modules():
+        target = dst.get_submodule(name)
+        for key, p in sub._parameters.items():
+            target._parameters[key] = p
+        for key, b in sub._buffers.items():
+            target._buffers[key] = b
+    return dst
+
+
+class ZeroInitLinear(nn.Linear):
+    """A linear layer that ``init_params`` fills with zeros (the JAX modules'
+    ``kernel_init=zeros`` projections, which add nothing until trained)."""
+
+    @torch.no_grad()
+    def init_extra(self, generator: torch.Generator) -> None:
+        self.weight.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 # --------------------------------------------------------------------------- embeddings
@@ -139,8 +164,19 @@ class LoraSpec:
 
 
 def stream_gate(mask: Sequence[int], rows: int, dtype, device=None) -> torch.Tensor:
-    """A stream-level 0/1 mask expanded to per-row gains (``rows // len(mask)`` each)."""
-    return torch.tensor(mask, dtype=dtype, device=device).repeat_interleave(rows // len(mask))
+    """A stream-level 0/1 mask expanded to per-row gains (``rows // len(mask)`` each). Masks
+    are static, so each gate is built once per (mask, rows, dtype, device) and kept on the
+    device: a forward pass copies nothing from the host."""
+    return _stream_gate(tuple(int(m) for m in mask), rows, dtype, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=256)
+def _stream_gate(mask: Tuple[int, ...], rows: int, dtype, device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference_mode: a training step may
+    # multiply a gradient-carrying delta by the same cached gate later
+    with torch.inference_mode(False):
+        return torch.tensor(mask, dtype=dtype, device=device).repeat_interleave(
+            rows // len(mask))
 
 
 class DenseWithLora(nn.Linear):
@@ -225,7 +261,8 @@ class FrameAxisAttention(nn.Module):
     as :class:`Attention` (``lkgd_tpu/models/layers.py:189-287``), in the token-major form:
     one transpose each way around a ``(B*HW*heads, T, D)`` attention core.
 
-    ``encoder_hidden_states``: None (self-attention over frames) or, with
+    ``encoder_hidden_states``: None (self-attention over frames), a partner stream of the
+    input's own shape ``(B*T, HW, C)`` (joint attention: K and V come from it), or, with
     ``per_sample_ctx=True``, a per-sample single-token ``(B, 1, kv_dim)`` context (SVD's
     CLIP embedding; longer per-sample contexts are not ported). ``adapters`` as for
     :class:`Attention`."""
@@ -319,6 +356,22 @@ class AlphaBlender(nn.Module):
 
 
 # --------------------------------------------------------------------------- norms
+class AdaLayerNormContinuous(nn.Module):
+    """AdaLN with continuous conditioning (the joint branch's ``norm1n`` under
+    ``add_norm``): ``LN(x) * (1 + scale) + shift`` with (shift, scale) from a zero-init
+    SiLU + Linear on the conditioning embedding; the LayerNorm has no parameters."""
+
+    def __init__(self, embedding_dim: int, conditioning_dim: int):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.linear = ZeroInitLinear(conditioning_dim, 2 * embedding_dim)
+
+    def forward(self, x: torch.Tensor, conditioning: torch.Tensor) -> torch.Tensor:
+        shift, scale = self.linear(F.silu(conditioning)).chunk(2, dim=-1)
+        h = F.layer_norm(x, (self.embedding_dim,), eps=1e-6)
+        return h * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
 class GroupNorm(nn.Module):
     """GroupNorm over the channel (last) axis with an optional fused SiLU, backed by the
     GroupNorm kernels: ``(N, ..., C)`` is normalised as ``(N, M, C)``."""

@@ -1,6 +1,8 @@
 """UNetSpatioTemporalCondition (counterpart of ``lkgd_tpu/models/unet_svd.py``): the base
 SVD UNet with the LKGD knowledge fusion of the context (``config.knowledge_fusion``),
-LoRA adapters routed by ``config.lora`` and gradient checkpointing (``config.remat``).
+joint x<->y stream attention (``config.joint``, its spatial branch scaled by the
+``joint_scale`` argument), LoRA adapters routed by ``config.lora`` and gradient
+checkpointing (``config.remat``).
 
 I/O as in the JAX package: ``sample`` ``(B, T, H, W, C_in)`` channels-last, ``timesteps``
 ``(B,)`` or a scalar (continuous 0.25*log(sigma) for SVD), ``encoder_hidden_states``
@@ -56,7 +58,7 @@ class UNetSpatioTemporalCondition(nn.Module):
                     cin, chans[i], cfg.layers_per_block, eps_cross,
                     cfg.transformer_layers_per_block, cfg.num_attention_heads[i],
                     cfg.cross_attention_dim, add_down, cfg.time_embed_dim, cfg.lora,
-                    f"down_blocks.{i}"))
+                    f"down_blocks.{i}", cfg.joint))
             elif block_type == "DownBlockSpatioTemporal":
                 self.down_blocks.append(DownBlockSpatioTemporal(
                     cin, chans[i], cfg.layers_per_block, cfg.resnet_eps, add_down,
@@ -66,7 +68,8 @@ class UNetSpatioTemporalCondition(nn.Module):
 
         self.mid_block = UNetMidBlockSpatioTemporal(
             chans[-1], cfg.transformer_layers_per_block, cfg.resnet_eps,
-            cfg.num_attention_heads[-1], cfg.cross_attention_dim, cfg.time_embed_dim, cfg.lora)
+            cfg.num_attention_heads[-1], cfg.cross_attention_dim, cfg.time_embed_dim, cfg.lora,
+            joint=cfg.joint)
 
         rev = tuple(reversed(chans))
         rev_heads = tuple(reversed(cfg.num_attention_heads))
@@ -80,7 +83,7 @@ class UNetSpatioTemporalCondition(nn.Module):
                 self.up_blocks.append(CrossAttnUpBlockSpatioTemporal(
                     cin, rev[i], prev, n_layers, eps_cross, cfg.transformer_layers_per_block,
                     rev_heads[i], cfg.cross_attention_dim, add_up, cfg.time_embed_dim,
-                    cfg.lora, f"up_blocks.{i}"))
+                    cfg.lora, f"up_blocks.{i}", cfg.joint))
             elif block_type == "UpBlockSpatioTemporal":
                 self.up_blocks.append(UpBlockSpatioTemporal(
                     cin, rev[i], prev, n_layers, cfg.resnet_eps_up or cfg.resnet_eps, add_up,
@@ -101,7 +104,7 @@ class UNetSpatioTemporalCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, added_time_ids: torch.Tensor,
                 domain_features: Optional[torch.Tensor] = None,
-                flow_features: Optional[torch.Tensor] = None) -> torch.Tensor:
+                flow_features: Optional[torch.Tensor] = None, joint_scale=1.0) -> torch.Tensor:
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         batch_size, num_frames = sample.shape[:2]
@@ -132,20 +135,20 @@ class UNetSpatioTemporalCondition(nn.Module):
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlockSpatioTemporal):
                 sample, outs = self._run(block, sample, emb, encoder_hidden_states,
-                                         image_only_indicator)
+                                         image_only_indicator, joint_scale)
             else:
                 sample, outs = self._run(block, sample, emb, image_only_indicator)
             res_samples = res_samples + outs
 
         sample = self._run(self.mid_block, sample, emb, encoder_hidden_states,
-                           image_only_indicator)
+                           image_only_indicator, joint_scale)
 
         for block in self.up_blocks:
             n_layers = len(block.resnets)
             skips, res_samples = res_samples[-n_layers:], res_samples[:-n_layers]
             if isinstance(block, CrossAttnUpBlockSpatioTemporal):
                 sample = self._run(block, sample, skips, emb, encoder_hidden_states,
-                                   image_only_indicator)
+                                   image_only_indicator, joint_scale)
             else:
                 sample = self._run(block, sample, skips, emb, image_only_indicator)
 

@@ -4,8 +4,10 @@
 Stages, as in the JAX package: CLIP-H embedding of the antialiased 224^2 resize, VAE
 ``encode_mode`` of the noise-augmented frame, a CFG-doubled loop of Euler-Karras steps over
 the UNet (a Python loop where JAX had ``lax.scan``), and an equal-chunked temporal VAE
-decode. Layouts at the public methods are the JAX package's: images ``(B, H, W, 3)`` in
-[0, 1], latents ``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
+decode. With ``sequential_cfg`` the two CFG halves go through the UNet one after the other
+(``unet_seq``: the same parameters, stream masks halved): the same work with a lower
+peak of activation memory in the loop. Layouts at the public methods are the JAX package's: images
+``(B, H, W, 3)`` in [0, 1], latents ``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
 
 Randomness comes only from the ``torch.Generator`` passed in, or from pre-drawn standard
 normals (``noise_aug=``, ``initial_noise=``) — the hook the parity tests use, since torch
@@ -21,12 +23,14 @@ import numpy as np
 import torch
 
 from lkgd_torch.models.clip_vision import CLIPVisionModelWithProjection, clip_normalize
-from lkgd_torch.models.configs import CLIPVisionConfig, SVDUNetConfig, TemporalVAEConfig
-from lkgd_torch.models.layers import init_params, materialize
+from lkgd_torch.models.configs import (CLIPVisionConfig, SVDUNetConfig, TemporalVAEConfig,
+                                       halve_stream_masks)
+from lkgd_torch.models.layers import init_params, materialize, share_parameters
 from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
 from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 from lkgd_torch.ops.resize import resize_with_antialiasing
 from lkgd_torch.schedulers.euler_discrete import EulerDiscreteConfig, EulerDiscreteScheduler
+from lkgd_torch.utils.device import require_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +48,14 @@ class SVDPipelineConfig:
     noise_aug_strength: float = 0.02
     decode_chunk_size: int = 7
     do_classifier_free_guidance: bool = True
-    # not ported yet: only the defaults are accepted
+    # run the two CFG halves one after the other instead of batch-doubled: the same work,
+    # a lower peak of activation memory in the loop
     sequential_cfg: bool = False
-    deep_cache_interval: int = 1
+    deep_cache_interval: int = 1  # DeepCache is not ported yet: only 1 (off) is accepted
 
     def __post_init__(self):
-        if self.sequential_cfg or self.deep_cache_interval != 1:
-            raise NotImplementedError("sequential_cfg and deep_cache_interval are not ported "
-                                      "to lkgd_torch yet")
+        if self.deep_cache_interval != 1:
+            raise NotImplementedError("deep_cache_interval is not ported to lkgd_torch yet")
 
 
 def equal_chunks(n: int, max_chunk: int) -> int:
@@ -63,7 +67,8 @@ def equal_chunks(n: int, max_chunk: int) -> int:
 
 
 class StableVideoDiffusionPipeline:
-    """Image -> video. The models are allocated on ``device`` in ``dtype`` with
+    """Image -> video. The models are allocated on ``device`` (the card unless another is
+    named; with no card and no explicit ``"cpu"`` the constructor raises) in ``dtype`` with
     uninitialised weights: fill them with ``init_params(generator)`` or
     ``<model>.load_state_dict(...)``."""
 
@@ -75,13 +80,19 @@ class StableVideoDiffusionPipeline:
         clip_config: CLIPVisionConfig = CLIPVisionConfig(),
         scheduler_config: EulerDiscreteConfig = EulerDiscreteConfig.svd(),
         dtype: torch.dtype = torch.bfloat16,
-        device="cpu",
+        device="cuda",
     ):
         self.config = config
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.unet = materialize(lambda: UNetSpatioTemporalCondition(unet_config),
                                 self.device, dtype)
+        self.unet_seq = None
+        if config.sequential_cfg:
+            # the same parameters under the stream masks of one CFG side
+            with torch.device("meta"):
+                seq = UNetSpatioTemporalCondition(halve_stream_masks(unet_config))
+            self.unet_seq = share_parameters(self.unet, seq).eval()
         self.vae = materialize(lambda: AutoencoderKLTemporalDecoder(vae_config),
                                self.device, dtype)
         self.image_encoder = materialize(lambda: CLIPVisionModelWithProjection(clip_config),
@@ -160,15 +171,26 @@ class StableVideoDiffusionPipeline:
         shape = (batch_size, cfg.num_frames, self.latent_height, self.latent_width, 4)
         latents = self._normal(shape, generator, initial_noise) * self.schedule.init_noise_sigma
         guidance = self._guidance_scale(batch_size)
+        sequential = cfg.sequential_cfg and cfg.do_classifier_free_guidance
         for i in range(self.schedule.num_steps):
-            model_in = torch.cat([latents] * cfg_rows)
-            model_in = self.scheduler.scale_model_input(self.schedule, model_in, i)
-            model_in = torch.cat([model_in.to(self.dtype), image_latents], dim=-1)
-            noise_pred = self.unet(model_in, self.schedule.timesteps[i], image_embeddings,
-                                   added_time_ids).float()
-            if cfg.do_classifier_free_guidance:
-                uncond, cond = noise_pred.chunk(2)
+            t = self.schedule.timesteps[i]
+            if sequential:
+                # stream-major halves [uncond | cond], each through the half-batch UNet
+                scaled = self.scheduler.scale_model_input(self.schedule, latents, i)
+                scaled = scaled.to(self.dtype)
+                uncond, cond = (
+                    self.unet_seq(torch.cat([scaled, ilat], dim=-1), t, emb, ati).float()
+                    for emb, ilat, ati in zip(image_embeddings.chunk(2), image_latents.chunk(2),
+                                              added_time_ids.chunk(2)))
                 noise_pred = uncond + guidance * (cond - uncond)
+            else:
+                model_in = torch.cat([latents] * cfg_rows)
+                model_in = self.scheduler.scale_model_input(self.schedule, model_in, i)
+                model_in = torch.cat([model_in.to(self.dtype), image_latents], dim=-1)
+                noise_pred = self.unet(model_in, t, image_embeddings, added_time_ids).float()
+                if cfg.do_classifier_free_guidance:
+                    uncond, cond = noise_pred.chunk(2)
+                    noise_pred = uncond + guidance * (cond - uncond)
             latents, _ = self.scheduler.step(self.schedule, noise_pred, i, latents)
         return latents
 

@@ -13,7 +13,13 @@ Rules: Dense kernels (in, out) -> Linear (out, in); Conv kernels (kh, kw, I, O) 
 its name and layout: the LoRA factors ``lora_<name>_A`` (in, rank) / ``lora_<name>_B``
 (rank, out), and the knowledge fusion's depthwise ``weight``, quaternion factors and
 ``texts*`` (its Dense kernels follow the kernel rule), exactly as the JAX exporter writes
-them.
+them. The joint branch's ``joint`` scope is dropped, as the JAX exporter drops it:
+``attn1n``, ``conv1n``, ``scale1n`` and ``norm1n`` sit directly on the transformer block.
+
+``lora_key_map`` / ``port_lora_safetensors`` read a LoRA state dict in diffusers, peft or
+kohya spelling into a module's ``lora_<name>_A/B`` parameters: the inverse of
+``export_lora_state_dict`` and the counterpart of the JAX package's functions of the same
+names.
 
 ``save_safetensors`` writes a state dict in the safetensors format with numpy alone (the
 card's machine has no ``safetensors`` package).
@@ -49,7 +55,7 @@ def _torch_layout(leaf: str, x: np.ndarray):
 
 
 def _diffusers_name(path: str) -> str:
-    name = _LISTS.sub(r"\1.\2", path.replace("/", "."))
+    name = _LISTS.sub(r"\1.\2", path.replace("/", ".")).replace("joint.", "")
     name = re.sub(r"\bto_out\b", "to_out.0", name)
     name = name.replace("ff.net_0.proj", "ff.net.0.proj").replace("ff.net_2", "ff.net.2")
     return name.replace("ff_in.net_0.proj", "ff_in.net.0.proj").replace("ff_in.net_2",
@@ -117,6 +123,74 @@ def from_flax_params(flat: Mapping[str, np.ndarray],
             name = key_map(name)
         out[name] = torch.from_numpy(np.array(x, copy=True, order="C"))
     return out
+
+
+def lora_key_map(adapter_name: str) -> Callable[[str], Optional[str]]:
+    """LoRA state-dict names -> the port's adapter parameter names, or None for a tensor
+    that is no LoRA factor. Takes diffusers' ``unet.<path>.to_q.lora_A.weight`` (with the
+    optional ``base_model.model.``, ``unet.`` or ``transformer.`` prefixes), peft's
+    ``...lora_A.<adapter>.weight`` and kohya's ``...lora.down.weight`` / ``lora.up.weight``."""
+
+    def map_key(key: str) -> Optional[str]:
+        k = key
+        for prefix in ("base_model.model.", "unet.", "transformer."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        k = k.replace(f".lora_A.{adapter_name}.weight", ".lora_A.weight")
+        k = k.replace(f".lora_B.{adapter_name}.weight", ".lora_B.weight")
+        k = k.replace(".lora.down.weight", ".lora_A.weight")
+        k = k.replace(".lora.up.weight", ".lora_B.weight")
+        if k.endswith(".lora_A.weight"):
+            return k[: -len(".lora_A.weight")] + f".lora_{adapter_name}_A"
+        if k.endswith(".lora_B.weight"):
+            return k[: -len(".lora_B.weight")] + f".lora_{adapter_name}_B"
+        return None
+
+    return map_key
+
+
+def export_lora_state_dict(module: torch.nn.Module, adapter_name: str) -> Dict[str, np.ndarray]:
+    """The adapter ``adapter_name`` of ``module`` in diffusers' LoRA layout:
+    ``unet.<path>.lora_A.weight`` (rank, in) and ``lora_B.weight`` (out, rank), float32."""
+    out = {}
+    for name, p in module.named_parameters():
+        for side in ("A", "B"):
+            suffix = f".lora_{adapter_name}_{side}"
+            if name.endswith(suffix):
+                out[f"unet.{name[: -len(suffix)]}.lora_{side}.weight"] = \
+                    p.detach().float().cpu().numpy().T.copy()
+    return out
+
+
+def port_lora_safetensors(state_dict: Mapping[str, np.ndarray], module: torch.nn.Module,
+                          adapter_name: str, strict: bool = False) -> int:
+    """Load a LoRA state dict (diffusers, peft or kohya names; torch layout ``lora_A``
+    (rank, in), ``lora_B`` (out, rank)) into the ``lora_<adapter_name>_A/B`` parameters of
+    ``module``, whose router already declares the adapter. Every other parameter keeps its
+    value. Returns the number of tensors loaded; ``strict`` raises on a LoRA tensor with no
+    parameter to take it and on an adapter parameter left unfilled."""
+    params = dict(module.named_parameters())
+    key_map = lora_key_map(adapter_name)
+    loaded, unused = set(), []
+    with torch.no_grad():
+        for key, value in state_dict.items():
+            name = key_map(key)
+            if name is None:
+                continue
+            if name not in params:
+                unused.append(key)
+                continue
+            x = torch.from_numpy(np.ascontiguousarray(np.asarray(value).T))
+            if x.shape != params[name].shape:
+                raise ValueError(f"{key}: cannot fit shape {np.shape(value)} into "
+                                 f"{tuple(params[name].shape)} at {name}")
+            params[name].copy_(x)
+            loaded.add(name)
+    missing = [n for n in params if f".lora_{adapter_name}_" in n and n not in loaded]
+    if strict and (missing or unused):
+        raise ValueError(f"missing {len(missing)} adapter params, e.g. {missing[:5]}; unused "
+                         f"{len(unused)} LoRA keys, e.g. {unused[:5]}")
+    return len(loaded)
 
 
 def save_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:

@@ -267,3 +267,143 @@ def test_flash_function_launches_split_and_merge(cuda_device):
     delta = {n: tfa.launches[n] - before[n] for n in tfa.launches}
     assert delta["split_heads"] == 4 and delta["merge_heads"] == 4, delta
     assert delta["flash_bwd_dq"] == 1 and delta["flash_bwd_dkv"] == 1, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 64, 128), (1000, 72, 200), (130, 320, 320),
+                                   (4097, 320, 1280)],
+                         ids=["tile_multiple", "ragged_all", "ragged_m", "wide_n"])
+def test_blocked_matmul_kernel_matches_plain(cuda_device, m, k, n):
+    """Kernel 11 against the fp32 product: fp32 accumulation, one bf16 rounding of the
+    output (2^-9 relative), so within 1e-2 of max|ref|."""
+    from lkgd_torch.ops import matmul as mm
+
+    x = _randn(cuda_device, (m, k)).bfloat16()
+    w = _randn(cuda_device, (k, n), seed=1).bfloat16()
+    before = mm.launches["blocked_matmul"]
+    got = mm.blocked_matmul(x, w)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _rel_err(got, mm.blocked_matmul_plain(x.float(), w.float())) <= 1e-2
+    assert mm.launches["blocked_matmul"] == before + 1
+
+
+@pytest.mark.cuda
+def test_blocked_matmul_kernel_refuses(cuda_device):
+    from lkgd_torch.ops import matmul as mm
+
+    x, w = _randn(cuda_device, (64, 64)), _randn(cuda_device, (64, 64))
+    with pytest.raises(TypeError):
+        mm.blocked_matmul(x, w)
+    with pytest.raises(ValueError, match="K = 20"):
+        mm.blocked_matmul(x[:, :20].bfloat16().contiguous(), w[:20].bfloat16())
+    with pytest.raises(ValueError, match="N = 20"):
+        mm.blocked_matmul(x.bfloat16(), w[:, :20].bfloat16().contiguous())
+    with pytest.raises(ValueError, match="dense"):
+        mm.blocked_matmul(x.bfloat16().t(), w.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(64, 64), (128, 64), (64, 128), (128, 128)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("mode", ["base", "prescale", "bf16exp", "prescale_bf16exp", "noexp"])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 1100, 64), (2, 300, 40)],
+                         ids=["tile_multiple", "ragged", "d40"])
+def test_flash_variant_kernel_matches_plain(cuda_device, shape, mode, tile):
+    """Kernel 12 against its plain version in every mode and tile: P and the output are
+    rounded to bf16 (1e-2 of max|ref|); the packed bf16 exp2 may differ from PyTorch's by
+    an ulp per probability (3e-2)."""
+    from lkgd_torch.ops import flash_variants as fv
+
+    q, k, v = ((_randn(cuda_device, shape, seed=i)).bfloat16() for i in range(3))
+    t = fv.bound_t(q, k)
+    before = fv.launches["flash_variant"]
+    got = fv.flash_variant(q, k, v, t, mode, tile)
+    want = fv.flash_variant_plain(q, k, v, t, mode)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) <= (3e-2 if "bf16exp" in mode else 1e-2)
+    assert fv.launches["flash_variant"] == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_variant_base_is_the_production_bound_kernel(cuda_device):
+    """``base`` with the production bound as t is the production bound kernel's arithmetic
+    at the production tile (64 x 64) with nothing around it: the outputs agree to a bf16
+    ulp of max|out| (2^-8; the compiler may contract ``s * scale + t`` into one fused
+    multiply-add in one kernel and not the other)."""
+    from lkgd_torch.ops import flash_variants as fv
+
+    q, k, v = ((_randn(cuda_device, (3, 1100, 64), seed=i)).bfloat16() for i in range(3))
+    got = fv.flash_variant(q, k, v, fv.bound_t(q, k), "base", (64, 64))
+    want = tfa.flash_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
+    assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -8 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_variant_kernel_refuses(cuda_device):
+    from lkgd_torch.ops import flash_variants as fv
+
+    q = _randn(cuda_device, (1, 128, 128)).bfloat16()
+    with pytest.raises(ValueError, match="head dim 128"):
+        fv.flash_variant(q, q, q, torch.zeros(1, 128, device=cuda_device))
+    q = _randn(cuda_device, (1, 128, 64))
+    with pytest.raises(TypeError):
+        fv.flash_variant(q, q, q, torch.zeros(1, 128, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal", [False, True], ids=["spatial", "temporal"])
+@pytest.mark.parametrize("post", ["conv", "scale", "conv_fuse"])
+def test_joint_branch_gpu_matches_cpu(cuda_device, post, temporal):
+    """The joint branch at fp32 on the card against the CPU on the same weights (TF32 off;
+    rtol 1e-4, atol 2e-4: summation order only). 256 tokens: below the flash dispatch's
+    1024, whose kernels take bf16 alone, so ``attn1n`` runs the plain attention here."""
+    from lkgd_torch.models.blocks_svd import JointAttentionBranch
+    from lkgd_torch.models.configs import JointAttentionConfig, LoraRouter, LoraRule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mask = (0, 1, 0, 1)
+    joint = JointAttentionConfig(post=post, flip=True, mask=mask, temporal=temporal)
+    lora = LoraRouter((LoraRule("*attn1n*", "yx", 2, 2.0, mask),))
+
+    def build(device):
+        return materialize(lambda: JointAttentionBranch(64, 2, 32, joint, "b", lora,
+                                                        temporal=temporal), device, torch.float32)
+
+    cpu = build("cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    gpu = build(cuda_device)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = torch.randn((len(mask) * 2, 256, 64), generator=gen)
+    with torch.no_grad():
+        want = cpu(x, 2, not temporal)
+        got = gpu(x.to(cuda_device), 2, not temporal).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_joint_branch_bf16_attends_through_flash(cuda_device):
+    """In bf16 at 1024 tokens the spatial branch's ``attn1n`` (K and V from the partner
+    stream) goes through the flash kernels, and agrees with the fp32 CPU branch within
+    bf16's rounding (3e-2 of max|ref|)."""
+    from lkgd_torch.models.blocks_svd import JointAttentionBranch
+    from lkgd_torch.models.configs import JointAttentionConfig
+
+    joint = JointAttentionConfig(post="conv", flip=True, mask=(0, 1, 0, 1))
+    cpu = materialize(lambda: JointAttentionBranch(64, 2, 32, joint, "b"), "cpu", torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    gpu = materialize(lambda: JointAttentionBranch(64, 2, 32, joint, "b"), cuda_device,
+                      torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = torch.randn((8, 1024, 64), generator=gen)
+    before = tfa.launches["flash_bound"]
+    with torch.no_grad():
+        want = cpu(x, 2, True)
+        got = gpu(x.to(cuda_device, torch.bfloat16), 2, True)
+    assert tfa.launches["flash_bound"] == before + 1
+    assert _rel_err(got.cpu(), want) <= 3e-2

@@ -133,25 +133,88 @@ def test_init_params_is_seeded_and_shaped():
 
 
 def test_port_imports_no_jax():
-    """The machine with the card has no JAX: the port and the host IO it shares with the
-    JAX package must import without pulling jax or flax in."""
-    code = ("import sys, lkgd_torch.pipelines.svd, lkgd_torch.cli.run_inference_svd, "
-            "lkgd_torch.cli.train_svd_lora, lkgd_torch.data.datasets, lkgd_tpu.data.video_io; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib')); "
-            "print(bad); sys.exit(1 if bad else 0)")
+    """The machine with the card has no JAX, and the port shares no module with the JAX
+    package: importing every module under ``lkgd_torch/`` and ``chip_smoke`` (import only)
+    pulls in none of jax, jaxlib, flax, optax or lkgd_tpu."""
+    code = ("import importlib, pkgutil, sys, lkgd_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(lkgd_torch.__path__, 'lkgd_torch.')]\n"
+            "for name in names + ['chip_smoke']:\n"
+            "    importlib.import_module(name)\n"
+            "assert len(names) > 30, names\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'lkgd_tpu'))\n"
+            "print(len(names), bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=120, cwd=Path(__file__).resolve().parents[1])
+                          timeout=180, cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_video_io_copy_matches_jax_package(tmp_path):
+    """The port's own ``video_io`` gives the arrays of ``lkgd_tpu.data.video_io``: the
+    resize and centre crop of ``process_frames`` (down and up), and a GIF and a PNG written
+    by one and read by the other."""
+    from lkgd_tpu.data import video_io as theirs
+
+    from lkgd_torch.data import video_io as ours
+
+    frames = np.random.default_rng(0).uniform(size=(3, 40, 56, 3)).astype(np.float32)
+    for size in ((24, 24), (64, 96)):
+        np.testing.assert_array_equal(ours.process_frames(frames, *size),
+                                      theirs.process_frames(frames, *size))
+    for module, name in ((ours, "ours"), (theirs, "theirs")):
+        module.write_video(str(tmp_path / f"{name}.gif"), frames, fps=7)
+    for name in ("ours", "theirs"):
+        path = str(tmp_path / f"{name}.gif")
+        got, want = ours.load_input(path), theirs.load_input(path)
+        assert got.shape == frames.shape
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ours.load_input(str(tmp_path / "ours.gif")),
+                                  ours.load_input(str(tmp_path / "theirs.gif")))
+    import imageio.v3 as iio
+
+    iio.imwrite(str(tmp_path / "frame.png"), (frames[0] * 255).astype(np.uint8))
+    np.testing.assert_array_equal(ours.load_input(str(tmp_path / "frame.png")),
+                                  theirs.load_input(str(tmp_path / "frame.png")))
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "trans_pipeline", "loader", "inference_cli",
+                                   "training_cli", "matmul_microbench",
+                                   "flash_variant_microbench"])
+def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
+    """Every entry point defaults to the card; where there is none (here) it raises with a
+    message that names the CPU switch, instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default does not raise")
+    from lkgd_torch.cli import run_inference_svd, train_svd_lora
+    from lkgd_torch.data.datasets import PrefetchLoader
+    from lkgd_torch.experiments import flash_variant_microbench, matmul_microbench
+    from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
+
+    tiny = dict(config=SVDPipelineConfig(**TINY_PIPE), unet_config=tcfg.SVDUNetConfig(**TINY_UNET),
+                vae_config=tcfg.TemporalVAEConfig(**TINY_VAE),
+                clip_config=tcfg.CLIPVisionConfig(**TINY_CLIP), dtype=torch.float32)
+    calls = {
+        "pipeline": lambda: StableVideoDiffusionPipeline(**tiny),
+        "trans_pipeline": lambda: StableVideoDiffusionTransPipeline(**tiny),
+        "loader": lambda: PrefetchLoader([{"x": np.zeros(2)}] * 2, batch_size=2),
+        "inference_cli": lambda: run_inference_svd.main(["--image", str(tmp_path / "a.png")]),
+        "training_cli": lambda: train_svd_lora.build(train_svd_lora.make_parser().parse_args(
+            ["--output-dir", str(tmp_path)])),
+        "matmul_microbench": lambda: matmul_microbench.main([]),
+        "flash_variant_microbench": lambda: flash_variant_microbench.main([]),
+    }
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        calls[entry]()
 
 
 @pytest.mark.parametrize("field,value,ported", [
     pytest.param("knowledge_fusion", True, True, id="knowledge_fusion-True"),
-    pytest.param("joint", object(), False, id="joint-value1"),
+    pytest.param("joint", tcfg.JointAttentionConfig(mask=(0, 1, 0, 1)), True, id="joint-value1"),
     pytest.param("lora", tcfg.LoraRouter((tcfg.LoraRule("*attn1.*", "x"),)), True,
                  id="lora-value2")])
 def test_unported_unet_options_raise(field, value, ported):
-    """Joint attention is not ported and raises; knowledge fusion and LoRA routing, once
-    refused here as well, are ported now: the config takes them and the UNet builds."""
+    """Knowledge fusion, LoRA routing and joint attention, each once refused here, are
+    ported now: the config takes them and the UNet builds with their parameters."""
     if not ported:
         with pytest.raises(NotImplementedError):
             tcfg.SVDUNetConfig(**{field: value})
@@ -160,11 +223,23 @@ def test_unported_unet_options_raise(field, value, ported):
     assert getattr(config, field) == value
     with torch.device("meta"):
         names = [n for n, _ in UNetSpatioTemporalCondition(config).named_parameters()]
-    assert any(n.startswith("knowledge_fusion.") if field == "knowledge_fusion"
-               else "lora_x_A" in n for n in names)
+    marker = {"knowledge_fusion": "knowledge_fusion.", "lora": "lora_x_A",
+              "joint": "transformer_blocks.0.attn1n.to_k.weight"}[field]
+    assert any(marker in n for n in names)
 
 
-@pytest.mark.parametrize("field,value", [("sequential_cfg", True), ("deep_cache_interval", 2)])
-def test_unported_pipeline_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        SVDPipelineConfig(**{field: value})
+@pytest.mark.parametrize("field,value,ported", [("sequential_cfg", True, True),
+                                                ("deep_cache_interval", 2, False)])
+def test_unported_pipeline_options_raise(field, value, ported):
+    """DeepCache is not ported and raises; ``sequential_cfg`` is: the pipeline builds a
+    second UNet on the first one's very parameters."""
+    if not ported:
+        with pytest.raises(NotImplementedError):
+            SVDPipelineConfig(**{field: value})
+        return
+    pipe = StableVideoDiffusionPipeline(
+        config=SVDPipelineConfig(**TINY_PIPE, **{field: value}),
+        unet_config=tcfg.SVDUNetConfig(**TINY_UNET), vae_config=tcfg.TemporalVAEConfig(**TINY_VAE),
+        clip_config=tcfg.CLIPVisionConfig(**TINY_CLIP), dtype=torch.float32, device="cpu")
+    shared = dict(pipe.unet_seq.named_parameters())
+    assert shared and all(p is shared[n] for n, p in pipe.unet.named_parameters())

@@ -131,7 +131,7 @@ def test_prefetch_loader_matches_jax_order():
     jds = pytest.importorskip("lkgd_tpu.data.datasets")
     data = [{"pixel_values": np.full((2, 3), i, np.float32), "caption": f"c{i}"}
             for i in range(7)]
-    ours = iter(tds.PrefetchLoader(data, batch_size=2, seed=3))
+    ours = iter(tds.PrefetchLoader(data, batch_size=2, seed=3, device="cpu"))
     theirs = iter(jds.PrefetchLoader(data, batch_size=2, seed=3))
     for _ in range(7):  # three batches an epoch, the seventh of them epoch 2's
         got, want = next(ours), next(theirs)
@@ -151,4 +151,4 @@ def test_prefetch_loader_raises_the_producers_error():
             raise ValueError("bad clip")
 
     with pytest.raises(ValueError, match="bad clip"):
-        next(iter(tds.PrefetchLoader(Broken(), batch_size=2)))
+        next(iter(tds.PrefetchLoader(Broken(), batch_size=2, device="cpu")))
