@@ -11,7 +11,11 @@ each printing its own lines; any failure raises and the script exits non-zero:
    FLASH_TOL * max|ref|, GroupNorm max |d| <= 3e-2 in bf16 and <= 1e-5 in fp32), with
    both times, the time of the PyTorch library call for the same function and the bound
    (the least time the card could take); the flash and GroupNorm kernels also at the
-   frame-transition clip's shapes (56 and 4 rows), the plain flash version in row chunks;
+   frame-transition clip's shapes (56 and 4 rows) and the flash kernels at the whole-clip
+   decode's (14, 9216, 1, 512), the plain flash version in row chunks; the key-norm kernel
+   that feeds the bound kernel against its plain version at every flash case, with the
+   plain ``bound_t``'s time beside it; at (2, 9216, 1, 512) the flash kernels must beat
+   their plain versions;
 3b. the two microbenchmark kernels against their plain versions: the blocked matmul at
    (258048, 320) x (320, 320 | 1280) and ragged shapes (max |d| <= 1e-2 * max|ref|), the
    flash variants at (140, 9216, 64) in every mode with two tile shapes (max |d| <= 1e-2
@@ -23,7 +27,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
 5. the full-size clip: 14 frames at 576x1024, 25 steps, CFG, bf16 random weights from a
    seeded generator; two clips (the first warms up), every kernel's launch count in the
    second, which must be > 0 for the four inference kernels and 0 for the four training
-   ones (no gradient is asked for), and finite frames in [0, 1];
+   ones (no gradient is asked for), and finite frames in [0, 1]; then one UNet step and
+   one whole-clip decode under ``torch.profiler`` for their device time by kind;
 5b. the full-size frame-transition clip through ``lkgd_torch/cli/run_inference_svd.py``'s
    ``build_pipeline`` (``--mode trans --flip --temporal --lora-rank 4``): 2 streams x 14
    frames at 576x1024, 25 steps, CFG batched as 56 UNet rows, bf16; a warm-up clip and a
@@ -52,8 +57,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
-A line ``{"kernels": [...]}`` lists all twelve kernels with their launches on each path,
-error, time, the plain version's time, the library call's time and the bound, computed
+A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
+launches on each path, error, time, the plain version's time, the library call's time and the bound, computed
 here from the shapes: the larger of the bytes moved over 3.35 TB/s and the operations
 over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products, 67
 TFLOP/s for fp32 arithmetic outside them).
@@ -88,6 +93,9 @@ GRAD_TOL = 2e-2
 REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     "flash_bound": "lkgd_tpu/ops/flash_attention.py:40",
     "flash_maxtrack": "lkgd_tpu/ops/flash_attention.py:102",
+    # no Pallas kernel: the part of the wrapper's _bound_t that the bound kernel takes from
+    # outside, max_j|k_j| per (batch, head)
+    "flash_key_norm": "lkgd_tpu/ops/flash_attention.py:95",
     "gn_stats": "lkgd_tpu/ops/group_norm.py:44",
     "gn_apply": "lkgd_tpu/ops/group_norm.py:56",
     "flash_bound_lse": "lkgd_tpu/ops/flash_attention.py:150",
@@ -99,7 +107,7 @@ REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     "blocked_matmul": "experiments/matmul_microbench.py:89",
     "flash_variant": "experiments/flash_variant_microbench.py:41",
 }
-INFERENCE = ("flash_bound", "flash_maxtrack", "gn_stats", "gn_apply")
+INFERENCE = ("flash_bound", "flash_maxtrack", "flash_key_norm", "gn_stats", "gn_apply")
 TRAINING = ("flash_bound_lse", "flash_maxtrack_lse", "flash_bwd_dq", "flash_bwd_dkv",
             "split_heads", "merge_heads")
 EXPERIMENTS = ("blocked_matmul", "flash_variant")
@@ -109,8 +117,9 @@ VARIANT_TOL = {"base": 1e-2, "prescale": 1e-2, "noexp": 1e-2, "bf16exp": 3e-2,
 MATMUL_TOL = 1e-2  # of max|ref|: fp32 accumulation, one bf16 rounding of the output
 # the card's published peaks (H100 SXM): device memory, bf16 tensor cores, fp32 outside them
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
-SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention.cu",
-           "flash_maxtrack": "lkgd_torch/csrc/flash_attention.cu",
+SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention_wgmma.cu",
+           "flash_maxtrack": "lkgd_torch/csrc/flash_attention_wgmma.cu",
+           "flash_key_norm": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "gn_stats": "lkgd_torch/csrc/group_norm.cu",
            "gn_apply": "lkgd_torch/csrc/group_norm.cu",
            "flash_bound_lse": "lkgd_torch/csrc/flash_attention.cu",
@@ -218,7 +227,8 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     flash_cases = [("unet level 0", (2, 9216, 5, 64), 1.0),
                    ("unet level 1", (4, 2304, 10, 64), 1.0),
                    ("vae mid", (2, 9216, 1, 512), 1.0), ("ragged", (2, 1100, 5, 64), 1.0),
-                   ("fallback", (1, 1100, 2, 64), 60.0),
+                   ("fallback", (1, 1100, 2, 64), 60.0), ("fallback wide", (1, 1100, 1, 512), 60.0),
+                   ("vae decode", (14, 9216, 1, 512), 1.0),  # the whole-clip decode's call
                    # the frame-transition clip: 4 x 14 rows, attn1 and attn1n alike
                    ("trans level 0", (56, 9216, 5, 64), 1.0),
                    ("trans level 1", (56, 2304, 10, 64), 1.0)]
@@ -253,11 +263,32 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                   f"{least['bound_by']} | tiles recomputed {recomputed}", flush=True)
             assert np.isfinite(max_err) and max_err <= FLASH_TOL * ref_max, \
                 (kernel, label, max_err, ref_max)
-            if label == "fallback" and kernel == "flash_bound":
+            if label.startswith("fallback") and kernel == "flash_bound":
                 assert recomputed > 0, "the huge-norm input must trip the fallback"
+            if label == "vae mid":
+                assert ms < plain_ms, f"{kernel} at D=512 is slower than its plain version"
             if label == "unet level 0":
                 results[kernel] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                                    "library_ms": lib_ms, **least}
+        # the bound's key part alone: the kernel against its plain version (fp32 sums in
+        # another order: rtol 1e-5), and what the whole bound cost in PyTorch before
+        norm_got, norm_want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
+        norm_err = (norm_got - norm_want).abs().max().item()
+        norm_ms, norm_plain_ms = gpu_ms(lambda: fa.key_norm_max(k)), gpu_ms(
+            lambda: fa.key_norm_max_plain(k))
+        bound_t_ms = gpu_ms(lambda: fa.bound_t(q, k).contiguous())
+        # k read once, (B, H) fp32 written; 2 fp32 operations an element
+        norm_least = bound(2 * k.numel(), k.numel() * 2 + shape[0] * shape[2] * 4, PEAK_FP32)
+        print(f"[kernel] flash_key_norm {label} (B,S,H,D)={shape} x{scale}: max|d| "
+              f"{norm_err:.3e} of max {norm_want.max().item():.3e} (rtol 1e-5) | {norm_ms:.3f} "
+              f"ms, plain {norm_plain_ms:.3f} ms, bound {norm_least['bound_ms']:.4f} ms by "
+              f"{norm_least['bound_by']} | plain bound_t (the whole bound in PyTorch, as "
+              f"kernel 7 still takes it) {bound_t_ms:.3f} ms", flush=True)
+        torch.testing.assert_close(norm_got, norm_want, rtol=1e-5, atol=0)
+        if label == "unet level 0":
+            results["flash_key_norm"] = {"max_abs_err": norm_err, "ms": norm_ms,
+                                         "plain_ms": norm_plain_ms, "library_ms": None,
+                                         **norm_least}
         del q, k, v, want
         torch.cuda.empty_cache()
 
@@ -495,6 +526,8 @@ def phase_full(dev: torch.device) -> dict:
         assert launches.get(name, 0) > 0, f"kernel {name} was not launched by the main path"
     for name in TRAINING + EXPERIMENTS:  # no gradient is asked for, no microbenchmark runs
         assert launches.get(name, 0) == 0, f"kernel {name} was launched by inference"
+    _profile_unet_step("full", pipe, 2, gen)
+    _profiled("full", "the whole-clip decode", lambda: pipe.decode_latents(latents))
     return launches
 
 
@@ -567,7 +600,7 @@ def phase_tiny_trans(dev: torch.device) -> None:
             torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
 
 
-_KINDS = (("flash attention kernels", ("flash_fwd",)),
+_KINDS = (("flash attention kernels", ("flash_fwd", "key_sq_max")),
           ("GroupNorm kernels", ("gn_",)),
           ("cuDNN convolutions", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
           ("cuBLAS matrix products", ("gemm", "cutlass", "nvjet", "cublas", "gemv")),
@@ -593,6 +626,37 @@ def _device_time_by_kind(prof) -> tuple[float, dict, int]:
         kind = next((name for name, words in _KINDS if any(w in e.key for w in words)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
     return total, dict(sorted(kinds.items(), key=lambda kv: -kv[1])), count
+
+
+def _profiled(label: str, what: str, fn) -> None:
+    """``fn()`` once to warm up and once under ``torch.profiler``: its device time by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, kinds, n_ops = _device_time_by_kind(prof)
+    print(f"[{label}] {what} under torch.profiler: wall {wall_ms:.1f} ms, device "
+          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% busy), {n_ops} device "
+          f"operations | " + ", ".join(f"{k} {v:.1f} ms ({100 * v / device_ms:.1f}%)"
+                                       for k, v in kinds.items()), flush=True)
+    assert device_ms > 0.0
+
+
+def _profile_unet_step(label: str, pipe, rows: int, gen: torch.Generator) -> None:
+    """One UNet step of ``rows`` clips' frames under the profiler: where its time goes."""
+    cfg, dev = pipe.config, gen.device
+    model_in = torch.randn((rows, cfg.num_frames, pipe.latent_height, pipe.latent_width, 8),
+                           generator=gen, device=dev).to(pipe.dtype)
+    emb = torch.randn((rows, 1, 1024), generator=gen, device=dev).to(pipe.dtype)
+    ids = pipe._add_time_ids(rows)
+    _profiled(label, f"one UNet step of {rows} x {cfg.num_frames} = {rows * cfg.num_frames} rows",
+              lambda: pipe.unet(model_in, pipe.schedule.timesteps[5], emb, ids))
 
 
 def phase_trans_full(dev: torch.device) -> dict:
@@ -681,28 +745,7 @@ def phase_trans_full(dev: torch.device) -> dict:
         assert launches.get(name, 0) == 0, f"kernel {name} was launched by the trans clip"
     del frames, latents, runs, timed, seq
 
-    # one UNet step under the profiler: where the step's device time goes
-    from torch.profiler import ProfilerActivity, profile
-
-    rows = 2 * images.shape[0]
-    model_in = torch.randn((rows, cfg.num_frames, pipe.latent_height, pipe.latent_width, 8),
-                           generator=gen, device=dev).to(pipe.dtype)
-    emb = torch.randn((rows, 1, 1024), generator=gen, device=dev).to(pipe.dtype)
-    ids = pipe._add_time_ids(rows)
-    with torch.inference_mode():
-        pipe.unet(model_in, pipe.schedule.timesteps[5], emb, ids)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pipe.unet(model_in, pipe.schedule.timesteps[5], emb, ids)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms, kinds, n_ops = _device_time_by_kind(prof)
-    print(f"[trans] one UNet step under torch.profiler: wall {wall_ms:.1f} ms, device "
-          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% busy), {n_ops} device "
-          f"operations | " + ", ".join(f"{k} {v:.1f} ms ({100 * v / device_ms:.1f}%)"
-                                       for k, v in kinds.items()), flush=True)
-    assert device_ms > 0.0
+    _profile_unet_step("trans", pipe, 2 * images.shape[0], gen)
     return launches
 
 

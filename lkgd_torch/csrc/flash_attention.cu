@@ -1,57 +1,50 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32 accumulation.
+// Flash-attention training forward for Hopper (sm_90a): bf16 in and out, fp32 accumulation,
+// with the log2-domain logsumexp of every row that the backward kernels need.
 //
-// Replaces the Pallas TPU kernels of lkgd_tpu/ops/flash_attention.py:
-//   * BOUND=true ports _flash_bound_kernel (driven by _flash_bhsd):
+// Replaces the Pallas TPU kernels of lkgd_tpu/ops/flash_attention.py that carry training:
+//   * BOUND=true, kernel 7: _flash_bound_lse_kernel (driven by _flash_fwd_lse_bhsd):
 //     softmax with a precomputed per-row upper bound t_i = -scale*log2e*|q_i|*max_j|k_j|
 //     subtracted in the exp2 domain instead of a running max. No max reduction and no
 //     rescaling; the kernel writes the smallest row sum of each query tile.
-//   * BOUND=false ports _flash_kernel (driven by
-//     _flash_maxtrack_bhsd): the online-max form with per-tile exp2(m_prev - m_next)
+//   * BOUND=false, kernel 8: _flash_fwd_lse_kernel (driven by
+//     _flash_fwd_lse_maxtrack_bhsd): the online-max form with per-tile exp2(m_prev - m_next)
 //     rescaling. Launched after the bound kernel with that kernel's per-tile minimum row
 //     sums, it returns at once for every tile whose minimum is > 2^-110 and recomputes
 //     only the tiles whose bound was too loose (the TPU wrapper's lax.cond, decided on
-//     the device per tile, with no host synchronisation). Launched with no minimums it is
-//     the plain max-tracking kernel (LKGD_FLASH_MAXTRACK=1).
-//   * LSE=true is the training forward (D <= 128): with BOUND=true it ports
-//     _flash_bound_lse_kernel (driven by _flash_fwd_lse_bhsd), with BOUND=false
-//     _flash_fwd_lse_kernel (driven by _flash_fwd_lse_maxtrack_bhsd). Each also writes the
-//     log2-domain logsumexp of every row's scaled logits, (B*H, S_q) fp32, that the
-//     backward kernels (flash_attention_bwd.cu) recompute the probabilities from. The
-//     guard is the same as above: JAX's min(lse + t) > -110 is min log2(l) > -110. The
-//     LSE write is one fp32 per row, nothing next to the S^2*D products.
+//     the device per tile, with no host synchronisation; JAX's min(lse + t) > -110 is
+//     min log2(l) > -110). Launched with no minimums it is the plain max-tracking kernel
+//     (LKGD_FLASH_MAXTRACK=1).
+//   Each writes the lse of every row's scaled logits, (B*H, S_q) fp32, that the backward
+//   kernels (flash_attention_bwd.cu) recompute the probabilities from: one fp32 per row,
+//   nothing next to the S^2*D products. D <= 128 only.
+// The inference forwards without an lse (kernels 1 and 2) are in flash_attention_wgmma.cu,
+// built on wgmma and TMA; the lse output is not built there yet, so the training forward
+// runs this mma.sync kernel.
 //
-// What bounds it on the H100: tensor-core FLOPs. One UNet level-0 call (S=9216, D=64,
-// B*H=140) is 4*S^2*D*B*H = 3.05 TFLOP; its inputs are 24 MB. The design keeps the
+// What bounds it on the H100: tensor-core FLOPs. One fine-tune level-0 call (S=4096, D=64,
+// B*H=40) is 4*S^2*D*B*H = 0.17 TFLOP; its inputs are 21 MB. The design keeps the
 // logits out of device memory and spends its time in bf16 tensor-core products:
-//   * one CUDA block per (batch*head, query tile); the TPU's sequential k-grid dimension
-//     becomes a loop over K/V tiles inside the block;
+//   * one CUDA block per (batch*head, query tile of 64 rows); the TPU's sequential k-grid
+//     dimension becomes a loop over 64-key K/V tiles inside the block;
 //   * each warp owns 16 query rows end to end (scores, softmax, P.V), so the only
 //     block-wide barriers are around the shared K/V tile loads;
-//   * D <= 128 (the UNet's D=64): flash_fwd_mma_kernel keeps the scores, probabilities
-//     and output accumulator in registers in the FlashAttention-2 layout of mma.sync
-//     m16n8k16 (bf16 in, fp32 accumulate): the score accumulator of one product is the
-//     A operand of the next, with no trip through shared memory; the next K/V tile loads
-//     with cp.async while the current one computes;
-//   * D > 128 (the VAE's D=512): flash_fwd_kernel uses nvcuda::wmma fragments and keeps
-//     the score tile, probabilities and output accumulator in shared memory (a warp's
-//     16x512 fp32 accumulator cannot live in registers);
-//   * q, k, v and the output are read and written as (B, S, H, D) through their strides:
-//     the inference forward takes the projections' views as they are, the training
-//     forward the head-major copies of relayout_heads.cu (_split_heads/_merge_heads);
+//   * the scores, probabilities and output accumulator stay in registers in the
+//     FlashAttention-2 layout of mma.sync m16n8k16 (bf16 in, fp32 accumulate): the score
+//     accumulator of one product is the A operand of the next, with no trip through shared
+//     memory; the next K/V tile loads with cp.async while the current one computes;
+//   * q, k, v and the output are read and written as (B, S, H, D) through their strides
+//     (the head-major copies of relayout_heads.cu, _split_heads/_merge_heads);
 //   * a ragged S is handled in the kernel: rows and keys past the end load as zeros and
 //     the keys are masked to -inf (the TPU's _mask_if_padded), D is zero-padded in shared
 //     memory up to the tile width.
-// TMA loads, wgmma and warp specialisation are later work.
 
 #include <math.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace lkgd;
-using namespace nvcuda;
 
 constexpr float kGuard = 0x1p-110f;  // smallest row sum the bound kernel may leave
 
@@ -66,200 +59,10 @@ struct FlashArgs {
   const float* t;        // (B*H, s_q) minus the logit bound, log2 domain (bound kernel)
   float* tile_min;       // (B*H, n_q_tiles): written by the bound kernel, read as the guard
   int* recomputed;       // count of tiles the guarded max-tracking launch recomputed
-  float* lse;            // (B*H, s_q) log2-domain logsumexp, or null (inference forward)
+  float* lse;            // (B*H, s_q) log2-domain logsumexp
 };
 
-template <int DP, int NW, int BK>
-struct Smem {
-  static constexpr int BQ = 16 * NW;
-  static constexpr size_t q = size_t(BQ) * DP * sizeof(bf16);
-  static constexpr size_t kv = size_t(BK) * DP * sizeof(bf16);
-  static constexpr size_t s = size_t(BQ) * BK * sizeof(float);
-  static constexpr size_t p = size_t(BQ) * BK * sizeof(bf16);
-  static constexpr size_t o = size_t(BQ) * DP * sizeof(float);
-  static constexpr size_t total = q + 2 * kv + s + p + o;
-};
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// Copy rows [row0, row0 + nrows) of a strided (S, D) slice into a (nrows, DP) shared tile
-// with 16-byte loads; rows past s_total and columns past d are zero.
-template <int DP, int NT>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base, long long row_stride,
-                                          int row0, int nrows, int s_total, int d) {
-  constexpr int VPR = DP / 8;
-  for (int i = threadIdx.x; i < nrows * VPR; i += NT) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < s_total && c < d)
-      val = __ldg(reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * row_stride + c));
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-  }
-}
-
-template <int DP, int NW, int BK, bool BOUND>
-__global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const FlashArgs a) {
-  using L = Smem<DP, NW, BK>;
-  constexpr int BQ = L::BQ;
-  constexpr int NT = NW * 32;
-  constexpr int CPL = BK / 32;  // score columns per lane
-
-  if (!BOUND && a.tile_min != nullptr) {
-    // guarded fallback launch: NaN compares false and is recomputed too
-    if (a.tile_min[blockIdx.x] > kGuard) return;
-    if (threadIdx.x == 0) atomicAdd(a.recomputed, 1);
-  }
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::q + L::kv);
-  float* sS = reinterpret_cast<float*>(smem + L::q + 2 * L::kv);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::q + 2 * L::kv + L::s);
-  float* sO = reinterpret_cast<float*>(smem + L::q + 2 * L::kv + L::s + L::p);
-  __shared__ float warp_min[NW];
-
-  const int bh = blockIdx.x / a.n_q_tiles;
-  const int qt = blockIdx.x % a.n_q_tiles;
-  const int b = bh / a.heads, h = bh % a.heads;
-  const bf16* qb = a.q + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = a.k + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = a.v + b * a.vs.b + h * a.vs.h;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp * 16;                 // this warp's first row in the tile
-  const int d_tiles = (a.d + 15) / 16;      // 16-wide column tiles that hold real D
-
-  load_rows<DP, NT>(sQ, qb, a.qs.s, q0, BQ, a.s_q, a.d);
-  for (int i = threadIdx.x; i < BQ * DP; i += NT) sO[i] = 0.f;
-
-  // per-row softmax state; every lane of the warp holds the same values
-  float m_row[16], l_row[16], t_row[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_row[r] = -INFINITY;
-    l_row[r] = 0.f;
-    t_row[r] = 0.f;
-    if (BOUND && q0 + wr + r < a.s_q) t_row[r] = a.t[(long long)bh * a.s_q + q0 + wr + r];
-  }
-
-  for (int k0 = 0; k0 < a.s_k; k0 += BK) {
-    __syncthreads();  // the previous K/V tile is no longer read
-    load_rows<DP, NT>(sK, kb, a.ks.s, k0, BK, a.s_k, a.d);
-    load_rows<DP, NT>(sV, vb, a.vs.s, k0, BK, a.s_k, a.d);
-    __syncthreads();
-
-    // scores S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int nt = 0; nt < BK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < d_tiles; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + wr * DP + kk * 16, DP);
-        wmma::load_matrix_sync(fb, sK + nt * 16 * DP + kk * 16, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + wr * BK + nt * 16, acc, BK, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // probabilities P (bf16) and row sums, exp2 domain
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      float sv[CPL];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int col = lane + 32 * c;
-        sv[c] = (k0 + col < a.s_k) ? sS[row * BK + col] * a.scale_log2 : -INFINITY;
-      }
-      float shift, alpha = 1.f;
-      if (BOUND) {
-        shift = -t_row[r];
-      } else {
-        float mx = sv[0];
-#pragma unroll
-        for (int c = 1; c < CPL; ++c) mx = fmaxf(mx, sv[c]);
-        const float m_new = fmaxf(m_row[r], warp_max(mx));
-        alpha = exp2f(m_row[r] - m_new);
-        m_row[r] = m_new;
-        shift = m_new;
-      }
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const float pv = exp2f(sv[c] - shift);
-        sum += pv;
-        sP[row * BK + lane + 32 * c] = __float2bfloat16(pv);
-      }
-      l_row[r] = alpha * l_row[r] + warp_sum(sum);
-      if (!BOUND) {
-        for (int c = lane; c < DP; c += 32) sO[row * DP + c] *= alpha;
-      }
-    }
-    __syncwarp();
-
-    // O += P V
-    for (int dt = 0; dt < d_tiles; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + wr * DP + dt * 16, DP, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + wr * BK + kk * 16, BK);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * DP + dt * 16, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + wr * DP + dt * 16, acc, DP, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  // out = O / l, written through the output strides with 16-byte stores
-  bf16* ob = a.o + b * a.os.b + h * a.os.h;
-  float mn = INFINITY;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int qrow = q0 + wr + r;
-    if (qrow >= a.s_q) continue;
-    mn = (l_row[r] > kGuard) ? fminf(mn, l_row[r]) : 0.f;  // an underflowed or NaN row: 0
-    const float inv = 1.f / l_row[r];
-    for (int c = lane * 8; c < a.d; c += 32 * 8) {
-      const float* src = sO + (wr + r) * DP + c;
-      uint4 packed;
-      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p2[e] = __floats2bfloat162_rn(src[2 * e] * inv, src[2 * e + 1] * inv);
-      *reinterpret_cast<uint4*>(ob + (long long)qrow * a.os.s + c) = packed;
-    }
-  }
-  if (BOUND) {
-    if (lane == 0) warp_min[warp] = mn;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float tile = warp_min[0];
-      for (int w = 1; w < NW; ++w) tile = fminf(tile, warp_min[w]);
-      a.tile_min[blockIdx.x] = tile;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- D <= 128: registers
-template <int DP, bool BOUND, bool LSE>
+template <int DP, bool BOUND>
 __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
   constexpr int LD = RegTile<DP>::LD;
   constexpr int KC = DP / 16;        // 16-wide chunks of D (Q K^T depth)
@@ -412,7 +215,7 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
         *reinterpret_cast<uint32_t*>(ob + (long long)row * a.os.s + col) =
             pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
-    if (LSE && t4 == 0)
+    if (t4 == 0)
       a.lse[(long long)bh * a.s_q + row] = BOUND ? log2f(l) - t_r[r] : m_r[r] + log2f(l);
   }
   if (BOUND) {
@@ -426,9 +229,9 @@ __global__ void __launch_bounds__(128) flash_fwd_mma_kernel(const FlashArgs a) {
   }
 }
 
-template <int DP, bool BOUND, bool LSE>
+template <int DP, bool BOUND>
 cudaError_t launch_mma(const FlashArgs& a, long long blocks, cudaStream_t stream) {
-  auto kernel = flash_fwd_mma_kernel<DP, BOUND, LSE>;
+  auto kernel = flash_fwd_mma_kernel<DP, BOUND>;
   const int bytes = int(5 * RegTile<DP>::bytes);  // Q + two stages of (K, V)
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -437,50 +240,27 @@ cudaError_t launch_mma(const FlashArgs& a, long long blocks, cudaStream_t stream
   return cudaGetLastError();
 }
 
-template <int DP, int NW, int BK, bool BOUND>
-cudaError_t launch(const FlashArgs& a, long long blocks, cudaStream_t stream) {
-  using L = Smem<DP, NW, BK>;
-  auto kernel = flash_fwd_kernel<DP, NW, BK, BOUND>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::total));
-  if (err != cudaSuccess) return err;
-  kernel<<<unsigned(blocks), NW * 32, L::total, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// Plan by D padded to DP: registers up to 128 (64 query rows a block; shared memory 45 KB
-// at DP=64, 85 KB at 128), shared-memory accumulators above (140 KB at DP=256 with 64
-// rows, 166 KB at 512 with 32 rows).
-// With an lse output (the training forward) only D <= 128 is built.
+// Static dispatch by D padded to the tile width; D <= 128 only.
 template <bool BOUND>
 cudaError_t dispatch(const FlashArgs& a, long long blocks, cudaStream_t s) {
-  if (a.lse != nullptr) {
-    if (a.d <= 64) return launch_mma<64, BOUND, true>(a, blocks, s);
-    if (a.d <= 128) return launch_mma<128, BOUND, true>(a, blocks, s);
-    return cudaErrorInvalidValue;
-  }
-  if (a.d <= 64) return launch_mma<64, BOUND, false>(a, blocks, s);
-  if (a.d <= 128) return launch_mma<128, BOUND, false>(a, blocks, s);
-  if (a.d <= 256) return launch<256, 4, 32, BOUND>(a, blocks, s);
-  return launch<512, 2, 32, BOUND>(a, blocks, s);
+  if (a.d <= 64) return launch_mma<64, BOUND>(a, blocks, s);
+  if (a.d <= 128) return launch_mma<128, BOUND>(a, blocks, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Query rows per block for a head dim d (the tile the per-tile guard covers).
-int lkgd_flash_block_rows(int d) { return d <= 256 ? 64 : 32; }
-
-// q, k, v, o: (B, S, H, D) bf16 with strides[12] = (b, s, h) element strides of q, k, v, o.
-// bound=1: the bound kernel (t and tile_min required). bound=0: the max-tracking kernel,
-// guarded by tile_min when it is not null. lse: null, or (B*H, s_q) fp32 for the training
-// forward's log2-domain logsumexp (D <= 128 only).
-int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides,
-                   int batch, int heads, int s_q, int s_k, int d, float scale_log2,
-                   const float* t, float* tile_min, int* recomputed, float* lse, int bound,
-                   int device, void* stream) {
-  if (d <= 0 || d > 512 || d % 8 != 0) return int(cudaErrorInvalidValue);
+// q, k, v, o: (B, S, H, D) bf16 with strides[12] = (b, s, h) element strides of q, k, v, o;
+// lse: (B*H, s_q) fp32, the log2-domain logsumexp. bound=1: the bound kernel (t and
+// tile_min required). bound=0: the max-tracking kernel, guarded by tile_min when it is
+// not null. Query tiles are kTileRows rows (lkgd_flash_block_rows(d, 1)).
+int lkgd_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                       const long long* strides, int batch, int heads, int s_q, int s_k, int d,
+                       float scale_log2, const float* t, float* tile_min, int* recomputed,
+                       float* lse, int bound, int device, void* stream) {
+  if (d <= 0 || d > 128 || d % 8 != 0 || lse == nullptr) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   FlashArgs a;
@@ -496,8 +276,7 @@ int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const l
   a.s_q = s_q;
   a.s_k = s_k;
   a.d = d;
-  const int bq = lkgd_flash_block_rows(d);
-  a.n_q_tiles = (s_q + bq - 1) / bq;
+  a.n_q_tiles = (s_q + kTileRows - 1) / kTileRows;
   a.scale_log2 = scale_log2;
   a.t = t;
   a.tile_min = tile_min;

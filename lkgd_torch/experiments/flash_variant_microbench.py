@@ -5,7 +5,7 @@ UNet's dominant attention shape (counterpart of
     python -m lkgd_torch.experiments.flash_variant_microbench
 
 Rows printed: the card's name and power limit; ``wrapper``, the production path
-(``flash_attention``: the bound in PyTorch, the bound kernel, the guarded max-tracking
+(``flash_attention``: the key-norm kernel, the wgmma bound kernel, the guarded max-tracking
 launch); then each mode of ``flash_variant`` (``base``, ``prescale``, ``bf16exp``,
 ``prescale_bf16exp``, ``noexp``) at each tile shape, with its time, its rate over
 ``4*S^2*D*B*H`` operations and ``max|d-base|`` against the ``base`` result of the first

@@ -7,8 +7,11 @@ name holds a hash of the sources, the shared headers (``*.cuh``) and the flags: 
 source builds anew, an unchanged one is reused. Pointers and the stream go in as Python
 ints from ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
 
-Nothing here runs at import: the CPU tests import every module, and this machine has no
-``nvcc``.
+Nothing here runs at import: the CPU tests import every module, and a machine without a
+card has no ``nvcc``.
+
+``python -m lkgd_torch.ops._build`` prints what ``nvcc -Xptxas -v`` says of every kernel:
+registers, spills, shared memory and ptxas's warnings.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,9 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "lkgd_flash_block_rows": ([_I], _I),
+    "lkgd_flash_block_rows": ([_I, _I], _I),
+    "lkgd_flash_smem_bytes": ([_I], _I),
     "lkgd_flash_fwd": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F,
-                        _P, _P, _P, _P, _I, _I, _P], _I),
+                        _P, _P, _P, _I, _I, _P], _I),
+    "lkgd_flash_key_sq_max": ([_P, ctypes.POINTER(_LL), _I, _I, _I, _I, _P, _I, _P], _I),
+    "lkgd_flash_fwd_lse": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F,
+                            _P, _P, _P, _P, _I, _I, _P], _I),
     "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                    _P], _I),
     "lkgd_gn_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -109,3 +117,33 @@ def check(err: int) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel launch failed: "
                            f"{library().lkgd_error_string(err).decode()}")
+
+
+def ptxas_report() -> str:
+    """``-Xptxas -v`` of every source: one line a kernel (demangled name, registers, spill
+    bytes, static shared memory), and every warning ptxas gave."""
+    nvcc, lines = _nvcc(), []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in SOURCES:
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                                   os.path.join(tmp, src.stem + ".o"), str(src)],
+                                  capture_output=True, text=True, check=True)
+            name = ""
+            for line in proc.stderr.splitlines():
+                if "Compiling entry function" in line:
+                    mangled = line.split("'")[1]
+                    name = subprocess.run(["c++filt", mangled], capture_output=True,
+                                          text=True).stdout.strip() or mangled
+                    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+                    name = name.split("(")[0]
+                elif "spill" in line:
+                    spills = line.strip()
+                elif "Used" in line and "registers" in line:
+                    lines.append(f"{src.name} {name}: {line.split(':', 1)[1].strip()}; {spills}")
+                elif "warning" in line.lower() or "Potential Performance Loss" in line:
+                    lines.append(f"{src.name}: {line.strip()[:200]}")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    print(ptxas_report())

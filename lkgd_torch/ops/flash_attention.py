@@ -26,6 +26,13 @@ place of the JAX custom VJP ``_flash_core``:
   splits q, k, v and dO into head-major copies and merges out, dq, dk and dv back, as
   ``_flash_attention_local`` does around ``_flash_core``.
 
+On the card kernels 1 and 2 are one warp-specialised ``wgmma``/TMA kernel
+(``csrc/flash_attention_wgmma.cu``), tiled as ``flash_plan`` says; kernel 1 sums ``|q_i|``
+itself from its Q tile and takes only ``max_j|k_j|`` per (batch, head) from outside, from
+a small kernel of its own (``key_norm_max``; the TPU wrapper computes its whole bound
+outside the Pallas kernel too). Kernels 7 and 8 keep the ``mma.sync`` kernel of
+``csrc/flash_attention.cu`` with the whole bound from ``bound_t``.
+
 The JAX wrapper reruns kernel 2 when the smallest row sum of the whole call is <= 2^-110
 (``lax.cond`` on the device). Here kernel 2 is always launched after kernel 1 with
 kernel 1's per-tile minimum row sums; each of its blocks returns at once unless its own
@@ -43,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -50,7 +58,7 @@ LOG2E = 1.4426950408889634
 GUARD = 2.0 ** -110  # smallest row sum the bound kernel may leave (flash_attention.py:471)
 
 # launches of each kernel since the last reset; read by chip_smoke.py
-launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_bound_lse": 0,
+launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_key_norm": 0, "flash_bound_lse": 0,
             "flash_maxtrack_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "split_heads": 0, "merge_heads": 0}
 TRAIN_MAX_D = 128  # head dims the LSE forward and backward kernels are built for
@@ -70,13 +78,84 @@ def recomputed_tiles(device: torch.device) -> torch.Tensor:
     return _recomputed[device]
 
 
+def key_norm_max_plain(k: torch.Tensor) -> torch.Tensor:
+    """(B, S_k, H, D) -> (B, H) fp32: the largest key norm of each batch and head, the part
+    of the bound that kernel 1 takes from outside (``k_n`` of ``_bound_t``)."""
+    return torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=1)
+
+
+def key_norm_max(k: torch.Tensor) -> torch.Tensor:
+    """``key_norm_max_plain`` on a CPU tensor; on a CUDA tensor (bf16) the key-norm kernel
+    that feeds kernel 1."""
+    if k.device.type == "cpu":
+        return key_norm_max_plain(k)
+    _check(k, k, k)
+    return _key_sq_max_cuda(k).sqrt()
+
+
+def _key_sq_max_cuda(k: torch.Tensor) -> torch.Tensor:
+    """(B, H) fp32 largest squared key norms, by the key-norm kernel (it reads k once)."""
+    from lkgd_torch.ops import _build
+
+    b, s_k, h, d = k.shape
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: {b * h} (batch, head) pairs exceed the grid")
+    out = torch.zeros((b, h), dtype=torch.float32, device=k.device)
+    device = k.device.index if k.device.index is not None else torch.cuda.current_device()
+    _build.check(_build.library().lkgd_flash_key_sq_max(
+        k.data_ptr(), (ctypes.c_longlong * 3)(*k.stride()[:3]), b, h, s_k, d, out.data_ptr(),
+        device, torch.cuda.current_stream(k.device).cuda_stream))
+    launches["flash_key_norm"] += 1
+    return out
+
+
 def bound_t(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(B, S_q, H, D), (B, S_k, H, D) -> (B, H, S_q) fp32: minus the Cauchy-Schwarz logit
-    upper bound in the log2 domain (``_bound_t``, flash_attention.py:95-99)."""
+    upper bound in the log2 domain (``_bound_t``, flash_attention.py:95-99). Kernel 1
+    computes the same rows itself, as ``-(|q_i| * key_norm_max) * scale * log2e`` with
+    ``|q_i|`` summed in fp32 from its Q tile: this is that arithmetic's plain version."""
     scale2 = q.shape[-1] ** -0.5 * LOG2E
     qn = torch.linalg.vector_norm(q, dim=-1, dtype=torch.float32)  # (B, S_q, H)
-    kn = torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=1)  # (B, H)
-    return (-(qn * kn[:, None, :]) * scale2).transpose(1, 2)
+    return (-(qn * key_norm_max_plain(k)[:, None, :]) * scale2).transpose(1, 2)
+
+
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100 (227 KB)
+
+
+class FlashPlan(NamedTuple):
+    """How the forward kernels tile one call (the host side of ``Plan`` in
+    ``csrc/flash_attention_wgmma.cu`` and of the ``mma.sync`` kernel's fixed tiles)."""
+    kernel: str        # "wgmma" (kernels 1/2) or "mma_sync" (kernels 7/8)
+    tile_rows: int     # query rows a block: what lkgd_flash_block_rows answers
+    key_tile: int      # keys a K or V tile
+    stages: int        # K/V tiles in flight (ring slots; two (K, V) pairs for mma_sync)
+    smem_bytes: int    # dynamic shared memory a block asks for
+    blocks: int        # the grid
+    waves: float       # blocks over the SMs (one block an SM for wgmma)
+
+
+def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
+               sm_count: int = 132) -> FlashPlan:
+    """The tiling of a forward call over (b, s_q | s_k, h, d): a pure function of the
+    shapes, static by d and by whether an lse is asked for. ``s_k`` sets only the length
+    of a block's loop; ``waves`` counts one block an SM for wgmma (its registers allow no
+    more) and as many as the shared memory holds for mma_sync."""
+    if d <= 0 or d % 8 or d > (TRAIN_MAX_D if lse else 512):
+        raise ValueError(f"flash_plan: head dim {d} (lse={lse}) is not built")
+    if lse:  # Q and two stages of (K, V), 64 rows of D padded to 64 or 128, 8 columns of pad
+        dp = 64 if d <= 64 else 128
+        rows, keys, stages, smem = 64, 64, 2, 5 * 64 * (dp + 8) * 2
+        name = "mma_sync"
+    else:
+        dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+        rows = keys = 128 if dp <= 128 else 64
+        stages = {64: 6, 128: 4, 256: 4, 512: 2}[dp]
+        # 1024 of alignment slack, Q, the ring, one Q barrier and a full/empty pair a slot
+        smem = 1024 + rows * dp * 2 + stages * keys * dp * 2 + 8 * (1 + 2 * stages)
+        name = "wgmma"
+    blocks = b * h * math.ceil(s_q / rows)
+    per_sm = max(1, SMEM_LIMIT // (smem + 1024)) if lse else 1  # wgmma: registers allow one
+    return FlashPlan(name, rows, keys, stages, smem, blocks, blocks / (sm_count * per_sm))
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -228,9 +307,10 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
     out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                         *out.stride()[:3])
-    n_q_tiles = math.ceil(s_q / lib.lkgd_flash_block_rows(d))
-    if b * h * n_q_tiles >= 2 ** 31:
-        raise ValueError(f"flash_attention: {b * h * n_q_tiles} blocks exceed the grid")
+    plan = flash_plan(b, s_q, s_k, h, d, with_lse)
+    n_q_tiles = math.ceil(s_q / plan.tile_rows)
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"flash_attention: {plan.blocks} blocks exceed the grid")
     scale2 = d ** -0.5 * LOG2E
     device = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -239,18 +319,23 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
            else None)
     suffix = "_lse" if with_lse else ""
 
-    def launch(bound: bool, t, tile_min):
-        _build.check(lib.lkgd_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q,
-            s_k, d, scale2, None if t is None else t.data_ptr(),
-            None if tile_min is None else tile_min.data_ptr(), counter.data_ptr(),
-            None if lse is None else lse.data_ptr(), int(bound), device, stream))
+    def launch(bound: bool, row_bound, tile_min):
+        """``row_bound``: kernel 7's (B*H, S_q) rows of t, or kernel 1's (B*H) largest
+        squared key norms."""
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q,
+                s_k, d, scale2, None if row_bound is None else row_bound.data_ptr(),
+                None if tile_min is None else tile_min.data_ptr(), counter.data_ptr())
+        if with_lse:
+            _build.check(lib.lkgd_flash_fwd_lse(*args, lse.data_ptr(), int(bound), device,
+                                                stream))
+        else:
+            _build.check(lib.lkgd_flash_fwd(*args, int(bound), device, stream))
         launches[("flash_bound" if bound else "flash_maxtrack") + suffix] += 1
 
     if not maxtrack_selected():
-        t = bound_t(q, k).contiguous()  # (B*H, S_q) rows
+        row_bound = bound_t(q, k).contiguous() if with_lse else _key_sq_max_cuda(k)
         tile_min = torch.empty((b * h, n_q_tiles), dtype=torch.float32, device=q.device)
-        launch(True, t, tile_min)
+        launch(True, row_bound, tile_min)
         launch(False, None, tile_min)  # the guard: recomputes only underflowed tiles
     else:
         launch(False, None, None)

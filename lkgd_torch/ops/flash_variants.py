@@ -2,7 +2,7 @@
 PyTorch version.
 
 Port of ``_variant_kernel`` / ``run_variant`` of ``experiments/flash_variant_microbench.py``
-(kernel 12): the production bound kernel's forward given the bound ``t``, with no fallback
+(kernel 12): the bound kernel's forward given the bound ``t``, with no fallback
 and no logsumexp, in five modes that switch one lever each, over several tile shapes:
 
 * ``base``: ``p = exp2(scale*log2e * q.k + t)``, ``out = (p . v) / rowsum(p)``;

@@ -152,6 +152,83 @@ def test_attention_hands_projection_views_to_flash(monkeypatch):
         assert x.stride() == (1024 * 32, 32, 16, 1), name
 
 
+# ------------------------------------------------------------------ the kernels' tiling
+# every (B, S_q, S_k, H, D) the pipelines hand the forward kernels: UNet levels 0 and 1 of
+# the base clip, the VAE mid block (encode, whole-clip decode), the frame-transition clip,
+# and the fine-tune's frozen VAE encode
+MAIN_SHAPES = [(2, 9216, 9216, 5, 64), (4, 2304, 2304, 10, 64), (2, 9216, 9216, 1, 512),
+               (14, 9216, 9216, 1, 512), (56, 9216, 9216, 5, 64), (56, 2304, 2304, 10, 64),
+               (8, 4096, 4096, 1, 512)]
+
+
+def _expected_rows(d: int, lse: bool) -> int:
+    """What ``lkgd_flash_block_rows(d, lse)`` answers (csrc/flash_attention_wgmma.cu)."""
+    return 64 if lse or d > 128 else 128
+
+
+@pytest.mark.parametrize("shape", MAIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_plan_at_main_path_shapes(shape):
+    b, s_q, s_k, h, d = shape
+    plan = tfa.flash_plan(*shape)
+    assert plan.kernel == "wgmma"
+    assert plan.smem_bytes <= tfa.SMEM_LIMIT == 232_448
+    assert plan.tile_rows == _expected_rows(d, False)
+    assert plan.blocks == b * h * -(-s_q // plan.tile_rows)
+    assert plan.waves == plan.blocks / 132
+    # the ring holds at least one K and one V tile beside Q
+    assert plan.stages >= 2 and plan.smem_bytes > (plan.tile_rows + 2 * plan.key_tile) * d * 2
+
+
+@pytest.mark.parametrize("lse", [False, True], ids=["inference", "lse"])
+@pytest.mark.parametrize("d", [8, 40, 64, 128, 256, 512])
+def test_flash_plan_by_head_dim(d, lse):
+    if lse and d > tfa.TRAIN_MAX_D:
+        with pytest.raises(ValueError):
+            tfa.flash_plan(1, 1100, 1030, 2, d, lse=True)
+        return
+    plan = tfa.flash_plan(1, 1100, 1030, 2, d, lse=lse)
+    assert plan.kernel == ("mma_sync" if lse else "wgmma")
+    assert plan.smem_bytes <= tfa.SMEM_LIMIT
+    assert plan.tile_rows == _expected_rows(d, lse)
+    assert plan.key_tile == plan.tile_rows
+    assert plan.blocks == 2 * -(-1100 // plan.tile_rows)
+    dp = next(w for w in (64, 128, 256, 512) if d <= w)
+    assert plan.smem_bytes >= (plan.tile_rows + plan.stages * plan.key_tile) * dp * 2
+
+
+@pytest.mark.parametrize("d", [0, 12, 520])
+def test_flash_plan_refuses_head_dims_the_kernels_do_not_take(d):
+    with pytest.raises(ValueError):
+        tfa.flash_plan(1, 1024, 1024, 1, d)
+
+
+# kernel 1 sums |q_i| itself and takes max_j|k_j| from the key-norm kernel; their plain
+# versions (bound_t = -(|q_i| * key_norm_max_plain) * scale * log2e) against the Pallas
+# wrapper's _bound_t and, through the bound form, against the Pallas kernel on a ragged S
+@pytest.mark.parametrize("shape", [(1, 1100, 2, 64), (1, 1030, 1, 512)], ids=["d64", "d512"])
+def test_key_norm_and_row_bound_match_pallas_wrapper(shape):
+    q, k, _ = _qkv(14, shape, scale=3.0)
+    d = shape[-1]
+    kn_j = np.sqrt(np.max(np.sum(np.square(_as_bhsd(torch.from_numpy(k))), -1), axis=1))
+    got_kn = tfa.key_norm_max(torch.from_numpy(k))  # on the CPU: the plain version
+    assert got_kn.shape == (shape[0], shape[2])
+    np.testing.assert_allclose(got_kn.reshape(-1).numpy(), kn_j, rtol=1e-6)
+    want = np.asarray(jfa._bound_t(_bhsd(q), _bhsd(k), d ** -0.5))[:, 0]
+    got = tfa.bound_t(torch.from_numpy(q), torch.from_numpy(k)).reshape(want.shape).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 1100, 2, 64), (1, 1030, 1, 512)], ids=["d64", "d512"])
+def test_bound_plain_matches_pallas_at_the_card_tests_ragged_shapes(shape):
+    """fp32, rtol 1e-4 / atol 2e-4: the same exp2-domain arithmetic summed in another order
+    over ~1100 keys; the Pallas wrapper pads S to its blocks and masks the keys."""
+    q, k, v = _qkv(15, shape)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = tfa.flash_attention_bound_plain(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-4)
+
+
 # ------------------------------------------------------------------ training kernels
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 

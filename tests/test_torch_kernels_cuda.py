@@ -55,24 +55,54 @@ TRAIN_SHAPES = [(8, 4096, 5, 64), (8, 1024, 10, 64), (2, 1100, 5, 64), (1, 1030,
 TRAIN_IDS = ["unet_level0", "unet_level1", "ragged", "d128"]
 
 
+# S ragged against the 128-row and 128-key tiles (64 above D=128), every tile width the
+# kernel is built for, and enough batch x heads x tiles for several waves of 132 blocks
+FLASH_SHAPES = [(2, 1100, 5, 64), (1, 1030, 1, 512), (1, 1024, 2, 40), (1, 1030, 2, 128),
+                (1, 1030, 2, 256), (1, 129, 3, 64), (3, 65, 1, 512), (1, 1100, 1, 8),
+                (12, 1100, 5, 64), (3, 9216, 1, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound", "flash_maxtrack"])
-@pytest.mark.parametrize("shape", [(2, 1100, 5, 64), (1, 1030, 1, 512), (1, 1024, 2, 40)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_flash_kernel_matches_plain(cuda_device, monkeypatch, shape, maxtrack):
     if maxtrack:
         monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
     q, k, v = _qkv(cuda_device, shape)
     before = dict(tfa.launches)
     got = tfa.flash_attention(q, k, v).float()
-    want = tfa.flash_attention_maxtrack_plain(q.float(), k.float(), v.float())
+    want = torch.cat([tfa.flash_attention_maxtrack_plain(*(x[i:i + 1].float() for x in (q, k, v)))
+                      for i in range(shape[0])])
     assert _rel_err(got, want) <= FLASH_TOL
     assert tfa.launches["flash_maxtrack"] == before["flash_maxtrack"] + 1
     assert tfa.launches["flash_bound"] == before["flash_bound"] + (0 if maxtrack else 1)
+    assert tfa.launches["flash_key_norm"] == before["flash_key_norm"] + (0 if maxtrack else 1)
 
 
 @pytest.mark.cuda
-def test_flash_fallback_recomputes_tiles(cuda_device):
-    q, k, v = _qkv(cuda_device, (1, 1100, 2, 64), scale=60.0)
+@pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound", "flash_maxtrack"])
+@pytest.mark.parametrize("d,heads", [(64, 5), (512, 1)])
+def test_flash_kernel_takes_strided_views_and_other_key_lengths(cuda_device, monkeypatch, d,
+                                                                heads, maxtrack):
+    """q from one fused projection, k and v as slices of another (S_q != S_k): the tensor
+    maps read the views through their strides."""
+    if maxtrack:
+        monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
+    c = heads * d
+    q = _randn(cuda_device, (2, 700, 2 * c)).bfloat16()[..., c:].unflatten(-1, (heads, d))
+    kv = _randn(cuda_device, (2, 1333, 2 * c), seed=1).bfloat16()
+    k, v = (kv[..., i * c:(i + 1) * c].unflatten(-1, (heads, d)) for i in range(2))
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = tfa.flash_attention(q, k, v)
+    assert got.shape == q.shape
+    want = tfa.flash_attention_maxtrack_plain(q.float(), k.float(), v.float())
+    assert _rel_err(got, want) <= FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1100, 2, 64), (1, 1100, 1, 512)], ids=["d64", "d512"])
+def test_flash_fallback_recomputes_tiles(cuda_device, shape):
+    q, k, v = _qkv(cuda_device, shape, scale=60.0)
     counter = tfa.recomputed_tiles(cuda_device)
     counter.zero_()
     got = tfa.flash_attention(q, k, v).float()
@@ -80,6 +110,36 @@ def test_flash_fallback_recomputes_tiles(cuda_device):
     assert counter.item() > 0
     assert torch.isfinite(got).all()
     assert _rel_err(got, want) <= FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1100, 5, 64), (3, 777, 1, 512), (1, 100, 2, 40)])
+def test_key_norm_kernel_matches_plain(cuda_device, shape):
+    """The key-norm kernel against its plain version on a strided view: fp32 sums of
+    squares in another order (rtol 1e-5)."""
+    b, s, h, d = shape
+    k = _randn(cuda_device, (b, s, 2 * h * d), 3.0).bfloat16()[..., h * d:].unflatten(-1, (h, d))
+    before = tfa.launches["flash_key_norm"]
+    got = tfa.key_norm_max(k)
+    assert got.shape == (b, h) and got.dtype == torch.float32
+    torch.testing.assert_close(got, tfa.key_norm_max_plain(k), rtol=1e-5, atol=0)
+    assert tfa.launches["flash_key_norm"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 64, 128, 256, 512])
+def test_flash_plan_is_the_kernels_tiling(cuda_device, d):
+    """The host-side plan and the library agree on tile rows and shared memory, and the
+    card grants that much to a block."""
+    from lkgd_torch.ops import _build
+
+    lib = _build.library()
+    plan = tfa.flash_plan(1, 1024, 1024, 1, d)
+    assert plan.tile_rows == lib.lkgd_flash_block_rows(d, 0)
+    assert plan.smem_bytes == lib.lkgd_flash_smem_bytes(d)
+    assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    if d <= tfa.TRAIN_MAX_D:
+        assert tfa.flash_plan(1, 1024, 1024, 1, d, lse=True).tile_rows == lib.lkgd_flash_block_rows(d, 1)
 
 
 @pytest.mark.cuda
@@ -325,17 +385,22 @@ def test_flash_variant_kernel_matches_plain(cuda_device, shape, mode, tile):
 
 
 @pytest.mark.cuda
-def test_flash_variant_base_is_the_production_bound_kernel(cuda_device):
-    """``base`` with the production bound as t is the production bound kernel's arithmetic
-    at the production tile (64 x 64) with nothing around it: the outputs agree to a bf16
+def test_flash_variant_base_is_the_mma_sync_bound_kernel(cuda_device):
+    """``base`` with the production bound as t is the arithmetic of the ``mma.sync`` bound
+    kernel (kernel 7) at that kernel's tile (64 x 64) with nothing around it: against ``flash_fwd_lse``'s output it agrees to a bf16
     ulp of max|out| (2^-8; the compiler may contract ``s * scale + t`` into one fused
-    multiply-add in one kernel and not the other)."""
+    multiply-add in one kernel and not the other). The production kernel 1 sums in another
+    order (128-key tiles, wgmma) and rounds the same quantities to bf16: FLASH_TOL x
+    max|ref|."""
     from lkgd_torch.ops import flash_variants as fv
 
     q, k, v = ((_randn(cuda_device, (3, 1100, 64), seed=i)).bfloat16() for i in range(3))
-    got = fv.flash_variant(q, k, v, fv.bound_t(q, k), "base", (64, 64))
-    want = tfa.flash_attention(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
-    assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -8 * want.float().abs().max().item()
+    got = fv.flash_variant(q, k, v, fv.bound_t(q, k), "base", (64, 64)).float()
+    q4, k4, v4 = q[:, :, None], k[:, :, None], v[:, :, None]
+    same = tfa.flash_fwd_lse(q4, k4, v4)[0][:, :, 0].float()
+    assert (got - same).abs().max().item() <= 2.0 ** -8 * same.abs().max().item()
+    production = tfa.flash_attention(q4, k4, v4)[:, :, 0].float()
+    assert (got - production).abs().max().item() <= FLASH_TOL * production.abs().max().item()
 
 
 @pytest.mark.cuda
