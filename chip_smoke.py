@@ -13,9 +13,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
    (the least time the card could take); the flash and GroupNorm kernels also at the
    frame-transition clip's shapes (56 and 4 rows) and the flash kernels at the whole-clip
    decode's (14, 9216, 1, 512), the plain flash version in row chunks; the key-norm kernel
-   that feeds the bound kernel against its plain version at every flash case, with the
-   plain ``bound_t``'s time beside it; at (2, 9216, 1, 512) the flash kernels must beat
-   their plain versions;
+   that feeds the bound kernels against its plain version at every flash case; at (2,
+   9216, 1, 512) the flash kernels must beat their plain versions;
 3b. the two microbenchmark kernels against their plain versions: the blocked matmul at
    (258048, 320) x (320, 320 | 1280) and ragged shapes (max |d| <= 1e-2 * max|ref|), the
    flash variants at (140, 9216, 64) in every mode with two tile shapes (max |d| <= 1e-2
@@ -40,7 +39,9 @@ each printing its own lines; any failure raises and the script exits non-zero:
    backwards) against their plain versions at the fine-tune's shapes, ragged S and the
    huge-norm input that trips the LSE forward's fallback: split/merge bit-exact, out max
    |d| <= FLASH_TOL * max|ref|, lse within 1e-2 log2 units, dq/dk/dv max |d| <= 2e-2 *
-   max|ref|, with the kernels' fwd+bwd times beside the plain ones;
+   max|ref|, with the kernels' fwd+bwd times beside the plain ones; the LSE forwards alone
+   (the backward kernels stop at D=128) also at the VAE's (2, 9216, 1, 512) and on a
+   huge-norm input at D=512, the plain version a row at a time;
 7. the tiny LKGD train step (knowledge fusion, rank-2 temporal LoRA, remat) at fp32 on
    the GPU against the CPU with the same weights and injected sigmas, noise and dropout:
    the loss, every trainable gradient (scaled by its largest entry) and the trainables
@@ -49,9 +50,11 @@ each printing its own lines; any failure raises and the script exits non-zero:
    width (SVD UNet, its VAE, CLIP-H, ViT-B/16-384; bf16 random frozen weights, fp32
    trainables), 512x512, 8 frames, batch 1, rank-4 temporal LoRA, remat, lr 2e-4: one
    warm-up step and three counted ones; sec/step split into preprocessing and train step,
-   peak memory, each loss, every kernel's launch count (all ten > 0), the trainables
-   moved, sampled frozen weights did not, every gradient finite; then three more steps
-   under ``torch.profiler`` for the device's busy share of that window; and the exported
+   peak memory, each loss, every kernel's launch count (all eleven > 0, one key-norm
+   launch for each bound launch), the trainables moved, sampled frozen weights did not,
+   every gradient finite; then three more steps under ``torch.profiler`` for the device's
+   busy share of that window and its flash kernels by name (the training forward must be
+   the wgmma kernel's LSE form); and the exported
    safetensors read back. Neither window syncs the host inside it: losses stay on the
    device until it ends, and the end-of-fit checkpoint falls after its closing event;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
@@ -122,8 +125,8 @@ SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_key_norm": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "gn_stats": "lkgd_torch/csrc/group_norm.cu",
            "gn_apply": "lkgd_torch/csrc/group_norm.cu",
-           "flash_bound_lse": "lkgd_torch/csrc/flash_attention.cu",
-           "flash_maxtrack_lse": "lkgd_torch/csrc/flash_attention.cu",
+           "flash_bound_lse": "lkgd_torch/csrc/flash_attention_wgmma.cu",
+           "flash_maxtrack_lse": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_bwd_dq": "lkgd_torch/csrc/flash_attention_bwd.cu",
            "flash_bwd_dkv": "lkgd_torch/csrc/flash_attention_bwd.cu",
            "split_heads": "lkgd_torch/csrc/relayout_heads.cu",
@@ -156,11 +159,15 @@ def sdpa_ms(q, k, v, reps: int = 5) -> float:
     return gpu_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
 
 
-def in_row_chunks(fn, tensors, rows: int = 2) -> torch.Tensor:
-    """``fn`` over chunks of ``rows`` leading rows of ``tensors``, joined: the plain flash
-    versions materialise (rows, H, S, S) fp32 logits, too much at 56 or 140 rows."""
+def in_row_chunks(fn, tensors, rows: int = 2):
+    """``fn`` over chunks of ``rows`` leading rows of ``tensors``, joined (each output of a
+    ``fn`` that returns a tuple): the plain flash versions materialise (rows, H, S, S)
+    fp32 logits, too much at 56 or 140 rows."""
     n = tensors[0].shape[0]
-    return torch.cat([fn(*(x[i:i + rows] for x in tensors)) for i in range(0, n, rows)])
+    parts = [fn(*(x[i:i + rows] for x in tensors)) for i in range(0, n, rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(column) for column in zip(*parts))
+    return torch.cat(parts)
 
 
 def gpu_ms(fn, reps: int = 5) -> float:
@@ -271,19 +278,17 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 results[kernel] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                                    "library_ms": lib_ms, **least}
         # the bound's key part alone: the kernel against its plain version (fp32 sums in
-        # another order: rtol 1e-5), and what the whole bound cost in PyTorch before
+        # another order: rtol 1e-5)
         norm_got, norm_want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
         norm_err = (norm_got - norm_want).abs().max().item()
         norm_ms, norm_plain_ms = gpu_ms(lambda: fa.key_norm_max(k)), gpu_ms(
             lambda: fa.key_norm_max_plain(k))
-        bound_t_ms = gpu_ms(lambda: fa.bound_t(q, k).contiguous())
         # k read once, (B, H) fp32 written; 2 fp32 operations an element
         norm_least = bound(2 * k.numel(), k.numel() * 2 + shape[0] * shape[2] * 4, PEAK_FP32)
         print(f"[kernel] flash_key_norm {label} (B,S,H,D)={shape} x{scale}: max|d| "
               f"{norm_err:.3e} of max {norm_want.max().item():.3e} (rtol 1e-5) | {norm_ms:.3f} "
               f"ms, plain {norm_plain_ms:.3f} ms, bound {norm_least['bound_ms']:.4f} ms by "
-              f"{norm_least['bound_by']} | plain bound_t (the whole bound in PyTorch, as "
-              f"kernel 7 still takes it) {bound_t_ms:.3f} ms", flush=True)
+              f"{norm_least['bound_by']}", flush=True)
         torch.testing.assert_close(norm_got, norm_want, rtol=1e-5, atol=0)
         if label == "unet level 0":
             results["flash_key_norm"] = {"max_abs_err": norm_err, "ms": norm_ms,
@@ -776,11 +781,16 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
 
     results = {}
     cases = [("unet level 0", (8, 4096, 5, 64), 1.0), ("unet level 1", (8, 1024, 10, 64), 1.0),
-             ("ragged", (2, 1100, 5, 64), 1.0), ("fallback", (1, 1100, 2, 64), 60.0)]
+             ("ragged", (2, 1100, 5, 64), 1.0), ("fallback", (1, 1100, 2, 64), 60.0),
+             # the LSE forward alone: the backward kernels stop at D=128
+             ("vae mid", (2, 9216, 1, 512), 1.0), ("fallback wide", (1, 1100, 1, 512), 60.0)]
     for label, shape, scale in cases:
         q, k, v, do = randn(*shape, scale=scale), randn(*shape, scale=scale), randn(*shape), \
             randn(*shape)
-        want_out, want_lse = fa.flash_fwd_lse_maxtrack_plain(q.float(), k.float(), v.float())
+        # the plain versions whole, or at D=512 a row at a time
+        rows = 1 if shape[-1] > fa.BWD_MAX_D else shape[0]
+        want_out, want_lse = in_row_chunks(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
+            *(x.float() for x in a)), (q, k, v), rows)
         # at the huge-norm input lse reaches ~2e4 log2 units, where fp32 logits carry ~1e-3
         lse_tol = LSE_TOL * max(1.0, want_lse.abs().max().item() / 1e3)
         out_tol = FLASH_TOL * want_out.abs().max().item()
@@ -799,22 +809,27 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 os.environ.pop("LKGD_FLASH_MAXTRACK", None)
             plain = (fa.flash_fwd_lse_maxtrack_plain if kernel == "flash_maxtrack_lse"
                      else fa.flash_fwd_lse_bound_plain)
-            plain_ms = gpu_ms(lambda: plain(q, k, v), reps=2)
+            plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows), reps=2)
             out_err = (out.float() - want_out).abs().max().item()
             lse_err = (lse - want_lse).abs().max().item()
             lib_ms, least = sdpa_ms(q, k, v), flash_bound(shape, rows_fp32=1)
             print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} x{scale}: out max|d| "
                   f"{out_err:.3e} of max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x "
                   f"max|ref|) lse max|d| {lse_err:.3e} (tol {lse_tol:.3g}) | {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, library sdpa {lib_ms:.3f} ms, bound "
-                  f"{least['bound_ms']:.3f} ms by {least['bound_by']} | tiles recomputed "
+                  f"{plain_ms:.3f} ms (chunks of {rows} rows), library sdpa {lib_ms:.3f} ms, "
+                  f"bound {least['bound_ms']:.3f} ms by {least['bound_by']} | tiles recomputed "
                   f"{recomputed}", flush=True)
             assert np.isfinite(out_err) and out_err <= out_tol, (kernel, label, out_err, out_tol)
             assert np.isfinite(lse_err) and lse_err <= lse_tol, (kernel, label, lse_err)
-            if label == "fallback" and kernel == "flash_bound_lse":
+            assert torch.isfinite(out).all() and torch.isfinite(lse).all(), (kernel, label)
+            if label.startswith("fallback") and kernel == "flash_bound_lse":
                 assert recomputed > 0, "the huge-norm input must trip the fallback"
             row[kernel] = {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": lib_ms, **least}
+        if shape[-1] > fa.BWD_MAX_D:
+            del q, k, v, do, want_out, want_lse, out, lse
+            torch.cuda.empty_cache()
+            continue
 
         # the library's backward for kernels 9 and 10 together: autograd through its fused
         # attention on the same inputs
@@ -1089,7 +1104,7 @@ def phase_train_full(dev: torch.device) -> dict:
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             prof_step_s, prof_cpu_s = window(4, 7)
-        device_ms, ckpt_ms, n_device, runtime, relayout = 0.0, 0.0, 0, {}, {}
+        device_ms, ckpt_ms, n_device, runtime, relayout, flash = 0.0, 0.0, 0, {}, {}, {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 ms = e.self_device_time_total / 1e3
@@ -1101,6 +1116,11 @@ def phase_train_full(dev: torch.device) -> dict:
                     n_device += e.count
                 if "relayout_heads_kernel" in e.key:
                     relayout["split" if "<true>" in e.key else "merge"] = (ms, e.count)
+                if "flash_" in e.key or "key_sq_max" in e.key:
+                    name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+                    for cast in ("(int)", "(bool)", " "):
+                        name = name.replace(cast, "")
+                    flash[name.split("(")[0]] = (round(ms, 3), e.count)
             elif e.key.startswith("cuda"):  # runtime calls on the host
                 runtime[e.key] = e.count
         busy = device_ms / (prof_step_s * 3e3)
@@ -1122,6 +1142,11 @@ def phase_train_full(dev: torch.device) -> dict:
               f"{ckpt_ms:.1f} ms left out) | host syncs and copies over the 3 steps and the "
               f"checkpoint {syncs} | relayout kernels device ms, launches "
               f"{relayout}", flush=True)
+        print(f"[train] profiled window, flash kernels by name (device ms, launches over the 3 "
+              f"steps): {flash}", flush=True)
+        # <DP, BOUND, LSE>: the training forward is the wgmma kernel's LSE form, both ways
+        for form in ("<64,true,true>", "<64,false,true>"):
+            assert f"flash_fwd_wgmma_kernel{form}" in flash, (form, sorted(flash))
         assert trainer.state.step == 7 and all(np.isfinite(step_losses)), step_losses
         assert [r["step"] for r in records] == [1] and np.isfinite(records[0]["train_loss"])
         assert len(finite) == 3 * len(trainables) and torch.stack(finite).all().item(), \
@@ -1132,6 +1157,8 @@ def phase_train_full(dev: torch.device) -> dict:
                 assert torch.equal(p, frozen[name]), f"frozen {name} moved"
         for name in INFERENCE + TRAINING:
             assert launches.get(name, 0) > 0, f"kernel {name} was not launched by training"
+        assert launches["flash_key_norm"] == launches["flash_bound"] \
+            + launches["flash_bound_lse"], "one key-norm launch for each bound launch"
         assert busy > 0.0, busy
 
         path = str(Path(out_dir) / "model.safetensors")

@@ -1,6 +1,8 @@
-// Flash-attention inference forward for Hopper (sm_90a): bf16 in and out, fp32 sums.
+// Flash-attention forward for Hopper (sm_90a), inference and training: bf16 in and out,
+// fp32 sums, and with LSE=true the log2-domain logsumexp of every row that the backward
+// kernels (flash_attention_bwd.cu) recompute the probabilities from.
 //
-// Replaces the Pallas TPU kernels of lkgd_tpu/ops/flash_attention.py that carry inference:
+// Replaces the Pallas TPU forward kernels of lkgd_tpu/ops/flash_attention.py:
 //   * BOUND=true, kernel 1: _flash_bound_kernel (driven by _flash_bhsd). Softmax with a
 //     per-row upper bound t_i = -scale*log2e*|q_i|*max_j|k_j| added in the exp2 domain in
 //     the place of a running max: no max, no rescale, no cross-lane reduction in the loop.
@@ -13,7 +15,12 @@
 //     returns at once unless its tile's minimum is <= 2^-110 (the TPU wrapper's lax.cond,
 //     decided per tile on the device with no host synchronisation); launched with no
 //     minimums it is the max-tracking kernel outright (LKGD_FLASH_MAXTRACK=1).
-// The training forwards with an lse output (kernels 7 and 8) are in flash_attention.cu.
+//   * LSE=true, kernels 7 and 8: _flash_bound_lse_kernel (driven by _flash_fwd_lse_bhsd) and
+//     _flash_fwd_lse_kernel (driven by _flash_fwd_lse_maxtrack_bhsd), the two forms above
+//     that also write lse, (B*H, S_q) fp32: log2(l) - t with the bound t the kernel itself
+//     used, or m + log2(l) with the running max. One fp32 store a row in the epilogue and
+//     nothing in the loop; kernel 8 guards kernel 7 as kernel 2 guards kernel 1, and a
+//     recomputed tile overwrites both the output and the lse.
 //
 // What bounds it on the H100: tensor-core operations (4*S^2*D per batch and head against
 // 8*S*D bytes: 9216 operations a byte at S=9216), and at D=64 the special-function unit
@@ -64,6 +71,7 @@ struct FwdArgs {
   const float* k_sq_max;  // (B*H) largest squared key norm (bound kernel)
   float* tile_min;      // (B*H, n_q_tiles): written by the bound kernel, read as the guard
   int* recomputed;      // count of tiles the guarded max-tracking launch recomputed
+  float* lse;           // (B*H, s_q) log2-domain logsumexp of the scaled logits (LSE forms)
 };
 
 // Tiling by D padded to DP (a multiple of 64): see the note above.
@@ -88,7 +96,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int DP, bool BOUND>
+template <int DP, bool BOUND, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -304,7 +312,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     reg_fence(o);
 
-    // out = O / l through the output strides
+    // out = O / l through the output strides; with LSE the row's logsumexp from one of its
+    // four threads (where the warpgroups split O by columns both hold the same l: the
+    // first one writes). An underflowed row of the bound form may leave -inf or NaN here:
+    // its tile's minimum is 0 and the guarded launch overwrites the whole tile.
     bf16* ob = a.o + b * a.os.b + h * a.os.h;
     float mn = INFINITY;
 #pragma unroll
@@ -315,6 +326,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = q0 + row_in_tile + 8 * r;
       if (row >= a.s_q) continue;
       mn = (l > kGuard) ? fminf(mn, l) : 0.f;  // an underflowed or NaN row: 0
+      if (LSE && t4 == 0 && (!P::SPLIT || wg == 0))
+        a.lse[(long long)bh * a.s_q + row] = BOUND ? log2f(l) - t_r[r] : m_r[r] + log2f(l);
       const float inv = 1.f / l;
 #pragma unroll
       for (int n = 0; n < NO / 8; ++n) {
@@ -403,7 +416,7 @@ struct Views {
   int batch;
 };
 
-template <int DP, bool BOUND>
+template <int DP, bool BOUND, bool LSE>
 cudaError_t launch(const Views& in, FwdArgs a, cudaStream_t stream) {
   using P = Plan<DP>;
   a.n_q_tiles = (a.s_q + P::BQ - 1) / P::BQ;
@@ -412,7 +425,7 @@ cudaError_t launch(const Views& in, FwdArgs a, cudaStream_t stream) {
   if (err == cudaSuccess) err = make_map(&map_k, in.k, in.ks, in.batch, a.s_k, a.heads, a.d, P::BK);
   if (err == cudaSuccess) err = make_map(&map_v, in.v, in.vs, in.batch, a.s_k, a.heads, a.d, P::BK);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_wgmma_kernel<DP, BOUND>;
+  auto kernel = flash_fwd_wgmma_kernel<DP, BOUND, LSE>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)in.batch * a.heads * a.n_q_tiles;
@@ -421,37 +434,19 @@ cudaError_t launch(const Views& in, FwdArgs a, cudaStream_t stream) {
 }
 
 // Static dispatch by D padded to a tile width the kernel is built for.
-template <bool BOUND>
+template <bool BOUND, bool LSE>
 cudaError_t dispatch(const Views& in, const FwdArgs& a, cudaStream_t s) {
-  if (a.d <= 64) return launch<64, BOUND>(in, a, s);
-  if (a.d <= 128) return launch<128, BOUND>(in, a, s);
-  if (a.d <= 256) return launch<256, BOUND>(in, a, s);
-  return launch<512, BOUND>(in, a, s);
+  if (a.d <= 64) return launch<64, BOUND, LSE>(in, a, s);
+  if (a.d <= 128) return launch<128, BOUND, LSE>(in, a, s);
+  if (a.d <= 256) return launch<256, BOUND, LSE>(in, a, s);
+  return launch<512, BOUND, LSE>(in, a, s);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Query rows per block (the tile the per-tile guard covers) for a head dim d: the
-// inference forward here, or with lse != 0 the training forward of flash_attention.cu.
-int lkgd_flash_block_rows(int d, int lse) { return lse ? kTileRows : (d <= 128 ? 128 : 64); }
-
-// Dynamic shared memory of the inference forward's block for a head dim d.
-int lkgd_flash_smem_bytes(int d) {
-  return d <= 64    ? Plan<64>::smem_bytes
-         : d <= 128 ? Plan<128>::smem_bytes
-         : d <= 256 ? Plan<256>::smem_bytes
-                    : Plan<512>::smem_bytes;
-}
-
-// q, k, v, o: (B, S, H, D) bf16 with strides[12] = (b, s, h) element strides of q, k, v, o.
-// bound=1: the bound kernel (k_sq_max from lkgd_flash_key_sq_max and tile_min required). bound=0: the max-tracking
-// kernel, guarded by tile_min when it is not null.
-int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides,
-                   int batch, int heads, int s_q, int s_k, int d, float scale_log2,
-                   const float* k_sq_max, float* tile_min, int* recomputed, int bound, int device,
-                   void* stream) {
+// The launchers' common body: lse == nullptr is the inference forward.
+int forward(const void* q, const void* k, const void* v, void* o, const long long* strides,
+            int batch, int heads, int s_q, int s_k, int d, float scale_log2,
+            const float* k_sq_max, float* tile_min, int* recomputed, float* lse, int bound,
+            int device, void* stream) {
   if (d <= 0 || d > 512 || d % 8 != 0) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
@@ -475,8 +470,51 @@ int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const l
   a.k_sq_max = k_sq_max;
   a.tile_min = tile_min;
   a.recomputed = recomputed;
+  a.lse = lse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(bound ? dispatch<true>(in, a, s) : dispatch<false>(in, a, s));
+  if (lse != nullptr)
+    return int(bound ? dispatch<true, true>(in, a, s) : dispatch<false, true>(in, a, s));
+  return int(bound ? dispatch<true, false>(in, a, s) : dispatch<false, false>(in, a, s));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Query rows per block (the tile the per-tile guard covers) for a head dim d: one tiling
+// for the inference forward (lse == 0) and the training forward (lse != 0).
+int lkgd_flash_block_rows(int d, int lse) {
+  (void)lse;
+  return d <= 128 ? 128 : 64;
+}
+
+// Dynamic shared memory of the forward's block for a head dim d.
+int lkgd_flash_smem_bytes(int d) {
+  return d <= 64    ? Plan<64>::smem_bytes
+         : d <= 128 ? Plan<128>::smem_bytes
+         : d <= 256 ? Plan<256>::smem_bytes
+                    : Plan<512>::smem_bytes;
+}
+
+// q, k, v, o: (B, S, H, D) bf16 with strides[12] = (b, s, h) element strides of q, k, v, o.
+// bound=1: the bound kernel (k_sq_max from lkgd_flash_key_sq_max and tile_min required).
+// bound=0: the max-tracking kernel, guarded by tile_min when it is not null.
+int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides,
+                   int batch, int heads, int s_q, int s_k, int d, float scale_log2,
+                   const float* k_sq_max, float* tile_min, int* recomputed, int bound, int device,
+                   void* stream) {
+  return forward(q, k, v, o, strides, batch, heads, s_q, s_k, d, scale_log2, k_sq_max, tile_min,
+                 recomputed, nullptr, bound, device, stream);
+}
+
+// The same with lse, (B*H, s_q) fp32, written beside o: kernels 7 (bound=1) and 8.
+int lkgd_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                       const long long* strides, int batch, int heads, int s_q, int s_k, int d,
+                       float scale_log2, const float* k_sq_max, float* tile_min, int* recomputed,
+                       float* lse, int bound, int device, void* stream) {
+  if (lse == nullptr) return int(cudaErrorInvalidValue);
+  return forward(q, k, v, o, strides, batch, heads, s_q, s_k, d, scale_log2, k_sq_max, tile_min,
+                 recomputed, lse, bound, device, stream);
 }
 
 // k: (B, S_k, H, D) bf16 with (b, s, h) element strides -> out (B*H) fp32, zeroed by the
@@ -491,5 +529,8 @@ int lkgd_flash_key_sq_max(const void* k, const long long* strides, int batch, in
       static_cast<const bf16*>(k), Strides{strides[0], strides[1], strides[2]}, heads, s_k, d, out);
   return int(cudaGetLastError());
 }
+
+// The message of a launcher's non-zero return, for every source of the library.
+const char* lkgd_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention forward (flash_attention.cu) and backward
-// (flash_attention_bwd.cu) kernels: mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix,
-// cp.async and the padded shared tiles of 64 rows that the D <= 128 kernels work on.
+// Pieces shared by the mma.sync kernels (the flash-attention backward, flash_attention_bwd.cu,
+// and the two microbenchmark kernels, flash_variant.cu and blocked_matmul.cu): mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, cp.async and the padded shared tiles of 64
+// rows that they work on; and the types every flash source shares (bf16, Strides, pack_bf16).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -6,8 +6,8 @@
 // t (B*H, S_q) in the log2 domain, each variant computes
 //     p = exp2(scale*log2e * q.k + t),  out = (p . v) / rowsum(p)
 // with no running max, no fallback and no logsumexp output:
-//   * base              the arithmetic of the mma.sync bound kernel (flash_attention.cu,
-//                       flash_fwd_mma_kernel<.., BOUND=true>, kernel 7) with nothing around it;
+//   * base              the bound form's arithmetic with nothing around it, on mma.sync
+//                       (the production forward, flash_attention_wgmma.cu, runs it on wgmma);
 //   * prescale          q arrives pre-multiplied by scale*log2e, the multiply is dropped;
 //   * bf16exp           the scores are rounded to bf16 pairs and exponentiated two at a time
 //                       with ex2.approx.ftz.bf16x2; the packed result is the P.V operand as
@@ -15,11 +15,11 @@
 //   * prescale_bf16exp  both;
 //   * noexp             exp2 replaced by the identity: the floor of the tensor-core work and
 //                       the bookkeeping (not a softmax; a measurement only).
-// Query x key tile shapes are template parameters: 64x64 (the mma.sync kernel's),
+// Query x key tile shapes are template parameters: 64x64 (the backward kernels'),
 // 128x64, 64x128 and 128x128.
 //
 // What bounds it on the H100: tensor-core FLOPs, 4*S^2*D*B*H (3.04 TFLOP at (140, 9216,
-// 64), 3.08 ms at the bf16 peak) against 33 MB of inputs. As in the mma.sync kernel, one
+// 64), 3.08 ms at the bf16 peak) against 33 MB of inputs. As in the backward kernels, one
 // block per (batch*head, query tile) loops over K/V tiles streamed with cp.async into two
 // stages of padded shared rows; each warp owns 16 query rows end to end, and scores,
 // probabilities and the output accumulator stay in registers in the mma.sync m16n8k16

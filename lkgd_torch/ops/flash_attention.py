@@ -16,22 +16,22 @@ place of the JAX custom VJP ``_flash_core``:
   and kernel 8, the max-tracking LSE forward (``_flash_fwd_lse_kernel`` via
   ``_flash_fwd_lse_maxtrack_bhsd``): the forwards above that also write the log2-domain
   logsumexp ``lse`` (B, H, S_q) fp32; kernel 8 is kernel 7's guard as kernel 2 is kernel
-  1's;
+  1's. ``flash_fwd_lse`` (the port's ``flash_attention_with_lse``) takes every D the
+  inference forward takes;
 * kernels 9 and 10 (``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` via
   ``_flash_bwd_bhsd``): dq, and dk with dv, from the saved lse and ``delta =
   rowsum(dO * O)`` (fp32, PyTorch, as JAX computes it). D <= 128 only; above, the
-  training wrappers raise;
+  backward wrappers raise, and the Function raises in its forward already;
 * kernels 5 and 6, the head split and merge copies (``_split_heads_kernel`` /
   ``_merge_heads_kernel``, each the other's VJP): with more than one head the Function
   splits q, k, v and dO into head-major copies and merges out, dq, dk and dv back, as
   ``_flash_attention_local`` does around ``_flash_core``.
 
-On the card kernels 1 and 2 are one warp-specialised ``wgmma``/TMA kernel
-(``csrc/flash_attention_wgmma.cu``), tiled as ``flash_plan`` says; kernel 1 sums ``|q_i|``
-itself from its Q tile and takes only ``max_j|k_j|`` per (batch, head) from outside, from
-a small kernel of its own (``key_norm_max``; the TPU wrapper computes its whole bound
-outside the Pallas kernel too). Kernels 7 and 8 keep the ``mma.sync`` kernel of
-``csrc/flash_attention.cu`` with the whole bound from ``bound_t``.
+On the card kernels 1, 2, 7 and 8 are one warp-specialised ``wgmma``/TMA kernel
+(``csrc/flash_attention_wgmma.cu``), tiled as ``flash_plan`` says; the bound forms sum
+``|q_i|`` themselves from their Q tile and take only ``max_j|k_j|`` per (batch, head) from
+outside, from a small kernel of its own (``key_norm_max``; the TPU wrapper computes its
+whole bound outside the Pallas kernel too). ``bound_t`` is that arithmetic's plain version.
 
 The JAX wrapper reruns kernel 2 when the smallest row sum of the whole call is <= 2^-110
 (``lax.cond`` on the device). Here kernel 2 is always launched after kernel 1 with
@@ -61,7 +61,8 @@ GUARD = 2.0 ** -110  # smallest row sum the bound kernel may leave (flash_attent
 launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_key_norm": 0, "flash_bound_lse": 0,
             "flash_maxtrack_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "split_heads": 0, "merge_heads": 0}
-TRAIN_MAX_D = 128  # head dims the LSE forward and backward kernels are built for
+FWD_MAX_D = 512  # head dims the forward kernels (1, 2, 7, 8) are built for
+BWD_MAX_D = 128  # and the backward kernels (9, 10)
 _recomputed: dict[torch.device, torch.Tensor] = {}
 
 
@@ -111,9 +112,10 @@ def _key_sq_max_cuda(k: torch.Tensor) -> torch.Tensor:
 
 def bound_t(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(B, S_q, H, D), (B, S_k, H, D) -> (B, H, S_q) fp32: minus the Cauchy-Schwarz logit
-    upper bound in the log2 domain (``_bound_t``, flash_attention.py:95-99). Kernel 1
-    computes the same rows itself, as ``-(|q_i| * key_norm_max) * scale * log2e`` with
-    ``|q_i|`` summed in fp32 from its Q tile: this is that arithmetic's plain version."""
+    upper bound in the log2 domain (``_bound_t``, flash_attention.py:95-99). Kernels 1 and
+    7 compute the same rows themselves, as ``-(|q_i| * key_norm_max) * scale * log2e`` with
+    ``|q_i|`` summed in fp32 from their Q tile: this is that arithmetic's plain version,
+    for the CPU and for ``ops/flash_variants.py``."""
     scale2 = q.shape[-1] ** -0.5 * LOG2E
     qn = torch.linalg.vector_norm(q, dim=-1, dtype=torch.float32)  # (B, S_q, H)
     return (-(qn * key_norm_max_plain(k)[:, None, :]) * scale2).transpose(1, 2)
@@ -124,38 +126,31 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100 (227 KB
 
 class FlashPlan(NamedTuple):
     """How the forward kernels tile one call (the host side of ``Plan`` in
-    ``csrc/flash_attention_wgmma.cu`` and of the ``mma.sync`` kernel's fixed tiles)."""
-    kernel: str        # "wgmma" (kernels 1/2) or "mma_sync" (kernels 7/8)
+    ``csrc/flash_attention_wgmma.cu``)."""
+    kernel: str        # "wgmma": kernels 1/2 and 7/8 alike
     tile_rows: int     # query rows a block: what lkgd_flash_block_rows answers
     key_tile: int      # keys a K or V tile
-    stages: int        # K/V tiles in flight (ring slots; two (K, V) pairs for mma_sync)
+    stages: int        # K/V tiles in flight (ring slots)
     smem_bytes: int    # dynamic shared memory a block asks for
     blocks: int        # the grid
-    waves: float       # blocks over the SMs (one block an SM for wgmma)
+    waves: float       # blocks over the SMs (one block an SM: its registers allow no more)
 
 
 def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
                sm_count: int = 132) -> FlashPlan:
     """The tiling of a forward call over (b, s_q | s_k, h, d): a pure function of the
-    shapes, static by d and by whether an lse is asked for. ``s_k`` sets only the length
-    of a block's loop; ``waves`` counts one block an SM for wgmma (its registers allow no
-    more) and as many as the shared memory holds for mma_sync."""
-    if d <= 0 or d % 8 or d > (TRAIN_MAX_D if lse else 512):
+    shapes, static by d. The training forward (``lse``) is the inference kernel with one
+    more store a row, so it tiles the same way; ``s_k`` sets only the length of a
+    block's loop."""
+    if d <= 0 or d % 8 or d > FWD_MAX_D:
         raise ValueError(f"flash_plan: head dim {d} (lse={lse}) is not built")
-    if lse:  # Q and two stages of (K, V), 64 rows of D padded to 64 or 128, 8 columns of pad
-        dp = 64 if d <= 64 else 128
-        rows, keys, stages, smem = 64, 64, 2, 5 * 64 * (dp + 8) * 2
-        name = "mma_sync"
-    else:
-        dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
-        rows = keys = 128 if dp <= 128 else 64
-        stages = {64: 6, 128: 4, 256: 4, 512: 2}[dp]
-        # 1024 of alignment slack, Q, the ring, one Q barrier and a full/empty pair a slot
-        smem = 1024 + rows * dp * 2 + stages * keys * dp * 2 + 8 * (1 + 2 * stages)
-        name = "wgmma"
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+    rows = keys = 128 if dp <= 128 else 64
+    stages = {64: 6, 128: 4, 256: 4, 512: 2}[dp]
+    # 1024 of alignment slack, Q, the ring, one Q barrier and a full/empty pair a slot
+    smem = 1024 + rows * dp * 2 + stages * keys * dp * 2 + 8 * (1 + 2 * stages)
     blocks = b * h * math.ceil(s_q / rows)
-    per_sm = max(1, SMEM_LIMIT // (smem + 1024)) if lse else 1  # wgmma: registers allow one
-    return FlashPlan(name, rows, keys, stages, smem, blocks, blocks / (sm_count * per_sm))
+    return FlashPlan("wgmma", rows, keys, stages, smem, blocks, blocks / sm_count)
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -282,15 +277,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
-    if d % 8 or d > 512:
-        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8, <= 512")
+    if d % 8 or d > FWD_MAX_D:
+        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8, <= "
+                         f"{FWD_MAX_D}")
 
 
-def _check_train(q: torch.Tensor) -> None:
-    if q.shape[-1] > TRAIN_MAX_D:
+def _check_bwd(q: torch.Tensor) -> None:
+    if q.shape[-1] > BWD_MAX_D:
         raise NotImplementedError(
-            f"flash attention training kernels: head dim {q.shape[-1]} > {TRAIN_MAX_D} is not "
-            f"built yet (ROADMAP.md Queue 2, the D > 128 backward and LSE forward)")
+            f"flash attention backward kernels: head dim {q.shape[-1]} > {BWD_MAX_D} is not "
+            f"built yet (ROADMAP.md Queue 2, the D > 128 backward)")
 
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
@@ -299,8 +295,6 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
     from lkgd_torch.ops import _build
 
     _check(q, k, v)
-    if with_lse:
-        _check_train(q)
     lib = _build.library()
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
@@ -319,11 +313,10 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
            else None)
     suffix = "_lse" if with_lse else ""
 
-    def launch(bound: bool, row_bound, tile_min):
-        """``row_bound``: kernel 7's (B*H, S_q) rows of t, or kernel 1's (B*H) largest
-        squared key norms."""
+    def launch(bound: bool, k_sq_max, tile_min):
+        """``k_sq_max``: the bound forms' (B*H) largest squared key norms."""
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q,
-                s_k, d, scale2, None if row_bound is None else row_bound.data_ptr(),
+                s_k, d, scale2, None if k_sq_max is None else k_sq_max.data_ptr(),
                 None if tile_min is None else tile_min.data_ptr(), counter.data_ptr())
         if with_lse:
             _build.check(lib.lkgd_flash_fwd_lse(*args, lse.data_ptr(), int(bound), device,
@@ -333,9 +326,8 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
         launches[("flash_bound" if bound else "flash_maxtrack") + suffix] += 1
 
     if not maxtrack_selected():
-        row_bound = bound_t(q, k).contiguous() if with_lse else _key_sq_max_cuda(k)
         tile_min = torch.empty((b * h, n_q_tiles), dtype=torch.float32, device=q.device)
-        launch(True, row_bound, tile_min)
+        launch(True, _key_sq_max_cuda(k), tile_min)
         launch(False, None, tile_min)  # the guard: recomputes only underflowed tiles
     else:
         launch(False, None, None)
@@ -346,7 +338,8 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """The training forward: (out (B, S_q, H, D), lse (B, H, S_q) fp32, log2 domain).
 
     CPU tensors: the plain version of the selected kernel. CUDA tensors: kernel 7 guarded
-    by kernel 8 (kernel 8 alone with ``LKGD_FLASH_MAXTRACK=1``), bf16 and D <= 128 only."""
+    by kernel 8 (kernel 8 alone with ``LKGD_FLASH_MAXTRACK=1``), bf16 only, every D the
+    inference forward takes. The backward of this lse is built for D <= 128."""
     if q.device.type == "cpu":
         plain = (flash_fwd_lse_maxtrack_plain if maxtrack_selected()
                  else flash_fwd_lse_bound_plain)
@@ -387,7 +380,7 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
     from lkgd_torch.ops import _build
 
     _check(q, k, v, ("dO", do))
-    _check_train(q)
+    _check_bwd(q)
     b, s_q, h, d = q.shape
     if do.shape != q.shape:
         raise ValueError(f"flash_bwd: dO {tuple(do.shape)} is not shaped as q {tuple(q.shape)}")
@@ -467,10 +460,12 @@ class FlashAttentionFunction(torch.autograd.Function):
     head-major copies (kernel 5), runs kernels 7/8, saves the copies, out and lse, and merges
     out back (kernel 6); the backward splits dO, computes delta = rowsum(dO * O) in fp32,
     runs kernels 9 and 10 and merges dq, dk, dv. With one head, as in JAX, nothing is split
-    or merged."""
+    or merged. A head dim above the backward kernels' limit is refused here, in the forward:
+    a training run fails at its first step's forward and not inside ``backward()``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
+        _check_bwd(q)
         ctx.split = q.shape[2] > 1
         if ctx.split:
             q, k, v = (split_heads(x).transpose(1, 2) for x in (q, k, v))

@@ -6,7 +6,7 @@ of its kernels; the CUDA kernels themselves are held against those plain version
 
 The training path: the plain versions of kernels 7-10 (``flash_fwd_lse_bound_plain``,
 ``flash_fwd_lse_maxtrack_plain``, ``flash_bwd_plain``) against ``_flash_fwd_lse_bhsd``,
-``_flash_fwd_lse_maxtrack_bhsd`` and ``_flash_bwd_bhsd``, padded S included; the plain
+``_flash_fwd_lse_maxtrack_bhsd`` and ``_flash_bwd_bhsd``, padded S and D=512 included; the plain
 versions of kernels 5 and 6 (``split_heads_plain``, ``merge_heads_plain``) against
 ``_split_heads`` and ``_merge_heads`` (exact: they move bytes); and the autograd
 Function's gradients against ``jax.grad`` of ``flash_attention``.
@@ -162,8 +162,9 @@ MAIN_SHAPES = [(2, 9216, 9216, 5, 64), (4, 2304, 2304, 10, 64), (2, 9216, 9216, 
 
 
 def _expected_rows(d: int, lse: bool) -> int:
-    """What ``lkgd_flash_block_rows(d, lse)`` answers (csrc/flash_attention_wgmma.cu)."""
-    return 64 if lse or d > 128 else 128
+    """What ``lkgd_flash_block_rows(d, lse)`` answers (csrc/flash_attention_wgmma.cu): the
+    training forward is the inference kernel with an lse store, tiled the same way."""
+    return 64 if d > 128 else 128
 
 
 @pytest.mark.parametrize("shape", MAIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -182,12 +183,8 @@ def test_flash_plan_at_main_path_shapes(shape):
 @pytest.mark.parametrize("lse", [False, True], ids=["inference", "lse"])
 @pytest.mark.parametrize("d", [8, 40, 64, 128, 256, 512])
 def test_flash_plan_by_head_dim(d, lse):
-    if lse and d > tfa.TRAIN_MAX_D:
-        with pytest.raises(ValueError):
-            tfa.flash_plan(1, 1100, 1030, 2, d, lse=True)
-        return
     plan = tfa.flash_plan(1, 1100, 1030, 2, d, lse=lse)
-    assert plan.kernel == ("mma_sync" if lse else "wgmma")
+    assert plan.kernel == "wgmma"
     assert plan.smem_bytes <= tfa.SMEM_LIMIT
     assert plan.tile_rows == _expected_rows(d, lse)
     assert plan.key_tile == plan.tile_rows
@@ -200,6 +197,16 @@ def test_flash_plan_by_head_dim(d, lse):
 def test_flash_plan_refuses_head_dims_the_kernels_do_not_take(d):
     with pytest.raises(ValueError):
         tfa.flash_plan(1, 1024, 1024, 1, d)
+
+
+# the training shapes beside the inference ones: UNet levels 0 and 1 of the fine-tune
+@pytest.mark.parametrize("shape", MAIN_SHAPES + [(8, 4096, 4096, 5, 64), (8, 1024, 1024, 10, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lse_plan_is_the_inference_plan(shape):
+    """Kernels 7 and 8 are kernels 1 and 2 with one more store a row: one plan, and with
+    it one guard tile, for both."""
+    assert tfa.flash_plan(*shape, lse=True) == tfa.flash_plan(*shape)
+    assert tfa.FWD_MAX_D == 512 and tfa.BWD_MAX_D == 128
 
 
 # kernel 1 sums |q_i| itself and takes max_j|k_j| from the key-norm kernel; their plain
@@ -264,6 +271,50 @@ def test_lse_forward_plain_matches_pallas(monkeypatch, kernel, s):
     assert lse.shape == (1, 2, s) and lse.dtype == torch.float32
     np.testing.assert_allclose(_as_bhsd(out), np.asarray(out_j)[:, :s], rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(_lse(lse), np.asarray(lse_j)[..., :s], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["bound", "maxtrack"])
+def test_lse_forward_plain_matches_pallas_at_wide_heads(kernel):
+    """Kernels 7 and 8 at the VAE's D=512 and the card tests' ragged S=1030: the Pallas
+    kernels on keys padded to 1152 and masked. fp32 on both sides, the same exp2-domain
+    arithmetic summed in another order over ~1030 keys: out rtol 1e-4 / atol 2e-4 (as the
+    inference case at this shape), lse rtol 1e-5 / atol 1e-5."""
+    s, s_pad = 1030, 1152
+    q, k, v = _qkv(16, (1, s, 1, 512))
+    args = [_padded_bhsd(x, s_pad) for x in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        if kernel == "bound":
+            out_j, lse_j = jfa._flash_fwd_lse_bhsd(*args, 128, 128, s)
+        else:
+            out_j, lse_j = jfa._flash_fwd_lse_maxtrack_bhsd(*args, 128, 128, s)
+    plain = (tfa.flash_fwd_lse_bound_plain if kernel == "bound"
+             else tfa.flash_fwd_lse_maxtrack_plain)
+    out, lse = plain(*map(torch.from_numpy, (q, k, v)))
+    assert lse.shape == (1, 1, s) and lse.dtype == torch.float32
+    np.testing.assert_allclose(_as_bhsd(out), np.asarray(out_j)[:, :s], rtol=1e-4, atol=2e-4)
+    np.testing.assert_allclose(_lse(lse), np.asarray(lse_j)[..., :s], rtol=1e-5, atol=1e-5)
+
+
+def test_function_refuses_wide_heads_in_its_forward(monkeypatch):
+    """Above the backward kernels' limit the LSE forward alone runs (ring attention's need,
+    ``flash_attention_with_lse``); the differentiable Function raises before it computes
+    anything, in the forward and not inside ``backward()``."""
+    monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
+    d = 2 * tfa.BWD_MAX_D
+    q, k, v = (torch.from_numpy(x) for x in _qkv(17, (1, 64, 1, d)))
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q, k, v)
+    # fp32, two forms of one softmax over 64 keys: rtol 1e-5 / atol 1e-5
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5, atol=1e-5)
+    calls = []
+    monkeypatch.setattr(tfa, "flash_fwd_lse", lambda *a: calls.append(1))
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfa.flash_attention_differentiable(q.requires_grad_(), k, v)
+    assert not calls
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfa._check_bwd(q)
+    tfa._check_bwd(q[..., :tfa.BWD_MAX_D])
 
 
 def test_lse_forward_underflow_fallback_matches_pallas(monkeypatch):

@@ -53,6 +53,11 @@ FLASH_TOL = 1e-2
 
 TRAIN_SHAPES = [(8, 4096, 5, 64), (8, 1024, 10, 64), (2, 1100, 5, 64), (1, 1030, 2, 128)]
 TRAIN_IDS = ["unet_level0", "unet_level1", "ragged", "d128"]
+# the LSE forward alone also above the backward's D <= 128: every tile width, a last tile
+# of one row, and several waves of 64-row blocks at D=512
+LSE_SHAPES = TRAIN_SHAPES + [(1, 1024, 2, 40), (1, 129, 3, 64), (1, 1030, 2, 256),
+                             (3, 65, 1, 512), (3, 9216, 1, 512)]
+LSE_IDS = TRAIN_IDS + ["d40", "one_row_tile", "d256", "d512_short", "d512_waves"]
 
 
 # S ragged against the 128-row and 128-key tiles (64 above D=128), every tile width the
@@ -138,8 +143,7 @@ def test_flash_plan_is_the_kernels_tiling(cuda_device, d):
     assert plan.tile_rows == lib.lkgd_flash_block_rows(d, 0)
     assert plan.smem_bytes == lib.lkgd_flash_smem_bytes(d)
     assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
-    if d <= tfa.TRAIN_MAX_D:
-        assert tfa.flash_plan(1, 1024, 1024, 1, d, lse=True).tile_rows == lib.lkgd_flash_block_rows(d, 1)
+    assert tfa.flash_plan(1, 1024, 1024, 1, d, lse=True).tile_rows == lib.lkgd_flash_block_rows(d, 1)
 
 
 @pytest.mark.cuda
@@ -204,25 +208,60 @@ def test_group_norm_apply_kernel_matches_plain(cuda_device, dtype, tol, act):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound_lse", "flash_maxtrack_lse"])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+@pytest.mark.parametrize("shape", LSE_SHAPES, ids=LSE_IDS)
 def test_flash_lse_forward_matches_plain(cuda_device, monkeypatch, shape, maxtrack):
     if maxtrack:
         monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
     q, k, v = _qkv(cuda_device, shape)
     before = dict(tfa.launches)
     out, lse = tfa.flash_fwd_lse(q, k, v)
-    want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q.float(), k.float(), v.float())
+    want_out, want_lse = _lse_plain_by_rows(q, k, v)
     assert lse.shape == (shape[0], shape[2], shape[1]) and lse.dtype == torch.float32
     assert _rel_err(out, want_out) <= FLASH_TOL
     assert (lse - want_lse).abs().max().item() <= 1e-2
     assert tfa.launches["flash_maxtrack_lse"] == before["flash_maxtrack_lse"] + 1
     assert tfa.launches["flash_bound_lse"] == before["flash_bound_lse"] + (0 if maxtrack else 1)
+    assert tfa.launches["flash_key_norm"] == before["flash_key_norm"] + (0 if maxtrack else 1)
     assert tfa.launches["flash_bound"] == before["flash_bound"]
 
 
+def _lse_plain_by_rows(q, k, v):
+    """``flash_fwd_lse_maxtrack_plain`` in fp32 a batch row at a time (its logits are
+    (H, S_q, S_k) fp32 a row)."""
+    rows = [tfa.flash_fwd_lse_maxtrack_plain(*(x[i:i + 1].float() for x in (q, k, v)))
+            for i in range(q.shape[0])]
+    return torch.cat([r[0] for r in rows]), torch.cat([r[1] for r in rows])
+
+
 @pytest.mark.cuda
-def test_flash_lse_fallback_recomputes_tiles(cuda_device):
-    q, k, v = _qkv(cuda_device, (1, 1100, 2, 64), scale=60.0)
+@pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound_lse", "flash_maxtrack_lse"])
+@pytest.mark.parametrize("d,heads", [(64, 5), (512, 1)])
+def test_flash_lse_forward_takes_strided_views_and_other_key_lengths(cuda_device, monkeypatch, d,
+                                                                     heads, maxtrack):
+    """q from one fused projection, k and v as slices of another (S_q != S_k), and the
+    head-major copies the autograd Function hands over: the tensor maps read each view
+    through its strides, and out comes in q's layout."""
+    if maxtrack:
+        monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
+    c = heads * d
+    q = _randn(cuda_device, (2, 700, 2 * c)).bfloat16()[..., c:].unflatten(-1, (heads, d))
+    kv = _randn(cuda_device, (2, 1333, 2 * c), seed=1).bfloat16()
+    k, v = (kv[..., i * c:(i + 1) * c].unflatten(-1, (heads, d)) for i in range(2))
+    assert not q.is_contiguous() and not k.is_contiguous()
+    want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q.float(), k.float(), v.float())
+    head_major = [tfa.split_heads(x).transpose(1, 2) for x in (q, k, v)]
+    for views in ((q, k, v), head_major):
+        out, lse = tfa.flash_fwd_lse(*views)
+        assert out.shape == q.shape and lse.shape == (2, heads, 700) and lse.is_contiguous()
+        assert _rel_err(out, want_out) <= FLASH_TOL
+        assert (lse - want_lse).abs().max().item() <= 1e-2
+    assert out.transpose(1, 2).is_contiguous()  # head-major, as q was
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1100, 2, 64), (1, 1100, 1, 512)], ids=["d64", "d512"])
+def test_flash_lse_fallback_recomputes_tiles(cuda_device, shape):
+    q, k, v = _qkv(cuda_device, shape, scale=60.0)
     counter = tfa.recomputed_tiles(cuda_device)
     counter.zero_()
     out, lse = tfa.flash_fwd_lse(q, k, v)
@@ -252,10 +291,22 @@ def test_flash_backward_kernels_match_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-def test_flash_training_kernels_refuse_wide_heads(cuda_device):
-    q, k, v = _qkv(cuda_device, (1, 1024, 1, 256))
+@pytest.mark.parametrize("d", [256, 512])
+def test_flash_training_kernels_refuse_wide_heads(cuda_device, d):
+    """Above D=128 the LSE forward runs and matches its plain version; the backward
+    kernels refuse, and the autograd Function refuses in its forward already."""
+    q, k, v = _qkv(cuda_device, (1, 1024, 1, d))
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q.float(), k.float(), v.float())
+    assert _rel_err(out, want_out) <= FLASH_TOL
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    delta = torch.zeros_like(lse)
     with pytest.raises(NotImplementedError):
-        tfa.flash_fwd_lse(q, k, v)
+        tfa.flash_bwd(q, k, v, out, lse, delta)
+    before = dict(tfa.launches)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_differentiable(q.requires_grad_(), k, v)
+    assert tfa.launches == before
 
 
 @pytest.mark.cuda
@@ -385,22 +436,22 @@ def test_flash_variant_kernel_matches_plain(cuda_device, shape, mode, tile):
 
 
 @pytest.mark.cuda
-def test_flash_variant_base_is_the_mma_sync_bound_kernel(cuda_device):
-    """``base`` with the production bound as t is the arithmetic of the ``mma.sync`` bound
-    kernel (kernel 7) at that kernel's tile (64 x 64) with nothing around it: against ``flash_fwd_lse``'s output it agrees to a bf16
-    ulp of max|out| (2^-8; the compiler may contract ``s * scale + t`` into one fused
-    multiply-add in one kernel and not the other). The production kernel 1 sums in another
-    order (128-key tiles, wgmma) and rounds the same quantities to bf16: FLASH_TOL x
-    max|ref|."""
+def test_flash_variant_base_matches_the_bound_forward(cuda_device):
+    """``base`` with the production bound as t is the bound form's arithmetic on
+    ``mma.sync`` at 64 x 64 tiles with nothing around it. The production forwards
+    (kernels 1 and 7) run the same softmax on wgmma with 128-key tiles, sum in another
+    order, take exp2 with ``ex2.approx`` and round the same quantities to bf16: against
+    them, and against the plain bound version in fp32, FLASH_TOL x max|ref|."""
     from lkgd_torch.ops import flash_variants as fv
 
     q, k, v = ((_randn(cuda_device, (3, 1100, 64), seed=i)).bfloat16() for i in range(3))
     got = fv.flash_variant(q, k, v, fv.bound_t(q, k), "base", (64, 64)).float()
     q4, k4, v4 = q[:, :, None], k[:, :, None], v[:, :, None]
-    same = tfa.flash_fwd_lse(q4, k4, v4)[0][:, :, 0].float()
-    assert (got - same).abs().max().item() <= 2.0 ** -8 * same.abs().max().item()
-    production = tfa.flash_attention(q4, k4, v4)[:, :, 0].float()
-    assert (got - production).abs().max().item() <= FLASH_TOL * production.abs().max().item()
+    plain = tfa.flash_attention_bound_plain(q4.float(), k4.float(), v4.float())[:, :, 0]
+    assert (got - plain).abs().max().item() <= FLASH_TOL * plain.abs().max().item()
+    for production in (tfa.flash_attention(q4, k4, v4), tfa.flash_fwd_lse(q4, k4, v4)[0]):
+        production = production[:, :, 0].float()
+        assert (got - production).abs().max().item() <= FLASH_TOL * production.abs().max().item()
 
 
 @pytest.mark.cuda
