@@ -36,12 +36,14 @@ each printing its own lines; any failure raises and the script exits non-zero:
    ``sequential_cfg`` for its time and peak memory; then one UNet step under
    ``torch.profiler`` for its device time by kind;
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
-   backwards) against their plain versions at the fine-tune's shapes, ragged S and the
-   huge-norm input that trips the LSE forward's fallback: split/merge bit-exact, out max
-   |d| <= FLASH_TOL * max|ref|, lse within 1e-2 log2 units, dq/dk/dv max |d| <= 2e-2 *
-   max|ref|, with the kernels' fwd+bwd times beside the plain ones; the LSE forwards alone
-   (the backward kernels stop at D=128) also at the VAE's (2, 9216, 1, 512) and on a
-   huge-norm input at D=512, the plain version a row at a time;
+   backwards) against their plain versions at the fine-tune's shapes, ragged S, S_q !=
+   S_k, D=128 and the huge-norm input that trips the LSE forward's fallback: split/merge
+   bit-exact, out max |d| <= FLASH_TOL * max|ref|, lse within 1e-2 log2 units, dq/dk/dv
+   max |d| <= 2e-2 * max|ref| and bit-identical over two launches, with the backward plan's
+   blocks and waves, the pair's time as a multiple of the library backward, and the
+   kernels' fwd+bwd times beside the plain ones; the LSE forwards alone (the backward
+   kernels stop at D=128) also at the VAE's (2, 9216, 1, 512) and on a huge-norm input at
+   D=512, the plain version a row at a time;
 7. the tiny LKGD train step (knowledge fusion, rank-2 temporal LoRA, remat) at fp32 on
    the GPU against the CPU with the same weights and injected sigmas, noise and dropout:
    the loss, every trainable gradient (scaled by its largest entry) and the trainables
@@ -54,7 +56,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
    launch for each bound launch), the trainables moved, sampled frozen weights did not,
    every gradient finite; then three more steps under ``torch.profiler`` for the device's
    busy share of that window and its flash kernels by name (the training forward must be
-   the wgmma kernel's LSE form); and the exported
+   the wgmma kernel's LSE form, the backward the wgmma dq and dk/dv kernels, with their
+   device ms and launches a step); and the exported
    safetensors read back. Neither window syncs the host inside it: losses stay on the
    device until it ends, and the end-of-fit checkpoint falls after its closing event;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
@@ -143,12 +146,16 @@ def bound(ops: float, nbytes: float, peak_ops: float = PEAK_BF16) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def flash_bound(shape, products: int = 2, tensors: int = 4, rows_fp32: int = 0) -> dict:
-    """Bound of an attention kernel over (B, S, H, D) bf16: ``products`` S x S x D matrix
-    products, ``tensors`` (B, S, H, D) arrays moved and ``rows_fp32`` (B, H, S) fp32 ones."""
-    b, s_, h, d = shape
-    return bound(products * 2 * b * h * s_ * s_ * d,
-                 tensors * b * s_ * h * d * 2 + rows_fp32 * b * h * s_ * 4)
+def flash_bound(shape, s_k: int | None = None, products: int = 2, q_tensors: int = 2,
+                k_tensors: int = 2, rows_fp32: int = 0) -> dict:
+    """Bound of an attention kernel over (B, S_q, H, D) queries and S_k keys (S_q unless
+    given), bf16: ``products`` S_q x S_k x D matrix products, ``q_tensors`` (B, S_q, H, D)
+    and ``k_tensors`` (B, S_k, H, D) arrays moved and ``rows_fp32`` (B, H, S_q) fp32 ones."""
+    b, s_q, h, d = shape
+    s_k = s_k or s_q
+    return bound(products * 2 * b * h * s_q * s_k * d,
+                 (q_tensors * s_q + k_tensors * s_k) * b * h * d * 2
+                 + rows_fp32 * b * h * s_q * 4)
 
 
 def sdpa_ms(q, k, v, reps: int = 5) -> float:
@@ -780,12 +787,17 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
 
     results = {}
-    cases = [("unet level 0", (8, 4096, 5, 64), 1.0), ("unet level 1", (8, 1024, 10, 64), 1.0),
-             ("ragged", (2, 1100, 5, 64), 1.0), ("fallback", (1, 1100, 2, 64), 60.0),
+    # (label, (B, S_q, H, D), scale, S_k)
+    cases = [("unet level 0", (8, 4096, 5, 64), 1.0, 4096),
+             ("unet level 1", (8, 1024, 10, 64), 1.0, 1024),
+             ("ragged", (2, 1100, 5, 64), 1.0, 1100), ("fallback", (1, 1100, 2, 64), 60.0, 1100),
+             ("sq_ne_sk", (2, 1100, 5, 64), 1.0, 1030), ("d128", (2, 2048, 4, 128), 1.0, 2048),
              # the LSE forward alone: the backward kernels stop at D=128
-             ("vae mid", (2, 9216, 1, 512), 1.0), ("fallback wide", (1, 1100, 1, 512), 60.0)]
-    for label, shape, scale in cases:
-        q, k, v, do = randn(*shape, scale=scale), randn(*shape, scale=scale), randn(*shape), \
+             ("vae mid", (2, 9216, 1, 512), 1.0, 9216),
+             ("fallback wide", (1, 1100, 1, 512), 60.0, 1100)]
+    for label, shape, scale, s_k in cases:
+        kshape = (shape[0], s_k, *shape[2:])
+        q, k, v, do = randn(*shape, scale=scale), randn(*kshape, scale=scale), randn(*kshape), \
             randn(*shape)
         # the plain versions whole, or at D=512 a row at a time
         rows = 1 if shape[-1] > fa.BWD_MAX_D else shape[0]
@@ -812,9 +824,9 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows), reps=2)
             out_err = (out.float() - want_out).abs().max().item()
             lse_err = (lse - want_lse).abs().max().item()
-            lib_ms, least = sdpa_ms(q, k, v), flash_bound(shape, rows_fp32=1)
-            print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} x{scale}: out max|d| "
-                  f"{out_err:.3e} of max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x "
+            lib_ms, least = sdpa_ms(q, k, v), flash_bound(shape, s_k, rows_fp32=1)
+            print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} S_k={s_k} x{scale}: out "
+                  f"max|d| {out_err:.3e} of max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x "
                   f"max|ref|) lse max|d| {lse_err:.3e} (tol {lse_tol:.3g}) | {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms (chunks of {rows} rows), library sdpa {lib_ms:.3f} ms, "
                   f"bound {least['bound_ms']:.3f} ms by {least['bound_by']} | tiles recomputed "
@@ -849,27 +861,42 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         for kernel, fn, plain, names in (
                 ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
                 ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
-            got, want = fn(*args), plain(*ref)
-            got, want = (got, want) if len(names) > 1 else ((got,), (want,))
+            dkv = kernel == "flash_bwd_dkv"
+            got, again, want = fn(*args), fn(*args), plain(*ref)
+            got, again, want = (got, again, want) if len(names) > 1 else \
+                ((got,), (again,), (want,))
             errs = {}
-            for name, g, w in zip(names, got, want):
+            for name, g, g2, w in zip(names, got, again, want):
                 assert torch.isfinite(g).all(), (kernel, label, name)
+                # no atomics: two launches give the same bits
+                assert torch.equal(g, g2), f"{kernel} {label}: {name} differs between launches"
                 errs[name] = ((g.float() - w).abs().max().item(), w.abs().max().item())
             ms = gpu_ms(lambda: fn(*args))
             plain_ms = gpu_ms(lambda: plain(*args), reps=2)
-            # dq: 3 S x S x D products, q, k, v, dO in and dq out; dk/dv: 4 and 6; lse, delta
-            least = flash_bound(shape, products=2 + len(names), tensors=4 + len(names),
-                                rows_fp32=2)
-            print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} x{scale}: " + ", ".join(
-                f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {GRAD_TOL} x max|ref|)"
-                for n, (e, m) in errs.items()) + f" | {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {least['bound_ms']:.3f} ms by {least['bound_by']} | library sdpa "
-                f"backward (dq, dk and dv together) {lib_bwd_ms:.3f} ms", flush=True)
+            plan = fa.flash_bwd_plan(shape[0], shape[1], s_k, shape[2], shape[3], dkv)
+            # dq: 3 S_q x S_k x D products, q, dO and dq on the query side, k and v on the
+            # key side; dk/dv: 4 products, q and dO, k, v, dk and dv; lse and delta
+            least = flash_bound(shape, s_k, products=4 if dkv else 3, q_tensors=2 if dkv else 3,
+                                k_tensors=4 if dkv else 2, rows_fp32=2)
+            print(f"[train-kernel] {kernel} {label} (B,S,H,D)={shape} S_k={s_k} x{scale}: "
+                  + ", ".join(f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {GRAD_TOL} x "
+                              f"max|ref|)" for n, (e, m) in errs.items())
+                  + f", two launches bit-identical | {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {least['bound_ms']:.3f} ms by {least['bound_by']} | library sdpa "
+                  f"backward (dq, dk and dv together) {lib_bwd_ms:.3f} ms | plan "
+                  f"{plan.blocks} blocks, {plan.waves:.2f} waves, {plan.tile_rows} resident "
+                  f"rows, {plan.stream_rows}-row tiles x {plan.stages} stages, "
+                  f"{plan.smem_bytes} B shared", flush=True)
             for name, (e, m) in errs.items():
                 assert e <= GRAD_TOL * m, (kernel, label, name, e, m)
             # library_ms is one backward for both kernels' work: the same number in both
             row[kernel] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": ms,
                            "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least}
+        pair_ms = row["flash_bwd_dq"]["ms"] + row["flash_bwd_dkv"]["ms"]
+        print(f"[train-kernel] backward pair {label}: kernels 9 + 10 {pair_ms:.3f} ms = "
+              f"{pair_ms / lib_bwd_ms:.2f} x the library backward ({lib_bwd_ms:.3f} ms), bound "
+              f"{row['flash_bwd_dq']['bound_ms'] + row['flash_bwd_dkv']['bound_ms']:.3f} ms",
+              flush=True)
         # one call of the Function: 3 splits, 7/8, 1 merge; then 1 split, 9, 10, 3 merges
         per_call = {"flash_bound_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                     "split_heads": 4, "merge_heads": 4}
@@ -1147,6 +1174,13 @@ def phase_train_full(dev: torch.device) -> dict:
         # <DP, BOUND, LSE>: the training forward is the wgmma kernel's LSE form, both ways
         for form in ("<64,true,true>", "<64,false,true>"):
             assert f"flash_fwd_wgmma_kernel{form}" in flash, (form, sorted(flash))
+        # the backward is the wgmma/TMA pair at D=64
+        backward = {name: flash.get(name) for name in ("flash_bwd_dq_kernel<64>",
+                                                       "flash_bwd_dkv_kernel<64>")}
+        assert all(backward.values()), (backward, sorted(flash))
+        print(f"[train] profiled window, backward kernels a step: " + ", ".join(
+            f"{name} {ms / 3:.3f} ms, {n / 3:.0f} launches" for name, (ms, n) in backward.items()),
+            flush=True)
         assert trainer.state.step == 7 and all(np.isfinite(step_losses)), step_losses
         assert [r["step"] for r in records] == [1] and np.isfinite(records[0]["train_loss"])
         assert len(finite) == 3 * len(trainables) and torch.stack(finite).all().item(), \

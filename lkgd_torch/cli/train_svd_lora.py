@@ -60,7 +60,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=200)
     p.add_argument("--conditioning-dropout-prob", type=float, default=0.1)
     p.add_argument("--mode", choices=["lkgd", "trans"], default="lkgd",
-                   help="lkgd: quaternion fusion + temporal LoRA; trans: not ported yet")
+                   help="lkgd: quaternion fusion + temporal LoRA; trans: joint attention is "
+                        "ported (inference, run_inference_svd.py --mode trans), its training "
+                        "(tie_stream_pairs, the xy/yx/y adapters) is not yet")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--remat", action="store_true",
                    help="gradient checkpointing of every UNet block (the reference's "
@@ -80,7 +82,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.mode == "trans", "--mode trans (joint attention, ROADMAP.md Queue 1, item 8)"),
+        (args.mode == "trans", "--mode trans training (tie_stream_pairs and the xy/yx/y "
+                               "adapters; joint attention itself runs in run_inference_svd.py "
+                               "--mode trans; ROADMAP.md Queue 1, item 8)"),
         (args.use_8bit_adam, "--use-8bit-adam (training/optim8bit.py, ROADMAP.md Queue 1, "
                              "item 9)"),
         (bool(args.validation_image), "--validation-image (validation sampling, "

@@ -2,309 +2,510 @@
 //
 // Replaces the Pallas TPU kernels of lkgd_tpu/ops/flash_attention.py that _flash_bwd_bhsd
 // drives under the custom VJP _flash_core:
-//   * flash_bwd_dq_kernel ports _flash_bwd_dq_kernel:
+//   * flash_bwd_dq_kernel ports _flash_bwd_dq_kernel (kernel 9):
 //       P = exp2(s * scale * log2e - lse),  dS = P o (dO V^T - delta),  dQ = scale * dS K;
-//   * flash_bwd_dkv_kernel ports _flash_bwd_dkv_kernel:
+//   * flash_bwd_dkv_kernel ports _flash_bwd_dkv_kernel (kernel 10):
 //       dV = P^T dO,  dK = scale * dS^T Q.
-// lse is the forward's log2-domain logsumexp (B*H, S_q) and delta = rowsum(dO o O) (B*H,
-// S_q), both fp32, computed in PyTorch as JAX does (flash_attention.py:528).
+// lse is the forward's log2-domain logsumexp (B*H, S_q), carrying the shift the forward used,
+// and delta = rowsum(dO o O) (B*H, S_q), both fp32, computed in PyTorch as JAX does
+// (flash_attention.py:528). P and dS are rounded to bf16 before their products, as the TPU
+// kernels round them to the input dtype.
 //
-// What bounds it on the H100: tensor-core FLOPs. Each kernel recomputes the scores: dq
+// What bounds it on the H100: tensor-core operations. Each kernel recomputes the scores: dq
 // runs three S^2*D products (Q K^T, dO V^T, dS K), dk/dv four (K Q^T, V dO^T, then P^T dO
-// into dV and dS^T Q into dK), 3.5x the forward's work in all; the UNet level-0 training
-// call (B*T=8, S=4096, 5 heads, D=64) is 0.60 TFLOP for the pair. The design keeps every
-// S x S intermediate out of device memory:
-//   * as the TPU's two-kernel split, no atomics: dq is one block per (batch*head, 64-row
-//     query tile) looping over key tiles; dk/dv one block per (batch*head, 64-key tile)
-//     looping over query tiles. Each output is written once, so the result is
-//     deterministic;
-//   * each warp owns 16 rows (queries, or keys for dkv) end to end; the fp32 scores,
-//     probabilities and dS live in registers in the mma.sync m16n8k16 accumulator layout,
-//     and the accumulators of one product are packed to bf16 as the A operand of the next
-//     (P and dS are rounded to bf16 before their products, as the TPU kernels round them
-//     to the input dtype);
-//   * the streamed tiles (K/V for dq; Q/dO with their lse and delta for dkv) are double
-//     buffered with cp.async; the A operands of the block's own tiles are read from
-//     shared memory each tile, which leaves the registers to the accumulators;
-//   * q, k, v and dO are read, and dq, dk, dv written, as (B, S, H, D) through their
-//     strides; the autograd Function hands in the head-major copies of
-//     relayout_heads.cu, whose tiles are contiguous, and merges the gradients back;
-//   * a ragged S is masked in the kernel: keys past S_k get P = 0 (the TPU's kv_valid
-//     padding, _mask_if_padded) and query columns past S_q get P = 0, so padded rows
-//     contribute nothing; rows past the end are not written.
-// TMA, wgmma and a fused single-pass backward are later work.
+// into dV and dS^T Q into dK); the fine-tune's level-0 call (B*T=8, S=4096, 5 heads, D=64)
+// is 0.60 TFLOP for the pair. One exp2 stands against 384 (dq) or 512 (dk/dv) tensor-core
+// operations, so the products, not the exp2 unit, set the pace, and they must run at the
+// wgmma rate. The design, the forward's (flash_attention_wgmma.cu) turned around:
+//   * the TPU's two-kernel split, no atomics: dq is one block per (batch*head, 128 query
+//     rows) looping over key tiles, dk/dv one block per (batch*head, 128 keys) looping over
+//     query tiles. Each output is written once: the result is deterministic, as JAX's is;
+//   * a block is three warpgroups. A producer warp loads the block's own tiles once (Q and
+//     dO for dq, K and V for dk/dv) and keeps a ring of streamed tiles in flight by TMA
+//     (K and V tiles for dq; Q and dO tiles for dk/dv), through rank-4 tensor maps over the
+//     (B, S, H, D) views' strides (make_map, shared with the forward), in the 128-byte
+//     swizzle that wgmma reads directly. For dk/dv the same warp copies the tile's 64 lse
+//     and delta beside it (plain loads: a 1-D bulk copy needs 16-byte aligned rows, which a
+//     ragged S_q does not give). Consumers wait on mbarriers; no block-wide barrier in the
+//     loop; setmaxnreg moves registers from the producer to the consumers;
+//   * two consumer warpgroups, 64 resident rows each. dk/dv: S^T = K Q^T and dP^T = V dO^T
+//     with both operands in shared memory (K-major), so the accumulators are already keys x
+//     queries; P^T and dS^T are formed in registers and re-packed to bf16 as the register A
+//     operand of dV += P^T dO and dK += dS^T Q, with dO and Q read as transposed (MN-major)
+//     B operands: the same swizzled Q and dO tiles serve both products, as the forward reads
+//     its K tile K-major and its V tile MN-major. dq: S = Q K^T and dP = dO V^T from shared
+//     memory, dS in registers, dQ += dS K with K as the MN-major B operand; lse and delta of
+//     the thread's two rows stay in registers;
+//   * in a warpgroup the exp2 and dS arithmetic of tile i+1 runs while tile i's
+//     accumulating products are in flight, and the other warpgroup's products fill the
+//     tensor cores meanwhile (at D=128 dk/dv's two D-wide accumulators leave no registers
+//     for that: its products and its arithmetic take turns);
+//   * tiles by D padded to 64 or 128 (BwdPlan): dq streams 128-key tiles at D <= 64 and
+//     64-key tiles above; dk/dv streams 64-query tiles;
+//   * masks, not only zero fill: a zero key row would give p = exp2(0 - lse) != 0. Keys past
+//     S_k get P = 0 in dq (the last tile is peeled, so the loop's body has no branch on the
+//     tile's number); queries past S_q get lse = +inf in dk/dv, so P = exp2(s - inf) = 0 and
+//     dS = 0 exactly; rows past the end and columns past D are not written. D < 64 arrives
+//     zero-padded from the hardware.
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace lkgd;
+using namespace lkgd::sm90;
 
-struct FlashBwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+constexpr int kConsumers = 256;  // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;
+constexpr int kRows = 128;       // resident rows a block: 64 a consumer warpgroup
+
+struct BwdArgs {
   const float* lse;    // (B*H, s_q) log2 domain
   const float* delta;  // (B*H, s_q)
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  Strides qs, ks, vs, dos, dqs, dks, dvs;
-  int batch_heads, heads, s_q, s_k, d, n_q_tiles, n_k_tiles;
-  float scale_log2;  // D^-0.5 * log2(e), as the forward that wrote lse used it
+  bf16* out0;          // dq, or dk
+  bf16* out1;          // dv (dk/dv kernel)
+  Strides os0, os1;
+  int heads, s_q, s_k, d, n_tiles;  // n_tiles: blocks along the block's own rows per (b, h)
   float scale;       // D^-0.5
+  float scale_log2;  // D^-0.5 * log2(e), as the forward that wrote lse used it
 };
 
-// Write a warp's 16 x DP fp32 accumulator (rows r0 + g, r0 + g + 8) times `mul` as bf16.
+// Tiling by D padded to DP (64 or 128), for the dq (DKV=false) and dk/dv kernels.
+template <int DP, bool DKV>
+struct BwdPlan {
+  static constexpr int NP = DP / kPanelCols;                // panels of a tile
+  static constexpr int ST = (DKV || DP > 64) ? 64 : 128;    // rows of a streamed tile
+  static constexpr int NS = (DKV && DP > 64) ? 4 : 6;       // ring slots
+  static constexpr int res_bytes = kRows * DP * 2;          // one resident tile
+  static constexpr int tile_bytes = ST * DP * 2;            // one streamed tile
+  static constexpr int slot_bytes = (DKV ? 2 : 1) * tile_bytes;  // dk/dv: Q and dO tiles
+  static constexpr int row_bytes = DKV ? NS * 2 * ST * 4 : 0;    // dk/dv: lse and delta
+  static constexpr int bar_bytes = 8 * (1 + 2 * NS);
+  // 1024 bytes of slack: the tiles start at the next multiple of the swizzle atom
+  static constexpr int smem_bytes = kAtomBytes + 2 * res_bytes + NS * slot_bytes + row_bytes +
+                                    bar_bytes;
+};
+
+// Store rows r0 + g and r0 + g + 8 of a warp's m64nDP accumulator times `mul` as bf16,
+// columns < d and rows < s_total only.
 template <int DP>
 __device__ __forceinline__ void store_rows(bf16* base, long long row_stride, int r0, int s_total,
-                                           int d, const float (&acc)[DP / 8][4], float mul,
-                                           int g, int t4) {
+                                           int d, const float (&acc)[DP / 2], float mul, int t4) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
+    const int row = r0 + 8 * r;
     if (row >= s_total) continue;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int col = n * 8 + 2 * t4;
       if (col < d)
         *reinterpret_cast<uint32_t*>(base + (long long)row * row_stride + col) =
-            pack_bf16(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+            pack_bf16(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
     }
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(128) flash_bwd_dq_kernel(const FlashBwdArgs a) {
-  constexpr int LD = RegTile<DP>::LD;
-  constexpr int KC = DP / 16;        // 16-wide chunks of D
-  constexpr int NS = kTileRows / 8;  // 8-wide key tiles of a warp's 16 x 64 scores
-  constexpr int ND = DP / 8;         // 8-wide D tiles of a warp's 16 x DP dq
-  constexpr int TILE = kTileRows * LD;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, const BwdArgs a) {
+  using P = BwdPlan<DP, false>;
+  constexpr int BK = P::ST, NP = P::NP, NS = P::NS;
+  constexpr int SR = BK / 2;  // score registers a thread (64 x BK over 128 threads)
+  constexpr int QR = DP / 2;  // dq registers a thread
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + TILE;      // dO
-  bf16* sK = sQ + 2 * TILE;  // stages 0, 1
-  bf16* sV = sQ + 4 * TILE;  // stages 0, 1
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1);
+  const uint32_t sdO = sQ + P::res_bytes;
+  const uint32_t ring = sdO + P::res_bytes;
+  const uint32_t res_full = ring + NS * P::slot_bytes;
+  const uint32_t full0 = res_full + 8, empty0 = full0 + 8 * NS;
 
-  const int bh = blockIdx.x / a.n_q_tiles;
-  const int qt = blockIdx.x % a.n_q_tiles;
+  const int bh = blockIdx.x / a.n_tiles;
+  const int q0 = (blockIdx.x % a.n_tiles) * kRows;
   const int b = bh / a.heads, h = bh % a.heads;
-  const bf16* kb = a.k + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = a.v + b * a.vs.b + h * a.vs.h;
-  const int q0 = qt * kTileRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wr = warp * 16;
-  const int n_tiles = a.n_k_tiles;
+  const int n_tiles = (a.s_k + BK - 1) / BK;
 
-  load_tile_async<DP>(sQ, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, a.s_q, a.d);
-  load_tile_async<DP>(sO, a.dout + b * a.dos.b + h * a.dos.h, a.dos.s, q0, a.s_q, a.d);
-  load_tile_async<DP>(sK, kb, a.ks.s, 0, a.s_k, a.d);
-  load_tile_async<DP>(sV, vb, a.vs.s, 0, a.s_k, a.d);
-  cp_async_commit();
-
-  // this thread's rows: wr + g (r = 0) and wr + g + 8 (r = 1)
-  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    if (row < a.s_q) {
-      lse_r[r] = a.lse[(long long)bh * a.s_q + row];
-      delta_r[r] = a.delta[(long long)bh * a.s_q + row];
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);                 // the producer's arrive with the byte count
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // lane 0 of every consumer warp
     }
+    mbar_init_fence();
   }
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  __syncthreads();
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {  // prefetch the next K/V tile into the other stage
-      load_tile_async<DP>(sK + (st ^ 1) * TILE, kb, a.ks.s, (j + 1) * kTileRows, a.s_k, a.d);
-      load_tile_async<DP>(sV + (st ^ 1) * TILE, vb, a.vs.s, (j + 1) * kTileRows, a.s_k, a.d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* K = sK + st * TILE;
-    const bf16* V = sV + st * TILE;
-
-    // S = Q K^T and dP = dO V^T: a warp's 16 rows x 64 keys each
-    float s[NS][4], dp[NS][4];
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer warpgroup
+    reg_dealloc<40>();  // 2 x 128 x 232 + 128 x 40 registers: the SM's 64 K
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(res_full, 2 * P::res_bytes);
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int p = 0; p < NP; ++p) {
+        tma_load_4d(sQ + p * kRows * kPanelRowBytes, &map_q, res_full, p * kPanelCols, q0, h, b);
+        tma_load_4d(sdO + p * kRows * kPanelRowBytes, &map_do, res_full, p * kPanelCols, q0, h, b);
+      }
+      // the ring's order is the order the consumers want tiles in: K0, V0, K1, V1, ...
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int slot = i % NS, use = i / NS;
+        if (use > 0) mbar_wait(empty0 + 8 * slot, (use - 1) & 1);
+        const uint32_t bar = full0 + 8 * slot, dst = ring + slot * P::slot_bytes;
+        mbar_arrive_expect_tx(bar, P::tile_bytes);
+        const CUtensorMap* map = (i & 1) ? &map_v : &map_k;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t qa[4], da[4];
-      load_a_frag<LD>(qa, sQ, wr, kc, g, t4);
-      load_a_frag<LD>(da, sO, wr, kc, g, t4);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* k = K + (n * 8 + g) * LD + kc * 16 + 2 * t4;
-        const bf16* v = V + (n * 8 + g) * LD + kc * 16 + 2 * t4;
-        mma_16816(s[n], qa, lds32(k), lds32(k + 8));
-        mma_16816(dp[n], da, lds32(v), lds32(v + 8));
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(dst + p * BK * kPanelRowBytes, map, bar, p * kPanelCols, (i >> 1) * BK, h, b);
       }
     }
+  } else {
+    // ------------------------------------------------------------ consumer warpgroups
+    reg_alloc<232>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row_in_tile = wg * 64 + warp * 16 + g;  // this thread's rows: this and + 8
 
-    // P = exp2(s' - lse) (0 past S_k), dS = P (dP - delta); element e is row g + 8*(e/2)
-    const int k0 = j * kTileRows;
+    // lse and delta of this thread's two rows; rows past S_q (never stored) get P = 0
+    float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = k0 + n * 8 + 2 * t4 + (e & 1) < a.s_k;
-        const float p = valid ? exp2f(s[n][e] * a.scale_log2 - lse_r[e >> 1]) : 0.f;
-        s[n][e] = p * (dp[n][e] - delta_r[e >> 1]);
-      }
-
-    // dQ += dS K: the dS accumulators of keys 16kc..16kc+15 are the A operand
-#pragma unroll
-    for (int kc = 0; kc < kTileRows / 16; ++kc) {
-      uint32_t sa[4];
-      acc_to_a_frag(sa, s, kc);
-      mma_a_by_rows<DP>(dq, sa, K, kc, lane);
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row_in_tile + 8 * r;
+      const bool ok = row < a.s_q;
+      lse_r[r] = ok ? a.lse[(long long)bh * a.s_q + row] : INFINITY;
+      delta_r[r] = ok ? a.delta[(long long)bh * a.s_q + row] : 0.f;
     }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+    float s[SR], dp[SR], dq[QR];
+    uint32_t pk[SR / 2];
+#pragma unroll
+    for (int i = 0; i < QR; ++i) dq[i] = 0.f;
+
+    mbar_wait(res_full, 0);
+    const uint64_t q_desc = smem_desc(sQ + wg * 64 * kPanelRowBytes, 16, kAtomBytes);
+    const uint64_t do_desc = smem_desc(sdO + wg * 64 * kPanelRowBytes, 16, kAtomBytes);
+    auto slot_addr = [&](int i) { return ring + (i % NS) * P::slot_bytes; };
+    auto release = [&](int i) {  // ring tile i is read no more by this warp
+      if (lane == 0) mbar_arrive(empty0 + 8 * (i % NS));
+    };
+
+    // s = Q . K_j^T and dp = dO . V_j^T over the depth DP: four 16-deep steps a panel
+    auto start_sdp = [&](int j) {
+      mbar_wait(full0 + 8 * ((2 * j) % NS), ((2 * j) / NS) & 1);
+      mbar_wait(full0 + 8 * ((2 * j + 1) % NS), ((2 * j + 1) / NS) & 1);
+      const uint64_t k_desc = smem_desc(slot_addr(2 * j), 16, kAtomBytes);
+      const uint64_t v_desc = smem_desc(slot_addr(2 * j + 1), 16, kAtomBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(s, desc_advance(q_desc, p * kRows * kPanelRowBytes + kk * 32),
+                   desc_advance(k_desc, p * BK * kPanelRowBytes + kk * 32), (p | kk) != 0);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(dp, desc_advance(do_desc, p * kRows * kPanelRowBytes + kk * 32),
+                   desc_advance(v_desc, p * BK * kPanelRowBytes + kk * 32), (p | kk) != 0);
+      wgmma_commit();
+    };
+    // dq += dS . K_j over the BK keys, 16 keys (two swizzle atoms of K rows) a step, K_j as
+    // the transposed (MN-major) B operand
+    auto start_dq = [&](int j) {
+      const uint64_t k_desc = smem_desc(slot_addr(2 * j), BK * kPanelRowBytes, kAtomBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        wgmma_rs(dq, pk + 4 * kc, desc_advance(k_desc, kc * 16 * kPanelRowBytes));
+      wgmma_commit();
+    };
+
+    start_sdp(0);
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    release(1);  // V0
+
+    // One key tile; `last` (a std::bool_constant) marks the tile that may be ragged and has
+    // no successor: the loop's body has no branch on the tile's number.
+    auto tile = [&](int j, auto last) {
+      constexpr bool LAST = decltype(last)::value;
+      // 1. dS of tile j in place, exp2 domain, while dq += dS . K of tile j-1 runs
+      const int k0 = j * BK;
+      if (LAST && k0 + BK > a.s_k) {
+#pragma unroll
+        for (int i = 0; i < SR; ++i)
+          if (k0 + (i >> 2) * 8 + 2 * t4 + (i & 1) >= a.s_k) s[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < SR; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = ex2(fmaf(s[i], a.scale_log2, -lse_r[r])) * (dp[i] - delta_r[r]);
+      }
+      // 2. the product of tile j-1 is done: its K tile and the packed dS are free again
+      wgmma_wait<0>();
+      reg_fence(dq);
+      if (j > 0) release(2 * (j - 1));
+#pragma unroll
+      for (int i = 0; i < SR / 2; ++i) pk[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      // 3. the next scores, then this tile's dS . K behind them
+      if (!LAST) start_sdp(j + 1);
+      start_dq(j);
+      // 4. the next scores are done (dS . K may still run): their V tile is free
+      if (!LAST) {
+        wgmma_wait<1>();
+        reg_fence(s);
+        reg_fence(dp);
+        release(2 * (j + 1) + 1);
+      }
+    };
+    for (int j = 0; j + 1 < n_tiles; ++j) tile(j, std::false_type{});
+    tile(n_tiles - 1, std::true_type{});
+    wgmma_wait<0>();
+    reg_fence(dq);
+
+    store_rows<DP>(a.out0 + b * a.os0.b + h * a.os0.h, a.os0.s, q0 + row_in_tile, a.s_q, a.d, dq,
+                   a.scale, t4);
   }
-  store_rows<DP>(a.dq + b * a.dqs.b + h * a.dqs.h, a.dqs.s, q0 + wr, a.s_q, a.d, dq, a.scale,
-                 g, t4);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_kernel(const FlashBwdArgs a) {
-  constexpr int LD = RegTile<DP>::LD;
-  constexpr int KC = DP / 16;
-  constexpr int NS = kTileRows / 8;  // 8-wide query tiles of a warp's 16 keys x 64 queries
-  constexpr int ND = DP / 8;
-  constexpr int TILE = kTileRows * LD;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, const BwdArgs a) {
+  using P = BwdPlan<DP, true>;
+  constexpr int BQ = P::ST, NP = P::NP, NS = P::NS;
+  constexpr int SR = BQ / 2;  // score registers a thread (64 keys x BQ queries over 128 threads)
+  constexpr int KR = DP / 2;  // dk and dv registers a thread, each
+  // registers for a tile in flight beside the two accumulators: at D=64 only
+  constexpr bool OVERLAP = DP == 64;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + TILE;
-  bf16* sQ = sK + 2 * TILE;  // stages 0, 1
-  bf16* sO = sK + 4 * TILE;  // dO, stages 0, 1
-  __shared__ float sL[2][kTileRows], sD[2][kTileRows];  // lse and delta of the query tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1);
+  const uint32_t sV = sK + P::res_bytes;
+  const uint32_t ring = sV + P::res_bytes;  // slot: the Q tile, then the dO tile
+  const uint32_t rows = ring + NS * P::slot_bytes;
+  const uint32_t res_full = rows + P::row_bytes;
+  const uint32_t full0 = res_full + 8, empty0 = full0 + 8 * NS;
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (rows - raw));  // (NS, BQ)
+  float* delta_s = lse_s + NS * BQ;                                   // (NS, BQ)
 
-  const int bh = blockIdx.x / a.n_k_tiles;
-  const int kt = blockIdx.x % a.n_k_tiles;
+  const int bh = blockIdx.x / a.n_tiles;
+  const int k0 = (blockIdx.x % a.n_tiles) * kRows;
   const int b = bh / a.heads, h = bh % a.heads;
-  const bf16* qb = a.q + b * a.qs.b + h * a.qs.h;
-  const bf16* ob = a.dout + b * a.dos.b + h * a.dos.h;
-  const float* lse = a.lse + (long long)bh * a.s_q;
-  const float* delta = a.delta + (long long)bh * a.s_q;
-  const int k0 = kt * kTileRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wr = warp * 16;  // this warp's first key in the tile
-  const int n_tiles = a.n_q_tiles;
+  const int n_tiles = (a.s_q + BQ - 1) / BQ;
 
-  load_tile_async<DP>(sK, a.k + b * a.ks.b + h * a.ks.h, a.ks.s, k0, a.s_k, a.d);
-  load_tile_async<DP>(sV, a.v + b * a.vs.b + h * a.vs.h, a.vs.s, k0, a.s_k, a.d);
-  load_tile_async<DP>(sQ, qb, a.qs.s, 0, a.s_q, a.d);
-  load_tile_async<DP>(sO, ob, a.dos.s, 0, a.s_q, a.d);
-  cp_async_commit();
-  if (threadIdx.x < kTileRows) {
-    const bool ok = threadIdx.x < a.s_q;
-    sL[0][threadIdx.x] = ok ? lse[threadIdx.x] : 0.f;
-    sD[0][threadIdx.x] = ok ? delta[threadIdx.x] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);                 // the producer's arrive with the byte count
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float dk[ND][4], dv[ND][4];
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer warpgroup
+    reg_dealloc<40>();
+    if (threadIdx.x < kConsumers + 32) {  // its first warp
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(res_full, 2 * P::res_bytes);
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i & 1;
-    if (i + 1 < n_tiles) {  // prefetch the next query tile (Q, dO, lse, delta)
-      const int next = (i + 1) * kTileRows;
-      load_tile_async<DP>(sQ + (st ^ 1) * TILE, qb, a.qs.s, next, a.s_q, a.d);
-      load_tile_async<DP>(sO + (st ^ 1) * TILE, ob, a.dos.s, next, a.s_q, a.d);
-      cp_async_commit();
-      if (threadIdx.x < kTileRows) {
-        const bool ok = next + threadIdx.x < a.s_q;
-        sL[st ^ 1][threadIdx.x] = ok ? lse[next + threadIdx.x] : 0.f;
-        sD[st ^ 1][threadIdx.x] = ok ? delta[next + threadIdx.x] : 0.f;
+        for (int p = 0; p < NP; ++p) {
+          tma_load_4d(sK + p * kRows * kPanelRowBytes, &map_k, res_full, p * kPanelCols, k0, h, b);
+          tma_load_4d(sV + p * kRows * kPanelRowBytes, &map_v, res_full, p * kPanelCols, k0, h, b);
+        }
       }
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Q = sQ + st * TILE;
-    const bf16* O = sO + st * TILE;
-
-    // S^T = K Q^T and dP^T = V dO^T: a warp's 16 keys x 64 queries each
-    float p[NS][4], ds[NS][4];
+      const float* lse = a.lse + (long long)bh * a.s_q;
+      const float* delta = a.delta + (long long)bh * a.s_q;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int slot = i % NS, use = i / NS;
+        if (use > 0) mbar_wait(empty0 + 8 * slot, (use - 1) & 1);
+        // the tile's lse and delta beside it; queries past S_q get lse = +inf: P = 0, dS = 0
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+        for (int r = lane; r < BQ; r += 32) {
+          const int row = i * BQ + r;
+          const bool ok = row < a.s_q;
+          lse_s[slot * BQ + r] = ok ? lse[row] : INFINITY;
+          delta_s[slot * BQ + r] = ok ? delta[row] : 0.f;
+        }
+        __threadfence_block();
+        __syncwarp();  // the warp's stores before lane 0's arrive (release) on the full barrier
+        if (lane == 0) {
+          const uint32_t bar = full0 + 8 * slot, dst = ring + slot * P::slot_bytes;
+          mbar_arrive_expect_tx(bar, P::slot_bytes);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t ka[4], va[4];
-      load_a_frag<LD>(ka, sK, wr, kc, g, t4);
-      load_a_frag<LD>(va, sV, wr, kc, g, t4);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* q = Q + (n * 8 + g) * LD + kc * 16 + 2 * t4;
-        const bf16* o = O + (n * 8 + g) * LD + kc * 16 + 2 * t4;
-        mma_16816(p[n], ka, lds32(q), lds32(q + 8));
-        mma_16816(ds[n], va, lds32(o), lds32(o + 8));
+          for (int p = 0; p < NP; ++p) {
+            tma_load_4d(dst + p * BQ * kPanelRowBytes, &map_q, bar, p * kPanelCols, i * BQ, h, b);
+            tma_load_4d(dst + P::tile_bytes + p * BQ * kPanelRowBytes, &map_do, bar,
+                        p * kPanelCols, i * BQ, h, b);
+          }
+        }
       }
     }
+  } else {
+    // ------------------------------------------------------------ consumer warpgroups
+    reg_alloc<232>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row_in_tile = wg * 64 + warp * 16 + g;  // this thread's keys: this and + 8
 
-    // P^T = exp2(s' - lse) (0 past S_q), dS^T = P^T (dP^T - delta); element e of a tile is
-    // query column n*8 + 2*t4 + (e & 1)
-    const int q0 = i * kTileRows;
+    float s[SR], dp[SR], dk[KR], dv[KR];
+    uint32_t pp[SR / 2], pd[SR / 2];  // P^T and dS^T as bf16 A operands
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int i = 0; i < KR; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(res_full, 0);
+    const uint64_t k_desc = smem_desc(sK + wg * 64 * kPanelRowBytes, 16, kAtomBytes);
+    const uint64_t v_desc = smem_desc(sV + wg * 64 * kPanelRowBytes, 16, kAtomBytes);
+    auto slot_addr = [&](int i) { return ring + (i % NS) * P::slot_bytes; };
+    auto release = [&](int i) {  // ring slot of tile i is read no more by this warp
+      if (lane == 0) mbar_arrive(empty0 + 8 * (i % NS));
+    };
+
+    // s = K . Q_i^T and dp = V . dO_i^T (keys x queries) over the depth DP
+    auto start_sdp = [&](int i) {
+      mbar_wait(full0 + 8 * (i % NS), (i / NS) & 1);
+      const uint64_t q_desc = smem_desc(slot_addr(i), 16, kAtomBytes);
+      const uint64_t do_desc = smem_desc(slot_addr(i) + P::tile_bytes, 16, kAtomBytes);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t4 + (e & 1);
-        const float pe = (q0 + c < a.s_q) ? exp2f(p[n][e] * a.scale_log2 - sL[st][c]) : 0.f;
-        p[n][e] = pe;
-        ds[n][e] = pe * (ds[n][e] - sD[st][c]);
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(s, desc_advance(k_desc, p * kRows * kPanelRowBytes + kk * 32),
+                   desc_advance(q_desc, p * BQ * kPanelRowBytes + kk * 32), (p | kk) != 0);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(dp, desc_advance(v_desc, p * kRows * kPanelRowBytes + kk * 32),
+                   desc_advance(do_desc, p * BQ * kPanelRowBytes + kk * 32), (p | kk) != 0);
+      wgmma_commit();
+    };
+    // dv += P^T . dO_i and dk += dS^T . Q_i over the BQ queries, 16 a step, dO_i and Q_i as
+    // transposed (MN-major) B operands
+    auto start_dkv = [&](int i) {
+      const uint64_t q_mn = smem_desc(slot_addr(i), BQ * kPanelRowBytes, kAtomBytes);
+      const uint64_t do_mn = smem_desc(slot_addr(i) + P::tile_bytes, BQ * kPanelRowBytes,
+                                       kAtomBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        wgmma_rs(dv, pp + 4 * kc, desc_advance(do_mn, kc * 16 * kPanelRowBytes));
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        wgmma_rs(dk, pd + 4 * kc, desc_advance(q_mn, kc * 16 * kPanelRowBytes));
+      wgmma_commit();
+    };
+    // P^T and dS^T of tile i in place: element 4 n + e is query column 8 n + 2 t4 + (e & 1)
+    auto probs = [&](int i) {
+      const float* l = lse_s + (i % NS) * BQ + 2 * t4;
+      const float* dl = delta_s + (i % NS) * BQ + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float2 lv = *reinterpret_cast<const float2*>(l + 8 * n);
+        const float2 dv2 = *reinterpret_cast<const float2*>(dl + 8 * n);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[4 * n + e], a.scale_log2, -((e & 1) ? lv.y : lv.x)));
+          s[4 * n + e] = p;
+          dp[4 * n + e] = p * (dp[4 * n + e] - ((e & 1) ? dv2.y : dv2.x));
+        }
       }
+    };
 
-    // dV += P^T dO and dK += dS^T Q: the accumulators of queries 16kc..16kc+15 are the A
-    // operands
-#pragma unroll
-    for (int kc = 0; kc < kTileRows / 16; ++kc) {
-      uint32_t pa[4], sa[4];
-      acc_to_a_frag(pa, p, kc);
-      acc_to_a_frag(sa, ds, kc);
-      mma_a_by_rows<DP>(dv, pa, O, kc, lane);
-      mma_a_by_rows<DP>(dk, sa, Q, kc, lane);
+    if (OVERLAP) {
+      start_sdp(0);
+      wgmma_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
     }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+    // One query tile; `last` marks the tile with no successor (no branch on the tile's
+    // number around the products)
+    auto tile = [&](int i, auto last) {
+      constexpr bool LAST = decltype(last)::value;
+      if (!OVERLAP) {
+        start_sdp(i);
+        wgmma_wait<0>();
+        reg_fence(s);
+        reg_fence(dp);
+      }
+      // 1. P^T and dS^T of tile i, while the products of tile i-1 run
+      probs(i);
+      // 2. the products of tile i-1 are done: its slot and the packed operands are free
+      wgmma_wait<0>();
+      reg_fence(dk);
+      reg_fence(dv);
+      if (i > 0) release(i - 1);
+#pragma unroll
+      for (int j = 0; j < SR / 2; ++j) {
+        pp[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+        pd[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+      }
+      // 3. the next scores, then this tile's two accumulating products behind them
+      if (OVERLAP && !LAST) start_sdp(i + 1);
+      start_dkv(i);
+      if (OVERLAP && !LAST) {
+        wgmma_wait<1>();
+        reg_fence(s);
+        reg_fence(dp);
+      }
+    };
+    for (int i = 0; i + 1 < n_tiles; ++i) tile(i, std::false_type{});
+    tile(n_tiles - 1, std::true_type{});
+    wgmma_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
+
+    store_rows<DP>(a.out0 + b * a.os0.b + h * a.os0.h, a.os0.s, k0 + row_in_tile, a.s_k, a.d, dk,
+                   a.scale, t4);
+    store_rows<DP>(a.out1 + b * a.os1.b + h * a.os1.h, a.os1.s, k0 + row_in_tile, a.s_k, a.d, dv,
+                   1.f, t4);
   }
-  store_rows<DP>(a.dk + b * a.dks.b + h * a.dks.h, a.dks.s, k0 + wr, a.s_k, a.d, dk, a.scale,
-                 g, t4);
-  store_rows<DP>(a.dv + b * a.dvs.b + h * a.dvs.h, a.dvs.s, k0 + wr, a.s_k, a.d, dv, 1.f, g,
-                 t4);
 }
 
-template <int DP>
-cudaError_t launch_bwd(const FlashBwdArgs& a, bool dkv, cudaStream_t stream) {
-  const int bytes = int(6 * RegTile<DP>::bytes);  // two resident tiles + two double-buffered
-  auto kernel = dkv ? flash_bwd_dkv_kernel<DP> : flash_bwd_dq_kernel<DP>;
-  const long long blocks = (long long)a.batch_heads * (dkv ? a.n_k_tiles : a.n_q_tiles);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// ---------------------------------------------------------------------- host side
+struct BwdViews {
+  const void *q, *k, *v, *dout;
+  Strides qs, ks, vs, dos;
+  int batch;
+};
+
+template <int DP, bool DKV>
+cudaError_t launch(const BwdViews& in, BwdArgs a, cudaStream_t stream) {
+  using P = BwdPlan<DP, DKV>;
+  a.n_tiles = ((DKV ? a.s_k : a.s_q) + kRows - 1) / kRows;
+  // the block's own rows are resident (kRows), the other side's are streamed (P::ST)
+  const int q_rows = DKV ? P::ST : kRows, k_rows = DKV ? kRows : P::ST;
+  CUtensorMap map_q, map_do, map_k, map_v;
+  cudaError_t err = make_map(&map_q, in.q, in.qs, in.batch, a.s_q, a.heads, a.d, q_rows);
+  if (err == cudaSuccess)
+    err = make_map(&map_do, in.dout, in.dos, in.batch, a.s_q, a.heads, a.d, q_rows);
+  if (err == cudaSuccess)
+    err = make_map(&map_k, in.k, in.ks, in.batch, a.s_k, a.heads, a.d, k_rows);
+  if (err == cudaSuccess)
+    err = make_map(&map_v, in.v, in.vs, in.batch, a.s_k, a.heads, a.d, k_rows);
   if (err != cudaSuccess) return err;
-  kernel<<<unsigned(blocks), 128, bytes, stream>>>(a);
+  auto kernel = DKV ? flash_bwd_dkv_kernel<DP> : flash_bwd_dq_kernel<DP>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)in.batch * a.heads * a.n_tiles;
+  kernel<<<unsigned(blocks), kThreads, P::smem_bytes, stream>>>(map_q, map_do, map_k, map_v, a);
   return cudaGetLastError();
 }
 
@@ -312,39 +513,57 @@ cudaError_t launch_bwd(const FlashBwdArgs& a, bool dkv, cudaStream_t stream) {
 
 extern "C" {
 
+// Rows a block of the dq (dkv=0) or dk/dv (dkv=1) kernel keeps resident: query rows for dq,
+// keys for dk/dv.
+int lkgd_flash_bwd_block_rows(int d, int dkv) {
+  (void)d;
+  (void)dkv;
+  return kRows;
+}
+
+// Dynamic shared memory of the dq (dkv=0) or dk/dv (dkv=1) block for a head dim d.
+int lkgd_flash_bwd_smem_bytes(int d, int dkv) {
+  if (d <= 64) return dkv ? BwdPlan<64, true>::smem_bytes : BwdPlan<64, false>::smem_bytes;
+  return dkv ? BwdPlan<128, true>::smem_bytes : BwdPlan<128, false>::smem_bytes;
+}
+
 // q, k, v, dout, dq, dk, dv: (B, S, H, D) bf16, strides[21] = (b, s, h) element strides of
 // q, k, v, dout, dq, dk, dv. lse, delta: (B*H, s_q) fp32. dkv=0 launches the dq kernel
-// (writes dq), dkv=1 the dk/dv kernel (writes dk and dv). D must be a multiple of 8, <= 128.
+// (writes dq), dkv=1 the dk/dv kernel (writes dk and dv). D must be a multiple of 8, <= 128;
+// s_q and s_k at least 1.
 int lkgd_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv,
                    const long long* strides, int batch, int heads, int s_q, int s_k, int d,
                    float scale, float scale_log2, int dkv, int device, void* stream) {
-  if (d <= 0 || d > 128 || d % 8 != 0) return int(cudaErrorInvalidValue);
+  if (d <= 0 || d > 128 || d % 8 != 0 || s_q <= 0 || s_k <= 0) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  FlashBwdArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
+  BwdViews in;
+  in.q = q;
+  in.k = k;
+  in.v = v;
+  in.dout = dout;
+  Strides* views[4] = {&in.qs, &in.ks, &in.vs, &in.dos};
+  for (int i = 0; i < 4; ++i) *views[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  in.batch = batch;
+  BwdArgs a;
   a.lse = lse;
   a.delta = delta;
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  Strides* all[7] = {&a.qs, &a.ks, &a.vs, &a.dos, &a.dqs, &a.dks, &a.dvs};
-  for (int i = 0; i < 7; ++i) *all[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  a.batch_heads = batch * heads;
+  const int out0 = dkv ? 5 : 4;  // dk (then dv) or dq among the seven stride triples
+  a.out0 = static_cast<bf16*>(dkv ? dk : dq);
+  a.out1 = static_cast<bf16*>(dkv ? dv : nullptr);
+  a.os0 = {strides[3 * out0], strides[3 * out0 + 1], strides[3 * out0 + 2]};
+  a.os1 = {strides[18], strides[19], strides[20]};
   a.heads = heads;
   a.s_q = s_q;
   a.s_k = s_k;
   a.d = d;
-  a.n_q_tiles = (s_q + kTileRows - 1) / kTileRows;
-  a.n_k_tiles = (s_k + kTileRows - 1) / kTileRows;
+  a.n_tiles = 0;  // set by the launch from its plan
   a.scale = scale;
   a.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(d <= 64 ? launch_bwd<64>(a, dkv != 0, s) : launch_bwd<128>(a, dkv != 0, s));
+  if (dkv) return int(d <= 64 ? launch<64, true>(in, a, s) : launch<128, true>(in, a, s));
+  return int(d <= 64 ? launch<64, false>(in, a, s) : launch<128, false>(in, a, s));
 }
 
 }  // extern "C"

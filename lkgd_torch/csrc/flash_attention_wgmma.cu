@@ -46,7 +46,6 @@
 //     exchange or synchronise between them); the ring has two 64 KB slots;
 //   * ragged S: zero rows from TMA, keys past the end masked to -inf in the last tile.
 
-#include <dlfcn.h>
 #include <math.h>
 
 #include <type_traits>
@@ -89,12 +88,6 @@ struct Plan {
   // 1024 bytes of slack: the tiles start at the next multiple of the swizzle atom
   static constexpr int smem_bytes = kAtomBytes + q_bytes + NS * slot_bytes + bar_bytes;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DP, bool BOUND, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -378,38 +371,6 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------- host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up in the libcuda that PyTorch has already loaded: the
-// library links against the runtime alone
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return reinterpret_cast<EncodeTiled>(lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
-  }();
-  return fn;
-}
-
-// A rank-4 map (D, S, H, B innermost first) over a (B, S, H, D) bf16 view with element
-// strides st, loading boxes of 64 columns x `rows` rows in the 128-byte swizzle.
-cudaError_t make_map(CUtensorMap* map, const void* base, const Strides& st, int batch, int s,
-                     int heads, int d, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(s), cuuint64_t(heads), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2, cuuint64_t(st.b) * 2};
-  const cuuint32_t box[4] = {cuuint32_t(kPanelCols), cuuint32_t(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 struct Views {
   const void *q, *k, *v;
   Strides qs, ks, vs;

@@ -1,7 +1,7 @@
-// Pieces shared by the mma.sync kernels (the flash-attention backward, flash_attention_bwd.cu,
-// and the two microbenchmark kernels, flash_variant.cu and blocked_matmul.cu): mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, cp.async and the padded shared tiles of 64
-// rows that they work on; and the types every flash source shares (bf16, Strides, pack_bf16).
+// Pieces shared by the mma.sync kernels (the two microbenchmark kernels, flash_variant.cu and
+// blocked_matmul.cu): mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, cp.async and
+// the padded shared tiles they work on; and the types every flash source shares (bf16,
+// Strides, pack_bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,8 +15,6 @@ using bf16 = __nv_bfloat16;
 struct Strides {
   long long b, s, h;  // in elements; the D stride is 1
 };
-
-constexpr int kTileRows = 64;  // rows of a shared tile: 4 warps x 16 rows, or 64 keys
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -57,29 +55,12 @@ __device__ __forceinline__ uint32_t lds32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A shared tile of kTileRows rows of D padded to DP, each row padded by 8 more elements so
-// that the fragment loads of a warp hit distinct banks.
+// A shared tile of rows of D padded to DP, each row padded by 8 more elements so that the
+// fragment loads of a warp hit distinct banks.
 template <int DP>
 struct RegTile {
   static constexpr int LD = DP + 8;
-  static constexpr size_t bytes = size_t(kTileRows) * LD * sizeof(bf16);
 };
-
-// rows [row0, row0 + 64) of a strided (S, D) slice -> a (64, LD) shared tile, async; rows
-// past s_total and columns past d are zero. 128 threads.
-template <int DP>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
-                                                long long row_stride, int row0, int s_total,
-                                                int d) {
-  constexpr int VPR = DP / 8;
-  constexpr int LD = RegTile<DP>::LD;
-  for (int i = threadIdx.x; i < kTileRows * VPR; i += 128) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = row0 + r < s_total && c < d;
-    const bf16* src = ok ? base + (long long)(row0 + r) * row_stride + c : base;
-    cp_async_16(dst + r * LD + c, src, ok);
-  }
-}
 
 // The A operand (16 rows x 16 of depth, chunk kc) of mma m16n8k16 for the 16 rows starting
 // at `row` of a padded tile; g = lane / 4 and t4 = lane % 4 as in the accumulator layout.

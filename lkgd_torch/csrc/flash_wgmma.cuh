@@ -1,7 +1,8 @@
-// Hopper-only pieces of the warp-specialised flash-attention forward
-// (flash_attention_wgmma.cu): mbarriers, TMA tile loads through a tensor map, shared-memory
-// matrix descriptors for the 128-byte swizzle, and wgmma.mma_async (bf16 in, fp32 in
-// registers). Everything here needs sm_90a.
+// Hopper-only pieces of the warp-specialised flash-attention kernels, the forward
+// (flash_attention_wgmma.cu) and the backward (flash_attention_bwd.cu): mbarriers, TMA tile
+// loads through a tensor map and the host code that encodes the map, shared-memory matrix
+// descriptors for the 128-byte swizzle, and wgmma.mma_async (bf16 in, fp32 in registers).
+// Everything here needs sm_90a.
 //
 // Shared tiles are "panels": rows of 64 bf16 (128 bytes), eight rows to a 1024-byte swizzle
 // atom, exactly what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and an inner box of 64
@@ -11,7 +12,10 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace lkgd {
 namespace sm90 {
@@ -22,6 +26,12 @@ constexpr int kAtomBytes = 1024;    // eight panel rows: the swizzle repeats
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ------------------------------------------------------------------ mbarriers
@@ -235,6 +245,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a, uin
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------------------------------ host: tensor maps
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up in the libcuda that PyTorch has already loaded: the
+// library links against the runtime alone
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return reinterpret_cast<EncodeTiled>(lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
+  }();
+  return fn;
+}
+
+// A rank-4 map (D, S, H, B innermost first) over a (B, S, H, D) bf16 view with element
+// strides st, loading boxes of 64 columns x `rows` rows in the 128-byte swizzle. Rows past
+// S and columns past D arrive as zeros.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, const Strides& st, int batch,
+                            int s, int heads, int d, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(s), cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2, cuuint64_t(st.b) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(kPanelCols), cuuint32_t(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 }  // namespace sm90
 }  // namespace lkgd

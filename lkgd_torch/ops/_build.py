@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "lkgd_flash_key_sq_max": ([_P, ctypes.POINTER(_LL), _I, _I, _I, _I, _P, _I, _P], _I),
     "lkgd_flash_fwd_lse": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _I, _I, _P], _I),
+    "lkgd_flash_bwd_block_rows": ([_I, _I], _I),
+    "lkgd_flash_bwd_smem_bytes": ([_I, _I], _I),
     "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                    _P], _I),
     "lkgd_gn_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -119,9 +122,17 @@ def check(err: int) -> None:
                            f"{library().lkgd_error_string(err).decode()}")
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's demangled name without its namespace and parameters."""
+    name = subprocess.run(["c++filt", mangled], capture_output=True,
+                          text=True).stdout.strip() or mangled
+    return name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+
+
 def ptxas_report() -> str:
     """``-Xptxas -v`` of every source: one line a kernel (demangled name, registers, spill
-    bytes, static shared memory), and every warning ptxas gave."""
+    bytes, static shared memory), and every warning ptxas gave, with the kernels it names
+    demangled."""
     nvcc, lines = _nvcc(), []
     with tempfile.TemporaryDirectory() as tmp:
         for src in SOURCES:
@@ -131,17 +142,14 @@ def ptxas_report() -> str:
             name = ""
             for line in proc.stderr.splitlines():
                 if "Compiling entry function" in line:
-                    mangled = line.split("'")[1]
-                    name = subprocess.run(["c++filt", mangled], capture_output=True,
-                                          text=True).stdout.strip() or mangled
-                    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
-                    name = name.split("(")[0]
+                    name = _kernel_name(line.split("'")[1])
                 elif "spill" in line:
                     spills = line.strip()
                 elif "Used" in line and "registers" in line:
                     lines.append(f"{src.name} {name}: {line.split(':', 1)[1].strip()}; {spills}")
                 elif "warning" in line.lower() or "Potential Performance Loss" in line:
-                    lines.append(f"{src.name}: {line.strip()[:200]}")
+                    line = re.sub(r"_Z\w+", lambda m: _kernel_name(m.group()), line.strip())
+                    lines.append(f"{src.name}: {line[:300]}")
     return "\n".join(lines)
 
 

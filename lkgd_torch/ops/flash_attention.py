@@ -20,8 +20,13 @@ place of the JAX custom VJP ``_flash_core``:
   inference forward takes;
 * kernels 9 and 10 (``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` via
   ``_flash_bwd_bhsd``): dq, and dk with dv, from the saved lse and ``delta =
-  rowsum(dO * O)`` (fp32, PyTorch, as JAX computes it). D <= 128 only; above, the
-  backward wrappers raise, and the Function raises in its forward already;
+  rowsum(dO * O)`` (fp32, PyTorch, as JAX computes it). On the card they are two
+  warp-specialised ``wgmma``/TMA kernels (``csrc/flash_attention_bwd.cu``) with the TPU's
+  split and no atomics, tiled as ``flash_bwd_plan`` says: dq keeps 128 query rows of Q and
+  dO resident and streams key tiles, dk/dv keeps 128 keys of K and V and streams query
+  tiles. Both read q, k, v and dO through their strides, head-major copies and
+  ``(B, S, H, D)`` projection views alike. D <= 128 only; above, the backward wrappers
+  raise, and the Function raises in its forward already;
 * kernels 5 and 6, the head split and merge copies (``_split_heads_kernel`` /
   ``_merge_heads_kernel``, each the other's VJP): with more than one head the Function
   splits q, k, v and dO into head-major copies and merges out, dq, dk and dv back, as
@@ -151,6 +156,40 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
     smem = 1024 + rows * dp * 2 + stages * keys * dp * 2 + 8 * (1 + 2 * stages)
     blocks = b * h * math.ceil(s_q / rows)
     return FlashPlan("wgmma", rows, keys, stages, smem, blocks, blocks / sm_count)
+
+
+class FlashBwdPlan(NamedTuple):
+    """How a backward kernel tiles one call (the host side of ``BwdPlan`` in
+    ``csrc/flash_attention_bwd.cu``)."""
+    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10)
+    tile_rows: int     # rows a block keeps resident: queries (dq) or keys (dkv), what
+                       # lkgd_flash_bwd_block_rows answers
+    stream_rows: int   # rows of a streamed tile: keys (dq) or queries (dkv)
+    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv)
+    smem_bytes: int    # dynamic shared memory a block asks for
+    blocks: int        # the grid
+    waves: float       # blocks over the SMs (one block an SM: its registers allow no more)
+
+
+def flash_bwd_plan(b: int, s_q: int, s_k: int, h: int, d: int, dkv: bool,
+                   sm_count: int = 132) -> FlashBwdPlan:
+    """The tiling of a backward call over (b, s_q | s_k, h, d): kernel 10 (``dkv``) or
+    kernel 9, a pure function of the shapes, static by d."""
+    if d <= 0 or d % 8 or d > BWD_MAX_D:
+        raise ValueError(f"flash_bwd_plan: head dim {d} (dkv={dkv}) is not built")
+    dp = 64 if d <= 64 else 128
+    rows = 128
+    stream = 64 if dkv or dp > 64 else 128
+    stages = 4 if dkv and dp > 64 else 6
+    # 1024 of alignment slack, the two resident tiles, the ring (dkv: a Q and a dO tile a
+    # slot, and a slot's lse and delta), one barrier for the resident tiles and a full/empty
+    # pair a slot
+    tiles = 2 if dkv else 1
+    smem = (1024 + 2 * rows * dp * 2 + stages * tiles * stream * dp * 2
+            + (stages * 2 * stream * 4 if dkv else 0) + 8 * (1 + 2 * stages))
+    blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
+    return FlashBwdPlan("dkv" if dkv else "dq", rows, stream, stages, smem, blocks,
+                        blocks / sm_count)
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -390,6 +429,9 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
             raise ValueError(f"flash_bwd: {name} must be a contiguous (B, H, S_q) float32 "
                              f"tensor on q's device, got {tuple(x.shape)} {x.dtype}")
     dkv = dq is None
+    if flash_bwd_plan(b, s_q, k.shape[1], h, d, dkv).blocks >= 2 ** 31:
+        raise ValueError(f"flash_bwd: the grid of q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         f"exceeds 2^31 blocks")
     outs = (q, dk, dv) if dkv else (dq, k, v)  # strides of the unused slots are not read
     strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, do, *outs)
                                          for s in x.stride()[:3]))

@@ -209,6 +209,55 @@ def test_lse_plan_is_the_inference_plan(shape):
     assert tfa.FWD_MAX_D == 512 and tfa.BWD_MAX_D == 128
 
 
+# the backward kernels' tiling (csrc/flash_attention_bwd.cu BwdPlan): the fine-tune's UNet
+# levels 0 and 1 and the card tests' ragged shape, each for kernel 9 (dq) and kernel 10 (dkv)
+TRAIN_SHAPES = [(8, 4096, 4096, 5, 64), (8, 1024, 1024, 10, 64), (2, 1100, 1100, 5, 64)]
+
+
+@pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_bwd_plan_at_the_train_path_shapes(shape, dkv):
+    b, s_q, s_k, h, d = shape
+    plan = tfa.flash_bwd_plan(*shape, dkv=dkv)
+    assert plan.kernel == ("dkv" if dkv else "dq")
+    assert plan.smem_bytes <= tfa.SMEM_LIMIT
+    # 128 resident rows a block, 64 to each consumer warpgroup; D=64 streams 128 keys into
+    # dq and 64 queries into dk/dv
+    assert plan.tile_rows == 128
+    assert plan.stream_rows == (64 if dkv else 128)
+    assert plan.blocks == b * h * -(-(s_k if dkv else s_q) // 128)
+    assert plan.waves == plan.blocks / 132
+    if shape[:3] == (8, 4096, 4096):
+        assert plan.blocks == 1280  # 9.7 waves of the level-0 call
+    # the two resident tiles and a ring of at least three streamed slots
+    per_slot = (2 if dkv else 1) * plan.stream_rows * 64 * 2
+    assert plan.stages >= 3
+    assert plan.smem_bytes >= 2 * 128 * 64 * 2 + plan.stages * per_slot
+
+
+@pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128])
+def test_flash_bwd_plan_by_head_dim(d, dkv):
+    plan = tfa.flash_bwd_plan(1, 1100, 1030, 2, d, dkv)
+    dp = 64 if d <= 64 else 128
+    assert plan.smem_bytes <= tfa.SMEM_LIMIT
+    assert plan.tile_rows == 128
+    # 64-row streamed tiles, except dq's 128-key tiles at D <= 64
+    assert plan.stream_rows == (128 if not dkv and dp == 64 else 64)
+    assert plan.blocks == 2 * -(-(1030 if dkv else 1100) // 128)
+    per_slot = (2 if dkv else 1) * plan.stream_rows * dp * 2
+    assert plan.smem_bytes >= 2 * 128 * dp * 2 + plan.stages * per_slot
+    # one plan a padded width: D=8 and D=64 tile alike, as D=96 and D=128 do
+    assert plan == tfa.flash_bwd_plan(1, 1100, 1030, 2, dp, dkv)
+
+
+@pytest.mark.parametrize("d", [0, 12, 136, 256])
+def test_flash_bwd_plan_refuses_head_dims_the_kernels_do_not_take(d):
+    for dkv in (False, True):
+        with pytest.raises(ValueError):
+            tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv)
+
+
 # kernel 1 sums |q_i| itself and takes max_j|k_j| from the key-norm kernel; their plain
 # versions (bound_t = -(|q_i| * key_norm_max_plain) * scale * log2e) against the Pallas
 # wrapper's _bound_t and, through the bound form, against the Pallas kernel on a ragged S
@@ -351,6 +400,33 @@ def test_backward_plain_matches_pallas(s):
     for name, g, want in zip(("dq", "dk", "dv"), got, grads_j):
         assert g.shape == q.shape, name
         np.testing.assert_allclose(_as_bhsd(g), np.asarray(want)[:, :s],
+                                   err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("b,s_q,s_k,h,d", [(1, 200, 300, 2, 64), (1, 256, 256, 2, 40),
+                                           (1, 256, 256, 1, 128)],
+                         ids=["sq_ne_sk", "d40", "d128"])
+def test_backward_plain_matches_pallas_at_other_shapes(b, s_q, s_k, h, d):
+    """Kernels 9 and 10 where the card's kernels tile differently: fewer queries than keys,
+    both ragged (the Pallas kernels see 256 zero-padded query rows and 384 keys, masked),
+    and the head dims 40 and 128 (D < 64 zero-padded to a panel; D=128 two panels)."""
+    rng = np.random.default_rng(18)
+    q, do = (rng.normal(size=(b, s_q, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(b, s_k, h, d)).astype(np.float32) for _ in range(2))
+    q_pad, k_pad = -(-s_q // 128) * 128, -(-s_k // 128) * 128
+    kv_valid = s_k if k_pad != s_k else None
+    qt, dot = (_padded_bhsd(x, q_pad) for x in (q, do))
+    kt, vt = (_padded_bhsd(x, k_pad) for x in (k, v))
+    with pltpu.force_tpu_interpret_mode():
+        out_j, lse_j = jfa._flash_fwd_lse_maxtrack_bhsd(qt, kt, vt, 128, 128, kv_valid)
+        delta_j = jnp.sum(dot * out_j, axis=-1)[:, None, :]
+        grads_j = jfa._flash_bwd_bhsd(qt, kt, vt, dot, lse_j, delta_j, 128, 128, kv_valid)
+    lse = torch.from_numpy(np.asarray(lse_j)[:, 0, :s_q].reshape(b, h, s_q).copy())
+    delta = torch.from_numpy(np.asarray(delta_j)[:, 0, :s_q].reshape(b, h, s_q).copy())
+    got = tfa.flash_bwd_plain(*map(torch.from_numpy, (q, k, v, do)), lse, delta)
+    for name, g, want, x in zip(("dq", "dk", "dv"), got, grads_j, (q, k, v)):
+        assert g.shape == x.shape, name
+        np.testing.assert_allclose(_as_bhsd(g), np.asarray(want)[:, :x.shape[1]],
                                    err_msg=name, **GRAD_TOL)
 
 

@@ -290,6 +290,101 @@ def test_flash_backward_kernels_match_plain(cuda_device, shape):
     assert tfa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
 
 
+def _bwd_args(device, q, k, v, seed=3):
+    """dO (in q's layout, dense) and the lse and delta the autograd Function would hand the
+    backward kernels: lse from the LSE forward, delta = rowsum(dO * O) in fp32."""
+    do = _randn(device, q.shape, seed=seed).bfloat16()
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    return do, lse, (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _check_bwd_against_plain(q, k, v, do, lse, delta):
+    got = tfa.flash_bwd(q, k, v, do, lse, delta)
+    want = tfa.flash_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse, delta)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= 2e-2, (name, _rel_err(g, w))
+    return got
+
+
+# every padded width of the backward (D=8 and 40 into one 64-column panel, 96 into two), a
+# 1100-query call against 1030 keys (both ragged against their tiles), and 540 blocks of
+# each kernel: four waves of 132
+BWD_SHAPES = [((1, 1030, 2, 8), 1030), ((1, 1024, 2, 40), 1024), ((2, 700, 3, 96), 700),
+              ((2, 1100, 5, 64), 1030), ((12, 1100, 5, 64), 1100)]
+BWD_IDS = ["d8", "d40", "d96", "sq_ne_sk", "waves"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,s_k", BWD_SHAPES, ids=BWD_IDS)
+def test_flash_backward_kernels_match_plain_at_more_shapes(cuda_device, shape, s_k):
+    b, _, h, d = shape
+    q = _randn(cuda_device, shape).bfloat16()
+    k, v = (_randn(cuda_device, (b, s_k, h, d), seed=i).bfloat16() for i in (1, 2))
+    _check_bwd_against_plain(q, k, v, *_bwd_args(cuda_device, q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads", [(64, 5), (128, 2)])
+def test_flash_backward_kernels_take_strided_views_and_other_key_lengths(cuda_device, d, heads):
+    """q and dO as slices of fused projections, k and v as slices of another (S_q != S_k),
+    and the head-major copies the autograd Function hands over: the tensor maps read each
+    view through its strides, and the same gradients come out."""
+    c = heads * d
+    q = _randn(cuda_device, (2, 700, 2 * c)).bfloat16()[..., c:].unflatten(-1, (heads, d))
+    kv = _randn(cuda_device, (2, 1333, 2 * c), seed=1).bfloat16()
+    k, v = (kv[..., i * c:(i + 1) * c].unflatten(-1, (heads, d)) for i in range(2))
+    do = _randn(cuda_device, (2, 700, 2 * c), seed=3).bfloat16()[..., :c].unflatten(-1, (heads, d))
+    assert not q.is_contiguous() and not k.is_contiguous() and not do.is_contiguous()
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = _check_bwd_against_plain(q, k, v, do, lse, delta)
+    head_major = [tfa.split_heads(x).transpose(1, 2) for x in (q, k, v, do)]
+    again = _check_bwd_against_plain(*head_major, lse, delta)
+    for g, h_ in zip(got, again):
+        assert torch.equal(g, h_.contiguous())  # the same arithmetic on the same values
+
+
+@pytest.mark.cuda
+def test_flash_backward_from_the_fallback_lse(cuda_device):
+    """The huge-norm input: kernel 8 recomputes tiles of kernel 7, and the backward runs
+    from that lse (~5e3 log2 units) as the Function would."""
+    q, k, v = _qkv(cuda_device, (1, 1100, 2, 64), scale=60.0)
+    counter = tfa.recomputed_tiles(cuda_device)
+    counter.zero_()
+    args = _bwd_args(cuda_device, q, k, v)
+    assert counter.item() > 0 and torch.isfinite(args[1]).all()
+    _check_bwd_against_plain(q, k, v, *args)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_are_deterministic(cuda_device):
+    """No atomics: each output element is written once, in a fixed order, so two launches
+    give the same bits."""
+    q, k, v = _qkv(cuda_device, (2, 1100, 5, 64))
+    args = _bwd_args(cuda_device, q, k, v)
+    first = tfa.flash_bwd(q, k, v, *args)
+    second = tfa.flash_bwd(q, k, v, *args)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128])
+def test_flash_bwd_plan_is_the_kernels_tiling(cuda_device, d, dkv):
+    """The host-side backward plan and the library agree on resident rows and shared
+    memory, and the card grants that much to a block."""
+    from lkgd_torch.ops import _build
+
+    lib = _build.library()
+    plan = tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv)
+    assert plan.tile_rows == lib.lkgd_flash_bwd_block_rows(d, int(dkv))
+    assert plan.smem_bytes == lib.lkgd_flash_bwd_smem_bytes(d, int(dkv))
+    assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [256, 512])
 def test_flash_training_kernels_refuse_wide_heads(cuda_device, d):
