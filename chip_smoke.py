@@ -17,8 +17,10 @@ each printing its own lines; any failure raises and the script exits non-zero:
    9216, 1, 512) the flash kernels must beat their plain versions;
 3b. the two microbenchmark kernels against their plain versions: the blocked matmul at
    (258048, 320) x (320, 320 | 1280) and ragged shapes (max |d| <= 1e-2 * max|ref|), the
-   flash variants at (140, 9216, 64) in every mode with two tile shapes (max |d| <= 1e-2
-   * max|ref|, 3e-2 where exp2 runs in bf16), the plain version in chunks of rows;
+   flash variants at (140, 9216, 64) in every mode with all four tile shapes (max |d| <=
+   1e-2 * max|ref|, 3e-2 where exp2 runs in bf16), the plain version in chunks of rows;
+   each with its time, the library call's, the bound, its share of the bound and its
+   multiple of the library;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
 4b. the tiny frame-transition pipeline (joint attention, flip, two stream-masked LoRA
@@ -367,9 +369,14 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     return results
 
 
+def _versus(ms: float, lib_ms: float, least: dict) -> str:
+    return (f"{100 * least['bound_ms'] / ms:.1f}% of bound, {ms / lib_ms:.2f}x library")
+
+
 def phase_experiment_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     """Kernels 11 and 12 against their plain versions at the microbenchmarks' shapes;
-    returns their numbers at (258048, 320) x (320, 320) and at ``base``, tile 64 x 64."""
+    returns their numbers at (258048, 320) x (320, 320) (with (320, 1280) beside) and at
+    ``base`` on the production tile, 128 x 128 (with 64 x 64 beside)."""
     import torch.nn.functional as F
 
     from lkgd_torch.ops import flash_variants as fv
@@ -394,13 +401,17 @@ def phase_experiment_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         print(f"[kernel] blocked_matmul {label} ({m},{k})x({k},{n}): max|d| {err:.3e} of "
               f"max|ref| {ref:.3e} (tol {MATMUL_TOL} x max|ref|) | {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, library x @ w {lib_ms:.3f} ms, bound "
-              f"{least['bound_ms']:.3f} ms by {least['bound_by']}", flush=True)
+              f"{least['bound_ms']:.3f} ms by {least['bound_by']} | "
+              f"{_versus(ms, lib_ms, least)}", flush=True)
         assert np.isfinite(err) and err <= MATMUL_TOL * ref, (label, err, ref)
         if label == "unet level 0 qkv":
             results["blocked_matmul"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                          "library_ms": lib_ms, **least}
+        elif label == "unet level 0 ff":
+            ff = {"ff_ms": ms, "ff_library_ms": lib_ms, "ff_bound_ms": least["bound_ms"]}
         del x, w, got
         torch.cuda.empty_cache()
+    results["blocked_matmul"].update(ff)
 
     bh, s_, d = 140, 9216, 64
     q, k, v = (torch.randn((bh, s_, d), device=dev, generator=gen).bfloat16() for _ in range(3))
@@ -415,7 +426,7 @@ def phase_experiment_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         want = in_row_chunks(plain, (q, k, v, t), rows=4).float()
         plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v, t), rows=4), reps=1)
         ref = want.abs().max().item()
-        for tile in ((64, 64), (128, 64)):
+        for tile in fv.TILES:
             got = fv.flash_variant(q, k, v, t, mode, tile)
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
@@ -424,12 +435,16 @@ def phase_experiment_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                   f"{(bh, s_, d)}: max|d| {err:.3e} of max|ref| {ref:.3e} (tol "
                   f"{VARIANT_TOL[mode]} x max|ref|) | {ms:.3f} ms, plain {plain_ms:.3f} ms "
                   f"(chunks of 4 rows), library sdpa {lib_ms:.3f} ms, bound "
-                  f"{least['bound_ms']:.3f} ms by {least['bound_by']}", flush=True)
+                  f"{least['bound_ms']:.3f} ms by {least['bound_by']} | "
+                  f"{_versus(ms, lib_ms, least)}", flush=True)
             assert np.isfinite(err) and err <= VARIANT_TOL[mode] * ref, (mode, tile, err, ref)
-            if mode == "base" and tile == (64, 64):
+            if mode == "base" and tile == fv.PRODUCTION_TILE:
                 results["flash_variant"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                            "library_ms": lib_ms, **least}
+                                            "library_ms": lib_ms, "tile": list(tile), **least}
+            elif mode == "base" and tile == (64, 64):
+                ms_64 = ms
         del want
+    results["flash_variant"]["ms_64x64"] = ms_64
     del q, k, v, t
     torch.cuda.empty_cache()
     return results

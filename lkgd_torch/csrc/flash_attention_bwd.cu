@@ -52,7 +52,6 @@
 
 #include <type_traits>
 
-#include "flash_common.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {

@@ -50,7 +50,6 @@
 
 #include <type_traits>
 
-#include "flash_common.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {

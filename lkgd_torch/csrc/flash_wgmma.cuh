@@ -1,8 +1,9 @@
-// Hopper-only pieces of the warp-specialised flash-attention kernels, the forward
-// (flash_attention_wgmma.cu) and the backward (flash_attention_bwd.cu): mbarriers, TMA tile
-// loads through a tensor map and the host code that encodes the map, shared-memory matrix
-// descriptors for the 128-byte swizzle, and wgmma.mma_async (bf16 in, fp32 in registers).
-// Everything here needs sm_90a.
+// Hopper-only pieces of the port's warp-specialised kernels: the flash-attention forward
+// (flash_attention_wgmma.cu) and backward (flash_attention_bwd.cu), the forward's variants
+// (flash_variant.cu) and the blocked matrix product (blocked_matmul.cu). mbarriers, TMA tile
+// loads and stores through a tensor map and the host code that encodes the map,
+// shared-memory matrix descriptors for the 128-byte swizzle, and wgmma.mma_async (bf16 in,
+// fp32 in registers). Everything here needs sm_90a.
 //
 // Shared tiles are "panels": rows of 64 bf16 (128 bytes), eight rows to a 1024-byte swizzle
 // atom, exactly what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and an inner box of 64
@@ -15,9 +16,19 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
-
 namespace lkgd {
+
+using bf16 = __nv_bfloat16;
+
+struct Strides {
+  long long b, s, h;  // in elements; the D stride is 1
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 namespace sm90 {
 
 constexpr int kPanelCols = 64;      // bf16 columns of a panel: one 128-byte swizzled row
@@ -79,6 +90,38 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of shared memory (laid out as a load of the same map writes it) -> a rank-4
+// tensor map; elements outside the tensor are not written. Completion is tracked by bulk
+// groups: bulk_commit() after the stores, bulk_wait_read<N>() before the shared box is
+// written again, bulk_wait<0>() before the block exits.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's generic-proxy writes to shared memory become visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------ registers
 template <int N>
 __device__ __forceinline__ void reg_alloc() {
@@ -133,7 +176,10 @@ __device__ __forceinline__ void reg_fence(float (&x)[N]) {
 
 // The accumulator of m64nNk16 in a thread (warp w of the warpgroup, lane = 4 g + t4):
 // d[4 n + e] is row 16 w + g + 8 (e / 2), column 8 n + 2 t4 + (e & 1). The register A
-// operand of a 16-deep step is four packed bf16 pairs in the layout of mma.sync m16n8k16.
+// operand of a 16-deep step is four packed bf16 pairs of the warp's 16 rows: a[0] row g,
+// depth 2 t4 and 2 t4 + 1; a[1] row g + 8; a[2] and a[3] the same rows at depth + 8. So
+// accumulator pairs d[4 n + 2 r], d[4 n + 2 r + 1] of n = 2 kc and 2 kc + 1, packed in that
+// order, are the A operand of step kc of a product whose depth is the accumulator's columns.
 
 // d (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) . B (16 x 64: 64 rows of 16, shared, K-major)
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
@@ -164,6 +210,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, shared, K-major) . B (16 x 128: 16 rows of 128, shared,
+// MN-major)
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

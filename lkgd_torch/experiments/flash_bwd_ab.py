@@ -11,16 +11,13 @@ fine-tune's level-0 and level-1 shapes and at D=128, one JSON line a root: ``fla
 between CUDA events), the library's backward on the same inputs (autograd through
 ``scaled_dot_product_attention``: dq, dk and dv together) and the pair's ratio to it. The
 card's name and power limit come first. The card only: the kernels have no CPU form.
+(``kernel_ab`` times kernels 11 and 12 the same way, with the same tree loop.)
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import torch
 
@@ -72,20 +69,11 @@ def main(argv=None) -> list:
         return []
 
     from lkgd_torch.experiments._timing import device_line
+    from lkgd_torch.experiments.kernel_ab import run_roots
     from lkgd_torch.utils.device import require_device
 
     print(device_line(require_device("cuda")), flush=True)
-    rows = []
-    for root in args.roots or [str(Path(__file__).resolve().parents[2])]:
-        root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", "--reps",
-                               str(args.reps)], cwd=root, env={**os.environ, "PYTHONPATH": root},
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"flash_bwd_ab: {root} failed ({proc.returncode}):\n{proc.stderr}")
-        rows.append({"root": root, **json.loads(proc.stdout.strip().splitlines()[-1])})
-        print(json.dumps(rows[-1]), flush=True)
-    return rows
+    return run_roots(__file__, args.roots, ["--reps", str(args.reps)])
 
 
 if __name__ == "__main__":

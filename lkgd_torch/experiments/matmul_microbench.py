@@ -7,11 +7,14 @@ hand-written blocked kernel, and three packings of the q/k/v projections (counte
 Rows printed: the card's name and power limit; the three qkv packings in plain PyTorch at
 ``(M/64, 64, C) x (C, 3, C)`` (separate products, one wide ``(C, 3C)`` product then a
 split, a middle-axis einsum); then for each shape ``(M, K) x (K, N)`` the library's
-``x @ w`` and ``blocked_matmul`` with OK or WRONG against the fp32 product. Defaults are
-the UNet level-0 shapes, M = 2*14*9216 = 258048 tokens of 320 channels; ``--m``, ``--k``,
-``--n`` and ``--reps`` set other sizes. Each time is the mean over ``--reps`` launches
-after a warm-up, between CUDA events; every output is reduced to a scalar as in the JAX
-file so that the packings are compared on equal terms.
+``x @ w`` and ``blocked_matmul`` with OK or WRONG against the fp32 product, its share of
+the bound (the larger of each input read and the output written once over 3.35 TB/s and
+the products over 989 TFLOP/s), its multiple of the library's time, its tiling
+(``matmul_plan``) and the bytes of its inputs it reads from L2 or device memory. Defaults are the UNet level-0
+shapes, M = 2*14*9216 = 258048 tokens of 320 channels; ``--m``, ``--k``, ``--n`` and
+``--reps`` set other sizes. Each time is the mean over ``--reps`` launches after a
+warm-up, between CUDA events; the qkv packings' outputs are reduced to a scalar as in the
+JAX file so that they are compared on equal terms, and the two products are timed alone.
 """
 
 from __future__ import annotations
@@ -21,12 +24,22 @@ import argparse
 import torch
 
 from lkgd_torch.experiments._timing import device_line, time_ms
-from lkgd_torch.ops.matmul import blocked_matmul, blocked_matmul_plain
+from lkgd_torch.ops.matmul import blocked_matmul, blocked_matmul_plain, l2_bytes, matmul_plan
 from lkgd_torch.utils.device import require_device
+
+
+# the card's published peaks (H100 SXM): device memory and bf16 tensor cores
+PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
 
 
 def _consume(out: torch.Tensor) -> torch.Tensor:
     return out.sum(dtype=torch.float32)
+
+
+def bound_ms(m: int, k: int, n: int) -> float:
+    """The least time of the product on the card: x and w read once and the bf16 output
+    written once, or the products at the bf16 tensor-core rate, whichever is longer."""
+    return max(2 * (m * k + k * n + m * n) / PEAK_BYTES, 2 * m * k * n / PEAK_BF16) * 1e3
 
 
 def qkv_variants(m: int, c: int, device: torch.device, dtype: torch.dtype, reps: int,
@@ -72,16 +85,21 @@ def main(argv=None) -> list:
         m, k = args.m, args.k
         x = torch.randn((m, k), generator=generator, device=device).to(dtype)
         w = torch.randn((k, n), generator=generator, device=device).to(dtype)
-        flops = 2 * m * k * n
-        lib = time_ms(lambda: _consume(x @ w), device, args.reps)
+        flops, least = 2 * m * k * n, bound_ms(m, k, n)
+        lib = time_ms(lambda: x @ w, device, args.reps)
         print(f"({m},{k})x({k},{n})  library x @ w: {lib:7.3f} ms  "
-              f"{flops / lib / 1e9:6.1f} TF/s", flush=True)
+              f"{flops / lib / 1e9:6.1f} TF/s  bound {least:.3f} ms", flush=True)
         ok = torch.allclose(blocked_matmul(x, w).float(),
                             blocked_matmul_plain(x.float(), w.float()), rtol=0.1, atol=1.0)
-        ms = time_ms(lambda: _consume(blocked_matmul(x, w)), device, args.reps)
+        ms = time_ms(lambda: blocked_matmul(x, w), device, args.reps)
+        plan = matmul_plan(m, k, n)
         print(f"    blocked_matmul: {ms:7.3f} ms  {flops / ms / 1e9:6.1f} TF/s  "
-              f"{'OK' if ok else 'WRONG'}", flush=True)
-        rows.append({"shape": (m, k, n), "library_ms": lib, "kernel_ms": ms, "ok": bool(ok)})
+              f"{100 * least / ms:5.1f}% of bound  {ms / lib:5.2f}x library  "
+              f"{'OK' if ok else 'WRONG'}  | tile {plan.tile_rows}x{plan.tile_cols}, "
+              f"{plan.blocks} blocks, x {'resident' if plan.x_resident else 'streamed'}, "
+              f"{l2_bytes(m, k, n) / 1e9:.3f} GB of input reads", flush=True)
+        rows.append({"shape": (m, k, n), "library_ms": lib, "kernel_ms": ms, "bound_ms": least,
+                     "over_library": ms / lib, "ok": bool(ok)})
     return rows
 
 

@@ -49,7 +49,9 @@ _SIGNATURES = {
     "lkgd_gn_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P], _I),
     "lkgd_relayout_heads": ([_P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _P], _I),
+    "lkgd_matmul_plan": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     "lkgd_blocked_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "lkgd_flash_variant_plan": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     "lkgd_flash_variant": ([_P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _F, _I,
                             _I, _I, _I, _P], _I),
     "lkgd_error_string": ([_I], ctypes.c_char_p),

@@ -21,6 +21,8 @@ runs the plain version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -28,10 +30,39 @@ from lkgd_torch.ops import flash_attention as fa
 
 MODES = {"base": 0, "prescale": 1, "bf16exp": 2, "prescale_bf16exp": 3, "noexp": 4}
 TILES = ((64, 64), (128, 64), (64, 128), (128, 128))  # query x key rows of a block
+PRODUCTION_TILE = (128, 128)  # the production forward's tiling at D=64
 MAX_D = 64  # head dims the kernel is built for
+STAGES = 6  # ring slots of K and V tiles
 
 # launches of the kernel since the last reset; read by chip_smoke.py
 launches = {"flash_variant": 0}
+
+
+class VariantPlan(NamedTuple):
+    """How kernel 12 tiles one call (the host side of ``VariantPlan`` in
+    ``csrc/flash_variant.cu``; ``lkgd_flash_variant_plan`` answers the same)."""
+    tile_rows: int     # query rows a block
+    key_tile: int      # keys a K or V tile
+    warpgroups: int    # consumer warpgroups: one for each 64 query rows
+    threads: int       # and one producer warpgroup
+    stages: int        # ring slots of K and V tiles
+    smem_bytes: int    # dynamic shared memory a block asks for
+    blocks: int        # the grid
+
+
+def variant_plan(bh: int, s_q: int, tile=PRODUCTION_TILE) -> VariantPlan:
+    """The tiling of a variant call over ``bh`` x ``s_q`` query rows with a ``tile`` of
+    ``TILES``: a pure function of the shapes."""
+    if tuple(tile) not in TILES:
+        raise ValueError(f"flash_variant: tile {tuple(tile)} is not built, one of {TILES}")
+    if bh <= 0 or s_q <= 0:
+        raise ValueError(f"variant_plan: {bh} x {s_q} query rows")
+    rows, keys = tile
+    # 1024 of alignment slack, the Q tile and the ring (rows of 64 bf16), one Q barrier and
+    # a full/empty pair a slot
+    smem = 1024 + rows * 128 + STAGES * keys * 128 + 8 * (1 + 2 * STAGES)
+    return VariantPlan(rows, keys, rows // 64, (rows // 64 + 1) * 128, STAGES, smem,
+                       bh * math.ceil(s_q / rows))
 
 
 def bound_t(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

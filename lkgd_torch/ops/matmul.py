@@ -3,8 +3,9 @@
 Port of ``pallas_matmul`` of ``experiments/matmul_microbench.py`` (kernel 11): ``out (M, N)
 = x (M, K) . w (K, N)`` with fp32 accumulation, cast to the input type. The TPU kernel
 keeps all of ``w`` in fast memory beside a block of ``bm`` rows of ``x``; the CUDA kernel
-(``csrc/blocked_matmul.cu``) tiles N as well and streams K, since ``w`` does not fit a
-block's shared memory on this card.
+(``csrc/blocked_matmul.cu``, wgmma and TMA) keeps a 128-row block of ``x`` in shared memory
+instead and streams ``w`` through it in 128-wide column tiles, since ``w`` does not fit a
+block's shared memory on this card. ``matmul_plan`` is that tiling, computed on the host.
 
 It is a kernel of its own, measured against the library's ``x @ w`` by
 ``lkgd_torch/experiments/matmul_microbench.py``; the models' linears stay ``nn.Linear``,
@@ -14,10 +15,54 @@ on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 # launches of the kernel since the last reset; read by chip_smoke.py
 launches = {"blocked_matmul": 0}
+
+TILE_ROWS, TILE_COLS = 128, 128  # an output tile: 64 rows for each consumer warpgroup
+X_STAGES, W_STAGES = 6, 6        # 64-deep x panels and 64 x 128 w chunks in shared memory
+H100_SMS = 132
+
+
+class MatmulPlan(NamedTuple):
+    """How kernel 11 tiles one product (the host side of the constants and ``plan_args``
+    in ``csrc/blocked_matmul.cu``; ``lkgd_matmul_plan`` answers the same)."""
+    tile_rows: int        # output rows of a tile
+    tile_cols: int        # output columns of a tile
+    x_stages: int         # 64-deep panels of x in shared memory
+    w_stages: int         # ring slots of w chunks (64 rows of K x tile_cols)
+    smem_bytes: int       # dynamic shared memory a block asks for
+    blocks: int           # the persistent grid: at most one block an SM
+    tiles_per_block: int  # the most output tiles one block walks
+    x_resident: bool      # a row block of x stays for all its column tiles (K <= 384)
+
+
+def matmul_plan(m: int, k: int, n: int, sm_count: int = H100_SMS) -> MatmulPlan:
+    """The tiling of an ``(m, k) x (k, n)`` product on a card of ``sm_count`` SMs: a pure
+    function of the shapes."""
+    if m <= 0 or k <= 0 or n <= 0 or sm_count <= 0:
+        raise ValueError(f"matmul_plan: shapes {(m, k, n)} on {sm_count} SMs")
+    # 1024 of alignment slack, the x panels (128 rows x 64 bf16), the w ring, the staged
+    # bf16 output tile, and a full/empty barrier pair for every x and w slot
+    smem = (1024 + X_STAGES * TILE_ROWS * 128 + W_STAGES * 64 * TILE_COLS * 2
+            + TILE_ROWS * TILE_COLS * 2 + 8 * 2 * (X_STAGES + W_STAGES))
+    row_blocks = math.ceil(m / TILE_ROWS)
+    blocks = min(row_blocks, sm_count)
+    return MatmulPlan(TILE_ROWS, TILE_COLS, X_STAGES, W_STAGES, smem, blocks,
+                      math.ceil(row_blocks / blocks) * math.ceil(n / TILE_COLS),
+                      math.ceil(k / 64) <= X_STAGES)
+
+
+def l2_bytes(m: int, k: int, n: int) -> int:
+    """Bytes of the inputs kernel 11 reads from L2 or device memory: w once for every
+    128-row block of x, and x once, or once for every column tile where it is streamed."""
+    resident = matmul_plan(m, k, n).x_resident
+    return (math.ceil(m / TILE_ROWS) * k * n * 2
+            + m * k * 2 * (1 if resident else math.ceil(n / TILE_COLS)))
 
 
 def blocked_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

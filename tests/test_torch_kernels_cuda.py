@@ -475,13 +475,22 @@ def test_flash_function_launches_split_and_merge(cuda_device):
     assert delta["flash_bwd_dq"] == 1 and delta["flash_bwd_dkv"] == 1, delta
 
 
+# kernel 11 against the fp32 product: fp32 accumulation, one bf16 rounding of the output
+# (2^-9 relative), so within 1e-2 of max|ref|
+MATMUL_TOL = 1e-2
+# K=72 and N=200 / N=8 leave zero-filled panels and masked stores; 133 x 256 + 5 rows
+# give a persistent block (132 on an H100) a second and third row block, the last one
+# ragged; K=1024 is deeper than the resident x panels and streams x for every tile
+MATMUL_SHAPES = [(256, 64, 128), (1000, 72, 200), (130, 320, 320), (4097, 320, 1280),
+                 (133 * 256 + 5, 320, 320), (1000, 72, 8), (2048, 320, 1280), (300, 1024, 128)]
+MATMUL_IDS = ["tile_multiple", "ragged_all", "ragged_m", "wide_n", "second_row_block", "n8",
+              "n1280", "deep_k_streamed"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(256, 64, 128), (1000, 72, 200), (130, 320, 320),
-                                   (4097, 320, 1280)],
-                         ids=["tile_multiple", "ragged_all", "ragged_m", "wide_n"])
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES, ids=MATMUL_IDS)
 def test_blocked_matmul_kernel_matches_plain(cuda_device, m, k, n):
-    """Kernel 11 against the fp32 product: fp32 accumulation, one bf16 rounding of the
-    output (2^-9 relative), so within 1e-2 of max|ref|."""
+    """Kernel 11 against the fp32 product, within MATMUL_TOL of max|ref|."""
     from lkgd_torch.ops import matmul as mm
 
     x = _randn(cuda_device, (m, k)).bfloat16()
@@ -489,8 +498,37 @@ def test_blocked_matmul_kernel_matches_plain(cuda_device, m, k, n):
     before = mm.launches["blocked_matmul"]
     got = mm.blocked_matmul(x, w)
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
-    assert _rel_err(got, mm.blocked_matmul_plain(x.float(), w.float())) <= 1e-2
+    assert _rel_err(got, mm.blocked_matmul_plain(x.float(), w.float())) <= MATMUL_TOL
     assert mm.launches["blocked_matmul"] == before + 1
+
+
+@pytest.mark.cuda
+def test_blocked_matmul_kernel_is_deterministic(cuda_device):
+    """Each output is one sum in a fixed order: two launches are bit-identical."""
+    from lkgd_torch.ops import matmul as mm
+
+    x = _randn(cuda_device, (133 * 256 + 5, 320)).bfloat16()
+    w = _randn(cuda_device, (320, 1280), seed=1).bfloat16()
+    assert torch.equal(mm.blocked_matmul(x, w), mm.blocked_matmul(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES + [(258048, 320, 320), (258048, 320, 1280)],
+                         ids=MATMUL_IDS + ["unet_level0_qkv", "unet_level0_ff"])
+def test_matmul_plan_is_the_kernels_tiling(cuda_device, m, k, n):
+    """``matmul_plan`` and the library agree on the tiling on this card, and the card
+    grants that much shared memory to a block."""
+    import ctypes
+
+    from lkgd_torch.ops import _build
+    from lkgd_torch.ops import matmul as mm
+
+    props = torch.cuda.get_device_properties(cuda_device)
+    got = (ctypes.c_int * 8)()
+    assert _build.library().lkgd_matmul_plan(m, k, n, props.multi_processor_count, got) == 0
+    plan = mm.matmul_plan(m, k, n, props.multi_processor_count)
+    assert list(got) == [int(v) for v in plan]
+    assert plan.smem_bytes <= props.shared_memory_per_block_optin
 
 
 @pytest.mark.cuda
@@ -508,45 +546,73 @@ def test_blocked_matmul_kernel_refuses(cuda_device):
         mm.blocked_matmul(x.bfloat16().t(), w.bfloat16())
 
 
+# kernel 12 relative to max|ref|: P and the output are rounded to bf16; the packed bf16
+# exp2 may differ from PyTorch's by an ulp per probability
+VARIANT_TOL = {"base": 1e-2, "prescale": 1e-2, "noexp": 1e-2, "bf16exp": 3e-2,
+               "prescale_bf16exp": 3e-2}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [(64, 64), (128, 64), (64, 128), (128, 128)],
                          ids=lambda t: f"{t[0]}x{t[1]}")
 @pytest.mark.parametrize("mode", ["base", "prescale", "bf16exp", "prescale_bf16exp", "noexp"])
-@pytest.mark.parametrize("shape", [(2, 256, 64), (3, 1100, 64), (2, 300, 40)],
-                         ids=["tile_multiple", "ragged", "d40"])
-def test_flash_variant_kernel_matches_plain(cuda_device, shape, mode, tile):
-    """Kernel 12 against its plain version in every mode and tile: P and the output are
-    rounded to bf16 (1e-2 of max|ref|); the packed bf16 exp2 may differ from PyTorch's by
-    an ulp per probability (3e-2)."""
+@pytest.mark.parametrize("shape,s_k", [((2, 256, 64), 256), ((3, 1100, 64), 1100),
+                                       ((2, 300, 40), 300), ((2, 1000, 64), 1000),
+                                       ((2, 1000, 64), 700), ((2, 1000, 32), 1300)],
+                         ids=["tile_multiple", "ragged", "d40", "s1000", "sq_gt_sk", "d32_sq_lt_sk"])
+def test_flash_variant_kernel_matches_plain(cuda_device, shape, s_k, mode, tile):
+    """Kernel 12 against its plain version in every mode and tile, within VARIANT_TOL of
+    max|ref|."""
     from lkgd_torch.ops import flash_variants as fv
 
-    q, k, v = ((_randn(cuda_device, shape, seed=i)).bfloat16() for i in range(3))
+    bh, _, d = shape
+    q = _randn(cuda_device, shape).bfloat16()
+    k, v = ((_randn(cuda_device, (bh, s_k, d), seed=i)).bfloat16() for i in (1, 2))
     t = fv.bound_t(q, k)
     before = fv.launches["flash_variant"]
     got = fv.flash_variant(q, k, v, t, mode, tile)
     want = fv.flash_variant_plain(q, k, v, t, mode)
     assert got.shape == q.shape and got.dtype == torch.bfloat16
-    assert _rel_err(got, want) <= (3e-2 if "bf16exp" in mode else 1e-2)
+    assert _rel_err(got, want) <= VARIANT_TOL[mode]
     assert fv.launches["flash_variant"] == before + 1
 
 
 @pytest.mark.cuda
 def test_flash_variant_base_matches_the_bound_forward(cuda_device):
-    """``base`` with the production bound as t is the bound form's arithmetic on
-    ``mma.sync`` at 64 x 64 tiles with nothing around it. The production forwards
-    (kernels 1 and 7) run the same softmax on wgmma with 128-key tiles, sum in another
-    order, take exp2 with ``ex2.approx`` and round the same quantities to bf16: against
+    """``base`` at the production tile (128 x 128) with the production bound as t is the
+    bound kernel's loop with nothing around it. The production forwards (kernels 1 and 7)
+    compute t themselves (|q_i| summed from their Q tile) and sum in another order: against
     them, and against the plain bound version in fp32, FLASH_TOL x max|ref|."""
     from lkgd_torch.ops import flash_variants as fv
 
     q, k, v = ((_randn(cuda_device, (3, 1100, 64), seed=i)).bfloat16() for i in range(3))
-    got = fv.flash_variant(q, k, v, fv.bound_t(q, k), "base", (64, 64)).float()
+    got = fv.flash_variant(q, k, v, fv.bound_t(q, k), "base", fv.PRODUCTION_TILE).float()
     q4, k4, v4 = q[:, :, None], k[:, :, None], v[:, :, None]
     plain = tfa.flash_attention_bound_plain(q4.float(), k4.float(), v4.float())[:, :, 0]
     assert (got - plain).abs().max().item() <= FLASH_TOL * plain.abs().max().item()
     for production in (tfa.flash_attention(q4, k4, v4), tfa.flash_fwd_lse(q4, k4, v4)[0]):
         production = production[:, :, 0].float()
         assert (got - production).abs().max().item() <= FLASH_TOL * production.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(64, 64), (128, 64), (64, 128), (128, 128)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_flash_variant_plan_is_the_kernels_tiling(cuda_device, tile):
+    """``variant_plan`` and the library agree on the tiling, and the card grants that much
+    shared memory to a block."""
+    import ctypes
+
+    from lkgd_torch.ops import _build
+    from lkgd_torch.ops import flash_variants as fv
+
+    got = (ctypes.c_int * 5)()
+    assert _build.library().lkgd_flash_variant_plan(tile[0], tile[1], 140, 9216, got) == 0
+    plan = fv.variant_plan(140, 9216, tile)
+    assert list(got) == [plan.warpgroups, plan.threads, plan.stages, plan.smem_bytes,
+                         plan.blocks]
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert plan.smem_bytes <= props.shared_memory_per_block_optin
 
 
 @pytest.mark.cuda
