@@ -40,12 +40,14 @@ each printing its own lines; any failure raises and the script exits non-zero:
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
    backwards) against their plain versions at the fine-tune's shapes, ragged S, S_q !=
    S_k, D=128 and the huge-norm input that trips the LSE forward's fallback: split/merge
-   bit-exact, out max |d| <= FLASH_TOL * max|ref|, lse within 1e-2 log2 units, dq/dk/dv
-   max |d| <= 2e-2 * max|ref| and bit-identical over two launches, with the backward plan's
-   blocks and waves, the pair's time as a multiple of the library backward, and the
-   kernels' fwd+bwd times beside the plain ones; the LSE forwards alone (the backward
-   kernels stop at D=128) also at the VAE's (2, 9216, 1, 512) and on a huge-norm input at
-   D=512, the plain version a row at a time;
+   bit-exact, grouped (three projection views a launch, the library being three
+   ``transpose().contiguous()`` calls) and single, with a line of the relayout wrappers'
+   host microseconds a call, out max |d| <= FLASH_TOL * max|ref|, lse within 1e-2 log2
+   units, dq/dk/dv max |d| <= 2e-2 * max|ref| and bit-identical over two launches, with
+   the backward plan's blocks and waves, the pair's time as a multiple of the library
+   backward, and the kernels' fwd+bwd times beside the plain ones; the LSE forwards alone
+   (the backward kernels stop at D=128) also at the VAE's (2, 9216, 1, 512) and on a
+   huge-norm input at D=512, the plain version a row at a time;
 7. the tiny LKGD train step (knowledge fusion, rank-2 temporal LoRA, remat) at fp32 on
    the GPU against the CPU with the same weights and injected sigmas, noise and dropout:
    the loss, every trainable gradient (scaled by its largest entry) and the trainables
@@ -55,11 +57,12 @@ each printing its own lines; any failure raises and the script exits non-zero:
    trainables), 512x512, 8 frames, batch 1, rank-4 temporal LoRA, remat, lr 2e-4: one
    warm-up step and three counted ones; sec/step split into preprocessing and train step,
    peak memory, each loss, every kernel's launch count (all eleven > 0, one key-norm
-   launch for each bound launch), the trainables moved, sampled frozen weights did not,
-   every gradient finite; then three more steps under ``torch.profiler`` for the device's
-   busy share of that window and its flash kernels by name (the training forward must be
-   the wgmma kernel's LSE form, the backward the wgmma dq and dk/dv kernels, with their
-   device ms and launches a step); and the exported
+   launch for each bound launch, one split and one merge for each training forward and
+   each backward: 54 relayout launches a step), the trainables moved, sampled frozen
+   weights did not, every gradient finite; then three more steps under ``torch.profiler``
+   for the device's busy share of that window and its flash kernels by name (the training
+   forward must be the wgmma kernel's LSE form, the backward the wgmma dq and dk/dv
+   kernels, with their device ms and launches a step); and the exported
    safetensors read back. Neither window syncs the host inside it: losses stay on the
    device until it ends, and the end-of-fit checkpoint falls after its closing event;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
@@ -801,6 +804,7 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
 
+    _relayout_host_line()
     results = {}
     # (label, (B, S_q, H, D), scale, S_k)
     cases = [("unet level 0", (8, 4096, 5, 64), 1.0, 4096),
@@ -821,7 +825,7 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         # at the huge-norm input lse reaches ~2e4 log2 units, where fp32 logits carry ~1e-3
         lse_tol = LSE_TOL * max(1.0, want_lse.abs().max().item() / 1e3)
         out_tol = FLASH_TOL * want_out.abs().max().item()
-        row = _relayout_check(fa, label, shape, randn)
+        row = _relayout_check(fa, label, shape, s_k, randn)
         for kernel in ("flash_bound_lse", "flash_maxtrack_lse"):
             if kernel == "flash_maxtrack_lse":
                 os.environ["LKGD_FLASH_MAXTRACK"] = "1"
@@ -831,7 +835,8 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 out, lse = fa.flash_fwd_lse(q, k, v)
                 torch.cuda.synchronize()
                 recomputed = int(counter.item())
-                ms = gpu_ms(lambda: fa.flash_fwd_lse(q, k, v))
+                # 20 calls: at level 1 the wrapper's host time is near the kernels' own
+                ms = gpu_ms(lambda: fa.flash_fwd_lse(q, k, v), 20)
             finally:
                 os.environ.pop("LKGD_FLASH_MAXTRACK", None)
             plain = (fa.flash_fwd_lse_maxtrack_plain if kernel == "flash_maxtrack_lse"
@@ -912,12 +917,15 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
               f"{pair_ms / lib_bwd_ms:.2f} x the library backward ({lib_bwd_ms:.3f} ms), bound "
               f"{row['flash_bwd_dq']['bound_ms'] + row['flash_bwd_dkv']['bound_ms']:.3f} ms",
               flush=True)
-        # one call of the Function: 3 splits, 7/8, 1 merge; then 1 split, 9, 10, 3 merges
-        per_call = {"flash_bound_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                    "split_heads": 4, "merge_heads": 4}
-        fwd_bwd = sum(n * row[name]["ms"] for name, n in per_call.items())
-        plain_fwd_bwd = sum(n * row[name]["plain_ms"] for name, n in per_call.items())
-        print(f"[train-kernel] {label}: fwd+bwd (kernels 5 x4 + 7/8 + 9 + 10 + 6 x4) "
+        # one call of the Function: a grouped split, 7/8 and one merge; then one split, 9,
+        # 10 and a grouped merge
+        per_call = (("flash_bound_lse", ""), ("flash_bwd_dq", ""), ("flash_bwd_dkv", ""),
+                    ("split_heads", ""), ("split_heads", "single_"), ("merge_heads", ""),
+                    ("merge_heads", "single_"))
+        fwd_bwd = sum(row[name][f"{form}ms"] for name, form in per_call)
+        plain_fwd_bwd = sum(row[name]["single_library_ms" if form else "plain_ms"]
+                            for name, form in per_call)
+        print(f"[train-kernel] {label}: fwd+bwd (kernels 5 x2 + 7/8 + 9 + 10 + 6 x2) "
               f"{fwd_bwd:.3f} ms, plain {plain_fwd_bwd:.3f} ms", flush=True)
         if label == "unet level 0":
             results = row
@@ -926,30 +934,58 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     return results
 
 
-def _relayout_check(fa, label: str, shape, randn) -> dict:
-    """Kernels 5 and 6 against their plain versions, bit for bit: split a strided view (a
-    slice of a fused projection, as q, k, v arrive) and merge it back."""
+def _relayout_check(fa, label: str, shape, s_k: int, randn) -> dict:
+    """Kernels 5 and 6 against their plain versions, bit for bit, in the forms the Function
+    launches them: the grouped split of q (a slice of a fused qkv projection) with k and v
+    (slices of a fused kv projection, S_k keys) and the grouped merge back, then one tensor
+    split and merged back. The grouped forms' numbers are the kernels' own, the single ones
+    beside them. 50 calls a time: the wrappers cost more host time than the copies take on
+    the card, and 5 calls of a shared host scatter."""
     b, s, h, d = shape
-    x = randn(b, s, 2 * h * d)[..., h * d:].unflatten(-1, (h, d))
-    split = fa.split_heads(x)
-    merged = fa.merge_heads(split)
-    errs = {"split_heads": (split.float() - fa.split_heads_plain(x).float()).abs().max().item(),
-            "merge_heads": (merged.float() - x.float()).abs().max().item()}
+    c = h * d
+    qkv, kv = randn(b, s, 3 * c), randn(b, s_k, 2 * c)
+    xs = (qkv[..., :c].unflatten(-1, (h, d)), kv[..., :c].unflatten(-1, (h, d)),
+          kv[..., c:].unflatten(-1, (h, d)))
+    x = xs[:1]
+    split, split1 = fa.split_heads_many(*xs), fa.split_heads_many(*x)
+    merged, merged1 = fa.merge_heads_many(*split), fa.merge_heads_many(*split1)
+    want = (*fa.split_heads_many_plain(*xs), *fa.split_heads_many_plain(*x))
+    errs = {"split_heads": max((g.float() - w.float()).abs().max().item()
+                               for g, w in zip((*split, *split1), want)),
+            "merge_heads": max((g.float() - w.float()).abs().max().item()
+                               for g, w in zip((*merged, *merged1), (*xs, *x)))}
     row = {}
-    for name, fn, plain, arg in (("split_heads", fa.split_heads, fa.split_heads_plain, x),
-                                 ("merge_heads", fa.merge_heads, fa.merge_heads_plain, split)):
-        ms, plain_ms = gpu_ms(lambda: fn(arg)), gpu_ms(lambda: plain(arg))
-        nbytes = arg.numel() * arg.element_size()
-        least = bound(0, 2 * nbytes)  # each byte read once and written once
-        print(f"[train-kernel] {name} {label} (B,S,H,D)={shape} ({nbytes / 2 ** 20:.1f} MiB): "
-              f"max|d| {errs[name]:.3e} (tol 0: a copy) | {ms:.3f} ms, plain and library "
-              f"transpose().contiguous() {plain_ms:.3f} ms, bound {least['bound_ms']:.4f} ms",
+    for name, fn, plain, args, one in (
+            ("split_heads", fa.split_heads_many, fa.split_heads_many_plain, xs, x),
+            ("merge_heads", fa.merge_heads_many, fa.merge_heads_many_plain, split, split1)):
+        ms, plain_ms = gpu_ms(lambda: fn(*args), 50), gpu_ms(lambda: plain(*args), 50)
+        one_ms, one_plain_ms = gpu_ms(lambda: fn(*one), 50), gpu_ms(lambda: plain(*one), 50)
+        nbytes = sum(a.numel() for a in args) * 2
+        least, one_least = bound(0, 2 * nbytes), bound(0, 2 * one[0].numel() * 2)
+        print(f"[train-kernel] {name} {label} 3 x (B,S,H,D)={shape} S_k={s_k} "
+              f"({nbytes / 2 ** 20:.1f} MiB): max|d| {errs[name]:.3e} (tol 0: a copy) | one "
+              f"launch {ms:.4f} ms, plain and library (three transpose().contiguous()) "
+              f"{plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms | one tensor {one_ms:.4f} "
+              f"ms, library {one_plain_ms:.4f} ms, bound {one_least['bound_ms']:.4f} ms",
               flush=True)
         assert errs[name] == 0.0, (name, label, errs[name])
         # the plain version is the library call here
         row[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": plain_ms, **least}
+                     "library_ms": plain_ms, **least, "single_ms": one_ms,
+                     "single_library_ms": one_plain_ms, "single_bound_ms": one_least["bound_ms"]}
     return row
+
+
+def _relayout_host_line() -> None:
+    """Host microseconds a call of the relayout wrappers and their parts, at a shape whose
+    device time is far below the host's (``lkgd_torch/experiments/relayout_ab.py``)."""
+    from lkgd_torch.experiments.relayout_ab import HOST_SHAPE, host_parts
+
+    parts = host_parts(1000)
+    print(f"[train-kernel] relayout host us a call at {HOST_SHAPE} (least of 5 rounds of 1000 "
+          f"enqueues; device us of the same calls back to back beside): " + ", ".join(
+              f"{k} {v:.2f} ({parts['device_us'][k]:.2f})" for k, v in parts["host_us"].items()),
+          flush=True)
 
 
 def _tiny_train_unet(device):
@@ -1156,8 +1192,9 @@ def phase_train_full(dev: torch.device) -> dict:
                 else:
                     device_ms += ms
                     n_device += e.count
-                if "relayout_heads_kernel" in e.key:
-                    relayout["split" if "<true>" in e.key else "merge"] = (ms, e.count)
+                if "relayout_" in e.key:
+                    name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+                    relayout[name.split("(")[0]] = (round(ms, 3), e.count)
                 if "flash_" in e.key or "key_sq_max" in e.key:
                     name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
                     for cast in ("(int)", "(bool)", " "):
@@ -1168,6 +1205,7 @@ def phase_train_full(dev: torch.device) -> dict:
         busy = device_ms / (prof_step_s * 3e3)
         syncs = {k: n for k, n in runtime.items() if "Synchronize" in k or "Memcpy" in k}
 
+        relayouts_per_step = (launches["split_heads"] + launches["merge_heads"]) / 3
         step_losses = [x.item() for x in losses[:3]]
         records = [json.loads(line) for line in
                    (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
@@ -1182,8 +1220,10 @@ def phase_train_full(dev: torch.device) -> dict:
               f"{device_ms / 3:.1f} ms/step = {100 * busy:.1f}% of the window (kernels, copies "
               f"and fills: {n_device / 3:.0f} a step; device-to-host copies after the window "
               f"{ckpt_ms:.1f} ms left out) | host syncs and copies over the 3 steps and the "
-              f"checkpoint {syncs} | relayout kernels device ms, launches "
-              f"{relayout}", flush=True)
+              f"checkpoint {syncs} | relayout kernels device ms, launches over the 3 steps "
+              f"{relayout}; relayout launches a step {relayouts_per_step:.0f} (split "
+              f"{launches['split_heads'] / 3:.0f}, merge {launches['merge_heads'] / 3:.0f})",
+              flush=True)
         print(f"[train] profiled window, flash kernels by name (device ms, launches over the 3 "
               f"steps): {flash}", flush=True)
         # <DP, BOUND, LSE>: the training forward is the wgmma kernel's LSE form, both ways
@@ -1208,6 +1248,11 @@ def phase_train_full(dev: torch.device) -> dict:
             assert launches.get(name, 0) > 0, f"kernel {name} was not launched by training"
         assert launches["flash_key_norm"] == launches["flash_bound"] \
             + launches["flash_bound_lse"], "one key-norm launch for each bound launch"
+        # two relayout launches a Function call each way: a split and a merge for each
+        # training forward (remat included) and each backward
+        calls = launches["flash_bound_lse"] + launches["flash_bwd_dq"]
+        assert launches["split_heads"] == launches["merge_heads"] == calls, launches
+        assert relayouts_per_step == 54, relayouts_per_step
         assert busy > 0.0, busy
 
         path = str(Path(out_dir) / "model.safetensors")

@@ -345,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// max_j |k_j|^2 of every (batch, head) into `out` (B*H fp32, zeroed by the caller): a thread
+// max_j |k_j|^2 of every (batch, head) into `out` (B*H fp32, zeroed before): a thread
 // a key row, 16-byte loads, fp32 sums; non-negative floats order as their bits, so the
 // blocks of one (batch, head) meet in an integer atomicMax.
 __global__ void __launch_bounds__(256)
@@ -376,65 +376,63 @@ struct Views {
   int batch;
 };
 
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
 template <int DP, bool BOUND, bool LSE>
-cudaError_t launch(const Views& in, FwdArgs a, cudaStream_t stream) {
+cudaError_t launch(const Maps& m, const FwdArgs& a, int batch, cudaStream_t stream) {
   using P = Plan<DP>;
-  a.n_q_tiles = (a.s_q + P::BQ - 1) / P::BQ;
-  CUtensorMap map_q, map_k, map_v;
-  cudaError_t err = make_map(&map_q, in.q, in.qs, in.batch, a.s_q, a.heads, a.d, P::BQ);
-  if (err == cudaSuccess) err = make_map(&map_k, in.k, in.ks, in.batch, a.s_k, a.heads, a.d, P::BK);
-  if (err == cudaSuccess) err = make_map(&map_v, in.v, in.vs, in.batch, a.s_k, a.heads, a.d, P::BK);
-  if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_wgmma_kernel<DP, BOUND, LSE>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)in.batch * a.heads * a.n_q_tiles;
-  kernel<<<unsigned(blocks), kThreads, P::smem_bytes, stream>>>(map_q, map_k, map_v, a);
+  const long long blocks = (long long)batch * a.heads * a.n_q_tiles;
+  kernel<<<unsigned(blocks), kThreads, P::smem_bytes, stream>>>(m.q, m.k, m.v, a);
   return cudaGetLastError();
 }
 
-// Static dispatch by D padded to a tile width the kernel is built for.
-template <bool BOUND, bool LSE>
-cudaError_t dispatch(const Views& in, const FwdArgs& a, cudaStream_t s) {
-  if (a.d <= 64) return launch<64, BOUND, LSE>(in, a, s);
-  if (a.d <= 128) return launch<128, BOUND, LSE>(in, a, s);
-  if (a.d <= 256) return launch<256, BOUND, LSE>(in, a, s);
-  return launch<512, BOUND, LSE>(in, a, s);
+// max_j |k_j|^2 of every (batch, head) into `out`, zeroed here first
+cudaError_t key_sq_max(const void* k, const Strides& ks, int batch, int heads, int s_k, int d,
+                       float* out, cudaStream_t stream) {
+  if (batch * heads > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * batch * heads, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s_k + 255) / 256, batch * heads);
+  key_sq_max_kernel<<<grid, 256, 0, stream>>>(static_cast<const bf16*>(k), ks, heads, s_k, d,
+                                                out);
+  return cudaGetLastError();
 }
 
-// The launchers' common body: lse == nullptr is the inference forward.
-int forward(const void* q, const void* k, const void* v, void* o, const long long* strides,
-            int batch, int heads, int s_q, int s_k, int d, float scale_log2,
-            const float* k_sq_max, float* tile_min, int* recomputed, float* lse, int bound,
-            int device, void* stream) {
-  if (d <= 0 || d > 512 || d % 8 != 0) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  Views in;
-  in.q = q;
-  in.k = k;
-  in.v = v;
-  in.qs = {strides[0], strides[1], strides[2]};
-  in.ks = {strides[3], strides[4], strides[5]};
-  in.vs = {strides[6], strides[7], strides[8]};
-  in.batch = batch;
-  FwdArgs a;
-  a.o = static_cast<bf16*>(o);
-  a.os = {strides[9], strides[10], strides[11]};
-  a.heads = heads;
-  a.s_q = s_q;
-  a.s_k = s_k;
-  a.d = d;
-  a.n_q_tiles = 0;  // set by the launch from its plan
-  a.scale_log2 = scale_log2;
-  a.k_sq_max = k_sq_max;
-  a.tile_min = tile_min;
-  a.recomputed = recomputed;
-  a.lse = lse;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr)
-    return int(bound ? dispatch<true, true>(in, a, s) : dispatch<false, true>(in, a, s));
-  return int(bound ? dispatch<true, false>(in, a, s) : dispatch<false, false>(in, a, s));
+// A whole forward at a tile width DP: the bound form (the key norms, the bound kernel, then
+// the max-tracking kernel as its guard over the bound kernel's tile minimums) or the
+// max-tracking kernel alone. The two launches read the same tensor maps, encoded once.
+template <int DP, bool LSE>
+cudaError_t forward(const Views& in, FwdArgs a, float* scratch, bool bound, cudaStream_t s) {
+  using P = Plan<DP>;
+  a.n_q_tiles = (a.s_q + P::BQ - 1) / P::BQ;
+  Maps m;
+  cudaError_t err = make_map(&m.q, in.q, in.qs, in.batch, a.s_q, a.heads, a.d, P::BQ);
+  if (err == cudaSuccess) err = make_map(&m.k, in.k, in.ks, in.batch, a.s_k, a.heads, a.d, P::BK);
+  if (err == cudaSuccess) err = make_map(&m.v, in.v, in.vs, in.batch, a.s_k, a.heads, a.d, P::BK);
+  if (err != cudaSuccess) return err;
+  if (!bound) return launch<DP, false, LSE>(m, a, in.batch, s);
+  a.k_sq_max = scratch;
+  a.tile_min = scratch + in.batch * a.heads;
+  err = key_sq_max(in.k, in.ks, in.batch, a.heads, a.s_k, a.d, scratch, s);
+  if (err == cudaSuccess) err = launch<DP, true, LSE>(m, a, in.batch, s);
+  if (err == cudaSuccess) err = launch<DP, false, LSE>(m, a, in.batch, s);
+  return err;
+}
+
+// Static dispatch by D padded to a tile width the kernel is built for.
+template <bool LSE>
+cudaError_t dispatch(const Views& in, const FwdArgs& a, float* scratch, bool bound,
+                     cudaStream_t s) {
+  if (a.d <= 64) return forward<64, LSE>(in, a, scratch, bound, s);
+  if (a.d <= 128) return forward<128, LSE>(in, a, scratch, bound, s);
+  if (a.d <= 256) return forward<256, LSE>(in, a, scratch, bound, s);
+  return forward<512, LSE>(in, a, scratch, bound, s);
 }
 
 }  // namespace
@@ -456,38 +454,55 @@ int lkgd_flash_smem_bytes(int d) {
                     : Plan<512>::smem_bytes;
 }
 
-// q, k, v, o: (B, S, H, D) bf16 with strides[12] = (b, s, h) element strides of q, k, v, o.
-// bound=1: the bound kernel (k_sq_max from lkgd_flash_key_sq_max and tile_min required).
-// bound=0: the max-tracking kernel, guarded by tile_min when it is not null.
-int lkgd_flash_fwd(const void* q, const void* k, const void* v, void* o, const long long* strides,
-                   int batch, int heads, int s_q, int s_k, int d, float scale_log2,
-                   const float* k_sq_max, float* tile_min, int* recomputed, int bound, int device,
-                   void* stream) {
-  return forward(q, k, v, o, strides, batch, heads, s_q, s_k, d, scale_log2, k_sq_max, tile_min,
-                 recomputed, nullptr, bound, device, stream);
+// q, k, v, o: (B, S, H, D) bf16; `strides` packs their (b, s, h) element strides, twelve
+// int64 in that order. lse: (B*H, s_q) fp32
+// written beside o (kernels 7 and 8), or null (kernels 1 and 2). bound=1: the bound kernel
+// after the key-norm kernel, then the max-tracking kernel as its guard, all on `stream` from
+// this one call; scratch: B*H floats for the squared key norms, then B*H * (query tiles) for
+// the bound kernel's smallest row sums. bound=0: the max-tracking kernel alone, no scratch.
+int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
+                       const void* strides, int batch, int heads, int s_q, int s_k, int d,
+                       float scale_log2, float* scratch, int* recomputed, float* lse, int bound,
+                       int device, void* stream) {
+  if (d <= 0 || d > 512 || d % 8 != 0 || (bound && scratch == nullptr))
+    return int(cudaErrorInvalidValue);
+  // cudaSetDevice also makes the device's context current on this thread, which
+  // cuTensorMapEncodeTiled needs: a thread whose first CUDA call this is (autograd's
+  // backward thread, recomputing a checkpointed forward) has none yet
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{lkgd::word(strides, 3 * i), lkgd::word(strides, 3 * i + 1),
+                    lkgd::word(strides, 3 * i + 2)};
+  const Views in{q, k, v, st[0], st[1], st[2], batch};
+  FwdArgs a;
+  a.o = static_cast<bf16*>(o);
+  a.os = st[3];
+  a.heads = heads;
+  a.s_q = s_q;
+  a.s_k = s_k;
+  a.d = d;
+  a.n_q_tiles = 0;  // set by the forward from its plan
+  a.scale_log2 = scale_log2;
+  a.k_sq_max = nullptr;
+  a.tile_min = nullptr;
+  a.recomputed = recomputed;
+  a.lse = lse;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(lse != nullptr ? dispatch<true>(in, a, scratch, bound != 0, s)
+                            : dispatch<false>(in, a, scratch, bound != 0, s));
 }
 
-// The same with lse, (B*H, s_q) fp32, written beside o: kernels 7 (bound=1) and 8.
-int lkgd_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
-                       const long long* strides, int batch, int heads, int s_q, int s_k, int d,
-                       float scale_log2, const float* k_sq_max, float* tile_min, int* recomputed,
-                       float* lse, int bound, int device, void* stream) {
-  if (lse == nullptr) return int(cudaErrorInvalidValue);
-  return forward(q, k, v, o, strides, batch, heads, s_q, s_k, d, scale_log2, k_sq_max, tile_min,
-                 recomputed, lse, bound, device, stream);
-}
-
-// k: (B, S_k, H, D) bf16 with (b, s, h) element strides -> out (B*H) fp32, zeroed by the
-// caller: the largest squared key norm of each batch and head.
+// k: (B, S_k, H, D) bf16 with (b, s, h) element strides -> out (B*H) fp32: the largest
+// squared key norm of each batch and head (the key-norm kernel alone).
 int lkgd_flash_key_sq_max(const void* k, const long long* strides, int batch, int heads, int s_k,
                           int d, float* out, int device, void* stream) {
-  if (d <= 0 || d % 8 != 0 || batch * heads > 65535) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  if (d <= 0 || d % 8 != 0) return int(cudaErrorInvalidValue);
+  const cudaError_t err = lkgd::use_device(device);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((s_k + 255) / 256, batch * heads);
-  key_sq_max_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(k), Strides{strides[0], strides[1], strides[2]}, heads, s_k, d, out);
-  return int(cudaGetLastError());
+  return int(key_sq_max(k, Strides{strides[0], strides[1], strides[2]}, batch, heads, s_k, d, out,
+                        static_cast<cudaStream_t>(stream)));
 }
 
 // The message of a launcher's non-zero return, for every source of the library.

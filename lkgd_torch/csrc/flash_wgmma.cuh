@@ -15,6 +15,7 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace lkgd {
 
@@ -23,6 +24,24 @@ using bf16 = __nv_bfloat16;
 struct Strides {
   long long b, s, h;  // in elements; the D stride is 1
 };
+
+// Word i of a packed little-endian int64 record from the host (a Python bytes object: it
+// reaches C as one pointer, where each separate ctypes argument costs host time)
+inline long long word(const void* packed, int i) {
+  long long v;
+  memcpy(&v, static_cast<const char*>(packed) + 8 * i, sizeof(v));
+  return v;
+}
+
+// Make `device` current unless it is already, for entries that make runtime calls alone
+// (the runtime binds the device's context to the thread at its first launch). An entry
+// that encodes a tensor map calls cudaSetDevice, which binds the context at once.
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

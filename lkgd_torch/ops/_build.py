@@ -33,22 +33,21 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
               "-fPIC")
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL, _F, _B = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                       ctypes.c_char_p)
 _SIGNATURES = {
     "lkgd_flash_block_rows": ([_I, _I], _I),
     "lkgd_flash_smem_bytes": ([_I], _I),
-    "lkgd_flash_fwd": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F,
-                        _P, _P, _P, _I, _I, _P], _I),
+    # packed int64 records go in as bytes (c_char_p): one pointer, no ctypes array to build
+    "lkgd_flash_forward": ([_P] * 4 + [_B] + [_I] * 5 + [_F, _P, _P, _P, _I, _I, _P], _I),
     "lkgd_flash_key_sq_max": ([_P, ctypes.POINTER(_LL), _I, _I, _I, _I, _P, _I, _P], _I),
-    "lkgd_flash_fwd_lse": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F,
-                            _P, _P, _P, _P, _I, _I, _P], _I),
     "lkgd_flash_bwd_block_rows": ([_I, _I], _I),
     "lkgd_flash_bwd_smem_bytes": ([_I, _I], _I),
     "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                    _P], _I),
     "lkgd_gn_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P], _I),
-    "lkgd_relayout_heads": ([_P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _P], _I),
+    "lkgd_relayout_heads": ([_I, _I, _B, _P, _I, _I, _I, _I, _P], _I),
     "lkgd_matmul_plan": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     "lkgd_blocked_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "lkgd_flash_variant_plan": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),

@@ -30,13 +30,17 @@ place of the JAX custom VJP ``_flash_core``:
 * kernels 5 and 6, the head split and merge copies (``_split_heads_kernel`` /
   ``_merge_heads_kernel``, each the other's VJP): with more than one head the Function
   splits q, k, v and dO into head-major copies and merges out, dq, dk and dv back, as
-  ``_flash_attention_local`` does around ``_flash_core``.
+  ``_flash_attention_local`` does around ``_flash_core``. One launch carries up to three
+  tensors (``split_heads_many`` / ``merge_heads_many``): four relayout launches a call,
+  a grouped split of q, k, v and the merge of out forward, the split of dO and a grouped
+  merge of dq, dk, dv backward.
 
 On the card kernels 1, 2, 7 and 8 are one warp-specialised ``wgmma``/TMA kernel
 (``csrc/flash_attention_wgmma.cu``), tiled as ``flash_plan`` says; the bound forms sum
 ``|q_i|`` themselves from their Q tile and take only ``max_j|k_j|`` per (batch, head) from
 outside, from a small kernel of its own (``key_norm_max``; the TPU wrapper computes its
 whole bound outside the Pallas kernel too). ``bound_t`` is that arithmetic's plain version.
+A forward is one call into C (``lkgd_flash_forward``), which makes all its launches.
 
 The JAX wrapper reruns kernel 2 when the smallest row sum of the whole call is <= 2^-110
 (``lax.cond`` on the device). Here kernel 2 is always launched after kernel 1 with
@@ -55,9 +59,12 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import struct
 from typing import NamedTuple
 
 import torch
+
+from lkgd_torch.ops import _build
 
 LOG2E = 1.4426950408889634
 GUARD = 2.0 ** -110  # smallest row sum the bound kernel may leave (flash_attention.py:471)
@@ -92,27 +99,31 @@ def key_norm_max_plain(k: torch.Tensor) -> torch.Tensor:
 
 def key_norm_max(k: torch.Tensor) -> torch.Tensor:
     """``key_norm_max_plain`` on a CPU tensor; on a CUDA tensor (bf16) the key-norm kernel
-    that feeds kernel 1."""
+    that feeds kernel 1, launched alone (the forward launches it from C)."""
     if k.device.type == "cpu":
         return key_norm_max_plain(k)
     _check(k, k, k)
-    return _key_sq_max_cuda(k).sqrt()
-
-
-def _key_sq_max_cuda(k: torch.Tensor) -> torch.Tensor:
-    """(B, H) fp32 largest squared key norms, by the key-norm kernel (it reads k once)."""
-    from lkgd_torch.ops import _build
-
     b, s_k, h, d = k.shape
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: {b * h} (batch, head) pairs exceed the grid")
-    out = torch.zeros((b, h), dtype=torch.float32, device=k.device)
-    device = k.device.index if k.device.index is not None else torch.cuda.current_device()
+    _check_pairs(b, h)
+    out = torch.empty((b, h), dtype=torch.float32, device=k.device)
     _build.check(_build.library().lkgd_flash_key_sq_max(
         k.data_ptr(), (ctypes.c_longlong * 3)(*k.stride()[:3]), b, h, s_k, d, out.data_ptr(),
-        device, torch.cuda.current_stream(k.device).cuda_stream))
+        *stream_of(k.device)))
     launches["flash_key_norm"] += 1
-    return out
+    return out.sqrt()
+
+
+def _check_pairs(b: int, h: int) -> None:
+    if b * h > 65535:  # the key-norm kernel's grid: one row of blocks a (batch, head)
+        raise ValueError(f"flash_attention: {b * h} (batch, head) pairs exceed the grid")
+
+
+def stream_of(device: torch.device) -> tuple[int, int]:
+    """(device index, raw handle of its current stream): what a launch into C takes. The
+    raw handle comes without the ``torch.cuda.Stream`` object that ``current_stream`` builds
+    (several microseconds of host time a call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 def bound_t(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -300,18 +311,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra) -> None:
     """Raise on what the kernels do not take; ``extra``: (name, tensor) pairs laid out
     like q (dO in the backward)."""
+    index = q.get_device()
     for name, x in (("q", q), ("k", k), ("v", v), *extra):
-        if x.device.type != "cuda" or x.device != q.device:
+        if not x.is_cuda or x.get_device() != index:
             raise ValueError(f"flash_attention: {name} is on {x.device}, q on {q.device}")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"flash_attention: the CUDA kernels take bfloat16, {name} is "
                             f"{x.dtype}")
-        if x.dim() != 4 or x.stride(-1) != 1:
+        st = x.stride()
+        if len(st) != 4 or st[3] != 1:
             raise ValueError(f"flash_attention: {name} must be (B, S, H, D) with unit D "
-                             f"stride, got shape {tuple(x.shape)} strides {x.stride()}")
-        if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} strides {x.stride()} and address "
-                             f"must allow 16-byte rows")
+                             f"stride, got shape {tuple(x.shape)} strides {st}")
+        if st[0] % 8 or st[1] % 8 or st[2] % 8 or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} strides {st} and address must allow "
+                             f"16-byte rows")
     b, s_q, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -330,46 +343,35 @@ def _check_bwd(q: torch.Tensor) -> None:
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """The inference forward (kernels 1/2) or, ``with_lse``, the training forward
-    (kernels 7/8) that also returns lse (B, H, S_q)."""
-    from lkgd_torch.ops import _build
-
+    (kernels 7/8) that also returns lse (B, H, S_q): one call into C for all its launches."""
     _check(q, k, v)
-    lib = _build.library()
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
-    out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                                        *out.stride()[:3])
     plan = flash_plan(b, s_q, s_k, h, d, with_lse)
-    n_q_tiles = math.ceil(s_q / plan.tile_rows)
     if plan.blocks >= 2 ** 31:
         raise ValueError(f"flash_attention: {plan.blocks} blocks exceed the grid")
-    scale2 = d ** -0.5 * LOG2E
-    device = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    counter = recomputed_tiles(q.device)
+    bound = not maxtrack_selected()
+    out = torch.empty_like(q)  # q's layout when q is dense, else contiguous
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if with_lse
            else None)
+    scratch = None
+    if bound:
+        _check_pairs(b, h)
+        # (B*H) largest squared key norms, then (B*H, query tiles) smallest row sums
+        scratch = torch.empty(b * h * (1 + math.ceil(s_q / plan.tile_rows)),
+                              dtype=torch.float32, device=q.device)
+    strides = struct.pack("12q", *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                          *out.stride()[:3])
+    _build.check(_build.library().lkgd_flash_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q, s_k, d,
+        d ** -0.5 * LOG2E, None if scratch is None else scratch.data_ptr(),
+        recomputed_tiles(q.device).data_ptr(), None if lse is None else lse.data_ptr(),
+        int(bound), *stream_of(q.device)))
     suffix = "_lse" if with_lse else ""
-
-    def launch(bound: bool, k_sq_max, tile_min):
-        """``k_sq_max``: the bound forms' (B*H) largest squared key norms."""
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q,
-                s_k, d, scale2, None if k_sq_max is None else k_sq_max.data_ptr(),
-                None if tile_min is None else tile_min.data_ptr(), counter.data_ptr())
-        if with_lse:
-            _build.check(lib.lkgd_flash_fwd_lse(*args, lse.data_ptr(), int(bound), device,
-                                                stream))
-        else:
-            _build.check(lib.lkgd_flash_fwd(*args, int(bound), device, stream))
-        launches[("flash_bound" if bound else "flash_maxtrack") + suffix] += 1
-
-    if not maxtrack_selected():
-        tile_min = torch.empty((b * h, n_q_tiles), dtype=torch.float32, device=q.device)
-        launch(True, _key_sq_max_cuda(k), tile_min)
-        launch(False, None, tile_min)  # the guard: recomputes only underflowed tiles
-    else:
-        launch(False, None, None)
+    if bound:  # the key norms, the bound kernel and its guard
+        launches["flash_key_norm"] += 1
+        launches["flash_bound" + suffix] += 1
+    launches["flash_maxtrack" + suffix] += 1
     return (out, lse) if with_lse else out
 
 
@@ -416,8 +418,6 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
 
 def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
     """Launch kernel 9 (``dq`` given) or kernel 10 (``dk`` and ``dv`` given)."""
-    from lkgd_torch.ops import _build
-
     _check(q, k, v, ("dO", do))
     _check_bwd(q)
     b, s_q, h, d = q.shape
@@ -436,12 +436,11 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
     strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, do, *outs)
                                          for s in x.stride()[:3]))
     scale = d ** -0.5
-    device = q.device.index if q.device.index is not None else torch.cuda.current_device()
     _build.check(_build.library().lkgd_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), None if dkv else dq.data_ptr(), dk.data_ptr() if dkv else None,
         dv.data_ptr() if dkv else None, strides, b, h, s_q, k.shape[1], d, scale,
-        scale * LOG2E, int(dkv), device, torch.cuda.current_stream(q.device).cuda_stream))
+        scale * LOG2E, int(dkv), *stream_of(q.device)))
     launches["flash_bwd_dkv" if dkv else "flash_bwd_dq"] += 1
 
 
@@ -455,81 +454,139 @@ def merge_heads_plain(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
+def split_heads_many_plain(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Plain version of one grouped launch of kernel 5: (B, S_i, H, D) tensors -> copies of
+    the same shapes whose ``transpose(1, 2)`` is ``split_heads_plain`` of each."""
+    return tuple(split_heads_plain(x).transpose(1, 2) for x in xs)
+
+
+def merge_heads_many_plain(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Plain version of one grouped launch of kernel 6: (B, S_i, H, D) tensors -> their
+    contiguous copies, ``merge_heads_plain`` of each one's (B, H, S_i, D) view."""
+    return tuple(merge_heads_plain(x.transpose(1, 2)) for x in xs)
+
+
+RELAYOUT_MAX = 3  # tensors one launch of kernel 5 or 6 takes
+
+
+def split_heads_many(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Up to three (B, S_i, H, D) tensors with one B, H, D and dtype (S_i may differ: q
+    and k, v) -> copies of the same shapes laid out head-major: each copy's
+    ``transpose(1, 2)`` is a contiguous (B, H, S_i, D) tensor, the bytes of
+    ``_split_heads``'s (B*H, S_i, D), and the flash kernels take the copies as they are.
+
+    CPU tensors: ``split_heads_many_plain``. CUDA tensors: one launch of kernel 5, reading
+    each tensor through its strides (a projection's view as it is) into one new buffer."""
+    if xs[0].device.type == "cpu":
+        return split_heads_many_plain(*xs)
+    return _relayout_cuda(xs, True)
+
+
+def merge_heads_many(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Up to three (B, S_i, H, D) tensors (head-major ones from ``split_heads_many``, or
+    any with 16-byte rows) -> their contiguous copies, the bytes of ``_merge_heads``'s
+    (B, S_i, H*D). CPU tensors: ``merge_heads_many_plain``. CUDA tensors: one launch of
+    kernel 6 into one new buffer."""
+    if xs[0].device.type == "cpu":
+        return merge_heads_many_plain(*xs)
+    return _relayout_cuda(xs, False)
+
+
 def split_heads(x: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, D) -> (B, H, S, D) contiguous, the bytes of ``_split_heads``'s (B*H, S, D).
-    CPU tensors: ``split_heads_plain``. CUDA tensors: kernel 5."""
-    if x.device.type == "cpu":
-        return split_heads_plain(x)
-    return _relayout_cuda(x, split=True)
+    """(B, S, H, D) -> (B, H, S, D) contiguous: ``split_heads_many`` of one tensor."""
+    return split_heads_many(x)[0].transpose(1, 2)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, S, D) -> (B, S, H, D) contiguous, the bytes of ``_merge_heads``'s (B, S, H*D).
-    CPU tensors: ``merge_heads_plain``. CUDA tensors: kernel 6."""
-    if x.device.type == "cpu":
-        return merge_heads_plain(x)
-    return _relayout_cuda(x.transpose(1, 2), split=False)
+    """(B, H, S, D) -> (B, S, H, D) contiguous: ``merge_heads_many`` of one tensor."""
+    return merge_heads_many(x.transpose(1, 2))[0]
 
 
-def _relayout_cuda(x: torch.Tensor, split: bool) -> torch.Tensor:
-    """Kernel 5 (``split``) or 6 reading the (B, S, H, D) view ``x`` through its strides;
-    writes a dense (B, H, S, D) or (B, S, H, D) tensor."""
-    from lkgd_torch.ops import _build
-
-    b, s, h, d = x.shape
-    size = x.element_size()
-    byte_strides = [st * size if n > 1 else 0 for st, n in zip(x.stride()[:3], x.shape[:3])]
-    if x.stride(-1) != 1 or (d * size) % 16 or any(st % 16 for st in byte_strides) \
-            or x.data_ptr() % 16:
-        raise ValueError(f"{'split' if split else 'merge'}_heads: rows of D must be 16-byte "
-                         f"aligned with a unit D stride, got shape {tuple(x.shape)} strides "
-                         f"{x.stride()} {x.dtype}")
-    out = torch.empty((b, h, s, d) if split else (b, s, h, d), dtype=x.dtype, device=x.device)
-    chunks = out.numel() * size // 16
-    if chunks >= 2 ** 31:
-        raise ValueError(f"{'split' if split else 'merge'}_heads: {chunks} chunks exceed 2^31")
-    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+def _relayout_cuda(xs, split: bool) -> tuple[torch.Tensor, ...]:
+    """Kernel 5 (``split``) or 6 over the (B, S_i, H, D) tensors ``xs``, read through their
+    strides, in one launch into one new buffer; returns (B, S_i, H, D) views of it laid out
+    (B, H, S_i, D) (``split``) or dense."""
+    name = "split_heads" if split else "merge_heads"
+    n = len(xs)
+    if not 0 < n <= RELAYOUT_MAX:
+        raise ValueError(f"{name}: takes 1 to {RELAYOUT_MAX} tensors, got {n}")
+    x0 = xs[0]
+    b, _, h, d = x0.shape
+    dtype, index = x0.dtype, x0.get_device()
+    size = x0.element_size()
+    row = d * size
+    args, lengths = [], []
+    for x in xs:
+        xb, s, xh, xd = x.shape
+        sb, ss, sh, sd = x.stride()
+        ptr = x.data_ptr()
+        if xb != b or xh != h or xd != d or x.dtype != dtype or x.get_device() != index:
+            raise ValueError(f"{name}: tensors {[tuple(t.shape) for t in xs]} "
+                             f"{[t.dtype for t in xs]} differ in B, H, D, dtype or device")
+        # a size-1 dimension's stride is never used: 0, whatever torch says
+        sb = sb * size if b > 1 else 0
+        ss = ss * size if s > 1 else 0
+        sh = sh * size if h > 1 else 0
+        if sd != 1 or row % 16 or sb % 16 or ss % 16 or sh % 16 or ptr % 16:
+            raise ValueError(f"{name}: rows of D must be 16-byte aligned with a unit D stride, "
+                             f"got shape {tuple(x.shape)} strides {x.stride()} {dtype}")
+        if b * s * h * row >= 2 ** 35:
+            raise ValueError(f"{name}: {b * s * h * row // 16} 16-byte chunks exceed 2^31")
+        args += (ptr, sb, ss, sh, s)
+        lengths.append(s)
+    if lengths.count(s) == n:  # one length (self-attention): one (n, ...) buffer
+        out = x0.new_empty((n, b, h, s, d) if split else (n, b, s, h, d))
+        views = (out.transpose(2, 3) if split else out).unbind(0)
+    else:
+        out = x0.new_empty(b * h * d * sum(lengths))
+        views, offset = [], 0
+        for s in lengths:
+            strides = (h * s * d, d, s * d, 1) if split else (s * h * d, h * d, d, 1)
+            views.append(out.as_strided((b, s, h, d), strides, offset))
+            offset += b * s * h * d
+    # the records go in packed: one argument, where separate ones cost host time each
     _build.check(_build.library().lkgd_relayout_heads(
-        x.data_ptr(), out.data_ptr(), (ctypes.c_longlong * 3)(*byte_strides), b, s, h,
-        d * size // 16, int(split), device, torch.cuda.current_stream(x.device).cuda_stream))
-    launches["split_heads" if split else "merge_heads"] += 1
-    return out
+        int(split), n, struct.pack(f"{5 * n}q", *args), out.data_ptr(), b, h, row,
+        *stream_of(x0.device)))
+    launches[name] += 1
+    return tuple(views)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention (the JAX custom VJP ``_flash_core`` with the head
     relayouts of ``_flash_attention_local`` around it): the forward splits q, k, v into
-    head-major copies (kernel 5), runs kernels 7/8, saves the copies, out and lse, and merges
-    out back (kernel 6); the backward splits dO, computes delta = rowsum(dO * O) in fp32,
-    runs kernels 9 and 10 and merges dq, dk, dv. With one head, as in JAX, nothing is split
-    or merged. A head dim above the backward kernels' limit is refused here, in the forward:
-    a training run fails at its first step's forward and not inside ``backward()``."""
+    head-major copies (one launch of kernel 5), runs kernels 7/8, saves the copies, out and
+    lse, and merges out back (kernel 6); the backward splits dO, computes delta =
+    rowsum(dO * O) in fp32, runs kernels 9 and 10 and merges dq, dk, dv (one launch of
+    kernel 6). With one head, as in JAX, nothing is split or merged. A head dim above the
+    backward kernels' limit is refused here, in the forward: a training run fails at its
+    first step's forward and not inside ``backward()``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         _check_bwd(q)
         ctx.split = q.shape[2] > 1
         if ctx.split:
-            q, k, v = (split_heads(x).transpose(1, 2) for x in (q, k, v))
+            q, k, v = split_heads_many(q, k, v)
         out, lse = flash_fwd_lse(q, k, v)
         ctx.save_for_backward(q, k, v, out, lse)
-        return merge_heads(out.transpose(1, 2)) if ctx.split else out
+        return merge_heads_many(out)[0] if ctx.split else out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
         if ctx.split:
-            g = split_heads(g).transpose(1, 2)
+            (g,) = split_heads_many(g)
         delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
         grads = flash_bwd(q, k, v, g, lse, delta)
         if ctx.split:
-            grads = tuple(merge_heads(x.transpose(1, 2)) for x in grads)
+            grads = merge_heads_many(*grads)
         return grads
 
 
 def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor) -> torch.Tensor:
     """``flash_attention`` with a gradient: kernels 5, 7/8 and 6 forward, 5, 9/10 and 6
-    backward."""
+    backward (one launch of 5 or 6 for q, k, v or dq, dk, dv)."""
     return FlashAttentionFunction.apply(q, k, v)

@@ -7,8 +7,8 @@ of its kernels; the CUDA kernels themselves are held against those plain version
 The training path: the plain versions of kernels 7-10 (``flash_fwd_lse_bound_plain``,
 ``flash_fwd_lse_maxtrack_plain``, ``flash_bwd_plain``) against ``_flash_fwd_lse_bhsd``,
 ``_flash_fwd_lse_maxtrack_bhsd`` and ``_flash_bwd_bhsd``, padded S and D=512 included; the plain
-versions of kernels 5 and 6 (``split_heads_plain``, ``merge_heads_plain``) against
-``_split_heads`` and ``_merge_heads`` (exact: they move bytes); and the autograd
+versions of kernels 5 and 6 (``split_heads_plain``, ``merge_heads_plain`` and their grouped
+forms) against ``_split_heads`` and ``_merge_heads`` (exact: they move bytes); and the autograd
 Function's gradients against ``jax.grad`` of ``flash_attention``.
 
 Tolerances: fp32 on both sides, the same exp2-domain arithmetic, summed in another order
@@ -495,22 +495,60 @@ def test_split_merge_heads_plain_match_pallas(shape):
     np.testing.assert_array_equal(merge_j, dense)
 
 
+@pytest.mark.parametrize("s_q,s_k", [(64, 64), (64, 40)], ids=["sq_eq_sk", "sq_ne_sk"])
+def test_grouped_split_merge_heads_plain_match_pallas(s_q, s_k):
+    """One grouped launch of kernels 5 and 6 (on the CPU, their plain versions and the
+    wrappers that run them): q sliced from a fused qkv projection and k, v from a fused kv
+    projection (strided views, S_q != S_k), against one ``_split_heads`` / ``_merge_heads``
+    call a tensor, byte for byte."""
+    b, h, d = 2, 3, 16
+    rng = np.random.default_rng(14)
+    qkv = rng.normal(size=(b, s_q, 3 * h * d)).astype(np.float32)
+    kv = rng.normal(size=(b, s_k, 2 * h * d)).astype(np.float32)
+    dense = [qkv[..., :h * d], kv[..., :h * d], kv[..., h * d:]]
+    views = [torch.from_numpy(qkv)[..., :h * d].unflatten(-1, (h, d)),
+             torch.from_numpy(kv)[..., :h * d].unflatten(-1, (h, d)),
+             torch.from_numpy(kv)[..., h * d:].unflatten(-1, (h, d))]
+    assert not any(x.is_contiguous() for x in views)
+    with pltpu.force_tpu_interpret_mode():
+        split_j = [np.asarray(jfa._split_heads(jnp.asarray(np.ascontiguousarray(x)), h))
+                   for x in dense]
+        merge_j = [np.asarray(jfa._merge_heads(jnp.asarray(x), h)) for x in split_j]
+    lengths = (s_q, s_k, s_k)
+    for split_fn, merge_fn in ((tfa.split_heads_many_plain, tfa.merge_heads_many_plain),
+                               (tfa.split_heads_many, tfa.merge_heads_many)):
+        split = split_fn(*views)  # (B, S_i, H, D) shapes, head-major bytes
+        assert len(split) == 3
+        for got, want, s in zip(split, split_j, lengths):
+            assert got.shape == (b, s, h, d) and got.transpose(1, 2).is_contiguous()
+            np.testing.assert_array_equal(got.transpose(1, 2).reshape(b * h, s, d).numpy(),
+                                          want)
+        merged = merge_fn(*split)
+        assert len(merged) == 3
+        for got, want, x, s in zip(merged, merge_j, dense, lengths):
+            assert got.shape == (b, s, h, d) and got.is_contiguous()
+            np.testing.assert_array_equal(got.reshape(b, s, h * d).numpy(), want)
+            np.testing.assert_array_equal(want, x)
+
+
 @pytest.mark.parametrize("heads", [1, 3])
 def test_function_splits_and_merges_heads(monkeypatch, heads):
-    """With more than one head the Function splits q, k, v and dO and merges out, dq, dk,
-    dv (three splits and one merge forward, one split and three merges backward, as
-    _flash_attention_local's relayouts and their VJPs); with one head it does neither."""
+    """With more than one head the Function relayouts in four grouped calls, as
+    _flash_attention_local's relayouts and their VJPs: one split of q, k, v and one merge of
+    out forward, one split of dO and one merge of dq, dk, dv backward; with one head it does
+    neither."""
     calls = []
-    for name in ("split_heads", "merge_heads"):
+    for name in ("split_heads_many", "merge_heads_many"):
         real = getattr(tfa, name)
-        monkeypatch.setattr(tfa, name, lambda x, _n=name, _r=real: calls.append(_n) or _r(x))
+        monkeypatch.setattr(tfa, name, lambda *xs, _n=name, _r=real:
+                            calls.append((_n, len(xs))) or _r(*xs))
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(13, (1, 64, heads, 16)))
     out = tfa.flash_attention_differentiable(q, k, v)
     assert out.shape == q.shape and out.is_contiguous()
     forward = list(calls)
     out.square().sum().backward()
-    n = 0 if heads == 1 else 3
-    assert forward == ["split_heads"] * n + ["merge_heads"] * (n // 3)
-    assert calls[len(forward):] == ["split_heads"] * (n // 3) + ["merge_heads"] * n
+    split = heads > 1
+    assert forward == [("split_heads_many", 3), ("merge_heads_many", 1)] * split
+    assert calls[len(forward):] == [("split_heads_many", 1), ("merge_heads_many", 3)] * split
     for x in (q, k, v):
         assert x.grad.shape == x.shape and x.grad.is_contiguous()

@@ -10,7 +10,8 @@ and outputs: flash outputs within FLASH_TOL * max|ref|, GroupNorm <= 3e-2; fp32
 GroupNorm <= 1e-5 (summation order only). The training kernels: lse within 1e-2 log2
 units (summation order and exp2 only: lse is rounded nowhere), and dq, dk, dv within
 2e-2 * max|ref|, as the kernels round P and dS to bf16 before their products over up to
-4096 keys or queries. The head split and merge kernels copy bytes: bit-exact.
+4096 keys or queries. The head split and merge kernels copy bytes: bit-exact, one tensor
+or three a launch.
 
 The gradient tests hold the autograd Functions of flash attention and GroupNorm against
 autograd through the plain versions: on the card an output without a gradient would drop
@@ -118,6 +119,63 @@ def test_flash_fallback_recomputes_tiles(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True], ids=["inference", "lse"])
+@pytest.mark.parametrize("shape", [(1, 1100, 2, 64), (1, 1100, 1, 512)], ids=["d64", "d512"])
+def test_one_call_bound_forward_on_the_fallback_input(cuda_device, monkeypatch, shape, lse):
+    """The bound forward is one call into C: key norms, bound kernel and guard. On the
+    huge-norm input every row underflows the bound, so the guard recomputes every tile and
+    the outputs carry the bits of the max-tracking kernel alone; one launch of each."""
+    q, k, v = _qkv(cuda_device, shape, scale=60.0)
+    fwd = tfa.flash_fwd_lse if lse else tfa.flash_attention
+    suffix = "_lse" if lse else ""
+    counter = tfa.recomputed_tiles(cuda_device)
+    counter.zero_()
+    before = dict(tfa.launches)
+    got = fwd(q, k, v)
+    torch.cuda.synchronize()
+    b, s, h, d = shape
+    tiles = b * h * -(-s // tfa.flash_plan(b, s, s, h, d, lse).tile_rows)
+    assert counter.item() == tiles
+    delta = {n: tfa.launches[n] - before[n] for n in tfa.launches}
+    assert delta["flash_key_norm"] == delta["flash_bound" + suffix] == 1, delta
+    assert delta["flash_maxtrack" + suffix] == 1, delta
+    monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
+    want = fwd(q, k, v)
+    for g, w in zip(got if lse else (got,), want if lse else (want,)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["flash_fwd_lse", "split_heads_many"])
+def test_kernels_launch_from_a_fresh_thread(cuda_device, call):
+    """A launch of the port's may be the first CUDA call of its thread, as on autograd's
+    backward thread when it recomputes a checkpointed forward: the entry makes the
+    device's context current before ``cuTensorMapEncodeTiled`` runs. Same bits as the
+    launch from the main thread."""
+    import threading
+
+    q, k, v = _qkv(cuda_device, (2, 1100, 5, 64))
+    fn = getattr(tfa, call)
+    want = fn(q, k, v)
+    result = {}
+
+    def run():
+        try:
+            result["got"] = fn(q, k, v)
+            torch.cuda.synchronize()
+        except Exception as e:  # handed to the main thread, which raises it
+            result["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    if "error" in result:
+        raise result["error"]
+    assert all(torch.equal(g, w) for g, w in zip(result["got"], want))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1100, 5, 64), (3, 777, 1, 512), (1, 100, 2, 40)])
 def test_key_norm_kernel_matches_plain(cuda_device, shape):
     """The key-norm kernel against its plain version on a strided view: fp32 sums of
@@ -158,9 +216,9 @@ def test_flash_kernel_reads_projection_memory(cuda_device, monkeypatch):
         def __getattr__(self, name):
             return getattr(lib, name)
 
-        def lkgd_flash_fwd(self, q_ptr, *args):
+        def lkgd_flash_forward(self, q_ptr, *args):
             seen.append(q_ptr)
-            return lib.lkgd_flash_fwd(q_ptr, *args)
+            return lib.lkgd_flash_forward(q_ptr, *args)
 
     monkeypatch.setattr(_build, "library", lambda: Spy())
     attn = materialize(lambda: Attention(64, heads=2, dim_head=32), cuda_device, torch.bfloat16)
@@ -463,15 +521,57 @@ def test_split_merge_heads_kernels_match_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_grouped_split_merge_heads_kernels_match_plain(cuda_device, shape):
+    """One launch of kernel 5 over three strided views of different lengths (q from a
+    fused qkv projection, two slices of a fused kv projection) and one launch of kernel 6
+    back, bit for bit against the plain versions."""
+    b, s, h, d = shape
+    c = h * d
+    lengths = (s, s // 2 + 3, s + 17)
+    qkv = _randn(cuda_device, (b, lengths[0], 3 * c)).bfloat16()
+    kv = _randn(cuda_device, (b, lengths[1] + lengths[2], 2 * c), seed=1).bfloat16()
+    xs = (qkv[..., c:2 * c].unflatten(-1, (h, d)),
+          kv[:, :lengths[1], :c].unflatten(-1, (h, d)),
+          kv[:, lengths[1]:, c:].unflatten(-1, (h, d)))
+    assert not any(x.is_contiguous() for x in xs)
+    before = dict(tfa.launches)
+    split = tfa.split_heads_many(*xs)
+    for got, want, n in zip(split, tfa.split_heads_many_plain(*xs), lengths):
+        assert got.shape == (b, n, h, d) and got.transpose(1, 2).is_contiguous()
+        assert torch.equal(got, want)
+    merged = tfa.merge_heads_many(*split)
+    for got, x, n in zip(merged, xs, lengths):
+        assert got.shape == (b, n, h, d) and got.is_contiguous()
+        assert torch.equal(got, x)
+    assert tfa.launches["split_heads"] == before["split_heads"] + 1
+    assert tfa.launches["merge_heads"] == before["merge_heads"] + 1
+
+
+@pytest.mark.cuda
+def test_grouped_relayout_refuses(cuda_device):
+    """What one launch does not take raises before the launch: four tensors, tensors that
+    differ in heads, and rows that are not 16-byte aligned."""
+    x = _randn(cuda_device, (1, 64, 2, 64)).bfloat16()
+    with pytest.raises(ValueError):
+        tfa.split_heads_many(x, x, x, x)
+    with pytest.raises(ValueError):
+        tfa.split_heads_many(x, x[:, :, :1])
+    with pytest.raises(ValueError):
+        tfa.split_heads(x[..., :4])
+
+
+@pytest.mark.cuda
 def test_flash_function_launches_split_and_merge(cuda_device):
-    """One differentiable call with 5 heads: three splits and one merge forward, one split
-    and three merges backward, around kernels 7/8, 9 and 10."""
+    """One differentiable call with 5 heads: a grouped split of q, k, v and the merge of
+    out forward, the split of dO and a grouped merge of dq, dk, dv backward, around
+    kernels 7/8, 9 and 10."""
     q, k, v = (x.requires_grad_() for x in _qkv(cuda_device, (2, 1100, 5, 64)))
     before = dict(tfa.launches)
     out = tfa.flash_attention_differentiable(q, k, v)
     torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
     delta = {n: tfa.launches[n] - before[n] for n in tfa.launches}
-    assert delta["split_heads"] == 4 and delta["merge_heads"] == 4, delta
+    assert delta["split_heads"] == 2 and delta["merge_heads"] == 2, delta
     assert delta["flash_bwd_dq"] == 1 and delta["flash_bwd_dkv"] == 1, delta
 
 
