@@ -14,7 +14,11 @@ each printing its own lines; any failure raises and the script exits non-zero:
    frame-transition clip's shapes (56 and 4 rows) and the flash kernels at the whole-clip
    decode's (14, 9216, 1, 512), the plain flash version in row chunks; the key-norm kernel
    that feeds the bound kernels against its plain version at every flash case; at (2,
-   9216, 1, 512) the flash kernels must beat their plain versions;
+   9216, 1, 512) the flash kernels must beat their plain versions; GroupNorm's a, b within
+   1e-4 relative of the plain statistics, the two kernels' device times under
+   ``torch.profiler`` beside their wrappers' (20 calls), one forward at most three device
+   operations (memset, statistics with their fold, normalise), and fp32 statistics with
+   mean 1e3 and std 1 against an fp64 reference, bit-identical over three calls;
 3b. the two microbenchmark kernels against their plain versions: the blocked matmul at
    (258048, 320) x (320, 320 | 1280) and ragged shapes (max |d| <= 1e-2 * max|ref|), the
    flash variants at (140, 9216, 64) in every mode with all four tile shapes (max |d| <=
@@ -235,6 +239,7 @@ def phase_build() -> None:
 def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     """Kernels against their plain versions; returns per-kernel numbers at the main shapes
     (flash: UNet level 0; GroupNorm: the UNet level-0 spatial resblock)."""
+    from lkgd_torch.experiments.group_norm_ab import device_times
     from lkgd_torch.ops import flash_attention as fa
     from lkgd_torch.ops import group_norm as gn
 
@@ -327,6 +332,10 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         a_want, b_want = gn.group_norm_affine_plain(x.float(), w.float(), b.float(), **kw)
         a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
         stats_err = max((a_got - a_want).abs().max().item(), (b_got - b_want).abs().max().item())
+        # a, b within 1e-4 relative: the plain bf16 form's one-pass variance cancels to ~1e-5
+        stats_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item()
+                        for g, t in ((a_got, a_want), (b_got, b_want)))
+        assert stats_rel <= 1e-4, (label, dtype, stats_rel)
         for act in (None, "silu"):
             got = gn.group_norm(x, w, b, act=act, **kw)
             err = (got.float() - gn.group_norm_plain(x.float(), w.float(), b.float(), act=act,
@@ -335,9 +344,9 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             apply_err = (gn.group_norm_apply(x, a_got, b_got, act).float()
                          - apply_want).abs().max().item()
             tol = GN_TOL[dtype]
-            stats_ms = gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw))
+            stats_ms = gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 20)
             stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw))
-            apply_ms = gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, act))
+            apply_ms = gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, act), 20)
             apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, act))
             # the library's GroupNorm (+ SiLU) on the same memory: (N, M, C) is the
             # channels-last form of (N, C, M, 1)
@@ -350,26 +359,59 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             stats_least = bound(3 * n_el, n_el * size + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
             apply_least = bound((8 if act else 2) * n_el,
                                 2 * n_el * size + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
+            # one launch of each kernel under the profiler (with SiLU, the resblocks' form),
+            # and the device operations of one whole forward: memset, stats+fold, apply
+            dev_t = device_times(x, w, b, act) if act else {}
             print(f"[kernel] group_norm {label} {tuple(shape)} {str(dtype)[6:]} act={act}: "
                   f"max|d| {err.max().item():.3e} mean|d| {err.mean().item():.3e} (tol {tol}) "
-                  f"| stats+fold {stats_ms:.3f} ms, plain {stats_plain_ms:.3f} ms (affine "
-                  f"max|d| {stats_err:.3e}), bound {stats_least['bound_ms']:.3f} ms | apply "
-                  f"{apply_ms:.3f} ms, plain {apply_plain_ms:.3f} ms (max|d| {apply_err:.3e}), "
-                  f"bound {apply_least['bound_ms']:.3f} ms | library group_norm"
-                  f"{'+silu' if act else ''} (both passes) {lib_ms:.3f} ms", flush=True)
+                  f"| stats+fold {stats_ms:.4f} ms (20 calls), plain {stats_plain_ms:.3f} ms "
+                  f"(affine max|d| {stats_err:.3e}, relative {stats_rel:.2e}, tol 1e-4), bound "
+                  f"{stats_least['bound_ms']:.4f} ms | apply {apply_ms:.4f} ms, plain "
+                  f"{apply_plain_ms:.3f} ms (max|d| {apply_err:.3e}), bound "
+                  f"{apply_least['bound_ms']:.4f} ms | library group_norm"
+                  f"{'+silu' if act else ''} (both passes) {lib_ms:.3f} ms" + (
+                      f" | device (torch.profiler): stats+fold {dev_t['stats_device_ms']:.4f} "
+                      f"ms ({100 * stats_least['bound_ms'] / dev_t['stats_device_ms']:.1f}% of "
+                      f"bound; kernel {dev_t['stats_kernel_ms']:.4f}), apply "
+                      f"{dev_t['apply_device_ms']:.4f} ms ("
+                      f"{100 * apply_least['bound_ms'] / dev_t['apply_device_ms']:.1f}% of "
+                      f"bound), one forward {dev_t['forward_device_ops']:.0f} device "
+                      f"operations" if act else ""), flush=True)
             assert err.max().item() <= tol, (label, dtype, act, err.max().item())
             assert apply_err <= tol, (label, dtype, act, apply_err)
+            assert not dev_t or dev_t["forward_device_ops"] <= 3, (label, dtype, dev_t)
             if label == "unet level 0 spatial" and dtype == torch.bfloat16 and act == "silu":
                 # library_ms is one call for both kernels' work: the same number in both
                 results["gn_stats"] = {"max_abs_err": stats_err, "ms": stats_ms,
+                                       "device_ms": dev_t["stats_device_ms"],
                                        "plain_ms": stats_plain_ms, "library_ms": lib_ms,
                                        **stats_least}
                 results["gn_apply"] = {"max_abs_err": apply_err, "ms": apply_ms,
+                                       "device_ms": dev_t["apply_device_ms"],
                                        "plain_ms": apply_plain_ms, "library_ms": lib_ms,
                                        **apply_least}
         del x
         torch.cuda.empty_cache()
+    _gn_large_mean_check(gn, randn)
     return results
+
+
+def _gn_large_mean_check(gn, randn) -> None:
+    """fp32 with mean 1e3 and std 1 at the ragged shape: kernel 3's a, b against an fp64
+    two-pass reference (1e-4 relative), and bit-identical over three calls."""
+    x = randn(3, 1001, 96) + 1e3
+    w, b = randn(96, scale=0.1) + 1.0, randn(96, scale=0.1)
+    got = [torch.cat(gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-5)) for _ in range(3)]
+    xg = x.double().view(3, 1001, 32, 3)
+    mean = xg.mean(dim=(1, 3))
+    inv = torch.rsqrt(((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3)) + 1e-5)
+    a = inv.repeat_interleave(3, dim=-1) * w.double()
+    want = torch.cat((a, b.double() - mean.repeat_interleave(3, dim=-1) * a))
+    rel = ((got[0].double() - want).abs().max() / want.abs().max()).item()
+    same = all(torch.equal(g, got[0]) for g in got)
+    print(f"[kernel] group_norm stats fp32 mean 1e3 std 1 (3, 1001, 96): a, b vs fp64 two-pass "
+          f"relative {rel:.2e} (tol 1e-4), three calls bit-identical {same}", flush=True)
+    assert rel <= 1e-4 and same, (rel, same)
 
 
 def _versus(ms: float, lib_ms: float, least: dict) -> str:

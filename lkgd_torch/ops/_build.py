@@ -5,7 +5,7 @@ source, all started together, compiles them to objects in seconds; one more link
 a shared library under ``lkgd_torch/_build/`` (listed in ``.gitignore``). The library's
 name holds a hash of the sources, the shared headers (``*.cuh``) and the flags: an edited
 source builds anew, an unchanged one is reused. Pointers and the stream go in as Python
-ints from ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+ints from ``tensor.data_ptr()`` and the current stream's handle.
 
 Nothing here runs at import: the CPU tests import every module, and a machine without a
 card has no ``nvcc``.
@@ -45,8 +45,8 @@ _SIGNATURES = {
     "lkgd_flash_bwd_smem_bytes": ([_I, _I], _I),
     "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                    _P], _I),
-    "lkgd_gn_stats": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P], _I),
+    "lkgd_group_norm": ([_P] * 5 + [_B, _F, _I, _P], _I),
+    "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P], _I),
     "lkgd_relayout_heads": ([_I, _I, _B, _P, _I, _I, _I, _I, _P], _I),
     "lkgd_matmul_plan": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     "lkgd_blocked_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),

@@ -1,7 +1,7 @@
 """GroupNorm(+SiLU) over ``(N, M, C)``: the Hopper CUDA kernels and their plain version.
 
 Port of ``lkgd_tpu/ops/group_norm.py``: kernel 3 (``_stats_kernel``, per-(sample,
-channel) statistics over the M rows) and kernel 4 (``_apply_kernel``, ``act(x*a + b)`` in
+group) statistics over the M rows) and kernel 4 (``_apply_kernel``, ``act(x*a + b)`` in
 fp32 stored in x.dtype), joined by ``_sums_to_affine``. In JAX the Pallas pair is opt-in
 because in-graph it broke XLA's convolution fusions; in eager PyTorch the fused pass is
 what saves the extra reads and writes, so here the kernels are the path.
@@ -9,11 +9,14 @@ what saves the extra reads and writes, so here the kernels are the path.
 The activations are channels-last, so a ``(N, H, W, C)`` or ``(B, T, H*W, C)`` tensor is
 physically ``(N, M, C)`` and reaches the kernels as a view.
 
-The stats kernel splits M into chunks across blocks and writes per-chunk (mean, M2) for
-every channel; ``fold_chunk_stats`` merges the chunks and the channels of each group in
-plain PyTorch with Chan's formula (deterministic, no atomics) and folds in the affine.
-On a CPU tensor the wrapper runs ``group_norm_plain``; on a CUDA tensor it launches the
-kernels or raises.
+The stats kernel splits M into chunks and the channels into tiles of whole groups
+(``chunk_plan``) across blocks; each block writes its chunk's (mean, M2) for each of its
+groups, and the last block of a sample folds them on the device with Chan's formula in a
+fixed order (deterministic) and folds in the affine, writing ``a, b`` (N, C).
+``fold_chunk_stats`` is that fold's plain version. A GroupNorm forward on a CUDA tensor is
+one call into C (``lkgd_group_norm``): a memset, the statistics with their fold, the
+normalise pass. On a CPU tensor the wrapper runs ``group_norm_plain``; on a CUDA tensor
+it launches the kernels or raises.
 
 When a gradient is wanted (grad mode on and x, weight or bias requiring one) the call goes
 through ``GroupNormFunction``, the JAX package's custom VJP (``_make_op``,
@@ -24,8 +27,10 @@ GroupNorm backward kernel, so the port has none either.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+import struct
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +38,10 @@ import torch.nn.functional as F
 # launches of each kernel since the last reset; read by chip_smoke.py
 launches = {"gn_stats": 0, "gn_apply": 0}
 
-_TILE = 64             # channels a stats block covers (kTile in csrc/group_norm.cu)
-_THREADS = 256         # threads a block (kThreads)
-_TARGET_BLOCKS = 1056  # 8 blocks for each of the H100's 132 SMs
+_THREADS = 256       # threads a block (kThreads in csrc/group_norm.cu)
+_UNROLL = 8          # rows a thread has in flight (kUnroll)
+_STATS_BLOCKS = 396  # one wave of the stats kernel: 3 blocks on each of the H100's 132 SMs
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _affine_from_stats(mean_g: torch.Tensor, inv_g: torch.Tensor, weight: torch.Tensor,
@@ -89,22 +95,49 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, 
 
 
 def fold_chunk_stats(mean: torch.Tensor, m2: torch.Tensor, rows_per_chunk: int, m: int,
-                     weight: torch.Tensor, bias: torch.Tensor, *, num_groups: int,
-                     eps: float):
-    """Merge per-chunk, per-channel (mean, M2) of shape (N, K, C) over the K chunks of
-    ``rows_per_chunk`` rows (the last one short) and the channels of each group, with
-    Chan's formula, into the affine ``a, b`` (N, C) fp32."""
-    n, k, c = mean.shape
-    g = num_groups
-    cg = c // g
+                     weight: torch.Tensor, bias: torch.Tensor, *, eps: float):
+    """Plain version of the stats kernel's fold: merge per-chunk, per-group (mean, M2) of
+    shape (N, K, G) over the K chunks of ``rows_per_chunk`` rows (the last one short), each
+    chunk counting its rows times the C / G channels of a group, with Chan's formula (the
+    weighted mean first, the M2 about it second), into the affine ``a, b`` (N, C) fp32."""
+    k = mean.shape[1]
+    cg = weight.shape[0] // mean.shape[2]
     counts = torch.clamp(m - rows_per_chunk * torch.arange(k, device=mean.device),
-                         max=rows_per_chunk).to(torch.float32).view(1, k, 1, 1)
-    mean_g = mean.view(n, k, g, cg)
+                         max=rows_per_chunk).to(torch.float32).view(1, k, 1) * cg
     total = float(m * cg)
-    gmean = (mean_g * counts).sum(dim=(1, 3)) / total
-    dev = mean_g - gmean[:, None, :, None]
-    gm2 = m2.view(n, k, g, cg).sum(dim=(1, 3)) + (counts * dev * dev).sum(dim=(1, 3))
+    gmean = (mean * counts).sum(dim=1) / total
+    dev = mean - gmean[:, None, :]
+    gm2 = (m2 + counts * dev * dev).sum(dim=1)
     return _affine_from_stats(gmean, torch.rsqrt(gm2 / total + eps), weight, bias)
+
+
+class StatsPlan(NamedTuple):
+    """The stats kernel's grid: ``tile`` channels a block (whole groups, whole 16-byte
+    vectors), M in ``n_chunks`` chunks of ``rows_per_chunk`` rows, the last one short."""
+    tile: int
+    rows_per_chunk: int
+    n_chunks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def chunk_plan(n: int, m: int, c: int, num_groups: int, element_size: int) -> StatsPlan:
+    """The stats kernel's grid for (N, M, C) with ``num_groups`` groups: the widest tile
+    that divides C, holds whole groups and whole vectors and has at most one vector a
+    thread (whole rows at the models' widths in bf16: one contiguous stream a block,
+    measured faster than 80 or 160 channels at C=320), and as many chunks of M as fill one
+    wave of the card with each thread reading at least ``_UNROLL`` rows. A group wider than
+    one block's 256 vectors fits no tile: refused."""
+    vec = 16 // element_size
+    step = math.lcm(c // num_groups, vec)
+    fits = [t for t in range(step, c + 1, step) if c % t == 0 and t // vec <= _THREADS]
+    if not fits:
+        raise ValueError(f"group_norm: a group of {c // num_groups} channels fits no tile "
+                         f"of the stats kernel ({_THREADS} vectors of {vec} a block)")
+    tile = fits[-1]
+    tiles, rows_in_flight = c // tile, _THREADS // (tile // vec)
+    want = max(1, _STATS_BLOCKS // (n * tiles))
+    rows = max(_UNROLL * rows_in_flight, math.ceil(m / want))
+    return StatsPlan(tile, rows, math.ceil(m / rows))
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
@@ -115,8 +148,15 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         return GroupNormFunction.apply(x, weight, bias, num_groups, eps, act)
-    a, b = group_norm_affine(x, weight, bias, num_groups=num_groups, eps=eps)
-    return group_norm_apply(x, a, b, act)
+    return _forward(x, weight, bias, num_groups, eps, act)
+
+
+def _forward(x, weight, bias, num_groups, eps, act):
+    if x.device.type == "cpu":
+        return group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps, act=act)
+    y = torch.empty_like(x)
+    _launch(x, weight, bias, num_groups, eps, act, y)
+    return y
 
 
 class GroupNormFunction(torch.autograd.Function):
@@ -127,8 +167,7 @@ class GroupNormFunction(torch.autograd.Function):
     def forward(ctx, x, weight, bias, num_groups, eps, act):
         ctx.save_for_backward(x, weight, bias)
         ctx.options = dict(num_groups=num_groups, eps=eps, act=act)
-        a, b = group_norm_affine(x, weight, bias, num_groups=num_groups, eps=eps)
-        return group_norm_apply(x, a, b, act)
+        return _forward(x, weight, bias, num_groups, eps, act)
 
     @staticmethod
     def backward(ctx, g):
@@ -141,57 +180,59 @@ class GroupNormFunction(torch.autograd.Function):
         return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
 
 
-def chunk_plan(n: int, m: int, c: int):
-    """(rows_per_chunk, n_chunks) for the stats pass: enough blocks to fill the card,
-    at least 32 rows a chunk."""
-    want = max(1, math.ceil(_TARGET_BLOCKS / (n * math.ceil(c / _TILE))))
-    rows = max(32, math.ceil(m / want))
-    return rows, math.ceil(m / rows)
-
-
-def _check_cuda(x: torch.Tensor, num_groups: int = 1) -> int:
-    """Validate a CUDA (N, M, C) activation for the kernels; returns the vector width."""
+def _check_x(x: torch.Tensor) -> None:
+    """Validate a CUDA (N, M, C) activation for the kernels."""
     if x.device.type != "cuda" or x.dim() != 3:
         raise ValueError(f"group_norm: expected a CUDA (N, M, C) tensor, got "
                          f"{tuple(x.shape)} on {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"group_norm: the CUDA kernels take bfloat16 or float32, got {x.dtype}")
-    c = x.shape[2]
     vec = 16 // x.element_size()
-    if not x.is_contiguous() or x.data_ptr() % 16 or c % vec or c % num_groups:
+    if not x.is_contiguous() or x.data_ptr() % 16 or x.shape[2] % vec:
         raise ValueError(f"group_norm: needs a contiguous 16-byte aligned (N, M, C) tensor "
-                         f"with C % {vec} == 0 and C % groups == 0, got {tuple(x.shape)} "
-                         f"strides {x.stride()}")
-    return vec
+                         f"with C % {vec} == 0, got {tuple(x.shape)} strides {x.stride()}")
 
 
-def _device_and_stream(x: torch.Tensor):
-    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return device, torch.cuda.current_stream(x.device).cuda_stream
+def _launch(x, weight, bias, num_groups, eps, act, y) -> torch.Tensor:
+    """One call into C: the statistics and their fold into ``a, b``, then, with ``y``
+    given, the normalise pass into it. Returns the scratch, ``a, b`` (N, C) at its head."""
+    from lkgd_torch.ops import _build
+    from lkgd_torch.ops.flash_attention import stream_of
+
+    _check_x(x)
+    n, m, c = x.shape
+    if c % num_groups:
+        raise ValueError(f"group_norm: C = {c} is not a multiple of {num_groups} groups")
+    if (weight.shape != (c,) or bias.shape != (c,) or weight.device != x.device
+            or bias.device != x.device or weight.dtype != bias.dtype
+            or weight.dtype not in _KERNEL_DTYPES or weight.stride() != (1,)
+            or bias.stride() != (1,)):
+        raise ValueError("group_norm: weight and bias must be contiguous (C,) tensors of one "
+                         "type, bfloat16 or float32, on x's device")
+    plan = chunk_plan(n, m, c, num_groups, x.element_size())
+    scratch = torch.empty(2 * n * c + 2 * n * plan.n_chunks * num_groups + n,
+                          dtype=torch.float32, device=x.device)
+    flags = (int(x.dtype == torch.bfloat16) | int(weight.dtype == torch.bfloat16) << 1
+             | int(act == "silu") << 2)
+    _build.check(_build.library().lkgd_group_norm(
+        x.data_ptr(), None if y is None else y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        scratch.data_ptr(), struct.pack("8q", n, m, c, num_groups, *plan, flags), eps,
+        *stream_of(x.device)))
+    launches["gn_stats"] += 1
+    if y is not None:
+        launches["gn_apply"] += 1
+    return scratch
 
 
 def group_norm_affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                       num_groups: int, eps: float):
     """Per-(sample, channel) affine ``a, b`` (N, C) fp32 of GroupNorm over ``(N, M, C)``:
-    kernel 3 on per-chunk statistics, then ``fold_chunk_stats``."""
+    kernel 3, statistics and fold on the device."""
     if x.device.type == "cpu":
         return group_norm_affine_plain(x, weight, bias, num_groups=num_groups, eps=eps)
-    from lkgd_torch.ops import _build
-
-    _check_cuda(x, num_groups)
-    n, m, c = x.shape
-    if weight.shape != (c,) or bias.shape != (c,) or weight.device != x.device:
-        raise ValueError("group_norm: weight and bias must be (C,) on x's device")
-    lib = _build.library()
-    device, stream = _device_and_stream(x)
-    rows, n_chunks = chunk_plan(n, m, c)
-    mean = torch.empty((n, n_chunks, c), dtype=torch.float32, device=x.device)
-    m2 = torch.empty_like(mean)
-    _build.check(lib.lkgd_gn_stats(x.data_ptr(), mean.data_ptr(), m2.data_ptr(), n, m, c,
-                                   rows, n_chunks, int(x.dtype == torch.bfloat16), device,
-                                   stream))
-    launches["gn_stats"] += 1
-    return fold_chunk_stats(mean, m2, rows, m, weight, bias, num_groups=num_groups, eps=eps)
+    n, _, c = x.shape
+    scratch = _launch(x, weight, bias, num_groups, eps, None, None)
+    return scratch[:n * c].view(n, c), scratch[n * c:2 * n * c].view(n, c)
 
 
 def group_norm_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -200,20 +241,17 @@ def group_norm_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_apply_plain(x, a, b, act)
     from lkgd_torch.ops import _build
+    from lkgd_torch.ops.flash_attention import stream_of
 
-    vec = _check_cuda(x)
+    _check_x(x)
     n, m, c = x.shape
     a, b = a.contiguous(), b.contiguous()
     if a.shape != (n, c) or b.shape != (n, c) or a.dtype != torch.float32 or \
             b.dtype != torch.float32 or a.device != x.device or b.device != x.device:
         raise ValueError("group_norm_apply: a and b must be (N, C) float32 on x's device")
-    lib = _build.library()
-    device, stream = _device_and_stream(x)
     y = torch.empty_like(x)
-    blocks_x = max(1, min(math.ceil(m * c / (vec * _THREADS)),
-                          math.ceil(4 * _TARGET_BLOCKS / n)))
-    _build.check(lib.lkgd_gn_apply(x.data_ptr(), y.data_ptr(), a.data_ptr(), b.data_ptr(), n,
-                                   m * c, c, int(act == "silu"),
-                                   int(x.dtype == torch.bfloat16), blocks_x, device, stream))
+    _build.check(_build.library().lkgd_gn_apply(
+        x.data_ptr(), y.data_ptr(), a.data_ptr(), b.data_ptr(), n, m * c, c,
+        int(act == "silu"), int(x.dtype == torch.bfloat16), *stream_of(x.device)))
     launches["gn_apply"] += 1
     return y

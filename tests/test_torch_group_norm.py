@@ -1,8 +1,9 @@
 """The port's GroupNorm (``lkgd_torch.ops.group_norm``) against ``lkgd_tpu.ops.group_norm``:
 the Pallas kernels run in interpret mode (``group_norm(..., interpret=True)``) and the XLA
 form ``group_norm_xla``, at fp32. On the CPU the port runs the plain versions of its
-kernels; ``fold_chunk_stats``, which merges the CUDA stats kernel's per-chunk statistics,
-is checked here on statistics computed chunk by chunk in PyTorch.
+kernels; ``fold_chunk_stats``, the plain version of the CUDA stats kernel's fold of its
+per-chunk, per-group statistics, is checked here on statistics computed chunk by chunk in
+PyTorch, and ``chunk_plan``, the stats kernel's grid, by arithmetic at the models' shapes.
 
 ``GroupNormFunction``, the op with a gradient, is held against ``jax.vjp`` of the JAX
 package's custom VJP (Pallas forward in interpret mode, backward through
@@ -62,22 +63,81 @@ def test_ragged_rows_match_xla(act):
     np.testing.assert_allclose(_port(x, w, b, eps=1e-5, act=act), want, rtol=2e-5, atol=2e-5)
 
 
+def _chunk_group_stats(x, rows, n_chunks, num_groups=32):
+    """Per-chunk, per-group (mean, M2) (N, K, G) as the stats kernel's blocks write them."""
+    n, m, c = x.shape
+    means, m2s = [], []
+    for i in range(n_chunks):
+        ch = x[:, i * rows:(i + 1) * rows].reshape(n, -1, num_groups, c // num_groups)
+        mean = ch.mean(dim=(1, 3))
+        means.append(mean)
+        m2s.append(((ch - mean[:, None, :, None]) ** 2).sum(dim=(1, 3)))
+    return torch.stack(means, dim=1), torch.stack(m2s, dim=1)
+
+
 @pytest.mark.parametrize("shape", [(3, 1001, 96), (28, 9216 // 16, 320), (1, 5000, 64)])
 def test_fold_of_chunk_statistics(shape):
-    """Per-chunk (mean, M2) as the stats kernel writes them, folded with Chan's formula,
-    give the plain two-pass affine."""
+    """Per-chunk, per-group (mean, M2) as the stats kernel's blocks write them, folded with
+    Chan's formula, give the plain two-pass affine."""
     x, w, b = (torch.from_numpy(a) for a in _inputs(shape, seed=2))
     n, m, c = shape
-    rows, n_chunks = tgn.chunk_plan(n, m, c)
-    assert (n_chunks - 1) * rows < m <= n_chunks * rows
-    chunks = [x[:, i * rows:(i + 1) * rows] for i in range(n_chunks)]
-    mean = torch.stack([ch.mean(dim=1) for ch in chunks], dim=1)
-    m2 = torch.stack([((ch - ch.mean(dim=1, keepdim=True)) ** 2).sum(dim=1) for ch in chunks],
-                     dim=1)
-    got = tgn.fold_chunk_stats(mean, m2, rows, m, w, b, num_groups=32, eps=1e-5)
+    plan = tgn.chunk_plan(n, m, c, 32, x.element_size())
+    mean, m2 = _chunk_group_stats(x, plan.rows_per_chunk, plan.n_chunks)
+    assert mean.shape == (n, plan.n_chunks, 32)
+    got = tgn.fold_chunk_stats(mean, m2, plan.rows_per_chunk, m, w, b, eps=1e-5)
     want = tgn.group_norm_affine_plain(x, w, b, num_groups=32, eps=1e-5)
     for g, wt in zip(got, want):
         torch.testing.assert_close(g, wt, rtol=2e-5, atol=2e-5)
+
+
+def test_fold_keeps_precision_when_the_mean_dwarfs_the_std():
+    """|mean| >> std (mean 1e3, std 1) at fp32: the fold of per-chunk (mean, M2) still
+    matches the two-pass form, in fp32 and against the same form in fp64."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((rng.normal(size=(3, 1001, 96)) + 1e3).astype(np.float32))
+    w, b = (torch.from_numpy(a) for a in _inputs((3, 1001, 96), seed=8)[1:])
+    plan = tgn.chunk_plan(3, 1001, 96, 32, x.element_size())
+    assert plan.n_chunks > 1
+    mean, m2 = _chunk_group_stats(x, plan.rows_per_chunk, plan.n_chunks)
+    got = tgn.fold_chunk_stats(mean, m2, plan.rows_per_chunk, 1001, w, b, eps=1e-5)
+    want = tgn.group_norm_affine_plain(x, w, b, num_groups=32, eps=1e-5)
+    xg = x.double().reshape(3, 1001, 32, 3)
+    mean64 = xg.mean(dim=(1, 3))
+    inv64 = torch.rsqrt(((xg - mean64[:, None, :, None]) ** 2).mean(dim=(1, 3)) + 1e-5)
+    a64 = inv64.repeat_interleave(3, dim=-1) * w.double()
+    want64 = (a64, b.double() - mean64.repeat_interleave(3, dim=-1) * a64)
+    for g, wt, w64 in zip(got, want, want64):
+        torch.testing.assert_close(g, wt, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(g.double(), w64, rtol=2e-5, atol=2e-5)
+
+
+# every (N, M, C) GroupNorm of the base clip, the trans clip and the VAE decode, and a
+# ragged one
+PLAN_SHAPES = [(28, 9216, 320), (56, 9216, 320), (2, 129024, 320), (4, 129024, 320),
+               (28, 2304, 640), (28, 576, 1280), (28, 144, 1280), (7, 589824, 128),
+               (3, 1001, 96)]
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_chunk_plan_covers_every_row_once_and_channels_in_whole_groups(shape, element_size):
+    """The stats kernel's grid: chunks cover M exactly once (only the last one short),
+    tiles cover C in whole groups and whole 16-byte vectors (whole rows where a block has
+    the threads), a block has the threads for its tile and every thread at least
+    ``_UNROLL`` rows to read, and the grid is one wave of the card unless one chunk a
+    (sample, tile) is already more."""
+    n, m, c = shape
+    plan = tgn.chunk_plan(n, m, c, 32, element_size)
+    vec, cg = 16 // element_size, c // 32
+    rows = plan.rows_per_chunk
+    starts = range(0, plan.n_chunks * rows, rows)
+    assert sum(min(rows, m - r) for r in starts) == m and all(r < m for r in starts)
+    assert c % plan.tile == 0 and plan.tile % cg == 0 and plan.tile % vec == 0
+    lanes_x = plan.tile // vec
+    assert lanes_x <= tgn._THREADS and (plan.tile == c or 2 * lanes_x > tgn._THREADS)
+    assert rows >= tgn._UNROLL * (tgn._THREADS // lanes_x) or plan.n_chunks == 1
+    blocks = n * (c // plan.tile) * plan.n_chunks
+    assert blocks <= tgn._STATS_BLOCKS or plan.n_chunks == 1
 
 
 def test_module_reshapes_channels_last_input():

@@ -146,22 +146,30 @@ def test_one_call_bound_forward_on_the_fallback_input(cuda_device, monkeypatch, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("call", ["flash_fwd_lse", "split_heads_many"])
+@pytest.mark.parametrize("call", ["flash_fwd_lse", "split_heads_many", "group_norm"])
 def test_kernels_launch_from_a_fresh_thread(cuda_device, call):
     """A launch of the port's may be the first CUDA call of its thread, as on autograd's
     backward thread when it recomputes a checkpointed forward: the entry makes the
-    device's context current before ``cuTensorMapEncodeTiled`` runs. Same bits as the
-    launch from the main thread."""
+    device's context current before ``cuTensorMapEncodeTiled`` runs (and before the
+    GroupNorm entry's memset and launches). Same bits as the launch from the main thread."""
     import threading
 
-    q, k, v = _qkv(cuda_device, (2, 1100, 5, 64))
-    fn = getattr(tfa, call)
-    want = fn(q, k, v)
+    if call == "group_norm":
+        x, w, b = _gn_inputs(cuda_device, (3, 1001, 96), torch.bfloat16)
+
+        def fn():
+            return (gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act="silu"),)
+    else:
+        q, k, v = _qkv(cuda_device, (2, 1100, 5, 64))
+
+        def fn():
+            return getattr(tfa, call)(q, k, v)
+    want = fn()
     result = {}
 
     def run():
         try:
-            result["got"] = fn(q, k, v)
+            result["got"] = fn()
             torch.cuda.synchronize()
         except Exception as e:  # handed to the main thread, which raises it
             result["error"] = e
@@ -237,18 +245,99 @@ def test_flash_kernel_rejects_fp32(cuda_device):
         tfa.flash_attention(q, k, v)
 
 
+def _gn_inputs(device, shape, dtype, mean=0.5, std=2.0):
+    x = (_randn(device, shape, std) + mean).to(dtype)
+    w = (_randn(device, shape[-1:], 0.1, 1) + 1.0).to(dtype)
+    return x, w, _randn(device, shape[-1:], 0.1, 2).to(dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(4, 1024, 320), (2, 4 * 1001, 96)])
+@pytest.mark.parametrize("shape", [(4, 1024, 320), (2, 4 * 1001, 96), (28, 9216, 320),
+                                   (3, 1001, 96), (2, 777, 128)])
 def test_group_norm_stats_kernel_matches_plain(cuda_device, shape, dtype):
-    """Kernel 3 + the fold against the plain statistics: the affine a, b (fp32), within
-    1e-4 relative (the plain bf16 form's one-pass fp32 variance cancels to ~1e-5)."""
-    x = (_randn(cuda_device, shape, 2.0) + 0.5).to(dtype)
-    w, b = _randn(cuda_device, shape[-1:], 0.1, 1) + 1.0, _randn(cuda_device, shape[-1:], 0.1, 2)
+    """Kernel 3, statistics and fold on the device, against the plain statistics: the
+    affine a, b (fp32), within 1e-4 relative (the plain bf16 form's one-pass fp32 variance
+    cancels to ~1e-5); one launch, and weight and bias in the other type give the same."""
+    x, w, b = _gn_inputs(cuda_device, shape, dtype)
+    before = dict(gn.launches)
     got = gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-5)
-    want = gn.group_norm_affine_plain(x.float(), w, b, num_groups=32, eps=1e-5)
+    assert gn.launches["gn_stats"] == before["gn_stats"] + 1
+    assert gn.launches["gn_apply"] == before["gn_apply"]
+    want = gn.group_norm_affine_plain(x.float(), w.float(), b.float(), num_groups=32, eps=1e-5)
     for g, wt in zip(got, want):
+        assert g.shape == wt.shape and g.dtype == torch.float32
         assert (g - wt).abs().max().item() <= 1e-4 * max(1.0, wt.abs().max().item())
+    other = torch.float32 if w.dtype == torch.bfloat16 else torch.bfloat16
+    w2, b2 = w.to(other), b.to(other)
+    want2 = gn.group_norm_affine_plain(x.float(), w2.float(), b2.float(), num_groups=32,
+                                       eps=1e-5)
+    for g, wt in zip(gn.group_norm_affine(x, w2, b2, num_groups=32, eps=1e-5), want2):
+        assert (g - wt).abs().max().item() <= 1e-4 * max(1.0, wt.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_stats_are_bit_identical_across_calls(cuda_device, dtype):
+    """The last block of a sample folds its chunks in a fixed order: whichever block came
+    last, three calls give the same bits."""
+    x, w, b = _gn_inputs(cuda_device, (28, 9216, 320), dtype)
+    first = gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-5)
+    for _ in range(2):
+        again = gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-5)
+        assert all(torch.equal(g, f) for g, f in zip(again, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+def test_group_norm_stats_keep_precision_when_the_mean_dwarfs_the_std(cuda_device, eps):
+    """fp32 with mean 1e3 and std 1: the kernel's shifted sums and Chan merges against an
+    fp64 two-pass reference, within 1e-4 relative."""
+    x, w, b = _gn_inputs(cuda_device, (3, 1001, 96), torch.float32, mean=1e3, std=1.0)
+    got = gn.group_norm_affine(x, w, b, num_groups=32, eps=eps)
+    xg = x.double().view(3, 1001, 32, 3)
+    mean = xg.mean(dim=(1, 3))
+    inv = torch.rsqrt(((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3)) + eps)
+    a = inv.repeat_interleave(3, dim=-1) * w.double()
+    want = (a, b.double() - mean.repeat_interleave(3, dim=-1) * a)
+    for g, wt in zip(got, want):
+        assert (g.double() - wt).abs().max().item() <= 1e-4 * wt.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(3, 1001, 96), (28, 2304, 320)])
+def test_group_norm_forward_matches_plain(cuda_device, shape, dtype, tol, act):
+    """One forward from one call into C (statistics, fold, normalise) against the plain
+    GroupNorm in fp32 on the same inputs; one launch of each kernel."""
+    x, w, b = _gn_inputs(cuda_device, shape, dtype)
+    before = dict(gn.launches)
+    got = gn.group_norm(x, w, b, num_groups=32, eps=1e-6, act=act)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert {k: gn.launches[k] - before[k] for k in before} == {"gn_stats": 1, "gn_apply": 1}
+    want = gn.group_norm_plain(x.float(), w.float(), b.float(), num_groups=32, eps=1e-6,
+                               act=act)
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_group_norm_forward_is_three_device_operations(cuda_device):
+    """One GroupNorm forward on the card enqueues at most three device operations (the
+    tickets' memset, the statistics with their fold, the normalise pass), counted under
+    ``torch.profiler``; no PyTorch arithmetic runs between the two kernels."""
+    from lkgd_torch.experiments.group_norm_ab import profiled
+
+    x, w, b = _gn_inputs(cuda_device, (28, 2304, 320), torch.bfloat16)
+    before = dict(gn.launches)
+    prof = profiled(lambda: gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act="silu"),
+                    calls=1)
+    assert prof["ops"] <= 3, prof
+    assert any("gn_stats_kernel" in k for k in prof["ms"]), prof
+    assert any("gn_apply_kernel" in k for k in prof["ms"]), prof
+    # the profiler's warm-up call and the profiled one
+    assert gn.launches["gn_stats"] - before["gn_stats"] == 2
+    assert gn.launches["gn_apply"] - before["gn_apply"] == 2
 
 
 @pytest.mark.cuda

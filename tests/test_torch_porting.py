@@ -179,7 +179,8 @@ def test_video_io_copy_matches_jax_package(tmp_path):
 
 @pytest.mark.parametrize("entry", ["pipeline", "trans_pipeline", "loader", "inference_cli",
                                    "training_cli", "matmul_microbench",
-                                   "flash_variant_microbench", "flash_bwd_ab", "kernel_ab"])
+                                   "flash_variant_microbench", "flash_bwd_ab", "kernel_ab",
+                                   "group_norm_ab"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
@@ -187,8 +188,8 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         pytest.skip("this machine has a CUDA device: the default does not raise")
     from lkgd_torch.cli import run_inference_svd, train_svd_lora
     from lkgd_torch.data.datasets import PrefetchLoader
-    from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, kernel_ab,
-                                        matmul_microbench)
+    from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
+                                        kernel_ab, matmul_microbench)
     from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
 
     tiny = dict(config=SVDPipelineConfig(**TINY_PIPE), unet_config=tcfg.SVDUNetConfig(**TINY_UNET),
@@ -205,6 +206,7 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "flash_variant_microbench": lambda: flash_variant_microbench.main([]),
         "flash_bwd_ab": lambda: flash_bwd_ab.main([]),
         "kernel_ab": lambda: kernel_ab.main([]),
+        "group_norm_ab": lambda: group_norm_ab.main([]),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
