@@ -29,6 +29,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
 4b. the tiny frame-transition pipeline (joint attention, flip, two stream-masked LoRA
    adapters, every parameter random) the same way, batched and with ``sequential_cfg``;
+4c. the tiny smoothing pipeline (10 frames in 4-frame joint chunks from step 1 of 3, the
+   offsets given) the same way, batched and with ``sequential_cfg``;
 5. the full-size clip: 14 frames at 576x1024, 25 steps, CFG, bf16 random weights from a
    seeded generator; two clips (the first warms up), every kernel's launch count in the
    second, which must be > 0 for the four inference kernels and 0 for the four training
@@ -41,6 +43,13 @@ each printing its own lines; any failure raises and the script exits non-zero:
    tiles; frames finite, the two streams different; one more clip with
    ``sequential_cfg`` for its time and peak memory; then one UNet step under
    ``torch.profiler`` for its device time by kind;
+5c. the full-width smoothing of a 50-frame 576x1024 synthetic video through the inference
+   CLI's ``build_pipeline`` (``--mode smooth --flip --temporal --lora-rank 4``): 14-frame
+   joint chunks from step 10 of 25, CFG batched as 4 x 5 chunks = 20 UNet rows of 14
+   frames, bf16; a warm-up from step 24, then a timed run split into conditioning (timed
+   alone), the denoising loop and the decode, with peak memory, launch counts (> 0 for the
+   inference kernels, 0 for the others) and fallback tiles, frames finite and in [0, 1];
+   then one UNet step of 20 x 14 rows under ``torch.profiler``;
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
    backwards) against their plain versions at the fine-tune's shapes, ragged S, S_q !=
    S_k, D=128 and the huge-norm input that trips the LSE forward's fallback: split/merge
@@ -69,14 +78,28 @@ each printing its own lines; any failure raises and the script exits non-zero:
    kernels, with their device ms and launches a step); and the exported
    safetensors read back. Neither window syncs the host inside it: losses stay on the
    device until it ends, and the end-of-fit checkpoint falls after its closing event;
+7b. the tiny trans train step (joint branch with flip, the yx/xy/y adapters at rank 2,
+   one [x, y] pair) the same way as 7, its trainables after the step against the CPU's
+   AdamW applied to the GPU's gradients (7 checks both ways): Adam's first step divides
+   each gradient entry by its own size plus 1e-8, and this UNet has entries near 1e-8, where
+   last-bit gradient differences become step differences of ~3e-4; attn2's query and key
+   adapters, which a one-key attention gives no gradient, must lack one on both sides;
+8b. the trans fine-tune the same way as 8 (``--mode trans``: SVD UNet, VAE, CLIP-H, no ViT;
+   one [clip, flipped clip] pair, 2 UNet rows), with the flash forwards launched inside
+   the joint branch's ``attn1n`` calls counted by module hooks (> 0), the joint branch
+   moved and attn2's zero-gradient B factors alone unmoved;
+8c. a tiny-width trans fit on the card with ``--use-8bit-adam``, a validation pair rendered
+   every step and ``--report-to tensorboard`` where the package is there: the GIFs, the
+   event file and the 8-bit state;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
 A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
-launches on each path, error, time, the plain version's time, the library call's time and the bound, computed
-here from the shapes: the larger of the bytes moved over 3.35 TB/s and the operations
-over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products, 67
-TFLOP/s for fp32 arithmetic outside them).
+launches on each path (base clip, trans clip, smoothing, LKGD and trans training,
+microbenchmarks), error, time, the plain version's time, the library call's time and the
+bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
+operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
+67 TFLOP/s for fp32 arithmetic outside them).
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -622,15 +645,18 @@ def _read_counts() -> dict:
     return {name: n for counts in _all_counts() for name, n in counts.items()}
 
 
-def _tiny_trans_pipeline(device, sequential_cfg: bool = False):
-    """The tiny widths through the inference CLI's ``build_pipeline`` in trans mode: joint
-    attention with flip, spatial and temporal, and the two stream-masked LoRA rules."""
+def _tiny_joint_pipeline(device, mode: str, sequential_cfg: bool = False):
+    """The tiny widths through the inference CLI's ``build_pipeline`` in trans or smooth
+    mode: joint attention with flip, spatial and temporal, and the two stream-masked LoRA
+    rules; smooth mode takes 10 frames in 4-frame chunks from step 1 of 3."""
     from lkgd_torch.cli import run_inference_svd as cli
 
-    argv = ["--mode", "trans", "--image", "-", "--height", "48", "--width", "48",
+    argv = ["--mode", mode, "--image", "-", "--height", "48", "--width", "48",
             "--num-frames", "4", "--num-inference-steps", "3", "--decode-chunk-size", "2",
             "--flip", "--temporal", "--lora-rank", "2", "--dtype", "fp32", "--device",
             str(device)] + (["--sequential-cfg"] if sequential_cfg else [])
+    if mode == "smooth":
+        argv += ["--smooth-start-step", "1", "--smooth-total-frames", "10"]
     return cli.build_pipeline(cli.make_parser().parse_args(argv), cli.Widths(*_tiny_widths()))
 
 
@@ -644,19 +670,27 @@ def _randomize(pipe, seed: int) -> None:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
 
 
-def phase_tiny_trans(dev: torch.device) -> None:
-    cpu = _tiny_trans_pipeline("cpu")
-    _randomize(cpu, 13)
-    rng = np.random.default_rng(6)
-    image = torch.from_numpy(rng.uniform(size=(2, 48, 48, 3)).astype(np.float32))
-    kw = dict(noise_aug=torch.from_numpy(rng.standard_normal((2, 48, 48, 3)).astype(np.float32)),
-              initial_noise=torch.from_numpy(
-                  rng.standard_normal((2, 4, 24, 24, 4)).astype(np.float32)))
+def phase_tiny_joint(dev: torch.device, mode: str) -> None:
+    """The tiny trans or smooth pipeline on the GPU, batched and with ``sequential_cfg``,
+    against the batched one on the CPU with the same weights and noise (and in smooth mode
+    the same offsets, both of which shift the buffer)."""
+    label = f"tiny-{mode}"
+    cpu = _tiny_joint_pipeline("cpu", mode)
+    _randomize(cpu, 13 if mode == "trans" else 17)
+    rng = np.random.default_rng(6 if mode == "trans" else 9)
+    rows = 2 if mode == "trans" else 10  # images, or frames of the video
+    image = torch.from_numpy(rng.uniform(size=(rows, 48, 48, 3)).astype(np.float32))
+    latent_shape = (2, 4, 24, 24, 4) if mode == "trans" else (1, 10, 24, 24, 4)
+    kw = dict(noise_aug=torch.from_numpy(rng.standard_normal((rows, 48, 48, 3)).astype(np.float32)),
+              initial_noise=torch.from_numpy(rng.standard_normal(latent_shape).astype(np.float32)))
+    if mode == "smooth":
+        kw["offsets"] = [1, 3]
     lat_cpu = cpu.denoise(image, **kw)
     frames_cpu = cpu.decode_latents(lat_cpu)
-    assert (lat_cpu[0] - lat_cpu[1]).abs().max().item() > 1e-3, "the streams must differ"
+    if mode == "trans":
+        assert (lat_cpu[0] - lat_cpu[1]).abs().max().item() > 1e-3, "the streams must differ"
     for sequential in (False, True):
-        gpu = _tiny_trans_pipeline(dev, sequential)
+        gpu = _tiny_joint_pipeline(dev, mode, sequential)
         for src, dst in zip(cpu.models, gpu.models):
             dst.load_state_dict(src.state_dict(), strict=True)
         lat_gpu = gpu.denoise(image, **kw)
@@ -666,7 +700,7 @@ def phase_tiny_trans(dev: torch.device) -> None:
                                 ("frames", frames_gpu, frames_cpu)):
             got = got.cpu()
             err = (got - want).abs().max().item()
-            print(f"[tiny-trans] {'sequential_cfg' if sequential else 'batched'} GPU vs batched "
+            print(f"[{label}] {'sequential_cfg' if sequential else 'batched'} GPU vs batched "
                   f"CPU fp32 {name} {tuple(want.shape)}: max|d| {err:.3e} (rtol 1e-4, atol "
                   f"2e-4)", flush=True)
             torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
@@ -819,6 +853,159 @@ def phase_trans_full(dev: torch.device) -> dict:
 
     _profile_unet_step("trans", pipe, 2 * images.shape[0], gen)
     return launches
+
+
+SMOOTH_FRAMES = 50
+
+
+def phase_smooth_full(dev: torch.device) -> dict:
+    """The full-width smoothing of a 50-frame 576x1024 video in 14-frame joint chunks from
+    step 10 of 25 (CFG batched: 4 x 5 chunks = 20 UNet rows of 14 frames), bf16, through the
+    inference CLI's ``build_pipeline``: a warm-up from step 24 on the same shapes, then a
+    timed, counted run with its split into conditioning, the denoising loop and the decode;
+    then one UNet step of 20 x 14 rows under ``torch.profiler``."""
+    from lkgd_torch.cli import run_inference_svd as cli
+    from lkgd_torch.ops import flash_attention as fa
+
+    args = cli.make_parser().parse_args(
+        ["--mode", "smooth", "--image", "-", "--flip", "--temporal", "--lora-rank", "4",
+         "--smooth-total-frames", str(SMOOTH_FRAMES), "--smooth-start-step", "10",
+         "--decode-chunk-size", "14", "--seed", "0", "--device", str(dev)])
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    cfg = pipe.config
+    gen = torch.Generator(device=dev).manual_seed(4)
+    filled = 0
+    with torch.no_grad():  # conv1n and the LoRA B factors are zero at init (see trans)
+        for name, p in pipe.unet.named_parameters():
+            if ".conv1n." in name or name.endswith("_B"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+                filled += 1
+    # a smooth synthetic video: a drifting gradient with a little noise
+    t = torch.arange(SMOOTH_FRAMES, device=dev, dtype=torch.float32)[:, None, None, None]
+    yy = torch.linspace(0, 1, cfg.height, device=dev)[None, :, None, None]
+    xx = torch.linspace(0, 1, cfg.width, device=dev)[None, None, :, None]
+    phase = torch.tensor([0.0, 2.1, 4.2], device=dev)
+    video = 0.5 + 0.4 * torch.sin(6 * xx + 4 * yy + 0.15 * t + phase)
+    video = (video + 0.02 * torch.randn(video.shape, generator=gen, device=dev)).clamp(0, 1)
+    torch.cuda.synchronize()
+    print(f"[smooth] {SMOOTH_FRAMES} frames, chunks of {cfg.num_frames}: {pipe.n_chunks} "
+          f"chunks, {4 * pipe.n_chunks} UNet rows a step, steps {pipe.start_step}-"
+          f"{cfg.num_inference_steps - 1}; {filled} conv1n and LoRA B tensors 0.02 x normal; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def run(start_step: int, seed: int) -> dict:
+        pipe.start_step = start_step
+        _zero_counts()
+        fa.recomputed_tiles(dev).zero_()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run_gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents = pipe.denoise(video, run_gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frames = pipe.decode_latents(latents)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return {"s": t2 - t0, "denoise_s": t1 - t0, "decode_s": t2 - t1,
+                "peak": torch.cuda.max_memory_allocated(dev), "launches": _read_counts(),
+                "recomputed": int(fa.recomputed_tiles(dev).item()), "latents": latents,
+                "frames": frames}
+
+    warm = run(cfg.num_inference_steps - 1, 1)
+    print(f"[smooth] warm-up (1 step): {warm['s']:.3f} s, peak {warm['peak'] / 2**30:.2f} GiB",
+          flush=True)
+    del warm
+    r = run(10, 2)
+    # the conditioning alone on the same video: CLIP on every frame, the two VAE encodes
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        m11 = video * 2.0 - 1.0
+        pipe._encode_clip(video)
+        pipe._encode_frames(m11 + cfg.noise_aug_strength * torch.randn_like(m11))
+        pipe._encode_frames(m11)
+        torch.cuda.synchronize()
+        cond_s = time.perf_counter() - c0
+    launches, latents, frames = r["launches"], r["latents"], r["frames"]
+    n_steps = cfg.num_inference_steps - 10
+    print(f"[smooth] {r['s']:.3f} s/clip = conditioning {cond_s:.3f} s (timed alone) + "
+          f"denoise {r['denoise_s'] - cond_s:.3f} s ({n_steps} steps, "
+          f"{(r['denoise_s'] - cond_s) / n_steps:.3f} s a step) + decode {r['decode_s']:.3f} s "
+          f"| peak memory {r['peak'] / 2**30:.2f} GiB | launches "
+          f"{ {k: v for k, v in launches.items() if v} } | fallback tiles recomputed "
+          f"{r['recomputed']} | frames mean {frames.mean().item():.4f} std "
+          f"{frames.std().item():.4f}, input mean {video.mean().item():.4f}", flush=True)
+    assert frames.shape == (1, SMOOTH_FRAMES, cfg.height, cfg.width, 3), frames.shape
+    assert torch.isfinite(latents).all() and torch.isfinite(frames).all(), "non-finite output"
+    assert frames.min().item() >= 0.0 and frames.max().item() <= 1.0
+    for name in INFERENCE:
+        assert launches.get(name, 0) > 0, f"kernel {name} was not launched by smoothing"
+    for name in TRAINING + EXPERIMENTS:
+        assert launches.get(name, 0) == 0, f"kernel {name} was launched by smoothing"
+    del frames, latents, r
+    torch.cuda.empty_cache()
+    _profile_unet_step("smooth", pipe, 4 * pipe.n_chunks, gen)
+    return launches
+
+
+def phase_train_options(dev: torch.device) -> None:
+    """A tiny-width ``--mode trans`` fit on the card with ``--use-8bit-adam``, a validation
+    pair rendered every step and ``--report-to tensorboard`` where the package is there:
+    the trainables move through 8-bit moments and the GIFs and event file are written."""
+    import importlib.util
+    import tempfile
+
+    from lkgd_torch.cli import train_svd_lora as cli
+    from lkgd_torch.training.optim8bit import AdamW8bit, opt_state_bytes
+
+    unet, vae, clip = _tiny_widths()
+    tensorboard = importlib.util.find_spec("tensorboard") is not None
+    with tempfile.TemporaryDirectory() as out:
+        from PIL import Image
+
+        rng = np.random.default_rng(4)
+        paths = []
+        for i in range(2):
+            paths.append(os.path.join(out, f"v{i}.png"))
+            Image.fromarray((rng.uniform(size=(40, 60, 3)) * 255).astype(np.uint8)).save(
+                paths[-1])
+        args = cli.make_parser().parse_args(
+            ["--mode", "trans", "--output-dir", out, "--height", "48", "--width", "48",
+             "--num-frames", "4", "--rank", "2", "--max-steps", "2", "--checkpoint-every",
+             "0", "--use-8bit-adam", "--validation-every", "1", "--num-validation-steps", "2",
+             "--validation-image", paths[0], "--validation-image", paths[1], "--device",
+             str(dev), "--report-to", "tensorboard" if tensorboard else "jsonl"])
+        run = cli.build(args, cli.Widths(unet=unet, vae=vae, clip=clip))
+        run.trainer.config.log_every = 1
+        optimizer = run.trainer.state.optimizer.adamw
+        assert isinstance(optimizer, AdamW8bit)
+        before = {n: p.detach().clone() for n, p in run.trainer.state.trainables.items()}
+        gen = torch.Generator(device=dev).manual_seed(6)
+        clips = [{"pixel_values": torch.rand((1, 5, 48, 48, 3), generator=gen, device=dev)
+                  * 2 - 1} for _ in range(2)]
+        t0 = time.perf_counter()
+        run.trainer.fit(iter(clips))
+        torch.cuda.synchronize()
+        moved = sum(not torch.equal(p, before[n])
+                    for n, p in run.trainer.state.trainables.items())
+        gifs = sorted(os.listdir(os.path.join(out, "validation")))
+        events = [f for _, _, files in os.walk(os.path.join(out, "tb")) for f in files] \
+            if tensorboard else []
+        records = [json.loads(line) for line in
+                   (Path(out) / "metrics.jsonl").read_text().splitlines()]
+        print(f"[train-options] tiny trans fit on the card, 2 steps in "
+              f"{time.perf_counter() - t0:.2f} s: 8-bit moments {opt_state_bytes(optimizer)} "
+              f"bytes for {sum(p.numel() for p in before.values())} trainable values, "
+              f"{moved}/{len(before)} trainables moved | validation GIFs {gifs} | tensorboard "
+              f"{'event files ' + str(len(events)) if tensorboard else 'not installed'} | "
+              f"records {records}", flush=True)
+        assert gifs == ["step1_sample0.gif", "step2_sample0.gif"], gifs
+        assert int(optimizer.state.count) == 2 and moved >= len(before) - 8
+        assert all(np.isfinite(r["train_loss"]) for r in records if "train_loss" in r)
+        assert {"step": 2, "val_num_samples": 1} in records
+        assert not tensorboard or events
 
 
 def phase_experiments(dev: torch.device) -> dict:
@@ -1030,60 +1217,91 @@ def _relayout_host_line() -> None:
           flush=True)
 
 
-def _tiny_train_unet(device):
-    from lkgd_torch.cli.train_svd_lora import trainable
+def _tiny_train_unet(device, mode: str):
+    """The tiny UNet of ``--mode lkgd`` (the configuration of tests/test_training.py:18-24,
+    knowledge fusion and a rank-2 temporal LoRA) or ``--mode trans`` (the training CLI's
+    joint branch and yx/xy/y adapters at rank 2), with remat, fp32."""
+    from lkgd_torch.cli import train_svd_lora as cli
     from lkgd_torch.models.configs import LoraRouter, LoraRule, SVDUNetConfig
     from lkgd_torch.models.layers import materialize
     from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
 
-    # the tiny LKGD configuration of tests/test_training.py:18-24, with remat
-    config = SVDUNetConfig(
-        block_out_channels=(32, 64),
-        down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
-        up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
-        layers_per_block=1, num_attention_heads=(2, 4), cross_attention_dim=64,
-        knowledge_fusion=True, remat=True,
-        lora=LoraRouter(rules=(LoraRule(pattern="*temporal*attn1.*", name="ft", rank=2),)))
+    unet = _tiny_widths()[0]
+    if mode == "lkgd":
+        config = SVDUNetConfig(
+            **unet, knowledge_fusion=True, remat=True,
+            lora=LoraRouter(rules=(LoraRule(pattern="*temporal*attn1.*", name="ft", rank=2),)))
+    else:
+        args = cli.make_parser().parse_args(["--mode", "trans", "--num-frames", "4", "--rank",
+                                             "2", "--remat"])
+        config = cli.unet_config(args, cli.Widths(unet=unet))
+    predicate = cli.trainable if mode == "lkgd" else cli.trainable_trans
     return materialize(lambda: UNetSpatioTemporalCondition(config), device, torch.float32,
-                       fp32=trainable)
+                       fp32=predicate), predicate
 
 
-def phase_train_tiny(dev: torch.device) -> None:
-    from lkgd_torch.cli.train_svd_lora import trainable
+def _cpu_step_from(start: dict, grads: dict) -> dict:
+    """The CPU's AdamW step (lr 1e-3, the global-norm clip) from the trainables ``start``
+    with the gradients ``grads`` (None where a trainable has none)."""
+    from lkgd_torch.training import train_state as ts
+
+    params = torch.nn.ParameterList([torch.nn.Parameter(start[n].clone()) for n in start])
+    optimizer = ts.make_optimizer(1e-3)
+    optimizer.init(params)
+    for p, name in zip(params, start):
+        p.grad = None if grads[name] is None else grads[name].clone()
+    optimizer.step()
+    return {name: p.detach() for name, p in zip(start, params)}
+
+
+def phase_train_tiny(dev: torch.device, mode: str) -> None:
+    """One train step of the tiny UNet of ``mode`` on the GPU against the CPU at fp32 with
+    the same weights and injected draws: the loss, every trainable gradient (a trainable
+    without one, attn2's query and key in trans mode, must lack it on both) and the
+    trainables after the step, against the CPU's own step (lkgd mode) and against the CPU's
+    AdamW applied to the GPU's gradients (both modes: Adam's first step divides each
+    gradient by its own size plus 1e-8, so an entry near 1e-8 turns the gradients' last-bit
+    differences into differences of the step); frozen weights bit-identical."""
     from lkgd_torch.models.layers import init_params
     from lkgd_torch.ops import group_norm as gn
     from lkgd_torch.training import train_state as ts
 
-    cpu = _tiny_train_unet("cpu")
+    label = "train-tiny" if mode == "lkgd" else "train-trans-tiny"
+    cpu, trainable = _tiny_train_unet("cpu", mode)
     gen = torch.Generator().manual_seed(11)
     init_params(cpu, gen)
-    with torch.no_grad():  # LoRA B and the text vectors start at zero: make their paths count
+    with torch.no_grad():  # LoRA B, conv1n and the text vectors start at zero: make them count
         for name, p in cpu.named_parameters():
             if trainable(name):
                 p.add_(torch.randn(p.shape, generator=gen) * 0.05)
-    gpu = _tiny_train_unet(dev)
+    gpu, _ = _tiny_train_unet(dev, mode)
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     rng = np.random.default_rng(21)
     b, t, hw = 2, 4, 8
     batch = {"latents": rng.standard_normal((b, t, hw, hw, 4)) * 0.5,
              "cond_latents": rng.standard_normal((b, hw, hw, 4)),
-             "image_embeddings": rng.standard_normal((b, 1, 64)),
-             "domain_features": rng.standard_normal((b, 1, 48)),
-             "flow_features": rng.standard_normal((b, 1, 48))}
-    draws = {"sigmas": np.array([0.7, 3.0]), "noise": rng.standard_normal((b, t, hw, hw, 4)),
-             "dropout_u": np.array([0.61, 0.06])}  # each dropout mask acts on one sample
-    config = ts.SVDTrainConfig(conditioning_dropout_prob=0.3)
+             "image_embeddings": rng.standard_normal((b, 1, 64))}
+    if mode == "lkgd":
+        batch.update(domain_features=rng.standard_normal((b, 1, 48)),
+                     flow_features=rng.standard_normal((b, 1, 48)))
+        draws = {"sigmas": np.array([0.7, 3.0]), "dropout_u": np.array([0.61, 0.06])}
+    else:  # one [x, y] pair: one sigma; y keeps its embedding and loses its image
+        draws = {"sigmas": np.array([1.3, 1.3]), "dropout_u": np.array([0.96, 0.76])}
+    draws["noise"] = rng.standard_normal((b, t, hw, hw, 4))
+    config = ts.SVDTrainConfig(conditioning_dropout_prob=0.3, tie_stream_pairs=mode == "trans")
     results = {}
     for side, unet, device in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
         tensors = {k: torch.tensor(v, dtype=torch.float32, device=device)
                    for k, v in {**batch, **draws}.items()}
         state = ts.init_train_state(unet, ts.make_optimizer(1e-3, trainable_predicate=trainable))
         frozen = {n: p.detach().clone() for n, p in unet.named_parameters() if not trainable(n)}
+        start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
         gn_before = gn.launches["gn_stats"]
         loss = ts.svd_loss(unet, {k: tensors[k] for k in batch}, config,
                            **{k: tensors[k] for k in draws})
         loss.backward()
-        grads = {n: p.grad.detach().cpu().clone() for n, p in state.trainables.items()}
+        grads = {n: None if p.grad is None else p.grad.detach().cpu().clone()
+                 for n, p in state.trainables.items()}
         state.optimizer.step()
         if device != "cpu":
             torch.cuda.synchronize()
@@ -1095,21 +1313,32 @@ def phase_train_tiny(dev: torch.device) -> None:
                          gn.launches["gn_stats"] - gn_before)
     (loss_c, grads_c, after_c, _), (loss_g, grads_g, after_g, gn_calls) = \
         results["cpu"], results["gpu"]
+    want_g = _cpu_step_from(start, grads_g)
+    unused = sorted(n for n, g in grads_c.items() if g is None)
+    assert unused == sorted(n for n, g in grads_g.items() if g is None), "unused trainables"
+    used = [n for n in grads_c if grads_c[n] is not None]
     grad_err = max(((grads_g[n] - grads_c[n]).abs().max() / grads_c[n].abs().max().clamp_min(
-        1e-12)).item() for n in grads_c)
+        1e-12)).item() for n in used)
     step_err = max((after_g[n] - after_c[n]).abs().max().item() for n in after_c)
-    print(f"[train-tiny] GPU vs CPU fp32: loss {loss_g:.6f} vs {loss_c:.6f} | {len(grads_c)} "
-          f"trainable grads, max |d|/max|ref| {grad_err:.3e} | after one step max|d| "
-          f"{step_err:.3e} (rtol 1e-4, atol 2e-4) | frozen bit-identical | GroupNorm kernel "
-          f"launches {gn_calls}", flush=True)
+    own_err = max((after_g[n] - want_g[n]).abs().max().item() for n in after_c)
+    print(f"[{label}] GPU vs CPU fp32: loss {loss_g:.6f} vs {loss_c:.6f} | {len(used)} "
+          f"trainable grads, max |d|/max|ref| {grad_err:.3e} ({len(unused)} trainables "
+          f"without a gradient on both) | after one step max|d| {step_err:.3e}, against the "
+          f"CPU's step from the GPU's gradients {own_err:.3e} (rtol 1e-4, atol 2e-4) | frozen "
+          f"bit-identical | GroupNorm kernel launches {gn_calls}", flush=True)
     assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+    assert all(".attn2.to_q." in n or ".attn2.to_k." in n for n in unused), unused
     for name in grads_c:
-        assert torch.isfinite(grads_g[name]).all(), name
-        scale = grads_c[name].abs().max().clamp_min(1e-12)
-        torch.testing.assert_close(grads_g[name] / scale, grads_c[name] / scale, rtol=1e-4,
-                                   atol=2e-4, msg=name)
-        torch.testing.assert_close(after_g[name], after_c[name], rtol=1e-4, atol=2e-4,
+        if name in used:
+            assert torch.isfinite(grads_g[name]).all(), name
+            scale = grads_c[name].abs().max().clamp_min(1e-12)
+            torch.testing.assert_close(grads_g[name] / scale, grads_c[name] / scale,
+                                       rtol=1e-4, atol=2e-4, msg=name)
+        torch.testing.assert_close(after_g[name], want_g[name], rtol=1e-4, atol=2e-4,
                                    msg=name)
+        if mode == "lkgd":
+            torch.testing.assert_close(after_g[name], after_c[name], rtol=1e-4, atol=2e-4,
+                                       msg=name)
     assert gn_calls > 0, "the tiny GPU train step must run the GroupNorm kernels"
 
 
@@ -1129,18 +1358,22 @@ def _read_safetensors(path: str) -> dict:
     return out
 
 
-def phase_train_full(dev: torch.device) -> dict:
+def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
+    """The fine-tune of ``--mode`` at full width, 512x512x8f, one clip a step (in trans mode
+    one [clip, flipped clip] pair, 2 UNet rows, where the flash forwards launched inside the
+    joint branch's ``attn1n`` calls are counted by module hooks)."""
     import tempfile
 
     from lkgd_torch.cli import train_svd_lora as cli
     from lkgd_torch.ops import flash_attention as fa
 
+    label = "train" if mode == "lkgd" else "train-trans"
     with tempfile.TemporaryDirectory() as out_dir:
         args = cli.make_parser().parse_args([
-            "--output-dir", out_dir, "--height", "512", "--width", "512", "--num-frames", "8",
-            "--per-device-batch-size", "1", "--rank", "4", "--learning-rate", "2e-4",
-            "--remat", "--dtype", "bf16", "--device", str(dev), "--checkpoint-every", "0",
-            "--max-steps", "1", "--seed", "0"])
+            "--mode", mode, "--output-dir", out_dir, "--height", "512", "--width", "512",
+            "--num-frames", "8", "--per-device-batch-size", "1", "--rank", "4",
+            "--learning-rate", "2e-4", "--remat", "--dtype", "bf16", "--device", str(dev),
+            "--checkpoint-every", "0", "--max-steps", "1", "--seed", "0"])
         t0 = time.perf_counter()
         run = cli.build(args)
         trainer = run.trainer
@@ -1152,14 +1385,14 @@ def phase_train_full(dev: torch.device) -> dict:
         n_train = sum(p.numel() for p in trainables.values())
         n_all = sum(p.numel() for p in run.unet.parameters())
         torch.cuda.synchronize()
-        print(f"[train] LKGD fine-tune 512x512x8f, batch 1: UNet {n_all / 1e9:.3f} B params, "
+        print(f"[{label}] {mode} fine-tune 512x512x8f, batch 1: UNet {n_all / 1e9:.3f} B params, "
               f"{len(trainables)} trainable tensors ({n_train / 1e6:.3f} M, fp32), set-up "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         t0 = time.perf_counter()
         trainer.fit(iter(clips[:1]))  # warm-up step
         torch.cuda.synchronize()
-        print(f"[train] warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+        print(f"[{label}] warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
 
         # In the timed windows the step keeps its loss on the device and records a CUDA
         # event after itself; with no log due, nothing in a window waits on the host, and
@@ -1202,6 +1435,15 @@ def phase_train_full(dev: torch.device) -> dict:
         finite = []
         hooks = [p.register_post_accumulate_grad_hook(
             lambda p: finite.append(torch.isfinite(p.grad).all())) for p in trainables.values()]
+        # the flash forwards (one key-norm launch each) inside attn1n calls, remat included
+        joint_flash, opened = [0], {}
+        for name, module in run.unet.named_modules():
+            if name.endswith(".attn1n"):
+                hooks.append(module.register_forward_pre_hook(
+                    lambda m, a: opened.__setitem__(m, fa.launches["flash_key_norm"])))
+                hooks.append(module.register_forward_hook(
+                    lambda m, a, o: joint_flash.__setitem__(
+                        0, joint_flash[0] + fa.launches["flash_key_norm"] - opened[m])))
         _zero_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
@@ -1251,13 +1493,13 @@ def phase_train_full(dev: torch.device) -> dict:
         step_losses = [x.item() for x in losses[:3]]
         records = [json.loads(line) for line in
                    (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
-        print(f"[train] {step_s:.3f} s/step = preprocessing {pre_s:.3f} s + train step "
+        print(f"[{label}] {step_s:.3f} s/step = preprocessing {pre_s:.3f} s + train step "
               f"{step_s - pre_s:.3f} s (3 steps after the warm-up, between CUDA events; "
               f"preprocessing timed alone on the same clips), host CPU {cpu_s:.3f} s/step | "
               f"peak memory {peak / 2**30:.2f} GiB | losses {step_losses} | launches "
               f"{launches} | trainables moved {len(moved)}/{len(trainables)} | grads finite "
               f"{len(finite)} checks | {host_line()}", flush=True)
-        print(f"[train] profiled window: {prof_step_s:.3f} s/step (3 steps under "
+        print(f"[{label}] profiled window: {prof_step_s:.3f} s/step (3 steps under "
               f"torch.profiler), host CPU {prof_cpu_s:.3f} s/step, device busy "
               f"{device_ms / 3:.1f} ms/step = {100 * busy:.1f}% of the window (kernels, copies "
               f"and fills: {n_device / 3:.0f} a step; device-to-host copies after the window "
@@ -1266,7 +1508,7 @@ def phase_train_full(dev: torch.device) -> dict:
               f"{relayout}; relayout launches a step {relayouts_per_step:.0f} (split "
               f"{launches['split_heads'] / 3:.0f}, merge {launches['merge_heads'] / 3:.0f})",
               flush=True)
-        print(f"[train] profiled window, flash kernels by name (device ms, launches over the 3 "
+        print(f"[{label}] profiled window, flash kernels by name (device ms, launches over the 3 "
               f"steps): {flash}", flush=True)
         # <DP, BOUND, LSE>: the training forward is the wgmma kernel's LSE form, both ways
         for form in ("<64,true,true>", "<64,false,true>"):
@@ -1275,14 +1517,23 @@ def phase_train_full(dev: torch.device) -> dict:
         backward = {name: flash.get(name) for name in ("flash_bwd_dq_kernel<64>",
                                                        "flash_bwd_dkv_kernel<64>")}
         assert all(backward.values()), (backward, sorted(flash))
-        print(f"[train] profiled window, backward kernels a step: " + ", ".join(
+        print(f"[{label}] profiled window, backward kernels a step: " + ", ".join(
             f"{name} {ms / 3:.3f} ms, {n / 3:.0f} launches" for name, (ms, n) in backward.items()),
             flush=True)
         assert trainer.state.step == 7 and all(np.isfinite(step_losses)), step_losses
         assert [r["step"] for r in records] == [1] and np.isfinite(records[0]["train_loss"])
-        assert len(finite) == 3 * len(trainables) and torch.stack(finite).all().item(), \
-            "non-finite gradient"
-        assert len(moved) == len(trainables), "a trainable did not move"
+        # trans mode: attn2's query and key adapters get no gradient (one key), and their
+        # B factors, zero at init, stay where they were
+        still = sorted(set(trainables) - set(moved))
+        no_grad = [n for n in trainables if ".attn2.to_q." in n or ".attn2.to_k." in n]
+        assert all(".attn2.to_q.lora" in n and n.endswith("_B")
+                   or ".attn2.to_k.lora" in n and n.endswith("_B") for n in still), still
+        assert len(finite) == 3 * (len(trainables) - len(no_grad)) \
+            and torch.stack(finite).all().item(), "non-finite gradient"
+        assert mode == "trans" or not still, "a trainable did not move"
+        if mode == "trans":
+            moved_joint = [n for n in moved if ".conv1n." in n or ".attn1n.to_q.weight" in n]
+            assert moved_joint, "the joint branch did not move"
         for name, p in run.unet.named_parameters():
             if name in frozen:
                 assert torch.equal(p, frozen[name]), f"frozen {name} moved"
@@ -1294,16 +1545,23 @@ def phase_train_full(dev: torch.device) -> dict:
         # training forward (remat included) and each backward
         calls = launches["flash_bound_lse"] + launches["flash_bwd_dq"]
         assert launches["split_heads"] == launches["merge_heads"] == calls, launches
-        assert relayouts_per_step == 54, relayouts_per_step
+        if mode == "lkgd":
+            assert relayouts_per_step == 54, relayouts_per_step
+            assert joint_flash[0] == 0
+        else:
+            print(f"[{label}] the joint branch's attn1n launched {joint_flash[0] / 3:.0f} of "
+                  f"the {launches['flash_key_norm'] / 3:.0f} flash forwards a step (remat "
+                  f"included)", flush=True)
+            assert joint_flash[0] > 0, "the joint branch ran no flash kernel"
         assert busy > 0.0, busy
 
         path = str(Path(out_dir) / "model.safetensors")
-        n = cli.export_trainable_safetensors(run.unet, cli.trainable, path)
+        n = cli.export_trainable_safetensors(run.unet, run.trainable, path)
         exported = _read_safetensors(path)
         assert n == len(exported) and sorted(exported) == sorted(trainables)
         for name, value in exported.items():
             assert np.array_equal(value, trainables[name].detach().float().cpu().numpy()), name
-        print(f"[train] export: {n} tensors, {os.path.getsize(path) / 2**20:.2f} MiB, read back "
+        print(f"[{label}] export: {n} tensors, {os.path.getsize(path) / 2**20:.2f} MiB, read back "
               f"equal", flush=True)
     return launches
 
@@ -1328,21 +1586,29 @@ def main() -> int:
     kernels = phase_kernels(dev, torch.Generator(device=dev).manual_seed(1234))
     kernels.update(phase_experiment_kernels(dev, torch.Generator(device=dev).manual_seed(99)))
     phase_tiny(dev)
-    phase_tiny_trans(dev)
+    phase_tiny_joint(dev, "trans")
+    phase_tiny_joint(dev, "smooth")
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
     torch.cuda.empty_cache()
+    smooth_launches = phase_smooth_full(dev)
+    torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
-    phase_train_tiny(dev)
+    phase_train_tiny(dev, "lkgd")
+    phase_train_tiny(dev, "trans")
     train_launches = phase_train_full(dev)
     torch.cuda.empty_cache()
+    train_trans_launches = phase_train_full(dev, "trans")
+    torch.cuda.empty_cache()
+    phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
-    # the base clip, the training kernels' from the counted training steps, the
+    # the base clip, the training kernels' from the counted LKGD training steps, the
     # microbenchmark kernels' from their entry points); every path's count under
     # launches_by_path
-    by_path = {"clip": clip_launches, "trans": trans_launches, "train": train_launches,
+    by_path = {"clip": clip_launches, "trans": trans_launches, "smooth": smooth_launches,
+               "train": train_launches, "train_trans": train_trans_launches,
                "experiments": experiment_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
            **dict.fromkeys(EXPERIMENTS, "experiments")}

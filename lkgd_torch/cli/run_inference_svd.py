@@ -1,5 +1,5 @@
 """Image-to-video inference with the PyTorch port (counterpart of
-``lkgd_tpu/cli/run_inference_svd.py``, modes ``base`` and ``trans``).
+``lkgd_tpu/cli/run_inference_svd.py``, modes ``base``, ``trans`` and ``smooth``).
 
 Examples::
 
@@ -11,10 +11,15 @@ Examples::
   python -m lkgd_torch.cli.run_inference_svd --mode trans --image start.png \
       --end-image end.png --joint-mask 0,1,0,1 --flip --lora-rank 4
 
+  # long-video smoothing: the first 50 frames of a video re-denoised from step 10 in
+  # 14-frame joint chunks whose boundaries move from step to step
+  python -m lkgd_torch.cli.run_inference_svd --mode smooth --image clip.mp4 \
+      --smooth-total-frames 50 --smooth-start-step 10 --flip --temporal --lora-rank 4
+
 It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
 unless ``--device cpu`` is given. The weights are random, drawn from ``--seed`` at the real
 shapes (smoke and benchmark mode): loading a checkpoint (``--weights``) waits until one is
-in the repository. The modes ``smooth``, ``flow`` and ``controlnet`` are not ported.
+in the repository. The modes ``flow`` and ``controlnet`` are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from lkgd_torch.models.configs import (CLIPVisionConfig, JointAttentionConfig, LoraRouter,
                                        LoraRule, SVDUNetConfig, TemporalVAEConfig)
 from lkgd_torch.pipelines.svd import StableVideoDiffusionPipeline, SVDPipelineConfig
+from lkgd_torch.pipelines.svd_smooth import StableVideoDiffusionSmoothPipeline
 from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -45,8 +51,10 @@ class Widths:
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=["base", "trans"], default="base")
-    p.add_argument("--image", required=True)
+    p.add_argument("--mode", choices=["base", "trans", "smooth"], default="base")
+    p.add_argument("--image", required=True,
+                   help="the first frame; in smooth mode the video whose first "
+                        "--smooth-total-frames frames are smoothed")
     p.add_argument("--end-image", help="trans mode: the end frame (default: --image again)")
     p.add_argument("--output", default="output.gif")
     p.add_argument("--height", type=int, default=576)
@@ -68,6 +76,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--nospatial", action="store_true")
     p.add_argument("--lora-rank", type=int, default=0)
     p.add_argument("--knowledge-fusion", action="store_true")
+    p.add_argument("--smooth-start-step", type=int, default=10,
+                   help="smooth mode: the step the video is noised to and denoised from")
+    p.add_argument("--smooth-total-frames", type=int, default=50,
+                   help="smooth mode: how many frames of --image are smoothed")
     p.add_argument("--sequential-cfg", action="store_true",
                    help="run the two CFG halves one after the other: a lower peak of "
                         "activation memory in the denoising loop")
@@ -78,11 +90,12 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def unet_config(args, widths: Widths = Widths()) -> SVDUNetConfig:
-    """The UNet of ``--mode``: in trans mode the joint topology and, with ``--lora-rank``,
-    the two stream-masked adapters (``yx_lora`` on the joint branch's ``attn1n`` for the
-    mask's streams, ``xy_lora`` on the temporal self-attention for the others)."""
+    """The UNet of ``--mode``: in trans and smooth mode the joint topology and, with
+    ``--lora-rank``, the two stream-masked adapters (``yx_lora`` on the joint branch's
+    ``attn1n`` for the mask's streams, ``xy_lora`` on the temporal self-attention for the
+    others)."""
     joint, lora = None, LoraRouter()
-    if args.mode == "trans":
+    if args.mode in ("trans", "smooth"):
         mask = tuple(int(x) for x in args.joint_mask.split(","))
         joint = JointAttentionConfig(post=args.post_joint, flip=args.flip, mask=mask,
                                      spatial=not args.nospatial, temporal=args.temporal)
@@ -104,10 +117,15 @@ def build_pipeline(args, widths: Widths = Widths()) -> StableVideoDiffusionPipel
         max_guidance_scale=args.max_guidance_scale, fps=args.fps,
         motion_bucket_id=args.motion_bucket_id, noise_aug_strength=args.noise_aug_strength,
         decode_chunk_size=args.decode_chunk_size, sequential_cfg=args.sequential_cfg)
-    cls = StableVideoDiffusionTransPipeline if args.mode == "trans" \
-        else StableVideoDiffusionPipeline
-    pipe = cls(config=config, unet_config=unet_config(args, widths), vae_config=widths.vae,
-               clip_config=widths.clip, dtype=_DTYPES[args.dtype], device=args.device)
+    kw = dict(config=config, unet_config=unet_config(args, widths), vae_config=widths.vae,
+              clip_config=widths.clip, dtype=_DTYPES[args.dtype], device=args.device)
+    if args.mode == "smooth":
+        pipe = StableVideoDiffusionSmoothPipeline(
+            **kw, start_step=args.smooth_start_step, total_frames=args.smooth_total_frames)
+    elif args.mode == "trans":
+        pipe = StableVideoDiffusionTransPipeline(**kw)
+    else:
+        pipe = StableVideoDiffusionPipeline(**kw)
     print("random weights from --seed (no checkpoint is loaded)")
     pipe.init_params(torch.Generator(device=pipe.device).manual_seed(args.seed))
     return pipe
@@ -119,8 +137,14 @@ def main(argv=None, widths: Widths = Widths()) -> None:
     from lkgd_torch.data.video_io import load_input, process_frames, write_video
 
     pipe = build_pipeline(args, widths)
-    image = process_frames(load_input(args.image)[:1], args.height, args.width)
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
+    if args.mode == "smooth":
+        video = load_input(args.image)[:args.smooth_total_frames]
+        out = pipe(process_frames(video, args.height, args.width), generator=generator)[0]
+        write_video(args.output, out, fps=args.fps)
+        print(f"wrote {args.output}: {out.shape}")
+        return
+    image = process_frames(load_input(args.image)[:1], args.height, args.width)
     if args.mode == "trans":
         end_frames = load_input(args.end_image or args.image)
         end_image = process_frames(end_frames[-1:], args.height, args.width)[0]

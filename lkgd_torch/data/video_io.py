@@ -107,11 +107,21 @@ def load_input(path: str, max_frames: Optional[int] = None) -> np.ndarray:
 
 
 def write_video(path: str, frames: np.ndarray, fps: int = 7) -> None:
-    """frames (T, H, W, 3) in [0,1] -> mp4/gif."""
-    import imageio.v3 as iio
-
+    """frames (T, H, W, 3) in [0,1] -> mp4/gif. A GIF is written by PIL alone where imageio
+    is not installed (imageio's GIF writer is PIL's)."""
     arr = (np.clip(frames, 0, 1) * 255).astype(np.uint8)
     ext = os.path.splitext(path)[1].lower()
+    try:
+        import imageio.v3 as iio
+    except ImportError:
+        if ext != ".gif":
+            raise
+        from PIL import Image
+
+        images = [Image.fromarray(frame) for frame in arr]
+        images[0].save(path, save_all=True, append_images=images[1:],
+                       duration=int(1000 / fps), loop=0)
+        return
     if ext == ".gif":
         iio.imwrite(path, arr, duration=int(1000 / fps), loop=0)
         return

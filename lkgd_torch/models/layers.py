@@ -79,7 +79,16 @@ def share_parameters(src: nn.Module, dst: nn.Module) -> nn.Module:
     return dst
 
 
-class ZeroInitLinear(nn.Linear):
+class CastLinear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype at use, so that a
+    trained layer may keep fp32 parameters in a bf16 model (a no-op where they agree)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class ZeroInitLinear(CastLinear):
     """A linear layer that ``init_params`` fills with zeros (the JAX modules'
     ``kernel_init=zeros`` projections, which add nothing until trained)."""
 
@@ -179,10 +188,10 @@ def _stream_gate(mask: Tuple[int, ...], rows: int, dtype, device: torch.device) 
             rows // len(mask))
 
 
-class DenseWithLora(nn.Linear):
-    """``nn.Linear`` with zero or more statically routed LoRA adapters folded in. Adapter
-    factors are cast to the input's dtype at use, so they may be stored in fp32 beside a
-    bf16 weight."""
+class DenseWithLora(CastLinear):
+    """``nn.Linear`` with zero or more statically routed LoRA adapters folded in. The weight,
+    bias and adapter factors are cast to the input's dtype at use, so that trained ones may
+    be stored in fp32 in a bf16 model."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  adapters: Tuple[LoraSpec, ...] = ()):

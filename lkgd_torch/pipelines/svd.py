@@ -70,7 +70,9 @@ class StableVideoDiffusionPipeline:
     """Image -> video. The models are allocated on ``device`` (the card unless another is
     named; with no card and no explicit ``"cpu"`` the constructor raises) in ``dtype`` with
     uninitialised weights: fill them with ``init_params(generator)`` or
-    ``<model>.load_state_dict(...)``."""
+    ``<model>.load_state_dict(...)``. ``models``: ``(unet, vae, image_encoder)`` already
+    built on ``device`` (a trainer's, for validation), run as they are: nothing is
+    allocated or copied, and their ``requires_grad`` flags are left alone."""
 
     def __init__(
         self,
@@ -81,24 +83,28 @@ class StableVideoDiffusionPipeline:
         scheduler_config: EulerDiscreteConfig = EulerDiscreteConfig.svd(),
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        models: Optional[tuple] = None,
     ):
         self.config = config
         self.dtype = dtype
         self.device = require_device(device)
-        self.unet = materialize(lambda: UNetSpatioTemporalCondition(unet_config),
-                                self.device, dtype)
+        if models is None:
+            self.unet = materialize(lambda: UNetSpatioTemporalCondition(unet_config),
+                                    self.device, dtype)
+            self.vae = materialize(lambda: AutoencoderKLTemporalDecoder(vae_config),
+                                   self.device, dtype)
+            self.image_encoder = materialize(
+                lambda: CLIPVisionModelWithProjection(clip_config), self.device, dtype)
+            for model in self.models:
+                model.eval().requires_grad_(False)
+        else:
+            self.unet, self.vae, self.image_encoder = models
         self.unet_seq = None
         if config.sequential_cfg:
             # the same parameters under the stream masks of one CFG side
             with torch.device("meta"):
                 seq = UNetSpatioTemporalCondition(halve_stream_masks(unet_config))
             self.unet_seq = share_parameters(self.unet, seq).eval()
-        self.vae = materialize(lambda: AutoencoderKLTemporalDecoder(vae_config),
-                               self.device, dtype)
-        self.image_encoder = materialize(lambda: CLIPVisionModelWithProjection(clip_config),
-                                         self.device, dtype)
-        for model in self.models:
-            model.eval().requires_grad_(False)
         self.scheduler = EulerDiscreteScheduler(scheduler_config)
         self.schedule = self.scheduler.set_timesteps(config.num_inference_steps, self.device)
         self.vae_scaling = vae_config.scaling_factor

@@ -4,6 +4,7 @@
 The schedule is computed once on the host in numpy (float64), exactly as the JAX
 package does, and held as fp32 tensors; ``scale_model_input`` and ``step`` are pure
 functions of ``(schedule, step index, tensors)``. The sampling loop is a Python loop.
+``add_noise`` takes integer step indices into the sigmas, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -188,23 +189,66 @@ class EulerDiscreteScheduler:
         return sample / torch.sqrt(sigma**2 + 1.0)
 
     def step(self, schedule: Schedule, model_output: torch.Tensor, step_index: int,
-             sample: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One deterministic Euler (EDM) update (s_churn = 0, the ODE step every
-        reference pipeline uses); fp32 inside. Returns ``(prev_sample, pred_original)``."""
+             sample: torch.Tensor, *, s_churn: float = 0.0, s_noise: float = 1.0,
+             noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One Euler (EDM) update; fp32 inside. Returns ``(prev_sample, pred_original)``.
+
+        With the default ``s_churn=0`` it is the deterministic ODE step every reference
+        pipeline uses; ``s_churn > 0`` first raises the sample's noise level by a factor
+        ``gamma + 1``, with ``noise`` (standard normals of the sample's shape) given."""
         dtype = model_output.dtype
         sample = sample.float()
         model_output = model_output.float()
         sigma = schedule.sigmas[step_index]
+        if s_churn > 0.0:
+            if noise is None:
+                raise ValueError("s_churn > 0 requires an explicit `noise` array")
+            gamma = min(s_churn / (schedule.sigmas.shape[0] - 1), 2**0.5 - 1)
+            sigma_hat = sigma * (gamma + 1.0)
+            sample = sample + noise.float() * s_noise * torch.sqrt(
+                torch.clamp(sigma_hat**2 - sigma**2, min=0.0))
+        else:
+            sigma_hat = sigma
         pred = self.config.prediction_type
         if pred in ("original_sample", "sample"):
             pred_original = model_output
         elif pred == "epsilon":
-            pred_original = sample - sigma * model_output
+            pred_original = sample - sigma_hat * model_output
         elif pred == "v_prediction":
             pred_original = (model_output * (-sigma / torch.sqrt(sigma**2 + 1.0))
                              + sample / (sigma**2 + 1.0))
         else:
             raise ValueError(f"prediction_type={pred}")
-        derivative = (sample - pred_original) / sigma
-        prev_sample = sample + derivative * (schedule.sigmas[step_index + 1] - sigma)
+        derivative = (sample - pred_original) / sigma_hat
+        prev_sample = sample + derivative * (schedule.sigmas[step_index + 1] - sigma_hat)
         return prev_sample.to(dtype), pred_original.to(dtype)
+
+    def add_noise(self, schedule: Schedule, original_samples: torch.Tensor,
+                  noise: torch.Tensor, step_indices) -> torch.Tensor:
+        """``x + sigma[i] * noise``, each row's sigma broadcast over its trailing dims.
+        ``step_indices`` are integer indices into ``schedule.sigmas`` (not timesteps), one
+        per leading row."""
+        idx = torch.as_tensor(step_indices, dtype=torch.long, device=schedule.sigmas.device)
+        sigma = schedule.sigmas[idx].to(original_samples.dtype)
+        sigma = sigma.reshape(sigma.shape + (1,) * (original_samples.dim() - sigma.dim()))
+        return original_samples + noise * sigma.to(original_samples.device)
+
+    def step_index_for_timestep(self, schedule: Schedule, timestep: float) -> int:
+        """The step index of ``timestep`` in the schedule: the *second* match where it
+        occurs twice, so that an img2img resume never skips a sigma."""
+        ts = schedule.timesteps.cpu().numpy()
+        candidates = np.nonzero(ts == timestep)[0]
+        if len(candidates) == 0:
+            raise ValueError(f"timestep {timestep} not in schedule")
+        return int(candidates[1] if len(candidates) > 1 else candidates[0])
+
+
+def config_from_diffusers_json(path: str) -> EulerDiscreteConfig:
+    """A scheduler config from a diffusers ``scheduler_config.json``: its fields that
+    ``EulerDiscreteConfig`` has, the others ignored."""
+    import json
+
+    with open(path) as f:
+        d = json.load(f)
+    fields = {f.name for f in dataclasses.fields(EulerDiscreteConfig)}
+    return EulerDiscreteConfig(**{k: v for k, v in d.items() if k in fields})

@@ -13,12 +13,13 @@ module, the optimizer, the step and the EMA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
 
 from lkgd_torch.training import edm
+from lkgd_torch.training.optim8bit import adamw8bit
 
 
 class MaskedAdamW:
@@ -30,17 +31,20 @@ class MaskedAdamW:
     ``max_norm / norm`` when ``norm >= max_norm`` (``clip_grad_norm_`` would divide by
     ``norm + 1e-6``), decided on the device with no host sync. torch's AdamW applies the
     decoupled weight decay ``p -= lr * wd * p`` and the bias-corrected Adam update as
-    ``optax.adamw`` does."""
+    ``optax.adamw`` does. ``use_8bit``: the moments held in 8 bits
+    (``training/optim8bit.py`` ``adamw8bit``; ``"packed"`` for its flat-packed form)."""
 
     def __init__(self, learning_rate: float = 1e-4, weight_decay: float = 1e-2,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  max_grad_norm: float = 1.0,
-                 trainable_predicate: Optional[Callable[[str], bool]] = None):
+                 trainable_predicate: Optional[Callable[[str], bool]] = None,
+                 use_8bit: Union[bool, str] = False):
         self.hyper = dict(lr=learning_rate, weight_decay=weight_decay, betas=(b1, b2), eps=eps)
         self.max_grad_norm = max_grad_norm
         self.predicate = trainable_predicate or (lambda name: True)
+        self.use_8bit = use_8bit
         self.params: Dict[str, nn.Parameter] = {}
-        self.adamw: Optional[torch.optim.AdamW] = None
+        self.adamw = None
 
     def init(self, module: nn.Module) -> None:
         """Mark the trainable parameters (and only those) as requiring grad."""
@@ -51,7 +55,14 @@ class MaskedAdamW:
                 self.params[name] = p
         if not self.params:
             raise ValueError("MaskedAdamW: the predicate selects no parameter")
-        self.adamw = torch.optim.AdamW(list(self.params.values()), **self.hyper)
+        params = list(self.params.values())
+        if self.use_8bit:
+            h = self.hyper
+            self.adamw = adamw8bit(params, h["lr"], *h["betas"], eps=h["eps"],
+                                   weight_decay=h["weight_decay"],
+                                   packed=self.use_8bit == "packed")
+        else:
+            self.adamw = torch.optim.AdamW(params, **self.hyper)
 
     @torch.no_grad()
     def clip_grads(self) -> torch.Tensor:
@@ -85,11 +96,12 @@ class MaskedAdamW:
 def make_optimizer(learning_rate: float = 1e-4, weight_decay: float = 1e-2,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                    max_grad_norm: float = 1.0,
-                   trainable_predicate: Optional[Callable[[str], bool]] = None) -> MaskedAdamW:
-    """AdamW with a global-norm clip over the trainable parameters (8-bit moments,
-    ``training/optim8bit.py``, are not ported: ROADMAP.md Queue 1, item 9)."""
+                   trainable_predicate: Optional[Callable[[str], bool]] = None,
+                   use_8bit: Union[bool, str] = False) -> MaskedAdamW:
+    """AdamW with a global-norm clip over the trainable parameters; ``use_8bit=True`` holds
+    the moments in 8 bits (``training/optim8bit.py``), ``"packed"`` in its packed form."""
     return MaskedAdamW(learning_rate, weight_decay, b1, b2, eps, max_grad_norm,
-                       trainable_predicate)
+                       trainable_predicate, use_8bit)
 
 
 @dataclasses.dataclass
@@ -118,12 +130,9 @@ class SVDTrainConfig:
     train_noise_aug: float = 0.02
     fps: int = 6
     motion_bucket_id: int = 127
-    tie_stream_pairs: bool = False  # joint two-stream batches: not ported yet
-
-    def __post_init__(self):
-        if self.tie_stream_pairs:
-            raise NotImplementedError("tie_stream_pairs (the trans mode's joint batches) is not "
-                                      "ported to lkgd_torch yet (ROADMAP.md Queue 1, item 8)")
+    # joint two-stream batches, rows interleaved [x0, y0, x1, y1, ...]: one sigma drawn a
+    # pair and repeated, so that coupled streams share their noise level
+    tie_stream_pairs: bool = False
 
 
 def svd_loss(unet: nn.Module, batch: dict, config: SVDTrainConfig,
@@ -136,11 +145,14 @@ def svd_loss(unet: nn.Module, batch: dict, config: SVDTrainConfig,
     first-frame latents, ``image_embeddings`` (B, 1, D), optional ``domain_features`` /
     ``flow_features`` (B, 1, K). ``sigmas`` (B,), ``noise`` (latents' shape, standard
     normal) and ``dropout_u`` (B,) uniform: given values in place of draws from
-    ``generator``."""
+    ``generator`` (``sigmas`` per row also under ``tie_stream_pairs``)."""
     latents = batch["latents"].float()
     bsz, num_frames = latents.shape[:2]
     device = latents.device
-    if sigmas is None:
+    if sigmas is None and config.tie_stream_pairs:
+        sigmas = edm.rand_cosine_interpolated((bsz // 2,), config.edm, generator=generator,
+                                              device=device).repeat_interleave(2)
+    elif sigmas is None:
         sigmas = edm.rand_cosine_interpolated((bsz,), config.edm, generator=generator,
                                               device=device)
     if noise is None:

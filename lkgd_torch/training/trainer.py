@@ -1,5 +1,6 @@
-"""The training loop: checkpoints with rotation and resume, EMA, JSONL metrics, and the
-export of the trained parameters (counterpart of ``lkgd_tpu/training/trainer.py``).
+"""The training loop: checkpoints with rotation and resume, EMA, JSONL metrics mirrored to
+an optional tracker (``utils/trackers.py``), validation every ``validation_every`` steps,
+and the export of the trained parameters (counterpart of ``lkgd_tpu/training/trainer.py``).
 
 A checkpoint holds the step, the trainable parameters, the optimizer state and the EMA,
 written with ``torch.save`` (the card's machine has no orbax). Frozen parameters never
@@ -14,7 +15,7 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -31,17 +32,25 @@ class TrainerConfig:
     checkpoints_total_limit: Optional[int] = 3
     log_every: int = 10
     seed: int = 42
+    validation_every: Optional[int] = None
 
 
 class Trainer:
     """Runs ``train_step(state, batch, generator) -> (state, loss)`` over batches. Random
     draws come from one ``torch.Generator`` on the model's device, seeded from
-    ``config.seed``."""
+    ``config.seed``. ``validation_fn(state, step) -> metrics`` runs every
+    ``config.validation_every`` steps, its metrics logged with a ``val_`` prefix;
+    ``tracker`` (``utils/trackers.py``) receives every record the JSONL file does and is
+    closed at the end of ``fit``."""
 
-    def __init__(self, train_step: Callable, state: TrainState, config: TrainerConfig):
+    def __init__(self, train_step: Callable, state: TrainState, config: TrainerConfig,
+                 validation_fn: Optional[Callable[[TrainState, int], Dict[str, Any]]] = None,
+                 tracker=None):
         self.train_step = train_step
         self.state = state
         self.config = config
+        self.validation_fn = validation_fn
+        self.tracker = tracker
         device = next(state.unet.parameters()).device
         self.generator = torch.Generator(device=device).manual_seed(config.seed)
         self.checkpoint_dir = Path(config.output_dir) / "checkpoints"
@@ -90,6 +99,8 @@ class Trainer:
     def _log(self, record: dict) -> None:
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+        if self.tracker is not None:
+            self.tracker.log(record, step=int(record.get("step", 0)))
 
     def fit(self, data: Iterable) -> TrainState:
         cfg = self.config
@@ -110,8 +121,14 @@ class Trainer:
                            "steps_per_sec": cfg.log_every / max(dt, 1e-9)})
             if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                 self.save_checkpoint(step)
+            if (self.validation_fn is not None and cfg.validation_every
+                    and step % cfg.validation_every == 0):
+                metrics = self.validation_fn(self.state, step) or {}
+                self._log({"step": step, **{f"val_{k}": v for k, v in metrics.items()}})
         if self.state.step > start_step:
             self.save_checkpoint(self.state.step)
+        if self.tracker is not None:
+            self.tracker.close()
         return self.state
 
 

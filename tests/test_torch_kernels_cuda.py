@@ -873,3 +873,82 @@ def test_joint_branch_bf16_attends_through_flash(cuda_device):
         got = gpu(x.to(cuda_device, torch.bfloat16), 2, True)
     assert tfa.launches["flash_bound"] == before + 1
     assert _rel_err(got.cpu(), want) <= 3e-2
+
+
+# ------------------------------------------------------------------ the smooth and trans-training shapes
+def _partner(x, frames, mask):
+    """The joint branch's partner streams of ``x`` (rows, S, H, D): stream blocks swapped by
+    the mask, each partner's frames reversed (``models/blocks_svd.py`` ``_partner_streams``)."""
+    from lkgd_torch.models.blocks_svd import _partner_streams
+    from lkgd_torch.models.configs import JointAttentionConfig
+
+    rows, s, h, d = x.shape
+    joint = JointAttentionConfig(flip=True, mask=mask)
+    return _partner_streams(x.reshape(rows, s, h * d), joint, frames, True).view(x.shape)
+
+
+# smoothing: 4 x 5 chunks of 14 frames at 576x1024 (latent level 0 and 1)
+SMOOTH_FLASH = [(280, 9216, 5, 64), (280, 2304, 10, 64)]
+SMOOTH_ROWS = [0, 1, 13, 14, 139, 140, 141, 266, 279]  # chunk and stream edges, the last row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partner", [False, True], ids=["self", "partner_kv"])
+@pytest.mark.parametrize("shape", SMOOTH_FLASH, ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernel_at_the_smooth_shapes(cuda_device, shape, partner):
+    """Self-attention, and the joint branch's attention with K and V from the partner
+    streams (mask (0, 1, 0, 1), frames flipped): sampled rows against the plain version."""
+    q, k, v = _qkv(cuda_device, shape)
+    if partner:
+        k, v = _partner(k, 14, (0, 1, 0, 1)), _partner(v, 14, (0, 1, 0, 1))
+    before = dict(tfa.launches)
+    got = tfa.flash_attention(q, k, v)
+    assert tfa.launches["flash_bound"] == before["flash_bound"] + 1
+    assert torch.isfinite(got).all()
+    rows = torch.tensor(SMOOTH_ROWS, device=cuda_device)
+    want = torch.cat([tfa.flash_attention_maxtrack_plain(*(x[i:i + 1].float() for x in
+                                                           (q, k, v))) for i in SMOOTH_ROWS])
+    assert _rel_err(got[rows], want) <= FLASH_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape", [(280, 9216, 320), (20, 129024, 320)],
+                         ids=["spatial_280", "temporal_20"])
+def test_group_norm_at_the_smooth_shapes(cuda_device, shape, act):
+    """825M elements a call (the spatial and temporal resblocks of a smoothing step): the
+    statistics within 1e-4 relative and the forward within 3e-2 of the plain version."""
+    x, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16)
+    before = dict(gn.launches)
+    got = gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act=act)
+    assert {k: gn.launches[k] - before[k] for k in before} == {"gn_stats": 1, "gn_apply": 1}
+    a, c = gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-5)
+    want_a, want_c = gn.group_norm_affine_plain(x.float(), w.float(), b.float(), num_groups=32,
+                                                eps=1e-5)
+    for g, wt in ((a, want_a), (c, want_c)):
+        assert (g - wt).abs().max().item() <= 1e-4 * max(1.0, wt.abs().max().item())
+    for i in (0, shape[0] // 2, shape[0] - 1):  # the plain forward a sample at a time
+        want = gn.group_norm_plain(x[i:i + 1].float(), w.float(), b.float(), num_groups=32,
+                                   eps=1e-5, act=act)
+        assert (got[i:i + 1].float() - want).abs().max().item() <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 4096, 5, 64), (16, 1024, 10, 64)],
+                         ids=["level0", "level1"])
+def test_flash_training_kernels_with_partner_kv(cuda_device, shape):
+    """The trans fine-tune's joint branch (one [x, y] pair of 8 frames, mask (0, 1), flip):
+    the LSE forward and the dq / dk-dv backward with K and V from the flipped, block-swapped
+    partner streams, against the plain versions."""
+    q, k, v = _qkv(cuda_device, shape)
+    k, v = _partner(k, 8, (0, 1)), _partner(v, 8, (0, 1))
+    before = dict(tfa.launches)
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    want_out, want_lse = _lse_plain_by_rows(q, k, v)
+    assert _rel_err(out, want_out) <= FLASH_TOL
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    do, lse, delta = _bwd_args(cuda_device, q, k, v)
+    _check_bwd_against_plain(q, k, v, do, lse, delta)
+    assert tfa.launches["flash_bound_lse"] == before["flash_bound_lse"] + 2
+    assert tfa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert tfa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1

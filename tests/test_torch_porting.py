@@ -177,8 +177,24 @@ def test_video_io_copy_matches_jax_package(tmp_path):
                                   theirs.load_input(str(tmp_path / "frame.png")))
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "trans_pipeline", "loader", "inference_cli",
-                                   "training_cli", "matmul_microbench",
+def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
+    """Where imageio is missing (the card's machine), PIL writes the GIF: byte for byte the
+    file imageio writes."""
+    from lkgd_torch.data import video_io
+
+    frames = np.random.default_rng(1).uniform(size=(3, 24, 40, 3)).astype(np.float32)
+    video_io.write_video(str(tmp_path / "imageio.gif"), frames, fps=5)
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v3", None)
+    video_io.write_video(str(tmp_path / "pil.gif"), frames, fps=5)
+    with pytest.raises(ImportError):
+        video_io.write_video(str(tmp_path / "clip.mp4"), frames)
+    assert (tmp_path / "pil.gif").read_bytes() == (tmp_path / "imageio.gif").read_bytes()
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "trans_pipeline", "smooth_pipeline", "loader",
+                                   "inference_cli", "smooth_cli", "training_cli",
+                                   "trans_training_cli", "matmul_microbench",
                                    "flash_variant_microbench", "flash_bwd_ab", "kernel_ab",
                                    "group_norm_ab"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
@@ -190,6 +206,7 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.pipelines.svd_smooth import StableVideoDiffusionSmoothPipeline
     from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
 
     tiny = dict(config=SVDPipelineConfig(**TINY_PIPE), unet_config=tcfg.SVDUNetConfig(**TINY_UNET),
@@ -198,10 +215,16 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     calls = {
         "pipeline": lambda: StableVideoDiffusionPipeline(**tiny),
         "trans_pipeline": lambda: StableVideoDiffusionTransPipeline(**tiny),
+        "smooth_pipeline": lambda: StableVideoDiffusionSmoothPipeline(**tiny),
         "loader": lambda: PrefetchLoader([{"x": np.zeros(2)}] * 2, batch_size=2),
         "inference_cli": lambda: run_inference_svd.main(["--image", str(tmp_path / "a.png")]),
+        "smooth_cli": lambda: run_inference_svd.main(["--mode", "smooth", "--image",
+                                                      str(tmp_path / "clip.mp4")]),
         "training_cli": lambda: train_svd_lora.build(train_svd_lora.make_parser().parse_args(
             ["--output-dir", str(tmp_path)])),
+        "trans_training_cli": lambda: train_svd_lora.build(
+            train_svd_lora.make_parser().parse_args(["--output-dir", str(tmp_path), "--mode",
+                                                     "trans", "--use-8bit-adam"])),
         "matmul_microbench": lambda: matmul_microbench.main([]),
         "flash_variant_microbench": lambda: flash_variant_microbench.main([]),
         "flash_bwd_ab": lambda: flash_bwd_ab.main([]),
