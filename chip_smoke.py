@@ -50,6 +50,24 @@ each printing its own lines; any failure raises and the script exits non-zero:
    alone), the denoising loop and the decode, with peak memory, launch counts (> 0 for the
    inference kernels, 0 for the others) and fallback tiles, frames finite and in [0, 1];
    then one UNet step of 20 x 14 rows under ``torch.profiler``;
+4d. the tiny ControlNet pipeline (batched, ``sequential_cfg``, ``reverse_time``,
+   trans+ControlNet at ``controlnet_cond_scale=0.5, controlnet_scale=0.8``), the tiny base
+   pipeline with DeepCache at ``dc=2`` over 4 steps and the tiny flow pipelines (``flow``,
+   ``flow_fix`` with ``conv_in2``, joint video+flow) the same way, every parameter random
+   (the zero-init heads, ``conv_in2`` and its alpha included);
+5d. the full-width ControlNet clip through ``build_pipeline`` (``--mode controlnet``: a
+   ControlNet at the UNet's widths, embedder (16, 32, 96, 256), its zero-init heads filled
+   with 0.02 x normal, a synthetic 14-frame control video), 14x576x1024, 25 steps, bf16: a
+   warm-up, a timed batched clip (28 UNet rows) and a timed ``sequential_cfg`` clip with
+   their splits, peaks and launches, then one step under ``torch.profiler``, the ControlNet
+   and the UNet with its residuals apart;
+5e. the base clip at ``deep_cache_interval`` 1, 2 and 3 on one pipeline and seed: sec/clip,
+   the full and cached steps (25/0, 13/12, 9/16), launches, the latents' relative distance
+   from ``dc=1``'s (printed, not gated: DeepCache is an approximation); one full and one
+   cached UNet call of 28 rows, whose launches of every inference kernel must be fewer when
+   cached, and both under ``torch.profiler``;
+5f. the full-width flow clip through ``build_pipeline`` (``--mode flow``, the frame its own
+   flow condition): sec/clip, launches, finite frames in [0, 1];
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
    backwards) against their plain versions at the fine-tune's shapes, ragged S, S_q !=
    S_k, D=128 and the huge-norm input that trips the LSE forward's fallback: split/merge
@@ -95,9 +113,9 @@ each printing its own lines; any failure raises and the script exits non-zero:
    shapes, with the launch counts of their kernels.
 
 A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
-launches on each path (base clip, trans clip, smoothing, LKGD and trans training,
-microbenchmarks), error, time, the plain version's time, the library call's time and the
-bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
+launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
+``dc=2`` and ``3``, flow clip, LKGD and trans training, microbenchmarks), error, time, the
+plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
 67 TFLOP/s for fp32 arithmetic outside them).
 
@@ -665,7 +683,7 @@ def _randomize(pipe, seed: int) -> None:
     are zero at init, where a wrong branch would add nothing and pass every comparison."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for model in pipe.models:
+        for model in _all_models(pipe):
             for p in model.parameters():
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
 
@@ -736,16 +754,18 @@ def _device_time_by_kind(prof) -> tuple[float, dict, int]:
 
 def _profiled(label: str, what: str, fn) -> None:
     """``fn()`` once to warm up and once under ``torch.profiler``: its device time by kind."""
-    from torch.profiler import ProfilerActivity, profile
+    from lkgd_torch.experiments._timing import traced
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
 
     with torch.inference_mode():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof, wall_ms = traced(run)
     device_ms, kinds, n_ops = _device_time_by_kind(prof)
     print(f"[{label}] {what} under torch.profiler: wall {wall_ms:.1f} ms, device "
           f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% busy), {n_ops} device "
@@ -948,6 +968,326 @@ def phase_smooth_full(dev: torch.device) -> dict:
     torch.cuda.empty_cache()
     _profile_unet_step("smooth", pipe, 4 * pipe.n_chunks, gen)
     return launches
+
+
+def _tiny_variant(device, kind: str, sequential_cfg: bool = False):
+    """The tiny widths through the inference CLI's ``build_pipeline`` (``controlnet``,
+    ``reverse`` = ControlNet with ``--reverse-time``, ``flow``, ``deep_cache`` = the base
+    pipeline at ``deep_cache_interval=2`` over 4 steps), or built directly where the CLI
+    has no such mode (``trans_controlnet``: the joint UNet of the tiny trans phase with a
+    ControlNet at ``controlnet_cond_scale=0.5, controlnet_scale=0.8``; ``flow_fix``;
+    ``joint_vf``)."""
+    import dataclasses
+
+    from lkgd_torch.cli import run_inference_svd as cli
+    from lkgd_torch.models.configs import SVDUNetConfig
+    from lkgd_torch.models.controlnet_svd import ControlNetSDVConfig
+    from lkgd_torch.pipelines import svd_controlnet, svd_flow
+    from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline
+
+    unet, vae, clip = _tiny_widths()
+    widths = cli.Widths(unet, vae, clip, controlnet_embedding=(16, 32))  # the VAE's factor 2
+    mode = {"reverse": "controlnet", "deep_cache": "base", "trans_controlnet": "trans",
+            "flow_fix": "flow", "joint_vf": "trans"}.get(kind, kind)
+    argv = ["--mode", mode, "--image", "-", "--height", "48", "--width", "48", "--num-frames",
+            "4", "--num-inference-steps", "4" if kind == "deep_cache" else "3",
+            "--decode-chunk-size", "2", "--dtype", "fp32", "--device", str(device),
+            "--flip", "--temporal", "--lora-rank", "2"]
+    argv += ["--sequential-cfg"] * sequential_cfg + ["--reverse-time"] * (kind == "reverse")
+    args = cli.make_parser().parse_args(argv)
+    if kind in ("controlnet", "reverse", "flow"):
+        return cli.build_pipeline(args, widths)
+    config = SVDPipelineConfig(height=48, width=48, num_frames=4,
+                               num_inference_steps=args.num_inference_steps, decode_chunk_size=2,
+                               sequential_cfg=sequential_cfg)
+    kw = dict(config=config, unet_config=cli.unet_config(args, widths), vae_config=vae,
+              clip_config=clip, dtype=torch.float32, device=device)
+    if kind == "deep_cache":
+        return StableVideoDiffusionPipeline(**{**kw, "config": dataclasses.replace(
+            config, deep_cache_interval=2)})
+    if kind == "trans_controlnet":
+        return svd_controlnet.StableVideoDiffusionControlNetPipeline(
+            **kw, controlnet_config=ControlNetSDVConfig(
+                unet=kw["unet_config"], conditioning_embedding_out_channels=(16, 32)),
+            controlnet_cond_scale=0.5, controlnet_scale=0.8)
+    if kind == "flow_fix":
+        kw["unet_config"] = SVDUNetConfig(**unet, in_channels=12, dual_cond_conv_in=True)
+        return svd_flow.StableVideoDiffusionFlowPipeline(**kw, mode="flow_fix")
+    return svd_flow.StableVideoDiffusionJointVFPipeline(**kw)  # joint_vf
+
+
+def phase_tiny_variants(dev: torch.device) -> None:
+    """The tiny ControlNet pipeline (batched, ``sequential_cfg``, ``reverse_time``,
+    trans+ControlNet), DeepCache at ``dc=2`` and the flow pipelines (``flow``, ``flow_fix``,
+    joint video+flow) on the GPU against the same pipeline on the CPU, every parameter
+    random (the zero-init heads, ``conv_in2`` and its alpha included), at fp32 with the same
+    noise, images and control video."""
+    cases = [("controlnet", False), ("controlnet", True), ("reverse", False),
+             ("trans_controlnet", False), ("trans_controlnet", True), ("deep_cache", False),
+             ("flow", False), ("flow_fix", False), ("joint_vf", False)]
+    for n, (kind, sequential) in enumerate(cases):
+        label = f"tiny-{kind}{' sequential_cfg' if sequential else ''}"
+        cpu = _tiny_variant("cpu", kind, sequential)
+        _randomize(cpu, 40 + n)
+        gpu = _tiny_variant(dev, kind, sequential)
+        for src, dst in zip(_all_models(cpu), _all_models(gpu)):
+            dst.load_state_dict(src.state_dict(), strict=True)
+        rng = np.random.default_rng(20 + n)
+        streams = 2 if kind in ("trans_controlnet", "joint_vf") else 1
+        images = streams if kind != "joint_vf" else 1
+        image = torch.from_numpy(rng.uniform(size=(images, 48, 48, 3)).astype(np.float32))
+        kw = dict(noise_aug=torch.from_numpy(rng.standard_normal((images, 48, 48, 3))
+                                             .astype(np.float32)),
+                  initial_noise=torch.from_numpy(rng.standard_normal((streams, 4, 24, 24, 4))
+                                                 .astype(np.float32)))
+        if kind in ("controlnet", "reverse", "trans_controlnet"):
+            kw["control"] = torch.from_numpy(rng.uniform(size=(4, 48, 48, 3)).astype(np.float32))
+        if kind in ("flow", "flow_fix", "joint_vf"):
+            kw["flow_cond"] = torch.from_numpy(rng.uniform(size=(1, 48, 48, 3)).astype(np.float32))
+            kw["noise_aug2"] = torch.from_numpy(rng.standard_normal((1, 48, 48, 3))
+                                                .astype(np.float32))
+        outs = []
+        for pipe in (cpu, gpu):
+            latents = pipe.denoise(image, **kw)
+            outs.append((latents, pipe.decode_latents(latents)))
+        torch.cuda.synchronize()
+        for i, name in enumerate(("latents", "frames")):
+            got, want = outs[1][i].cpu(), outs[0][i]
+            err = (got - want).abs().max().item()
+            print(f"[{label}] GPU vs CPU fp32 {name} {tuple(want.shape)}: max|d| {err:.3e} "
+                  f"(rtol 1e-4, atol 2e-4)", flush=True)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+
+
+def _all_models(pipe) -> tuple:
+    controlnet = getattr(pipe, "controlnet", None)
+    return pipe.models + ((controlnet,) if controlnet is not None else ())
+
+
+def _fill_zero_init(pipe, gen: torch.Generator) -> int:
+    """The zero-init heads of the ControlNet (the embedder's ``conv_out``, every
+    ``controlnet_*`` head) filled with 0.02 x normal, so that the clip's values really pass
+    through the ControlNet and a wrong branch would show; returns the tensors filled."""
+    filled = 0
+    with torch.no_grad():
+        for name, p in pipe.controlnet.named_parameters():
+            if name.startswith(("controlnet_cond_embedding.conv_out.", "controlnet_down_blocks.",
+                                "controlnet_mid_block.")):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
+                filled += 1
+    return filled
+
+
+def _timed_clip(dev, run, decode, seed: int) -> dict:
+    """``run(generator)`` -> latents, then ``decode(latents)``, from zeroed counters: times,
+    peak memory, launch counts, outputs."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    _zero_counts()
+    fa.recomputed_tiles(dev).zero_()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents = run(gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    denoise_peak = torch.cuda.max_memory_allocated(dev)
+    frames = decode(latents)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"s": t2 - t0, "denoise_s": t1 - t0, "decode_s": t2 - t1, "denoise_peak": denoise_peak,
+            "peak": torch.cuda.max_memory_allocated(dev), "launches": _read_counts(),
+            "recomputed": int(fa.recomputed_tiles(dev).item()), "latents": latents,
+            "frames": frames}
+
+
+def _clip_line(label: str, r: dict, steps: int) -> str:
+    return (f"[{label}] {r['s']:.3f} s/clip = denoise {r['denoise_s']:.3f} s ({steps} steps) + "
+            f"decode {r['decode_s']:.3f} s | peak memory {r['peak'] / 2**30:.2f} GiB (denoise "
+            f"alone {r['denoise_peak'] / 2**30:.2f}) | launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} } | fallback tiles recomputed "
+            f"{r['recomputed']}")
+
+
+def _check_clip(label: str, r: dict, streams: int, cfg) -> None:
+    latents, frames, launches = r["latents"], r["frames"], r["launches"]
+    assert frames.shape == (streams, cfg.num_frames, cfg.height, cfg.width, 3), frames.shape
+    assert torch.isfinite(latents).all() and torch.isfinite(frames).all(), "non-finite output"
+    assert frames.min().item() >= 0.0 and frames.max().item() <= 1.0
+    for name in INFERENCE:
+        assert launches.get(name, 0) > 0, f"kernel {name} was not launched by the {label} clip"
+    for name in TRAINING + EXPERIMENTS:
+        assert launches.get(name, 0) == 0, f"kernel {name} was launched by the {label} clip"
+
+
+def _synthetic_video(cfg, dev, frames: int, gen: torch.Generator) -> torch.Tensor:
+    """A drifting colour gradient with a little noise, ``(frames, H, W, 3)`` in [0, 1]."""
+    t = torch.arange(frames, device=dev, dtype=torch.float32)[:, None, None, None]
+    yy = torch.linspace(0, 1, cfg.height, device=dev)[None, :, None, None]
+    xx = torch.linspace(0, 1, cfg.width, device=dev)[None, None, :, None]
+    phase = torch.tensor([0.0, 2.1, 4.2], device=dev)
+    video = 0.5 + 0.4 * torch.sin(6 * xx + 4 * yy + 0.15 * t + phase)
+    return (video + 0.02 * torch.randn(video.shape, generator=gen, device=dev)).clamp(0, 1)
+
+
+def phase_controlnet_full(dev: torch.device) -> dict:
+    """The full-width ControlNet clip through the inference CLI's ``build_pipeline``
+    (``--mode controlnet``): SVD widths, a ControlNet at the same widths with the embedder
+    (16, 32, 96, 256), a synthetic 14-frame control video, 14x576x1024, 25 steps, bf16; a
+    warm-up, a timed batched-CFG clip (28 UNet rows) and a timed ``sequential_cfg`` clip;
+    then one step under ``torch.profiler``, the ControlNet and the UNet apart."""
+    import dataclasses
+
+    from lkgd_torch.cli import run_inference_svd as cli
+
+    args = cli.make_parser().parse_args(
+        ["--mode", "controlnet", "--image", "-", "--decode-chunk-size", "14", "--seed", "0",
+         "--device", str(dev), "--sequential-cfg"])  # builds both UNet forms
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    cfg = pipe.config
+    gen = torch.Generator(device=dev).manual_seed(5)
+    filled = _fill_zero_init(pipe, gen)
+    n_unet = sum(p.numel() for m in pipe.models for p in m.parameters())
+    n_cn = sum(p.numel() for p in pipe.controlnet.parameters())
+    image = torch.rand((1, cfg.height, cfg.width, 3), generator=gen, device=dev)
+    control = _synthetic_video(cfg, dev, cfg.num_frames, gen)
+    torch.cuda.synchronize()
+    print(f"[controlnet] {n_unet / 1e9:.3f} B + ControlNet {n_cn / 1e9:.3f} B bf16 random "
+          f"params ({filled} zero-init head tensors 0.02 x normal), embedder "
+          f"{pipe.controlnet.config.conditioning_embedding_out_channels}, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {}
+    for label, seed, sequential in (("warm-up, batched CFG (28 UNet rows)", 1, False),
+                                    ("batched CFG (28 UNet rows)", 2, False),
+                                    ("sequential_cfg (2 x 14 UNet rows)", 2, True)):
+        pipe.config = dataclasses.replace(cfg, sequential_cfg=sequential)
+        runs[label] = r = _timed_clip(dev, lambda g: pipe.denoise(image, g, control=control),
+                                      pipe.decode_latents, seed)
+        print(_clip_line(f"controlnet] [{label}", r, cfg.num_inference_steps), flush=True)
+    pipe.config = cfg
+    timed, seq = runs["batched CFG (28 UNet rows)"], runs["sequential_cfg (2 x 14 UNet rows)"]
+    _check_clip("controlnet", timed, 1, cfg)
+    assert torch.isfinite(seq["frames"]).all(), "non-finite sequential_cfg output"
+    forms = (seq["latents"] - timed["latents"]).abs().max().item()
+    print(f"[controlnet] frames mean {timed['frames'].mean().item():.4f} std "
+          f"{timed['frames'].std().item():.4f} | sequential_cfg vs batched latents max|d| "
+          f"{forms:.3f} of max|latent| {timed['latents'].abs().max().item():.3f} (bf16)",
+          flush=True)
+    launches = timed["launches"]
+    del runs, timed, seq
+    torch.cuda.empty_cache()
+
+    # one step of 28 rows: the ControlNet, then the UNet with its residuals
+    rows = 2
+    model_in = torch.randn((rows, cfg.num_frames, pipe.latent_height, pipe.latent_width, 8),
+                           generator=gen, device=dev).to(pipe.dtype)
+    emb = torch.randn((rows, 1, 1024), generator=gen, device=dev).to(pipe.dtype)
+    ids = pipe._add_time_ids(rows)
+    t = pipe.schedule.timesteps[5]
+    ctl = torch.cat([control[None]] * rows).to(pipe.dtype)
+    with torch.inference_mode():
+        down, mid = pipe.controlnet(model_in, t, emb, ids, controlnet_cond=ctl)
+    _profiled("controlnet", f"the ControlNet of one step ({rows * cfg.num_frames} rows)",
+              lambda: pipe.controlnet(model_in, t, emb, ids, controlnet_cond=ctl))
+    _profiled("controlnet", f"the UNet with residuals of one step ({rows * cfg.num_frames} rows)",
+              lambda: pipe.unet(model_in, t, emb, ids, down_block_additional_residuals=down,
+                                mid_block_additional_residual=mid))
+    return launches
+
+
+def phase_deep_cache_full(dev: torch.device) -> dict:
+    """The base clip (14x576x1024, 25 steps, CFG batched, bf16) at ``deep_cache_interval``
+    1, 2 and 3 on one pipeline, the same seed: sec/clip, the full and cached steps, the
+    launches of each clip and of one full and one cached UNet call, the device time of a
+    full against a cached step under ``torch.profiler``, and the latents' relative distance
+    from ``dc=1``'s (printed: DeepCache is an approximation)."""
+    import dataclasses
+
+    from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline
+
+    cfg = SVDPipelineConfig(height=576, width=1024, num_frames=14, num_inference_steps=25,
+                            decode_chunk_size=14)
+    t0 = time.perf_counter()
+    pipe = StableVideoDiffusionPipeline(config=cfg, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pipe.init_params(gen)
+    image = torch.rand((1, cfg.height, cfg.width, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[deep-cache] set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    by_dc, exact = {}, None
+    for dc in (1, 2, 3):
+        pipe.config = dataclasses.replace(cfg, deep_cache_interval=dc)
+        r = _timed_clip(dev, lambda g: pipe.denoise(image, g), pipe.decode_latents, 7)
+        full = sum(1 for i in range(cfg.num_inference_steps) if i % dc == 0)
+        if dc == 1:
+            exact = r["latents"]
+            distance = 0.0
+        else:
+            distance = ((r["latents"] - exact).norm() / exact.norm()).item()
+            _check_clip(f"dc={dc}", r, 1, cfg)
+            by_dc[dc] = r["launches"]
+        print(_clip_line(f"deep-cache] [dc={dc}", r, cfg.num_inference_steps)
+              + f" | {full} full + {cfg.num_inference_steps - full} cached steps | latents "
+              f"|d|/|dc=1| {distance:.4f}", flush=True)
+        del r
+    pipe.config = cfg
+    del exact
+
+    # one full and one cached UNet call of 28 rows: launches and device time
+    rows = 2
+    model_in = torch.randn((rows, cfg.num_frames, pipe.latent_height, pipe.latent_width, 8),
+                           generator=gen, device=dev).to(pipe.dtype)
+    emb = torch.randn((rows, 1, 1024), generator=gen, device=dev).to(pipe.dtype)
+    ids = pipe._add_time_ids(rows)
+    t = pipe.schedule.timesteps[5]
+    step_launches = {}
+    with torch.inference_mode():
+        _, feature = pipe.unet(model_in, t, emb, ids, return_deep_feature=True)
+        for kind, cache in (("full", None), ("cached", feature)):
+            torch.cuda.synchronize()
+            _zero_counts()
+            pipe.unet(model_in, t, emb, ids, deep_cache=cache)
+            torch.cuda.synchronize()
+            step_launches[kind] = {k: v for k, v in _read_counts().items() if v}
+    print(f"[deep-cache] one UNet call of {rows * cfg.num_frames} rows: launches full "
+          f"{step_launches['full']} | cached {step_launches['cached']} | cached feature "
+          f"{tuple(feature.shape)}", flush=True)
+    for name in INFERENCE:
+        assert 0 < step_launches["cached"].get(name, 0) < step_launches["full"][name], \
+            f"a cached step must launch {name} fewer times than a full one, and at least once"
+    _profiled("deep-cache", f"one full UNet step ({rows * cfg.num_frames} rows)",
+              lambda: pipe.unet(model_in, t, emb, ids))
+    _profiled("deep-cache", f"one cached UNet step ({rows * cfg.num_frames} rows)",
+              lambda: pipe.unet(model_in, t, emb, ids, deep_cache=feature))
+    return by_dc
+
+
+def phase_flow_full(dev: torch.device) -> dict:
+    """The full-width flow clip through the inference CLI's ``build_pipeline``
+    (``--mode flow``: the frame is its own flow-condition image), 14x576x1024, 25 steps,
+    bf16; every shape it runs was warmed by the base clip, so one timed clip."""
+    from lkgd_torch.cli import run_inference_svd as cli
+
+    args = cli.make_parser().parse_args(["--mode", "flow", "--image", "-",
+                                         "--decode-chunk-size", "14", "--seed", "0",
+                                         "--device", str(dev)])
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    cfg = pipe.config
+    gen = torch.Generator(device=dev).manual_seed(6)
+    image = torch.rand((1, cfg.height, cfg.width, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[flow] set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the decode of __call__: the flow latents un-normalised first
+    r = _timed_clip(dev, lambda g: pipe.denoise(image, g, flow_cond=image), pipe._frames, 8)
+    print(_clip_line("flow", r, cfg.num_inference_steps)
+          + f" | frames mean {r['frames'].mean().item():.4f} std {r['frames'].std().item():.4f}",
+          flush=True)
+    _check_clip("flow", r, 1, cfg)
+    return r["launches"]
 
 
 def phase_train_options(dev: torch.device) -> None:
@@ -1588,11 +1928,18 @@ def main() -> int:
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
+    phase_tiny_variants(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
     torch.cuda.empty_cache()
     smooth_launches = phase_smooth_full(dev)
+    torch.cuda.empty_cache()
+    controlnet_launches = phase_controlnet_full(dev)
+    torch.cuda.empty_cache()
+    deep_cache_launches = phase_deep_cache_full(dev)
+    torch.cuda.empty_cache()
+    flow_launches = phase_flow_full(dev)
     torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
     phase_train_tiny(dev, "lkgd")
@@ -1608,6 +1955,8 @@ def main() -> int:
     # microbenchmark kernels' from their entry points); every path's count under
     # launches_by_path
     by_path = {"clip": clip_launches, "trans": trans_launches, "smooth": smooth_launches,
+               "controlnet": controlnet_launches, "deep_cache_2": deep_cache_launches[2],
+               "deep_cache_3": deep_cache_launches[3], "flow": flow_launches,
                "train": train_launches, "train_trans": train_trans_launches,
                "experiments": experiment_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),

@@ -1,5 +1,6 @@
 """Image-to-video inference with the PyTorch port (counterpart of
-``lkgd_tpu/cli/run_inference_svd.py``, modes ``base``, ``trans`` and ``smooth``).
+``lkgd_tpu/cli/run_inference_svd.py``, every mode: ``base``, ``trans``, ``flow``,
+``smooth`` and ``controlnet``).
 
 Examples::
 
@@ -16,10 +17,19 @@ Examples::
   python -m lkgd_torch.cli.run_inference_svd --mode smooth --image clip.mp4 \
       --smooth-total-frames 50 --smooth-start-step 10 --flip --temporal --lora-rank 4
 
+  # ControlNet: the first --num-frames frames of a control video (edges, depth, ...;
+  # lkgd_torch.utils.control_preprocess makes such maps), zeros without one;
+  # --reverse-time conditions on the last frame instead of the first
+  python -m lkgd_torch.cli.run_inference_svd --mode controlnet --image frame.png \
+      --control-video edges.mp4 --controlnet-cond-scale 1.0 --reverse-time
+
+  # a flow video, conditioned on the frame itself as the flow-condition image
+  python -m lkgd_torch.cli.run_inference_svd --mode flow --image frame.png
+
 It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
 unless ``--device cpu`` is given. The weights are random, drawn from ``--seed`` at the real
 shapes (smoke and benchmark mode): loading a checkpoint (``--weights``) waits until one is
-in the repository. The modes ``flow`` and ``controlnet`` are not ported.
+in the repository.
 """
 
 from __future__ import annotations
@@ -30,9 +40,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from lkgd_torch.models.controlnet_svd import ControlNetSDVConfig
 from lkgd_torch.models.configs import (CLIPVisionConfig, JointAttentionConfig, LoraRouter,
                                        LoraRule, SVDUNetConfig, TemporalVAEConfig)
 from lkgd_torch.pipelines.svd import StableVideoDiffusionPipeline, SVDPipelineConfig
+from lkgd_torch.pipelines.svd_controlnet import StableVideoDiffusionControlNetPipeline
+from lkgd_torch.pipelines.svd_flow import StableVideoDiffusionFlowPipeline
 from lkgd_torch.pipelines.svd_smooth import StableVideoDiffusionSmoothPipeline
 from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
 
@@ -41,21 +54,31 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 @dataclasses.dataclass(frozen=True)
 class Widths:
-    """The models' widths: the published ones by default (SVD, its VAE, CLIP-H); the CPU
-    tests pass tiny ones. ``unet``: overrides of ``SVDUNetConfig`` fields."""
+    """The models' widths: the published ones by default (SVD, its VAE, CLIP-H, the
+    ControlNet's conditioning embedder); the CPU tests pass tiny ones. ``unet``: overrides
+    of ``SVDUNetConfig`` fields; ``controlnet_embedding``: the embedder's channels, one
+    stride-2 convolution between each two (as many as the VAE downsamples by 2)."""
 
     unet: dict = dataclasses.field(default_factory=dict)
     vae: TemporalVAEConfig = TemporalVAEConfig()
     clip: CLIPVisionConfig = CLIPVisionConfig()
+    controlnet_embedding: tuple = (16, 32, 96, 256)
 
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=["base", "trans", "smooth"], default="base")
+    p.add_argument("--mode", choices=["base", "trans", "flow", "smooth", "controlnet"],
+                   default="base")
     p.add_argument("--image", required=True,
                    help="the first frame; in smooth mode the video whose first "
                         "--smooth-total-frames frames are smoothed")
     p.add_argument("--end-image", help="trans mode: the end frame (default: --image again)")
+    p.add_argument("--control-video",
+                   help="controlnet mode: the video whose first --num-frames frames are the "
+                        "per-frame control images (zeros without it)")
+    p.add_argument("--controlnet-cond-scale", type=float, default=1.0)
+    p.add_argument("--reverse-time", action="store_true",
+                   help="controlnet mode: condition on the LAST frame (time reversal)")
     p.add_argument("--output", default="output.gif")
     p.add_argument("--height", type=int, default=576)
     p.add_argument("--width", type=int, default=1024)
@@ -124,6 +147,15 @@ def build_pipeline(args, widths: Widths = Widths()) -> StableVideoDiffusionPipel
             **kw, start_step=args.smooth_start_step, total_frames=args.smooth_total_frames)
     elif args.mode == "trans":
         pipe = StableVideoDiffusionTransPipeline(**kw)
+    elif args.mode == "flow":
+        pipe = StableVideoDiffusionFlowPipeline(**kw)
+    elif args.mode == "controlnet":
+        controlnet = ControlNetSDVConfig(
+            unet=kw["unet_config"],
+            conditioning_embedding_out_channels=widths.controlnet_embedding)
+        pipe = StableVideoDiffusionControlNetPipeline(
+            **kw, controlnet_config=controlnet, reverse_time=args.reverse_time,
+            controlnet_cond_scale=args.controlnet_cond_scale)
     else:
         pipe = StableVideoDiffusionPipeline(**kw)
     print("random weights from --seed (no checkpoint is loaded)")
@@ -150,6 +182,15 @@ def main(argv=None, widths: Widths = Widths()) -> None:
         end_image = process_frames(end_frames[-1:], args.height, args.width)[0]
         video = pipe(image[0], end_image, generator=generator)
         out = np.concatenate([video[0], video[1]], axis=2)  # the two streams side by side
+    elif args.mode == "flow":  # the frame itself is the flow-condition image
+        out = pipe(image, flow_cond=image, generator=generator)[0]
+    elif args.mode == "controlnet":
+        if args.control_video:
+            control = process_frames(load_input(args.control_video)[:args.num_frames],
+                                     args.height, args.width)
+        else:
+            control = np.zeros((args.num_frames, args.height, args.width, 3), np.float32)
+        out = pipe(image, control=control[None], generator=generator)[0]
     else:
         out = pipe(image, generator=generator)[0]
     write_video(args.output, out, fps=args.fps)

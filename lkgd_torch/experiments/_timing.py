@@ -1,5 +1,6 @@
-"""Timing shared by the port's microbenchmarks: CUDA events on the card, a host clock on
-the CPU (where the numbers only show that the script runs)."""
+"""Timing shared by the port's microbenchmarks and ``chip_smoke.py``: CUDA events on the
+card, a host clock on the CPU (where the numbers only show that the script runs), and
+device traces under ``torch.profiler``."""
 
 from __future__ import annotations
 
@@ -34,3 +35,19 @@ def time_ms(fn, device: torch.device, reps: int) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def traced(fn, tries: int = 3):
+    """``fn()`` (which ends in a synchronise) under ``torch.profiler`` with CUDA activity:
+    ``(profile, fn's result)``. Now and then the card's tracer records no device operation
+    at all; such a trace is no measurement, so it is taken again, up to ``tries`` times,
+    and then this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+        if any(e.device_type == DeviceType.CUDA for e in prof.key_averages()):
+            return prof, out
+    raise RuntimeError(f"torch.profiler recorded no device operation in {tries} traces")

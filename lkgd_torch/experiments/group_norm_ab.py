@@ -49,14 +49,17 @@ def profiled(fn, calls: int = 10) -> dict:
     """Device ms a call of ``fn`` by kernel name, and device operations a call, under
     ``torch.profiler`` (``calls`` calls after a warm-up)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from lkgd_torch.experiments._timing import traced
+
+    def run():
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = traced(run)
     ms, ops = {}, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:

@@ -160,14 +160,17 @@ def _ctypes_rig() -> dict:
 def _profiled_ms(fn, name: str) -> float:
     """Device ms of one launch of the kernel whose name holds ``name`` under the profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from lkgd_torch.experiments._timing import traced
+
+    def run():
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = traced(run)
     times = [(e.self_device_time_total, e.count) for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and name in e.key]
     return sum(t for t, _ in times) / max(sum(n for _, n in times), 1) / 1e3

@@ -5,9 +5,7 @@ Counterparts of ``lkgd_tpu/models/configs.py`` ``JointAttentionConfig`` (:19-55)
 ``halve_stream_masks`` (:162-184), ``lkgd_tpu/models/vae_temporal.py``
 ``TemporalVAEConfig`` (:30-37) and ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig``
 (:22-41). The port imports nothing of the JAX package, so it carries its own configs with
-the same field names and defaults. Of the LKGD extensions of the JAX UNet config, knowledge
-fusion, LoRA routing, remat and joint attention are ported; the rest (dual conditioning, a
-y input head) are absent.
+the same field names and defaults, every LKGD extension of the JAX UNet config included.
 """
 
 from __future__ import annotations
@@ -140,6 +138,12 @@ class SVDUNetConfig:
     # gradient checkpointing: recompute each down, mid and up block in the backward pass
     remat: bool = False
     joint: Optional[JointAttentionConfig] = None  # joint x<->y stream attention
+    # flow variant: a second input convolution ``conv_in2`` scaled by ``conv_in2_alpha``,
+    # both zero at init (lkgd_tpu/models/unet_svd.py:107-122)
+    dual_cond_conv_in: bool = False
+    # a second input head (``conv_in_y``, ``time_embedding_y``, ``add_embedding_y``) whose
+    # rows are chosen by this static stream mask (1 = the y head); None = one head
+    y_input_head_mask: Optional[Tuple[int, ...]] = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -149,9 +153,9 @@ class SVDUNetConfig:
 def halve_stream_masks(cfg: SVDUNetConfig) -> SVDUNetConfig:
     """The same UNet for a half batch (one side of classifier-free guidance).
 
-    Stream tuples (the joint mask, the LoRA row masks) describe the CFG-doubled stream-major
-    batch ``[*uncond_streams, *cond_streams]``; a sequential-CFG call sees one side only, so
-    tuples of even length >= 4 are cut to their first half. The parameters are unchanged:
+    Stream tuples (the joint mask, the LoRA row masks, the y-head mask) describe the
+    CFG-doubled stream-major batch ``[*uncond_streams, *cond_streams]``; a sequential-CFG
+    call sees one side only, so tuples of even length >= 4 are cut to their first half. The parameters are unchanged:
     masks are static routing, and a UNet built from either config takes the other's
     weights."""
 
@@ -165,7 +169,10 @@ def halve_stream_masks(cfg: SVDUNetConfig) -> SVDUNetConfig:
     if lora.rules:
         lora = dataclasses.replace(lora, rules=tuple(
             dataclasses.replace(r, streams=half(r.streams)) for r in lora.rules))
-    return dataclasses.replace(cfg, joint=joint, lora=lora)
+    y_mask = cfg.y_input_head_mask
+    if y_mask is not None:
+        y_mask = half(y_mask)
+    return dataclasses.replace(cfg, joint=joint, lora=lora, y_input_head_mask=y_mask)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -137,6 +137,17 @@ class Conv2d(nn.Conv2d):
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+class ZeroInitConv2d(Conv2d):
+    """A :class:`Conv2d` that ``init_params`` fills with zeros (the JAX modules'
+    ``kernel_init=zeros`` convolutions: the ControlNet's heads, ``conv_in2``)."""
+
+    @torch.no_grad()
+    def init_extra(self, generator: torch.Generator) -> None:
+        self.weight.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
+
+
 class TemporalConv(nn.Conv3d):
     """diffusers' (3, 1, 1) ``Conv3d`` over frames (weight ``(O, I, 3, 1, 1)``), applied to
     ``(B, T, M, C)`` as a (3, 1) convolution over (T, M) with frame padding 1 — the JAX

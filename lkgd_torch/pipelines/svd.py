@@ -6,8 +6,12 @@ Stages, as in the JAX package: CLIP-H embedding of the antialiased 224^2 resize,
 the UNet (a Python loop where JAX had ``lax.scan``), and an equal-chunked temporal VAE
 decode. With ``sequential_cfg`` the two CFG halves go through the UNet one after the other
 (``unet_seq``: the same parameters, stream masks halved): the same work with a lower
-peak of activation memory in the loop. Layouts at the public methods are the JAX package's: images
-``(B, H, W, 3)`` in [0, 1], latents ``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
+peak of activation memory in the loop. With ``deep_cache_interval`` ``dc > 1`` (DeepCache,
+base pipeline only) step ``i`` runs the full UNet when ``i % dc == 0`` and refreshes the
+cached input of its last up block; the other steps run the cached UNet (a Python ``if``
+where JAX had ``lax.cond``). It is an approximation: the output changes. Layouts at the
+public methods are the JAX package's: images ``(B, H, W, 3)`` in [0, 1], latents
+``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
 
 Randomness comes only from the ``torch.Generator`` passed in, or from pre-drawn standard
 normals (``noise_aug=``, ``initial_noise=``) — the hook the parity tests use, since torch
@@ -51,11 +55,18 @@ class SVDPipelineConfig:
     # run the two CFG halves one after the other instead of batch-doubled: the same work,
     # a lower peak of activation memory in the loop
     sequential_cfg: bool = False
-    deep_cache_interval: int = 1  # DeepCache is not ported yet: only 1 (off) is accepted
+    # DeepCache: every dc-th step runs the full UNet, the steps between reuse its deep
+    # feature; 1 = off (the exact path). Approximate when > 1. The base pipeline's alone.
+    deep_cache_interval: int = 1
 
-    def __post_init__(self):
-        if self.deep_cache_interval != 1:
-            raise NotImplementedError("deep_cache_interval is not ported to lkgd_torch yet")
+
+def as_batch(x) -> Optional[torch.Tensor]:
+    """An array or tensor, ``(B, H, W, C)`` or one ``(H, W, C)``, as a float32 batch;
+    None stays None."""
+    if x is None:
+        return None
+    x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=torch.float32)
+    return x[None] if x.dim() == 3 else x
 
 
 def equal_chunks(n: int, max_chunk: int) -> int:
@@ -72,7 +83,12 @@ class StableVideoDiffusionPipeline:
     uninitialised weights: fill them with ``init_params(generator)`` or
     ``<model>.load_state_dict(...)``. ``models``: ``(unet, vae, image_encoder)`` already
     built on ``device`` (a trainer's, for validation), run as they are: nothing is
-    allocated or copied, and their ``requires_grad`` flags are left alone."""
+    allocated or copied, and their ``requires_grad`` flags are left alone.
+
+    Subclasses that run a loop of their own set ``deep_cache = False``: they refuse a
+    ``deep_cache_interval`` above 1, which the JAX package's counterparts ignore."""
+
+    deep_cache = True
 
     def __init__(
         self,
@@ -85,6 +101,9 @@ class StableVideoDiffusionPipeline:
         device="cuda",
         models: Optional[tuple] = None,
     ):
+        if config.deep_cache_interval > 1 and not self.deep_cache:
+            raise ValueError(f"{type(self).__name__} has no DeepCache loop: "
+                             f"deep_cache_interval must be 1, got {config.deep_cache_interval}")
         self.config = config
         self.dtype = dtype
         self.device = require_device(device)
@@ -148,6 +167,88 @@ class StableVideoDiffusionPipeline:
         return torch.randn(shape, generator=generator, device=self.device)
 
     # ------------------------------------------------------------------ generation
+    def _cfg_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``[zeros | x]`` (the unconditional rows first) under CFG, else ``x``."""
+        if self.config.do_classifier_free_guidance:
+            return torch.cat([torch.zeros_like(x), x])
+        return x
+
+    def _augmented_latents(self, image: torch.Tensor, generator: torch.Generator,
+                           noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """[0,1] (B, H, W, 3) -> posterior-mode latents (B, h, w, 4) of the image in [-1, 1]
+        plus ``noise_aug_strength`` x a standard normal (``noise``, or drawn)."""
+        image_m11 = image * 2.0 - 1.0
+        noise = self._normal(image.shape, generator, noise)
+        return self.vae.encode_mode((image_m11 + self.config.noise_aug_strength * noise)
+                                    .to(self.dtype))
+
+    def _condition(self, image: torch.Tensor, generator: torch.Generator,
+                   noise_aug: Optional[torch.Tensor]):
+        """CLIP embeddings, VAE latents of the noise-augmented image (expanded over the
+        frames) and added time ids, CFG-doubled stream-major ``[uncond | cond]``."""
+        image_embeddings = self._cfg_rows(self._encode_clip(image))
+        image_latents = self._cfg_rows(self._augmented_latents(image, generator, noise_aug))
+        image_latents = image_latents[:, None].expand(-1, self.config.num_frames, -1, -1, -1)
+        return image_embeddings, image_latents, self._add_time_ids(image_embeddings.shape[0])
+
+    def _initial_latents(self, streams: int, generator: torch.Generator,
+                         initial_noise: Optional[torch.Tensor]) -> torch.Tensor:
+        shape = (streams, self.config.num_frames, self.latent_height, self.latent_width, 4)
+        return self._normal(shape, generator, initial_noise) * self.schedule.init_noise_sigma
+
+    def _predict(self, unet, model_in: torch.Tensor, t, emb: torch.Tensor, ati: torch.Tensor,
+                 extra) -> torch.Tensor:
+        """One UNet call on ``model_in`` (latents joined with the conditioning channels);
+        ``extra``: the rows of a subclass's per-row input (None here)."""
+        return unet(model_in, t, emb, ati)
+
+    def _loop(self, latents: torch.Tensor, image_embeddings: torch.Tensor,
+              cond_latents: torch.Tensor, added_time_ids: torch.Tensor,
+              extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The Euler loop with CFG: batched (``[uncond | cond]`` rows in one call), with
+        ``sequential_cfg`` one half after the other through ``unet_seq``, or with DeepCache.
+        ``cond_latents`` are joined to the scaled latents on the channel axis; ``extra``,
+        CFG-doubled like them, reaches ``_predict``."""
+        cfg = self.config
+        cfg_rows = 2 if cfg.do_classifier_free_guidance else 1
+        guidance = self._guidance_scale(latents.shape[0])
+        sequential = cfg.sequential_cfg and cfg.do_classifier_free_guidance
+        dc = cfg.deep_cache_interval
+        if dc > 1 and sequential:
+            raise ValueError("deep_cache_interval and sequential_cfg are mutually exclusive "
+                             "(the cache spans the CFG-doubled batch)")
+        halves = [x.chunk(2) if x is not None else (None, None)
+                  for x in (image_embeddings, cond_latents, added_time_ids, extra)]
+        cache = None
+        for i in range(self.schedule.num_steps):
+            t = self.schedule.timesteps[i]
+            if sequential:
+                # stream-major halves [uncond | cond], each through the half-batch UNet
+                scaled = self.scheduler.scale_model_input(self.schedule, latents, i)
+                scaled = scaled.to(self.dtype)
+                uncond, cond = (
+                    self._predict(self.unet_seq, torch.cat([scaled, lat], dim=-1), t, emb, ati,
+                                  ext).float()
+                    for emb, lat, ati, ext in zip(*halves))
+                noise_pred = uncond + guidance * (cond - uncond)
+            else:
+                model_in = torch.cat([latents] * cfg_rows)
+                model_in = self.scheduler.scale_model_input(self.schedule, model_in, i)
+                model_in = torch.cat([model_in.to(self.dtype), cond_latents], dim=-1)
+                if dc > 1:  # DeepCache: a full step every dc-th, cached steps between
+                    noise_pred, cache = self.unet(
+                        model_in, t, image_embeddings, added_time_ids,
+                        deep_cache=None if i % dc == 0 else cache, return_deep_feature=True)
+                else:
+                    noise_pred = self._predict(self.unet, model_in, t, image_embeddings,
+                                               added_time_ids, extra)
+                noise_pred = noise_pred.float()
+                if cfg.do_classifier_free_guidance:
+                    uncond, cond = noise_pred.chunk(2)
+                    noise_pred = uncond + guidance * (cond - uncond)
+            latents, _ = self.scheduler.step(self.schedule, noise_pred, i, latents)
+        return latents
+
     @torch.inference_mode()
     def denoise(self, image: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noise_aug: Optional[torch.Tensor] = None,
@@ -156,49 +257,13 @@ class StableVideoDiffusionPipeline:
 
         ``noise_aug`` / ``initial_noise``: pre-drawn standard normals of the image's and the
         latents' shape, in place of draws from ``generator``."""
-        cfg = self.config
-        cfg_rows = 2 if cfg.do_classifier_free_guidance else 1
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         image = image.to(self.device, torch.float32)
-        batch_size = image.shape[0]
-
-        image_embeddings = self._encode_clip(image)
-        image_m11 = image * 2.0 - 1.0
-        noise = self._normal(image.shape, generator, noise_aug)
-        image_latents = self.vae.encode_mode((image_m11 + cfg.noise_aug_strength * noise)
-                                             .to(self.dtype))
-        if cfg.do_classifier_free_guidance:
-            image_embeddings = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
-            image_latents = torch.cat([torch.zeros_like(image_latents), image_latents])
-        image_latents = image_latents[:, None].expand(-1, cfg.num_frames, -1, -1, -1)
-        added_time_ids = self._add_time_ids(batch_size * cfg_rows)
-
-        shape = (batch_size, cfg.num_frames, self.latent_height, self.latent_width, 4)
-        latents = self._normal(shape, generator, initial_noise) * self.schedule.init_noise_sigma
-        guidance = self._guidance_scale(batch_size)
-        sequential = cfg.sequential_cfg and cfg.do_classifier_free_guidance
-        for i in range(self.schedule.num_steps):
-            t = self.schedule.timesteps[i]
-            if sequential:
-                # stream-major halves [uncond | cond], each through the half-batch UNet
-                scaled = self.scheduler.scale_model_input(self.schedule, latents, i)
-                scaled = scaled.to(self.dtype)
-                uncond, cond = (
-                    self.unet_seq(torch.cat([scaled, ilat], dim=-1), t, emb, ati).float()
-                    for emb, ilat, ati in zip(image_embeddings.chunk(2), image_latents.chunk(2),
-                                              added_time_ids.chunk(2)))
-                noise_pred = uncond + guidance * (cond - uncond)
-            else:
-                model_in = torch.cat([latents] * cfg_rows)
-                model_in = self.scheduler.scale_model_input(self.schedule, model_in, i)
-                model_in = torch.cat([model_in.to(self.dtype), image_latents], dim=-1)
-                noise_pred = self.unet(model_in, t, image_embeddings, added_time_ids).float()
-                if cfg.do_classifier_free_guidance:
-                    uncond, cond = noise_pred.chunk(2)
-                    noise_pred = uncond + guidance * (cond - uncond)
-            latents, _ = self.scheduler.step(self.schedule, noise_pred, i, latents)
-        return latents
+        image_embeddings, image_latents, added_time_ids = self._condition(
+            image, generator, noise_aug)
+        latents = self._initial_latents(image.shape[0], generator, initial_noise)
+        return self._loop(latents, image_embeddings, image_latents, added_time_ids)
 
     @torch.inference_mode()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
@@ -224,10 +289,7 @@ class StableVideoDiffusionPipeline:
                  initial_noise: Optional[torch.Tensor] = None):
         """image: array or tensor (B, H, W, 3) or (H, W, 3) in [0,1] at pipeline size.
         ``output_type``: "np" frames, "pt" frames tensor, "latent" latents tensor."""
-        image = torch.as_tensor(np.asarray(image) if not torch.is_tensor(image) else image,
-                                dtype=torch.float32)
-        if image.dim() == 3:
-            image = image[None]
+        image = as_batch(image)
         if output_type == "latent":
             return self.denoise(image, generator, noise_aug, initial_noise)
         frames = self.generate(image, generator, noise_aug, initial_noise)

@@ -37,6 +37,8 @@ class StableVideoDiffusionSmoothPipeline(StableVideoDiffusionPipeline):
     """video ``(T, H, W, 3)`` in [0, 1], ``T = total_frames`` -> the smoothed video
     ``(1, T, H, W, 3)``. ``config.num_frames`` is the chunk window ``K``."""
 
+    deep_cache = False  # the JAX pipeline's loop has none
+
     def __init__(self, *args, start_step: int = 10, total_frames: int = 50, **kwargs):
         super().__init__(*args, **kwargs)
         self.start_step = start_step

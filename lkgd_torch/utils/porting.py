@@ -15,6 +15,9 @@ its name and layout: the LoRA factors ``lora_<name>_A`` (in, rank) / ``lora_<nam
 ``texts*`` (its Dense kernels follow the kernel rule), exactly as the JAX exporter writes
 them. The joint branch's ``joint`` scope is dropped, as the JAX exporter drops it:
 ``attn1n``, ``conv1n``, ``scale1n`` and ``norm1n`` sit directly on the transformer block.
+The same rules carry the ControlNet (``controlnet_cond_embedding.blocks.N``,
+``controlnet_down_blocks.N``: ``key_map=None``, as the UNet) and the UNet's y head and flow
+input (``conv_in_y``, ``*_embedding_y``, ``conv_in2``, the scalar ``conv_in2_alpha``).
 
 ``lora_key_map`` / ``port_lora_safetensors`` read a LoRA state dict in diffusers, peft or
 kohya spelling into a module's ``lora_<name>_A/B`` parameters: the inverse of

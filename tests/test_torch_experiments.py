@@ -124,3 +124,42 @@ def test_flash_variant_microbench_main_tiny_on_cpu(capsys):
     by_mode = {r["mode"]: r["max_abs_diff"] for r in rows}
     assert by_mode["base"] == 0.0 and np.isnan(by_mode["noexp"])
     assert 0.0 < by_mode["bf16exp"] < 0.05 and by_mode["prescale"] < 0.05
+
+
+def test_traced_takes_an_empty_trace_again(monkeypatch):
+    """``experiments._timing.traced``: a trace in which the tracer recorded no device
+    operation is taken again, up to three times, and then it raises; a trace with one is
+    returned with the function's result."""
+    from types import SimpleNamespace
+
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from lkgd_torch.experiments import _timing
+
+    recorded = []  # what each successive trace records
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.events = recorded.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    device_event = SimpleNamespace(device_type=DeviceType.CUDA)
+    host_event = SimpleNamespace(device_type=DeviceType.CPU)
+    calls = []
+    recorded[:] = [[], [host_event], [host_event, device_event]]
+    prof, out = _timing.traced(lambda: calls.append(1) or len(calls))
+    assert out == 3 and prof.events[-1] is device_event and not recorded
+    recorded[:] = [[], [], []]
+    with pytest.raises(RuntimeError, match="no device operation in 3 traces"):
+        _timing.traced(lambda: calls.append(1))
+    assert len(calls) == 6

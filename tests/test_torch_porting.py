@@ -193,7 +193,9 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "trans_pipeline", "smooth_pipeline", "loader",
-                                   "inference_cli", "smooth_cli", "training_cli",
+                                   "controlnet_pipeline", "flow_pipeline", "joint_vf_pipeline",
+                                   "inference_cli", "smooth_cli", "controlnet_cli", "flow_cli",
+                                   "training_cli",
                                    "trans_training_cli", "matmul_microbench",
                                    "flash_variant_microbench", "flash_bwd_ab", "kernel_ab",
                                    "group_norm_ab"])
@@ -206,6 +208,9 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.pipelines.svd_controlnet import StableVideoDiffusionControlNetPipeline
+    from lkgd_torch.pipelines.svd_flow import (StableVideoDiffusionFlowPipeline,
+                                               StableVideoDiffusionJointVFPipeline)
     from lkgd_torch.pipelines.svd_smooth import StableVideoDiffusionSmoothPipeline
     from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
 
@@ -217,6 +222,14 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "trans_pipeline": lambda: StableVideoDiffusionTransPipeline(**tiny),
         "smooth_pipeline": lambda: StableVideoDiffusionSmoothPipeline(**tiny),
         "loader": lambda: PrefetchLoader([{"x": np.zeros(2)}] * 2, batch_size=2),
+        "controlnet_pipeline": lambda: StableVideoDiffusionControlNetPipeline(**tiny),
+        "flow_pipeline": lambda: StableVideoDiffusionFlowPipeline(**tiny),
+        "joint_vf_pipeline": lambda: StableVideoDiffusionJointVFPipeline(**tiny),
+        "controlnet_cli": lambda: run_inference_svd.main(
+            ["--mode", "controlnet", "--image", str(tmp_path / "a.png"), "--reverse-time",
+             "--control-video", str(tmp_path / "control.mp4")]),
+        "flow_cli": lambda: run_inference_svd.main(["--mode", "flow", "--image",
+                                                    str(tmp_path / "a.png")]),
         "inference_cli": lambda: run_inference_svd.main(["--image", str(tmp_path / "a.png")]),
         "smooth_cli": lambda: run_inference_svd.main(["--mode", "smooth", "--image",
                                                       str(tmp_path / "clip.mp4")]),
@@ -239,10 +252,13 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     pytest.param("knowledge_fusion", True, True, id="knowledge_fusion-True"),
     pytest.param("joint", tcfg.JointAttentionConfig(mask=(0, 1, 0, 1)), True, id="joint-value1"),
     pytest.param("lora", tcfg.LoraRouter((tcfg.LoraRule("*attn1.*", "x"),)), True,
-                 id="lora-value2")])
+                 id="lora-value2"),
+    pytest.param("dual_cond_conv_in", True, True, id="dual_cond_conv_in-True"),
+    pytest.param("y_input_head_mask", (0, 1), True, id="y_input_head_mask-value4")])
 def test_unported_unet_options_raise(field, value, ported):
-    """Knowledge fusion, LoRA routing and joint attention, each once refused here, are
-    ported now: the config takes them and the UNet builds with their parameters."""
+    """Knowledge fusion, LoRA routing, joint attention, the flow variant's second input
+    convolution and the y input head, each once refused or absent here, are ported now:
+    the config takes them and the UNet builds with their parameters."""
     if not ported:
         with pytest.raises(NotImplementedError):
             tcfg.SVDUNetConfig(**{field: value})
@@ -252,22 +268,33 @@ def test_unported_unet_options_raise(field, value, ported):
     with torch.device("meta"):
         names = [n for n, _ in UNetSpatioTemporalCondition(config).named_parameters()]
     marker = {"knowledge_fusion": "knowledge_fusion.", "lora": "lora_x_A",
-              "joint": "transformer_blocks.0.attn1n.to_k.weight"}[field]
+              "joint": "transformer_blocks.0.attn1n.to_k.weight",
+              "dual_cond_conv_in": "conv_in2_alpha", "y_input_head_mask": "conv_in_y.weight"}[field]
     assert any(marker in n for n in names)
 
 
-@pytest.mark.parametrize("field,value,ported", [("sequential_cfg", True, True),
-                                                ("deep_cache_interval", 2, False)])
+@pytest.mark.parametrize("field,value,ported", [
+    pytest.param("sequential_cfg", True, True, id="sequential_cfg-True-True"),
+    pytest.param("deep_cache_interval", 2, True, id="deep_cache_interval-2-False")])
 def test_unported_pipeline_options_raise(field, value, ported):
-    """DeepCache is not ported and raises; ``sequential_cfg`` is: the pipeline builds a
-    second UNet on the first one's very parameters."""
+    """``sequential_cfg`` and DeepCache, once refused here, are ported: with the first the
+    pipeline builds a second UNet on the first one's very parameters; the second runs in
+    the base pipeline alone, and a pipeline with a loop of its own refuses it."""
     if not ported:
         with pytest.raises(NotImplementedError):
             SVDPipelineConfig(**{field: value})
         return
-    pipe = StableVideoDiffusionPipeline(
-        config=SVDPipelineConfig(**TINY_PIPE, **{field: value}),
-        unet_config=tcfg.SVDUNetConfig(**TINY_UNET), vae_config=tcfg.TemporalVAEConfig(**TINY_VAE),
-        clip_config=tcfg.CLIPVisionConfig(**TINY_CLIP), dtype=torch.float32, device="cpu")
+    kw = dict(config=SVDPipelineConfig(**TINY_PIPE, **{field: value}),
+              unet_config=tcfg.SVDUNetConfig(**TINY_UNET),
+              vae_config=tcfg.TemporalVAEConfig(**TINY_VAE),
+              clip_config=tcfg.CLIPVisionConfig(**TINY_CLIP), dtype=torch.float32, device="cpu")
+    pipe = StableVideoDiffusionPipeline(**kw)
+    if field == "deep_cache_interval":
+        from lkgd_torch.pipelines.svd_trans import StableVideoDiffusionTransPipeline
+
+        assert pipe.config.deep_cache_interval == 2 and pipe.unet_seq is None
+        with pytest.raises(ValueError, match="deep_cache_interval"):
+            StableVideoDiffusionTransPipeline(**kw)
+        return
     shared = dict(pipe.unet_seq.named_parameters())
     assert shared and all(p is shared[n] for n, p in pipe.unet.named_parameters())
