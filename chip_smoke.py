@@ -25,8 +25,16 @@ each printing its own lines; any failure raises and the script exits non-zero:
    1e-2 * max|ref|, 3e-2 where exp2 runs in bf16), the plain version in chunks of rows;
    each with its time, the library call's, the bound, its share of the bound and its
    multiple of the library;
+3c. kernels 1, 2 and 1a at the CogVideoX-5B DiT's joint attention (2, 17776, 48, 64),
+   ragged against the 128-row tiles (the plain version in blocks of one row and 4 heads),
+   with the fallback tiles recomputed, and kernels 3 and 4 at the whole-clip decode's N=1
+   shapes (1, 49x480x720, 128) and (1, 25x240x360, 256), past 2^31 elements (compared in
+   row blocks), each with its plain version's time, the library call's and the bound;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
+4e. the tiny CogVideoX pipelines (I2V with DPM, T2V with DDIM, V2V with DPM, the 1.5 form)
+   and the tiny CogVideoX VAE (encode and decode of a clip, chunked, tiled) the same way,
+   every parameter random, the DPM noise injected;
 4b. the tiny frame-transition pipeline (joint attention, flip, two stream-masked LoRA
    adapters, every parameter random) the same way, batched and with ``sequential_cfg``;
 4c. the tiny smoothing pipeline (10 frames in 4-frame joint chunks from step 1 of 3, the
@@ -68,6 +76,15 @@ each printing its own lines; any failure raises and the script exits non-zero:
    cached, and both under ``torch.profiler``;
 5f. the full-width flow clip through ``build_pipeline`` (``--mode flow``, the frame its own
    flow condition): sec/clip, launches, finite frames in [0, 1];
+5g. the CogVideoX-5B I2V at full width through ``lkgd_torch/cli/run_inference_cogvideox.py``'s
+   ``build``, ``encode`` and ``decode`` (42 layers x 48 heads, knowledge fusion with its
+   zero-init output 0.02 x normal, synthetic T5 tokens and width-1000 knowledge features,
+   DPM with dynamic CFG, bf16): a warm-up DiT step, then the encode of one 480x720 frame, 3
+   DPM steps (first order, 2M, final) with each step's seconds and the whole-clip decode of
+   13 latent frames to 49x480x720, with peaks, launches (kernels 1, 2 and 1a 42 times a
+   step) and fallback tiles, latents and frames finite; one DiT step under
+   ``torch.profiler``; the decode chunked (2 latent frames) and tiled (60x90 and 30x45
+   latent tiles), each timed with its peak;
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
    backwards) against their plain versions at the fine-tune's shapes, ragged S, S_q !=
    S_k, D=128 and the huge-norm input that trips the LSE forward's fallback: split/merge
@@ -114,10 +131,12 @@ each printing its own lines; any failure raises and the script exits non-zero:
 
 A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
 launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
-``dc=2`` and ``3``, flow clip, LKGD and trans training, microbenchmarks), error, time, the
+``dc=2`` and ``3``, flow clip, CogVideoX clip, LKGD and trans training, microbenchmarks),
+error, time, the
 plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
-67 TFLOP/s for fp32 arithmetic outside them).
+67 TFLOP/s for fp32 arithmetic outside them); the five inference kernels also carry their
+row at the CogVideoX shapes of 3c under ``cogvideox``.
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -1290,6 +1309,357 @@ def phase_flow_full(dev: torch.device) -> dict:
     return r["launches"]
 
 
+# ---------------------------------------------------------------- CogVideoX
+COG_FLASH = (2, 17776, 48, 64)  # the 5B DiT's joint attention: CFG x (226 + 13 x 30 x 45)
+COG_GN = (("decode full res", (1, 49 * 480 * 720, 128)),  # the decoder's last level
+          ("decode level 2", (1, 25 * 240 * 360, 256)))
+
+
+def in_head_chunks(fn, tensors, heads: int = 4):
+    """``fn`` over blocks of one row and ``heads`` heads of (B, S, H, D) ``tensors``, joined:
+    the plain flash versions' (rows, H, S, S) fp32 logits at 48 heads of 17776 tokens would
+    be 121 GB."""
+    b, _, h, _ = tensors[0].shape
+    return torch.cat([torch.cat([fn(*(x[i:i + 1, :, j:j + heads] for x in tensors))
+                                 for j in range(0, h, heads)], dim=2) for i in range(b)])
+
+
+def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Kernels 1, 2 and 1a at the 5B DiT's (2, 17776, 48, 64) (ragged against the 128-row
+    tiles: 138 full tiles and 112 rows; the plain version in blocks of 4 heads) and kernels
+    3 and 4 at the whole-clip decode's N=1 shapes, each against its plain version, with the
+    library call's time and the bound; returns these rows by kernel."""
+    import torch.nn.functional as F
+
+    from lkgd_torch.ops import flash_attention as fa
+    from lkgd_torch.ops import group_norm as gn
+
+    rows = {}
+    q, k, v = (torch.randn(COG_FLASH, device=dev, generator=gen).bfloat16() for _ in range(3))
+    want = in_head_chunks(lambda *a: fa.flash_attention_maxtrack_plain(
+        *(x.float() for x in a)), (q, k, v))
+    ref_max = want.abs().max().item()
+    least, lib_ms = flash_bound(COG_FLASH), sdpa_ms(q, k, v)
+    plan = fa.flash_plan(COG_FLASH[0], COG_FLASH[1], COG_FLASH[1], COG_FLASH[2], COG_FLASH[3])
+    for kernel, plain in (("flash_bound", fa.flash_attention_bound_plain),
+                          ("flash_maxtrack", fa.flash_attention_maxtrack_plain)):
+        if kernel == "flash_maxtrack":
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+        try:
+            counter = fa.recomputed_tiles(dev)
+            counter.zero_()
+            err = (fa.flash_attention(q, k, v).float() - want).abs().max().item()
+            torch.cuda.synchronize()
+            recomputed = int(counter.item())
+            ms = gpu_ms(lambda: fa.flash_attention(q, k, v))
+        finally:
+            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+        plain_ms = gpu_ms(lambda: in_head_chunks(plain, (q, k, v)), reps=1)
+        print(f"[cogvideox-kernel] {kernel} (B,S,H,D)={COG_FLASH}: max|d| {err:.3e} of max|ref| "
+              f"{ref_max:.3e} (tol {FLASH_TOL} x max|ref|) | {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms (blocks of 4 heads), library sdpa {lib_ms:.3f} ms, bound "
+              f"{least['bound_ms']:.3f} ms by {least['bound_by']} ({_versus(ms, lib_ms, least)})"
+              f" | {plan.blocks} blocks of {plan.tile_rows} rows | tiles recomputed "
+              f"{recomputed}", flush=True)
+        assert np.isfinite(err) and err <= FLASH_TOL * ref_max, (kernel, err, ref_max)
+        rows[kernel] = {"shape": list(COG_FLASH), "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms, **least}
+    norm_got, norm_want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
+    norm_err = (norm_got - norm_want).abs().max().item()
+    torch.testing.assert_close(norm_got, norm_want, rtol=1e-5, atol=0)
+    norm_least = bound(2 * k.numel(), k.numel() * 2 + COG_FLASH[0] * COG_FLASH[2] * 4, PEAK_FP32)
+    norm_ms, norm_plain_ms = gpu_ms(lambda: fa.key_norm_max(k)), gpu_ms(
+        lambda: fa.key_norm_max_plain(k))
+    print(f"[cogvideox-kernel] flash_key_norm (B,S,H,D)={COG_FLASH}: max|d| {norm_err:.3e} "
+          f"(rtol 1e-5) | {norm_ms:.3f} ms, plain {norm_plain_ms:.3f} ms, bound "
+          f"{norm_least['bound_ms']:.4f} ms by {norm_least['bound_by']}", flush=True)
+    rows["flash_key_norm"] = {"shape": list(COG_FLASH), "max_abs_err": norm_err, "ms": norm_ms,
+                              "plain_ms": norm_plain_ms, "library_ms": None, **norm_least}
+    del q, k, v, want
+    torch.cuda.empty_cache()
+
+    kw = dict(num_groups=32, eps=1e-6)
+    for label, shape in COG_GN:
+        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
+        w = (torch.randn(shape[-1], device=dev, generator=gen) * 0.1 + 1.0).bfloat16()
+        b = (torch.randn(shape[-1], device=dev, generator=gen) * 0.1).bfloat16()
+        plan = gn.chunk_plan(*shape, 32, 2)
+        a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
+        a_want, b_want = gn.group_norm_affine_plain(x, w, b, **kw)
+        stats_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item()
+                        for g, t in ((a_got, a_want), (b_got, b_want)))
+        assert stats_rel <= 1e-4, (label, stats_rel)
+        got = gn.group_norm(x, w, b, act="silu", **kw)
+        step = 1 << 21  # rows a comparison: the fp32 temporaries of 2^31 elements stay small
+        max_err = max((got[:, i:i + step].float() - gn.group_norm_apply_plain(
+            x[:, i:i + step], a_want, b_want, "silu").float()).abs().max().item()
+            for i in range(0, shape[1], step))
+        del got
+        assert max_err <= GN_TOL[torch.bfloat16], (label, max_err)
+        stats_ms = gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 10)
+        apply_ms = gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, "silu"), 10)
+        stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw), 1)
+        apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, "silu"), 1)
+        x_nchw = x.view(shape[0], shape[1], 1, shape[2]).permute(0, 3, 1, 2)
+        lib_ms = gpu_ms(lambda: F.silu(F.group_norm(x_nchw, 32, w, b, 1e-6)), 2)
+        n_el = x.numel()
+        stats_least = bound(3 * n_el, n_el * 2 + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
+        apply_least = bound(8 * n_el, 2 * n_el * 2 + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
+        print(f"[cogvideox-kernel] group_norm {label} {shape} bf16 act=silu ({n_el / 2**31:.2f} x "
+              f"2^31 elements; stats plan {plan.n_chunks} chunks of {plan.rows_per_chunk} rows, "
+              f"tile {plan.tile}): max|d| {max_err:.3e} (tol {GN_TOL[torch.bfloat16]}), affine "
+              f"relative {stats_rel:.2e} (tol 1e-4) | stats+fold {stats_ms:.3f} ms, plain "
+              f"{stats_plain_ms:.3f} ms, bound {stats_least['bound_ms']:.3f} ms | apply "
+              f"{apply_ms:.3f} ms, plain {apply_plain_ms:.3f} ms, bound "
+              f"{apply_least['bound_ms']:.3f} ms | library group_norm+silu {lib_ms:.3f} ms",
+              flush=True)
+        if label == "decode full res":
+            rows["gn_stats"] = {"shape": list(shape), "max_abs_err": stats_rel, "ms": stats_ms,
+                                "plain_ms": stats_plain_ms, "library_ms": lib_ms, **stats_least}
+            rows["gn_apply"] = {"shape": list(shape), "max_abs_err": max_err, "ms": apply_ms,
+                                "plain_ms": apply_plain_ms, "library_ms": lib_ms, **apply_least}
+        del x, x_nchw, a_got, b_got, a_want, b_want
+        torch.cuda.empty_cache()
+    return rows
+
+
+COG_TINY_PIPE = dict(height=32, width=48, num_frames=9, num_inference_steps=3,
+                     vae_scale_factor_spatial=4)  # 3 latent frames of 8 x 12
+
+
+def _cogvideox_tiny_pipe(device, kind: str, scheduler: str, overrides: dict):
+    import dataclasses
+
+    from lkgd_torch.models.configs import CogVideoXConfig
+    from lkgd_torch.pipelines import cogvideox_i2v as cog
+
+    cls = {"i2v": cog.CogVideoXImageToVideoPipeline, "t2v": cog.CogVideoXTextToVideoPipeline,
+           "v2v": cog.CogVideoXVideoToVideoPipeline}[kind]
+    extra = {"strength": 0.67} if kind == "v2v" else {}
+    return cls(config=cog.CogVideoXPipelineConfig(**COG_TINY_PIPE, scheduler=scheduler),
+               transformer_config=dataclasses.replace(CogVideoXConfig.tiny(), **overrides),
+               dtype=torch.float32, device=device, **extra)
+
+
+def _close_line(label: str, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    got = got.cpu()
+    err = (got - want).abs().max().item()
+    print(f"[{label}] GPU vs CPU fp32 {name} {tuple(want.shape)}: max|d| {err:.3e} (rtol 1e-4, "
+          f"atol 2e-4)", flush=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+
+
+def phase_tiny_cogvideox(dev: torch.device) -> None:
+    """The tiny CogVideoX pipelines (I2V with DPM, T2V with DDIM, V2V with DPM from step 1
+    of 3, the 1.5 form's I2V) and the tiny VAE (encode and decode of a whole clip, chunked,
+    tiled) on the GPU against the CPU at fp32, every parameter random, the same noise."""
+    from lkgd_torch.models import vae_cogvideox as tvae
+    from lkgd_torch.models.configs import CogVideoXVAEConfig
+    from lkgd_torch.models.layers import materialize
+
+    cases = [("i2v", "dpm", {}), ("t2v", "ddim", {"in_channels": 4}),
+             ("v2v", "dpm", {"in_channels": 4}), ("i2v", "dpm", {"patch_size_t": 2})]
+    for n, (kind, scheduler, overrides) in enumerate(cases):
+        form = " 1.5" if overrides.get("patch_size_t") else ""
+        label = f"tiny-cogvideox {kind} {scheduler}{form}"
+        cpu = _cogvideox_tiny_pipe("cpu", kind, scheduler, overrides)
+        gpu = _cogvideox_tiny_pipe(dev, kind, scheduler, overrides)
+        g = torch.Generator().manual_seed(60 + n)
+        with torch.no_grad():
+            for p in cpu.transformer.parameters():  # the zero-init fusion output too
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        gpu.transformer.load_state_dict(cpu.transformer.state_dict(), strict=True)
+        cfg = cpu.transformer.config
+        shape = (1, cpu.latent_frames, 8, 12, cfg.out_channels)
+        rng = np.random.default_rng(70 + n)
+
+        def normal(*s):
+            return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+
+        kw = dict(domain_features=normal(1, 1, 1000), flow_features=normal(1, 1, 1000),
+                  step_noise=normal(3, *shape))
+        prompt = normal(1, cfg.max_text_seq_length, cfg.text_embed_dim)
+        if kind == "i2v":
+            args, kw["initial_noise"] = (prompt, normal(1, 8, 12, cfg.out_channels)), normal(*shape)
+        elif kind == "t2v":
+            args, kw["initial_noise"] = (prompt,), normal(*shape)
+        else:
+            args, kw["noise"] = (prompt, normal(*shape)), normal(*shape)
+        want, got = cpu(*args, **kw), gpu(*args, **kw)
+        torch.cuda.synchronize()
+        _close_line(label, "latents", got, want)
+
+    cpu = materialize(lambda: tvae.AutoencoderKLCogVideoX(CogVideoXVAEConfig.tiny()), "cpu",
+                      torch.float32)
+    g = torch.Generator().manual_seed(80)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    gpu = materialize(lambda: tvae.AutoencoderKLCogVideoX(CogVideoXVAEConfig.tiny()), dev,
+                      torch.float32)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(81)
+    video = torch.from_numpy(rng.uniform(-1, 1, (1, 9, 32, 48, 3)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((1, 3, 8, 12, 4)).astype(np.float32))
+    modes = {"encode_mode": lambda vae, x, z: vae.encode_mode(x),
+             "decode": lambda vae, x, z: vae.decode(z),
+             "chunked_decode(2)": lambda vae, x, z: tvae.chunked_decode(vae, z,
+                                                                        chunk_latent_frames=2),
+             "tiled_decode(4x6)": lambda vae, x, z: tvae.tiled_decode(
+                 vae, z, tile_latent_height=4, tile_latent_width=6),
+             "chunked_encode(4)": lambda vae, x, z: tvae.chunked_encode(vae, x, chunk_frames=4),
+             "tiled_encode(16x24)": lambda vae, x, z: tvae.tiled_encode(
+                 vae, x, tile_height=16, tile_width=24)}
+    from lkgd_torch.ops import group_norm as gn
+
+    before = gn.launches["gn_stats"]
+    with torch.inference_mode():
+        for name, fn in modes.items():
+            _close_line("tiny-cogvideox vae", name, fn(gpu, video.to(dev), z.to(dev)),
+                        fn(cpu, video, z))
+    assert gn.launches["gn_stats"] > before, "the tiny GPU VAE must run the GroupNorm kernels"
+
+
+def _fill_fusion_output(transformer, gen: torch.Generator) -> int:
+    """The fusion's zero-init output ``fuse_sf_2`` filled with 0.02 x normal, so that the
+    knowledge features really reach the T5 context; returns the tensors filled."""
+    fused = transformer.knowledge_fusion.fuse_sf_2
+    with torch.no_grad():
+        for p in (fused.weight, fused.bias):
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
+    return 2
+
+
+def phase_cogvideox_full(dev: torch.device) -> dict:
+    """The CogVideoX-5B I2V at full width through ``lkgd_torch/cli/run_inference_cogvideox.py``'s
+    ``build``, ``encode`` and ``decode`` (DPM with dynamic CFG, guidance 6, bf16, random
+    weights from a seed, the fusion's output 0.02 x normal, synthetic T5 tokens and
+    width-1000 domain and flow features): one warm-up DiT step, then a counted run of the
+    encode of one 480x720 frame, 3 DPM steps (first order, 2M, the final step) with each
+    step's seconds and the whole-clip decode of 13 latent frames, flash launches 42 a step;
+    one DiT step under ``torch.profiler``; then the decode chunked (2 latent frames) and
+    tiled (60x90 latent tiles, one tile at this size, and 30x45), each timed with its peak."""
+    from lkgd_torch.cli import run_inference_cogvideox as cli
+    from lkgd_torch.ops import flash_attention as fa
+
+    steps = 3
+    parser = cli.make_parser()
+    args = parser.parse_args(["--image", "-", "--num-inference-steps", str(steps), "--seed", "0",
+                              "--device", str(dev)])
+    t0 = time.perf_counter()
+    pipe, vae = cli.build(args)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    filled = _fill_fusion_output(pipe.transformer, gen)
+    tcfg, pcfg = pipe.transformer.config, pipe.config
+    n_dit = sum(p.numel() for p in pipe.transformer.parameters())
+    n_vae = sum(p.numel() for p in vae.parameters())
+    prompt = torch.randn((1, tcfg.max_text_seq_length, tcfg.text_embed_dim), generator=gen,
+                         device=dev) * 0.2
+    domain, flow = (torch.randn((1, 1, 1000), generator=gen, device=dev) for _ in range(2))
+    yy = torch.linspace(-1, 1, pcfg.height, device=dev)[:, None, None]
+    xx = torch.linspace(-1, 1, pcfg.width, device=dev)[None, :, None]
+    image = torch.sin(3 * xx + 2 * yy + torch.tensor([0.0, 2.1, 4.2], device=dev))[None, None]
+    torch.cuda.synchronize()
+    patches = pipe.latent_frames * pcfg.latent_height * pcfg.latent_width // tcfg.patch_size ** 2
+    tokens = tcfg.max_text_seq_length + patches
+    print(f"[cogvideox] DiT {n_dit / 1e9:.3f} B + VAE {n_vae / 1e9:.3f} B bf16 random params "
+          f"({filled} fusion output tensors 0.02 x normal), {tcfg.num_layers} layers x "
+          f"{tcfg.num_attention_heads} heads x {tcfg.attention_head_dim}, joint sequence "
+          f"{tokens} tokens, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    assert tokens == COG_FLASH[1]
+
+    with torch.inference_mode():
+        # one warm-up step at the loop's shapes (CFG rows, image condition joined)
+        rows = 2
+        model_in = torch.randn((rows, pipe.latent_frames, pcfg.latent_height, pcfg.latent_width,
+                                tcfg.in_channels), generator=gen, device=dev).bfloat16()
+        ctx = torch.cat([torch.zeros_like(prompt), prompt]).bfloat16()
+        t_step = torch.full((rows,), 999.0, device=dev)
+        pipe.transformer(model_in, ctx, t_step, domain, flow)
+        torch.cuda.synchronize()
+
+        events = []
+
+        def mark_step(*_):  # each DPM step starts with one DiT call
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        hook = pipe.transformer.register_forward_pre_hook(mark_step)
+        _zero_counts()
+        fa.recomputed_tiles(dev).zero_()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_gen = torch.Generator(device=dev).manual_seed(1)
+        t0 = time.perf_counter()
+        image_latents = cli.encode(vae, image, args)[:, 0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        encode_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        latents = pipe(prompt, image_latents, generator=step_gen, domain_features=domain,
+                       flow_features=flow)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        hook.remove()
+        denoise_peak = torch.cuda.max_memory_allocated(dev)
+        denoise_launches = _read_counts()
+        recomputed = int(fa.recomputed_tiles(dev).item())
+        per_step = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:] + [end])]
+        torch.cuda.reset_peak_memory_stats(dev)
+        frames = cli.decode(vae, latents, args)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        decode_peak = torch.cuda.max_memory_allocated(dev)
+    launches = _read_counts()
+    print(f"[cogvideox] counted run: encode of one {pcfg.height}x{pcfg.width} frame "
+          f"{t1 - t0:.3f} s (peak {encode_peak / 2**30:.2f} GiB) | denoise {t2 - t1:.3f} s, "
+          f"{steps} DPM steps of {', '.join(f'{s:.3f}' for s in per_step)} s (first order, 2M, "
+          f"final), peak {denoise_peak / 2**30:.2f} GiB | whole-clip decode of "
+          f"{pipe.latent_frames} latent frames {t3 - t2:.3f} s, peak {decode_peak / 2**30:.2f} "
+          f"GiB | launches { {k: v for k, v in launches.items() if v} } | fallback tiles "
+          f"recomputed {recomputed}", flush=True)
+    print(f"[cogvideox] latents {tuple(latents.shape)} mean {latents.mean().item():.4f} std "
+          f"{latents.std().item():.4f} max|.| {latents.abs().max().item():.3f} | frames "
+          f"{tuple(frames.shape)} mean {frames.mean().item():.4f} std {frames.std().item():.4f}",
+          flush=True)
+    assert len(per_step) == steps
+    assert torch.isfinite(latents).all(), "non-finite latents"
+    assert torch.isfinite(frames).all(), "non-finite frames"
+    assert frames.shape == (1, pcfg.num_frames, pcfg.height, pcfg.width, 3), frames.shape
+    for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+        assert denoise_launches[name] == tcfg.num_layers * steps, (name, denoise_launches[name])
+    for name in INFERENCE:
+        assert launches.get(name, 0) > 0, f"kernel {name} was not launched by the CogVideoX clip"
+    for name in TRAINING + EXPERIMENTS:
+        assert launches.get(name, 0) == 0, f"kernel {name} was launched by the CogVideoX clip"
+
+    _profiled("cogvideox", f"one DiT step ({rows} x {tokens} tokens, {tcfg.num_layers} layers)",
+              lambda: pipe.transformer(model_in, ctx, t_step, domain, flow))
+    del model_in, ctx
+    torch.cuda.empty_cache()
+
+    for label, flags in (("chunked (2 latent frames)", ["--vae-chunk-frames", "2"]),
+                         ("tiled (60x90 latent tiles)", ["--vae-tiling"]),
+                         ("tiled (30x45 latent tiles)", ["--vae-tiling", "--vae-tile-latent",
+                                                         "30", "45"])):
+        mode = parser.parse_args(["--image", "-", "--device", str(dev)] + flags)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = cli.decode(vae, latents, mode)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assert out.shape == frames.shape and torch.isfinite(out).all(), label
+        dist = ((out - frames).norm() / frames.norm()).item()
+        print(f"[cogvideox] decode {label}: {seconds:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | |d|/|whole| {dist:.4f}",
+              flush=True)
+        del out
+    return launches
+
+
 def phase_train_options(dev: torch.device) -> None:
     """A tiny-width ``--mode trans`` fit on the card with ``--use-8bit-adam``, a validation
     pair rendered every step and ``--report-to tensorboard`` where the package is there:
@@ -1925,10 +2295,12 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(dev, torch.Generator(device=dev).manual_seed(1234))
     kernels.update(phase_experiment_kernels(dev, torch.Generator(device=dev).manual_seed(99)))
+    cogvideox_kernels = phase_cogvideox_kernels(dev, torch.Generator(device=dev).manual_seed(77))
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
     phase_tiny_variants(dev)
+    phase_tiny_cogvideox(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
@@ -1940,6 +2312,8 @@ def main() -> int:
     deep_cache_launches = phase_deep_cache_full(dev)
     torch.cuda.empty_cache()
     flow_launches = phase_flow_full(dev)
+    torch.cuda.empty_cache()
+    cogvideox_launches = phase_cogvideox_full(dev)
     torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
     phase_train_tiny(dev, "lkgd")
@@ -1957,6 +2331,7 @@ def main() -> int:
     by_path = {"clip": clip_launches, "trans": trans_launches, "smooth": smooth_launches,
                "controlnet": controlnet_launches, "deep_cache_2": deep_cache_launches[2],
                "deep_cache_3": deep_cache_launches[3], "flow": flow_launches,
+               "cogvideox": cogvideox_launches,
                "train": train_launches, "train_trans": train_trans_launches,
                "experiments": experiment_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
@@ -1965,7 +2340,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": by_path[own[name]][name],
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-         **kernels[name]} for name in REPLACES]}))
+         **kernels[name], **({"cogvideox": cogvideox_kernels[name]}
+                             if name in cogvideox_kernels else {})}
+        for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,9 +3,13 @@
 Counterparts of ``lkgd_tpu/models/configs.py`` ``JointAttentionConfig`` (:19-55),
 ``LoraRule`` / ``LoraRouter`` (:58-93), ``SVDUNetConfig`` (:96-160) and
 ``halve_stream_masks`` (:162-184), ``lkgd_tpu/models/vae_temporal.py``
-``TemporalVAEConfig`` (:30-37) and ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig``
-(:22-41). The port imports nothing of the JAX package, so it carries its own configs with
-the same field names and defaults, every LKGD extension of the JAX UNet config included.
+``TemporalVAEConfig`` (:30-37), ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig``
+(:22-41), ``lkgd_tpu/models/cogvideox.py`` ``CogVideoXConfig`` (:33-102) and
+``lkgd_tpu/models/vae_cogvideox.py`` ``CogVideoXVAEConfig`` (:26-39). The port imports
+nothing of the JAX package, so it carries its own configs with the same field names and
+defaults, every LKGD extension of the JAX UNet config included. ``CogVideoXConfig`` leaves
+out the JAX fields that only multi-chip code (``sequence_parallel``, ``sp_axis``) and
+training (``remat``) read.
 """
 
 from __future__ import annotations
@@ -207,3 +211,81 @@ class CLIPVisionConfig:
     def tiny(cls) -> "CLIPVisionConfig":
         return cls(image_size=32, patch_size=8, hidden_size=64, num_layers=2, num_heads=2,
                    intermediate_size=128, projection_dim=32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CogVideoXConfig:
+    """The CogVideoX 3D transformer (DiT); defaults are CogVideoX-5B I2V."""
+
+    num_layers: int = 42
+    num_attention_heads: int = 48
+    attention_head_dim: int = 64
+    in_channels: int = 32  # I2V: 16 noise + 16 image-condition latents
+    out_channels: int = 16
+    text_embed_dim: int = 4096
+    time_embed_dim: int = 512
+    patch_size: int = 2
+    # CogVideoX 1.5: pairs of latent frames become one token row (diffusers patch_size_t);
+    # None = 1.0, per-frame 2D patches
+    patch_size_t: Optional[int] = None
+    sample_frames: int = 49  # pixel frames; latent frames = (F - 1) / 4 + 1
+    temporal_compression_ratio: int = 4
+    max_text_seq_length: int = 226
+    rope_base_height: int = 480
+    rope_base_width: int = 720
+    # CogVideoX-2b: 3D sincos positions added to the video tokens instead of rotary ones
+    use_rope: bool = True
+    spatial_interpolation_scale: float = 1.875
+    temporal_interpolation_scale: float = 1.0
+    knowledge_fusion: bool = True
+    lora: LoraRouter = EMPTY_ROUTER
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @classmethod
+    def cogvideox_5b_i2v(cls, **kw) -> "CogVideoXConfig":
+        return cls(**kw)
+
+    @classmethod
+    def cogvideox_2b(cls, **kw) -> "CogVideoXConfig":
+        """CogVideoX-2b (T2V): 30 layers x 30 heads, sincos positions instead of RoPE."""
+        kw.setdefault("in_channels", 16)
+        return cls(num_layers=30, num_attention_heads=30, attention_head_dim=64,
+                   use_rope=False, **kw)
+
+    @classmethod
+    def cogvideox1_5_5b(cls, **kw) -> "CogVideoXConfig":
+        """CogVideoX 1.5 5B (T2V): temporal patching, 768x1360 base, 81 frames."""
+        kw.setdefault("in_channels", 16)
+        return cls(patch_size_t=2, sample_frames=81, rope_base_height=768,
+                   rope_base_width=1360, **kw)
+
+    @classmethod
+    def cogvideox1_5_5b_i2v(cls, **kw) -> "CogVideoXConfig":
+        return cls.cogvideox1_5_5b(in_channels=32, **kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "CogVideoXConfig":
+        return cls(num_layers=2, num_attention_heads=2, attention_head_dim=16,
+                   in_channels=8, out_channels=4, text_embed_dim=64, time_embed_dim=32,
+                   max_text_seq_length=8, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class CogVideoXVAEConfig:
+    """The CogVideoX causal 3D VAE (``AutoencoderKLCogVideoX``)."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 16
+    block_out_channels: Tuple[int, ...] = (128, 256, 256, 512)
+    layers_per_block: int = 3
+    temporal_compress_levels: Tuple[bool, ...] = (True, True, False)  # per downsample
+    scaling_factor: float = 0.7
+
+    @classmethod
+    def tiny(cls) -> "CogVideoXVAEConfig":
+        return cls(latent_channels=4, block_out_channels=(32, 32, 64), layers_per_block=1,
+                   temporal_compress_levels=(True, True))

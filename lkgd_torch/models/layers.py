@@ -35,7 +35,8 @@ from lkgd_torch.ops.group_norm import group_norm
 def materialize(factory: Callable[[], nn.Module], device, dtype: torch.dtype,
                 fp32: Optional[Callable[[str], bool]] = None) -> nn.Module:
     """Build ``factory()`` on the meta device, then allocate its parameters (uninitialised)
-    on ``device`` in ``dtype``, 4-D convolution weights channels-last. ``fp32``: a predicate
+    on ``device`` in ``dtype``, convolution weights channels-last (4-D) or channels-last-3d
+    (5-D), the layouts of the channels-last activations. ``fp32``: a predicate
     on parameter names whose parameters stay float32 whatever ``dtype`` is (trained
     parameters, cast to the compute dtype at use). Fill them with ``init_params`` or
     ``load_state_dict``."""
@@ -46,6 +47,8 @@ def materialize(factory: Callable[[], nn.Module], device, dtype: torch.dtype,
                 p.data = p.data.float()
             if p.dim() == 4:
                 p.data = p.data.contiguous(memory_format=torch.channels_last)
+            elif p.dim() == 5:
+                p.data = p.data.contiguous(memory_format=torch.channels_last_3d)
     return module.to_empty(device=device)  # empty_like keeps the strides
 
 

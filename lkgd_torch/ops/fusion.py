@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lkgd_torch.models.layers import ZeroInitLinear
 from lkgd_torch.ops.quaternion import QuaternionLinear
 
 
@@ -73,11 +74,14 @@ class DepthwiseCompressor(nn.Module):
 
 
 class LatentKnowledgeFusion(nn.Module):
-    """Fuse the CLIP context (B, L, ctx_dim) with the domain and flow knowledge features
-    (B, L or 1, any width; absent ones are zeros). Returns (B, L, ctx_dim)."""
+    """Fuse the context (B, L, ctx_dim: SVD's CLIP token, CogVideoX's T5 tokens) with the
+    domain and flow knowledge features (B, L or 1, any width; absent ones are zeros).
+    Returns (B, L, ctx_dim). ``zero_init_output``: the recombining MLP's last linear starts
+    at zero (CogVideoX), so that a fresh fusion adds nothing."""
 
     def __init__(self, ctx_dim: int = 1024, knowledge_dim: Optional[int] = None,
-                 compress_dim: Optional[int] = None, sf_hidden: Optional[int] = None):
+                 compress_dim: Optional[int] = None, sf_hidden: Optional[int] = None,
+                 zero_init_output: bool = False):
         super().__init__()
         d = self.d = compress_dim or ctx_dim // 4
         n_bins = d // 2 + 1
@@ -95,7 +99,8 @@ class LatentKnowledgeFusion(nn.Module):
         self.fuse_fft_mag0 = nn.Linear(4, 1)
         self.fuse_fft_pha0 = nn.Linear(4, 1)
         self.fuse_sf_0 = nn.Linear(4 * d, sf_hidden or d)
-        self.fuse_sf_2 = nn.Linear(sf_hidden or d, ctx_dim)
+        self.fuse_sf_2 = (ZeroInitLinear if zero_init_output else nn.Linear)(sf_hidden or d,
+                                                                             ctx_dim)
 
     @torch.no_grad()
     def init_extra(self, generator: torch.Generator) -> None:

@@ -7,7 +7,9 @@ to ``/``-joined paths (``params/down_blocks_0/resnets_0/.../kernel``) holding nu
 arrays. The result loads into the port's modules with ``load_state_dict(strict=True)``.
 
 Rules: Dense kernels (in, out) -> Linear (out, in); Conv kernels (kh, kw, I, O) ->
-(O, I, kh, kw); temporal (3, 1, I, O) kernels -> Conv3d (O, I, 3, 1, 1); ``scale`` ->
+(O, I, kh, kw); temporal (3, 1, I, O) kernels -> Conv3d (O, I, 3, 1, 1); 3D kernels
+(kt, kh, kw, I, O) -> Conv3d (O, I, kt, kh, kw) (the CogVideoX VAE's; the JAX exporter
+leaves these in flax's layout, which no torch module takes); ``scale`` ->
 ``weight``; list children ``name_3`` -> ``name.3``; ``to_out`` -> ``to_out.0``;
 ``ff.net_0.proj`` / ``ff.net_2`` -> ``ff.net.0.proj`` / ``ff.net.2``. Every other leaf keeps
 its name and layout: the LoRA factors ``lora_<name>_A`` (in, rank) / ``lora_<name>_B``
@@ -18,14 +20,17 @@ them. The joint branch's ``joint`` scope is dropped, as the JAX exporter drops i
 The same rules carry the ControlNet (``controlnet_cond_embedding.blocks.N``,
 ``controlnet_down_blocks.N``: ``key_map=None``, as the UNet) and the UNet's y head and flow
 input (``conv_in_y``, ``*_embedding_y``, ``conv_in2``, the scalar ``conv_in2_alpha``).
+``cogvideox_key_map`` gives the CogVideoX transformer diffusers' names, as the JAX
+package's ``cogvideox_export_key_map`` does; the CogVideoX VAE keeps the generic names
+(``key_map=None``), which its JAX CLI reads from ``vae_3d.safetensors``.
 
 ``lora_key_map`` / ``port_lora_safetensors`` read a LoRA state dict in diffusers, peft or
 kohya spelling into a module's ``lora_<name>_A/B`` parameters: the inverse of
 ``export_lora_state_dict`` and the counterpart of the JAX package's functions of the same
 names.
 
-``save_safetensors`` writes a state dict in the safetensors format with numpy alone (the
-card's machine has no ``safetensors`` package).
+``save_safetensors`` and ``load_safetensors`` write and read a state dict in the
+safetensors format with numpy alone (the card's machine has no ``safetensors`` package).
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ def _torch_layout(leaf: str, x: np.ndarray):
             return "weight", x.transpose(3, 2, 0, 1)[..., None]  # temporal conv -> Conv3d
         if x.ndim == 4:
             return "weight", x.transpose(3, 2, 0, 1)
+        if x.ndim == 5:
+            return "weight", x.transpose(4, 3, 0, 1, 2)
         return "weight", x
     if leaf == "scale":
         return "weight", x
@@ -97,6 +104,19 @@ def clip_key_map(key: str) -> str:
     return key  # visual_projection.*
 
 
+def cogvideox_key_map(key: str) -> str:
+    """Generic export names -> diffusers ``CogVideoXTransformer3DModel`` names, the
+    knowledge fusion as the LKGD checkpoint's top-level ``quaternion_lora_*`` modules."""
+    k = key.replace("patch_embed_proj", "patch_embed.proj")
+    k = k.replace("patch_embed_text_proj", "patch_embed.text_proj")
+    k = k.replace("norm_out_linear", "norm_out.linear").replace("norm_out_norm", "norm_out.norm")
+    k = k.replace(".ff_0.", ".ff.net.0.proj.").replace(".ff_2.", ".ff.net.2.")
+    if k.startswith("knowledge_fusion."):
+        k = k[len("knowledge_fusion."):].replace("fuse_sf_0", "fuse_sf.0")
+        return "quaternion_lora_" + k.replace("fuse_sf_2", "fuse_sf.2")
+    return k
+
+
 def vit_key_map(key: str) -> str:
     """Generic export names of the JAX ViT -> timm ``vit_base_patch16_384`` names (the
     inverse of ``lkgd_tpu/models/vit_mae.py`` ``timm_vit_key_map``)."""
@@ -113,8 +133,9 @@ def vit_key_map(key: str) -> str:
 def from_flax_params(flat: Mapping[str, np.ndarray],
                      key_map: Optional[Callable[[str], str]] = None) -> Dict[str, torch.Tensor]:
     """``/``-path flax leaves -> the port's state dict. ``key_map``: ``vae_key_map`` for the
-    temporal VAE, ``clip_key_map`` for CLIP, ``vit_key_map`` for the knowledge ViT, None
-    for the UNet (LoRA and knowledge fusion included)."""
+    temporal VAE, ``clip_key_map`` for CLIP, ``vit_key_map`` for the knowledge ViT,
+    ``cogvideox_key_map`` for the CogVideoX transformer, None for the UNet (LoRA and
+    knowledge fusion included) and the CogVideoX VAE."""
     out = {}
     for path, value in flat.items():
         parts = path.split("/")
@@ -217,3 +238,27 @@ def save_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
         f.write(blob)
         for data in chunks:
             f.write(data)
+
+
+_SAFETENSORS_DTYPES = {"F32": "<f4", "F16": "<f2"}
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Read a safetensors file of F32, F16 or BF16 tensors as ``name -> float32 array``
+    (exactly: each widens without rounding), with numpy alone."""
+    with open(path, "rb") as f:
+        size = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(size))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = info["data_offsets"]
+        raw = data[start:end]
+        if info["dtype"] == "BF16":
+            x = (np.frombuffer(raw, "<u2").astype(np.uint32) << 16).view(np.float32)
+        else:
+            x = np.frombuffer(raw, _SAFETENSORS_DTYPES[info["dtype"]]).astype(np.float32)
+        out[name] = x.reshape(info["shape"])
+    return out

@@ -62,10 +62,11 @@ LSE_IDS = TRAIN_IDS + ["d40", "one_row_tile", "d256", "d512_short", "d512_waves"
 
 
 # S ragged against the 128-row and 128-key tiles (64 above D=128), every tile width the
-# kernel is built for, and enough batch x heads x tiles for several waves of 132 blocks
+# kernel is built for, and enough batch x heads x tiles for several waves of 132 blocks; the
+# last one CogVideoX-like: 48 heads over a joint sequence no tile divides
 FLASH_SHAPES = [(2, 1100, 5, 64), (1, 1030, 1, 512), (1, 1024, 2, 40), (1, 1030, 2, 128),
                 (1, 1030, 2, 256), (1, 129, 3, 64), (3, 65, 1, 512), (1, 1100, 1, 8),
-                (12, 1100, 5, 64), (3, 9216, 1, 512)]
+                (12, 1100, 5, 64), (3, 9216, 1, 512), (2, 1250, 48, 64)]
 
 
 @pytest.mark.cuda
@@ -319,6 +320,26 @@ def test_group_norm_forward_matches_plain(cuda_device, shape, dtype, tol, act):
     want = gn.group_norm_plain(x.float(), w.float(), b.float(), num_groups=32, eps=1e-6,
                                act=act)
     assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_group_norm_one_sample_past_2_24_rows(cuda_device):
+    """N=1 over M = 2^24 + 1001 rows (the CogVideoX decode normalises a whole clip, up to
+    49 x 480 x 720 rows): the stats plan stays within the grid, a, b within 1e-4 relative and
+    the forward within the bf16 tolerance of the plain version, compared in row blocks."""
+    shape = (1, 2 ** 24 + 1001, 64)
+    x, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16)
+    plan = gn.chunk_plan(*shape, 32, 2)
+    assert plan.n_chunks <= 65535 and plan.n_chunks * plan.rows_per_chunk >= shape[1]
+    got_ab = gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-6)
+    want_ab = gn.group_norm_affine_plain(x, w, b, num_groups=32, eps=1e-6)
+    for g, wt in zip(got_ab, want_ab):
+        assert (g - wt).abs().max().item() <= 1e-4 * max(1.0, wt.abs().max().item())
+    got = gn.group_norm(x, w, b, num_groups=32, eps=1e-6, act="silu")
+    step = 1 << 22
+    for i in range(0, shape[1], step):
+        want = gn.group_norm_apply_plain(x[:, i:i + step], *want_ab, "silu")
+        assert (got[:, i:i + step].float() - want.float()).abs().max().item() <= 3e-2
 
 
 @pytest.mark.cuda

@@ -198,16 +198,19 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "training_cli",
                                    "trans_training_cli", "matmul_microbench",
                                    "flash_variant_microbench", "flash_bwd_ab", "kernel_ab",
-                                   "group_norm_ab"])
+                                   "group_norm_ab", "cogvideox_i2v_pipeline",
+                                   "cogvideox_t2v_pipeline", "cogvideox_v2v_pipeline",
+                                   "cogvideox_cli"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import run_inference_svd, train_svd_lora
+    from lkgd_torch.cli import run_inference_cogvideox, run_inference_svd, train_svd_lora
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.pipelines import cogvideox_i2v as cog
     from lkgd_torch.pipelines.svd_controlnet import StableVideoDiffusionControlNetPipeline
     from lkgd_torch.pipelines.svd_flow import (StableVideoDiffusionFlowPipeline,
                                                StableVideoDiffusionJointVFPipeline)
@@ -243,6 +246,14 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "flash_bwd_ab": lambda: flash_bwd_ab.main([]),
         "kernel_ab": lambda: kernel_ab.main([]),
         "group_norm_ab": lambda: group_norm_ab.main([]),
+        "cogvideox_i2v_pipeline": lambda: cog.CogVideoXImageToVideoPipeline(
+            transformer_config=tcfg.CogVideoXConfig.tiny()),
+        "cogvideox_t2v_pipeline": lambda: cog.CogVideoXTextToVideoPipeline(
+            transformer_config=tcfg.CogVideoXConfig.cogvideox_2b()),
+        "cogvideox_v2v_pipeline": lambda: cog.CogVideoXVideoToVideoPipeline(
+            transformer_config=tcfg.CogVideoXConfig.cogvideox_2b()),
+        "cogvideox_cli": lambda: run_inference_cogvideox.main(["--image",
+                                                              str(tmp_path / "a.png")]),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
