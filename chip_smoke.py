@@ -126,12 +126,35 @@ each printing its own lines; any failure raises and the script exits non-zero:
 8c. a tiny-width trans fit on the card with ``--use-8bit-adam``, a validation pair rendered
    every step and ``--report-to tensorboard`` where the package is there: the GIFs, the
    event file and the 8-bit state;
+7c. at fp32, GPU against CPU with the same weights and draws: the tiny joint video+flow
+   step (the trans UNet on ``make_joint_vf_batch``'s [video, flow] rows of one clip, held
+   as 7b); the tiny UniMatch (fan-in-scaled random weights, a moved view pair) on flow and
+   stereo (rtol 1e-4, atol 1e-3 px) and depth (rtol 1e-4, atol 2e-4); ``make_flow_batch_fn`` "of" and "of_fix" (tiny UniMatch, a VAE of factor 4, the
+   augmentation noise given); the tiny ControlNet train step (frozen UNet, every parameter
+   random): loss, gradients (each scaled by its largest entry or by 1% of the largest of
+   all, whichever is larger: biases before one-channel GroupNorm groups have rounding-level
+   gradients), the update against the CPU's AdamW on the GPU's gradients and the EMA, at
+   rtol 1e-4, atol 2e-4;
+8d. the ControlNet-SDV fine-tune at full width, 512x512x8f, one 9-frame clip a step through
+   ``Trainer.fit``: the base SVD UNet frozen in bf16 with remat, a ControlNet built from it
+   with ``init_from_unet`` (fp32 parameters computed in bf16 under autocast, heads 0.02 x
+   normal, lr 1e-5), an EMA; its control the clip's 8 flows from UniMatch ``lkgd()``
+   through ``make_flow_fn`` and ``flow_to_image_naive``; a warm-up step, three between CUDA
+   events (sec/step split into UniMatch, the other frozen preprocessing and the train step,
+   host CPU s/step, peak memory, launches: every inference and training kernel > 0) and
+   three under ``torch.profiler`` (device busy ms and operations a step); the UNet
+   bit-identical, the ControlNet and most of its EMA moved (an EMA entry moves by 1e-4 of
+   its parameter's move, below fp32's step at 1.0 for the norm scales);
+8e. the flow-video fine-tune ("of") the same way: ``make_flow_batch_fn`` with UniMatch
+   ``lkgd()`` and the base VAE on the clip's 9 frames, the first frame's CLIP embedding,
+   then ``make_svd_train_step`` on the ``--mode lkgd`` UNet and its trainable set;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
 A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
 launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
-``dc=2`` and ``3``, flow clip, CogVideoX clip, LKGD and trans training, microbenchmarks),
+``dc=2`` and ``3``, flow clip, CogVideoX clip, LKGD, trans, ControlNet and flow training,
+microbenchmarks),
 error, time, the
 plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
@@ -1976,7 +1999,9 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
     from lkgd_torch.ops import group_norm as gn
     from lkgd_torch.training import train_state as ts
 
-    label = "train-tiny" if mode == "lkgd" else "train-trans-tiny"
+    label = {"lkgd": "train-tiny", "trans": "train-trans-tiny",
+             "joint_vf": "train-joint-vf-tiny"}[mode]
+    joint_vf, mode = mode == "joint_vf", "trans" if mode == "joint_vf" else mode
     cpu, trainable = _tiny_train_unet("cpu", mode)
     gen = torch.Generator().manual_seed(11)
     init_params(cpu, gen)
@@ -1997,6 +2022,13 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
         draws = {"sigmas": np.array([0.7, 3.0]), "dropout_u": np.array([0.61, 0.06])}
     else:  # one [x, y] pair: one sigma; y keeps its embedding and loses its image
         draws = {"sigmas": np.array([1.3, 1.3]), "dropout_u": np.array([0.96, 0.76])}
+    if joint_vf:  # [video, flow] rows of one clip through make_joint_vf_batch
+        from lkgd_torch.training.flow import make_joint_vf_batch
+
+        joint = make_joint_vf_batch(*(torch.from_numpy(x) for x in (
+            rng.standard_normal((1, t, hw, hw, 4)) * 0.5, rng.standard_normal((1, t, hw, hw, 4)),
+            rng.standard_normal((1, 1, 64)))))
+        batch.update({k: v.numpy() for k, v in joint.items()})
     draws["noise"] = rng.standard_normal((b, t, hw, hw, 4))
     config = ts.SVDTrainConfig(conditioning_dropout_prob=0.3, tie_stream_pairs=mode == "trans")
     results = {}
@@ -2276,6 +2308,453 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- ControlNet and flow training
+def _tiny_unimatch(device, task: str):
+    """The tiny UniMatch of ``task`` (one scale, factor 8 for depth), fp32."""
+    import dataclasses
+
+    from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
+
+    config = UniMatchConfig.tiny()
+    if task == "depth":
+        config = dataclasses.replace(config, num_scales=1, upsample_factor=8,
+                                     attn_splits_list=(2,), corr_radius_list=(-1,),
+                                     prop_radius_list=(-1,))
+    return build_unimatch(config, task, device=device)
+
+
+def phase_train_tiny_variants(dev: torch.device) -> None:
+    """The tiny UniMatch (flow, stereo, depth), the flow batch ("of", "of_fix") and the
+    ControlNet train step at fp32 on the GPU against the CPU with the same weights and
+    draws, every parameter random (the ControlNet's zero-init heads included)."""
+    from lkgd_torch.models.configs import SVDUNetConfig, TemporalVAEConfig
+    from lkgd_torch.models.controlnet_svd import ControlNetSDV, ControlNetSDVConfig
+    from lkgd_torch.models.layers import materialize
+    from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
+    from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+    from lkgd_torch.training import flow as tflow
+    from lkgd_torch.training import train_state as ts
+    from lkgd_torch.training import variants
+    from lkgd_torch.utils.optical_flow import make_flow_fn
+
+    tol = dict(rtol=1e-4, atol=2e-4)
+    rng = np.random.default_rng(33)
+
+    def twins(build, seed: int, fan_in: bool = False):
+        """The module on the CPU with every parameter random (0.1 x normal; with ``fan_in``
+        weights of std fan_in^-1/2, biases 0.1 x normal and norm scales 1 + 0.1 x normal,
+        as the UniMatch tests draw them), and its copy on the card."""
+        cpu = build("cpu")
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, p in cpu.named_parameters():
+                x = torch.randn(p.shape, generator=gen)
+                if fan_in and p.dim() > 1:
+                    x = x * p[0].numel() ** -0.5
+                elif fan_in and ("norm" in name and name.endswith("weight")):
+                    x = 1.0 + 0.1 * x
+                else:
+                    x = 0.1 * x
+                p.copy_(x)
+        gpu = build(dev)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        return cpu, gpu
+
+    # UniMatch on its three tasks: pixels at atol 1e-3 (flow, disparity), depth at rtol 1e-4
+    base = rng.uniform(0, 255, (2, 40, 56, 3)).astype(np.float32)  # the second view moved
+    img0, img1 = torch.from_numpy(base[:, :32, :48].copy()), torch.from_numpy(
+        base[:, 4:36, 2:50].copy())
+    K = torch.tensor([[[40.0, 0, 24.0], [0, 40.0, 16.0], [0, 0, 1.0]]]).repeat(2, 1, 1)
+    pose = torch.eye(4).repeat(2, 1, 1)
+    pose[:, 0, 3] = 0.2
+    errs = {}
+    for task in ("flow", "stereo", "depth"):
+        cpu, gpu = twins(lambda d, task=task: _tiny_unimatch(d, task), 34, fan_in=True)
+        kw = dict(intrinsics=K, pose=pose, num_depth_candidates=16) if task == "depth" else {}
+        with torch.no_grad():
+            want = cpu(img0, img1, **kw)
+            got = gpu(img0.to(dev), img1.to(dev), **{k: v.to(dev) if torch.is_tensor(v) else v
+                                                     for k, v in kw.items()}).cpu()
+        errs[task] = ((got - want).abs().max().item(), want.abs().max().item())
+        assert torch.isfinite(got).all() and got.shape == want.shape, task
+        torch.testing.assert_close(got, want, **(tol if task == "depth"
+                                                 else dict(rtol=1e-4, atol=1e-3)),
+                                   msg=lambda m, task=task: f"{task}: {m}")
+    print("[train-variants-tiny] UniMatch GPU vs CPU fp32, max|d| (max|ref|): " + ", ".join(
+        f"{k} {d:.3e} ({m:.2f})" for k, (d, m) in errs.items()) + " (flow and disparity rtol "
+        "1e-4, atol 1e-3 px; depth rtol 1e-4, atol 2e-4)", flush=True)
+
+    # the flow batch of both modes: the tiny UniMatch, a VAE of factor 4, 32x32, 3 frames
+    vae_config = TemporalVAEConfig(block_out_channels=(32, 64, 64), layers_per_block=1)
+    vae_cpu, vae_gpu = twins(lambda d: materialize(lambda: AutoencoderKLTemporalDecoder(
+        vae_config), d, torch.float32).eval(), 35)
+    um_cpu, um_gpu = twins(lambda d: _tiny_unimatch(d, "flow"), 36, fan_in=True)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32, 3)).astype(np.float32))
+    emb = torch.from_numpy(rng.standard_normal((2, 1, 64)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    for mode in ("of", "of_fix"):
+        want = tflow.make_flow_batch_fn(make_flow_fn(um_cpu, (32, 32)), vae_cpu, mode)(
+            frames, emb, noise=noise)
+        got = tflow.make_flow_batch_fn(make_flow_fn(um_gpu, (32, 32)), vae_gpu, mode)(
+            frames.to(dev), emb.to(dev), noise=noise.to(dev))
+        line = []
+        for key, value in want.items():
+            line.append(f"{key} {tuple(value.shape)} {(got[key].cpu() - value).abs().max():.3e}")
+            torch.testing.assert_close(got[key].cpu(), value, **tol, msg=f"{mode} {key}")
+        print(f"[train-variants-tiny] flow batch '{mode}' GPU vs CPU fp32, max|d|: "
+              + ", ".join(line) + " (rtol 1e-4, atol 2e-4)", flush=True)
+
+    # the ControlNet train step: ControlNet and UNet at the tiny widths, 2 clips x 4 frames
+    unet_widths = _tiny_widths()[0]
+    unet_cpu, unet_gpu = twins(lambda d: materialize(lambda: UNetSpatioTemporalCondition(
+        SVDUNetConfig(**unet_widths)), d, torch.float32), 37)
+    cn_config = ControlNetSDVConfig(unet=SVDUNetConfig(**unet_widths),
+                                    conditioning_embedding_out_channels=(16, 32, 96))
+    cn_cpu, cn_gpu = twins(lambda d: materialize(lambda: ControlNetSDV(cn_config), d,
+                                                 torch.float32), 38)
+    b, t, hw = 2, 4, 8
+    batch = {"latents": rng.standard_normal((b, t, hw, hw, 4)) * 0.5,
+             "cond_latents": rng.standard_normal((b, hw, hw, 4)),
+             "image_embeddings": rng.standard_normal((b, 1, 64)),
+             "control": rng.uniform(size=(b, t, 4 * hw, 4 * hw, 3))}
+    draws = {"sigmas": np.array([0.7, 3.0]), "noise": rng.standard_normal((b, t, hw, hw, 4))}
+    results = {}
+    for side, controlnet, unet, device in (("cpu", cn_cpu, unet_cpu, "cpu"),
+                                          ("gpu", cn_gpu, unet_gpu, dev)):
+        tensors = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                   for k, v in {**batch, **draws}.items()}
+        frozen = {n: p.detach().clone() for n, p in unet.named_parameters()}
+        step = variants.make_controlnet_train_step(unet)
+        state = ts.init_train_state(controlnet, ts.make_optimizer(1e-3), ema=True)
+        start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
+        grads = {}  # the gradients the step takes
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: grads.__setitem__(n, p.grad.detach().cpu().clone()))
+            for n, p in state.trainables.items()]
+        state, loss = step(state, {k: tensors[k] for k in batch},
+                           **{k: tensors[k] for k in draws})
+        for h in hooks:
+            h.remove()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        assert all(torch.equal(p, frozen[n]) for n, p in unet.named_parameters()), side
+        results[side] = (loss.item(), grads,
+                         {n: p.detach().cpu() for n, p in state.trainables.items()},
+                         {n: e.cpu() for n, e in state.ema_params.items()})
+    (loss_c, grads_c, after_c, ema_c), (loss_g, grads_g, after_g, ema_g) = \
+        results["cpu"], results["gpu"]
+    assert sorted(grads_c) == sorted(grads_g), "the same parameters get a gradient"
+    # a gradient scaled by its largest entry, or by 1% of the largest of all where that is
+    # larger: the biases before one-channel GroupNorm groups have rounding-level gradients
+    floor = 1e-2 * max(g.abs().max().item() for g in grads_c.values())
+    grad_err = 0.0
+    for name, g in grads_c.items():
+        scale = max(floor, g.abs().max().item())
+        grad_err = max(grad_err, (grads_g[name] - g).abs().max().item() / scale)
+        torch.testing.assert_close(grads_g[name] / scale, g / scale, **tol, msg=name)
+    want_g = _cpu_step_from(start, {n: grads_g.get(n) for n in start})
+    step_err = max((after_g[n] - want_g[n]).abs().max().item() for n in start)
+    ema_err = max((ema_g[n] - ema_c[n]).abs().max().item() for n in start)
+    for name in start:
+        torch.testing.assert_close(after_g[name], want_g[name], **tol, msg=name)
+        torch.testing.assert_close(ema_g[name], ema_c[name], **tol, msg=name)
+        torch.testing.assert_close(ema_g[name], start[name] * 0.9999 + after_g[name] * 1e-4,
+                                   **tol, msg=name)
+    moved = sum(not torch.equal(after_g[n], start[n]) for n in start)
+    print(f"[train-variants-tiny] ControlNet step GPU vs CPU fp32: loss {loss_g:.6f} vs "
+          f"{loss_c:.6f} | {len(grads_c)} of {len(start)} parameters with a gradient, max "
+          f"|d|/scale {grad_err:.3e} | after one step against the CPU's AdamW on the GPU's "
+          f"gradients {step_err:.3e}, {moved} moved | EMA against the CPU's {ema_err:.3e} "
+          f"(rtol 1e-4, atol 2e-4) | UNet bit-identical", flush=True)
+    assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+    assert moved == len(start), "a ControlNet parameter did not move"
+
+
+def _fit_windows(label: str, dev, trainer, clips: list, parts: dict) -> dict:
+    """A warm-up step, three timed steps and three under ``torch.profiler``, all through
+    ``trainer.fit``. ``parts``: name -> list of (start, end) CUDA event pairs that the step
+    appends to; each part's ms a step over the timed window. Returns sec/step, host CPU
+    s/step, parts, device busy ms and operations a step, peak bytes, launches and losses."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, marks = [], []
+    step = trainer.train_step
+
+    def recorded_step(state, batch, generator):
+        state, loss = step(state, batch, generator)
+        losses.append(loss)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return state, loss
+
+    trainer.train_step = recorded_step
+    trainer.config.log_every = 10 ** 9
+
+    def window(first: int, last: int) -> tuple[float, float]:
+        marks.clear()
+        for pairs in parts.values():
+            pairs.clear()
+        opening = torch.cuda.Event(enable_timing=True)
+        trainer.config.max_steps = trainer.state.step + last - first
+        cpu0 = time.process_time()
+        opening.record()
+        trainer.fit(iter(clips[first:last]))
+        cpu_s = (time.process_time() - cpu0) / (last - first)
+        torch.cuda.synchronize()
+        return opening.elapsed_time(marks[-1]) / 1e3 / (last - first), cpu_s
+
+    t0 = time.perf_counter()
+    trainer.config.max_steps = trainer.state.step + 1
+    trainer.fit(iter(clips[:1]))
+    torch.cuda.synchronize()
+    print(f"[{label}] warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    step_s, cpu_s = window(1, 4)
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    part_ms = {name: sum(a.elapsed_time(b) for a, b in pairs) / 3
+               for name, pairs in parts.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_step_s, prof_cpu_s = window(4, 7)
+    device_ms, n_device = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "DtoH" not in e.key:
+            device_ms += e.self_device_time_total / 1e3
+            n_device += e.count
+    trainer.train_step = step
+    return dict(step_s=step_s, cpu_s=cpu_s, part_ms=part_ms, peak=peak, launches=launches,
+                prof_step_s=prof_step_s, prof_cpu_s=prof_cpu_s, device_ms=device_ms / 3,
+                n_device=n_device / 3, losses=[x.item() for x in losses])
+
+
+def _fit_lines(label: str, r: dict) -> None:
+    ms = r["part_ms"]
+    rest = r["step_s"] - (ms["frozen preprocessing"] + ms["train step"]) / 1e3
+    print(f"[{label}] {r['step_s']:.3f} s/step (3 steps after the warm-up, between CUDA "
+          f"events) = UniMatch {ms['UniMatch'] / 1e3:.3f} s + other frozen preprocessing "
+          f"{(ms['frozen preprocessing'] - ms['UniMatch']) / 1e3:.3f} s + train step "
+          f"{ms['train step'] / 1e3:.3f} s + between them {rest:.3f} s (CUDA events around "
+          f"each part), "
+          f"host CPU {r['cpu_s']:.3f} s/step | peak memory {r['peak'] / 2**30:.2f} GiB | "
+          f"losses {r['losses']} | launches { {k: v for k, v in r['launches'].items() if v} } | "
+          f"{host_line()}", flush=True)
+    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step (3 steps under "
+          f"torch.profiler), host CPU {r['prof_cpu_s']:.3f} s/step, device busy "
+          f"{r['device_ms']:.1f} ms/step = {100 * r['device_ms'] / (r['prof_step_s'] * 1e3):.1f}% "
+          f"of the window, {r['n_device']:.0f} device operations a step", flush=True)
+    assert all(np.isfinite(r["losses"])), r["losses"]
+    assert r["device_ms"] > 0.0
+    for name in INFERENCE + TRAINING:
+        assert r["launches"].get(name, 0) > 0, f"kernel {name} was not launched by {label}"
+
+
+def _unimatch_memory_line(label: str, dev, flow_fn, frames: torch.Tensor) -> None:
+    """UniMatch's flows of one clip alone: the memory it adds above what is resident."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flow_fn((frames + 1.0) / 2.0)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - resident
+    print(f"[{label}] UniMatch on the clip's {frames.shape[0] - 1} pairs alone: +"
+          f"{extra / 2**30:.2f} GiB above the resident {resident / 2**30:.2f} GiB", flush=True)
+
+
+def _unmoved(start: dict, now: dict) -> list:
+    """Names of the tensors of ``now`` still equal to ``start``; each must be all zero (the
+    weight decay moves every other one), i.e. a zero tensor without a gradient."""
+    still = sorted(n for n, p in now.items() if torch.equal(p, start[n]))
+    assert all(not start[n].any() for n in still), f"nonzero tensors did not move: {still}"
+    return still
+
+
+def _timed(fn, pairs: list):
+    """``fn`` with a CUDA event pair around each call, appended to ``pairs``."""
+    def wrapped(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+    return wrapped
+
+
+def _frozen_models(dev, dtype, gen, num_frames: int, frozen_unet: bool):
+    """The SVD UNet at full width (bf16, remat; the base UNet frozen, or the ``--mode lkgd``
+    UNet with its fp32 trainables), the VAE, CLIP-H and UniMatch ``lkgd()``, random from
+    ``gen``; the frozen ones in eval mode without gradients."""
+    from lkgd_torch.cli import train_svd_lora as cli
+    from lkgd_torch.models.clip_vision import CLIPVisionModelWithProjection
+    from lkgd_torch.models.configs import CLIPVisionConfig, SVDUNetConfig, TemporalVAEConfig
+    from lkgd_torch.models.layers import init_params, materialize
+    from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
+    from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
+    from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+
+    if frozen_unet:
+        unet = materialize(lambda: UNetSpatioTemporalCondition(SVDUNetConfig(
+            num_frames=num_frames, remat=True)), dev, dtype)
+    else:
+        args = cli.make_parser().parse_args(["--mode", "lkgd", "--num-frames", str(num_frames),
+                                             "--rank", "4", "--remat"])
+        unet = materialize(lambda: UNetSpatioTemporalCondition(cli.unet_config(args)), dev,
+                           dtype, fp32=cli.trainable)
+    vae = materialize(lambda: AutoencoderKLTemporalDecoder(TemporalVAEConfig()), dev, dtype)
+    clip = materialize(lambda: CLIPVisionModelWithProjection(CLIPVisionConfig()), dev, dtype)
+    for model in (unet, vae, clip):
+        init_params(model, gen)
+    for model in (vae, clip):
+        model.eval().requires_grad_(False)
+    unimatch = build_unimatch(UniMatchConfig.lkgd(), device=dev, generator=gen)
+    return unet, vae, clip, unimatch
+
+
+def phase_train_controlnet_full(dev: torch.device) -> dict:
+    """The ControlNet-SDV fine-tune at full width, 512x512x8f, one clip a step: the base SVD
+    UNet frozen in bf16 (remat), a ControlNet built from it with ``init_from_unet`` (fp32,
+    computed in bf16 under autocast, zero-init heads 0.02 x normal), trained with EMA; the
+    control is the clip's flow, UniMatch ``lkgd()`` on its 9 frames through
+    ``make_flow_fn`` and ``flow_to_image_naive``, as the reference's flow control."""
+    import tempfile
+
+    from lkgd_torch.cli import train_svd_lora as cli
+    from lkgd_torch.models.controlnet_svd import (ControlNetSDV, ControlNetSDVConfig,
+                                                  init_from_unet)
+    from lkgd_torch.models.layers import init_params, materialize
+    from lkgd_torch.training import train_state as ts
+    from lkgd_torch.training import variants
+    from lkgd_torch.training.trainer import Trainer, TrainerConfig
+    from lkgd_torch.utils.flow_codec import flow_to_image_naive
+    from lkgd_torch.utils.optical_flow import make_flow_fn
+
+    label, frames, size = "train-controlnet", 8, 512
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    unet, vae, clip, unimatch = _frozen_models(dev, torch.bfloat16, gen, frames, True)
+    controlnet = materialize(lambda: ControlNetSDV(ControlNetSDVConfig(unet=unet.config)), dev,
+                             torch.float32)
+    init_params(controlnet, gen)
+    copied = init_from_unet(controlnet, unet)
+    with torch.no_grad():
+        heads = [p for n, p in controlnet.named_parameters() if n.startswith((
+            "controlnet_cond_embedding.conv_out.", "controlnet_down_blocks.",
+            "controlnet_mid_block."))]
+        for p in heads:
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    preprocess = cli.make_preprocess(vae, clip)
+    parts = {"frozen preprocessing": [], "UniMatch": [], "train step": []}
+    flow_fn = _timed(make_flow_fn(unimatch, (size, size)), parts["UniMatch"])
+    step = _timed(variants.make_controlnet_train_step(unet), parts["train step"])
+
+    def prepare(pixel_values, generator):  # (1, 9, H, W, 3) in [-1, 1]
+        control = flow_to_image_naive(flow_fn((pixel_values[0] + 1.0) / 2.0))[None]
+        return dict(preprocess(pixel_values, generator), control=control)
+
+    prepare = _timed(prepare, parts["frozen preprocessing"])
+
+    def train_step(state, batch, generator):
+        return step(state, prepare(batch["pixel_values"], generator), generator)
+
+    state = ts.init_train_state(controlnet, ts.make_optimizer(1e-5), ema=True)
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_cn = sum(p.numel() for p in controlnet.parameters())
+    unet_before = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = Trainer(train_step, state, TrainerConfig(output_dir=out_dir,
+                                                           checkpoint_every=0, seed=0))
+        # the end of each fit would write the ControlNet, its moments and its EMA (11 GB)
+        trainer.save_checkpoint = lambda step: None
+        clips = [{"pixel_values": torch.rand((1, frames + 1, size, size, 3), generator=gen,
+                                             device=dev) * 2 - 1} for _ in range(7)]
+        torch.cuda.synchronize()
+        print(f"[{label}] ControlNet-SDV fine-tune {size}x{size}x{frames}f, batch 1: frozen UNet "
+              f"{n_unet / 1e9:.3f} B bf16 (remat), ControlNet {n_cn / 1e9:.3f} B fp32 computed in "
+              f"bf16 (autocast), {copied} tensors from the UNet, {len(heads)} zero-init head "
+              f"tensors 0.02 x normal, EMA, no end-of-fit checkpoint; UniMatch lkgd() "
+              f"{sum(p.numel() for p in unimatch.parameters()) / 1e6:.2f} M fp32; set-up "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        start = {n: p.detach().clone() for n, p in state.trainables.items()}
+        ema_start = {n: e.clone() for n, e in state.ema_params.items()}
+        r = _fit_windows(label, dev, trainer, clips, parts)
+    _fit_lines(label, r)
+    _unimatch_memory_line(label, dev, flow_fn, clips[0]["pixel_values"][0])
+    still = _unmoved(start, state.trainables)
+    # an EMA entry moves by 1e-4 of its parameter's move: below fp32's step at 1.0 for the
+    # norm scales and mixing factors
+    ema_moved = sum(not torch.equal(e, ema_start[n]) for n, e in state.ema_params.items())
+    unet_same = all(torch.equal(p, unet_before[n]) for n, p in unet.named_parameters())
+    print(f"[{label}] UNet bit-identical {unet_same} ({len(unet_before)} tensors) | ControlNet "
+          f"moved {len(start) - len(still)}/{len(start)} (unmoved: zero and without a "
+          f"gradient, {still}), its EMA {ema_moved}/{len(ema_start)} | step {state.step}",
+          flush=True)
+    assert unet_same and not any(p.requires_grad for p in unet.parameters())
+    assert 2 * ema_moved > len(ema_start) and state.step == 7
+    return r["launches"]
+
+
+def phase_train_flow_full(dev: torch.device) -> dict:
+    """The flow-video fine-tune ("of") at full width, 512x512x8f, one clip a step:
+    ``make_flow_batch_fn`` with UniMatch ``lkgd()`` and the base VAE on 9 frames, the CLIP
+    embedding of the first frame, then ``make_svd_train_step`` on the ``--mode lkgd`` UNet
+    (bf16, remat; the knowledge fusion and the rank-4 temporal LoRA trained in fp32)."""
+    import tempfile
+
+    from lkgd_torch.cli import train_svd_lora as cli
+    from lkgd_torch.training import flow as tflow
+    from lkgd_torch.training import train_state as ts
+    from lkgd_torch.training.trainer import Trainer, TrainerConfig
+    from lkgd_torch.utils.optical_flow import make_flow_fn
+
+    label, frames, size = "train-flow", 8, 512
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    unet, vae, clip, unimatch = _frozen_models(dev, torch.bfloat16, gen, frames, False)
+    parts = {"frozen preprocessing": [], "UniMatch": [], "train step": []}
+    flow_fn = _timed(make_flow_fn(unimatch, (size, size)), parts["UniMatch"])
+    prep = tflow.make_flow_batch_fn(flow_fn, vae, "of")
+    step = _timed(ts.make_svd_train_step(ts.SVDTrainConfig()), parts["train step"])
+    # (1, 9, H, W, 3) in [-1, 1]: the first frame's CLIP embedding, then the flow batch
+    prepare = _timed(lambda pixel_values, generator: prep(
+        pixel_values, cli.clip_embedding(clip, pixel_values[:, 0]), generator),
+        parts["frozen preprocessing"])
+
+    def train_step(state, batch, generator):
+        return step(state, prepare(batch["pixel_values"], generator), generator)
+
+    state = ts.init_train_state(unet, ts.make_optimizer(2e-4, trainable_predicate=cli.trainable))
+    frozen = {n: p.detach().clone() for n, p in unet.named_parameters()
+              if n in ("conv_in.weight", "mid_block.resnets.0.spatial_res_block.conv1.weight",
+                       "up_blocks.3.attentions.2.transformer_blocks.0.ff.net.2.weight")}
+    assert len(frozen) == 3
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = Trainer(train_step, state, TrainerConfig(output_dir=out_dir,
+                                                           checkpoint_every=0, seed=0))
+        clips = [{"pixel_values": torch.rand((1, frames + 1, size, size, 3), generator=gen,
+                                             device=dev) * 2 - 1} for _ in range(7)]
+        torch.cuda.synchronize()
+        n_train = sum(p.numel() for p in state.trainables.values())
+        print(f"[{label}] flow-video fine-tune ('of') {size}x{size}x{frames}f, batch 1: UNet "
+              f"{sum(p.numel() for p in unet.parameters()) / 1e9:.3f} B bf16 (remat), "
+              f"{len(state.trainables)} trainable tensors ({n_train / 1e6:.3f} M, fp32, the "
+              f"--mode lkgd set); set-up {time.perf_counter() - t0:.1f} s", flush=True)
+        start = {n: p.detach().clone() for n, p in state.trainables.items()}
+        r = _fit_windows(label, dev, trainer, clips, parts)
+    _fit_lines(label, r)
+    _unimatch_memory_line(label, dev, flow_fn, clips[0]["pixel_values"][0])
+    still = _unmoved(start, state.trainables)
+    same = all(torch.equal(p, frozen[n]) for n, p in unet.named_parameters() if n in frozen)
+    print(f"[{label}] trainables moved {len(start) - len(still)}/{len(start)} (unmoved: zero "
+          f"and without a gradient, {still}) | sampled frozen weights bit-identical {same} | "
+          f"step {state.step}", flush=True)
+    assert same and state.step == 7
+    return r["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -2318,9 +2797,15 @@ def main() -> int:
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
     phase_train_tiny(dev, "lkgd")
     phase_train_tiny(dev, "trans")
+    phase_train_tiny(dev, "joint_vf")
+    phase_train_tiny_variants(dev)
     train_launches = phase_train_full(dev)
     torch.cuda.empty_cache()
     train_trans_launches = phase_train_full(dev, "trans")
+    torch.cuda.empty_cache()
+    train_controlnet_launches = phase_train_controlnet_full(dev)
+    torch.cuda.empty_cache()
+    train_flow_launches = phase_train_flow_full(dev)
     torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
@@ -2333,6 +2818,7 @@ def main() -> int:
                "deep_cache_3": deep_cache_launches[3], "flow": flow_launches,
                "cogvideox": cogvideox_launches,
                "train": train_launches, "train_trans": train_trans_launches,
+               "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
                "experiments": experiment_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
            **dict.fromkeys(EXPERIMENTS, "experiments")}

@@ -199,6 +199,47 @@ def _validation_fn(args, unet: torch.nn.Module, vae, clip, device, dtype):
     return make_validation_sampler(pipe, images, os.path.join(args.output_dir, "validation"))
 
 
+def clip_embedding(clip: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) images in [-1, 1] -> (B, 1, D) fp32 CLIP-H embeddings, after the
+    antialiased resize to CLIP's size."""
+    size = clip.config.image_size
+    clip_in = resize_with_antialiasing(images.float(), (size, size))
+    dtype = next(clip.parameters()).dtype
+    return clip(clip_normalize((clip_in + 1.0) / 2.0).to(dtype))[:, None, :].float()
+
+
+def make_preprocess(vae, clip, vit=None, trans: bool = False) -> Callable:
+    """The frozen models' preprocessing, ``preprocess(pixel_values, generator) -> batch``:
+    pixel_values (B, T+1, H, W, 3) in [-1, 1] -> the train step's batch (fp32) of the first
+    T frames: scaled VAE latents, the unscaled latents of the first frame with 0.02 x
+    normal noise, its CLIP embedding, and with ``vit`` the knowledge features. With
+    ``trans`` the rows are [clip, time-flipped clip], each conditioned on its own first
+    frame (one pair only: ``ONE_PAIR``)."""
+    device, dtype = next(vae.parameters()).device, next(vae.parameters()).dtype
+
+    @torch.no_grad()
+    def preprocess(pixel_values: torch.Tensor, gen: torch.Generator) -> dict:
+        frames = pixel_values.to(device, torch.float32)[:, :-1]
+        if trans:
+            if frames.shape[0] != 1:
+                raise NotImplementedError(ONE_PAIR)
+            frames = torch.stack([frames, frames.flip(1)], dim=1).flatten(0, 1)
+        b, t = frames.shape[:2]
+        latents = vae.encode_mode(frames.reshape(b * t, *frames.shape[2:]).to(dtype))
+        latents = latents.float().reshape(b, t, *latents.shape[1:]) * VAE_SCALING
+        cond_img = frames[:, 0]
+        noise = torch.randn(cond_img.shape, generator=gen, device=device) * 0.02
+        cond_latents = vae.encode_mode((cond_img + noise).to(dtype)).float()
+        batch = {"latents": latents, "cond_latents": cond_latents,
+                 "image_embeddings": clip_embedding(clip, frames[:, 0])}
+        if vit is not None:
+            domain = encode_knowledge_features(vit, frames).float()
+            batch.update(domain_features=domain, flow_features=domain)
+        return batch
+
+    return preprocess
+
+
 def build(args, widths: Widths = Widths()) -> TrainRun:
     """Models with random weights from ``--seed``, the preprocessing, the train step and the
     trainer of ``--mode``."""
@@ -224,31 +265,7 @@ def build(args, widths: Widths = Widths()) -> TrainRun:
     for model in frozen:
         model.eval().requires_grad_(False)
 
-    @torch.no_grad()
-    def preprocess(pixel_values: torch.Tensor, gen: torch.Generator) -> dict:
-        """pixel_values (B, T+1, H, W, 3) in [-1, 1] -> the train step's batch (fp32). In
-        trans mode the rows are [clip, time-flipped clip], each conditioned on its own
-        first frame."""
-        frames = pixel_values.to(device, torch.float32)[:, :-1]
-        if trans:
-            if frames.shape[0] != 1:
-                raise NotImplementedError(ONE_PAIR)
-            frames = torch.stack([frames, frames.flip(1)], dim=1).flatten(0, 1)
-        b, t = frames.shape[:2]
-        latents = vae.encode_mode(frames.reshape(b * t, *frames.shape[2:]).to(dtype))
-        latents = latents.float().reshape(b, t, *latents.shape[1:]) * VAE_SCALING
-        cond_img = frames[:, 0]
-        noise = torch.randn(cond_img.shape, generator=gen, device=device) * 0.02
-        cond_latents = vae.encode_mode((cond_img + noise).to(dtype)).float()
-        size = clip.config.image_size
-        clip_in = resize_with_antialiasing(frames[:, 0], (size, size))  # [-1, 1]
-        emb = clip(clip_normalize((clip_in + 1.0) / 2.0).to(dtype))[:, None, :].float()
-        batch = {"latents": latents, "cond_latents": cond_latents, "image_embeddings": emb}
-        if vit is not None:
-            domain = encode_knowledge_features(vit, frames).float()
-            batch.update(domain_features=domain, flow_features=domain)
-        return batch
-
+    preprocess = make_preprocess(vae, clip, vit, trans)
     optimizer = make_optimizer(args.learning_rate, trainable_predicate=predicate,
                                use_8bit=args.use_8bit_adam)
     state = init_train_state(unet, optimizer)

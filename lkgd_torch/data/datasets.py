@@ -1,6 +1,7 @@
-"""The LKGD fine-tune's training data (counterpart of ``lkgd_tpu/data/datasets.py``):
-``MiniDataset`` and a loader with the contract of the JAX package's ``PrefetchLoader``
-that yields torch tensors on a device.
+"""Training data (counterpart of ``lkgd_tpu/data/datasets.py``): ``MiniDataset`` (the
+LKGD fine-tune's clips), ``FramesFlowDataset`` (DAVIS-style frame folders with precomputed
+flow, for flow training) and a loader with the contract of the JAX package's
+``PrefetchLoader`` that yields torch tensors on a device.
 
 Video decoding is ``lkgd_torch/data/video_io.py`` (numpy; OpenCV is imported only when a
 clip is read).
@@ -12,12 +13,12 @@ import glob
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from lkgd_torch.data.video_io import process_frames, read_video_frames
+from lkgd_torch.data.video_io import process_frames, read_flo, read_image, read_video_frames
 from lkgd_torch.utils.device import require_device
 
 
@@ -54,6 +55,49 @@ class MiniDataset:
         if rng.random() < 0.5:
             pixel_values = pixel_values[:, :, ::-1].copy()
         return {"pixel_values": pixel_values * 2.0 - 1.0, "fps": np.float32(fps / interval)}
+
+
+class FramesFlowDataset:
+    """Folders of frames (``*.jpg``, ``*.png``; one folder a sequence under ``root``) and,
+    under ``flow_root/<sequence>``, precomputed ``.flo`` flow. Each item is
+    ``sample_n_frames`` frames from a random start, resized and centre-cropped, in [-1, 1],
+    ``{"pixel_values": (T, H, W, 3), "fps": 7}``, with the T-1 flows that follow the start
+    (``"flow"``) and the motion bucket they give (``min(300, (1 + mean|flow| / 3.5) * 127)``)
+    when ``flow_root`` holds them."""
+
+    def __init__(self, root: str, flow_root: Optional[str] = None, sample_size=512,
+                 sample_n_frames: int = 14):
+        self.seqs = sorted(d for d in glob.glob(os.path.join(root, "*")) if os.path.isdir(d))
+        if not self.seqs:
+            raise FileNotFoundError(f"no sequence dirs in {root}")
+        self.flow_root = flow_root
+        self.sample_size = (sample_size, sample_size) if isinstance(sample_size, int) \
+            else tuple(sample_size)
+        self.sample_n_frames = sample_n_frames
+
+    def __len__(self) -> int:
+        return len(self.seqs)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        seq = self.seqs[idx]
+        files = sorted(glob.glob(os.path.join(seq, "*.jpg"))
+                       + glob.glob(os.path.join(seq, "*.png")))
+        rng = np.random.default_rng()
+        start = int(rng.integers(0, max(len(files) - self.sample_n_frames, 0) + 1))
+        files = files[start:start + self.sample_n_frames]
+        frames = np.stack([read_image(f) for f in files])
+        pixel_values = process_frames(frames, *self.sample_size)
+        out = {"pixel_values": pixel_values * 2.0 - 1.0, "fps": np.float32(7.0)}
+        if self.flow_root is not None:
+            name = os.path.basename(seq)
+            flo_files = sorted(glob.glob(os.path.join(self.flow_root, name, "*.flo")))
+            flo_files = flo_files[start:start + self.sample_n_frames - 1]
+            if flo_files:
+                flows = np.stack([read_flo(f) for f in flo_files])
+                out["flow"] = flows
+                strength = float(np.linalg.norm(flows, axis=-1).mean())
+                out["motion_bucket_id"] = np.int32(min(300, int((1 + strength / 3.5) * 127)))
+        return out
 
 
 class PrefetchLoader:

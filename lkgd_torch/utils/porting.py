@@ -24,6 +24,10 @@ input (``conv_in_y``, ``*_embedding_y``, ``conv_in2``, the scalar ``conv_in2_alp
 package's ``cogvideox_export_key_map`` does; the CogVideoX VAE keeps the generic names
 (``key_map=None``), which its JAX CLI reads from ``vae_3d.safetensors``.
 
+``unimatch_state_dict`` carries the JAX UniMatch's params: the same kernel rules, its names
+kept but for the transformer's blocks (``layers_<i>_self_attn`` -> ``layers.<i>.self_attn``),
+and the trident convolution's HWIO ``trident_weight`` turned OIHW.
+
 ``lora_key_map`` / ``port_lora_safetensors`` read a LoRA state dict in diffusers, peft or
 kohya spelling into a module's ``lora_<name>_A/B`` parameters: the inverse of
 ``export_lora_state_dict`` and the counterpart of the JAX package's functions of the same
@@ -146,6 +150,23 @@ def from_flax_params(flat: Mapping[str, np.ndarray],
         if key_map is not None:
             name = key_map(name)
         out[name] = torch.from_numpy(np.array(x, copy=True, order="C"))
+    return out
+
+
+def unimatch_key_map(key: str) -> str:
+    """Generic export names of the JAX UniMatch -> the port's: the transformer's blocks are
+    a list of (``self_attn``, ``cross_attn_ffn``) pairs."""
+    return re.sub(r"\blayers\.(\d+)_(self_attn|cross_attn_ffn)\b", r"layers.\1.\2", key)
+
+
+def unimatch_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``/``-path flax leaves of ``lkgd_tpu.models.unimatch.UniMatch`` (or of one of its
+    submodules) -> the state dict of ``lkgd_torch.models.unimatch.UniMatch`` built for the
+    same task (or of the same submodule), for ``load_state_dict(strict=True)``."""
+    out = from_flax_params(flat, key_map=unimatch_key_map)
+    for name in out:
+        if name.rsplit(".", 1)[-1] == "trident_weight":  # a raw (3, 3, I, O) param
+            out[name] = out[name].permute(3, 2, 0, 1).contiguous()
     return out
 
 

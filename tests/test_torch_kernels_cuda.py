@@ -973,3 +973,158 @@ def test_flash_training_kernels_with_partner_kv(cuda_device, shape):
     assert tfa.launches["flash_bound_lse"] == before["flash_bound_lse"] + 2
     assert tfa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert tfa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+
+
+# ---------------------------------------------------------------- ControlNet and flow training
+_TINY_UNET = dict(block_out_channels=(32, 64),
+                  down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
+                  up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
+                  layers_per_block=1, num_attention_heads=(2, 4), cross_attention_dim=32)
+
+
+def _twins(build, device, seed):
+    """A module on the CPU with every parameter 0.1 x normal, and its copy on ``device``."""
+    cpu = build("cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    gpu = build(device)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, gpu
+
+
+def _step_with_grads(step, state, batch, **draws):
+    """One train step; returns (loss, the gradients it took, on the CPU)."""
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grads.__setitem__(n, p.grad.detach().cpu().clone()))
+        for n, p in state.trainables.items()]
+    state, loss = step(state, batch, **draws)
+    for h in hooks:
+        h.remove()
+    return loss.item(), grads
+
+
+def _adamw_from(start, grads, lr=1e-3):
+    """The port's AdamW on the CPU from ``start`` with ``grads`` (None where absent)."""
+    from lkgd_torch.training import train_state as ts
+
+    params = torch.nn.ParameterList([torch.nn.Parameter(start[n].clone()) for n in start])
+    optimizer = ts.make_optimizer(lr)
+    optimizer.init(params)
+    for p, name in zip(params, start):
+        p.grad = grads[name].clone() if name in grads else None
+    optimizer.step()
+    return {name: p.detach() for name, p in zip(start, params)}
+
+
+@pytest.mark.cuda
+def test_tiny_controlnet_step_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The ControlNet train step (frozen UNet, EMA) at fp32 on the card against the CPU, the
+    draws injected: the loss, the gradients (each scaled by its largest entry or by 1% of
+    the largest of all: the biases before one-channel GroupNorm groups have rounding-level
+    gradients), the update against the CPU's AdamW on the card's gradients (Adam's first
+    step amplifies last-bit differences), the EMA; the UNet bit-identical."""
+    from lkgd_torch.models.configs import SVDUNetConfig
+    from lkgd_torch.models.controlnet_svd import ControlNetSDV, ControlNetSDVConfig
+    from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
+    from lkgd_torch.training import train_state as ts
+    from lkgd_torch.training import variants
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    unets = _twins(lambda d: materialize(lambda: UNetSpatioTemporalCondition(
+        SVDUNetConfig(**_TINY_UNET)), d, torch.float32), cuda_device, 1)
+    config = ControlNetSDVConfig(unet=SVDUNetConfig(**_TINY_UNET),
+                                 conditioning_embedding_out_channels=(16, 32, 96))
+    cns = _twins(lambda d: materialize(lambda: ControlNetSDV(config), d, torch.float32),
+                 cuda_device, 2)
+    g = torch.Generator().manual_seed(3)
+    batch = {"latents": torch.randn((2, 2, 8, 8, 4), generator=g) * 0.5,
+             "cond_latents": torch.randn((2, 8, 8, 4), generator=g),
+             "image_embeddings": torch.randn((2, 1, 32), generator=g),
+             "control": torch.rand((2, 2, 32, 32, 3), generator=g)}
+    draws = {"sigmas": torch.tensor([0.7, 3.0]), "noise": torch.randn((2, 2, 8, 8, 4), generator=g)}
+    out = []
+    for unet, controlnet, device in zip(unets, cns, ("cpu", cuda_device)):
+        frozen = {n: p.detach().clone() for n, p in unet.named_parameters()}
+        state = ts.init_train_state(controlnet, ts.make_optimizer(1e-3), ema=True)
+        start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
+        loss, grads = _step_with_grads(
+            variants.make_controlnet_train_step(unet), state,
+            {k: v.to(device) for k, v in batch.items()},
+            **{k: v.to(device) for k, v in draws.items()})
+        assert all(torch.equal(p, frozen[n]) for n, p in unet.named_parameters())
+        out.append((loss, grads, {n: p.detach().cpu() for n, p in state.trainables.items()},
+                    {n: e.cpu() for n, e in state.ema_params.items()}))
+    (loss_c, grads_c, after_c, ema_c), (loss_g, grads_g, after_g, ema_g) = out
+    assert abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+    assert sorted(grads_g) == sorted(grads_c)
+    floor = 1e-2 * max(x.abs().max().item() for x in grads_c.values())
+    for name, want in grads_c.items():
+        scale = max(floor, want.abs().max().item())
+        torch.testing.assert_close(grads_g[name] / scale, want / scale, rtol=1e-4, atol=2e-4,
+                                   msg=name)
+    want_after = _adamw_from(start, grads_g)
+    for name in start:
+        torch.testing.assert_close(after_g[name], want_after[name], rtol=1e-4, atol=2e-4,
+                                   msg=name)
+        torch.testing.assert_close(ema_g[name], ema_c[name], rtol=1e-4, atol=2e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_tiny_flow_step_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The "of_fix" flow batch (tiny UniMatch, a VAE of factor 4, 32x32, 3 frames, the
+    augmentation noise given) and an SVD step on it through the dual-``conv_in`` UNet, its
+    input convolutions trained, at fp32 on the card against the CPU: the batch, the loss,
+    the gradients and the update (against the CPU's AdamW on the card's gradients)."""
+    from lkgd_torch.models.configs import SVDUNetConfig, TemporalVAEConfig
+    from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
+    from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
+    from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+    from lkgd_torch.training import flow as tflow
+    from lkgd_torch.training import train_state as ts
+    from lkgd_torch.utils.optical_flow import make_flow_fn
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ums = _twins(lambda d: build_unimatch(UniMatchConfig.tiny(), device=d), cuda_device, 4)
+    vaes = _twins(lambda d: materialize(lambda: AutoencoderKLTemporalDecoder(TemporalVAEConfig(
+        block_out_channels=(32, 64, 64), layers_per_block=1)), d, torch.float32).eval(),
+        cuda_device, 5)
+    fix = SVDUNetConfig(**_TINY_UNET, in_channels=12, dual_cond_conv_in=True)
+    unets = _twins(lambda d: materialize(lambda: UNetSpatioTemporalCondition(fix), d,
+                                         torch.float32), cuda_device, 6)
+    g = torch.Generator().manual_seed(7)
+    frames = torch.rand((2, 3, 32, 32, 3), generator=g) * 2 - 1
+    emb = torch.randn((2, 1, 32), generator=g)
+    noise = torch.randn((2, 32, 32, 3), generator=g)
+    draws = {"sigmas": torch.tensor([0.5, 4.0]), "noise": torch.randn((2, 2, 8, 8, 4), generator=g),
+             "dropout_u": torch.tensor([0.95, 0.15])}
+    trained = lambda name: "conv_in" in name  # noqa: E731
+    out = []
+    for um, vae, unet, device in zip(ums, vaes, unets, ("cpu", cuda_device)):
+        prep = tflow.make_flow_batch_fn(make_flow_fn(um, (32, 32)), vae, "of_fix")
+        batch = prep(frames.to(device), emb.to(device), noise=noise.to(device))
+        state = ts.init_train_state(unet, ts.make_optimizer(1e-3, trainable_predicate=trained))
+        start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
+        loss, grads = _step_with_grads(
+            ts.make_svd_train_step(ts.SVDTrainConfig(conditioning_dropout_prob=0.3)), state,
+            batch, **{k: v.to(device) for k, v in draws.items()})
+        out.append(({k: v.cpu() for k, v in batch.items()}, loss, grads,
+                    {n: p.detach().cpu() for n, p in state.trainables.items()}))
+    (batch_c, loss_c, grads_c, _), (batch_g, loss_g, grads_g, after_g) = out
+    for key, want in batch_c.items():
+        torch.testing.assert_close(batch_g[key], want, rtol=1e-4, atol=2e-4, msg=key)
+    assert batch_g["cond_latents"].shape == (2, 8, 8, 8)
+    assert abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+    assert sorted(grads_g) == sorted(grads_c) == sorted(start)
+    for name, want in grads_c.items():
+        scale = want.abs().max().clamp_min(1e-12)
+        torch.testing.assert_close(grads_g[name] / scale, want / scale, rtol=1e-4, atol=2e-4,
+                                   msg=name)
+    want_after = _adamw_from(start, grads_g)
+    for name in start:
+        torch.testing.assert_close(after_g[name], want_after[name], rtol=1e-4, atol=2e-4,
+                                   msg=name)

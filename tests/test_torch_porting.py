@@ -200,7 +200,7 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "flash_variant_microbench", "flash_bwd_ab", "kernel_ab",
                                    "group_norm_ab", "cogvideox_i2v_pipeline",
                                    "cogvideox_t2v_pipeline", "cogvideox_v2v_pipeline",
-                                   "cogvideox_cli"])
+                                   "cogvideox_cli", "unimatch"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
@@ -210,6 +210,7 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
     from lkgd_torch.pipelines import cogvideox_i2v as cog
     from lkgd_torch.pipelines.svd_controlnet import StableVideoDiffusionControlNetPipeline
     from lkgd_torch.pipelines.svd_flow import (StableVideoDiffusionFlowPipeline,
@@ -254,6 +255,7 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
             transformer_config=tcfg.CogVideoXConfig.cogvideox_2b()),
         "cogvideox_cli": lambda: run_inference_cogvideox.main(["--image",
                                                               str(tmp_path / "a.png")]),
+        "unimatch": lambda: build_unimatch(UniMatchConfig.tiny()),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
