@@ -30,8 +30,17 @@ each printing its own lines; any failure raises and the script exits non-zero:
    with the fallback tiles recomputed, and kernels 3 and 4 at the whole-clip decode's N=1
    shapes (1, 49x480x720, 128) and (1, 25x240x360, 256), past 2^31 elements (compared in
    row blocks), each with its plain version's time, the library call's and the bound;
+3d. kernels 5/6, 7/8, 9/10 and 1a at the CogVideoX-5B fine-tune's (1, 17776, 48, 64), ragged
+   against the 128-row tiles, each against its plain version in blocks of heads (the plain
+   backward's fp32 P of all 48 heads would be 60.7 GB), with the tolerances of phase 6, the
+   library call's time (``scaled_dot_product_attention`` forward, and its backward through
+   autograd) and the bound;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
+4f. at fp32, GPU against CPU: the tiny CogVideoX train step of ``train_cogvideox_lora``'s
+   LoRA and fusion with remat, i2v and t2v (loss, gradients scaled as 7c's, the update
+   against the CPU's AdamW on the GPU's gradients), the tiny T5 encoder on explicit ids with
+   a padding mask, and a tensor cache written from the card and read back;
 4e. the tiny CogVideoX pipelines (I2V with DPM, T2V with DDIM, V2V with DPM, the 1.5 form)
    and the tiny CogVideoX VAE (encode and decode of a clip, chunked, tiled) the same way,
    every parameter random, the DPM noise injected;
@@ -148,18 +157,32 @@ each printing its own lines; any failure raises and the script exits non-zero:
 8e. the flow-video fine-tune ("of") the same way: ``make_flow_batch_fn`` with UniMatch
    ``lkgd()`` and the base VAE on the clip's 9 frames, the first frame's CLIP embedding,
    then ``make_svd_train_step`` on the ``--mode lkgd`` UNet and its trainable set;
+8f. the CogVideoX-5B I2V LoRA fine-tune at full width: T5-XXL (random bf16 weights) encodes
+   two prompts of 226 tokens and is freed, the CogVideoX VAE encodes two synthetic 49x480x720
+   clips in 8-frame chunks (and their first frames) into a ``TensorCache`` of 2 samples; then
+   ``lkgd_torch/cli/train_cogvideox_lora.py``'s ``build`` at ``--rank 128 --lora-alpha 64
+   --remat`` (frozen bf16 DiT, fp32 LoRA and fusion, its zero-init output 0.02 x normal)
+   through ``Trainer.fit`` from the cache: a warm-up step, three between CUDA events (the
+   cache read and host-to-device copy apart from the train step, host CPU s/step, peak,
+   launches a step asserted: kernels 7/8 84, 9/10 42, 5/6 126, 1a 84) and three under
+   ``torch.profiler`` (busy share, flash kernels by name); trainables moved, frozen weights
+   bit-identical, one block's activations without remat, the export read back and one 2-step
+   validation (kernels 1/2);
+8g. ``--full-finetune --remat`` at full width and 2 layers: one step, every parameter moved,
+   its peak;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
 A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
 launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
-``dc=2`` and ``3``, flow clip, CogVideoX clip, LKGD, trans, ControlNet and flow training,
-microbenchmarks),
+``dc=2`` and ``3``, flow clip, CogVideoX clip, LKGD, trans, ControlNet, flow and CogVideoX
+training, microbenchmarks),
 error, time, the
 plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
 67 TFLOP/s for fp32 arithmetic outside them); the five inference kernels also carry their
-row at the CogVideoX shapes of 3c under ``cogvideox``.
+row at the CogVideoX shapes of 3c under ``cogvideox``, and the training kernels and the
+key-norm kernel their row at 3d's shape under ``train_cogvideox``.
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -1338,13 +1361,22 @@ COG_GN = (("decode full res", (1, 49 * 480 * 720, 128)),  # the decoder's last l
           ("decode level 2", (1, 25 * 240 * 360, 256)))
 
 
-def in_head_chunks(fn, tensors, heads: int = 4):
-    """``fn`` over blocks of one row and ``heads`` heads of (B, S, H, D) ``tensors``, joined:
-    the plain flash versions' (rows, H, S, S) fp32 logits at 48 heads of 17776 tokens would
-    be 121 GB."""
-    b, _, h, _ = tensors[0].shape
-    return torch.cat([torch.cat([fn(*(x[i:i + 1, :, j:j + heads] for x in tensors))
-                                 for j in range(0, h, heads)], dim=2) for i in range(b)])
+def in_head_blocks(fn, tensors, heads: int = 4):
+    """``fn`` over blocks of one row and ``heads`` heads: (B, S, H, D) tensors cut on axes 0
+    and 2, (B, H, S) rows (lse, delta) on axes 0 and 1, each output joined the same way. The
+    plain flash versions' fp32 logits at 48 heads of 17776 tokens would be 60.7 GB a row,
+    and the plain backward holds several tensors of that size."""
+    def cut(x, i, j):
+        return x[i:i + 1, :, j:j + heads] if x.dim() == 4 else x[i:i + 1, j:j + heads]
+
+    b, h = tensors[0].shape[0], tensors[0].shape[2]
+    rows = []
+    for i in range(b):
+        outs = [fn(*(cut(x, i, j) for x in tensors)) for j in range(0, h, heads)]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        rows.append([torch.cat(col, dim=2 if col[0].dim() == 4 else 1) for col in zip(*outs)])
+    out = tuple(torch.cat(col) for col in zip(*rows))
+    return out if len(out) > 1 else out[0]
 
 
 def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
@@ -1359,7 +1391,7 @@ def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
 
     rows = {}
     q, k, v = (torch.randn(COG_FLASH, device=dev, generator=gen).bfloat16() for _ in range(3))
-    want = in_head_chunks(lambda *a: fa.flash_attention_maxtrack_plain(
+    want = in_head_blocks(lambda *a: fa.flash_attention_maxtrack_plain(
         *(x.float() for x in a)), (q, k, v))
     ref_max = want.abs().max().item()
     least, lib_ms = flash_bound(COG_FLASH), sdpa_ms(q, k, v)
@@ -1377,7 +1409,7 @@ def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             ms = gpu_ms(lambda: fa.flash_attention(q, k, v))
         finally:
             os.environ.pop("LKGD_FLASH_MAXTRACK", None)
-        plain_ms = gpu_ms(lambda: in_head_chunks(plain, (q, k, v)), reps=1)
+        plain_ms = gpu_ms(lambda: in_head_blocks(plain, (q, k, v)), reps=1)
         print(f"[cogvideox-kernel] {kernel} (B,S,H,D)={COG_FLASH}: max|d| {err:.3e} of max|ref| "
               f"{ref_max:.3e} (tol {FLASH_TOL} x max|ref|) | {ms:.3f} ms, plain {plain_ms:.3f} "
               f"ms (blocks of 4 heads), library sdpa {lib_ms:.3f} ms, bound "
@@ -1950,6 +1982,124 @@ def _relayout_host_line() -> None:
           flush=True)
 
 
+COG_TRAIN = (1, 17776, 48, 64)  # one CFG-free row of the 5B DiT's joint sequence
+COG_CLIP = (49, 480, 720)  # the fine-tune's clips: frames, height, width
+
+
+def phase_cogvideox_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Kernels 5/6, 7/8, 9/10 and 1a at the CogVideoX-5B fine-tune's (1, 17776, 48, 64): 138
+    full 128-row tiles and 112 rows, 6672 blocks; every plain version in blocks of heads,
+    with the library call's time and the bound; returns these rows by kernel."""
+    import torch.nn.functional as F
+
+    from lkgd_torch.ops import flash_attention as fa
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
+
+    shape = COG_TRAIN
+    label = "cogvideox fine-tune"
+    row = _relayout_check(fa, label, shape, shape[1], randn)
+    q, k, v, do = (randn(*shape) for _ in range(4))
+    want_out, want_lse = in_head_blocks(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
+        *(x.float() for x in a)), (q, k, v))
+    out_tol = FLASH_TOL * want_out.abs().max().item()
+    lib_ms = sdpa_ms(q, k, v)
+    for kernel in ("flash_bound_lse", "flash_maxtrack_lse"):
+        if kernel == "flash_maxtrack_lse":
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+        try:
+            counter = fa.recomputed_tiles(dev)
+            counter.zero_()
+            out, lse = fa.flash_fwd_lse(q, k, v)
+            torch.cuda.synchronize()
+            recomputed = int(counter.item())
+            ms = gpu_ms(lambda: fa.flash_fwd_lse(q, k, v))
+        finally:
+            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+        plain = (fa.flash_fwd_lse_maxtrack_plain if kernel == "flash_maxtrack_lse"
+                 else fa.flash_fwd_lse_bound_plain)
+        plain_ms = gpu_ms(lambda: in_head_blocks(plain, (q, k, v)), reps=1)
+        out_err = (out.float() - want_out).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        least = flash_bound(shape, rows_fp32=1)
+        print(f"[cogvideox-train-kernel] {kernel} (B,S,H,D)={shape}: out max|d| {out_err:.3e} "
+              f"of max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x max|ref|) lse max|d| "
+              f"{lse_err:.3e} (tol {LSE_TOL}) | {ms:.3f} ms, plain {plain_ms:.3f} ms (blocks of "
+              f"4 heads), library sdpa {lib_ms:.3f} ms, bound {least['bound_ms']:.3f} ms by "
+              f"{least['bound_by']} ({_versus(ms, lib_ms, least)}) | tiles recomputed "
+              f"{recomputed}", flush=True)
+        assert np.isfinite(out_err) and out_err <= out_tol, (kernel, out_err, out_tol)
+        assert np.isfinite(lse_err) and lse_err <= LSE_TOL, (kernel, lse_err)
+        row[kernel] = {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, **least}
+    del want_out, want_lse
+    norm_got, norm_want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
+    norm_err = (norm_got - norm_want).abs().max().item()
+    torch.testing.assert_close(norm_got, norm_want, rtol=1e-5, atol=0)
+    norm_least = bound(2 * k.numel(), k.numel() * 2 + shape[0] * shape[2] * 4, PEAK_FP32)
+    norm_ms, norm_plain_ms = gpu_ms(lambda: fa.key_norm_max(k)), gpu_ms(
+        lambda: fa.key_norm_max_plain(k))
+    print(f"[cogvideox-train-kernel] flash_key_norm (B,S,H,D)={shape}: max|d| {norm_err:.3e} "
+          f"(rtol 1e-5) | {norm_ms:.3f} ms, plain {norm_plain_ms:.3f} ms, bound "
+          f"{norm_least['bound_ms']:.4f} ms by {norm_least['bound_by']}", flush=True)
+    row["flash_key_norm"] = {"max_abs_err": norm_err, "ms": norm_ms, "plain_ms": norm_plain_ms,
+                             "library_ms": None, **norm_least}
+
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_bwd_ms = gpu_ms(lambda: torch.autograd.grad(lib_out, leaves, do.transpose(1, 2),
+                                                    retain_graph=True))
+    del lib_out, leaves
+    out, lse = fa.flash_fwd_lse(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    for kernel, fn, plain, names in (
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
+        dkv = kernel == "flash_bwd_dkv"
+
+        def plain_blocks():
+            return in_head_blocks(lambda q_, k_, v_, do_, lse_, delta_: plain(
+                q_.float(), k_.float(), v_.float(), do_.float(), lse_, delta_), args, heads=2)
+
+        got, again, want = fn(*args), fn(*args), plain_blocks()
+        got, again, want = (got, again, want) if dkv else ((got,), (again,), (want,))
+        errs = {}
+        for name, g, g2, w in zip(names, got, again, want):
+            assert torch.isfinite(g).all(), (kernel, name)
+            assert torch.equal(g, g2), f"{kernel}: {name} differs between launches"
+            errs[name] = ((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+        del got, again, want
+        ms = gpu_ms(lambda: fn(*args))
+        plain_ms = gpu_ms(plain_blocks, reps=1)
+        plan = fa.flash_bwd_plan(shape[0], shape[1], shape[1], shape[2], shape[3], dkv)
+        least = flash_bound(shape, products=4 if dkv else 3, q_tensors=2 if dkv else 3,
+                            k_tensors=4 if dkv else 2, rows_fp32=2)
+        print(f"[cogvideox-train-kernel] {kernel} (B,S,H,D)={shape}: "
+              + ", ".join(f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {GRAD_TOL} x max|ref|)"
+                          for n, (e, m) in errs.items())
+              + f", two launches bit-identical | {ms:.3f} ms, plain {plain_ms:.3f} ms (blocks of "
+              f"2 heads), bound {least['bound_ms']:.3f} ms by {least['bound_by']} "
+              f"({100 * least['bound_ms'] / ms:.1f}% of bound) | library sdpa backward (dq, dk "
+              f"and dv together) {lib_bwd_ms:.3f} ms | plan {plan.blocks} blocks, "
+              f"{plan.waves:.2f} waves, {plan.tile_rows} resident rows", flush=True)
+        for name, (e, m) in errs.items():
+            assert e <= GRAD_TOL * m, (kernel, name, e, m)
+        row[kernel] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least}
+    pair_ms = row["flash_bwd_dq"]["ms"] + row["flash_bwd_dkv"]["ms"]
+    print(f"[cogvideox-train-kernel] backward pair: kernels 9 + 10 {pair_ms:.3f} ms = "
+          f"{pair_ms / lib_bwd_ms:.2f} x the library backward ({lib_bwd_ms:.3f} ms), bound "
+          f"{row['flash_bwd_dq']['bound_ms'] + row['flash_bwd_dkv']['bound_ms']:.3f} ms",
+          flush=True)
+    for r in row.values():
+        r["shape"] = list(shape)
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
+    return row
+
+
 def _tiny_train_unet(device, mode: str):
     """The tiny UNet of ``--mode lkgd`` (the configuration of tests/test_training.py:18-24,
     knowledge fusion and a rank-2 temporal LoRA) or ``--mode trans`` (the training CLI's
@@ -2084,6 +2234,117 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
     assert gn_calls > 0, "the tiny GPU train step must run the GroupNorm kernels"
 
 
+def phase_tiny_cogvideox_train(dev: torch.device) -> None:
+    """At fp32, the card against the CPU with the same weights (every parameter random) and
+    draws: the tiny CogVideoX train step of ``train_cogvideox_lora``'s LoRA and fusion with
+    remat, i2v and t2v (the loss, the gradients scaled as the ControlNet step's, the update
+    against the CPU's AdamW on the card's gradients, frozen weights bit-identical); the tiny
+    T5 encoder on explicit ids with a padding mask; a tensor cache written from the card
+    and read back."""
+    import tempfile
+
+    from lkgd_torch.cli import train_cogvideox_lora as cli
+    from lkgd_torch.data.tensor_cache import TensorCache
+    from lkgd_torch.models.cogvideox import CogVideoXTransformer3D
+    from lkgd_torch.models.configs import T5Config
+    from lkgd_torch.models.layers import materialize
+    from lkgd_torch.models.t5_text import build_t5_encoder
+    from lkgd_torch.pipelines.cogvideox_i2v import make_cogvideox_train_step
+    from lkgd_torch.training import train_state as ts
+
+    label = "cogvideox-train-tiny"
+    for mode in ("i2v", "t2v"):
+        args = cli.make_parser().parse_args(["--tiny", "--rank", "2", "--lora-alpha", "4",
+                                             "--remat", "--mode", mode])
+        config = cli.transformer_config(args)
+        cpu = materialize(lambda: CogVideoXTransformer3D(config), "cpu", torch.float32)
+        gen = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
+        gpu = materialize(lambda: CogVideoXTransformer3D(config), dev, torch.float32)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        batch = {"latents": torch.randn((2, 3, 8, 8, 4), generator=gen),
+                 "prompt_embeds": torch.randn((2, 8, 64), generator=gen),
+                 "domain_features": torch.randn((2, 1, 1000), generator=gen),
+                 "flow_features": torch.randn((2, 1, 1000), generator=gen)}
+        if mode == "i2v":
+            batch["image_latents"] = torch.randn((2, 8, 8, 4), generator=gen)
+        draws = {"timesteps": torch.tensor([37, 901]),
+                 "noise": torch.randn((2, 3, 8, 8, 4), generator=gen)}
+        results = {}
+        for side, model, device in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+            frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                      if not cli.trainable(n)}
+            optimizer = ts.make_optimizer(1e-3, trainable_predicate=cli.trainable)
+            state = ts.init_train_state(model, optimizer)
+            start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
+            grads = {}
+            hooks = [p.register_post_accumulate_grad_hook(
+                lambda p, n=n: grads.__setitem__(n, p.grad.detach().cpu().clone()))
+                for n, p in state.trainables.items()]
+            step = make_cogvideox_train_step(model, optimizer, mode=mode)
+            state, loss = step(state, {k: v.to(device) for k, v in batch.items()},
+                               **{k: v.to(device) for k, v in draws.items()})
+            for h in hooks:
+                h.remove()
+            for name, p in model.named_parameters():
+                if name in frozen:
+                    assert torch.equal(p, frozen[name]), f"{side}: frozen {name} moved"
+            results[side] = (loss.item(), grads,
+                             {n: p.detach().cpu() for n, p in state.trainables.items()})
+        (loss_c, grads_c, _), (loss_g, grads_g, after_g) = results["cpu"], results["gpu"]
+        assert sorted(grads_g) == sorted(grads_c) == sorted(start)
+        floor = 1e-2 * max(g.abs().max().item() for g in grads_c.values())
+        grad_err = max(((grads_g[n] - g).abs().max() / max(floor, g.abs().max().item())).item()
+                       for n, g in grads_c.items())
+        want_after = _cpu_step_from(start, grads_g)
+        step_err = max((after_g[n] - want_after[n]).abs().max().item() for n in start)
+        print(f"[{label}] {mode} with remat, GPU vs CPU fp32: loss {loss_g:.6f} vs {loss_c:.6f} "
+              f"| {len(grads_c)} trainable grads, max |d|/scale {grad_err:.3e} | the update "
+              f"against the CPU's AdamW on the GPU's gradients max|d| {step_err:.3e} (rtol 1e-4, "
+              f"atol 2e-4) | frozen bit-identical", flush=True)
+        assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+        for name, want in grads_c.items():
+            scale = max(floor, want.abs().max().item())
+            torch.testing.assert_close(grads_g[name] / scale, want / scale, rtol=1e-4,
+                                       atol=2e-4, msg=name)
+            torch.testing.assert_close(after_g[name], want_after[name], rtol=1e-4, atol=2e-4,
+                                       msg=name)
+
+    cpu, gpu = (build_t5_encoder(T5Config.tiny(), torch.float32, d) for d in ("cpu", dev))
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    ids = torch.randint(0, 128, (2, 19), generator=gen)
+    mask = torch.ones(2, 19, dtype=torch.long)
+    mask[1, 7:] = 0
+    with torch.no_grad():
+        want = cpu(ids, mask)
+        got = gpu(ids.to(dev), mask.to(dev)).cpu()
+    err = (got - want).abs().max().item()
+    print(f"[{label}] tiny T5 {tuple(want.shape)} with a padding mask, GPU vs CPU fp32: max|d| "
+          f"{err:.3e} (rtol 1e-4, atol 2e-4)", flush=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tensors = {"clip0/latents": torch.randn((3, 4, 4, 4), device=dev),
+                   "clip0/prompt_embeds": torch.randn((8, 64), device=dev).bfloat16(),
+                   "clip0/ids": torch.arange(9, device=dev)}
+        cache = TensorCache(f"{tmp}/cache.lkgd")
+        for key, x in tensors.items():
+            cache.put(key, x)
+        cache.close()
+        back = TensorCache(f"{tmp}/cache.lkgd")
+        for key, x in tensors.items():
+            assert torch.equal(back.get(key), x.cpu()), key
+        print(f"[{label}] tensor cache written from the card ({len(back)} tensors: fp32, bf16, "
+              f"int64) and read back equal", flush=True)
+        back.close()
+
+
 def _read_safetensors(path: str) -> dict:
     """name -> numpy array of a safetensors file of F32 tensors."""
     with open(path, "rb") as f:
@@ -2208,7 +2469,7 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             prof_step_s, prof_cpu_s = window(4, 7)
-        device_ms, ckpt_ms, n_device, runtime, relayout, flash = 0.0, 0.0, 0, {}, {}, {}
+        device_ms, ckpt_ms, n_device, runtime = 0.0, 0.0, 0, {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 ms = e.self_device_time_total / 1e3
@@ -2218,16 +2479,10 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
                 else:
                     device_ms += ms
                     n_device += e.count
-                if "relayout_" in e.key:
-                    name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-                    relayout[name.split("(")[0]] = (round(ms, 3), e.count)
-                if "flash_" in e.key or "key_sq_max" in e.key:
-                    name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-                    for cast in ("(int)", "(bool)", " "):
-                        name = name.replace(cast, "")
-                    flash[name.split("(")[0]] = (round(ms, 3), e.count)
             elif e.key.startswith("cuda"):  # runtime calls on the host
                 runtime[e.key] = e.count
+        relayout = _kernels_by_name(prof, ("relayout_",))
+        flash = _kernels_by_name(prof, ("flash_", "key_sq_max"))
         busy = device_ms / (prof_step_s * 3e3)
         syncs = {k: n for k, n in runtime.items() if "Synchronize" in k or "Memcpy" in k}
 
@@ -2528,7 +2783,8 @@ def _fit_windows(label: str, dev, trainer, clips: list, parts: dict) -> dict:
     trainer.train_step = step
     return dict(step_s=step_s, cpu_s=cpu_s, part_ms=part_ms, peak=peak, launches=launches,
                 prof_step_s=prof_step_s, prof_cpu_s=prof_cpu_s, device_ms=device_ms / 3,
-                n_device=n_device / 3, losses=[x.item() for x in losses])
+                n_device=n_device / 3, losses=[x.item() for x in losses],
+                flash=_kernels_by_name(prof, ("flash_", "key_sq_max")))
 
 
 def _fit_lines(label: str, r: dict) -> None:
@@ -2755,6 +3011,321 @@ def phase_train_flow_full(dev: torch.device) -> dict:
     return r["launches"]
 
 
+def _kernels_by_name(prof, words) -> dict:
+    """Kernel name -> (device ms, launches) over a profile, for the device entries whose
+    name holds one of ``words`` (template arguments kept, casts and namespaces dropped)."""
+    from torch.autograd import DeviceType
+
+    found = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and any(w in e.key for w in words):
+            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            for cast in ("(int)", "(bool)", " "):
+                name = name.replace(cast, "")
+            found[name.split("(")[0]] = (round(e.self_device_time_total / 1e3, 3), e.count)
+    return found
+
+
+def _cogvideox_cache(dev: torch.device, path: str, gen: torch.Generator) -> None:
+    """The cache ``train_cogvideox_lora`` reads, filled at full width: T5-XXL (random bf16
+    weights) encodes two prompts of seeded token ids, 226 tokens (the second padded after
+    120), timed and freed before anything else is resident; the CogVideoX VAE (bf16)
+    encodes two synthetic 49x480x720 clips in chunks of 8 frames to 13 latent frames,
+    scaled by 0.7, and each clip's first frame alone; with width-1000 domain and flow
+    features, two samples."""
+    from lkgd_torch.cli import run_inference_cogvideox as infer
+    from lkgd_torch.data.tensor_cache import TensorCache
+    from lkgd_torch.models.configs import CogVideoXVAEConfig, T5Config
+    from lkgd_torch.models.layers import init_params, materialize
+    from lkgd_torch.models.t5_text import build_t5_encoder
+    from lkgd_torch.models.vae_cogvideox import AutoencoderKLCogVideoX
+
+    label = "train-cogvideox"
+    t0 = time.perf_counter()
+    t5 = build_t5_encoder(T5Config.xxl(), torch.bfloat16, dev, gen)
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    ids = torch.randint(0, t5.config.vocab_size, (2, 226), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    mask[1, 120:] = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        t5(ids, mask)  # warm-up
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        start.record()
+        prompt = t5(ids, mask)
+        end.record()
+        torch.cuda.synchronize()
+    t5_s, t5_peak = start.elapsed_time(end) / 1e3, torch.cuda.max_memory_allocated(dev)
+    assert prompt.shape == (2, 226, t5.config.d_model) and torch.isfinite(prompt).all()
+    prompt = prompt.float()
+    print(f"[{label}] T5-XXL encoder {n_t5 / 1e9:.3f} B bf16 random params (set-up and a "
+          f"warm-up {setup_s:.1f} s): 2 prompts x 226 tokens (the second padded after 120) "
+          f"{t5_s:.3f} s between CUDA events, peak {t5_peak / 2**30:.2f} GiB | embeddings "
+          f"{tuple(prompt.shape)} mean {prompt.mean().item():.4f} std {prompt.std().item():.4f}; "
+          f"freed before the VAE and the DiT", flush=True)
+    del t5, ids, mask
+    torch.cuda.empty_cache()
+
+    vcfg = CogVideoXVAEConfig()
+    vae = materialize(lambda: AutoencoderKLCogVideoX(vcfg), dev, torch.bfloat16)
+    init_params(vae, gen)
+    vae.eval().requires_grad_(False)
+    args = infer.make_parser().parse_args(["--image", "-", "--vae-chunk-frames", "2",
+                                           "--device", str(dev)])
+    frames, height, width = COG_CLIP
+    tt = torch.linspace(0, 1, frames, device=dev)[:, None, None, None]
+    yy = torch.linspace(-1, 1, height, device=dev)[:, None, None]
+    xx = torch.linspace(-1, 1, width, device=dev)[None, :, None]
+    shape = ((frames - 1) // vae.temporal_scale + 1, height // vae.spatial_scale,
+             width // vae.spatial_scale, vcfg.latent_channels)
+    cache = TensorCache(path)
+    seconds, peaks = [], []
+    with torch.inference_mode():
+        for i in range(2):
+            rgb = torch.tensor([0.0, 2.1, 4.2], device=dev) + i
+            clip = torch.sin(3 * xx + 2 * yy + 4 * tt + rgb)[None].to(torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            latents = infer.encode(vae, clip, args)
+            first = infer.encode(vae, clip[:, :1], args)[:, 0]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t1)
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            assert latents.shape == (1, *shape) and first.shape == (1, *shape[1:])
+            assert torch.isfinite(latents).all() and torch.isfinite(first).all()
+            cache.put(f"clip{i}/latents", latents[0])
+            cache.put(f"clip{i}/image_latents", first[0])
+            cache.put(f"clip{i}/prompt_embeds", prompt[i])
+            for field in ("domain_features", "flow_features"):
+                cache.put(f"clip{i}/{field}", torch.randn((1, 1000), generator=gen, device=dev))
+    cache.close()
+    print(f"[{label}] CogVideoX VAE {sum(p.numel() for p in vae.parameters()) / 1e9:.3f} B bf16: "
+          f"chunked encode (8 frames a chunk) of a {frames}x{height}x{width} clip to "
+          f"{shape[0]} latent frames and of its first frame, scaled by {vcfg.scaling_factor}: "
+          f"{', '.join(f'{s:.3f}' for s in seconds)} s, peak {max(peaks) / 2**30:.2f} GiB | "
+          f"latents std {latents.std().item():.4f} | cache {os.path.getsize(path) / 2**20:.1f} "
+          f"MiB of 2 samples", flush=True)
+    del vae
+    torch.cuda.empty_cache()
+
+
+def phase_train_cogvideox_full(dev: torch.device) -> dict:
+    """The CogVideoX-5B I2V fine-tune path at full width: the cache filled by T5-XXL and the
+    VAE (``_cogvideox_cache``), the LoRA fine-tune from it (8f, ``_train_cogvideox_lora``),
+    then 8g, ``--full-finetune --remat`` at 2 layers. Returns the launches of the cache fill,
+    the timed window and the validation."""
+    import tempfile
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/cache.lkgd"
+        _zero_counts()
+        _cogvideox_cache(dev, path, gen)
+        fill_launches = _read_counts()
+        launches, val_launches = _train_cogvideox_lora(dev, path, f"{tmp}/out", gen)
+        torch.cuda.empty_cache()  # everything of 8f is freed on its return
+        phase_train_cogvideox_sft(dev, path)
+    return {k: fill_launches[k] + launches[k] + val_launches[k] for k in launches}
+
+
+def _train_cogvideox_lora(dev: torch.device, path: str, out_dir: str, gen: torch.Generator):
+    """8f: the CogVideoX-5B I2V LoRA fine-tune at full width (42 layers x 48 heads,
+    49x480x720: 13 latent frames, 17776 joint tokens, one clip a step) through
+    ``lkgd_torch/cli/train_cogvideox_lora.py``'s ``build`` at ``--rank 128 --lora-alpha 64
+    --remat`` (frozen bf16 DiT, fp32 LoRA and fusion, the fusion's zero-init output 0.02 x
+    normal) on the cache at ``path``, read through the CLI's own dataset: a warm-up step,
+    three between CUDA events (the cache read and host-to-device copy apart from the train
+    step, host CPU s/step, peak memory, launches a step: kernels 7/8 84, 9/10 42, 5/6 126,
+    1a 84, no inference kernel) and three under ``torch.profiler`` (busy share, flash
+    kernels by name); the LoRA factors and the fusion moved, sampled frozen weights
+    bit-identical, the trainable count, one block's activations without remat, the export
+    read back, and one 2-step validation (kernels 1/2). Returns the launches of the timed
+    window and of the validation."""
+    from lkgd_torch.cli import train_cogvideox_lora as cli
+    from lkgd_torch.data.tensor_cache import PrecomputedLatentDataset
+
+    label = "train-cogvideox"
+    t0 = time.perf_counter()
+    args = cli.make_parser().parse_args([
+        "--cache", path, "--output-dir", out_dir, "--rank", "128", "--lora-alpha", "64",
+        "--remat", "--device", str(dev), "--checkpoint-every", "0", "--seed", "0",
+        "--validation-every", str(10 ** 9), "--num-validation-steps", "2"])
+    ds = cli._Adapted(PrecomputedLatentDataset(path), 4096)
+    run = cli.build(args, ds[0])
+    trainer, model = run.trainer, run.transformer
+    # the end of each fit would write the trainables and their moments (1.7 GB)
+    trainer.save_checkpoint = lambda step: None
+    filled = _fill_fusion_output(model, gen)
+    state = trainer.state
+    lora = [p for n, p in state.trainables.items() if "lora_" in n]
+    n_all = sum(p.numel() for p in model.parameters())
+    last = model.config.num_layers - 1
+    sampled = ("patch_embed.proj.weight", "time_embedding.linear_1.weight",
+               "transformer_blocks.0.attn1.to_q.weight",
+               f"transformer_blocks.{last // 2}.norm1.linear.weight",
+               f"transformer_blocks.{last}.ff.net.2.weight", "proj_out.weight")
+    params = dict(model.named_parameters())
+    frozen = {n: params[n].detach().clone() for n in sampled}
+    lat = tuple(ds[0]["latents"].shape[:3])
+    tokens = ds[0]["prompt_embeds"].shape[0] + lat[0] * lat[1] * lat[2] // 4
+    torch.cuda.synchronize()
+    print(f"[{label}] CogVideoX-5B I2V LoRA fine-tune {'x'.join(map(str, COG_CLIP))} ("
+          f"{' x '.join(map(str, lat))} latents, {tokens} tokens), batch 1: DiT "
+          f"{n_all / 1e9:.3f} B, frozen bf16, remat; "
+          f"{len(state.trainables)} trainable tensors fp32 ({len(lora)} LoRA factors = "
+          f"{sum(p.numel() for p in lora) / 1e6:.1f} M, the fusion "
+          f"{sum(p.numel() for n, p in state.trainables.items() if 'lora_' not in n) / 1e6:.2f}"
+          f" M; {filled} fusion output tensors 0.02 x normal); set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert len(lora) == 42 * 4 * 2 and model.config.num_layers == 42
+    assert tokens == COG_TRAIN[1], tokens  # the shape phase 3d holds the kernels at
+    start = {n: p.detach().clone() for n, p in state.trainables.items()}
+
+    parts = {"read and host-to-device": [], "train step": []}
+    read = _timed(lambda i: {k: v[None].to(dev) for k, v in ds[i].items()},
+                  parts["read and host-to-device"])
+    step = _timed(trainer.train_step, parts["train step"])
+    trainer.train_step = lambda state, i, generator: step(state, read(i), generator)
+    r = _fit_windows(label, dev, trainer, [i % 2 for i in range(7)], parts)
+    launches, ms = r["launches"], r["part_ms"]
+    per_step = {k: v / 3 for k, v in launches.items() if v}
+    print(f"[{label}] {r['step_s']:.3f} s/step (3 steps after the warm-up, between CUDA "
+          f"events) = cache read and host-to-device {ms['read and host-to-device'] / 1e3:.3f} "
+          f"s + train step {ms['train step'] / 1e3:.3f} s, host CPU {r['cpu_s']:.3f} s/step "
+          f"| peak memory {r['peak'] / 2**30:.2f} GiB | losses {r['losses']} | launches a "
+          f"step {per_step} | {host_line()}", flush=True)
+    busy = r["device_ms"] / (r["prof_step_s"] * 1e3)
+    flash = r["flash"]
+    flash_ms = sum(m for m, _ in flash.values()) / 3
+    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step (3 steps under "
+          f"torch.profiler), host CPU {r['prof_cpu_s']:.3f} s/step, device busy "
+          f"{r['device_ms']:.1f} ms/step = {100 * busy:.1f}% of the window, "
+          f"{r['n_device']:.0f} device operations a step | flash kernels "
+          f"{flash_ms:.1f} ms/step = {100 * flash_ms / r['device_ms']:.1f}% of the device "
+          f"time; by name (device ms a step, launches a step): " + ", ".join(
+              f"{k} {m / 3:.3f}, {n / 3:.0f}" for k, (m, n) in flash.items()), flush=True)
+    assert all(np.isfinite(r["losses"])) and r["device_ms"] > 0.0, r["losses"]
+    want = {"flash_bound_lse": 84, "flash_maxtrack_lse": 84, "flash_bwd_dq": 42,
+            "flash_bwd_dkv": 42, "split_heads": 126, "merge_heads": 126, "flash_key_norm": 84}
+    assert per_step == want, (per_step, want)
+    for form in ("flash_fwd_wgmma_kernel<64,true,true>", "flash_fwd_wgmma_kernel<64,false,true>",
+                 "flash_bwd_dq_kernel<64>", "flash_bwd_dkv_kernel<64>"):
+        assert form in flash, (form, sorted(flash))
+    still = _unmoved(start, state.trainables)
+    same = all(torch.equal(params[n], frozen[n]) for n in frozen)
+    print(f"[{label}] trainables moved {len(start) - len(still)}/{len(start)} (unmoved: "
+          f"{still}) | sampled frozen weights bit-identical {same} | step {state.step}",
+          flush=True)
+    assert same and not still and state.step == 7
+
+    # the reckoning without --remat: the activations one block keeps for its backward
+    captured = {}
+    hook = model.transformer_blocks[0].register_forward_pre_hook(
+        lambda m, a: captured.setdefault("args", a))
+    with torch.no_grad():
+        batch = read(0)
+        model(torch.cat([batch["latents"], torch.cat([batch["image_latents"][:, None],
+              torch.zeros_like(batch["latents"][:, 1:])], 1)], -1), batch["prompt_embeds"],
+              torch.tensor([500.0], device=dev), batch["domain_features"],
+              batch["flow_features"])
+    hook.remove()
+    hidden, encoder, emb, rope = captured.pop("args")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = model.transformer_blocks[0](hidden.requires_grad_(), encoder.requires_grad_(), emb,
+                                      rope)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated(dev) - before
+    del out, hidden, encoder, emb, rope, batch
+    print(f"[{label}] without --remat: one block keeps {kept / 2**30:.2f} GiB for its "
+          f"backward (its output included), x 42 = {42 * kept / 2**30:.1f} GiB on top of the "
+          f"resident weights", flush=True)
+
+    path_out = f"{out_dir}/model.safetensors"
+    n = cli.export(run, path_out)
+    exported = _read_safetensors(path_out)
+    names = {cli.cogvideox_export_name(k): k for k in state.trainables}
+    assert n == len(exported) == len(state.trainables) and sorted(exported) == sorted(names)
+    for key, value in exported.items():
+        assert np.array_equal(value, state.trainables[names[key]].detach().float().cpu().numpy())
+    print(f"[{label}] export: {n} tensors, {os.path.getsize(path_out) / 2**20:.1f} MiB, read "
+          f"back equal", flush=True)
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.validation_fn(state, state.step)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    val_launches = _read_counts()
+    latents = np.load(f"{out_dir}/validation/step{state.step}_latents.npy")
+    print(f"[{label}] validation: 2 DDIM steps, CFG (2 rows), {'x'.join(map(str, COG_CLIP))} "
+          f"{val_s:.3f} s | "
+          f"latents {latents.shape} std {latents.std():.4f} | launches "
+          f"{ {k: v for k, v in val_launches.items() if v} }", flush=True)
+    assert latents.shape == (1, *ds[0]["latents"].shape) and np.isfinite(latents).all()
+    assert val_launches["flash_bound"] == val_launches["flash_maxtrack"] == 2 * 42
+    return launches, val_launches
+
+
+def phase_train_cogvideox_sft(dev: torch.device, cache: str) -> None:
+    """8g: ``--full-finetune --remat`` at full width cut to 2 layers (5.573 B fp32 weights,
+    gradients and two moments would be 89 GB), one step from the cache, the fusion's
+    zero-init output 0.02 x normal: fp32 parameters computed in bf16, every parameter
+    moved, its peak memory."""
+    import tempfile
+
+    from lkgd_torch.cli import train_cogvideox_lora as cli
+    from lkgd_torch.data.tensor_cache import PrecomputedLatentDataset
+
+    label = "train-cogvideox-sft"
+    with tempfile.TemporaryDirectory() as tmp:
+        args = cli.make_parser().parse_args([
+            "--cache", cache, "--output-dir", tmp, "--full-finetune", "--remat", "--device",
+            str(dev), "--checkpoint-every", "0", "--seed", "1", "--max-steps", "1"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = cli.build(args, num_layers=2)
+        run.trainer.save_checkpoint = lambda step: None
+        model, state = run.transformer, run.trainer.state
+        _fill_fusion_output(model, torch.Generator(device=dev).manual_seed(22))
+        n_all = sum(p.numel() for p in model.parameters())
+        start = {n: p.detach().clone() for n, p in state.trainables.items()}
+        batch = {k: v[None].to(dev) for k, v in
+                 cli._Adapted(PrecomputedLatentDataset(cache), 4096)[0].items()}
+        losses = []
+        step = run.trainer.train_step
+
+        def recorded(state, batch, generator):
+            state, loss = step(state, batch, generator)
+            losses.append(loss)
+            return state, loss
+
+        run.trainer.train_step = recorded
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        run.trainer.fit(iter([batch]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        still = _unmoved(start, state.trainables)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[{label}] --full-finetune --remat, 2 of 42 layers at full width, "
+              f"{'x'.join(map(str, COG_CLIP))}: "
+              f"{n_all / 1e9:.3f} B parameters, all {len(state.trainables)} trainable in fp32, "
+              f"computed in bf16 | one step {seconds:.3f} s (the first: with the optimizer's "
+              f"state made), loss {losses[0].item():.5f} | peak {peak / 2**30:.2f} GiB "
+              f"(resident before the step {resident / 2**30:.2f} GiB) | moved "
+              f"{len(start) - len(still)}/{len(start)} (unmoved: {still})", flush=True)
+        assert len(state.trainables) == len(list(model.parameters())) and state.step == 1
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert np.isfinite(losses[0].item()) and not still
+    del run, model, state, start
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -2775,11 +3346,14 @@ def main() -> int:
     kernels = phase_kernels(dev, torch.Generator(device=dev).manual_seed(1234))
     kernels.update(phase_experiment_kernels(dev, torch.Generator(device=dev).manual_seed(99)))
     cogvideox_kernels = phase_cogvideox_kernels(dev, torch.Generator(device=dev).manual_seed(77))
+    cogvideox_train_kernels = phase_cogvideox_train_kernels(
+        dev, torch.Generator(device=dev).manual_seed(78))
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
     phase_tiny_variants(dev)
     phase_tiny_cogvideox(dev)
+    phase_tiny_cogvideox_train(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
@@ -2807,6 +3381,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_flow_launches = phase_train_flow_full(dev)
     torch.cuda.empty_cache()
+    train_cogvideox_launches = phase_train_cogvideox_full(dev)
+    torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
@@ -2819,7 +3395,7 @@ def main() -> int:
                "cogvideox": cogvideox_launches,
                "train": train_launches, "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
-               "experiments": experiment_launches}
+               "train_cogvideox": train_cogvideox_launches, "experiments": experiment_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
            **dict.fromkeys(EXPERIMENTS, "experiments")}
     print(json.dumps({"kernels": [
@@ -2827,7 +3403,9 @@ def main() -> int:
          "launches": by_path[own[name]][name],
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
          **kernels[name], **({"cogvideox": cogvideox_kernels[name]}
-                             if name in cogvideox_kernels else {})}
+                             if name in cogvideox_kernels else {}),
+         **({"train_cogvideox": cogvideox_train_kernels[name]}
+            if name in cogvideox_train_kernels else {})}
         for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -102,8 +102,9 @@ class FramesFlowDataset:
 
 class PrefetchLoader:
     """Shuffled, batched, background-prefetched loader: one thread keeps ``prefetch``
-    stacked numpy batches queued; each is handed out as torch tensors on ``device``
-    (the keys in ``drop_keys`` stay lists). Iterates epoch after epoch until the consumer
+    stacked batches queued (numpy arrays, or tensors where the samples hold tensors); each
+    is handed out as torch tensors on ``device`` (the keys in ``drop_keys`` stay lists).
+    Iterates epoch after epoch until the consumer
     stops; leaving the iteration stops the thread. ``device`` defaults to the card and
     raises when there is none: name ``"cpu"`` to get CPU tensors."""
 
@@ -126,8 +127,14 @@ class PrefetchLoader:
 
     def _batch(self, batch_idx) -> dict:
         samples = [self.dataset[int(i)] for i in batch_idx]
+
+        def stack(values):  # torch tensors (a tensor cache's, bf16 too) stay tensors
+            if isinstance(values[0], torch.Tensor):
+                return torch.stack(values)
+            return np.stack([np.asarray(v) for v in values])
+
         return {k: ([s[k] for s in samples] if k in self.drop_keys
-                    else np.stack([np.asarray(s[k]) for s in samples])) for k in samples[0]}
+                    else stack([s[k] for s in samples])) for k in samples[0]}
 
     def __iter__(self) -> Iterator[dict]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -161,7 +168,9 @@ class PrefetchLoader:
                 if isinstance(batch, Exception):
                     raise batch
                 yield {k: (torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                           if isinstance(v, np.ndarray) else v) for k, v in batch.items()}
+                           if isinstance(v, np.ndarray) else
+                           v.to(self.device) if isinstance(v, torch.Tensor) else v)
+                       for k, v in batch.items()}
         finally:
             stop.set()
             thread.join(timeout=5.0)

@@ -8,7 +8,13 @@ qk LayerNorm over the head dim, 3D rotary embeddings on the video tokens (1.0 an
 knowledge fusion of the T5 context before the patch embedding (zero-init output).
 
 Layout: ``hidden_states`` (B, T, H, W, C) channels-last latents, ``encoder_hidden_states``
-(B, L, text_embed_dim). The rotary tables are built once a forward with the identity
+(B, L, text_embed_dim). The compute dtype is the constructor's ``dtype`` (the JAX module's
+``dtype=``), or where none is given the dtype of the frozen weights (``text_proj``'s);
+every layer casts its parameters to it at use, so that trained parameters may stay fp32 in
+a bf16 model (LoRA factors, the fusion, or every parameter under a full fine-tune). Under
+``config.remat`` each block runs under ``torch.utils.checkpoint`` (non-reentrant) while a
+gradient is recorded, the rotary tables and the time embedding passed in as inputs: the
+counterpart of ``nn.remat(CogVideoXBlock)``. The rotary tables are built once a forward with the identity
 rotation (cos 1, sin 0) over the text prefix and cast to the compute dtype, so every layer
 rotates the whole joint sequence. Attention goes through ``ops/attention.py``: the flash
 kernels at S >= 1024 (17776 tokens at 49x480x720), the plain form below.
@@ -31,7 +37,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lkgd_torch.models.configs import CogVideoXConfig
-from lkgd_torch.models.layers import (Conv2d, DenseWithLora, TimestepEmbedding,
+from torch.utils.checkpoint import checkpoint
+
+from lkgd_torch.models.layers import (CastLinear, Conv2d, DenseWithLora, TimestepEmbedding,
                                       get_timestep_embedding)
 from lkgd_torch.ops.attention import dot_product_attention
 from lkgd_torch.ops.fusion import LatentKnowledgeFusion
@@ -89,14 +97,32 @@ def sincos_pos_embed_3d(dim: int, t: int, h: int, w: int, spatial_scale: float =
     return torch.from_numpy(pos.reshape(t * h * w, dim).astype(np.float32))
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with its scale and bias cast to the input's dtype at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+class CastConv2d(Conv2d):
+    """The channels-last :class:`Conv2d` with its weight and bias cast to the input's
+    dtype at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), self.bias.to(x.dtype),
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
 class CogVideoXLayerNormZero(nn.Module):
     """adaLN-zero: (shift, scale, gate) for the video and the text stream from one linear
     on SiLU(temb), one LayerNorm (eps 1e-5) shared by both streams."""
 
     def __init__(self, conditioning_dim: int, dim: int):
         super().__init__()
-        self.linear = nn.Linear(conditioning_dim, 6 * dim)
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.linear = CastLinear(conditioning_dim, 6 * dim)
+        self.norm = LayerNorm(dim, eps=1e-5)
 
     def forward(self, hidden, encoder, temb):
         shift, scale, gate, e_shift, e_scale, e_gate = (
@@ -118,8 +144,8 @@ class CogVideoXAttention(nn.Module):
         self.to_q = DenseWithLora(inner, inner, adapters=adapters["to_q"])
         self.to_k = DenseWithLora(inner, inner, adapters=adapters["to_k"])
         self.to_v = DenseWithLora(inner, inner, adapters=adapters["to_v"])
-        self.norm_q = nn.LayerNorm(hd, eps=1e-6)
-        self.norm_k = nn.LayerNorm(hd, eps=1e-6)
+        self.norm_q = LayerNorm(hd, eps=1e-6)
+        self.norm_k = LayerNorm(hd, eps=1e-6)
         self.to_out = nn.ModuleList([DenseWithLora(inner, inner, adapters=adapters["to_out"])])
 
     def forward(self, x: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
@@ -139,7 +165,7 @@ class GELUProj(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out)
+        self.proj = CastLinear(dim_in, dim_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.gelu(self.proj(x), approximate="tanh")
@@ -151,7 +177,7 @@ class FeedForward(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.net = nn.ModuleList([GELUProj(dim, 4 * dim), nn.Identity(), nn.Linear(4 * dim, dim)])
+        self.net = nn.ModuleList([GELUProj(dim, 4 * dim), nn.Identity(), CastLinear(4 * dim, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
@@ -184,9 +210,9 @@ class PatchEmbed(nn.Module):
     def __init__(self, config: CogVideoXConfig):
         super().__init__()
         p, pt, inner = config.patch_size, config.patch_size_t, config.inner_dim
-        self.proj = (Conv2d(config.in_channels, inner, p, stride=p) if pt is None
-                     else nn.Linear(pt * p * p * config.in_channels, inner))
-        self.text_proj = nn.Linear(config.text_embed_dim, inner)
+        self.proj = (CastConv2d(config.in_channels, inner, p, stride=p) if pt is None
+                     else CastLinear(pt * p * p * config.in_channels, inner))
+        self.text_proj = CastLinear(config.text_embed_dim, inner)
 
 
 class NormOut(nn.Module):
@@ -196,7 +222,7 @@ class NormOut(nn.Module):
     def __init__(self, conditioning_dim: int, dim: int):
         super().__init__()
         self.dim = dim
-        self.linear = nn.Linear(conditioning_dim, 2 * dim)
+        self.linear = CastLinear(conditioning_dim, 2 * dim)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         shift, scale = self.linear(F.silu(temb))[:, None].chunk(2, dim=-1)
@@ -204,9 +230,13 @@ class NormOut(nn.Module):
 
 
 class CogVideoXTransformer3D(nn.Module):
-    def __init__(self, config: CogVideoXConfig = CogVideoXConfig()):
+    """``dtype``: the compute dtype; None computes in the dtype of the frozen weights."""
+
+    def __init__(self, config: CogVideoXConfig = CogVideoXConfig(),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = cfg = config
+        self.compute_dtype = dtype
         inner = cfg.inner_dim
         self.time_embedding = TimestepEmbedding(inner, cfg.time_embed_dim)
         self.knowledge_fusion = None
@@ -220,10 +250,10 @@ class CogVideoXTransformer3D(nn.Module):
         self.patch_embed = PatchEmbed(cfg)
         self.transformer_blocks = nn.ModuleList(
             [CogVideoXBlock(cfg, f"transformer_blocks.{i}") for i in range(cfg.num_layers)])
-        self.norm_final = nn.LayerNorm(inner, eps=1e-5)
+        self.norm_final = LayerNorm(inner, eps=1e-5)
         self.norm_out = NormOut(cfg.time_embed_dim, inner)
         p, pt = cfg.patch_size, cfg.patch_size_t or 1
-        self.proj_out = nn.Linear(inner, pt * p * p * cfg.out_channels)
+        self.proj_out = CastLinear(inner, pt * p * p * cfg.out_channels)
 
     def _embed_video(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -243,7 +273,7 @@ class CogVideoXTransformer3D(nn.Module):
                 timestep, domain_features: Optional[torch.Tensor] = None,
                 flow_features: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
-        dtype = self.patch_embed.text_proj.weight.dtype
+        dtype = self.compute_dtype or self.patch_embed.text_proj.weight.dtype
         b, t, h, w, _ = hidden_states.shape
         p, pt = cfg.patch_size, cfg.patch_size_t
         device = hidden_states.device
@@ -272,8 +302,13 @@ class CogVideoXTransformer3D(nn.Module):
             video = video + pos.to(device, dtype)[None]
 
         hidden, encoder = video, text
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            hidden, encoder = block(hidden, encoder, emb, rope)
+            if remat:
+                hidden, encoder = checkpoint(block, hidden, encoder, emb, rope,
+                                             use_reentrant=False)
+            else:
+                hidden, encoder = block(hidden, encoder, emb, rope)
 
         # norm_final acts token by token: the text rows it would also normalise are dropped
         hidden = self.proj_out(self.norm_out(self.norm_final(hidden), emb))

@@ -5,11 +5,11 @@ Counterparts of ``lkgd_tpu/models/configs.py`` ``JointAttentionConfig`` (:19-55)
 ``halve_stream_masks`` (:162-184), ``lkgd_tpu/models/vae_temporal.py``
 ``TemporalVAEConfig`` (:30-37), ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig``
 (:22-41), ``lkgd_tpu/models/cogvideox.py`` ``CogVideoXConfig`` (:33-102) and
-``lkgd_tpu/models/vae_cogvideox.py`` ``CogVideoXVAEConfig`` (:26-39). The port imports
-nothing of the JAX package, so it carries its own configs with the same field names and
-defaults, every LKGD extension of the JAX UNet config included. ``CogVideoXConfig`` leaves
-out the JAX fields that only multi-chip code (``sequence_parallel``, ``sp_axis``) and
-training (``remat``) read.
+``lkgd_tpu/models/vae_cogvideox.py`` ``CogVideoXVAEConfig`` (:26-39) and
+``lkgd_tpu/models/t5_text.py`` ``T5Config`` (:26-45). The port imports nothing of the JAX
+package, so it carries its own configs with the same field names and defaults, every LKGD
+extension of the JAX UNet config included. ``CogVideoXConfig`` leaves out the JAX fields
+that only multi-chip code reads (``sequence_parallel``, ``sp_axis``).
 """
 
 from __future__ import annotations
@@ -239,6 +239,8 @@ class CogVideoXConfig:
     temporal_interpolation_scale: float = 1.0
     knowledge_fusion: bool = True
     lora: LoraRouter = EMPTY_ROUTER
+    # gradient checkpointing: every transformer block recomputed in the backward pass
+    remat: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -289,3 +291,26 @@ class CogVideoXVAEConfig:
     def tiny(cls) -> "CogVideoXVAEConfig":
         return cls(latent_channels=4, block_out_channels=(32, 32, 64), layers_per_block=1,
                    temporal_compress_levels=(True, True))
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    """The T5 v1.1 encoder; defaults are T5-XXL, CogVideoX's text encoder."""
+
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+
+    @classmethod
+    def xxl(cls) -> "T5Config":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "T5Config":
+        return cls(vocab_size=128, d_model=32, d_kv=8, d_ff=64, num_layers=2, num_heads=4)

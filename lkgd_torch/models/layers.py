@@ -121,12 +121,14 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    """2-layer SiLU MLP over the sinusoidal embedding (diffusers ``TimestepEmbedding``)."""
+    """2-layer SiLU MLP over the sinusoidal embedding (diffusers ``TimestepEmbedding``); its
+    layers cast their parameters to the input's dtype, so that they may be trained in fp32
+    inside a bf16 model."""
 
     def __init__(self, in_dim: int, time_embed_dim: int, out_dim: Optional[int] = None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, out_dim or time_embed_dim)
+        self.linear_1 = CastLinear(in_dim, time_embed_dim)
+        self.linear_2 = CastLinear(time_embed_dim, out_dim or time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -133,11 +133,14 @@ class Trainer:
 
 
 def export_trainable_safetensors(module: nn.Module, predicate: Callable[[str], bool],
-                                 path: str) -> int:
+                                 path: str, key_map: Optional[Callable[[str], str]] = None
+                                 ) -> int:
     """Write the parameters whose names ``predicate`` selects (LoRA factors, knowledge
     fusion) to a safetensors file, as fp32, under the names and layouts the JAX package's
-    ``export_trainable_safetensors`` gives them. Returns the number of tensors."""
-    tensors = {name: p.detach().float().cpu().numpy()
+    ``export_trainable_safetensors`` gives them: the module's own names, or ``key_map`` of
+    them where the module tree differs (``utils/porting.py`` ``cogvideox_export_name``).
+    Returns the number of tensors."""
+    tensors = {(key_map(name) if key_map else name): p.detach().float().cpu().numpy()
                for name, p in module.named_parameters() if predicate(name)}
     save_safetensors(tensors, path)
     return len(tensors)

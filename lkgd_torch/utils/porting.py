@@ -24,6 +24,13 @@ input (``conv_in_y``, ``*_embedding_y``, ``conv_in2``, the scalar ``conv_in2_alp
 package's ``cogvideox_export_key_map`` does; the CogVideoX VAE keeps the generic names
 (``key_map=None``), which its JAX CLI reads from ``vae_3d.safetensors``.
 
+``cogvideox_export_name`` runs the other way for the CogVideoX transformer's parameter
+names: the port's module names -> the JAX package's default export names (no key map, as
+its ``train_cogvideox_lora`` exports its trainables), for ``export_trainable_safetensors``.
+
+``t5_state_dict`` carries the JAX T5 encoder's params into the port's ``T5Encoder`` under
+transformers' ``T5EncoderModel`` names (the names ``port_t5_encoder`` reads).
+
 ``unimatch_state_dict`` carries the JAX UniMatch's params: the same kernel rules, its names
 kept but for the transformer's blocks (``layers_<i>_self_attn`` -> ``layers.<i>.self_attn``),
 and the trident convolution's HWIO ``trident_weight`` turned OIHW.
@@ -119,6 +126,50 @@ def cogvideox_key_map(key: str) -> str:
         k = k[len("knowledge_fusion."):].replace("fuse_sf_0", "fuse_sf.0")
         return "quaternion_lora_" + k.replace("fuse_sf_2", "fuse_sf.2")
     return k
+
+
+def cogvideox_export_name(name: str) -> str:
+    """A parameter name of the port's CogVideoX transformer -> the name the JAX package's
+    ``export_state_dict`` gives the same parameter with no key map (``patch_embed_proj``,
+    ``norm_out_linear``, ``ff_0``, ``ff_2``; the fusion under ``knowledge_fusion.*`` and the
+    LoRA factors keep their names)."""
+    k = name.replace("patch_embed.proj", "patch_embed_proj")
+    k = k.replace("patch_embed.text_proj", "patch_embed_text_proj")
+    k = k.replace("norm_out.linear", "norm_out_linear")
+    return k.replace(".ff.net.0.proj.", ".ff_0.").replace(".ff.net.2.", ".ff_2.")
+
+
+def t5_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``/``-path flax leaves of ``lkgd_tpu.models.t5_text.T5Encoder`` -> the state dict of
+    ``lkgd_torch.models.t5_text.T5Encoder`` (transformers' ``T5EncoderModel`` names, the
+    embedding under ``shared`` and its tied ``encoder.embed_tokens``), for
+    ``load_state_dict(strict=True)``: the inverse of the JAX package's ``port_t5_encoder``."""
+    out = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        x = np.asarray(value)
+        if parts[0] == "shared_embedding":
+            out["shared.weight"] = out["encoder.embed_tokens.weight"] = x
+            continue
+        if parts[0] == "final_layer_norm":
+            out["encoder.final_layer_norm.weight"] = x
+            continue
+        block = f"encoder.block.{int(parts[0].removeprefix('block_'))}.layer"
+        rest = "/".join(parts[1:])
+        if rest == "SelfAttention/relative_attention_bias":
+            name = f"{block}.0.SelfAttention.relative_attention_bias.weight"
+        elif rest.startswith("SelfAttention/"):
+            name, x = f"{block}.0.SelfAttention.{parts[2]}.weight", x.T
+        elif rest == "attn_layer_norm/weight":
+            name = f"{block}.0.layer_norm.weight"
+        elif rest == "ff_layer_norm/weight":
+            name = f"{block}.1.layer_norm.weight"
+        else:  # wi_0, wi_1, wo kernels
+            name, x = f"{block}.1.DenseReluDense.{parts[1]}.weight", x.T
+        out[name] = x
+    return {k: torch.from_numpy(np.array(v, copy=True, order="C")) for k, v in out.items()}
 
 
 def vit_key_map(key: str) -> str:

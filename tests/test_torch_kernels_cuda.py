@@ -1128,3 +1128,87 @@ def test_tiny_flow_step_gpu_matches_cpu(cuda_device, monkeypatch):
     for name in start:
         torch.testing.assert_close(after_g[name], want_after[name], rtol=1e-4, atol=2e-4,
                                    msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_at_48_heads_ragged(cuda_device):
+    """The CogVideoX fine-tune's 48 heads at 1250 = 9 x 128 + 98 rows: a ragged last tile of
+    queries (kernel 10's lse = +inf rows) and of keys (kernel 9's peeled last tile)."""
+    q, k, v = _qkv(cuda_device, (1, 1250, 48, 64))
+    _check_bwd_against_plain(q, k, v, *_bwd_args(cuda_device, q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["i2v", "t2v"])
+def test_tiny_cogvideox_step_gpu_matches_cpu(cuda_device, monkeypatch, mode):
+    """The CogVideoX train step (the CLI's LoRA on every attn1 projection and the fusion,
+    remat) at fp32 on the card against the CPU, every parameter random and the draws
+    injected: the loss, the gradients (scaled as the ControlNet step's), the update against
+    the CPU's AdamW on the card's gradients; frozen weights bit-identical."""
+    from lkgd_torch.cli import train_cogvideox_lora as cli
+    from lkgd_torch.models.cogvideox import CogVideoXTransformer3D
+    from lkgd_torch.pipelines.cogvideox_i2v import make_cogvideox_train_step
+    from lkgd_torch.training import train_state as ts
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args = cli.make_parser().parse_args(["--tiny", "--rank", "2", "--lora-alpha", "4",
+                                         "--remat", "--mode", mode])
+    config = cli.transformer_config(args)
+    models = _twins(lambda d: materialize(lambda: CogVideoXTransformer3D(config), d,
+                                          torch.float32, fp32=cli.trainable), cuda_device, 4)
+    g = torch.Generator().manual_seed(5)
+    batch = {"latents": torch.randn((2, 3, 8, 8, 4), generator=g),
+             "prompt_embeds": torch.randn((2, 8, 64), generator=g),
+             "domain_features": torch.randn((2, 1, 1000), generator=g),
+             "flow_features": torch.randn((2, 1, 1000), generator=g)}
+    if mode == "i2v":
+        batch["image_latents"] = torch.randn((2, 8, 8, 4), generator=g)
+    draws = {"timesteps": torch.tensor([37, 901]), "noise": torch.randn((2, 3, 8, 8, 4), generator=g)}
+    out = []
+    for model, device in zip(models, ("cpu", cuda_device)):
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if not cli.trainable(n)}
+        optimizer = ts.make_optimizer(1e-3, trainable_predicate=cli.trainable)
+        state = ts.init_train_state(model, optimizer)
+        start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
+        loss, grads = _step_with_grads(
+            make_cogvideox_train_step(model, optimizer, mode=mode), state,
+            {k: v.to(device) for k, v in batch.items()},
+            **{k: v.to(device) for k, v in draws.items()})
+        assert all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen)
+        out.append((loss, grads, {n: p.detach().cpu() for n, p in state.trainables.items()}))
+    (loss_c, grads_c, _), (loss_g, grads_g, after_g) = out
+    assert abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+    assert sorted(grads_g) == sorted(grads_c) == sorted(start) and len(start) == 45
+    floor = 1e-2 * max(x.abs().max().item() for x in grads_c.values())
+    for name, want in grads_c.items():
+        scale = max(floor, want.abs().max().item())
+        torch.testing.assert_close(grads_g[name] / scale, want / scale, rtol=1e-4, atol=2e-4,
+                                   msg=name)
+    want_after = _adamw_from(start, grads_g)
+    for name in start:
+        torch.testing.assert_close(after_g[name], want_after[name], rtol=1e-4, atol=2e-4,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_tiny_t5_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The tiny T5 encoder at fp32 on the card against the CPU, on explicit ids with a
+    padding mask."""
+    from lkgd_torch.models.configs import T5Config
+    from lkgd_torch.models.t5_text import build_t5_encoder
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu, gpu = (build_t5_encoder(T5Config.tiny(), torch.float32, d) for d in ("cpu", cuda_device))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    ids = torch.randint(0, 128, (2, 19), generator=g)
+    mask = torch.ones(2, 19, dtype=torch.long)
+    mask[1, 7:] = 0
+    with torch.no_grad():
+        want = cpu(ids, mask)
+        got = gpu(ids.to(cuda_device), mask.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)

@@ -200,16 +200,19 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "flash_variant_microbench", "flash_bwd_ab", "kernel_ab",
                                    "group_norm_ab", "cogvideox_i2v_pipeline",
                                    "cogvideox_t2v_pipeline", "cogvideox_v2v_pipeline",
-                                   "cogvideox_cli", "unimatch"])
+                                   "cogvideox_cli", "unimatch", "train_cogvideox_lora",
+                                   "embed_text", "t5_encoder"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import run_inference_cogvideox, run_inference_svd, train_svd_lora
+    from lkgd_torch.cli import (embed_text, run_inference_cogvideox, run_inference_svd,
+                                train_cogvideox_lora, train_svd_lora)
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.models.t5_text import build_t5_encoder
     from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
     from lkgd_torch.pipelines import cogvideox_i2v as cog
     from lkgd_torch.pipelines.svd_controlnet import StableVideoDiffusionControlNetPipeline
@@ -256,6 +259,12 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "cogvideox_cli": lambda: run_inference_cogvideox.main(["--image",
                                                               str(tmp_path / "a.png")]),
         "unimatch": lambda: build_unimatch(UniMatchConfig.tiny()),
+        "train_cogvideox_lora": lambda: train_cogvideox_lora.build(
+            train_cogvideox_lora.make_parser().parse_args(["--tiny", "--output-dir",
+                                                           str(tmp_path)])),
+        "embed_text": lambda: embed_text.main(["--tiny", "--prompt", "a", "--output",
+                                               str(tmp_path / "e.npy")]),
+        "t5_encoder": lambda: build_t5_encoder(tcfg.T5Config.tiny()),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
