@@ -35,8 +35,22 @@ each printing its own lines; any failure raises and the script exits non-zero:
    backward's fp32 P of all 48 heads would be 60.7 GB), with the tolerances of phase 6, the
    library call's time (``scaled_dot_product_attention`` forward, and its backward through
    autograd) and the bound;
+3e. kernels 1, 2 and 1a at the SD2 UNet's level-0 and level-1 self-attention (2, 4096, 5,
+   64), (2, 1024, 10, 64) and the image VAE's mid block (1, 4096, 1, 512); kernels 7/8,
+   9/10, 5/6 and 1a at the SD-2D joint LoRA step's (2, 4096, 5, 64); kernels 3/4 at (2,
+   4096, 320), eps 1e-6, with and without SiLU: each against its plain version with the
+   tolerances of phases 3 and 6, its device time under ``torch.profiler`` beside its
+   wrapper's (which of the two sets the pace), the library call's time and the bound;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
+4g. the tiny SD-2D family at fp32, GPU against CPU, every parameter random: the 2D UNet
+   (per-sample timesteps with ControlNet residuals; 9 channels with the conditioning
+   encoder; joint ``conv_fuse`` attention with stream-masked LoRA and track fusion), the
+   image VAE (encode, decode, round trip), ControlNet-2D, the CLIP text tower at -1 and
+   -2, the inpaint (+ ControlNet-2D), joint-control (joint UNet, ``cond_y``, spatial mask,
+   two pairs) and condition pipelines with the starting noise given, and one joint LoRA
+   train step: loss, gradients (scaled as 7c's), then the update against the CPU's AdamW
+   on the card's gradients;
 4f. at fp32, GPU against CPU: the tiny CogVideoX train step of ``train_cogvideox_lora``'s
    LoRA and fusion with remat, i2v and t2v (loss, gradients scaled as 7c's, the update
    against the CPU's AdamW on the GPU's gradients), the tiny T5 encoder on explicit ids with
@@ -94,6 +108,15 @@ each printing its own lines; any failure raises and the script exits non-zero:
    step) and fallback tiles, latents and frames finite; one DiT step under
    ``torch.profiler``; the decode chunked (2 latent frames) and tiled (60x90 and 30x45
    latent tiles), each timed with its peak;
+5h. SD2 at 512x512, bf16, random weights from a seed: inpaint, 50 DDIM steps, guidance 7.5,
+   through ``lkgd_torch/cli/run_inference_sd2d.py``'s ``build`` and ``denoise`` (a warm-up
+   image, then a counted one: s/image split into denoise and decode, peak, launches of
+   kernels 1, 2 and 1a asserted at 10 a UNet step and 2 for the VAE; one UNet step under
+   ``torch.profiler``); inpaint with ControlNet-2D (zero-init heads 0.02 x normal, 14 a
+   step); joint control as the CLI builds it (no joint attention) and with a joint UNet
+   (``post="conv"``, mask (0, 1, 0, 1), 20 a step); the CLIP-H text tower on 77 token ids
+   at -1 and -2; one UNet forward of a (src, dst) pair with 256 point tracks at
+   ``track_fusion`` (``conv_fuse`` 0.02 x normal), against the same forward without;
 6. the training kernels (head split and merge, flash LSE forwards, dq and dk/dv
    backwards) against their plain versions at the fine-tune's shapes, ragged S, S_q !=
    S_k, D=128 and the huge-norm input that trips the LSE forward's fallback: split/merge
@@ -170,19 +193,29 @@ each printing its own lines; any failure raises and the script exits non-zero:
    validation (kernels 1/2);
 8g. ``--full-finetune --remat`` at full width and 2 layers: one step, every parameter moved,
    its peak;
+8h. the SD-2D joint LoRA train step at 512x512 through ``training/sd2d.py``'s
+   ``build_sd2d_training`` and ``Trainer.fit``: one x/y pair (batch 2), the SD2 UNet in
+   bf16 with joint attention (``post="conv"``, mask (0, 1)) and a rank-64 LoRA on every
+   ``attn1`` projection, the LoRA factors and the joint branch trained in fp32,
+   ``snr_gamma=5``, ``joint_streams``, 77-token embeddings; a warm-up step, three between
+   CUDA events (s/step, host CPU s/step, peak) and three under ``torch.profiler`` (busy
+   share); launches a step asserted: kernels 7/8, 9/10 and 1a 20, 5/6 40, kernels 1/2 none;
+   trainables moved, sampled frozen weights bit-identical;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
 A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel with their
 launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
-``dc=2`` and ``3``, flow clip, CogVideoX clip, LKGD, trans, ControlNet, flow and CogVideoX
-training, microbenchmarks),
+``dc=2`` and ``3``, flow clip, CogVideoX clip, the SD-2D inpaint, inpaint + ControlNet and
+the two joint-control images, LKGD, trans, ControlNet, flow, CogVideoX and SD-2D training,
+microbenchmarks),
 error, time, the
 plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
 67 TFLOP/s for fp32 arithmetic outside them); the five inference kernels also carry their
 row at the CogVideoX shapes of 3c under ``cogvideox``, and the training kernels and the
-key-norm kernel their row at 3d's shape under ``train_cogvideox``.
+key-norm kernel their row at 3d's shape under ``train_cogvideox``; every kernel of 3e its
+rows at the SD-2D shapes under ``sd2d`` (``ms`` the device time, ``wrapper_ms`` beside).
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -1379,25 +1412,91 @@ def in_head_blocks(fn, tensors, heads: int = 4):
     return out if len(out) > 1 else out[0]
 
 
-def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
-    """Kernels 1, 2 and 1a at the 5B DiT's (2, 17776, 48, 64) (ragged against the 128-row
-    tiles: 138 full tiles and 112 rows; the plain version in blocks of 4 heads) and kernels
-    3 and 4 at the whole-clip decode's N=1 shapes, each against its plain version, with the
-    library call's time and the bound; returns these rows by kernel."""
-    import torch.nn.functional as F
+def heads_of(n: int) -> tuple:
+    """The plain versions run over blocks of one row and ``n`` heads, and its name."""
+    return (lambda fn, tensors: in_head_blocks(fn, tensors, n)), f"blocks of {n} heads"
 
+
+def rows_of(n: int) -> tuple:
+    """The plain versions run over chunks of ``n`` rows, and its name."""
+    return (lambda fn, tensors: in_row_chunks(fn, tensors, n)), f"chunks of {n} rows"
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key as ``name<template arguments>``: casts, spaces, namespaces and the
+    parameter list dropped."""
+    name = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for cast in ("(int)", "(bool)", " "):
+        name = name.replace(cast, "")
+    return name.split("(")[0]
+
+
+def _device_kernel_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of ``fn`` by kernel name under ``torch.profiler`` (``calls`` calls
+    after a warm-up)."""
+    from lkgd_torch.experiments.group_norm_ab import profiled
+
+    out = {}
+    for key, ms in profiled(fn, calls)["ms"].items():
+        name = _kernel_name(key)
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def _timed_kernel(fn, prefix: str, suffix: str = "") -> dict:
+    """``ms``: the device ms a call of ``fn``'s kernels named ``prefix...suffix`` under
+    ``torch.profiler``; ``call_device_ms``: of every operation the call enqueues;
+    ``wrapper_ms``: the call's ms between CUDA events (20 calls), which the host paces
+    where it is the longer."""
+    device = _device_kernel_ms(fn)
+    ms = sum(t for n, t in device.items() if n.startswith(prefix) and n.endswith(suffix))
+    assert ms > 0.0, (prefix, suffix, device)
+    return {"ms": ms, "call_device_ms": sum(device.values()), "wrapper_ms": gpu_ms(fn, 20)}
+
+
+def _paced(t: dict) -> str:
+    pace = "the host" if t["wrapper_ms"] > 1.1 * t["call_device_ms"] else "the device"
+    return (f"kernel {t['ms']:.4f} ms on the device (torch.profiler), the call's device "
+            f"operations {t['call_device_ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms a call "
+            f"(CUDA events): {pace} sets the pace")
+
+
+def _key_norm_row(tag: str, label: str, k: torch.Tensor) -> dict:
+    """Kernel 1a on (B, S, H, D) keys against its plain version (fp32 sums in another
+    order: rtol 1e-5)."""
     from lkgd_torch.ops import flash_attention as fa
-    from lkgd_torch.ops import group_norm as gn
 
-    rows = {}
-    q, k, v = (torch.randn(COG_FLASH, device=dev, generator=gen).bfloat16() for _ in range(3))
-    want = in_head_blocks(lambda *a: fa.flash_attention_maxtrack_plain(
-        *(x.float() for x in a)), (q, k, v))
+    got, want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    t = _timed_kernel(lambda: fa.key_norm_max(k), "key_sq_max")
+    plain_ms = gpu_ms(lambda: fa.key_norm_max_plain(k), 20)
+    # k read once, (B, H) fp32 written; 2 fp32 operations an element
+    least = bound(2 * k.numel(), k.numel() * 2 + k.shape[0] * k.shape[2] * 4, PEAK_FP32)
+    print(f"[{tag}] flash_key_norm {label} (B,S,H,D)={tuple(k.shape)}: max|d| {err:.3e} "
+          f"(rtol 1e-5) | {_paced(t)} | plain {plain_ms:.4f} ms, bound "
+          f"{least['bound_ms']:.4f} ms by {least['bound_by']}", flush=True)
+    return {"shape": list(k.shape), "max_abs_err": err, **t, "plain_ms": plain_ms,
+            "library_ms": None, **least}
+
+
+def _forward_rows(tag: str, label: str, shape, gen: torch.Generator, plain_in) -> dict:
+    """Kernels 1, 2 and 1a on random bf16 (B, S, H, D) q, k, v against their plain versions
+    (run as ``plain_in`` says), with the kernels' device time, the wrappers', the library
+    call's and the bound; returns these rows by kernel."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    chunk, note = plain_in
+    dev = gen.device
+    q, k, v = (torch.randn(shape, device=dev, generator=gen).bfloat16() for _ in range(3))
+    want = chunk(lambda *a: fa.flash_attention_maxtrack_plain(*(x.float() for x in a)), (q, k, v))
     ref_max = want.abs().max().item()
-    least, lib_ms = flash_bound(COG_FLASH), sdpa_ms(q, k, v)
-    plan = fa.flash_plan(COG_FLASH[0], COG_FLASH[1], COG_FLASH[1], COG_FLASH[2], COG_FLASH[3])
-    for kernel, plain in (("flash_bound", fa.flash_attention_bound_plain),
-                          ("flash_maxtrack", fa.flash_attention_maxtrack_plain)):
+    least, lib_ms = flash_bound(shape), sdpa_ms(q, k, v, reps=20)
+    plan = fa.flash_plan(shape[0], shape[1], shape[1], shape[2], shape[3])
+    rows = {}
+    for kernel, plain, form in (("flash_bound", fa.flash_attention_bound_plain, "true,false>"),
+                                ("flash_maxtrack", fa.flash_attention_maxtrack_plain,
+                                 "false,false>")):
         if kernel == "flash_maxtrack":
             os.environ["LKGD_FLASH_MAXTRACK"] = "1"
         try:
@@ -1406,74 +1505,221 @@ def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             err = (fa.flash_attention(q, k, v).float() - want).abs().max().item()
             torch.cuda.synchronize()
             recomputed = int(counter.item())
-            ms = gpu_ms(lambda: fa.flash_attention(q, k, v))
+            t = _timed_kernel(lambda: fa.flash_attention(q, k, v), "flash_fwd_wgmma_kernel<", form)
         finally:
             os.environ.pop("LKGD_FLASH_MAXTRACK", None)
-        plain_ms = gpu_ms(lambda: in_head_blocks(plain, (q, k, v)), reps=1)
-        print(f"[cogvideox-kernel] {kernel} (B,S,H,D)={COG_FLASH}: max|d| {err:.3e} of max|ref| "
-              f"{ref_max:.3e} (tol {FLASH_TOL} x max|ref|) | {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms (blocks of 4 heads), library sdpa {lib_ms:.3f} ms, bound "
-              f"{least['bound_ms']:.3f} ms by {least['bound_by']} ({_versus(ms, lib_ms, least)})"
-              f" | {plan.blocks} blocks of {plan.tile_rows} rows | tiles recomputed "
-              f"{recomputed}", flush=True)
-        assert np.isfinite(err) and err <= FLASH_TOL * ref_max, (kernel, err, ref_max)
-        rows[kernel] = {"shape": list(COG_FLASH), "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms, **least}
-    norm_got, norm_want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
-    norm_err = (norm_got - norm_want).abs().max().item()
-    torch.testing.assert_close(norm_got, norm_want, rtol=1e-5, atol=0)
-    norm_least = bound(2 * k.numel(), k.numel() * 2 + COG_FLASH[0] * COG_FLASH[2] * 4, PEAK_FP32)
-    norm_ms, norm_plain_ms = gpu_ms(lambda: fa.key_norm_max(k)), gpu_ms(
-        lambda: fa.key_norm_max_plain(k))
-    print(f"[cogvideox-kernel] flash_key_norm (B,S,H,D)={COG_FLASH}: max|d| {norm_err:.3e} "
-          f"(rtol 1e-5) | {norm_ms:.3f} ms, plain {norm_plain_ms:.3f} ms, bound "
-          f"{norm_least['bound_ms']:.4f} ms by {norm_least['bound_by']}", flush=True)
-    rows["flash_key_norm"] = {"shape": list(COG_FLASH), "max_abs_err": norm_err, "ms": norm_ms,
-                              "plain_ms": norm_plain_ms, "library_ms": None, **norm_least}
-    del q, k, v, want
-    torch.cuda.empty_cache()
+        plain_ms = gpu_ms(lambda: chunk(plain, (q, k, v)), reps=1)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}: max|d| {err:.3e} of max|ref| "
+              f"{ref_max:.3e} (tol {FLASH_TOL} x max|ref|) | {_paced(t)} | plain {plain_ms:.3f} "
+              f"ms ({note}), library sdpa {lib_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']} ({_versus(t['ms'], lib_ms, least)}) | {plan.blocks} blocks "
+              f"of {plan.tile_rows} rows | tiles recomputed {recomputed}", flush=True)
+        assert np.isfinite(err) and err <= FLASH_TOL * ref_max, (kernel, label, err, ref_max)
+        rows[kernel] = {"shape": list(shape), "max_abs_err": err, **t, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, **least}
+    rows["flash_key_norm"] = _key_norm_row(tag, label, k)
+    return rows
 
-    kw = dict(num_groups=32, eps=1e-6)
-    for label, shape in COG_GN:
-        x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
-        w = (torch.randn(shape[-1], device=dev, generator=gen) * 0.1 + 1.0).bfloat16()
-        b = (torch.randn(shape[-1], device=dev, generator=gen) * 0.1).bfloat16()
-        plan = gn.chunk_plan(*shape, 32, 2)
-        a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
-        a_want, b_want = gn.group_norm_affine_plain(x, w, b, **kw)
-        stats_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item()
-                        for g, t in ((a_got, a_want), (b_got, b_want)))
-        assert stats_rel <= 1e-4, (label, stats_rel)
-        got = gn.group_norm(x, w, b, act="silu", **kw)
-        step = 1 << 21  # rows a comparison: the fp32 temporaries of 2^31 elements stay small
-        max_err = max((got[:, i:i + step].float() - gn.group_norm_apply_plain(
-            x[:, i:i + step], a_want, b_want, "silu").float()).abs().max().item()
-            for i in range(0, shape[1], step))
-        del got
-        assert max_err <= GN_TOL[torch.bfloat16], (label, max_err)
-        stats_ms = gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 10)
-        apply_ms = gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, "silu"), 10)
-        stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw), 1)
-        apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, "silu"), 1)
-        x_nchw = x.view(shape[0], shape[1], 1, shape[2]).permute(0, 3, 1, 2)
-        lib_ms = gpu_ms(lambda: F.silu(F.group_norm(x_nchw, 32, w, b, 1e-6)), 2)
-        n_el = x.numel()
-        stats_least = bound(3 * n_el, n_el * 2 + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
-        apply_least = bound(8 * n_el, 2 * n_el * 2 + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
-        print(f"[cogvideox-kernel] group_norm {label} {shape} bf16 act=silu ({n_el / 2**31:.2f} x "
-              f"2^31 elements; stats plan {plan.n_chunks} chunks of {plan.rows_per_chunk} rows, "
-              f"tile {plan.tile}): max|d| {max_err:.3e} (tol {GN_TOL[torch.bfloat16]}), affine "
-              f"relative {stats_rel:.2e} (tol 1e-4) | stats+fold {stats_ms:.3f} ms, plain "
-              f"{stats_plain_ms:.3f} ms, bound {stats_least['bound_ms']:.3f} ms | apply "
-              f"{apply_ms:.3f} ms, plain {apply_plain_ms:.3f} ms, bound "
-              f"{apply_least['bound_ms']:.3f} ms | library group_norm+silu {lib_ms:.3f} ms",
+
+def _train_rows(tag: str, label: str, shape, gen: torch.Generator, plain_in) -> dict:
+    """Kernels 5/6, 7/8 and 9/10 at a training step's (B, S, H, D) self-attention against
+    their plain versions (run as ``plain_in`` says), with the kernels' device time, the
+    wrappers', the library calls' and the bound; returns these rows by kernel."""
+    import torch.nn.functional as F
+
+    from lkgd_torch.ops import flash_attention as fa
+
+    chunk, note = plain_in
+    dev = gen.device
+
+    def randn(*s):
+        return torch.randn(*s, device=dev, generator=gen).bfloat16()
+
+    rows = _relayout_check(fa, label, shape, shape[1], randn)
+    xs = tuple(randn(*shape) for _ in range(3))
+    split = fa.split_heads_many(*xs)
+    for name, fn, grouped in (("split_heads", lambda: fa.split_heads_many(*xs), "<true>"),
+                              ("merge_heads", lambda: fa.merge_heads_many(*split), "<false>")):
+        t = _timed_kernel(fn, "relayout_heads_kernel", grouped)
+        print(f"[{tag}] {name} {label} 3 x (B,S,H,D)={shape}: {_paced(t)}", flush=True)
+        rows[name].update(t)
+    del xs, split
+
+    q, k, v, do = (randn(*shape) for _ in range(4))
+    want_out, want_lse = chunk(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
+        *(x.float() for x in a)), (q, k, v))
+    out_tol = FLASH_TOL * want_out.abs().max().item()
+    lib_ms, least = sdpa_ms(q, k, v, reps=20), flash_bound(shape, rows_fp32=1)
+    for kernel, plain, form in (("flash_bound_lse", fa.flash_fwd_lse_bound_plain, "true,true>"),
+                                ("flash_maxtrack_lse", fa.flash_fwd_lse_maxtrack_plain,
+                                 "false,true>")):
+        if kernel == "flash_maxtrack_lse":
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+        try:
+            counter = fa.recomputed_tiles(dev)
+            counter.zero_()
+            out, lse = fa.flash_fwd_lse(q, k, v)
+            torch.cuda.synchronize()
+            recomputed = int(counter.item())
+            t = _timed_kernel(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_wgmma_kernel<", form)
+        finally:
+            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+        out_err = (out.float() - want_out).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        plain_ms = gpu_ms(lambda: chunk(plain, (q, k, v)), reps=1)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}: out max|d| {out_err:.3e} of "
+              f"max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x max|ref|), lse max|d| "
+              f"{lse_err:.3e} (tol {LSE_TOL}) | {_paced(t)} | plain {plain_ms:.3f} ms ({note}), "
+              f"library sdpa {lib_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']} ({_versus(t['ms'], lib_ms, least)}) | tiles recomputed "
+              f"{recomputed}", flush=True)
+        assert np.isfinite(out_err) and out_err <= out_tol, (kernel, label, out_err, out_tol)
+        assert np.isfinite(lse_err) and lse_err <= LSE_TOL, (kernel, label, lse_err)
+        rows[kernel] = {"max_abs_err": out_err, **t, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        **least}
+    del want_out, want_lse
+
+    # the library's backward for kernels 9 and 10 together: autograd through its fused
+    # attention on the same inputs
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_bwd_ms = gpu_ms(lambda: torch.autograd.grad(lib_out, leaves, do.transpose(1, 2),
+                                                    retain_graph=True), 20)
+    del lib_out, leaves
+    # the backward from the guarded forward's out and lse, as the autograd Function
+    out, lse = fa.flash_fwd_lse(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    for kernel, fn, plain, names in (
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
+        dkv = kernel == "flash_bwd_dkv"
+
+        def plain_run():
+            return chunk(lambda q_, k_, v_, do_, lse_, delta_: plain(
+                q_.float(), k_.float(), v_.float(), do_.float(), lse_, delta_), args)
+
+        got, again, want = fn(*args), fn(*args), plain_run()
+        got, again, want = (got, again, want) if dkv else ((got,), (again,), (want,))
+        errs = {}
+        for name, g, g2, w in zip(names, got, again, want):
+            assert torch.isfinite(g).all(), (kernel, label, name)
+            # no atomics: two launches give the same bits
+            assert torch.equal(g, g2), f"{kernel} {label}: {name} differs between launches"
+            errs[name] = ((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+        del got, again, want
+        t = _timed_kernel(lambda: fn(*args), kernel)
+        plain_ms = gpu_ms(plain_run, reps=1)
+        plan = fa.flash_bwd_plan(shape[0], shape[1], shape[1], shape[2], shape[3], dkv)
+        # dq: 3 S x S x D products, q, dO and dq on the query side, k and v on the key side;
+        # dk/dv: 4 products, q and dO, k, v, dk and dv; lse and delta
+        least = flash_bound(shape, products=4 if dkv else 3, q_tensors=2 if dkv else 3,
+                            k_tensors=4 if dkv else 2, rows_fp32=2)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}: " + ", ".join(
+            f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {GRAD_TOL} x max|ref|)"
+            for n, (e, m) in errs.items()) + f", two launches bit-identical | {_paced(t)} | "
+              f"plain {plain_ms:.3f} ms ({note}), library sdpa backward (dq, dk and dv "
+              f"together) {lib_bwd_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']} ({100 * least['bound_ms'] / t['ms']:.1f}% of bound) | plan "
+              f"{plan.blocks} blocks, {plan.waves:.2f} waves, {plan.tile_rows} resident rows",
               flush=True)
+        for name, (e, m) in errs.items():
+            assert e <= GRAD_TOL * m, (kernel, label, name, e, m)
+        # library_ms is one backward for both kernels' work: the same number in both
+        rows[kernel] = {"max_abs_err": max(e for e, _ in errs.values()), **t,
+                        "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least}
+    pair_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    print(f"[{tag}] backward pair {label}: kernels 9 + 10 {pair_ms:.4f} ms = "
+          f"{pair_ms / lib_bwd_ms:.2f} x the library backward ({lib_bwd_ms:.4f} ms), bound "
+          f"{rows['flash_bwd_dq']['bound_ms'] + rows['flash_bwd_dkv']['bound_ms']:.4f} ms",
+          flush=True)
+    for r in rows.values():
+        r["shape"] = list(shape)
+    return rows
+
+
+def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts) -> dict:
+    """Kernels 3 and 4 on random bf16 (N, M, C) x, 32 groups, against their plain versions,
+    the output compared in slices of 2^21 rows (the fp32 temporaries of 2^31 elements stay
+    small), with the kernels' device time, the wrappers', the library call's and the bound.
+    Returns ``gn_stats``'s row and ``gn_apply``'s for each act in ``acts``, a list."""
+    import torch.nn.functional as F
+
+    from lkgd_torch.experiments.group_norm_ab import device_times
+    from lkgd_torch.ops import group_norm as gn
+
+    dev = gen.device
+    n, m, c = shape
+    x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
+    w = (torch.randn(c, device=dev, generator=gen) * 0.1 + 1.0).bfloat16()
+    b = (torch.randn(c, device=dev, generator=gen) * 0.1).bfloat16()
+    kw = dict(num_groups=32, eps=eps)
+    plan = gn.chunk_plan(n, m, c, 32, 2)
+    a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
+    # the plain version on the same bf16 inputs (one-pass fp32 sums), its output unrounded
+    a_want, b_want = gn.group_norm_affine_plain(x, w, b, **kw)
+    stats_err = max((a_got - a_want).abs().max().item(), (b_got - b_want).abs().max().item())
+    # a, b within 1e-4 relative: a one-pass variance cancels to ~1e-5
+    stats_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item()
+                    for g, t in ((a_got, a_want), (b_got, b_want)))
+    assert stats_rel <= 1e-4, (label, stats_rel)
+    x_nchw = x.view(n, m, 1, c).permute(0, 3, 1, 2)
+    n_el = x.numel()
+    # stats: x read once, (N, C) fp32 a and b written, ~3 fp32 operations an element;
+    # apply: x read, y written, a and b read, ~8 operations an element with SiLU
+    stats_least = bound(3 * n_el, n_el * 2 + 2 * n * c * 4, PEAK_FP32)
+    stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw), 1)
+    stats, apply_rows = None, []
+    for act in acts:
+        got = gn.group_norm(x, w, b, act=act, **kw)
+        step = 1 << 21
+        err = max((got[:, i:i + step].float() - gn.group_norm_apply_plain(
+            x[:, i:i + step].float(), a_want, b_want, act)).abs().max().item()
+            for i in range(0, m, step))
+        del got
+        assert np.isfinite(err) and err <= GN_TOL[torch.bfloat16], (label, act, err)
+        dev_t = device_times(x, w, b, act)
+        stats = {"ms": dev_t["stats_kernel_ms"], "call_device_ms": dev_t["stats_device_ms"],
+                 "wrapper_ms": gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 20)}
+        apply = {"ms": dev_t["apply_device_ms"], "call_device_ms": dev_t["apply_device_ms"],
+                 "wrapper_ms": gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, act), 20)}
+        apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, act), 1)
+        lib_ms = gpu_ms(lambda: (F.silu if act else (lambda y: y))(
+            F.group_norm(x_nchw, 32, w, b, eps)), 5)
+        apply_least = bound((8 if act else 2) * n_el, 2 * n_el * 2 + 2 * n * c * 4, PEAK_FP32)
+        print(f"[{tag}] group_norm {label} {tuple(shape)} bf16 eps {eps:g} act={act} "
+              f"({n_el / 2**31:.3f} x 2^31 elements; stats plan {plan.n_chunks} chunks of "
+              f"{plan.rows_per_chunk} rows, tile {plan.tile}): max|d| {err:.3e} (tol "
+              f"{GN_TOL[torch.bfloat16]}), affine max|d| {stats_err:.3e}, relative "
+              f"{stats_rel:.2e} (tol 1e-4) | stats+fold {_paced(stats)}, plain "
+              f"{stats_plain_ms:.4f} ms, bound {stats_least['bound_ms']:.4f} ms | apply "
+              f"{_paced(apply)}, plain {apply_plain_ms:.4f} ms, bound "
+              f"{apply_least['bound_ms']:.4f} ms | library group_norm{'+silu' if act else ''} "
+              f"(both passes) {lib_ms:.4f} ms", flush=True)
+        # library_ms is one call for both kernels' work: the same number in both
+        apply_rows.append({"shape": list(shape), "eps": eps, "act": act, "max_abs_err": err,
+                           **apply, "plain_ms": apply_plain_ms, "library_ms": lib_ms,
+                           **apply_least})
+    stats_row = {"shape": list(shape), "eps": eps, "max_abs_err": stats_err,
+                 "max_rel_err": stats_rel, **stats, "plain_ms": stats_plain_ms,
+                 "library_ms": lib_ms, **stats_least}
+    del x, x_nchw, a_got, b_got, a_want, b_want
+    return {"gn_stats": stats_row, "gn_apply": apply_rows}
+
+
+def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Kernels 1, 2 and 1a at the 5B DiT's (2, 17776, 48, 64) (ragged against the 128-row
+    tiles: 138 full tiles and 112 rows; the plain version in blocks of 4 heads) and kernels
+    3 and 4 at the whole-clip decode's N=1 shapes, each against its plain version, with the
+    library call's time and the bound; returns these rows by kernel (GroupNorm's at the
+    decoder's last level)."""
+    rows = _forward_rows("cogvideox-kernel", "5B DiT", COG_FLASH, gen, heads_of(4))
+    torch.cuda.empty_cache()
+    for label, shape in COG_GN:
+        gn_rows = _gn_rows("cogvideox-kernel", label, shape, gen, 1e-6, ("silu",))
         if label == "decode full res":
-            rows["gn_stats"] = {"shape": list(shape), "max_abs_err": stats_rel, "ms": stats_ms,
-                                "plain_ms": stats_plain_ms, "library_ms": lib_ms, **stats_least}
-            rows["gn_apply"] = {"shape": list(shape), "max_abs_err": max_err, "ms": apply_ms,
-                                "plain_ms": apply_plain_ms, "library_ms": lib_ms, **apply_least}
-        del x, x_nchw, a_got, b_got, a_want, b_want
+            rows.update(gn_stats=gn_rows["gn_stats"], gn_apply=gn_rows["gn_apply"][0])
+        del gn_rows
         torch.cuda.empty_cache()
     return rows
 
@@ -1988,116 +2234,14 @@ COG_CLIP = (49, 480, 720)  # the fine-tune's clips: frames, height, width
 
 def phase_cogvideox_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     """Kernels 5/6, 7/8, 9/10 and 1a at the CogVideoX-5B fine-tune's (1, 17776, 48, 64): 138
-    full 128-row tiles and 112 rows, 6672 blocks; every plain version in blocks of heads,
+    full 128-row tiles and 112 rows, 6672 blocks; every plain version in blocks of 2 heads,
     with the library call's time and the bound; returns these rows by kernel."""
-    import torch.nn.functional as F
-
-    from lkgd_torch.ops import flash_attention as fa
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, device=dev, generator=gen) * scale).bfloat16()
-
-    shape = COG_TRAIN
-    label = "cogvideox fine-tune"
-    row = _relayout_check(fa, label, shape, shape[1], randn)
-    q, k, v, do = (randn(*shape) for _ in range(4))
-    want_out, want_lse = in_head_blocks(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
-        *(x.float() for x in a)), (q, k, v))
-    out_tol = FLASH_TOL * want_out.abs().max().item()
-    lib_ms = sdpa_ms(q, k, v)
-    for kernel in ("flash_bound_lse", "flash_maxtrack_lse"):
-        if kernel == "flash_maxtrack_lse":
-            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
-        try:
-            counter = fa.recomputed_tiles(dev)
-            counter.zero_()
-            out, lse = fa.flash_fwd_lse(q, k, v)
-            torch.cuda.synchronize()
-            recomputed = int(counter.item())
-            ms = gpu_ms(lambda: fa.flash_fwd_lse(q, k, v))
-        finally:
-            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
-        plain = (fa.flash_fwd_lse_maxtrack_plain if kernel == "flash_maxtrack_lse"
-                 else fa.flash_fwd_lse_bound_plain)
-        plain_ms = gpu_ms(lambda: in_head_blocks(plain, (q, k, v)), reps=1)
-        out_err = (out.float() - want_out).abs().max().item()
-        lse_err = (lse - want_lse).abs().max().item()
-        least = flash_bound(shape, rows_fp32=1)
-        print(f"[cogvideox-train-kernel] {kernel} (B,S,H,D)={shape}: out max|d| {out_err:.3e} "
-              f"of max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x max|ref|) lse max|d| "
-              f"{lse_err:.3e} (tol {LSE_TOL}) | {ms:.3f} ms, plain {plain_ms:.3f} ms (blocks of "
-              f"4 heads), library sdpa {lib_ms:.3f} ms, bound {least['bound_ms']:.3f} ms by "
-              f"{least['bound_by']} ({_versus(ms, lib_ms, least)}) | tiles recomputed "
-              f"{recomputed}", flush=True)
-        assert np.isfinite(out_err) and out_err <= out_tol, (kernel, out_err, out_tol)
-        assert np.isfinite(lse_err) and lse_err <= LSE_TOL, (kernel, lse_err)
-        row[kernel] = {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": lib_ms, **least}
-    del want_out, want_lse
-    norm_got, norm_want = fa.key_norm_max(k), fa.key_norm_max_plain(k)
-    norm_err = (norm_got - norm_want).abs().max().item()
-    torch.testing.assert_close(norm_got, norm_want, rtol=1e-5, atol=0)
-    norm_least = bound(2 * k.numel(), k.numel() * 2 + shape[0] * shape[2] * 4, PEAK_FP32)
-    norm_ms, norm_plain_ms = gpu_ms(lambda: fa.key_norm_max(k)), gpu_ms(
-        lambda: fa.key_norm_max_plain(k))
-    print(f"[cogvideox-train-kernel] flash_key_norm (B,S,H,D)={shape}: max|d| {norm_err:.3e} "
-          f"(rtol 1e-5) | {norm_ms:.3f} ms, plain {norm_plain_ms:.3f} ms, bound "
-          f"{norm_least['bound_ms']:.4f} ms by {norm_least['bound_by']}", flush=True)
-    row["flash_key_norm"] = {"max_abs_err": norm_err, "ms": norm_ms, "plain_ms": norm_plain_ms,
-                             "library_ms": None, **norm_least}
-
-    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves)
-    lib_bwd_ms = gpu_ms(lambda: torch.autograd.grad(lib_out, leaves, do.transpose(1, 2),
-                                                    retain_graph=True))
-    del lib_out, leaves
-    out, lse = fa.flash_fwd_lse(q, k, v)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, do, lse, delta)
-    for kernel, fn, plain, names in (
-            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
-            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
-        dkv = kernel == "flash_bwd_dkv"
-
-        def plain_blocks():
-            return in_head_blocks(lambda q_, k_, v_, do_, lse_, delta_: plain(
-                q_.float(), k_.float(), v_.float(), do_.float(), lse_, delta_), args, heads=2)
-
-        got, again, want = fn(*args), fn(*args), plain_blocks()
-        got, again, want = (got, again, want) if dkv else ((got,), (again,), (want,))
-        errs = {}
-        for name, g, g2, w in zip(names, got, again, want):
-            assert torch.isfinite(g).all(), (kernel, name)
-            assert torch.equal(g, g2), f"{kernel}: {name} differs between launches"
-            errs[name] = ((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
-        del got, again, want
-        ms = gpu_ms(lambda: fn(*args))
-        plain_ms = gpu_ms(plain_blocks, reps=1)
-        plan = fa.flash_bwd_plan(shape[0], shape[1], shape[1], shape[2], shape[3], dkv)
-        least = flash_bound(shape, products=4 if dkv else 3, q_tensors=2 if dkv else 3,
-                            k_tensors=4 if dkv else 2, rows_fp32=2)
-        print(f"[cogvideox-train-kernel] {kernel} (B,S,H,D)={shape}: "
-              + ", ".join(f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {GRAD_TOL} x max|ref|)"
-                          for n, (e, m) in errs.items())
-              + f", two launches bit-identical | {ms:.3f} ms, plain {plain_ms:.3f} ms (blocks of "
-              f"2 heads), bound {least['bound_ms']:.3f} ms by {least['bound_by']} "
-              f"({100 * least['bound_ms'] / ms:.1f}% of bound) | library sdpa backward (dq, dk "
-              f"and dv together) {lib_bwd_ms:.3f} ms | plan {plan.blocks} blocks, "
-              f"{plan.waves:.2f} waves, {plan.tile_rows} resident rows", flush=True)
-        for name, (e, m) in errs.items():
-            assert e <= GRAD_TOL * m, (kernel, name, e, m)
-        row[kernel] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": ms,
-                       "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least}
-    pair_ms = row["flash_bwd_dq"]["ms"] + row["flash_bwd_dkv"]["ms"]
-    print(f"[cogvideox-train-kernel] backward pair: kernels 9 + 10 {pair_ms:.3f} ms = "
-          f"{pair_ms / lib_bwd_ms:.2f} x the library backward ({lib_bwd_ms:.3f} ms), bound "
-          f"{row['flash_bwd_dq']['bound_ms'] + row['flash_bwd_dkv']['bound_ms']:.3f} ms",
-          flush=True)
-    for r in row.values():
-        r["shape"] = list(shape)
-    del q, k, v, do, out, lse, delta, args
+    tag, label = "cogvideox-train-kernel", "5B fine-tune"
+    rows = _train_rows(tag, label, COG_TRAIN, gen, heads_of(2))
+    rows["flash_key_norm"] = _key_norm_row(
+        tag, label, torch.randn(COG_TRAIN, device=dev, generator=gen).bfloat16())
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 def _tiny_train_unet(device, mode: str):
@@ -3019,10 +3163,7 @@ def _kernels_by_name(prof, words) -> dict:
     found = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and any(w in e.key for w in words):
-            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-            for cast in ("(int)", "(bool)", " "):
-                name = name.replace(cast, "")
-            found[name.split("(")[0]] = (round(e.self_device_time_total / 1e3, 3), e.count)
+            found[_kernel_name(e.key)] = (round(e.self_device_time_total / 1e3, 3), e.count)
     return found
 
 
@@ -3326,6 +3467,462 @@ def phase_train_cogvideox_sft(dev: torch.device, cache: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ SD-2D at 512x512
+SD2D_FLASH = (("unet level 0", (2, 4096, 5, 64)), ("unet level 1", (2, 1024, 10, 64)),
+              # joint control: CFG x one [x, y] pair
+              ("joint control level 0", (4, 4096, 5, 64)),
+              ("joint control level 1", (4, 1024, 10, 64)), ("vae mid", (1, 4096, 1, 512)))
+SD2D_TRAIN = (("joint LoRA step level 0", (2, 4096, 5, 64)),  # one x/y pair
+              ("joint LoRA step level 1", (2, 1024, 10, 64)))
+SD2D_GN = (2, 4096, 320)  # the UNet's level-0 transformer norm (eps 1e-6) and resblocks
+SD2D_FLASH_A_FORWARD = 10  # flash self-attentions of one UNet forward at 512x512: 2 + 3 a level
+SD2D_SIZE, SD2D_CTX = 512, 1024  # image side; SD2's text width (OpenCLIP-H)
+
+
+def phase_sd2d_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Kernels 1, 2 and 1a at the SD2 UNet's level-0 and level-1 self-attention (one image
+    and joint control's pair, each under CFG) and the image VAE's mid block; 5/6, 7/8 and
+    9/10 at the joint LoRA step's two levels; 3/4 at the level-0 transformer norm
+    (2, 4096, 320), eps 1e-6, with and without SiLU. Each against its plain version, its
+    device time under ``torch.profiler`` beside its wrapper's (these calls are short enough
+    for the host to set the pace), the library call's time and the bound. Returns the rows
+    by kernel, a list each."""
+    rows = {}
+    tables = [_forward_rows("sd2d-kernel", label, shape, gen, rows_of(2))
+              for label, shape in SD2D_FLASH]
+    tables += [_train_rows("sd2d-kernel", label, shape, gen, rows_of(1))
+               for label, shape in SD2D_TRAIN]
+    for table in tables:
+        for kernel, row in table.items():
+            rows.setdefault(kernel, []).append(row)
+    gn_rows = _gn_rows("sd2d-kernel", "unet level 0", SD2D_GN, gen, 1e-6, (None, "silu"))
+    rows["gn_stats"], rows["gn_apply"] = [gn_rows["gn_stats"]], gn_rows["gn_apply"]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _random_twins(build, dev: torch.device, seed: int, scale: float = 0.1):
+    """A module built on the CPU with every parameter ``scale`` x normal (every zero-init
+    tensor included), and its copy built on ``dev``."""
+    cpu = build("cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * scale)
+    gpu = build(dev)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, gpu
+
+
+def _sd2d_tiny_unet(**kw):
+    from lkgd_torch.cli.run_inference_sd2d import TINY_UNET
+    from lkgd_torch.models.configs import UNet2DConfig
+
+    return UNet2DConfig(**{**TINY_UNET, **kw})
+
+
+def phase_tiny_sd2d(dev: torch.device) -> None:
+    """The tiny SD-2D models, pipelines and joint LoRA train step at fp32 on the card against
+    the CPU with the same weights (every parameter random) and draws."""
+    from lkgd_torch.cli.run_inference_sd2d import TINY_VAE
+    from lkgd_torch.models.clip_text import CLIPTextModel
+    from lkgd_torch.models.configs import (CLIPTextConfig, ControlNet2DConfig,
+                                           JointAttentionConfig, LoraRouter, LoraRule,
+                                           VAE2DConfig)
+    from lkgd_torch.models.controlnet_2d import ControlNet2D
+    from lkgd_torch.models.layers import materialize
+    from lkgd_torch.models.unet_2d import UNet2DCondition
+    from lkgd_torch.models.vae_2d import AutoencoderKL
+    from lkgd_torch.pipelines import sd2d as pipes
+    from lkgd_torch.training import train_state as ts
+    from lkgd_torch.training.sd2d import SD2DTrainConfig, make_sd2d_train_step
+
+    label = "tiny-sd2d"
+    g = torch.Generator().manual_seed(20)
+
+    def on(x, d):
+        return tuple(on(y, d) for y in x) if isinstance(x, tuple) else (
+            x.to(d) if torch.is_tensor(x) else x)
+
+    def both(models, args, kw=None, method=None):
+        outs = []
+        for model, d in zip(models, ("cpu", dev)):
+            with torch.no_grad():
+                fn = getattr(model, method) if method else model
+                outs.append(on(fn(*on(args, d), **{k: on(v, d) for k, v in (kw or {}).items()}),
+                               "cpu"))
+        return outs
+
+    rows = 4
+    x4 = torch.randn((rows, 16, 16, 4), generator=g)
+    t = torch.tensor([3.0, 999.0, 500.0, 41.0])
+    ctx = torch.randn((rows, 5, 32), generator=g)
+    tracks = (torch.rand((2, 24, 2), generator=g) * 64 - 2,
+              torch.rand((2, 24, 2), generator=g) * 64,
+              (torch.rand((2, 24), generator=g) > 0.3).float())
+    residuals = (tuple(torch.randn((rows, s, s, c), generator=g) for c, s in
+                       ((32, 16), (32, 16), (32, 8), (64, 8))),
+                 torch.randn((rows, 8, 8, 64), generator=g))
+    cases = {
+        "base, per-sample timesteps, ControlNet residuals": (
+            _sd2d_tiny_unet(), (x4, t, ctx), dict(down_block_additional_residuals=residuals[0],
+                                                  mid_block_additional_residual=residuals[1])),
+        "9 channels, conditioning encoder": (
+            _sd2d_tiny_unet(in_channels=9, cond_embedding_channels=3,
+                            cond_embedding_blocks=(16, 32, 96)),
+            (torch.randn((rows, 16, 16, 9), generator=g), t, ctx),
+            dict(cond_image=torch.rand((rows, 64, 64, 3), generator=g))),
+        "joint conv_fuse + LoRA, tracks in pixels": (
+            _sd2d_tiny_unet(joint=JointAttentionConfig(post="conv_fuse", mask=(0, 1, 0, 1)),
+                            lora=LoraRouter((LoraRule("*attn1*", "xy", 2, 4.0, (1, 0, 1, 0)),)),
+                            track_fusion=True),
+            (x4, t, ctx), dict(joint_scale=0.7, tracks=tracks, track_image_size=(64, 64)))}
+    for i, (name, (config, args, kw)) in enumerate(cases.items()):
+        models = _random_twins(lambda d: materialize(lambda: UNet2DCondition(config), d,
+                                                     torch.float32), dev, 21 + i)
+        want, got = both(models, args, kw)
+        _close_line(label, f"UNet ({name})", got, want)
+
+    vae = _random_twins(lambda d: materialize(lambda: AutoencoderKL(VAE2DConfig(**TINY_VAE)), d,
+                                              torch.float32), dev, 24)
+    image = torch.rand((2, 32, 32, 3), generator=g) * 2 - 1
+    for method, arg in (("encode_mode", image), ("decode", torch.randn((2, 8, 8, 4), generator=g)),
+                        ("forward", image)):
+        want, got = both(vae, (arg,), method=None if method == "forward" else method)
+        _close_line(label, f"VAE {method}", got, want)
+    cn = _random_twins(lambda d: materialize(lambda: ControlNet2D(ControlNet2DConfig(
+        unet=_sd2d_tiny_unet(), conditioning_embedding_out_channels=(16, 32, 96))), d,
+        torch.float32), dev, 25)
+    want, got = both(cn, (x4, t, ctx, torch.rand((rows, 64, 64, 3), generator=g), 0.7))
+    for j, (gw, ww) in enumerate(zip(got[0] + (got[1],), want[0] + (want[1],))):
+        _close_line(label, f"ControlNet-2D residual {j}", gw, ww)
+    text = _random_twins(lambda d: materialize(lambda: CLIPTextModel(CLIPTextConfig.tiny()), d,
+                                               torch.float32), dev, 26)
+    ids = torch.randint(0, 128, (2, 16), generator=g)
+    for index in (-1, -2):
+        want, got = both(text, (ids, index))
+        _close_line(label, f"CLIP text at {index}", got, want)
+
+    pcfg = pipes.SD2DPipelineConfig(height=32, width=32, num_inference_steps=2)
+    vcfg = VAE2DConfig(**TINY_VAE)
+    prompt, negative = torch.randn((1, 4, 32), generator=g), torch.randn((1, 4, 32), generator=g)
+    img, ctrl = torch.rand((1, 32, 32, 3), generator=g), torch.rand((1, 32, 32, 3), generator=g)
+    mask = torch.zeros((1, 32, 32, 1))
+    mask[:, 6:21, 5:22] = 1.0
+    pipelines = {
+        "inpaint + ControlNet-2D": (
+            lambda d: pipes.StableDiffusionInpaintPipeline(
+                pcfg, _sd2d_tiny_unet(in_channels=9), vcfg, ControlNet2DConfig(
+                    unet=_sd2d_tiny_unet(), conditioning_embedding_out_channels=(16, 32, 96)),
+                torch.float32, d),
+            lambda p, n: p(prompt, img, mask, negative, control=ctrl, initial_noise=n), 1),
+        "joint control, joint UNet, cond_y, spatial mask, two pairs": (
+            lambda d: pipes.StableDiffusionJointControlPipeline(
+                pcfg, _sd2d_tiny_unet(joint=JointAttentionConfig(post="conv", mask=(0, 1, 0, 1))),
+                vcfg, False, torch.float32, d),
+            lambda p, n: p(prompt.repeat(2, 1, 1), img.repeat(2, 1, 1, 1), negative.repeat(2, 1, 1),
+                           spatial_mask=mask.repeat(2, 1, 1, 1), initial_noise=n), 4),
+        "condition": (
+            lambda d: pipes.StableDiffusionConditionPipeline(
+                pcfg, _sd2d_tiny_unet(cond_embedding_channels=3,
+                                      cond_embedding_blocks=(16, 32, 96)), vcfg, torch.float32, d),
+            lambda p, n: p(prompt, ctrl, negative, initial_noise=n), 1)}
+    for i, (name, (build, call, rows_n)) in enumerate(pipelines.items()):
+        cpu, gpu = build("cpu"), build(dev)
+        gen = torch.Generator().manual_seed(30 + i)
+        with torch.no_grad():
+            for mc, mg in zip(_all_models(cpu), _all_models(gpu)):
+                for p in mc.parameters():
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+                mg.load_state_dict(mc.state_dict(), strict=True)
+        noise = torch.randn((rows_n, 8, 8, 4), generator=gen)
+        want, got = call(cpu, noise), call(gpu, noise.to(dev))
+        _close_line(label, f"pipeline {name}, images", got, want)
+
+    config = _sd2d_tiny_unet(joint=JointAttentionConfig(post="conv", mask=(0, 1)),
+                             lora=LoraRouter((LoraRule("*attn1*", "j", 2, 2.0),)))
+    models = _random_twins(lambda d: materialize(lambda: UNet2DCondition(config), d,
+                                                 torch.float32), dev, 27)
+    batch = {"latents": torch.randn((2, 16, 16, 4), generator=g) * 0.5,
+             "prompt_embeds": torch.randn((2, 5, 32), generator=g)}
+    draws = {"timesteps": torch.tensor([412, 412]), "noise": torch.randn((2, 16, 16, 4),
+                                                                           generator=g),
+             "drop": torch.tensor([False, True])}
+    results = []
+    for model, d in zip(models, ("cpu", dev)):
+        optimizer = ts.make_optimizer(1e-3, trainable_predicate=ts.trainable_trans)
+        state = ts.init_train_state(model, optimizer)
+        start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
+        grads = {}
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, n=n: grads.__setitem__(n, p.grad.detach().cpu().clone()))
+            for n, p in state.trainables.items()]
+        step = make_sd2d_train_step(model, optimizer,
+                                    config=SD2DTrainConfig(snr_gamma=5.0, joint_streams=True))
+        state, loss = step(state, {k: v.to(d) for k, v in batch.items()},
+                           **{k: v.to(d) for k, v in draws.items()})
+        for h in hooks:
+            h.remove()
+        results.append((loss.item(), grads, start,
+                        {n: p.detach().cpu() for n, p in state.trainables.items()}))
+    (loss_c, grads_c, start, _), (loss_g, grads_g, _, after_g) = results
+    print(f"[{label}] joint LoRA train step loss GPU {loss_g:.6f} CPU {loss_c:.6f}", flush=True)
+    assert abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
+    assert sorted(grads_g) == sorted(grads_c) == sorted(start)
+    floor = 1e-2 * max(x.abs().max().item() for x in grads_c.values())
+    worst = 0.0
+    for name, want in grads_c.items():
+        scale = max(floor, want.abs().max().item())
+        worst = max(worst, ((grads_g[name] - want).abs().max() / scale).item())
+        torch.testing.assert_close(grads_g[name] / scale, want / scale, rtol=1e-4, atol=2e-4,
+                                   msg=name)
+    want_after = _cpu_step_from(start, {n: grads_g.get(n) for n in start})
+    step_err = max((after_g[n] - want_after[n]).abs().max().item() for n in start)
+    print(f"[{label}] joint LoRA train step: {len(grads_c)} gradients, max |d| / scale "
+          f"{worst:.2e} (each scaled by its largest entry or 1% of the largest of all); the "
+          f"update against the CPU's AdamW on the card's gradients max|d| {step_err:.2e}",
+          flush=True)
+    for name in start:
+        torch.testing.assert_close(after_g[name], want_after[name], rtol=1e-4, atol=2e-4,
+                                   msg=name)
+
+
+def _sd2d_image(gen: torch.Generator) -> np.ndarray:
+    """A smooth colour gradient with a little noise, (H, W, 3) in [0, 1], on the host."""
+    size = SD2D_SIZE
+    ramp = torch.linspace(0.0, 1.0, size, device=gen.device)
+    img = torch.stack([ramp[None, :].expand(size, size), ramp[:, None].expand(size, size),
+                       0.5 * torch.ones(size, size, device=gen.device)], dim=-1)
+    img = img + 0.05 * torch.randn((size, size, 3), generator=gen, device=gen.device)
+    return img.clamp(0, 1).cpu().numpy()
+
+
+def _sd2d_run(label: str, dev, run, decode, streams: int, flash_each: int, steps: int) -> dict:
+    """A warm-up image, then a counted one (``_timed_clip``): its line, its checks and the
+    launches asserted (``flash_each`` flash calls a UNet step and one each VAE encode and
+    decode)."""
+    _timed_clip(dev, run, decode, seed=0)
+    r = _timed_clip(dev, run, decode, seed=0)
+    print(_clip_line(label, r, steps).replace("s/clip", "s/image"), flush=True)
+    images, launches = r["frames"], r["launches"]
+    assert images.shape == (streams, SD2D_SIZE, SD2D_SIZE, 3), images.shape
+    assert torch.isfinite(r["latents"]).all() and torch.isfinite(images).all()
+    assert images.min().item() >= 0.0 and images.max().item() <= 1.0
+    expect = steps * flash_each + 2
+    for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+        assert launches.get(name, 0) == expect, (label, name, launches.get(name), expect)
+    for name in ("gn_stats", "gn_apply"):
+        assert launches.get(name, 0) > 0, (label, name)
+    for name in TRAINING + EXPERIMENTS:
+        assert launches.get(name, 0) == 0, (label, name)
+    print(f"[{label}] flash launches {launches['flash_bound']} = {steps} steps x {flash_each} "
+          f"+ VAE encode 1 + decode 1, as asserted", flush=True)
+    return launches
+
+
+def phase_sd2d_full(dev: torch.device) -> dict:
+    """SD2 at full width on the card, bf16, random weights from a seed: inpaint 512x512, 50
+    DDIM steps, guidance 7.5 through ``lkgd_torch/cli/run_inference_sd2d.py``'s ``build``
+    (one UNet step profiled); inpaint with ControlNet-2D; joint control as the CLI builds it
+    and with a joint UNet; the CLIP-H text tower at -1 and -2; one UNet forward with 256 point
+    tracks. Returns the launches of each path."""
+    from lkgd_torch.cli import run_inference_sd2d as cli
+    from lkgd_torch.models.clip_text import CLIPTextModel
+    from lkgd_torch.models.configs import (CLIPTextConfig, ControlNet2DConfig,
+                                           JointAttentionConfig, UNet2DConfig)
+    from lkgd_torch.models.layers import init_params, materialize
+    from lkgd_torch.models.unet_2d import UNet2DCondition
+    from lkgd_torch.pipelines import sd2d as pipes
+
+    label, steps, size, lat = "sd2d", 50, SD2D_SIZE, SD2D_SIZE // 8
+    gen = torch.Generator(device=dev).manual_seed(15)
+    image = _sd2d_image(gen)
+    mask = np.zeros((size, size, 1), np.float32)
+    mask[size // 4:3 * size // 4, 5 * size // 16:13 * size // 16] = 1.0
+    emb = torch.randn((1, 77, SD2D_CTX), generator=gen, device=dev) * 0.2
+    launches = {}
+
+    t0 = time.perf_counter()
+    size_args = ["--height", str(size), "--width", str(size), "--device", str(dev)]
+    args = cli.make_parser().parse_args(["--image", "synthetic", *size_args])
+    pipe = cli.build(args)
+    n_params = sum(p.numel() for m in pipe.models for p in m.parameters())
+    print(f"[{label}] inpaint through the CLI's build: UNet + VAE {n_params / 1e9:.3f} B bf16, "
+          f"{size}x{size}, {steps} DDIM steps, guidance {args.guidance_scale}; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches["sd2d_inpaint"] = _sd2d_run(
+        f"{label} inpaint", dev, lambda g: cli.denoise(pipe, args, emb, image, mask),
+        pipe.decode, 1, SD2D_FLASH_A_FORWARD, steps)
+    model_in = torch.randn((2, lat, lat, 9), generator=gen, device=dev).bfloat16()
+    ctx = torch.cat([emb, emb]).bfloat16()
+    _profiled(label, f"one inpaint UNet step (2 CFG rows, {lat}x{lat}x9)",
+              lambda: pipe.unet(model_in, float(pipe.schedule.timesteps[10]), ctx))
+    pcfg = pipe.config
+    del pipe
+    torch.cuda.empty_cache()
+
+    cn_pipe = pipes.StableDiffusionInpaintPipeline(
+        pcfg, controlnet_config=ControlNet2DConfig(unet=UNet2DConfig(in_channels=4)),
+        dtype=torch.bfloat16, device=dev)
+    cn_pipe.init_params(gen)
+    filled = _fill_zero_init(cn_pipe, gen)
+    control = torch.from_numpy(_sd2d_image(gen)[None])
+    n_cn = sum(p.numel() for p in cn_pipe.controlnet.parameters())
+    print(f"[{label}] inpaint + ControlNet-2D ({n_cn / 1e9:.3f} B bf16, {filled} zero-init "
+          f"head tensors 0.02 x normal)", flush=True)
+    launches["sd2d_controlnet"] = _sd2d_run(
+        f"{label} inpaint+controlnet", dev,
+        lambda g: cn_pipe.denoise(emb, image[None], mask[None], control=control, generator=g),
+        cn_pipe.decode, 1, SD2D_FLASH_A_FORWARD + 4, steps)
+    del cn_pipe
+    torch.cuda.empty_cache()
+
+    jargs = cli.make_parser().parse_args(["--mode", "joint_control", "--image", "synthetic",
+                                          *size_args])
+    jpipe = cli.build(jargs)
+    print(f"[{label}] joint control through the CLI's build (its UNet has no joint attention: "
+          f"the streams meet through the clamping alone)", flush=True)
+    launches["sd2d_joint_cli"] = _sd2d_run(
+        f"{label} joint-control cli", dev, lambda g: cli.denoise(jpipe, jargs, emb, image),
+        jpipe.decode, 2, SD2D_FLASH_A_FORWARD, steps)
+    del jpipe
+    torch.cuda.empty_cache()
+    joint_pipe = pipes.StableDiffusionJointControlPipeline(
+        pcfg, UNet2DConfig(in_channels=4, joint=JointAttentionConfig(post="conv",
+                                                                     mask=(0, 1, 0, 1))),
+        dtype=torch.bfloat16, device=dev)
+    joint_pipe.init_params(gen)
+    with torch.no_grad():
+        posts = [p for n, p in joint_pipe.unet.named_parameters() if ".conv1n." in n]
+        for p in posts:
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    print(f"[{label}] joint control with a joint UNet (post conv, mask (0, 1, 0, 1); "
+          f"{len(posts)} conv1n tensors 0.02 x normal)", flush=True)
+    launches["sd2d_joint"] = _sd2d_run(
+        f"{label} joint-control joint", dev,
+        lambda g: joint_pipe.denoise(emb, image[None], generator=g), joint_pipe.decode, 2,
+        2 * SD2D_FLASH_A_FORWARD, steps)
+    del joint_pipe
+    torch.cuda.empty_cache()
+
+    text = materialize(lambda: CLIPTextModel(CLIPTextConfig.open_clip_h()), dev, torch.bfloat16)
+    init_params(text, gen)
+    ids = torch.randint(0, text.config.vocab_size, (1, 77), generator=gen, device=dev)
+    n_text = sum(p.numel() for p in text.parameters())
+    with torch.inference_mode():
+        for index in (-1, -2):
+            out = text(ids, index)
+            ms = gpu_ms(lambda: text(ids, index), 10)
+            assert out.shape == (1, 77, SD2D_CTX) and torch.isfinite(out).all()
+            print(f"[{label}] CLIP-H text tower ({n_text / 1e6:.1f} M bf16) on 77 token ids "
+                  f"at {index}: {ms:.3f} ms (CUDA events, 10 calls), output std "
+                  f"{out.float().std().item():.4f}", flush=True)
+    del text
+    torch.cuda.empty_cache()
+
+    unet = materialize(lambda: UNet2DCondition(UNet2DConfig(track_fusion=True)), dev,
+                       torch.bfloat16)
+    unet.eval().requires_grad_(False)
+    init_params(unet, gen)
+    with torch.no_grad():
+        fuse = [p for n, p in unet.named_parameters() if "conv_fuse" in n]
+        for p in fuse:
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    sample = torch.randn((2, lat, lat, 4), generator=gen, device=dev).bfloat16()
+    tracks = (torch.rand((1, 256, 2), generator=gen, device=dev) * size,
+              torch.rand((1, 256, 2), generator=gen, device=dev) * size,
+              (torch.rand((1, 256), generator=gen, device=dev) > 0.2).float())
+    with torch.inference_mode():
+        def fused():
+            return unet(sample, 500.0, ctx, tracks=tracks, track_image_size=(size, size))
+
+        out, plain = fused(), unet(sample, 500.0, ctx)
+        ms = gpu_ms(fused, 5)
+        plain_ms = gpu_ms(lambda: unet(sample, 500.0, ctx), 5)
+    moved = (out.float() - plain.float()).abs().amax(dim=(1, 2, 3))
+    print(f"[{label}] one UNet forward of a (src, dst) pair with 256 point tracks, track_fusion "
+          f"({len(fuse)} conv_fuse tensors 0.02 x normal): {ms:.3f} ms, without tracks "
+          f"{plain_ms:.3f} ms (CUDA events, 5 calls); the tracks move the src row by "
+          f"{moved[0].item():.3e}, the dst row by {moved[1].item():.3e}", flush=True)
+    assert torch.isfinite(out).all() and (moved > 0).all()
+    del unet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_sd2d_full(dev: torch.device) -> dict:
+    """The SD-2D joint LoRA train step at 512x512 through ``Trainer.fit``: one x/y pair
+    (batch 2), the SD2 UNet frozen in bf16 with joint attention (post conv, mask (0, 1)) and
+    a rank-64 LoRA on every ``attn1`` projection (alpha 64), the LoRA factors and the joint
+    branch trained in fp32 (its zero-init ``conv1n`` 0.02 x normal), ``snr_gamma=5``,
+    ``joint_streams``, 77-token embeddings; a warm-up step, three between CUDA events and
+    three under ``torch.profiler``; the launches of kernels 5-10 and 1a a step asserted."""
+    import tempfile
+
+    from lkgd_torch.models.configs import JointAttentionConfig, LoraRouter, LoraRule, UNet2DConfig
+    from lkgd_torch.training.sd2d import SD2DTrainConfig, build_sd2d_training
+    from lkgd_torch.training.trainer import Trainer, TrainerConfig
+
+    label = "train-sd2d"
+    t0 = time.perf_counter()
+    config = UNet2DConfig(joint=JointAttentionConfig(post="conv", mask=(0, 1)),
+                          lora=LoraRouter((LoraRule("*attn1*", "j", 64, 64.0),)))
+    state, step = build_sd2d_training(config, SD2DTrainConfig(snr_gamma=5.0, joint_streams=True),
+                                      device=dev, seed=16)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with torch.no_grad():
+        for name, p in state.trainables.items():
+            if ".conv1n." in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    n_train = sum(p.numel() for p in state.trainables.values())
+    n_all = sum(p.numel() for p in state.unet.parameters())
+    lat = SD2D_SIZE // 8
+    batches = [{"latents": torch.randn((2, lat, lat, 4), generator=gen, device=dev),
+                "prompt_embeds": torch.randn((2, 77, SD2D_CTX), generator=gen, device=dev) * 0.2}
+               for _ in range(7)]
+    frozen = {n: p.detach().clone() for n, p in list(state.unet.named_parameters())[::40]
+              if n not in state.trainables}
+    start = {n: p.detach().clone() for n, p in state.trainables.items()}
+    torch.cuda.synchronize()
+    print(f"[{label}] SD2 UNet {n_all / 1e9:.3f} B with joint attention: {n_train / 1e6:.1f} M "
+          f"trained in fp32 (LoRA rank 64 on attn1 and attn1n, the joint branch), the rest "
+          f"bf16; one x/y pair at {SD2D_SIZE}x{SD2D_SIZE}, snr_gamma 5, no end-of-fit "
+          f"checkpoint; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = Trainer(step, state, TrainerConfig(output_dir=out_dir, checkpoint_every=0,
+                                                     seed=0))
+        trainer.save_checkpoint = lambda step: None
+        r = _fit_windows(label, dev, trainer, batches, {})
+    per_step = {k: v / 3 for k, v in r["launches"].items() if v}
+    print(f"[{label}] {r['step_s']:.3f} s/step (3 steps after the warm-up, between CUDA events), "
+          f"host CPU {r['cpu_s']:.3f} s/step | peak memory {r['peak'] / 2**30:.2f} GiB | losses "
+          f"{[round(x, 5) for x in r['losses']]} | launches a step {per_step} | {host_line()}",
+          flush=True)
+    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step, host CPU "
+          f"{r['prof_cpu_s']:.3f} s/step, device busy {r['device_ms']:.1f} ms/step = "
+          f"{100 * r['device_ms'] / (r['prof_step_s'] * 1e3):.1f}% of the window, "
+          f"{r['n_device']:.0f} device operations a step | flash kernels (ms, launches over 3 "
+          f"steps) {r['flash']}", flush=True)
+    flash_calls = 2 * SD2D_FLASH_A_FORWARD  # attn1 and the joint branch's attn1n
+    want = {"flash_bound_lse": flash_calls, "flash_maxtrack_lse": flash_calls,
+            "flash_key_norm": flash_calls, "flash_bwd_dq": flash_calls,
+            "flash_bwd_dkv": flash_calls, "split_heads": 2 * flash_calls,
+            "merge_heads": 2 * flash_calls}
+    for name, n in want.items():
+        assert per_step.get(name) == n, (name, per_step.get(name), n)
+    assert "flash_bound" not in per_step and "flash_maxtrack" not in per_step
+    assert all(np.isfinite(r["losses"])) and r["device_ms"] > 0.0
+    still = _unmoved(start, state.trainables)
+    same = all(torch.equal(p, frozen[n]) for n, p in state.unet.named_parameters()
+               if n in frozen)
+    print(f"[{label}] launches a step as asserted {want}; trainables moved "
+          f"{len(start) - len(still)}/{len(start)}, sampled frozen weights bit-identical {same}",
+          flush=True)
+    assert same and state.step == 7
+    return r["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -3348,12 +3945,14 @@ def main() -> int:
     cogvideox_kernels = phase_cogvideox_kernels(dev, torch.Generator(device=dev).manual_seed(77))
     cogvideox_train_kernels = phase_cogvideox_train_kernels(
         dev, torch.Generator(device=dev).manual_seed(78))
+    sd2d_kernels = phase_sd2d_kernels(dev, torch.Generator(device=dev).manual_seed(79))
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
     phase_tiny_variants(dev)
     phase_tiny_cogvideox(dev)
     phase_tiny_cogvideox_train(dev)
+    phase_tiny_sd2d(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
@@ -3367,6 +3966,8 @@ def main() -> int:
     flow_launches = phase_flow_full(dev)
     torch.cuda.empty_cache()
     cogvideox_launches = phase_cogvideox_full(dev)
+    torch.cuda.empty_cache()
+    sd2d_launches = phase_sd2d_full(dev)
     torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
     phase_train_tiny(dev, "lkgd")
@@ -3383,6 +3984,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cogvideox_launches = phase_train_cogvideox_full(dev)
     torch.cuda.empty_cache()
+    train_sd2d_launches = phase_train_sd2d_full(dev)
+    torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
@@ -3395,7 +3998,8 @@ def main() -> int:
                "cogvideox": cogvideox_launches,
                "train": train_launches, "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
-               "train_cogvideox": train_cogvideox_launches, "experiments": experiment_launches}
+               "train_cogvideox": train_cogvideox_launches, **sd2d_launches,
+               "train_sd2d": train_sd2d_launches, "experiments": experiment_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
            **dict.fromkeys(EXPERIMENTS, "experiments")}
     print(json.dumps({"kernels": [
@@ -3405,7 +4009,8 @@ def main() -> int:
          **kernels[name], **({"cogvideox": cogvideox_kernels[name]}
                              if name in cogvideox_kernels else {}),
          **({"train_cogvideox": cogvideox_train_kernels[name]}
-            if name in cogvideox_train_kernels else {})}
+            if name in cogvideox_train_kernels else {}),
+         **({"sd2d": sd2d_kernels[name]} if name in sd2d_kernels else {})}
         for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

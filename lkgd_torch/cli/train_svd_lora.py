@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import re
 from typing import Callable
 
 import torch
@@ -40,7 +39,7 @@ from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 from lkgd_torch.models.vit_mae import ViT, ViTConfig, encode_knowledge_features
 from lkgd_torch.ops.resize import resize_with_antialiasing
 from lkgd_torch.training.train_state import (SVDTrainConfig, init_train_state, make_optimizer,
-                                             make_svd_train_step)
+                                             make_svd_train_step, trainable_trans)
 from lkgd_torch.training.trainer import Trainer, TrainerConfig, export_trainable_safetensors
 from lkgd_torch.utils.device import require_device
 from lkgd_torch.utils.trackers import make_tracker
@@ -52,17 +51,6 @@ VAE_SCALING = 0.18215
 def trainable(name: str) -> bool:
     """The parameters ``--mode lkgd`` trains: LoRA factors and the knowledge fusion."""
     return "lora_" in name or "knowledge_fusion" in name
-
-
-_JOINT_BRANCH = re.compile(r"(^|\.)(attn1n|conv1n|scale1n|norm1n)(\.|$)")
-
-
-def trainable_trans(name: str) -> bool:
-    """The parameters ``--mode trans`` trains: LoRA factors and the joint branch. The JAX
-    package selects ``"joint" in path``; here the branch's parameters sit on the block
-    under their own names (``attn1n``, ``conv1n``, ``scale1n``, ``norm1n``), with no
-    ``joint`` scope."""
-    return "lora_" in name or _JOINT_BRANCH.search(name) is not None
 
 
 def make_parser() -> argparse.ArgumentParser:

@@ -37,10 +37,12 @@ from lkgd_torch.models.layers import (
     GroupNorm,
     TemporalConv,
     TimestepEmbedding,
+    ZeroInitConv2d,
     ZeroInitLinear,
     get_timestep_embedding,
     nearest_upsample_2x,
 )
+from lkgd_torch.ops.track_fusion import track_scatter_fusion
 
 
 # ------------------------------------------------------------------ resnet blocks
@@ -231,17 +233,23 @@ class JointAttentionBranch(nn.Module, JointBranchMixin):
 # ------------------------------------------------------------------ transformer blocks
 class BasicTransformerBlock(nn.Module, JointBranchMixin):
     """Spatial transformer block: self-attention (plus the joint branch, scaled by
-    ``joint_scale``), cross-attention, GEGLU feed-forward."""
+    ``joint_scale``), cross-attention, GEGLU feed-forward. With ``track_fusion`` (the 2D
+    UNet's joint-frame pairs), ``tracks=(src_idx, dst_idx, visibility)`` given to the
+    forward fuse the paired frames after self-attention through a zero-init 3x3
+    ``conv_fuse`` (2*dim -> 2*dim) on the ``spatial_hw`` grid (``ops/track_fusion.py``)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 1024,
                  lora: LoraRouter = EMPTY_ROUTER, block_path: str = "",
-                 joint: Optional[JointAttentionConfig] = None, temb_channels: int = 1280):
+                 joint: Optional[JointAttentionConfig] = None, temb_channels: int = 1280,
+                 track_fusion: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
         self.attn1 = Attention(dim, heads, dim_head, adapters=lora.adapters(f"{block_path}.attn1"))
         self.has_joint = joint is not None and joint.spatial
         if self.has_joint:
             self._init_joint(dim, heads, dim_head, joint, block_path, lora, False, temb_channels)
+        if track_fusion:
+            self.conv_fuse = ZeroInitConv2d(2 * dim, 2 * dim, 3, padding=1)
         self.norm2 = nn.LayerNorm(dim)
         self.attn2 = Attention(dim, heads, dim_head, kv_dim=cross_attention_dim,
                                adapters=lora.adapters(f"{block_path}.attn2"))
@@ -250,12 +258,17 @@ class BasicTransformerBlock(nn.Module, JointBranchMixin):
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 num_frames: int = 1, joint_scale=1.0,
-                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                temb: Optional[torch.Tensor] = None, tracks=None,
+                spatial_hw: Optional[tuple] = None) -> torch.Tensor:
         norm_x = self.norm1(x)
         attn_out = self.attn1(norm_x)
         if self.has_joint:
             attn_out = attn_out + self._joint_branch(norm_x, num_frames, True, temb) * joint_scale
         x = x + attn_out
+        if tracks is not None and hasattr(self, "conv_fuse"):
+            src_idx, dst_idx, visibility = tracks
+            x = track_scatter_fusion(x, src_idx, dst_idx, visibility, self.conv_fuse,
+                                     *spatial_hw)
         x = x + self.attn2(self.norm2(x), encoder_hidden_states=encoder_hidden_states)
         return x + self.ff(self.norm3(x))
 

@@ -9,6 +9,7 @@ the flash threshold, so attention runs the plain form.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -52,11 +53,13 @@ class CLIPAttention(nn.Module):
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: boolean, broadcast against (B, H, S, S) logits (the text tower's causal
+        mask); True keeps a key."""
         b, s, d = h.shape
         shape = (b, s, self.heads, d // self.heads)
         o = dot_product_attention(self.q_proj(h).view(shape), self.k_proj(h).view(shape),
-                                  self.v_proj(h).view(shape))
+                                  self.v_proj(h).view(shape), mask)
         return self.out_proj(o.reshape(b, s, d))
 
 
@@ -79,8 +82,8 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), mask)
         return x + self.mlp(self.layer_norm2(x))
 
 

@@ -6,7 +6,10 @@ Counterparts of ``lkgd_tpu/models/configs.py`` ``JointAttentionConfig`` (:19-55)
 ``TemporalVAEConfig`` (:30-37), ``lkgd_tpu/models/clip_vision.py`` ``CLIPVisionConfig``
 (:22-41), ``lkgd_tpu/models/cogvideox.py`` ``CogVideoXConfig`` (:33-102) and
 ``lkgd_tpu/models/vae_cogvideox.py`` ``CogVideoXVAEConfig`` (:26-39) and
-``lkgd_tpu/models/t5_text.py`` ``T5Config`` (:26-45). The port imports nothing of the JAX
+``lkgd_tpu/models/t5_text.py`` ``T5Config`` (:26-45), and the SD-2D family's
+``lkgd_tpu/models/unet_2d.py`` ``UNet2DConfig`` (:29-59), ``vae_2d.py`` ``VAE2DConfig``
+(:19-21), ``controlnet_2d.py`` ``ControlNet2DConfig`` (:17-21) and ``clip_text.py``
+``CLIPTextConfig`` (:20-38). The port imports nothing of the JAX
 package, so it carries its own configs with the same field names and defaults, every LKGD
 extension of the JAX UNet config included. ``CogVideoXConfig`` leaves out the JAX fields
 that only multi-chip code reads (``sequence_parallel``, ``sp_axis``).
@@ -314,3 +317,73 @@ class T5Config:
     @classmethod
     def tiny(cls) -> "T5Config":
         return cls(vocab_size=128, d_model=32, d_kv=8, d_ff=64, num_layers=2, num_heads=4)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet2DConfig:
+    """The SD 2D denoiser (SD2 widths by default)."""
+
+    in_channels: int = 4  # 9 for inpaint (latents + mask + masked latents)
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+        "DownBlock2D")
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D")
+    layers_per_block: int = 2
+    transformer_layers_per_block: int = 1
+    num_attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
+    cross_attention_dim: int = 1024  # SD2 OpenCLIP text width
+    freq_shift: float = 0.0
+    flip_sin_to_cos: bool = True
+    # image-space conditioning encoder added at conv_in: its input channels
+    cond_embedding_channels: Optional[int] = None
+    cond_embedding_blocks: Tuple[int, ...] = (16, 32, 96, 256)
+    joint: Optional[JointAttentionConfig] = None
+    lora: LoraRouter = EMPTY_ROUTER
+    # joint-frame track fusion in the spatial blocks: forward then takes tracks=(src_xy,
+    # dst_xy, visibility), in image pixels when forward's track_image_size gives the
+    # resolution, else on the latent grid
+    track_fusion: bool = False
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class VAE2DConfig(TemporalVAEConfig):
+    """The SD image VAE: the temporal VAE's encoder with a plain 2D decoder."""
+
+    scaling_factor: float = 0.18215
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlNet2DConfig:
+    unet: UNet2DConfig = UNet2DConfig()
+    conditioning_channels: int = 3
+    conditioning_embedding_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """SD2's OpenCLIP-H text tower: 23 layers of width 1024 (the 24th is never run)."""
+
+    vocab_size: int = 49408
+    max_position_embeddings: int = 77
+    hidden_size: int = 1024
+    num_layers: int = 23
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    hidden_act: str = "gelu"
+    layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def open_clip_h(cls) -> "CLIPTextConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "CLIPTextConfig":
+        return cls(vocab_size=128, max_position_embeddings=16, hidden_size=32,
+                   num_layers=2, num_heads=2, intermediate_size=64)

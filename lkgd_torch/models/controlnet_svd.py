@@ -17,13 +17,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from lkgd_torch.models.blocks_svd import (CrossAttnDownBlockSpatioTemporal,
                                           DownBlockSpatioTemporal, UNetMidBlockSpatioTemporal)
 from lkgd_torch.models.configs import SVDUNetConfig
 from lkgd_torch.models.layers import (Conv2d, TimestepEmbedding, ZeroInitConv2d,
                                       get_timestep_embedding)
+from lkgd_torch.models.unet_2d import ConditioningEmbedding
 
 EPS = 1e-5  # the JAX blocks' default: the ControlNet passes no eps of the host UNet
 
@@ -35,28 +35,13 @@ class ControlNetSDVConfig:
     conditioning_embedding_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
 
 
-class ControlNetConditioningEmbeddingSVD(nn.Module):
-    """``conv_in`` and (conv, stride-2 conv) pairs with SiLU, then a zero-init ``conv_out``:
+class ControlNetConditioningEmbeddingSVD(ConditioningEmbedding):
+    """The 2D conditioning embedder (``models/unet_2d.py``) over every frame:
     ``(B, T, H, W, C_cond)`` -> ``(B*T, h, w, embedding_channels)``."""
 
-    def __init__(self, conditioning_channels: int, embedding_channels: int,
-                 block_out_channels: Tuple[int, ...] = (16, 32, 96, 256)):
-        super().__init__()
-        chans = block_out_channels
-        self.conv_in = Conv2d(conditioning_channels, chans[0], 3, padding=1)
-        blocks = []
-        for i in range(len(chans) - 1):
-            blocks.append(Conv2d(chans[i], chans[i], 3, padding=1))
-            blocks.append(Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1))
-        self.blocks = nn.ModuleList(blocks)
-        self.conv_out = ZeroInitConv2d(chans[-1], embedding_channels, 3, padding=1)
-
-    def forward(self, conditioning: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, conditioning: torch.Tensor) -> torch.Tensor:
         b, t = conditioning.shape[:2]
-        x = F.silu(self.conv_in(conditioning.reshape(b * t, *conditioning.shape[2:]).to(dtype)))
-        for conv in self.blocks:
-            x = F.silu(conv(x))
-        return self.conv_out(x)
+        return super().forward(conditioning.reshape(b * t, *conditioning.shape[2:]))
 
 
 class ControlNetSDV(nn.Module):
@@ -124,7 +109,7 @@ class ControlNetSDV(nn.Module):
 
         sample = self.conv_in(sample)
         if controlnet_cond is not None:
-            sample = sample + self.controlnet_cond_embedding(controlnet_cond, dtype)
+            sample = sample + self.controlnet_cond_embedding(controlnet_cond)
 
         res_samples = (sample,)
         for block in self.down_blocks:

@@ -13,6 +13,7 @@ module, the optimizer, the step and the EMA.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -20,6 +21,17 @@ import torch.nn as nn
 
 from lkgd_torch.training import edm
 from lkgd_torch.training.optim8bit import adamw8bit
+
+
+_JOINT_BRANCH = re.compile(r"(^|\.)(attn1n|conv1n|scale1n|norm1n)(\.|$)")
+
+
+def trainable_trans(name: str) -> bool:
+    """LoRA factors and the joint branch: the trained set of ``--mode trans`` and of the
+    SD-2D joint LoRA step. The JAX package selects ``"lora" in path or "joint" in path``;
+    here the branch's parameters sit on the block under their own names (``attn1n``,
+    ``conv1n``, ``scale1n``, ``norm1n``), with no ``joint`` scope."""
+    return "lora_" in name or _JOINT_BRANCH.search(name) is not None
 
 
 class MaskedAdamW:

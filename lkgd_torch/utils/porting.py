@@ -24,6 +24,12 @@ input (``conv_in_y``, ``*_embedding_y``, ``conv_in2``, the scalar ``conv_in2_alp
 package's ``cogvideox_export_key_map`` does; the CogVideoX VAE keeps the generic names
 (``key_map=None``), which its JAX CLI reads from ``vae_3d.safetensors``.
 
+The SD-2D family: ``unet2d_key_map`` gives the JAX 2D UNet's and ControlNet-2D's
+flat block names (``down_blocks_0_resnets_0``) diffusers' nesting, as the JAX package's
+``unet2d_export_key_map`` does (the joint branch, LoRA factors, ``cond_embedding`` and
+``conv_fuse`` by the rules above); the image VAE takes ``vae_key_map``; ``clip_text_key_map``
+gives the CLIP text tower transformers' ``CLIPTextModel`` names.
+
 ``cogvideox_export_name`` runs the other way for the CogVideoX transformer's parameter
 names: the port's module names -> the JAX package's default export names (no key map, as
 its ``train_cogvideox_lora`` exports its trainables), for ``export_trainable_safetensors``.
@@ -115,6 +121,33 @@ def clip_key_map(key: str) -> str:
     return key  # visual_projection.*
 
 
+def unet2d_key_map(key: str) -> str:
+    """Generic export names of the JAX 2D UNet and ControlNet-2D, whose blocks are flat
+    (``down_blocks_0_resnets_0``) -> diffusers ``UNet2DConditionModel`` names
+    (``down_blocks.0.resnets.0``, ``mid_block.attentions.0``): the JAX package's
+    ``unet2d_export_key_map``."""
+    k = re.sub(r"\b(down_blocks|up_blocks)\.(\d+)_(resnets|attentions|downsamplers|"
+               r"upsamplers)_(\d+)", r"\1.\2.\3.\4", key)
+    k = k.replace("mid_block_resnets_", "mid_block.resnets.")
+    return k.replace("mid_block_attentions_", "mid_block.attentions.")
+
+
+def clip_text_key_map(key: str) -> str:
+    """Generic export names of the JAX CLIP text tower -> transformers ``CLIPTextModel``
+    names."""
+    if key.startswith("layers."):
+        parts = key.split(".")
+        rest = ".".join(parts[2:])
+        if rest.startswith(("q_proj", "k_proj", "v_proj", "out_proj")):
+            rest = "self_attn." + rest
+        elif rest.startswith(("fc1", "fc2")):
+            rest = "mlp." + rest
+        return f"text_model.encoder.layers.{parts[1]}.{rest}"
+    if key in ("token_embedding", "position_embedding"):
+        return f"text_model.embeddings.{key}.weight"
+    return f"text_model.{key}"  # final_layer_norm.*
+
+
 def cogvideox_key_map(key: str) -> str:
     """Generic export names -> diffusers ``CogVideoXTransformer3DModel`` names, the
     knowledge fusion as the LKGD checkpoint's top-level ``quaternion_lora_*`` modules."""
@@ -188,9 +221,10 @@ def vit_key_map(key: str) -> str:
 def from_flax_params(flat: Mapping[str, np.ndarray],
                      key_map: Optional[Callable[[str], str]] = None) -> Dict[str, torch.Tensor]:
     """``/``-path flax leaves -> the port's state dict. ``key_map``: ``vae_key_map`` for the
-    temporal VAE, ``clip_key_map`` for CLIP, ``vit_key_map`` for the knowledge ViT,
-    ``cogvideox_key_map`` for the CogVideoX transformer, None for the UNet (LoRA and
-    knowledge fusion included) and the CogVideoX VAE."""
+    temporal VAE and the SD image VAE, ``clip_key_map`` for CLIP, ``vit_key_map`` for the
+    knowledge ViT, ``cogvideox_key_map`` for the CogVideoX transformer, ``unet2d_key_map``
+    for the 2D UNet and ControlNet-2D, ``clip_text_key_map`` for the CLIP text tower, None
+    for the SVD UNet (LoRA and knowledge fusion included) and the CogVideoX VAE."""
     out = {}
     for path, value in flat.items():
         parts = path.split("/")

@@ -1212,3 +1212,84 @@ def test_tiny_t5_gpu_matches_cpu(cuda_device, monkeypatch):
         want = cpu(ids, mask)
         got = gpu(ids.to(cuda_device), mask.to(cuda_device)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------- SD-2D at 512x512
+# the SD2 UNet's spatial self-attention at levels 0 and 1 (CFG rows of one image; 4 rows in
+# joint control) and the image VAE's mid-block attention
+SD2D_FLASH = [(2, 4096, 5, 64), (2, 1024, 10, 64), (4, 4096, 5, 64), (1, 4096, 1, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound", "flash_maxtrack"])
+@pytest.mark.parametrize("shape", SD2D_FLASH, ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernel_at_the_sd2d_shapes(cuda_device, monkeypatch, shape, maxtrack):
+    if maxtrack:
+        monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
+    q, k, v = _qkv(cuda_device, shape)
+    before = dict(tfa.launches)
+    got = tfa.flash_attention(q, k, v)
+    assert _rel_err(got, _lse_plain_by_rows(q, k, v)[0]) <= FLASH_TOL
+    assert tfa.launches["flash_bound"] == before["flash_bound"] + (0 if maxtrack else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4096, 5, 64), (2, 1024, 10, 64)], ids=["level0", "level1"])
+def test_flash_training_kernels_at_the_sd2d_shapes(cuda_device, shape):
+    """The SD-2D joint LoRA step's attention (one x/y pair): the LSE forward, dq and dk/dv
+    against the plain versions, and the head split and merge bit-exact."""
+    q, k, v = _qkv(cuda_device, shape)
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    want_out, want_lse = _lse_plain_by_rows(q, k, v)
+    assert _rel_err(out, want_out) <= FLASH_TOL
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    _check_bwd_against_plain(q, k, v, *_bwd_args(cuda_device, q, k, v))
+    split = tfa.split_heads_many(q, k, v)
+    assert all(torch.equal(g, w) for g, w in zip(split, tfa.split_heads_many_plain(q, k, v)))
+    assert all(torch.equal(g, w) for g, w in zip(tfa.merge_heads_many(*split), (q, k, v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape", [(2, 4096, 320), (2, 1024, 640), (1, 262144, 128)],
+                         ids=["unet_level0", "unet_level1", "vae_full_res"])
+def test_group_norm_at_the_sd2d_shapes(cuda_device, shape, act):
+    """eps 1e-6 (the transformer norms and the VAE): the forward within 3e-2 of the plain
+    version in bf16."""
+    x, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16)
+    got = gn.group_norm(x, w, b, num_groups=32, eps=1e-6, act=act)
+    want = gn.group_norm_plain(x.float(), w.float(), b.float(), num_groups=32, eps=1e-6,
+                               act=act)
+    assert (got.float() - want).abs().max().item() <= 3e-2
+
+
+@pytest.mark.cuda
+def test_tiny_sd2d_unet_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The tiny 2D UNet with joint attention, stream-masked LoRA and track fusion at fp32 on
+    the card against the CPU, every parameter random (the track scatter adds with atomics on
+    the card: equal to rounding)."""
+    from lkgd_torch.models.configs import JointAttentionConfig, LoraRouter, LoraRule, UNet2DConfig
+    from lkgd_torch.models.unet_2d import UNet2DCondition
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    config = UNet2DConfig(
+        block_out_channels=(32, 64), down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1,
+        num_attention_heads=(2, 4), cross_attention_dim=32, track_fusion=True,
+        joint=JointAttentionConfig(post="conv", mask=(0, 1, 0, 1)),
+        lora=LoraRouter((LoraRule("*attn1*", "xy", 2, 4.0, (1, 0, 1, 0)),)))
+    models = _twins(lambda d: materialize(lambda: UNet2DCondition(config), d, torch.float32),
+                    cuda_device, 7)
+    g = torch.Generator().manual_seed(8)
+    args = (torch.randn((4, 16, 16, 4), generator=g), torch.tensor([3.0, 999.0, 500.0, 41.0]),
+            torch.randn((4, 5, 32), generator=g))
+    tracks = (torch.rand((2, 40, 2), generator=g) * 64, torch.rand((2, 40, 2), generator=g) * 64,
+              (torch.rand((2, 40), generator=g) > 0.3).float())
+    outs = []
+    for model, device in zip(models, ("cpu", cuda_device)):
+        with torch.no_grad():
+            outs.append(model(*(a.to(device) for a in args),
+                              tracks=tuple(t.to(device) for t in tracks),
+                              track_image_size=(64, 64)).cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=2e-4)

@@ -49,6 +49,16 @@ EXPORT_MAPS = {"unet": svd_export_key_map, "vae": vae_export_key_map,
                "image_encoder": clip_export_key_map}
 
 
+# XLA:CPU options for the JAX references the port's tests compile: LLVM's cheap pipeline
+# takes about a third off each compile at tiny widths; the HLO passes are the default ones
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jit(fn, **kw):
+    """``jax.jit`` of a JAX reference, compiled with ``FAST_COMPILE``."""
+    return jax.jit(fn, compiler_options=FAST_COMPILE, **kw)
+
+
 def flatten(params) -> dict:
     """A flax tree as ``/``-joined paths -> numpy leaves."""
     return {"/".join(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
@@ -140,7 +150,7 @@ def test_port_imports_no_jax():
             "names = [m.name for m in pkgutil.walk_packages(lkgd_torch.__path__, 'lkgd_torch.')]\n"
             "for name in names + ['chip_smoke']:\n"
             "    importlib.import_module(name)\n"
-            "assert len(names) > 30, names\n"
+            "assert len(names) > 70, names\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'lkgd_tpu'))\n"
             "print(len(names), bad); sys.exit(1 if bad else 0)")
@@ -201,20 +211,24 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "group_norm_ab", "cogvideox_i2v_pipeline",
                                    "cogvideox_t2v_pipeline", "cogvideox_v2v_pipeline",
                                    "cogvideox_cli", "unimatch", "train_cogvideox_lora",
-                                   "embed_text", "t5_encoder"])
+                                   "embed_text", "t5_encoder", "sd2d_inpaint_pipeline",
+                                   "sd2d_joint_control_pipeline", "sd2d_condition_pipeline",
+                                   "sd2d_cli", "sd2d_training"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import (embed_text, run_inference_cogvideox, run_inference_svd,
-                                train_cogvideox_lora, train_svd_lora)
+    from lkgd_torch.cli import (embed_text, run_inference_cogvideox, run_inference_sd2d,
+                                run_inference_svd, train_cogvideox_lora, train_svd_lora)
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
     from lkgd_torch.models.t5_text import build_t5_encoder
     from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
     from lkgd_torch.pipelines import cogvideox_i2v as cog
+    from lkgd_torch.pipelines import sd2d
+    from lkgd_torch.training.sd2d import build_sd2d_training
     from lkgd_torch.pipelines.svd_controlnet import StableVideoDiffusionControlNetPipeline
     from lkgd_torch.pipelines.svd_flow import (StableVideoDiffusionFlowPipeline,
                                                StableVideoDiffusionJointVFPipeline)
@@ -265,6 +279,11 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "embed_text": lambda: embed_text.main(["--tiny", "--prompt", "a", "--output",
                                                str(tmp_path / "e.npy")]),
         "t5_encoder": lambda: build_t5_encoder(tcfg.T5Config.tiny()),
+        "sd2d_inpaint_pipeline": lambda: sd2d.StableDiffusionInpaintPipeline(),
+        "sd2d_joint_control_pipeline": lambda: sd2d.StableDiffusionJointControlPipeline(),
+        "sd2d_condition_pipeline": lambda: sd2d.StableDiffusionConditionPipeline(),
+        "sd2d_cli": lambda: run_inference_sd2d.main(["--image", str(tmp_path / "a.png")]),
+        "sd2d_training": lambda: build_sd2d_training(tcfg.UNet2DConfig()),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
