@@ -41,8 +41,17 @@ each printing its own lines; any failure raises and the script exits non-zero:
    4096, 320), eps 1e-6, with and without SiLU: each against its plain version with the
    tolerances of phases 3 and 6, its device time under ``torch.profiler`` beside its
    wrapper's (which of the two sets the pace), the library call's time and the bound;
+3f. the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``) against the plain
+   fp32 version (max |d| <= 2e-5 * max|ref|: summation order alone) at the precompute
+   encode's mid block (14, 4096, 1, 512), (1, 1024, 1, 64), (2, 4096, 1, 512) and an input
+   that trips the guard: a second launch bit-identical, one C call a forward, device time
+   beside the wrapper's, the plain version's, the library's fp32 SDPA and the bound at 67
+   TFLOP/s;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
+4h. at fp32, GPU against CPU: the precompute encode at tiny widths on 64x64 frames (the fp32
+   flash form at the VAE's mid block), InceptionV3 at 299 on 2 images, I3D on (1, 10, 64,
+   64, 3), CLIP features and the Frechet distance of each device's features;
 4g. the tiny SD-2D family at fp32, GPU against CPU, every parameter random: the 2D UNet
    (per-sample timesteps with ControlNet residuals; 9 channels with the conditioning
    encoder; joint ``conv_fuse`` attention with stream-masked LoRA and track fusion), the
@@ -201,6 +210,16 @@ each printing its own lines; any failure raises and the script exits non-zero:
    CUDA events (s/step, host CPU s/step, peak) and three under ``torch.profiler`` (busy
    share); launches a step asserted: kernels 7/8, 9/10 and 1a 20, 5/6 40, kernels 1/2 none;
    trainables moved, sampled frozen weights bit-identical;
+8i. ``lkgd_torch/cli/precompute_cache.py`` at the published widths in fp32 (temporal VAE,
+   CLIP-H) on three synthetic 14-frame 512x512 mp4 clips and one too short: the cache's
+   keys and shapes, read back through ``PrecomputedLatentDataset`` and the CogVideoX
+   fine-tune's cache adapter, launches a clip asserted (the fp32 flash forward once,
+   kernels 3/4 once a GroupNorm of the encoder), s/clip split into VAE and CLIP, the peak,
+   one clip under ``torch.profiler``;
+8j. ``lkgd_torch/cli/compute_metrics.py`` at the published widths on 4 mp4s against 4 GIFs of
+   16 frames at 256x256, InceptionV3 and I3D weights written from ``init_synthetic``: every
+   key present and finite, seconds by stage (CLIP-H, InceptionV3 images/s, I3D clips/s, the
+   Frechet fits on the host);
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
@@ -208,7 +227,8 @@ A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel w
 launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
 ``dc=2`` and ``3``, flow clip, CogVideoX clip, the SD-2D inpaint, inpaint + ControlNet and
 the two joint-control images, LKGD, trans, ControlNet, flow, CogVideoX and SD-2D training,
-microbenchmarks),
+microbenchmarks, precompute, compute_metrics), the fp32 form's three rows among them (their
+other 3f shapes under ``shapes``),
 error, time, the
 plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
@@ -260,6 +280,10 @@ REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     "merge_heads": "lkgd_tpu/ops/flash_attention.py:552",
     "blocked_matmul": "experiments/matmul_microbench.py:89",
     "flash_variant": "experiments/flash_variant_microbench.py:41",
+    # the fp32 form of kernels 1, 2 and 1a (the Pallas bodies take fp32 operands too)
+    "flash_bound_fp32": "lkgd_tpu/ops/flash_attention.py:40",
+    "flash_maxtrack_fp32": "lkgd_tpu/ops/flash_attention.py:102",
+    "flash_key_norm_fp32": "lkgd_tpu/ops/flash_attention.py:95",
 }
 INFERENCE = ("flash_bound", "flash_maxtrack", "flash_key_norm", "gn_stats", "gn_apply")
 TRAINING = ("flash_bound_lse", "flash_maxtrack_lse", "flash_bwd_dq", "flash_bwd_dkv",
@@ -283,7 +307,10 @@ SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "split_heads": "lkgd_torch/csrc/relayout_heads.cu",
            "merge_heads": "lkgd_torch/csrc/relayout_heads.cu",
            "blocked_matmul": "lkgd_torch/csrc/blocked_matmul.cu",
-           "flash_variant": "lkgd_torch/csrc/flash_variant.cu"}
+           "flash_variant": "lkgd_torch/csrc/flash_variant.cu",
+           "flash_bound_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
+           "flash_maxtrack_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
+           "flash_key_norm_fp32": "lkgd_torch/csrc/flash_attention_f32.cu"}
 
 
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_BF16) -> dict:
@@ -1472,7 +1499,8 @@ def _key_norm_row(tag: str, label: str, k: torch.Tensor) -> dict:
     t = _timed_kernel(lambda: fa.key_norm_max(k), "key_sq_max")
     plain_ms = gpu_ms(lambda: fa.key_norm_max_plain(k), 20)
     # k read once, (B, H) fp32 written; 2 fp32 operations an element
-    least = bound(2 * k.numel(), k.numel() * 2 + k.shape[0] * k.shape[2] * 4, PEAK_FP32)
+    least = bound(2 * k.numel(), k.numel() * k.element_size() + k.shape[0] * k.shape[2] * 4,
+                  PEAK_FP32)
     print(f"[{tag}] flash_key_norm {label} (B,S,H,D)={tuple(k.shape)}: max|d| {err:.3e} "
           f"(rtol 1e-5) | {_paced(t)} | plain {plain_ms:.4f} ms, bound "
           f"{least['bound_ms']:.4f} ms by {least['bound_by']}", flush=True)
@@ -1638,11 +1666,15 @@ def _train_rows(tag: str, label: str, shape, gen: torch.Generator, plain_in) -> 
     return rows
 
 
-def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts) -> dict:
-    """Kernels 3 and 4 on random bf16 (N, M, C) x, 32 groups, against their plain versions,
-    the output compared in slices of 2^21 rows (the fp32 temporaries of 2^31 elements stay
-    small), with the kernels' device time, the wrappers', the library call's and the bound.
-    Returns ``gn_stats``'s row and ``gn_apply``'s for each act in ``acts``, a list."""
+def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts,
+             dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Kernels 3 and 4 on random (N, M, C) x of ``dtype``, 32 groups, against their plain
+    versions, the output compared in slices of 2^21 rows (the fp32 temporaries of 2^31
+    elements stay small), with the kernels' device time, the wrappers', the library call's
+    and the bound. In bf16 kernel 4 is held on the plain statistics; in fp32 on kernel 3's
+    own a, b (kernel 3 held to the plain ones at 1e-4 relative), so that GN_TOL's 1e-5 is
+    kernel 4's rounding alone. Returns ``gn_stats``'s row and ``gn_apply``'s for each act
+    in ``acts``, a list."""
     import torch.nn.functional as F
 
     from lkgd_torch.experiments.group_norm_ab import device_times
@@ -1650,11 +1682,12 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
 
     dev = gen.device
     n, m, c = shape
-    x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).bfloat16()
-    w = (torch.randn(c, device=dev, generator=gen) * 0.1 + 1.0).bfloat16()
-    b = (torch.randn(c, device=dev, generator=gen) * 0.1).bfloat16()
+    x = (torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5).to(dtype)
+    w = (torch.randn(c, device=dev, generator=gen) * 0.1 + 1.0).to(dtype)
+    b = (torch.randn(c, device=dev, generator=gen) * 0.1).to(dtype)
+    size = x.element_size()
     kw = dict(num_groups=32, eps=eps)
-    plan = gn.chunk_plan(n, m, c, 32, 2)
+    plan = gn.chunk_plan(n, m, c, 32, x.element_size())
     a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
     # the plain version on the same bf16 inputs (one-pass fp32 sums), its output unrounded
     a_want, b_want = gn.group_norm_affine_plain(x, w, b, **kw)
@@ -1667,17 +1700,18 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
     n_el = x.numel()
     # stats: x read once, (N, C) fp32 a and b written, ~3 fp32 operations an element;
     # apply: x read, y written, a and b read, ~8 operations an element with SiLU
-    stats_least = bound(3 * n_el, n_el * 2 + 2 * n * c * 4, PEAK_FP32)
+    stats_least = bound(3 * n_el, n_el * size + 2 * n * c * 4, PEAK_FP32)
     stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw), 1)
     stats, apply_rows = None, []
     for act in acts:
         got = gn.group_norm(x, w, b, act=act, **kw)
         step = 1 << 21
+        a_ref, b_ref = (a_want, b_want) if dtype == torch.bfloat16 else (a_got, b_got)
         err = max((got[:, i:i + step].float() - gn.group_norm_apply_plain(
-            x[:, i:i + step].float(), a_want, b_want, act)).abs().max().item()
+            x[:, i:i + step].float(), a_ref, b_ref, act)).abs().max().item()
             for i in range(0, m, step))
         del got
-        assert np.isfinite(err) and err <= GN_TOL[torch.bfloat16], (label, act, err)
+        assert np.isfinite(err) and err <= GN_TOL[dtype], (label, act, err)
         dev_t = device_times(x, w, b, act)
         stats = {"ms": dev_t["stats_kernel_ms"], "call_device_ms": dev_t["stats_device_ms"],
                  "wrapper_ms": gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 20)}
@@ -1686,11 +1720,11 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
         apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, act), 1)
         lib_ms = gpu_ms(lambda: (F.silu if act else (lambda y: y))(
             F.group_norm(x_nchw, 32, w, b, eps)), 5)
-        apply_least = bound((8 if act else 2) * n_el, 2 * n_el * 2 + 2 * n * c * 4, PEAK_FP32)
-        print(f"[{tag}] group_norm {label} {tuple(shape)} bf16 eps {eps:g} act={act} "
+        apply_least = bound((8 if act else 2) * n_el, 2 * n_el * size + 2 * n * c * 4, PEAK_FP32)
+        print(f"[{tag}] group_norm {label} {tuple(shape)} {str(dtype)[6:]} eps {eps:g} act={act} "
               f"({n_el / 2**31:.3f} x 2^31 elements; stats plan {plan.n_chunks} chunks of "
               f"{plan.rows_per_chunk} rows, tile {plan.tile}): max|d| {err:.3e} (tol "
-              f"{GN_TOL[torch.bfloat16]}), affine max|d| {stats_err:.3e}, relative "
+              f"{GN_TOL[dtype]}), affine max|d| {stats_err:.3e}, relative "
               f"{stats_rel:.2e} (tol 1e-4) | stats+fold {_paced(stats)}, plain "
               f"{stats_plain_ms:.4f} ms, bound {stats_least['bound_ms']:.4f} ms | apply "
               f"{_paced(apply)}, plain {apply_plain_ms:.4f} ms, bound "
@@ -3923,6 +3957,382 @@ def phase_train_sd2d_full(dev: torch.device) -> dict:
     return r["launches"]
 
 
+# ---------------------------------------------------------------- data in and metrics out
+FP32_TOL = 2e-5  # fp32 flash form vs its plain version, of max|ref|: summation order alone
+FP32_FLASH = (("precompute encode mid block", (14, 4096, 1, 512), 1.0),
+              ("small head dim", (1, 1024, 1, 64), 1.0),
+              ("encode mid block, two frames", (2, 4096, 1, 512), 1.0),
+              # norms x3 at D=512: every row underflows the bound, the guard recomputes
+              ("guard input", (1, 1100, 1, 512), 3.0))
+FP32_GN = (("encode level 0", (14, 262144, 128), ("silu",)),
+           ("encode level 1", (14, 65536, 256), ("silu",)),
+           ("encode level 2", (14, 16384, 512), ("silu",)),
+           ("encode level 3 and mid block", (14, 4096, 512), (None, "silu")))
+PRECOMPUTE = ("flash_bound_fp32", "flash_maxtrack_fp32", "flash_key_norm_fp32")
+PRECOMPUTE_CLIP = (14, 512, 512)  # frames, height, width: the JAX CLI's defaults
+METRICS_SET = (4, 16, 256)  # videos a side, frames, size
+
+
+def _one_c_call(fn) -> int:
+    """Calls into ``lkgd_flash_forward`` that ``fn()`` makes."""
+    from lkgd_torch.ops import _build
+
+    lib, calls = _build.library(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def lkgd_flash_forward(self, *args):
+            calls.append(1)
+            return lib.lkgd_flash_forward(*args)
+
+    real = _build.library
+    _build.library = lambda: Spy()
+    try:
+        fn()
+    finally:
+        _build.library = real
+    return len(calls)
+
+
+def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """3f: the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``) against the
+    plain fp32 version (max |d| <= FP32_TOL * max|ref|) at the precompute encode's mid block
+    (14, 4096, 1, 512), (1, 1024, 1, 64), (2, 4096, 1, 512) and an input that trips the
+    guard; a second launch bit-identical, one C call a forward; device time under the
+    profiler beside the wrapper's, the plain version's, the library's fp32 SDPA and the
+    bound at 67 TFLOP/s. Returns the rows by kernel: the first shape's, the others under
+    ``shapes``."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    rows: dict = {}
+    for label, shape, scale in FP32_FLASH:
+        b, s, h, d = shape
+        q, k, v = (torch.randn(shape, device=dev, generator=gen) * (scale if i < 2 else 1.0)
+                   for i in range(3))
+        want = in_row_chunks(fa.flash_attention_maxtrack_plain, (q, k, v), rows=1)
+        ref_max = want.abs().max().item()
+        # 4 S^2 D fp32 operations a (batch, head); q, k, v read and o written once, fp32
+        least = bound(4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_FP32)
+        lib_ms = sdpa_ms(q, k, v, reps=5)
+        for kernel, plain, form in (("flash_bound_fp32", fa.flash_attention_bound_plain, "true>"),
+                                    ("flash_maxtrack_fp32", fa.flash_attention_maxtrack_plain,
+                                     "false>")):
+            if kernel == "flash_maxtrack_fp32":
+                os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+            try:
+                counter = fa.recomputed_tiles(dev)
+                counter.zero_()
+                before = dict(fa.launches)
+                out = fa.flash_attention(q, k, v)
+                again = fa.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                recomputed = int(counter.item())
+                delta = {n: fa.launches[n] - before[n] for n in fa.launches
+                         if fa.launches[n] != before[n]}
+                calls = _one_c_call(lambda: fa.flash_attention(q, k, v))
+                t = _timed_kernel(lambda: fa.flash_attention(q, k, v), "flash_fwd_f32_kernel<",
+                                  form)
+            finally:
+                os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+            err = (out - want).abs().max().item()
+            plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows=1), reps=1)
+            print(f"[fp32-kernel] {kernel} {label} (B,S,H,D)={shape}: max|d| {err:.3e} of max|ref| "
+                  f"{ref_max:.3e} (tol {FP32_TOL} x max|ref|) | {_paced(t)} | plain {plain_ms:.3f} "
+                  f"ms (one row at a time), library sdpa fp32 {lib_ms:.4f} ms, bound "
+                  f"{least['bound_ms']:.4f} ms by {least['bound_by']} "
+                  f"({_versus(t['ms'], lib_ms, least)}) | tiles recomputed {recomputed} | second "
+                  f"launch bit-identical {torch.equal(out, again)} | C calls a forward {calls} | "
+                  f"launches of two forwards {delta}", flush=True)
+            assert out.dtype == torch.float32 and torch.equal(out, again) and calls == 1
+            assert np.isfinite(err) and err <= FP32_TOL * ref_max, (kernel, label, err, ref_max)
+            bound_form = kernel == "flash_bound_fp32"
+            assert delta == {"flash_maxtrack_fp32": 2, **({"flash_bound_fp32": 2,
+                             "flash_key_norm_fp32": 2} if bound_form else {})}, delta
+            assert (recomputed > 0) == (scale > 1.0 and bound_form), recomputed
+            row = {"shape": list(shape), "max_abs_err": err, **t, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, **least}
+            rows.setdefault(kernel, []).append(row)
+        rows.setdefault("flash_key_norm_fp32", []).append(_key_norm_row("fp32-kernel", label, k))
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    out = {name: {**found[0], "shapes": found[1:]} for name, found in rows.items()}
+    # kernels 3/4 in fp32 at the precompute encoder's four levels (eps 1e-6; the mid
+    # block's attention norm has no SiLU)
+    gn_rows = [_gn_rows("fp32-kernel", label, shape, gen, 1e-6, acts, torch.float32)
+               for label, shape, acts in FP32_GN]
+    out["gn_fp32"] = {"gn_stats": [r["gn_stats"] for r in gn_rows],
+                      "gn_apply": [a for r in gn_rows for a in r["gn_apply"]]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tiny_precompute(device):
+    from lkgd_torch.cli import precompute_cache as pc
+
+    _, vae, clip = _tiny_widths()
+    widths = pc.Widths(vae=vae, clip=clip)
+    args = pc.make_parser().parse_args(["--video-folder", ".", "--output", "x", "--device",
+                                        str(device)])
+    return pc, pc.build(args, widths)
+
+
+def phase_tiny_fp32(dev: torch.device) -> None:
+    """4h: at fp32, once on the card and once on the CPU (rtol 1e-4, atol 2e-4, TF32 off):
+    the precompute encode at tiny VAE and CLIP widths on 64 x 64 frames (the VAE's mid block
+    at 1024 tokens: the fp32 flash form), InceptionV3 at 299 on 2 images, I3D on a (1, 10,
+    64, 64, 3) clip, the CLIP features, and the Frechet distance of each device's
+    features."""
+    from lkgd_torch.eval import fid_inception, i3d
+    from lkgd_torch.eval import metrics as M
+
+    cpu = torch.device("cpu")
+    pc, enc_cpu = _tiny_precompute(cpu)
+    _, enc_gpu = _tiny_precompute(dev)
+    enc_gpu.vae.load_state_dict(enc_cpu.vae.state_dict())
+    enc_gpu.clip.load_state_dict(enc_cpu.clip.state_dict())
+    g = torch.Generator().manual_seed(5)
+    frames = torch.rand((4, 64, 64, 3), generator=g).numpy()
+    _zero_counts()
+    got = pc.encode_clip(enc_gpu, frames)
+    counts = _read_counts()
+    want = pc.encode_clip(enc_cpu, frames)
+    for name in want:
+        _close_line("tiny-fp32", f"precompute {name}", got[name], want[name])
+    assert counts["flash_bound_fp32"] == 1 and counts["gn_stats"] > 0, counts
+
+    net_cpu = fid_inception.build_inception(cpu, torch.Generator().manual_seed(6))
+    net_gpu = fid_inception.build_inception(dev)
+    net_gpu.load_state_dict(net_cpu.state_dict())
+    images = torch.rand((2, 299, 299, 3), generator=g)
+    want = net_cpu(images)
+    scale = want.abs().max()
+    _close_line("tiny-fp32", "InceptionV3 features / max|ref|", net_gpu(images.to(dev)) / scale,
+                want / scale)
+    net_cpu = i3d.build_i3d(cpu, torch.Generator().manual_seed(7))
+    net_gpu = i3d.build_i3d(dev)
+    net_gpu.load_state_dict(net_cpu.state_dict())
+    clip = torch.rand((1, 10, 64, 64, 3), generator=g)
+    _close_line("tiny-fp32", "I3D logits", net_gpu(clip.to(dev)), net_cpu(clip))
+
+    extract_cpu = M.make_clip_feature_extractor(enc_cpu.clip)
+    extract_gpu = M.make_clip_feature_extractor(enc_gpu.clip)
+    sets = [torch.rand((12, 48, 40, 3), generator=g) for _ in range(2)]
+    feats = {}
+    for name, extract, device in (("gpu", extract_gpu, dev), ("cpu", extract_cpu, cpu)):
+        feats[name] = [extract(x.to(device)).cpu() for x in sets]
+    for a, b in zip(feats["gpu"], feats["cpu"]):
+        _close_line("tiny-fp32", "CLIP features", a, b)
+    fd = {name: M.fid_from_features(*f) for name, f in feats.items()}
+    print(f"[tiny-fp32] Frechet distance of the CLIP features: card's {fd['gpu']:.9g}, CPU's "
+          f"{fd['cpu']:.9g} (rel 1e-4)", flush=True)
+    assert abs(fd["gpu"] - fd["cpu"]) <= 1e-4 * abs(fd["cpu"]) + 1e-6
+
+
+def _write_mp4(path: Path, frames: np.ndarray, fps: int = 7) -> None:
+    """(T, H, W, 3) uint8 RGB frames as an mp4 through OpenCV (the card's machine has no
+    imageio-ffmpeg)."""
+    import cv2
+
+    t, h, w, _ = frames.shape
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    assert vw.isOpened(), "cv2 cannot write mp4 here"
+    for frame in frames:
+        vw.write(np.ascontiguousarray(frame[..., ::-1]))
+    vw.release()
+
+
+def _write_clips(folder: Path, clips) -> None:
+    """Synthetic mp4 clips of moving colour ramps, ``clips`` (name, frames, h, w) tuples."""
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, n, h, w in clips:
+        yy, xx = np.mgrid[:h, :w]
+        _write_mp4(folder / f"{name}.mp4", np.stack(
+            [np.stack([(xx + 8 * t) % 256, (yy + 4 * t) % 256, (xx + yy + 16 * t) % 256], -1)
+             for t in range(n)]).astype(np.uint8))
+
+
+def phase_precompute_full(dev: torch.device, smi: str) -> dict:
+    """8i: ``lkgd_torch.cli.precompute_cache`` at the published widths in fp32 on three
+    synthetic 14-frame 512 x 512 mp4 clips and one too short (skipped): the cache's keys and
+    shapes, read back through ``PrecomputedLatentDataset`` and ``train_cogvideox_lora``'s
+    cache adapter, the launches a clip asserted (the fp32 flash forward once: kernels 1, 2
+    as its guard and 1a at fp32; kernels 3/4 once a GroupNorm of the encoder); then s/clip
+    split into the VAE and CLIP between CUDA events, the peak and one clip under the
+    profiler. Returns the path's launches."""
+    import tempfile
+
+    from lkgd_torch.cli import precompute_cache as pc
+    from lkgd_torch.cli.train_cogvideox_lora import _Adapted
+    from lkgd_torch.data.tensor_cache import PrecomputedLatentDataset, TensorCache
+    from lkgd_torch.models.layers import GroupNorm
+
+    t, h, w = PRECOMPUTE_CLIP
+    work = Path(tempfile.mkdtemp(prefix="lkgd_precompute_"))
+    _write_clips(work / "clips", [(f"clip{i}", t + 2 * i, h, w) for i in range(3)]
+                 + [("short", t - 4, h, w)])
+    cache_path = str(work / "cache.lkgd")
+    argv = ["--video-folder", str(work / "clips"), "--output", cache_path, "--height", str(h),
+            "--width", str(w), "--num-frames", str(t), "--seed", "3"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    pc.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    enc = pc.build(pc.make_parser().parse_args(argv), pc.Widths())
+    n_gn = sum(isinstance(m, GroupNorm) for m in enc.vae.encoder.modules())
+    per_clip = {name: 3 * n for name, n in (("flash_bound_fp32", 1), ("flash_maxtrack_fp32", 1),
+                                           ("flash_key_norm_fp32", 1), ("gn_stats", n_gn),
+                                           ("gn_apply", n_gn))}
+    print(f"[precompute] {smi} | main() on 3 clips of {t}x{h}x{w} and one of {t - 4} frames: "
+          f"{wall:.2f} s with the build and the mp4 decode, peak {peak:.2f} GiB | launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    assert {k: v for k, v in counts.items() if v} == per_clip, (counts, per_clip)
+
+    cache = TensorCache(cache_path)
+    names = sorted({k.split("/")[0] for k in cache.keys()})
+    assert names == ["clip0", "clip1", "clip2"], names
+    for name in names:
+        shapes = {f: tuple(cache.get(f"{name}/{f}").shape)
+                  for f in ("latents", "cond_latents", "image_embeddings")}
+        assert shapes == {"latents": (t, h // 8, w // 8, 4), "cond_latents": (h // 8, w // 8, 4),
+                          "image_embeddings": (1, 1, 1024)}, shapes
+        assert all(torch.isfinite(cache.get(f"{name}/{f}")).all() for f in shapes)
+    cache.close()
+    data = PrecomputedLatentDataset(cache_path)
+    sample = _Adapted(data, 4096)[0]
+    assert len(data) == 3 and sample["prompt_embeds"].shape == (8, 4096)
+    assert sample["image_latents"].shape == (h // 8, w // 8, 4)
+    print(f"[precompute] cache read back: {len(data)} samples through "
+          f"PrecomputedLatentDataset, the CogVideoX adapter gives "
+          f"{ {k: tuple(v.shape) for k, v in sample.items()} }", flush=True)
+
+    from lkgd_torch.data.video_io import process_frames, read_video_frames
+
+    frames, _ = read_video_frames(str(work / "clips" / "clip0.mp4"), max_frames=t)
+    frames = process_frames(frames, h, w)
+    pixels = torch.from_numpy(frames).to(dev) * 2 - 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    pc.encode_clip(enc, frames)
+    torch.cuda.synchronize()
+    parts = {}
+    for part, fn in (("vae", lambda: pc.encode_latents(enc, pixels)),
+                     ("clip", lambda: pc.encode_image(enc, pixels))):
+        parts[part] = gpu_ms(fn, reps=3) / 1e3
+    timing = TensorCache(str(work / "timing.lkgd"))
+    t0 = time.perf_counter()
+    for i in range(3):
+        pc.write_clip(timing, f"x{i}", pc.encode_clip(enc, frames))
+    per_clip_s = (time.perf_counter() - t0) / 3
+    timing.close()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[precompute] {smi} | s/clip {per_clip_s:.4f} (encode and cache write, host clock) "
+          f"= VAE encode {parts['vae']:.4f} s + CLIP-H {parts['clip']:.4f} s (CUDA events) + "
+          f"the rest | peak {peak:.2f} GiB | {n_gn} GroupNorms in the encoder", flush=True)
+    _profiled("precompute", f"one clip's encode_clip ({t}x{h}x{w})",
+              lambda: pc.encode_clip(enc, frames))
+    del enc, pixels
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _metrics_media(folder: Path, seed: int, kind: str) -> str:
+    """METRICS_SET videos of moving sinusoids, as mp4 (OpenCV) or GIF (PIL, as the card's
+    machine writes and reads them)."""
+    from lkgd_torch.data.video_io import write_video
+
+    n, t, size = METRICS_SET
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    for i in range(n):
+        phase = rng.random(3)
+        frames = np.stack([np.stack([np.sin(6 * xx + j / 3 + phase[0]), np.cos(5 * yy + j / 4
+                           + phase[1]), np.sin(4 * (xx + yy) + phase[2] + j / 5)], -1)
+                           for j in range(t)]) * 0.5 + 0.5
+        if kind == "mp4":
+            _write_mp4(folder / f"v{i}.mp4", (frames * 255).astype(np.uint8))
+        else:
+            write_video(str(folder / f"v{i}.gif"), frames.astype(np.float32))
+    return str(folder)
+
+
+def phase_metrics_full(dev: torch.device, smi: str) -> dict:
+    """8j: ``lkgd_torch.cli.compute_metrics`` at the published widths (CLIP-H, InceptionV3,
+    I3D) on a generated set of 4 mp4s and a reference set of 4 GIFs of 16 frames at 256 x
+    256 (the two decoders the card's machine has: OpenCV and PIL), with
+    ``--inception-weights`` (.pth) and ``--i3d-weights`` (.safetensors) written from
+    ``init_synthetic``: every key present and finite, seconds by stage (CLIP-H features,
+    InceptionV3 images/s at 299, I3D clips/s at 16 x 224 x 224, the Frechet fits on the
+    host). Returns the path's launches (none of the port's kernels: convolutions are
+    cuDNN's, CLIP-H's 257 tokens plain attention)."""
+    import tempfile
+
+    from lkgd_torch.cli import compute_metrics as cm
+    from lkgd_torch.eval import fid_inception, i3d
+    from lkgd_torch.utils.porting import save_safetensors
+
+    work = Path(tempfile.mkdtemp(prefix="lkgd_metrics_"))
+    gen, ref = _metrics_media(work / "gen", 1, "mp4"), _metrics_media(work / "ref", 2, "gif")
+    torch.save(_synthetic_state(fid_inception.InceptionV3(), 1), work / "inception.pth")
+    save_safetensors({k: v.numpy() for k, v in _synthetic_state(i3d.InceptionI3d(), 2).items()},
+                     str(work / "i3d.safetensors"))
+    stages: dict = {}
+
+    def timed(stage_of, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage = stage_of(*args)
+            stages[stage] = stages.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    real = {"video_features": cm.video_features, "i3d_features": cm.i3d_features,
+            "fid": cm.M.fid_from_features, "fvd": cm.M.fvd_from_features}
+    cm.video_features = timed(lambda extract, *a: "inception" if isinstance(
+        extract, fid_inception.InceptionV3) else "clip", real["video_features"])
+    cm.i3d_features = timed(lambda *a: "i3d", real["i3d_features"])
+    cm.M.fid_from_features = timed(lambda *a: "frechet", real["fid"])
+    cm.M.fvd_from_features = timed(lambda *a: "frechet", real["fvd"])
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        results = cm.main(["--generated", gen, "--reference", ref, "--inception-weights",
+                           str(work / "inception.pth"), "--i3d-weights",
+                           str(work / "i3d.safetensors"), "--output", str(work / "m.json")])
+    finally:
+        cm.video_features, cm.i3d_features = real["video_features"], real["i3d_features"]
+        cm.M.fid_from_features, cm.M.fvd_from_features = real["fid"], real["fvd"]
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    n, frames, size = METRICS_SET
+    keys = ["psnr", "ssim", "clip_fid", "clip_fvd", "fid", "fvd"]
+    assert sorted(results) == sorted(keys) and all(np.isfinite(results[k]) for k in keys), results
+    images = 2 * n * frames
+    print(f"[metrics] {smi} | compute_metrics on 2 x {n} videos of {frames}x{size}x{size}: "
+          f"{wall:.2f} s | CLIP-H features {stages['clip']:.3f} s ({images / stages['clip']:.1f} "
+          f"images/s at 224) | InceptionV3 {stages['inception']:.3f} s "
+          f"({images / stages['inception']:.1f} images/s at 299) | I3D {stages['i3d']:.3f} s "
+          f"({2 * n / stages['i3d']:.2f} clips/s at {frames}x224x224) | Frechet fits on the host "
+          f"{stages['frechet']:.3f} s | {json.dumps(results)}", flush=True)
+    return counts
+
+
+def _synthetic_state(net, seed: int) -> dict:
+    """The state dict of ``net`` after ``init_synthetic`` from ``seed`` (a file to write)."""
+    net.init_synthetic(torch.Generator().manual_seed(seed))
+    return net.state_dict()
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -3946,6 +4356,9 @@ def main() -> int:
     cogvideox_train_kernels = phase_cogvideox_train_kernels(
         dev, torch.Generator(device=dev).manual_seed(78))
     sd2d_kernels = phase_sd2d_kernels(dev, torch.Generator(device=dev).manual_seed(79))
+    fp32_kernels = phase_fp32_kernels(dev, torch.Generator(device=dev).manual_seed(80))
+    gn_fp32 = fp32_kernels.pop("gn_fp32")
+    kernels.update(fp32_kernels)
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
@@ -3953,6 +4366,7 @@ def main() -> int:
     phase_tiny_cogvideox(dev)
     phase_tiny_cogvideox_train(dev)
     phase_tiny_sd2d(dev)
+    phase_tiny_fp32(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
@@ -3986,6 +4400,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_sd2d_launches = phase_train_sd2d_full(dev)
     torch.cuda.empty_cache()
+    precompute_launches = phase_precompute_full(dev, smi)
+    torch.cuda.empty_cache()
+    metrics_launches = phase_metrics_full(dev, smi)
+    torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
@@ -3999,9 +4417,10 @@ def main() -> int:
                "train": train_launches, "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
                "train_cogvideox": train_cogvideox_launches, **sd2d_launches,
-               "train_sd2d": train_sd2d_launches, "experiments": experiment_launches}
+               "train_sd2d": train_sd2d_launches, "experiments": experiment_launches,
+               "precompute": precompute_launches, "compute_metrics": metrics_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
-           **dict.fromkeys(EXPERIMENTS, "experiments")}
+           **dict.fromkeys(EXPERIMENTS, "experiments"), **dict.fromkeys(PRECOMPUTE, "precompute")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": by_path[own[name]][name],
@@ -4010,7 +4429,8 @@ def main() -> int:
                              if name in cogvideox_kernels else {}),
          **({"train_cogvideox": cogvideox_train_kernels[name]}
             if name in cogvideox_train_kernels else {}),
-         **({"sd2d": sd2d_kernels[name]} if name in sd2d_kernels else {})}
+         **({"sd2d": sd2d_kernels[name]} if name in sd2d_kernels else {}),
+         **({"precompute_fp32": gn_fp32[name]} if name in gn_fp32 else {})}
         for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

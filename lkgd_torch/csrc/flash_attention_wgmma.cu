@@ -52,6 +52,17 @@
 
 #include "flash_wgmma.cuh"
 
+namespace lkgd {  // the fp32 form (flash_attention_f32.cu)
+int flash_f32_block_rows();
+int flash_f32_smem_bytes(int d);
+cudaError_t flash_key_sq_max_f32(const float* k, const Strides& ks, int batch, int heads, int s_k,
+                                 int d, float* out, cudaStream_t stream);
+cudaError_t flash_forward_f32(const void* q, const void* k, const void* v, void* o,
+                              const Strides* st, int batch, int heads, int s_q, int s_k, int d,
+                              float scale_log2, float* scratch, int* recomputed, bool bound,
+                              cudaStream_t s);
+}  // namespace lkgd
+
 namespace {
 
 using namespace lkgd;
@@ -454,8 +465,9 @@ int lkgd_flash_smem_bytes(int d) {
                     : Plan<512>::smem_bytes;
 }
 
-// q, k, v, o: (B, S, H, D) bf16; `strides` packs their (b, s, h) element strides, twelve
-// int64 in that order. lse: (B*H, s_q) fp32
+// q, k, v, o: (B, S, H, D) bf16, or fp32 with fp32 != 0 (the fp32 form of
+// flash_attention_f32.cu, kernels 1 and 2 alone: no lse); `strides` packs their (b, s, h)
+// element strides, twelve int64 in that order. lse: (B*H, s_q) fp32
 // written beside o (kernels 7 and 8), or null (kernels 1 and 2). bound=1: the bound kernel
 // after the key-norm kernel, then the max-tracking kernel as its guard, all on `stream` from
 // this one call; scratch: B*H floats for the squared key norms, then B*H * (query tiles) for
@@ -463,8 +475,9 @@ int lkgd_flash_smem_bytes(int d) {
 int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
                        const void* strides, int batch, int heads, int s_q, int s_k, int d,
                        float scale_log2, float* scratch, int* recomputed, float* lse, int bound,
-                       int device, void* stream) {
-  if (d <= 0 || d > 512 || d % 8 != 0 || (bound && scratch == nullptr))
+                       int fp32, int device, void* stream) {
+  if (d <= 0 || d > 512 || d % 8 != 0 || (bound && scratch == nullptr) ||
+      (fp32 && lse != nullptr))
     return int(cudaErrorInvalidValue);
   // cudaSetDevice also makes the device's context current on this thread, which
   // cuTensorMapEncodeTiled needs: a thread whose first CUDA call this is (autograd's
@@ -475,6 +488,10 @@ int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{lkgd::word(strides, 3 * i), lkgd::word(strides, 3 * i + 1),
                     lkgd::word(strides, 3 * i + 2)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return int(lkgd::flash_forward_f32(q, k, v, o, st, batch, heads, s_q, s_k, d, scale_log2,
+                                       scratch, recomputed, bound != 0, s));
   const Views in{q, k, v, st[0], st[1], st[2], batch};
   FwdArgs a;
   a.o = static_cast<bf16*>(o);
@@ -489,21 +506,29 @@ int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
   a.tile_min = nullptr;
   a.recomputed = recomputed;
   a.lse = lse;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return int(lse != nullptr ? dispatch<true>(in, a, scratch, bound != 0, s)
                             : dispatch<false>(in, a, scratch, bound != 0, s));
 }
 
-// k: (B, S_k, H, D) bf16 with (b, s, h) element strides -> out (B*H) fp32: the largest
-// squared key norm of each batch and head (the key-norm kernel alone).
+// k: (B, S_k, H, D) bf16 (fp32 with fp32 != 0) with (b, s, h) element strides -> out (B*H)
+// fp32: the largest squared key norm of each batch and head (the key-norm kernel alone).
 int lkgd_flash_key_sq_max(const void* k, const long long* strides, int batch, int heads, int s_k,
-                          int d, float* out, int device, void* stream) {
+                          int d, float* out, int fp32, int device, void* stream) {
   if (d <= 0 || d % 8 != 0) return int(cudaErrorInvalidValue);
   const cudaError_t err = lkgd::use_device(device);
   if (err != cudaSuccess) return int(err);
-  return int(key_sq_max(k, Strides{strides[0], strides[1], strides[2]}, batch, heads, s_k, d, out,
-                        static_cast<cudaStream_t>(stream)));
+  const Strides ks{strides[0], strides[1], strides[2]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return int(lkgd::flash_key_sq_max_f32(static_cast<const float*>(k), ks, batch, heads, s_k, d,
+                                          out, s));
+  return int(key_sq_max(k, ks, batch, heads, s_k, d, out, s));
 }
+
+// Query rows a block and dynamic shared memory of the fp32 form's block for a head dim d.
+int lkgd_flash_f32_block_rows() { return lkgd::flash_f32_block_rows(); }
+
+int lkgd_flash_f32_smem_bytes(int d) { return lkgd::flash_f32_smem_bytes(d); }
 
 // The message of a launcher's non-zero return, for every source of the library.
 const char* lkgd_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }

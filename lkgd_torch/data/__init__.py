@@ -1,1 +1,2 @@
-"""Training data of the port: the LKGD fine-tune dataset and a prefetching loader."""
+"""Data of the port: video and image IO, the training datasets and loaders, the tensor
+cache and the random masks of mask-conditioned training."""

@@ -96,14 +96,26 @@ def load_input(path: str, max_frames: Optional[int] = None) -> np.ndarray:
     if ext in (".png", ".jpg", ".jpeg"):
         return read_image(path)[None]
     if ext == ".gif":
-        import imageio.v3 as iio
+        return read_gif(path)
+    frames, _ = read_video_frames(path, max_frames)
+    return frames
 
+
+def read_gif(path: str) -> np.ndarray:
+    """(T, H, W, 3) float32 [0, 1] frames of a GIF: imageio's reader where it is installed,
+    else PIL's frames taken to RGB, which is what imageio's GIF reader (PIL's) returns."""
+    try:
+        import imageio.v3 as iio
+    except ImportError:
+        from PIL import Image, ImageSequence
+
+        with Image.open(path) as im:
+            frames = np.stack([np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(im)])
+    else:
         frames = iio.imread(path)
         if frames.ndim == 3:
             frames = frames[None]
-        return frames[..., :3].astype(np.float32) / 255.0
-    frames, _ = read_video_frames(path, max_frames)
-    return frames
+    return frames[..., :3].astype(np.float32) / 255.0
 
 
 def write_video(path: str, frames: np.ndarray, fps: int = 7) -> None:

@@ -42,6 +42,13 @@ outside, from a small kernel of its own (``key_norm_max``; the TPU wrapper compu
 whole bound outside the Pallas kernel too). ``bound_t`` is that arithmetic's plain version.
 A forward is one call into C (``lkgd_flash_forward``), which makes all its launches.
 
+At fp32 the inference forward takes its fp32 form (``csrc/flash_attention_f32.cu``, a plain
+SIMT kernel of fp32 FMAs: no TF32) from the same one call: kernels 1, 2 and 1a with the same
+guard, counted as ``flash_bound_fp32``, ``flash_maxtrack_fp32`` and ``flash_key_norm_fp32``.
+The JAX kernels take fp32 operands with fp32 accumulation; the temporal VAE and CLIP-H of
+``cli/precompute_cache.py`` run in fp32, as the JAX CLI builds them. The training kernels
+(7-10) are bf16 only: an fp32 call that needs a gradient raises.
+
 The JAX wrapper reruns kernel 2 when the smallest row sum of the whole call is <= 2^-110
 (``lax.cond`` on the device). Here kernel 2 is always launched after kernel 1 with
 kernel 1's per-tile minimum row sums; each of its blocks returns at once unless its own
@@ -72,7 +79,8 @@ GUARD = 2.0 ** -110  # smallest row sum the bound kernel may leave (flash_attent
 # launches of each kernel since the last reset; read by chip_smoke.py
 launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_key_norm": 0, "flash_bound_lse": 0,
             "flash_maxtrack_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "split_heads": 0, "merge_heads": 0}
+            "split_heads": 0, "merge_heads": 0, "flash_bound_fp32": 0,
+            "flash_maxtrack_fp32": 0, "flash_key_norm_fp32": 0}
 FWD_MAX_D = 512  # head dims the forward kernels (1, 2, 7, 8) are built for
 BWD_MAX_D = 128  # and the backward kernels (9, 10)
 _recomputed: dict[torch.device, torch.Tensor] = {}
@@ -98,18 +106,20 @@ def key_norm_max_plain(k: torch.Tensor) -> torch.Tensor:
 
 
 def key_norm_max(k: torch.Tensor) -> torch.Tensor:
-    """``key_norm_max_plain`` on a CPU tensor; on a CUDA tensor (bf16) the key-norm kernel
-    that feeds kernel 1, launched alone (the forward launches it from C)."""
+    """``key_norm_max_plain`` on a CPU tensor; on a CUDA tensor (bf16, or fp32: the fp32
+    form) the key-norm kernel that feeds kernel 1, launched alone (the forward launches it
+    from C)."""
     if k.device.type == "cpu":
         return key_norm_max_plain(k)
-    _check(k, k, k)
+    _check(k, k, k, fp32=True)
     b, s_k, h, d = k.shape
     _check_pairs(b, h)
+    fp32 = k.dtype == torch.float32
     out = torch.empty((b, h), dtype=torch.float32, device=k.device)
     _build.check(_build.library().lkgd_flash_key_sq_max(
         k.data_ptr(), (ctypes.c_longlong * 3)(*k.stride()[:3]), b, h, s_k, d, out.data_ptr(),
-        *stream_of(k.device)))
-    launches["flash_key_norm"] += 1
+        int(fp32), *stream_of(k.device)))
+    launches["flash_key_norm_fp32" if fp32 else "flash_key_norm"] += 1
     return out.sqrt()
 
 
@@ -143,7 +153,7 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100 (227 KB
 class FlashPlan(NamedTuple):
     """How the forward kernels tile one call (the host side of ``Plan`` in
     ``csrc/flash_attention_wgmma.cu``)."""
-    kernel: str        # "wgmma": kernels 1/2 and 7/8 alike
+    kernel: str        # "wgmma": kernels 1/2 and 7/8 alike; "simt": the fp32 form
     tile_rows: int     # query rows a block: what lkgd_flash_block_rows answers
     key_tile: int      # keys a K or V tile
     stages: int        # K/V tiles in flight (ring slots)
@@ -153,14 +163,22 @@ class FlashPlan(NamedTuple):
 
 
 def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
-               sm_count: int = 132) -> FlashPlan:
+               sm_count: int = 132, fp32: bool = False) -> FlashPlan:
     """The tiling of a forward call over (b, s_q | s_k, h, d): a pure function of the
     shapes, static by d. The training forward (``lse``) is the inference kernel with one
     more store a row, so it tiles the same way; ``s_k`` sets only the length of a
-    block's loop."""
-    if d <= 0 or d % 8 or d > FWD_MAX_D:
-        raise ValueError(f"flash_plan: head dim {d} (lse={lse}) is not built")
+    block's loop. ``fp32``: the fp32 form (``F32Plan`` in ``csrc/flash_attention_f32.cu``):
+    64 query rows a block of 256 threads, Q resident, 64-key tiles with K streamed 32
+    columns and V 64 columns at a time."""
+    if d <= 0 or d % 8 or d > FWD_MAX_D or (fp32 and lse):
+        raise ValueError(f"flash_plan: head dim {d} (lse={lse}, fp32={fp32}) is not built")
     dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+    if fp32:
+        # rows of four floats of padding: Q (64 x DP), a K chunk (64 x 32), P^T and a V
+        # chunk (64 x 64 each)
+        smem = 4 * (64 * (dp + 4) + 64 * 36 + 2 * 64 * 68)
+        blocks = b * h * math.ceil(s_q / 64)
+        return FlashPlan("simt", 64, 64, 1, smem, blocks, blocks / sm_count)
     rows = keys = 128 if dp <= 128 else 64
     stages = {64: 6, 128: 4, 256: 4, 512: 2}[dp]
     # 1024 of alignment slack, Q, the ring, one Q barrier and a full/empty pair a slot
@@ -300,7 +318,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Non-causal softmax attention over ``(B, S, H, D)`` tensors, no mask.
 
     CPU tensors: the plain version of the selected kernel. CUDA tensors: the kernels
-    (bf16 only), or an error."""
+    (bf16, or fp32 through their fp32 form), or an error."""
     if q.device.type == "cpu":
         plain = (flash_attention_maxtrack_plain if maxtrack_selected()
                  else flash_attention_bound_plain)
@@ -308,21 +326,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _flash_cuda(q, k, v)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra) -> None:
+TRAIN_DTYPE_ERROR = ("the training kernels (7-10: the LSE forwards and the backward) are "
+                     "built for bfloat16 only")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra, fp32: bool = False) -> None:
     """Raise on what the kernels do not take; ``extra``: (name, tensor) pairs laid out
-    like q (dO in the backward)."""
+    like q (dO in the backward); ``fp32``: float32 is taken too (the inference forward's
+    fp32 form), with all of q, k, v of one dtype."""
     index = q.get_device()
     for name, x in (("q", q), ("k", k), ("v", v), *extra):
         if not x.is_cuda or x.get_device() != index:
             raise ValueError(f"flash_attention: {name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: the CUDA kernels take bfloat16, {name} is "
-                            f"{x.dtype}")
+        if x.dtype != torch.bfloat16 and not (fp32 and x.dtype == torch.float32):
+            raise TypeError(f"flash_attention: the CUDA kernels take bfloat16"
+                            f"{' or float32' if fp32 else ''}, {name} is {x.dtype}"
+                            f"{'' if fp32 else '; ' + TRAIN_DTYPE_ERROR}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {x.dtype}, q {q.dtype}")
         st = x.stride()
         if len(st) != 4 or st[3] != 1:
             raise ValueError(f"flash_attention: {name} must be (B, S, H, D) with unit D "
                              f"stride, got shape {tuple(x.shape)} strides {st}")
-        if st[0] % 8 or st[1] % 8 or st[2] % 8 or x.data_ptr() % 16:
+        per_row = 16 // x.element_size()  # elements of 16 bytes
+        if st[0] % per_row or st[1] % per_row or st[2] % per_row or x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} strides {st} and address must allow "
                              f"16-byte rows")
     b, s_q, h, d = q.shape
@@ -342,12 +369,14 @@ def _check_bwd(q: torch.Tensor) -> None:
 
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
-    """The inference forward (kernels 1/2) or, ``with_lse``, the training forward
-    (kernels 7/8) that also returns lse (B, H, S_q): one call into C for all its launches."""
-    _check(q, k, v)
+    """The inference forward (kernels 1/2, bf16 or their fp32 form) or, ``with_lse``, the
+    training forward (kernels 7/8, bf16) that also returns lse (B, H, S_q): one call into C
+    for all its launches."""
+    _check(q, k, v, fp32=not with_lse)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
-    plan = flash_plan(b, s_q, s_k, h, d, with_lse)
+    fp32 = q.dtype == torch.float32
+    plan = flash_plan(b, s_q, s_k, h, d, with_lse, fp32=fp32)
     if plan.blocks >= 2 ** 31:
         raise ValueError(f"flash_attention: {plan.blocks} blocks exceed the grid")
     bound = not maxtrack_selected()
@@ -366,10 +395,10 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, s_q, s_k, d,
         d ** -0.5 * LOG2E, None if scratch is None else scratch.data_ptr(),
         recomputed_tiles(q.device).data_ptr(), None if lse is None else lse.data_ptr(),
-        int(bound), *stream_of(q.device)))
-    suffix = "_lse" if with_lse else ""
+        int(bound), int(fp32), *stream_of(q.device)))
+    suffix = "_lse" if with_lse else "_fp32" if fp32 else ""
     if bound:  # the key norms, the bound kernel and its guard
-        launches["flash_key_norm"] += 1
+        launches["flash_key_norm" + ("_fp32" if fp32 else "")] += 1
         launches["flash_bound" + suffix] += 1
     launches["flash_maxtrack" + suffix] += 1
     return (out, lse) if with_lse else out
@@ -564,6 +593,9 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
+        if q.is_cuda and q.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention with a gradient: q is {q.dtype}; "
+                            f"{TRAIN_DTYPE_ERROR} (ROADMAP.md Queue 2)")
         _check_bwd(q)
         ctx.split = q.shape[2] > 1
         if ctx.split:

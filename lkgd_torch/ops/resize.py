@@ -93,8 +93,8 @@ def _antialias_matrices_on(in_h: int, in_w: int, out_h: int, out_w: int,
 
 @functools.lru_cache(maxsize=32)
 def _bilinear_matrix_on(in_n: int, out_n: int, device: torch.device,
-                        dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(bilinear_matrix(in_n, out_n)).to(device, dtype)
+                        dtype: torch.dtype, antialias: bool = True) -> torch.Tensor:
+    return torch.from_numpy(bilinear_matrix(in_n, out_n, antialias)).to(device, dtype)
 
 
 def resize_with_antialiasing(images: torch.Tensor, size) -> torch.Tensor:
@@ -110,12 +110,12 @@ def resize_with_antialiasing(images: torch.Tensor, size) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def bilinear_matrix(in_n: int, out_n: int) -> np.ndarray:
-    """(out_n, in_n) fp32 weights of JAX's antialiased bilinear resize along one axis:
-    half-pixel centres, a triangle kernel of half-width max(in/out, 1), each row
-    renormalised to sum to one."""
+def bilinear_matrix(in_n: int, out_n: int, antialias: bool = True) -> np.ndarray:
+    """(out_n, in_n) fp32 weights of JAX's bilinear resize along one axis: half-pixel
+    centres, a triangle kernel of half-width max(in/out, 1) (1 without ``antialias``), each
+    row renormalised to sum to one."""
     inv_scale = in_n / out_n
-    kernel_scale = max(inv_scale, 1.0)
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
     sample = (np.arange(out_n, dtype=np.float64) + 0.5) * inv_scale - 0.5
     x = np.abs(sample[:, None] - np.arange(in_n, dtype=np.float64)[None, :]) / kernel_scale
     w = np.maximum(0.0, 1.0 - x)
@@ -126,14 +126,14 @@ def bilinear_matrix(in_n: int, out_n: int) -> np.ndarray:
     return np.where(inside[:, None], w, 0.0).astype(np.float32)
 
 
-def resize_bilinear(images: torch.Tensor, size) -> torch.Tensor:
+def resize_bilinear(images: torch.Tensor, size, antialias: bool = True) -> torch.Tensor:
     """(..., H, W, C) -> (..., size[0], size[1], C) as ``jax.image.resize(method=
-    "bilinear")``, in images.dtype."""
+    "bilinear", antialias=antialias)``, in images.dtype."""
     out_h, out_w = size
     in_h, in_w = images.shape[-3], images.shape[-2]
     if (in_h, in_w) == (out_h, out_w):
         return images
-    m_h, m_w = (_bilinear_matrix_on(i, o, images.device, images.dtype)
+    m_h, m_w = (_bilinear_matrix_on(i, o, images.device, images.dtype, antialias)
                 for i, o in ((in_h, out_h), (in_w, out_w)))
     x = torch.einsum("oh,...hwc->...owc", m_h, images)
     return torch.einsum("ow,...hwc->...hoc", m_w, x)

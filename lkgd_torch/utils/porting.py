@@ -46,6 +46,12 @@ kohya spelling into a module's ``lora_<name>_A/B`` parameters: the inverse of
 ``export_lora_state_dict`` and the counterpart of the JAX package's functions of the same
 names.
 
+``inception_state_dict`` and ``i3d_state_dict`` carry the nested parameter dicts of the JAX
+package's FID InceptionV3 and FVD I3D (``lkgd_tpu/eval/fid_inception.py``,
+``lkgd_tpu/eval/i3d.py``) into pytorch-fid's and pytorch-i3d's ``state_dict`` names, the
+inverse of their ``port_torch_state_dict``: HWIO convolution kernels -> OIHW, DHWIO -> OIDHW,
+BatchNorm's ``mean`` and ``var`` -> ``running_mean`` and ``running_var`` as they are.
+
 ``save_safetensors`` and ``load_safetensors`` write and read a state dict in the
 safetensors format with numpy alone (the card's machine has no ``safetensors`` package).
 """
@@ -321,6 +327,40 @@ def port_lora_safetensors(state_dict: Mapping[str, np.ndarray], module: torch.nn
         raise ValueError(f"missing {len(missing)} adapter params, e.g. {missing[:5]}; unused "
                          f"{len(unused)} LoRA keys, e.g. {unused[:5]}")
     return len(loaded)
+
+
+_BN_NAMES = {"weight": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _feature_state_dict(params: Mapping, conv: str, layout) -> Dict[str, torch.Tensor]:
+    """Nested ``{unit: {conv: {"kernel", ["bias"]}, ["bn": {...}]}}`` -> flat torch names;
+    ``layout`` turns a kernel into torch's layout."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        if conv in node:
+            for name, x in node[conv].items():
+                x = np.asarray(x, np.float32)
+                out[f"{prefix}{conv}.{'weight' if name == 'kernel' else name}"] = (
+                    layout(x) if name == "kernel" else x)
+            for name, x in node.get("bn", {}).items():
+                out[f"{prefix}bn.{_BN_NAMES[name]}"] = np.asarray(x, np.float32)
+            return
+        for key, child in node.items():
+            walk(child, f"{prefix}{key}.")
+
+    walk(params, "")
+    return {k: torch.from_numpy(np.array(v, copy=True, order="C")) for k, v in out.items()}
+
+
+def inception_state_dict(jax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX FID InceptionV3's params (nested dicts of arrays) -> pytorch-fid names."""
+    return _feature_state_dict(jax_params, "conv", lambda x: x.transpose(3, 2, 0, 1))
+
+
+def i3d_state_dict(jax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX I3D's params (nested dicts of arrays) -> pytorch-i3d names."""
+    return _feature_state_dict(jax_params, "conv3d", lambda x: x.transpose(4, 3, 0, 1, 2))
 
 
 def save_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:

@@ -239,11 +239,120 @@ def test_flash_kernel_reads_projection_memory(cuda_device, monkeypatch):
     assert seen and seen[0] == outputs[0].data_ptr()
 
 
+# the fp32 form against the plain version in fp32 (no TF32 anywhere): summation order over
+# up to 4096 keys alone, at most 3.2e-6 of max|ref| on an H100
+FP32_TOL = 2e-5
+# the precompute encode's mid block, a small head dim and a wider batch, the guard input
+FP32_SHAPES = [((14, 4096, 1, 512), 1.0), ((1, 1024, 1, 64), 1.0), ((2, 1100, 3, 40), 1.0),
+               ((1, 1100, 1, 512), 3.0)]
+
+
 @pytest.mark.cuda
-def test_flash_kernel_rejects_fp32(cuda_device):
-    q, k, v = (x.float() for x in _qkv(cuda_device, (1, 1024, 1, 64)))
-    with pytest.raises(TypeError):
+@pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound", "flash_maxtrack"])
+@pytest.mark.parametrize("shape,scale", FP32_SHAPES,
+                         ids=["encode_mid_block", "d64", "d40_ragged", "guard"])
+def test_flash_fp32_kernel_matches_plain(cuda_device, monkeypatch, shape, scale, maxtrack):
+    """The fp32 form of kernels 1, 2 and 1a: one call into C, fp32 out, the guard input
+    (norms x3 at D=512: every row underflows the bound) recomputed by kernel 2, and two
+    launches bit-identical."""
+    if maxtrack:
+        monkeypatch.setenv("LKGD_FLASH_MAXTRACK", "1")
+    q, k, v = (_randn(cuda_device, shape, scale if i < 2 else 1.0, seed=i) for i in range(3))
+    counter = tfa.recomputed_tiles(cuda_device)
+    counter.zero_()
+    before = dict(tfa.launches)
+    got = tfa.flash_attention(q, k, v)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, tfa.flash_attention(q, k, v))
+    delta = {n: tfa.launches[n] - before[n] for n in tfa.launches}
+    assert delta == {**dict.fromkeys(tfa.launches, 0), "flash_maxtrack_fp32": 2,
+                     "flash_bound_fp32": 0 if maxtrack else 2,
+                     "flash_key_norm_fp32": 0 if maxtrack else 2}
+    want = torch.cat([tfa.flash_attention_maxtrack_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                      for i in range(shape[0])])
+    assert _rel_err(got, want) <= FP32_TOL
+    assert (counter.item() > 0) == (scale > 1.0 and not maxtrack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 64, 128, 256, 512])
+def test_flash_fp32_plan_is_the_kernels_tiling(cuda_device, d):
+    from lkgd_torch.ops import _build
+
+    lib = _build.library()
+    plan = tfa.flash_plan(1, 1024, 1024, 1, d, fp32=True)
+    assert plan.tile_rows == lib.lkgd_flash_f32_block_rows()
+    assert plan.smem_bytes == lib.lkgd_flash_f32_smem_bytes(d)
+    assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_fp16(cuda_device):
+    q, k, v = (x.half() for x in _qkv(cuda_device, (1, 1024, 1, 64)))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         tfa.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+def test_flash_fp32_with_gradient_raises(cuda_device):
+    """The training kernels (7-10) are bf16 only: an fp32 call that needs a gradient raises
+    before any launch, and so does the fp32 LSE forward."""
+    from lkgd_torch.ops.attention import dot_product_attention
+
+    q, k, v = (_randn(cuda_device, (1, 1024, 2, 64), seed=i).requires_grad_() for i in range(3))
+    before = dict(tfa.launches)
+    with pytest.raises(TypeError, match="7-10"):
+        dot_product_attention(q, k, v)
+    with pytest.raises(TypeError, match="7-10"):
+        tfa.flash_fwd_lse(q.detach(), k.detach(), v.detach())
+    assert tfa.launches == before
+
+
+def _tiny_precompute(device):
+    from lkgd_torch.cli import precompute_cache as pc
+    from lkgd_torch.models.configs import CLIPVisionConfig, TemporalVAEConfig
+
+    widths = pc.Widths(vae=TemporalVAEConfig(block_out_channels=(32, 64), layers_per_block=1),
+                       clip=CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=64,
+                                             num_layers=2, num_heads=2, intermediate_size=128,
+                                             projection_dim=32))
+    args = pc.make_parser().parse_args(["--video-folder", ".", "--output", "x", "--device",
+                                        str(device)])
+    return pc, pc.build(args, widths)
+
+
+@pytest.mark.cuda
+def test_tiny_precompute_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The precompute encode at tiny widths on 64 x 64 frames (the VAE's mid block at 1024
+    tokens: the fp32 flash form), the card's weights copied from the CPU's; TF32 off."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    pc, cpu = _tiny_precompute("cpu")
+    _, gpu = _tiny_precompute(cuda_device)
+    gpu.vae.load_state_dict(cpu.vae.state_dict())
+    gpu.clip.load_state_dict(cpu.clip.state_dict())
+    frames = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(0)).numpy()
+    before = tfa.launches["flash_bound_fp32"]
+    got, want = pc.encode_clip(gpu, frames), pc.encode_clip(cpu, frames)
+    assert tfa.launches["flash_bound_fp32"] == before + 1
+    for name in want:
+        torch.testing.assert_close(got[name].cpu(), want[name], rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_inception_gpu_matches_cpu(cuda_device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from lkgd_torch.eval.fid_inception import InceptionV3
+
+    cpu = InceptionV3().eval()
+    cpu.init_synthetic(torch.Generator().manual_seed(0))
+    gpu = InceptionV3().eval().to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    images = torch.rand((2, 299, 299, 3), generator=torch.Generator().manual_seed(1))
+    want = cpu(images)
+    got = gpu(images.to(cuda_device)).cpu()
+    torch.testing.assert_close(got / want.abs().max(), want / want.abs().max(), rtol=1e-4,
+                               atol=2e-4)
 
 
 def _gn_inputs(device, shape, dtype, mean=0.5, std=2.0):

@@ -213,14 +213,18 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "cogvideox_cli", "unimatch", "train_cogvideox_lora",
                                    "embed_text", "t5_encoder", "sd2d_inpaint_pipeline",
                                    "sd2d_joint_control_pipeline", "sd2d_condition_pipeline",
-                                   "sd2d_cli", "sd2d_training"])
+                                   "sd2d_cli", "sd2d_training", "precompute_cache_cli",
+                                   "compute_metrics_cli", "inception", "i3d"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import (embed_text, run_inference_cogvideox, run_inference_sd2d,
+    from lkgd_torch.cli import (compute_metrics, embed_text, precompute_cache,
+                                run_inference_cogvideox, run_inference_sd2d,
                                 run_inference_svd, train_cogvideox_lora, train_svd_lora)
+    from lkgd_torch.eval.fid_inception import build_inception
+    from lkgd_torch.eval.i3d import build_i3d
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
@@ -284,6 +288,12 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "sd2d_condition_pipeline": lambda: sd2d.StableDiffusionConditionPipeline(),
         "sd2d_cli": lambda: run_inference_sd2d.main(["--image", str(tmp_path / "a.png")]),
         "sd2d_training": lambda: build_sd2d_training(tcfg.UNet2DConfig()),
+        "precompute_cache_cli": lambda: precompute_cache.main(
+            ["--video-folder", str(tmp_path), "--output", str(tmp_path / "c.lkgd")]),
+        "compute_metrics_cli": lambda: compute_metrics.main(
+            ["--generated", str(tmp_path), "--reference", str(tmp_path)]),
+        "inception": lambda: build_inception(),
+        "i3d": lambda: build_i3d(),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
