@@ -41,12 +41,15 @@ each printing its own lines; any failure raises and the script exits non-zero:
    4096, 320), eps 1e-6, with and without SiLU: each against its plain version with the
    tolerances of phases 3 and 6, its device time under ``torch.profiler`` beside its
    wrapper's (which of the two sets the pace), the library call's time and the bound;
-3f. the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``) against the plain
-   fp32 version (max |d| <= 2e-5 * max|ref|: summation order alone) at the precompute
-   encode's mid block (14, 4096, 1, 512), (1, 1024, 1, 64), (2, 4096, 1, 512) and an input
-   that trips the guard: a second launch bit-identical, one C call a forward, device time
-   beside the wrapper's, the plain version's, the library's fp32 SDPA and the bound at 67
-   TFLOP/s;
+3f. the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``: 3xTF32 products on
+   wgmma after a pre-pass) against the plain fp32 version (max |d| <= 2e-5 * max|ref|, TF32
+   off) at the precompute encode's mid block (14, 4096, 1, 512), (1, 1024, 1, 64), (2,
+   4096, 1, 512), an input that trips the guard and the fp32 inference path's (2, 9216, 5,
+   64), (4, 2304, 10, 64) and (14, 9216, 1, 512): a second launch bit-identical, one C call
+   a forward, device time (the form's kernel and its pre-pass) beside the wrapper's, the
+   plain version's, the library's fp32 SDPA with the backend that served it and its own
+   max |d|, and the bound of three TF32 products at 495 TFLOP/s (the fp32 FMA bound at 67
+   TFLOP/s beside it);
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
 4h. at fp32, GPU against CPU: the precompute encode at tiny widths on 64x64 frames (the fp32
@@ -294,7 +297,8 @@ VARIANT_TOL = {"base": 1e-2, "prescale": 1e-2, "noexp": 1e-2, "bf16exp": 3e-2,
                "prescale_bf16exp": 3e-2}
 MATMUL_TOL = 1e-2  # of max|ref|: fp32 accumulation, one bf16 rounding of the output
 # the card's published peaks (H100 SXM): device memory, bf16 tensor cores, fp32 outside them
-PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
+# and TF32 on them
+PEAK_BYTES, PEAK_BF16, PEAK_FP32, PEAK_TF32 = 3.35e12, 989e12, 67e12, 495e12
 SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_maxtrack": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_key_norm": "lkgd_torch/csrc/flash_attention_wgmma.cu",
@@ -849,7 +853,7 @@ def phase_tiny_joint(dev: torch.device, mode: str) -> None:
             torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
 
 
-_KINDS = (("flash attention kernels", ("flash_fwd", "key_sq_max")),
+_KINDS = (("flash attention kernels", ("flash_fwd", "key_sq_max", "tf32_split")),
           ("GroupNorm kernels", ("gn_",)),
           ("cuDNN convolutions", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
           ("cuBLAS matrix products", ("gemm", "cutlass", "nvjet", "cublas", "gemv")),
@@ -3958,12 +3962,18 @@ def phase_train_sd2d_full(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------------- data in and metrics out
-FP32_TOL = 2e-5  # fp32 flash form vs its plain version, of max|ref|: summation order alone
+# fp32 flash form vs its plain version (TF32 off), of max|ref|: the 3xTF32 split's
+# rounding, the tensor core's truncating sums and summation order
+FP32_TOL = 2e-5
 FP32_FLASH = (("precompute encode mid block", (14, 4096, 1, 512), 1.0),
               ("small head dim", (1, 1024, 1, 64), 1.0),
               ("encode mid block, two frames", (2, 4096, 1, 512), 1.0),
               # norms x3 at D=512: every row underflows the bound, the guard recomputes
-              ("guard input", (1, 1100, 1, 512), 3.0))
+              ("guard input", (1, 1100, 1, 512), 3.0),
+              # run_inference_svd --dtype fp32: UNet levels 0 and 1, the decode's mid block
+              ("fp32 UNet level 0", (2, 9216, 5, 64), 1.0),
+              ("fp32 UNet level 1", (4, 2304, 10, 64), 1.0),
+              ("fp32 whole-clip decode mid block", (14, 9216, 1, 512), 1.0))
 FP32_GN = (("encode level 0", (14, 262144, 128), ("silu",)),
            ("encode level 1", (14, 65536, 256), ("silu",)),
            ("encode level 2", (14, 16384, 512), ("silu",)),
@@ -3996,16 +4006,41 @@ def _one_c_call(fn) -> int:
     return len(calls)
 
 
+def _sdpa_backend(q, k, v):
+    """The backend that serves ``scaled_dot_product_attention`` on these (B, S, H, D)
+    inputs by default (the one whose output alone is bit-identical to the default call's),
+    and that output."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    default = F.scaled_dot_product_attention(qt, kt, vt)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt)
+        except RuntimeError:
+            continue
+        if torch.equal(out, default):
+            return backend.name, default.transpose(1, 2)
+    return "unknown", default.transpose(1, 2)
+
+
 def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
-    """3f: the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``) against the
-    plain fp32 version (max |d| <= FP32_TOL * max|ref|) at the precompute encode's mid block
-    (14, 4096, 1, 512), (1, 1024, 1, 64), (2, 4096, 1, 512) and an input that trips the
-    guard; a second launch bit-identical, one C call a forward; device time under the
-    profiler beside the wrapper's, the plain version's, the library's fp32 SDPA and the
-    bound at 67 TFLOP/s. Returns the rows by kernel: the first shape's, the others under
-    ``shapes``."""
+    """3f: the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``: 3xTF32 on
+    wgmma after its pre-pass) against the plain fp32 version (max |d| <= FP32_TOL *
+    max|ref|, TF32 off) at the precompute encode's mid block (14, 4096, 1, 512), (1, 1024,
+    1, 64), (2, 4096, 1, 512), an input that trips the guard and the fp32 inference path's
+    (2, 9216, 5, 64), (4, 2304, 10, 64) and (14, 9216, 1, 512); a second launch
+    bit-identical, one C call a forward; device time under the profiler (the form's kernel
+    and the pre-pass) beside the wrapper's, the plain version's, the library's fp32 SDPA
+    (its backend and its own max |d| against the plain version) and the bound: three TF32
+    products at 495 TFLOP/s (the fp32 FMA bound at 67 TFLOP/s beside it). Returns the rows
+    by kernel: the first shape's, the others under ``shapes``."""
     from lkgd_torch.ops import flash_attention as fa
 
+    assert not torch.backends.cuda.matmul.allow_tf32
     rows: dict = {}
     for label, shape, scale in FP32_FLASH:
         b, s, h, d = shape
@@ -4013,9 +4048,14 @@ def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                    for i in range(3))
         want = in_row_chunks(fa.flash_attention_maxtrack_plain, (q, k, v), rows=1)
         ref_max = want.abs().max().item()
-        # 4 S^2 D fp32 operations a (batch, head); q, k, v read and o written once, fp32
-        least = bound(4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_FP32)
+        # three TF32 products of 4 S^2 D operations a (batch, head); q, k, v read and o
+        # written once, fp32; the fp32 FMA bound of the same products beside it
+        least = bound(3 * 4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_TF32)
+        fma_ms = bound(4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_FP32)["bound_ms"]
         lib_ms = sdpa_ms(q, k, v, reps=5)
+        backend, lib_out = _sdpa_backend(q, k, v)
+        lib_err = (lib_out - want).abs().max().item()
+        del lib_out
         for kernel, plain, form in (("flash_bound_fp32", fa.flash_attention_bound_plain, "true>"),
                                     ("flash_maxtrack_fp32", fa.flash_attention_maxtrack_plain,
                                      "false>")):
@@ -4032,19 +4072,29 @@ def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 delta = {n: fa.launches[n] - before[n] for n in fa.launches
                          if fa.launches[n] != before[n]}
                 calls = _one_c_call(lambda: fa.flash_attention(q, k, v))
-                t = _timed_kernel(lambda: fa.flash_attention(q, k, v), "flash_fwd_f32_kernel<",
-                                  form)
+                device = _device_kernel_ms(lambda: fa.flash_attention(q, k, v))
+                wrapper_ms = gpu_ms(lambda: fa.flash_attention(q, k, v), 20)
             finally:
                 os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+            main_ms = sum(t for n, t in device.items()
+                          if n.startswith("flash_fwd_tf32_kernel<") and n.endswith(form))
+            split_ms = sum(t for n, t in device.items() if n.startswith("tf32_split_kernel<"))
+            assert main_ms > 0.0 and split_ms > 0.0, device
+            # the kernel's time: its main kernel and the pre-pass that feeds it
+            t = {"ms": main_ms + split_ms, "main_ms": main_ms, "split_ms": split_ms,
+                 "call_device_ms": sum(device.values()), "wrapper_ms": wrapper_ms}
             err = (out - want).abs().max().item()
             plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows=1), reps=1)
             print(f"[fp32-kernel] {kernel} {label} (B,S,H,D)={shape}: max|d| {err:.3e} of max|ref| "
-                  f"{ref_max:.3e} (tol {FP32_TOL} x max|ref|) | {_paced(t)} | plain {plain_ms:.3f} "
-                  f"ms (one row at a time), library sdpa fp32 {lib_ms:.4f} ms, bound "
-                  f"{least['bound_ms']:.4f} ms by {least['bound_by']} "
-                  f"({_versus(t['ms'], lib_ms, least)}) | tiles recomputed {recomputed} | second "
-                  f"launch bit-identical {torch.equal(out, again)} | C calls a forward {calls} | "
-                  f"launches of two forwards {delta}", flush=True)
+                  f"{ref_max:.3e} (tol {FP32_TOL} x max|ref|) | {_paced(t)}: main "
+                  f"{main_ms:.4f} + pre-pass {split_ms:.4f} ms | plain {plain_ms:.3f} ms (one row "
+                  f"at a time), library sdpa fp32 {lib_ms:.4f} ms ({backend}, max|d| "
+                  f"{lib_err:.3e}), bound {least['bound_ms']:.4f} ms by {least['bound_by']} at "
+                  f"495 TFLOP/s TF32 x3 ({_versus(t['ms'], lib_ms, least)}; fp32 FMA bound "
+                  f"{fma_ms:.4f} ms at 67 TFLOP/s: {100 * fma_ms / t['ms']:.1f}%) | tiles "
+                  f"recomputed {recomputed} | second launch bit-identical "
+                  f"{torch.equal(out, again)} | C calls a forward {calls} | launches of two "
+                  f"forwards {delta}", flush=True)
             assert out.dtype == torch.float32 and torch.equal(out, again) and calls == 1
             assert np.isfinite(err) and err <= FP32_TOL * ref_max, (kernel, label, err, ref_max)
             bound_form = kernel == "flash_bound_fp32"
@@ -4052,10 +4102,11 @@ def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                              "flash_key_norm_fp32": 2} if bound_form else {})}, delta
             assert (recomputed > 0) == (scale > 1.0 and bound_form), recomputed
             row = {"shape": list(shape), "max_abs_err": err, **t, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, **least}
+                   "library_ms": lib_ms, "library_backend": backend,
+                   "library_max_abs_err": lib_err, **least, "bound_fp32_fma_ms": fma_ms}
             rows.setdefault(kernel, []).append(row)
         rows.setdefault("flash_key_norm_fp32", []).append(_key_norm_row("fp32-kernel", label, k))
-        del q, k, v, want
+        del q, k, v, want, out, again
         torch.cuda.empty_cache()
     out = {name: {**found[0], "shapes": found[1:]} for name, found in rows.items()}
     # kernels 3/4 in fp32 at the precompute encoder's four levels (eps 1e-6; the mid

@@ -53,8 +53,10 @@
 #include "flash_wgmma.cuh"
 
 namespace lkgd {  // the fp32 form (flash_attention_f32.cu)
-int flash_f32_block_rows();
+int flash_f32_block_rows(int d);
 int flash_f32_smem_bytes(int d);
+int flash_f32_stages(int d);
+long long flash_f32_scratch_floats(int batch, int heads, int s_q, int s_k, int d);
 cudaError_t flash_key_sq_max_f32(const float* k, const Strides& ks, int batch, int heads, int s_k,
                                  int d, float* out, cudaStream_t stream);
 cudaError_t flash_forward_f32(const void* q, const void* k, const void* v, void* o,
@@ -472,11 +474,12 @@ int lkgd_flash_smem_bytes(int d) {
 // after the key-norm kernel, then the max-tracking kernel as its guard, all on `stream` from
 // this one call; scratch: B*H floats for the squared key norms, then B*H * (query tiles) for
 // the bound kernel's smallest row sums. bound=0: the max-tracking kernel alone, no scratch.
+// The fp32 form takes scratch with either: lkgd_flash_f32_scratch_floats floats.
 int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
                        const void* strides, int batch, int heads, int s_q, int s_k, int d,
                        float scale_log2, float* scratch, int* recomputed, float* lse, int bound,
                        int fp32, int device, void* stream) {
-  if (d <= 0 || d > 512 || d % 8 != 0 || (bound && scratch == nullptr) ||
+  if (d <= 0 || d > 512 || d % 8 != 0 || ((bound || fp32) && scratch == nullptr) ||
       (fp32 && lse != nullptr))
     return int(cudaErrorInvalidValue);
   // cudaSetDevice also makes the device's context current on this thread, which
@@ -525,10 +528,17 @@ int lkgd_flash_key_sq_max(const void* k, const long long* strides, int batch, in
   return int(key_sq_max(k, ks, batch, heads, s_k, d, out, s));
 }
 
-// Query rows a block and dynamic shared memory of the fp32 form's block for a head dim d.
-int lkgd_flash_f32_block_rows() { return lkgd::flash_f32_block_rows(); }
+// Query rows a block, dynamic shared memory and ring slots of the fp32 form's block for a
+// head dim d, and the floats of scratch its forward takes.
+int lkgd_flash_f32_block_rows(int d) { return lkgd::flash_f32_block_rows(d); }
 
 int lkgd_flash_f32_smem_bytes(int d) { return lkgd::flash_f32_smem_bytes(d); }
+
+int lkgd_flash_f32_stages(int d) { return lkgd::flash_f32_stages(d); }
+
+long long lkgd_flash_f32_scratch_floats(int batch, int heads, int s_q, int s_k, int d) {
+  return lkgd::flash_f32_scratch_floats(batch, heads, s_q, s_k, d);
+}
 
 // The message of a launcher's non-zero return, for every source of the library.
 const char* lkgd_error_string(int err) { return cudaGetErrorString(cudaError_t(err)); }

@@ -1,9 +1,10 @@
 // Hopper-only pieces of the port's warp-specialised kernels: the flash-attention forward
-// (flash_attention_wgmma.cu) and backward (flash_attention_bwd.cu), the forward's variants
-// (flash_variant.cu) and the blocked matrix product (blocked_matmul.cu). mbarriers, TMA tile
-// loads and stores through a tensor map and the host code that encodes the map,
-// shared-memory matrix descriptors for the 128-byte swizzle, and wgmma.mma_async (bf16 in,
-// fp32 in registers). Everything here needs sm_90a.
+// (flash_attention_wgmma.cu) and its fp32 form (flash_attention_f32.cu), the backward
+// (flash_attention_bwd.cu), the forward's variants (flash_variant.cu) and the blocked matrix
+// product (blocked_matmul.cu). mbarriers, TMA tile loads and stores through a tensor map and
+// the host code that encodes the map, shared-memory matrix descriptors for the 128-byte
+// swizzle, and wgmma.mma_async (bf16 in, or tf32 in, fp32 in registers). Everything here
+// needs sm_90a.
 //
 // Shared tiles are "panels": rows of 64 bf16 (128 bytes), eight rows to a 1024-byte swizzle
 // atom, exactly what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and an inner box of 64
@@ -334,6 +335,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a, uin
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------------------------------ wgmma, tf32
+// The tf32 forms take both operands K-major (PTX has no transpose for 32-bit types). A
+// panel row of 32 fp32 is the same 128 bytes, so a k8 step is 32 bytes, as a bf16 k16 step,
+// and smem_desc / desc_advance serve unchanged. The tensor core reads the upper 19 bits of
+// each 32-bit operand. The accumulator is the m64nNk16 one above; the register A operand of
+// a k8 step is four tf32 words of the warp's 16 rows: a[0] row g, depth t4; a[1] row g + 8,
+// depth t4; a[2] row g, depth t4 + 4; a[3] row g + 8, depth t4 + 4.
+
+// x rounded to tf32 (round to nearest, ties away), as a float whose low 13 bits are 0
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 8, shared, K-major) . B (8 x 64: 64 rows of 8, shared, K-major)
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 8, registers) . B (8 x 64: 64 rows of 8, shared, K-major)
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t* a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // ------------------------------------------------------------------ host: tensor maps

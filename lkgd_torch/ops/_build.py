@@ -41,8 +41,10 @@ _SIGNATURES = {
     # packed int64 records go in as bytes (c_char_p): one pointer, no ctypes array to build
     "lkgd_flash_forward": ([_P] * 4 + [_B] + [_I] * 5 + [_F, _P, _P, _P, _I, _I, _I, _P], _I),
     "lkgd_flash_key_sq_max": ([_P, ctypes.POINTER(_LL), _I, _I, _I, _I, _P, _I, _I, _P], _I),
-    "lkgd_flash_f32_block_rows": ([], _I),
+    "lkgd_flash_f32_block_rows": ([_I], _I),
     "lkgd_flash_f32_smem_bytes": ([_I], _I),
+    "lkgd_flash_f32_stages": ([_I], _I),
+    "lkgd_flash_f32_scratch_floats": ([_I] * 5, _LL),
     "lkgd_flash_bwd_block_rows": ([_I, _I], _I),
     "lkgd_flash_bwd_smem_bytes": ([_I, _I], _I),
     "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,

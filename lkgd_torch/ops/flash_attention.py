@@ -42,9 +42,11 @@ outside, from a small kernel of its own (``key_norm_max``; the TPU wrapper compu
 whole bound outside the Pallas kernel too). ``bound_t`` is that arithmetic's plain version.
 A forward is one call into C (``lkgd_flash_forward``), which makes all its launches.
 
-At fp32 the inference forward takes its fp32 form (``csrc/flash_attention_f32.cu``, a plain
-SIMT kernel of fp32 FMAs: no TF32) from the same one call: kernels 1, 2 and 1a with the same
-guard, counted as ``flash_bound_fp32``, ``flash_maxtrack_fp32`` and ``flash_key_norm_fp32``.
+At fp32 the inference forward takes its fp32 form (``csrc/flash_attention_f32.cu``: 3xTF32
+products, hi.hi + hi.lo + lo.hi of each operand split into a tf32 hi and an fp32 lo, on
+``wgmma`` fed by TMA, after a pre-pass that writes the hi and lo planes of q, k and v's
+transpose into scratch) from the same one call: kernels 1, 2 and 1a with the same guard,
+counted as ``flash_bound_fp32``, ``flash_maxtrack_fp32`` and ``flash_key_norm_fp32``.
 The JAX kernels take fp32 operands with fp32 accumulation; the temporal VAE and CLIP-H of
 ``cli/precompute_cache.py`` run in fp32, as the JAX CLI builds them. The training kernels
 (7-10) are bf16 only: an fp32 call that needs a gradient raises.
@@ -150,13 +152,21 @@ def bound_t(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100 (227 KB)
 
 
+F32_ROWS = 128  # query rows a block of the fp32 form at D <= 128 (64 above)
+F32_UNIT = 16384  # bytes of a unit of its ring: 64 rows x 32 fp32, hi and lo
+
+
+def _padded(d: int) -> int:
+    return 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+
+
 class FlashPlan(NamedTuple):
     """How the forward kernels tile one call (the host side of ``Plan`` in
     ``csrc/flash_attention_wgmma.cu``)."""
-    kernel: str        # "wgmma": kernels 1/2 and 7/8 alike; "simt": the fp32 form
+    kernel: str        # "wgmma": kernels 1/2 and 7/8 alike; "tf32x3": the fp32 form
     tile_rows: int     # query rows a block: what lkgd_flash_block_rows answers
     key_tile: int      # keys a K or V tile
-    stages: int        # K/V tiles in flight (ring slots)
+    stages: int        # ring slots: K/V tiles in flight (the fp32 form: 16 KB units)
     smem_bytes: int    # dynamic shared memory a block asks for
     blocks: int        # the grid
     waves: float       # blocks over the SMs (one block an SM: its registers allow no more)
@@ -167,18 +177,24 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
     """The tiling of a forward call over (b, s_q | s_k, h, d): a pure function of the
     shapes, static by d. The training forward (``lse``) is the inference kernel with one
     more store a row, so it tiles the same way; ``s_k`` sets only the length of a
-    block's loop. ``fp32``: the fp32 form (``F32Plan`` in ``csrc/flash_attention_f32.cu``):
-    64 query rows a block of 256 threads, Q resident, 64-key tiles with K streamed 32
-    columns and V 64 columns at a time."""
+    block's loop. ``fp32``: the fp32 form (``Plan`` in ``csrc/flash_attention_f32.cu``):
+    64-key tiles; a ring of 16 KB units (64 rows x 32 fp32, hi and lo) filling what Q leaves
+    of the block's shared memory; D <= 128: 128 query rows a block, Q's hi and lo resident;
+    D = 256: 64 rows, Q resident; D = 512: 64 rows, Q streamed through the ring and 64 KB
+    for the halves of S the two warpgroups exchange."""
     if d <= 0 or d % 8 or d > FWD_MAX_D or (fp32 and lse):
         raise ValueError(f"flash_plan: head dim {d} (lse={lse}, fp32={fp32}) is not built")
-    dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+    dp = _padded(d)
     if fp32:
-        # rows of four floats of padding: Q (64 x DP), a K chunk (64 x 32), P^T and a V
-        # chunk (64 x 64 each)
-        smem = 4 * (64 * (dp + 4) + 64 * 36 + 2 * 64 * 68)
-        blocks = b * h * math.ceil(s_q / 64)
-        return FlashPlan("simt", 64, 64, 1, smem, blocks, blocks / sm_count)
+        rows = F32_ROWS if dp <= 128 else 64
+        q_bytes = 0 if dp > 256 else rows // 64 * dp // 32 * F32_UNIT
+        x_bytes = 4 * 64 * 64 * 4 if dp > 256 else 0  # S's halves exchanged, two tiles' worth
+        # 1024 of alignment slack and 512 for the barriers; one Q barrier and a full/empty
+        # pair a slot
+        stages = (SMEM_LIMIT - 1536 - q_bytes - x_bytes) // F32_UNIT
+        smem = 1024 + q_bytes + x_bytes + stages * F32_UNIT + 8 * (1 + 2 * stages)
+        blocks = b * h * math.ceil(s_q / rows)
+        return FlashPlan("tf32x3", rows, 64, stages, smem, blocks, blocks / sm_count)
     rows = keys = 128 if dp <= 128 else 64
     stages = {64: 6, 128: 4, 256: 4, 512: 2}[dp]
     # 1024 of alignment slack, Q, the ring, one Q barrier and a full/empty pair a slot
@@ -384,7 +400,12 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if with_lse
            else None)
     scratch = None
-    if bound:
+    if fp32:
+        _check_pairs(b, h)  # the pre-pass's grid too
+        # the pre-pass's hi and lo planes of q, k and V^T, |q_i|^2, then the bound's scratch
+        scratch = torch.empty(_build.library().lkgd_flash_f32_scratch_floats(b, h, s_q, s_k, d),
+                              dtype=torch.float32, device=q.device)
+    elif bound:
         _check_pairs(b, h)
         # (B*H) largest squared key norms, then (B*H, query tiles) smallest row sums
         scratch = torch.empty(b * h * (1 + math.ceil(s_q / plan.tile_rows)),

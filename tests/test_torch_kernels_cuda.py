@@ -239,18 +239,21 @@ def test_flash_kernel_reads_projection_memory(cuda_device, monkeypatch):
     assert seen and seen[0] == outputs[0].data_ptr()
 
 
-# the fp32 form against the plain version in fp32 (no TF32 anywhere): summation order over
-# up to 4096 keys alone, at most 3.2e-6 of max|ref| on an H100
+# the fp32 form (3xTF32 products, fp32 sums) against the plain version in fp32 (TF32 off):
+# the split's rounding, the tensor core's truncating sums and summation order
 FP32_TOL = 2e-5
-# the precompute encode's mid block, a small head dim and a wider batch, the guard input
+# the precompute encode's mid block, a small head dim and a wider batch, the guard input,
+# and the fp32 inference path's UNet levels 0 and 1 and whole-clip decode mid block
 FP32_SHAPES = [((14, 4096, 1, 512), 1.0), ((1, 1024, 1, 64), 1.0), ((2, 1100, 3, 40), 1.0),
-               ((1, 1100, 1, 512), 3.0)]
+               ((1, 1100, 1, 512), 3.0), ((2, 9216, 5, 64), 1.0), ((4, 2304, 10, 64), 1.0),
+               ((14, 9216, 1, 512), 1.0)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("maxtrack", [False, True], ids=["flash_bound", "flash_maxtrack"])
 @pytest.mark.parametrize("shape,scale", FP32_SHAPES,
-                         ids=["encode_mid_block", "d64", "d40_ragged", "guard"])
+                         ids=["encode_mid_block", "d64", "d40_ragged", "guard", "unet_level0",
+                              "unet_level1", "decode_mid_block"])
 def test_flash_fp32_kernel_matches_plain(cuda_device, monkeypatch, shape, scale, maxtrack):
     """The fp32 form of kernels 1, 2 and 1a: one call into C, fp32 out, the guard input
     (norms x3 at D=512: every row underflows the bound) recomputed by kernel 2, and two
@@ -281,8 +284,16 @@ def test_flash_fp32_plan_is_the_kernels_tiling(cuda_device, d):
 
     lib = _build.library()
     plan = tfa.flash_plan(1, 1024, 1024, 1, d, fp32=True)
-    assert plan.tile_rows == lib.lkgd_flash_f32_block_rows()
+    assert plan.kernel == "tf32x3"
+    assert plan.tile_rows == lib.lkgd_flash_f32_block_rows(d)
     assert plan.smem_bytes == lib.lkgd_flash_f32_smem_bytes(d)
+    assert plan.stages == lib.lkgd_flash_f32_stages(d)
+    # the pre-pass's planes (q, k; V^T with S_k rounded up to 32, hi and lo), |q_i|^2, the
+    # key norms and the tile minimums
+    dp = next(w for w in (64, 128, 256, 512) if d <= w)
+    planes = 2 * 6 * dp * (1100 + 1333 + 1344)
+    assert lib.lkgd_flash_f32_scratch_floats(2, 3, 1100, 1333, d) == \
+        planes + 6 * 1100 + 6 + 6 * -(-1100 // plan.tile_rows)
     assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
 
 
