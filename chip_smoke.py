@@ -52,6 +52,14 @@ each printing its own lines; any failure raises and the script exits non-zero:
    TFLOP/s beside it);
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
+3g. the fp32 form of kernels 1, 2 and 1a at Depth-Anything's DINOv2 attention, (1, 1370, 6,
+   64) and (1, 1370, 12, 64), as 3f holds them, and kernels 3/4 in fp32 (eps 1e-5, no SiLU)
+   at DPT-hybrid's BiT GroupNorm shapes (three at 384x384, all nine of 384x672) as phase 3
+   holds them, each with the library call's time (fp32 SDPA, ``F.group_norm``) and the bound;
+4i. at fp32, GPU against CPU, every parameter random: the tiny RAFT, the point tracker on it,
+   a narrow RIFE (midpoint and 2x), tiny DPT-hybrid and DPT-large, and a tiny-width
+   Depth-Anything at 462x462, whose 1090 tokens run the fp32 flash form on the card (4
+   launches of each of its kernels asserted) and its plain version on the CPU;
 4h. at fp32, GPU against CPU: the precompute encode at tiny widths on 64x64 frames (the fp32
    flash form at the VAE's mid block), InceptionV3 at 299 on 2 images, I3D on (1, 10, 64,
    64, 3), CLIP features and the Frechet distance of each device's features;
@@ -223,6 +231,15 @@ each printing its own lines; any failure raises and the script exits non-zero:
    16 frames at 256x256, InceptionV3 and I3D weights written from ``init_synthetic``: every
    key present and finite, seconds by stage (CLIP-H, InceptionV3 images/s, I3D clips/s, the
    Frechet fits on the host);
+8k. ``lkgd_torch/cli/annotate.py``'s build functions at full width on a synthetic 14x576x1024
+   video, cuDNN's convolutions in TF32 as PyTorch's default runs them (DPT-large and
+   DPT-hybrid one frame each with it off first, where cuDNN picks an FFT convolution):
+   ``flow`` (UniMatch), ``tracks`` (``raft_large`` from a random file of its manifest's keys,
+   loaded strictly), ``depth_anything`` small and base, ``depth_midas``, ``depth`` (random
+   state dicts written and loaded strictly) and RIFE 2x (27 frames): s/clip after a warm-up,
+   peak GiB, one frame (pair) under ``torch.profiler``, the launches of one clip asserted
+   (the fp32 flash form 12 a frame on ``depth_anything``, GroupNorm on ``depth_midas``, none
+   elsewhere), outputs finite and in range;
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
@@ -4027,6 +4044,80 @@ def _sdpa_backend(q, k, v):
     return "unknown", default.transpose(1, 2)
 
 
+def _fp32_flash_case(tag: str, label: str, shape, scale: float, gen: torch.Generator,
+                     rows: dict) -> None:
+    """One case of the fp32 form of kernels 1, 2 and 1a against the plain fp32 version (see
+    3f), its rows appended to ``rows`` by kernel."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    dev = gen.device
+    b, s, h, d = shape
+    q, k, v = (torch.randn(shape, device=dev, generator=gen) * (scale if i < 2 else 1.0)
+               for i in range(3))
+    want = in_row_chunks(fa.flash_attention_maxtrack_plain, (q, k, v), rows=1)
+    ref_max = want.abs().max().item()
+    # three TF32 products of 4 S^2 D operations a (batch, head); q, k, v read and o
+    # written once, fp32; the fp32 FMA bound of the same products beside it
+    least = bound(3 * 4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_TF32)
+    fma_ms = bound(4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_FP32)["bound_ms"]
+    lib_ms = sdpa_ms(q, k, v, reps=5)
+    backend, lib_out = _sdpa_backend(q, k, v)
+    lib_err = (lib_out - want).abs().max().item()
+    del lib_out
+    for kernel, plain, form in (("flash_bound_fp32", fa.flash_attention_bound_plain, "true>"),
+                                ("flash_maxtrack_fp32", fa.flash_attention_maxtrack_plain,
+                                 "false>")):
+        if kernel == "flash_maxtrack_fp32":
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+        try:
+            counter = fa.recomputed_tiles(dev)
+            counter.zero_()
+            before = dict(fa.launches)
+            out = fa.flash_attention(q, k, v)
+            again = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            recomputed = int(counter.item())
+            delta = {n: fa.launches[n] - before[n] for n in fa.launches
+                     if fa.launches[n] != before[n]}
+            calls = _one_c_call(lambda: fa.flash_attention(q, k, v))
+            device = _device_kernel_ms(lambda: fa.flash_attention(q, k, v))
+            wrapper_ms = gpu_ms(lambda: fa.flash_attention(q, k, v), 20)
+        finally:
+            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+        main_ms = sum(t for n, t in device.items()
+                      if n.startswith("flash_fwd_tf32_kernel<") and n.endswith(form))
+        split_ms = sum(t for n, t in device.items() if n.startswith("tf32_split_kernel<"))
+        assert main_ms > 0.0 and split_ms > 0.0, device
+        # the kernel's time: its main kernel and the pre-pass that feeds it
+        t = {"ms": main_ms + split_ms, "main_ms": main_ms, "split_ms": split_ms,
+             "call_device_ms": sum(device.values()), "wrapper_ms": wrapper_ms}
+        err = (out - want).abs().max().item()
+        plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows=1), reps=1)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}: max|d| {err:.3e} of max|ref| "
+              f"{ref_max:.3e} (tol {FP32_TOL} x max|ref|) | {_paced(t)}: main "
+              f"{main_ms:.4f} + pre-pass {split_ms:.4f} ms | plain {plain_ms:.3f} ms (one row "
+              f"at a time), library sdpa fp32 {lib_ms:.4f} ms ({backend}, max|d| "
+              f"{lib_err:.3e}), bound {least['bound_ms']:.4f} ms by {least['bound_by']} at "
+              f"495 TFLOP/s TF32 x3 ({_versus(t['ms'], lib_ms, least)}; fp32 FMA bound "
+              f"{fma_ms:.4f} ms at 67 TFLOP/s: {100 * fma_ms / t['ms']:.1f}%) | tiles "
+              f"recomputed {recomputed} | second launch bit-identical "
+              f"{torch.equal(out, again)} | C calls a forward {calls} | launches of two "
+              f"forwards {delta}", flush=True)
+        assert out.dtype == torch.float32 and torch.equal(out, again) and calls == 1
+        assert np.isfinite(err) and err <= FP32_TOL * ref_max, (kernel, label, err, ref_max)
+        bound_form = kernel == "flash_bound_fp32"
+        assert delta == {"flash_maxtrack_fp32": 2, **({"flash_bound_fp32": 2,
+                         "flash_key_norm_fp32": 2} if bound_form else {})}, delta
+        assert (recomputed > 0) == (scale > 1.0 and bound_form), recomputed
+        row = {"shape": list(shape), "max_abs_err": err, **t, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library_backend": backend,
+               "library_max_abs_err": lib_err, **least, "bound_fp32_fma_ms": fma_ms}
+        rows.setdefault(kernel, []).append(row)
+    rows.setdefault("flash_key_norm_fp32", []).append(_key_norm_row(tag, label, k))
+    del q, k, v, want, out, again
+    torch.cuda.empty_cache()
+
+
 def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     """3f: the fp32 form of kernels 1, 2 and 1a (``csrc/flash_attention_f32.cu``: 3xTF32 on
     wgmma after its pre-pass) against the plain fp32 version (max |d| <= FP32_TOL *
@@ -4038,76 +4129,10 @@ def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     (its backend and its own max |d| against the plain version) and the bound: three TF32
     products at 495 TFLOP/s (the fp32 FMA bound at 67 TFLOP/s beside it). Returns the rows
     by kernel: the first shape's, the others under ``shapes``."""
-    from lkgd_torch.ops import flash_attention as fa
-
     assert not torch.backends.cuda.matmul.allow_tf32
     rows: dict = {}
     for label, shape, scale in FP32_FLASH:
-        b, s, h, d = shape
-        q, k, v = (torch.randn(shape, device=dev, generator=gen) * (scale if i < 2 else 1.0)
-                   for i in range(3))
-        want = in_row_chunks(fa.flash_attention_maxtrack_plain, (q, k, v), rows=1)
-        ref_max = want.abs().max().item()
-        # three TF32 products of 4 S^2 D operations a (batch, head); q, k, v read and o
-        # written once, fp32; the fp32 FMA bound of the same products beside it
-        least = bound(3 * 4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_TF32)
-        fma_ms = bound(4 * b * h * s * s * d, 4 * 4 * b * h * s * d, PEAK_FP32)["bound_ms"]
-        lib_ms = sdpa_ms(q, k, v, reps=5)
-        backend, lib_out = _sdpa_backend(q, k, v)
-        lib_err = (lib_out - want).abs().max().item()
-        del lib_out
-        for kernel, plain, form in (("flash_bound_fp32", fa.flash_attention_bound_plain, "true>"),
-                                    ("flash_maxtrack_fp32", fa.flash_attention_maxtrack_plain,
-                                     "false>")):
-            if kernel == "flash_maxtrack_fp32":
-                os.environ["LKGD_FLASH_MAXTRACK"] = "1"
-            try:
-                counter = fa.recomputed_tiles(dev)
-                counter.zero_()
-                before = dict(fa.launches)
-                out = fa.flash_attention(q, k, v)
-                again = fa.flash_attention(q, k, v)
-                torch.cuda.synchronize()
-                recomputed = int(counter.item())
-                delta = {n: fa.launches[n] - before[n] for n in fa.launches
-                         if fa.launches[n] != before[n]}
-                calls = _one_c_call(lambda: fa.flash_attention(q, k, v))
-                device = _device_kernel_ms(lambda: fa.flash_attention(q, k, v))
-                wrapper_ms = gpu_ms(lambda: fa.flash_attention(q, k, v), 20)
-            finally:
-                os.environ.pop("LKGD_FLASH_MAXTRACK", None)
-            main_ms = sum(t for n, t in device.items()
-                          if n.startswith("flash_fwd_tf32_kernel<") and n.endswith(form))
-            split_ms = sum(t for n, t in device.items() if n.startswith("tf32_split_kernel<"))
-            assert main_ms > 0.0 and split_ms > 0.0, device
-            # the kernel's time: its main kernel and the pre-pass that feeds it
-            t = {"ms": main_ms + split_ms, "main_ms": main_ms, "split_ms": split_ms,
-                 "call_device_ms": sum(device.values()), "wrapper_ms": wrapper_ms}
-            err = (out - want).abs().max().item()
-            plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows=1), reps=1)
-            print(f"[fp32-kernel] {kernel} {label} (B,S,H,D)={shape}: max|d| {err:.3e} of max|ref| "
-                  f"{ref_max:.3e} (tol {FP32_TOL} x max|ref|) | {_paced(t)}: main "
-                  f"{main_ms:.4f} + pre-pass {split_ms:.4f} ms | plain {plain_ms:.3f} ms (one row "
-                  f"at a time), library sdpa fp32 {lib_ms:.4f} ms ({backend}, max|d| "
-                  f"{lib_err:.3e}), bound {least['bound_ms']:.4f} ms by {least['bound_by']} at "
-                  f"495 TFLOP/s TF32 x3 ({_versus(t['ms'], lib_ms, least)}; fp32 FMA bound "
-                  f"{fma_ms:.4f} ms at 67 TFLOP/s: {100 * fma_ms / t['ms']:.1f}%) | tiles "
-                  f"recomputed {recomputed} | second launch bit-identical "
-                  f"{torch.equal(out, again)} | C calls a forward {calls} | launches of two "
-                  f"forwards {delta}", flush=True)
-            assert out.dtype == torch.float32 and torch.equal(out, again) and calls == 1
-            assert np.isfinite(err) and err <= FP32_TOL * ref_max, (kernel, label, err, ref_max)
-            bound_form = kernel == "flash_bound_fp32"
-            assert delta == {"flash_maxtrack_fp32": 2, **({"flash_bound_fp32": 2,
-                             "flash_key_norm_fp32": 2} if bound_form else {})}, delta
-            assert (recomputed > 0) == (scale > 1.0 and bound_form), recomputed
-            row = {"shape": list(shape), "max_abs_err": err, **t, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "library_backend": backend,
-                   "library_max_abs_err": lib_err, **least, "bound_fp32_fma_ms": fma_ms}
-            rows.setdefault(kernel, []).append(row)
-        rows.setdefault("flash_key_norm_fp32", []).append(_key_norm_row("fp32-kernel", label, k))
-        del q, k, v, want, out, again
-        torch.cuda.empty_cache()
+        _fp32_flash_case("fp32-kernel", label, shape, scale, gen, rows)
     out = {name: {**found[0], "shapes": found[1:]} for name, found in rows.items()}
     # kernels 3/4 in fp32 at the precompute encoder's four levels (eps 1e-6; the mid
     # block's attention norm has no SiLU)
@@ -4384,6 +4409,349 @@ def _synthetic_state(net, seed: int) -> dict:
 
 
 
+# ---------------------------------------------------------------- pseudo-labels
+# Depth-Anything's DINOv2 at 518 x 518: 37^2 + 1 tokens, 6 (small) or 12 (base) heads of 64
+ANNOTATE_FLASH = (("Depth-Anything small 518^2", (1, 1370, 6, 64), 1.0),
+                  ("Depth-Anything base 518^2", (1, 1370, 12, 64), 1.0))
+
+
+def _bit_gn_shapes(h: int, w: int) -> list:
+    """The (1, M, C) GroupNorm inputs of DPT-hybrid's BiT backbone on an h x w input (TF
+    "SAME" strides round up): the stem's at /2, then each stage's bottleneck widths (the
+    first block's first norm at the stage's input resolution)."""
+    def at(k):
+        return -(-h // k) * -(-w // k)
+
+    shapes = [(1, at(2), 64), (1, at(4), 64), (1, at(4), 256)]
+    for k, mid in ((8, 128), (16, 256)):
+        shapes += [(1, at(k // 2), mid), (1, at(k), mid), (1, at(k), 4 * mid)]
+    return shapes
+
+
+ANNOTATE_GN = (("384x384", [_bit_gn_shapes(384, 384)[i] for i in (1, 5, 8)]),  # /4 to /16
+               ("384x672", _bit_gn_shapes(384, 672)))  # a 576 x 1024 frame's: every one
+ANNOTATE_CLIP = (14, 576, 1024)  # frames, height, width of the synthetic video
+
+
+def phase_annotate_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """3g: the fp32 form of kernels 1, 2 and 1a at Depth-Anything's (1, 1370, 6, 64) and
+    (1, 1370, 12, 64) as 3f holds it (ragged against the tiles: 10 full tiles of 128 rows
+    and 90 rows), and kernels 3 and 4 in fp32, eps 1e-5, without SiLU, at the GroupNorm
+    shapes of DPT-hybrid's BiT backbone (three at 384 x 384, all nine of a 576 x 1024
+    frame's 384 x 672) as phase 3 holds them; each with the device time under the profiler
+    beside the wrapper's, the plain version's, the library call's (fp32 SDPA,
+    ``F.group_norm``) and the bound. Returns the rows by kernel."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rows: dict = {}
+    for label, shape, scale in ANNOTATE_FLASH:
+        _fp32_flash_case("annotate-kernel", label, shape, scale, gen, rows)
+    for size, shapes in ANNOTATE_GN:
+        for shape in shapes:
+            r = _gn_rows("annotate-kernel", f"BiT at {size}", shape, gen, 1e-5, (None,),
+                         torch.float32)
+            rows.setdefault("gn_stats", []).append(r["gn_stats"])
+            rows.setdefault("gn_apply", []).extend(r["gn_apply"])
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _tiny_twins(build, dev: torch.device, seed: int):
+    """A model built on the CPU, random from ``seed``, and its copy on the card."""
+    cpu = build("cpu", torch.Generator().manual_seed(seed))
+    gpu = build(dev, None)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def phase_tiny_annotate(dev: torch.device) -> None:
+    """4i: the pseudo-label models at fp32 on the card against the CPU with the same random
+    weights (rtol 1e-4, atol 2e-4): the tiny RAFT's flow, the point tracker on it (tracks,
+    and visibility equal), a narrow RIFE (c=16) midpoint and 2x video, tiny DPT-hybrid on a
+    non-square grid and DPT-large, and a tiny-width Depth-Anything at 462 x 462, whose 1090
+    tokens run the fp32 flash form on the card (4 layers: 4 launches of kernels 1, 2 and 1a)
+    and its plain version on the CPU; depths compared over their largest value."""
+    from lkgd_torch.models import depth_anything as da
+    from lkgd_torch.models import midas, raft, rife
+    from lkgd_torch.utils import point_tracker as pt
+
+    label = "tiny-annotate"
+    g = torch.Generator().manual_seed(30)
+    cpu, gpu = _tiny_twins(lambda d, gen: raft.build_raft(raft.RAFTConfig.tiny(), d, gen),
+                           dev, 31)
+    base = torch.rand((40, 56, 3), generator=g)
+    frames = torch.stack([base[i:i + 32, 2 * i:2 * i + 48] for i in range(4)])
+    with torch.no_grad():
+        want = cpu(frames[:2] * 2 - 1, frames[1:3] * 2 - 1)
+        _close_line(label, "RAFT flow", gpu(frames[:2].to(dev) * 2 - 1,
+                                            frames[1:3].to(dev) * 2 - 1), want)
+    queries = torch.from_numpy(pt.grid_queries(32, 48, 4))
+    want_t, want_v = pt.make_track_fn(cpu)(frames, queries)
+    got_t, got_v = pt.make_track_fn(gpu)(frames.to(dev), queries.to(dev))
+    _close_line(label, "tracks", got_t, want_t)
+    assert torch.equal(got_v.cpu(), want_v), "visibility differs"
+
+    cpu, gpu = _tiny_twins(lambda d, gen: rife.build_rife(rife.RIFEConfig(c=16), d, gen),
+                           dev, 32)
+    clip = torch.rand((3, 32, 64, 3), generator=g)
+    with torch.no_grad():
+        _close_line(label, "RIFE midpoint", gpu(clip[:2].to(dev), clip[1:].to(dev)),
+                    cpu(clip[:2], clip[1:]))
+    _close_line(label, "RIFE 2x video", rife.interpolate_video(gpu, clip.to(dev)),
+                rife.interpolate_video(cpu, clip))
+
+    for kind, cfg, hw in (("hybrid", midas.MidasConfig.tiny(), (64, 96)),
+                          ("large", midas.MidasConfig.tiny_large(), (64, 64))):
+        cpu, gpu = _tiny_twins(lambda d, gen: midas.build_dpt(kind, cfg, d, gen), dev, 33)
+        x = torch.rand((2, *hw, 3), generator=g) * 2 - 1
+        with torch.no_grad():
+            want = cpu(x)
+            scale = want.abs().max().clamp(min=1e-6)
+            _close_line(label, f"DPT-{kind} depth / max|ref|", gpu(x.to(dev)) / scale.to(dev),
+                        want / scale)
+
+    cfg = da.DepthAnythingConfig(image_size=462, patch_size=14, hidden_size=32, depth=4,
+                                 num_heads=2, out_indices=(0, 1, 2, 3),
+                                 neck_hidden_sizes=(8, 8, 16, 16), fusion_hidden_size=16,
+                                 head_hidden_size=8)
+    cpu, gpu = _tiny_twins(lambda d, gen: da.build_depth_anything(cfg, d, gen), dev, 34)
+    x = torch.randn((1, 462, 462, 3), generator=g)
+    with torch.no_grad():
+        want = cpu(x)
+        _zero_counts()
+        got = gpu(x.to(dev))
+        counts = _read_counts()
+    scale = want.abs().max().clamp(min=1e-6)
+    _close_line(label, "Depth-Anything at 1090 tokens, depth / max|ref|",
+                got / scale.to(dev), want / scale)
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"[{label}] Depth-Anything's launches on the card: {launched}", flush=True)
+    assert launched == dict.fromkeys(PRECOMPUTE, 4), launched
+
+
+STRICT_PROBE = (("large", (384, 384)), ("hybrid", (384, 384)), ("hybrid", (384, 672)))
+
+
+class _CudnnTF32:
+    """``with _CudnnTF32(on):`` cuDNN convolutions in TF32 (PyTorch's default) or not."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = self.on
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def _strict_fp32_probe(dev: torch.device, smi: str) -> None:
+    """DPT-large at 384 x 384 and DPT-hybrid at 384 x 384 and 384 x 672, one random frame
+    each, with cuDNN's TF32 off and on: ms a forward after a warm-up (host clock,
+    synchronised), peak GiB and the FFT kernels (cuDNN's FFT convolution: ``fft`` and its
+    complex ``gemvx``) of one forward under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lkgd_torch.models import midas
+
+    for kind, hw in STRICT_PROBE:
+        model = midas.build_dpt(kind, None, dev, torch.Generator(device=dev).manual_seed(47))
+        x = torch.rand((1, *hw, 3), device=dev) * 2 - 1
+        parts = []
+        for on in (False, True):
+            with _CudnnTF32(on), torch.no_grad():
+                model(x)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    model(x)
+                    torch.cuda.synchronize()
+                fft = _kernels_by_name(prof, ("fft", "gemvx"))
+            parts.append(f"cuDNN TF32 {'on' if on else 'off'}: {ms:.1f} ms, peak {peak:.2f} "
+                         f"GiB, FFT kernels {sum(n for _, n in fft.values())} "
+                         f"({sum(t for t, _ in fft.values()):.1f} ms)")
+        print(f"[annotate] {smi} | DPT-{kind} one {hw[0]}x{hw[1]} forward, fp32 matmuls: "
+              + " | ".join(parts), flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+def _random_raft_file(path: str, seed: int) -> None:
+    """torchvision ``raft_large``'s state dict, every key and shape of the checked-in
+    manifest, random from ``seed``: convolutions normal / sqrt(fan-in), norm scales
+    1 + 0.1 x normal, running variances uniform in [0.5, 1.5], the rest 0.1 x normal."""
+    from lkgd_torch.utils import checkpoint_manifest as cm
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, zero in cm.synthetic_state_dict(cm.load_manifest("raft_large")).items():
+        x = torch.randn(zero.shape, generator=g)
+        if zero.dim() == 4:
+            x = x / zero[0].numel() ** 0.5
+        elif key.endswith("running_var"):
+            x = 1.0 + torch.rand(zero.shape, generator=g) - 0.5
+        elif key.endswith(".weight"):  # a norm's scale
+            x = 1.0 + 0.1 * x
+        else:
+            x = 0.1 * x
+        sd[key] = x
+    torch.save(sd, path)
+
+
+def _random_model_file(model: torch.nn.Module, path: str) -> None:
+    """The state dict of a model random from its ``init_params`` (the published names)."""
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+
+
+def phase_annotate_full(dev: torch.device, smi: str) -> dict:
+    """8k: ``lkgd_torch/cli/annotate.py``'s own build functions at full width on a synthetic
+    14 x 576 x 1024 video (moving colour ramps with a seeded random texture): ``flow``
+    (UniMatch ``lkgd()``, random from ``--seed``), ``tracks`` (``RAFTConfig()`` from a
+    ``--weights`` file of the ``raft_large`` manifest's keys, random, loaded strictly; grid
+    16), ``depth_anything`` small and base, ``depth_midas`` (DPT-hybrid) and ``depth``
+    (DPT-large), each from a ``--weights`` file of a random model's state dict loaded
+    strictly, and RIFE 2x (14 -> 27 frames, random), with cuDNN's convolutions in TF32, as
+    PyTorch runs them by default (with TF32 off, cuDNN runs DPT's head convolution at
+    192 x 192 as an FFT of ~33,000 kernels, ~0.2 s and 18 GB a square frame:
+    ``_strict_fp32_probe`` measures it first). For each: s/clip after a warm-up
+    (host clock, synchronised), peak GiB, one frame (pair) under ``torch.profiler`` (busy
+    share, device operations, time by kind), the launches of one clip (the fp32 flash form
+    12 a frame on ``depth_anything``, GroupNorm once a norm of the BiT backbone on
+    ``depth_midas``, nothing of the port's kernels on the rest), outputs finite and in
+    range; tracks (14, 256, 2) with their visible share. Returns the launches by path."""
+    _strict_fp32_probe(dev, smi)
+    with _CudnnTF32(True):
+        return _annotate_paths(dev, smi)
+
+
+def _annotate_paths(dev: torch.device, smi: str) -> dict:
+    import argparse
+    import tempfile
+
+    from lkgd_torch.cli import annotate
+    from lkgd_torch.models import depth_anything as da
+    from lkgd_torch.models import midas, rife
+    from lkgd_torch.models.layers import GroupNorm
+    from lkgd_torch.utils import control_preprocess as cp
+
+    t, h, w = ANNOTATE_CLIP
+    g = torch.Generator().manual_seed(40)
+    texture = torch.rand((h + 4 * t, w + 8 * t, 3), generator=g)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    frames = np.stack([(0.5 * texture[2 * i:2 * i + h, 4 * i:4 * i + w] + 0.5 * torch.stack(
+        [(xx + 8 * i) % 256, (yy + 4 * i) % 256, (xx + yy + 16 * i) % 256], -1) / 255).numpy()
+        for i in range(t)]).astype(np.float32)
+    work = Path(tempfile.mkdtemp(prefix="lkgd_annotate_"))
+    parser = annotate.make_parser()
+
+    def args_for(annotation: str, *extra: str) -> argparse.Namespace:
+        return parser.parse_args(["--input", str(work), "--output", str(work), "--annotation",
+                                  annotation, *extra])
+
+    def run(name: str, fn, one, expect: dict, check) -> dict:
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"[annotate] {smi} | {name} on {t}x{h}x{w}: {seconds:.4f} s/clip (host clock, "
+              f"after a warm-up), peak {peak:.2f} GiB, launches {launched} | {check(out)}",
+              flush=True)
+        assert launched == expect, (name, launched, expect)
+        _profiled("annotate", f"{name}, {one[0]}", one[1])
+        return counts
+
+    by_path = {}
+    # flow: UniMatch on the 13 consecutive pairs as one batch
+    flow = annotate.build_flow_processor(args_for("flow"))
+
+    def flow_check(images):
+        assert images.shape == (t, h, w, 3) and np.isfinite(images).all()
+        assert images.min() >= 0.0 and images.max() <= 1.0
+        return f"flow images {images.shape} in [{images.min():.3f}, {images.max():.3f}]"
+
+    by_path["annotate_flow"] = run("flow", lambda: flow(frames),
+                                   ("one pair", lambda: flow(frames[:2])), {}, flow_check)
+    del flow
+    torch.cuda.empty_cache()
+
+    _random_raft_file(str(work / "raft_large.pth"), 41)
+    track = annotate.build_tracker(args_for("tracks", "--weights", str(work / "raft_large.pth")))
+
+    def track_check(out):
+        tracks, vis = out
+        assert tracks.shape == (t, 256, 2) and vis.shape == (t, 256) and vis.dtype == np.bool_
+        assert np.isfinite(tracks).all() and vis[0].all()
+        return (f"tracks {tracks.shape}, {100 * vis.mean():.1f}% visible, |displacement| up "
+                f"to {np.abs(tracks - tracks[:1]).max():.1f} px")
+
+    by_path["annotate_tracks"] = run("tracks", lambda: track(frames),
+                                     ("one pair", lambda: track(frames[:2])), {}, track_check)
+    del track
+    torch.cuda.empty_cache()
+
+    def depth_check(maps):
+        assert maps.shape == (t, h, w, 3) and np.isfinite(maps).all()
+        assert maps.min() >= 0.0 and maps.max() <= 1.0
+        return f"depth maps {maps.shape} in [{maps.min():.3f}, {maps.max():.3f}]"
+
+    with torch.device("meta"):
+        n_gn = sum(isinstance(m, GroupNorm) for m in midas.DPTHybridDepth().modules())
+    for annotation, size, build, expect in (
+            ("depth_anything", "small", lambda: da.build_depth_anything(
+                da.DepthAnythingConfig.small(), dev, torch.Generator(device=dev).manual_seed(42)),
+             dict.fromkeys(PRECOMPUTE, da.DepthAnythingConfig.small().depth * t)),
+            ("depth_anything", "base", lambda: da.build_depth_anything(
+                da.DepthAnythingConfig.base(), dev, torch.Generator(device=dev).manual_seed(43)),
+             dict.fromkeys(PRECOMPUTE, da.DepthAnythingConfig.base().depth * t)),
+            ("depth_midas", "hybrid", lambda: midas.build_dpt(
+                "hybrid", None, dev, torch.Generator(device=dev).manual_seed(44)),
+             {"gn_stats": n_gn * t, "gn_apply": n_gn * t}),
+            ("depth", "large", lambda: midas.build_dpt(
+                "large", None, dev, torch.Generator(device=dev).manual_seed(45)), {})):
+        path = str(work / f"{annotation}_{size}.pth")
+        model = build()
+        _random_model_file(model, path)
+        del model
+        args = args_for(annotation, "--weights", path, "--model-size",
+                        size if annotation == "depth_anything" else "small")
+        cp.register_processor(annotation, annotate.build_depth_processor(args))
+        name = f"{annotation} ({size})"
+        by_path[f"annotate_{annotation}" + (f"_{size}" if annotation == "depth_anything"
+                                            else "")] = run(
+            name, lambda: cp.control_preprocess(frames, annotation),
+            ("one frame", lambda: cp.control_preprocess(frames[:1], annotation)), expect,
+            depth_check)
+        os.remove(path)
+        torch.cuda.empty_cache()
+
+    model = rife.build_rife(device=dev, generator=torch.Generator(device=dev).manual_seed(46))
+    video = torch.from_numpy(frames).to(dev)
+
+    def rife_check(out):
+        assert tuple(out.shape) == (2 * t - 1, h, w, 3) and torch.isfinite(out).all()
+        assert out.min() >= 0.0 and out.max() <= 1.0 and torch.equal(out[::2], video)
+        return f"RIFE 2x: {tuple(out.shape)} in [{out.min():.3f}, {out.max():.3f}]"
+
+    by_path["annotate_rife"] = run("RIFE 2x", lambda: rife.interpolate_video(model, video),
+                                   ("one pair", lambda: rife.interpolate_video(model, video[:2])),
+                                   {}, rife_check)
+    del model, video
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -4410,6 +4778,7 @@ def main() -> int:
     fp32_kernels = phase_fp32_kernels(dev, torch.Generator(device=dev).manual_seed(80))
     gn_fp32 = fp32_kernels.pop("gn_fp32")
     kernels.update(fp32_kernels)
+    annotate_kernels = phase_annotate_kernels(dev, torch.Generator(device=dev).manual_seed(81))
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
@@ -4418,6 +4787,7 @@ def main() -> int:
     phase_tiny_cogvideox_train(dev)
     phase_tiny_sd2d(dev)
     phase_tiny_fp32(dev)
+    phase_tiny_annotate(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
@@ -4455,6 +4825,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     metrics_launches = phase_metrics_full(dev, smi)
     torch.cuda.empty_cache()
+    annotate_launches = phase_annotate_full(dev, smi)
+    torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
@@ -4469,7 +4841,8 @@ def main() -> int:
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
                "train_cogvideox": train_cogvideox_launches, **sd2d_launches,
                "train_sd2d": train_sd2d_launches, "experiments": experiment_launches,
-               "precompute": precompute_launches, "compute_metrics": metrics_launches}
+               "precompute": precompute_launches, "compute_metrics": metrics_launches,
+               **annotate_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
            **dict.fromkeys(EXPERIMENTS, "experiments"), **dict.fromkeys(PRECOMPUTE, "precompute")}
     print(json.dumps({"kernels": [
@@ -4481,7 +4854,8 @@ def main() -> int:
          **({"train_cogvideox": cogvideox_train_kernels[name]}
             if name in cogvideox_train_kernels else {}),
          **({"sd2d": sd2d_kernels[name]} if name in sd2d_kernels else {}),
-         **({"precompute_fp32": gn_fp32[name]} if name in gn_fp32 else {})}
+         **({"precompute_fp32": gn_fp32[name]} if name in gn_fp32 else {}),
+         **({"annotate": annotate_kernels[name]} if name in annotate_kernels else {})}
         for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

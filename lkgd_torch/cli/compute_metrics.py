@@ -45,6 +45,7 @@ from lkgd_torch.models.configs import CLIPVisionConfig
 from lkgd_torch.models.layers import init_params, materialize
 from lkgd_torch.ops.resize import resize_with_antialiasing
 from lkgd_torch.utils.device import require_device
+from lkgd_torch.utils.porting import load_state_dict
 
 I3D_SIZE = 224
 
@@ -72,19 +73,6 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="the card by default; a run without one fails unless cpu is named")
     return p
-
-
-def load_state_dict(path: str) -> dict:
-    """A checkpoint file (``.safetensors``, or a torch ``.pth``/``.pt``/``.bin``, a nested
-    ``{"state_dict": ...}`` unwrapped) -> name -> tensor."""
-    if path.endswith(".safetensors"):
-        from lkgd_torch.utils.porting import load_safetensors
-
-        return {k: torch.from_numpy(v) for k, v in load_safetensors(path).items()}
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    return dict(sd)
 
 
 def load_dir(path: str, max_items: int) -> List[np.ndarray]:

@@ -81,9 +81,13 @@ def coords_grid(h: int, w: int, device=None) -> torch.Tensor:
 def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """``img`` (B, H, W, C) sampled at pixel-space (x, y) ``coords`` (B, ..., 2): bilinear,
     with a zero for each corner outside the image (``grid_sample(align_corners=True,
-    padding_mode="zeros")``). Returns (B, ..., C)."""
+    padding_mode="zeros")``; an axis of size 1 is padded with a zero row or column first, so
+    that its positions keep their pixel scale). Returns (B, ..., C)."""
     b, h, w, c = img.shape
-    scale = torch.tensor([max(w - 1, 1) / 2.0, max(h - 1, 1) / 2.0], device=coords.device)
+    if h == 1 or w == 1:  # a zero row or column, where align_corners=True has no scale
+        img = F.pad(img, (0, 0, 0, int(w == 1), 0, int(h == 1)))
+        b, h, w, c = img.shape
+    scale = torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0], device=coords.device)
     grid = coords.reshape(b, -1, 1, 2).float() / scale - 1.0  # fp32 positions in any dtype
     out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid, mode="bilinear",
                         padding_mode="zeros", align_corners=True)  # (B, C, N, 1)

@@ -5,6 +5,9 @@
   padding) and then resizes bicubically (a = -0.75, align_corners=True). Both are fixed
   linear operators for given sizes, composed on the host in float64 into one (out, in)
   matrix per axis.
+* ``bicubic_resize``: torch's BICUBIC (a = -0.75, half-pixel centres, align_corners=False,
+  no antialias), which Depth-Anything's DINOv2 position embeddings are resampled with
+  (``jax.image.resize(..., "cubic")`` is the a = -0.5 kernel and does not match it).
 * ``resize_bilinear``: ``jax.image.resize(..., method="bilinear")``, which the JAX
   package's knowledge encoder uses. It antialiases when it downsamples: the triangle
   kernel is widened by the downscale factor and the weights of each output are
@@ -68,6 +71,33 @@ def _bicubic_matrix(out_n: int, in_n: int) -> np.ndarray:
     for k in range(4):
         m[np.arange(out_n), np.clip(x0 + k - 1, 0, in_n - 1)] += w[:, k]
     return m
+
+
+@functools.lru_cache(maxsize=64)
+def bicubic_matrix_half_pixel(out_n: int, in_n: int) -> np.ndarray:
+    """Half-pixel (align_corners=False) bicubic matrix (out_n, in_n), fp32: torch
+    ``F.interpolate(mode="bicubic", align_corners=False)``, a = -0.75, no antialias."""
+    x = (np.arange(out_n, dtype=np.float64) + 0.5) * in_n / out_n - 0.5
+    x0 = np.floor(x).astype(np.int64)
+    w = _cubic_weights(x - x0)
+    m = np.zeros((out_n, in_n), dtype=np.float64)
+    for k in range(4):
+        m[np.arange(out_n), np.clip(x0 + k - 1, 0, in_n - 1)] += w[:, k]
+    return m.astype(np.float32)
+
+
+def bicubic_resize(images: torch.Tensor, size) -> torch.Tensor:
+    """(..., H, W, C) -> (..., size[0], size[1], C): torch's bicubic as two matrix
+    products, fp32 inside, in images.dtype."""
+    out_h, out_w = size
+    in_h, in_w = images.shape[-3], images.shape[-2]
+    if (in_h, in_w) == (out_h, out_w):
+        return images
+    m_h, m_w = (torch.from_numpy(bicubic_matrix_half_pixel(o, i)).to(images.device)
+                for o, i in ((out_h, in_h), (out_w, in_w)))
+    x = torch.einsum("oh,...hwc->...owc", m_h, images.float())
+    x = torch.einsum("ow,...hwc->...hoc", m_w, x)
+    return x.to(images.dtype)
 
 
 @functools.lru_cache(maxsize=32)

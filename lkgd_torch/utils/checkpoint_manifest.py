@@ -10,7 +10,8 @@ on the meta device (no memory, no values):
 * ``svd_vae``: its ``vae``, AutoencoderKLTemporalDecoder (97.7 M);
 * ``clip_vit_h``: its ``image_encoder``, CLIP ViT-H/14 vision tower and projection (632 M);
 * ``cogvideox_5b_transformer``: THUDM/CogVideoX-5b-I2V ``transformer`` (5.57 B), built
-  without knowledge fusion as the JAX package builds it for its manifest.
+  without knowledge fusion as the JAX package builds it for its manifest;
+* ``raft_large``: torchvision's ``raft_large`` (5.26 M), the point tracker's flow.
 
 The JSON files under ``manifests/`` are the JAX package's, copied byte for byte; the tests
 hold the port's modules to them, so that a checkpoint loaded later has a fixed target.
@@ -70,11 +71,18 @@ def cogvideox_5b_manifest() -> Manifest:
         CogVideoXConfig.cogvideox_5b_i2v(knowledge_fusion=False)))
 
 
+def raft_large_manifest() -> Manifest:
+    from lkgd_torch.models.raft import RAFT, RAFTConfig
+
+    return manifest_of(lambda: RAFT(RAFTConfig.large()))
+
+
 GENERATORS = {
     "svd_xt_unet": svd_xt_unet_manifest,
     "svd_vae": svd_vae_manifest,
     "clip_vit_h": clip_vit_h_manifest,
     "cogvideox_5b_transformer": cogvideox_5b_manifest,
+    "raft_large": raft_large_manifest,
 }
 
 

@@ -41,6 +41,18 @@ transformers' ``T5EncoderModel`` names (the names ``port_t5_encoder`` reads).
 kept but for the transformer's blocks (``layers_<i>_self_attn`` -> ``layers.<i>.self_attn``),
 and the trident convolution's HWIO ``trident_weight`` turned OIHW.
 
+The pseudo-label models carry the published checkpoints' names, each with its converter
+from the JAX module's flat params: ``raft_state_dict`` (torchvision ``raft_large``, the
+inverse of the JAX package's ``raft_key_map``), ``rife_state_dict`` (IFNet_HDv3, the inverse
+of ``rife_key_map``: a ``tkernel`` is a ConvTranspose weight, (kh, kw, in, out) ->
+(in, out, kh, kw)), ``dpt_hybrid_state_dict`` (isl-org MiDaS, the inverse of
+``midas_key_map``), ``dpt_large_state_dict`` (HF Intel/dpt-large, the fused ``qkv`` split
+into ``query``/``key``/``value``) and ``depth_anything_state_dict`` (HF Depth-Anything, the
+inverse of ``hf_depth_anything_key_map``; its transposed-convolution kernels mirrored, as
+flax applies them). Weights the published models hold but never read (a final encoder norm,
+the deepest fusion block's first residual unit, DINOv2's ``mask_token``) are filled with
+ones or zeros, so that the result loads strictly.
+
 ``lora_key_map`` / ``port_lora_safetensors`` read a LoRA state dict in diffusers, peft or
 kohya spelling into a module's ``lora_<name>_A/B`` parameters: the inverse of
 ``export_lora_state_dict`` and the counterpart of the JAX package's functions of the same
@@ -51,6 +63,8 @@ package's FID InceptionV3 and FVD I3D (``lkgd_tpu/eval/fid_inception.py``,
 ``lkgd_tpu/eval/i3d.py``) into pytorch-fid's and pytorch-i3d's ``state_dict`` names, the
 inverse of their ``port_torch_state_dict``: HWIO convolution kernels -> OIHW, DHWIO -> OIDHW,
 BatchNorm's ``mean`` and ``var`` -> ``running_mean`` and ``running_var`` as they are.
+
+``load_state_dict`` reads a checkpoint file of any of the formats the CLIs take.
 
 ``save_safetensors`` and ``load_safetensors`` write and read a state dict in the
 safetensors format with numpy alone (the card's machine has no ``safetensors`` package).
@@ -386,6 +400,18 @@ def save_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
             f.write(data)
 
 
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file (``.safetensors``, read with numpy, or a torch
+    ``.pth``/``.pt``/``.bin``/``.pkl`` with a nested ``{"state_dict": ...}`` unwrapped) ->
+    name -> tensor."""
+    if path.endswith(".safetensors"):
+        return {k: torch.from_numpy(v) for k, v in load_safetensors(path).items()}
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
 _SAFETENSORS_DTYPES = {"F32": "<f4", "F16": "<f2"}
 
 
@@ -408,3 +434,231 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
             x = np.frombuffer(raw, _SAFETENSORS_DTYPES[info["dtype"]]).astype(np.float32)
         out[name] = x.reshape(info["shape"])
     return out
+
+
+# ---------------------------------------------------------------- pseudo-label models
+def _flat_items(flat: Mapping[str, np.ndarray]):
+    """``(dotted module path, leaf name, array)`` of each flax leaf, ``params/`` dropped."""
+    for path, value in flat.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        yield ".".join(parts[:-1]), parts[-1], np.asarray(value, np.float32)
+
+
+def _tensors(out: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32, copy=True, order="C"))
+            for k, v in out.items()}
+
+
+def _torch_leaf(leaf: str, x: np.ndarray):
+    """A flax leaf in torch's layout and name: Dense (in, out) -> (out, in), Conv HWIO ->
+    OIHW, ``scale`` -> ``weight``."""
+    if leaf == "kernel":
+        return "weight", x.T if x.ndim == 2 else x.transpose(3, 2, 0, 1)
+    return ("weight" if leaf == "scale" else leaf), x
+
+
+def raft_export_key_map(key: str) -> str:
+    """Generic export names of the JAX RAFT -> torchvision ``raft_large`` names (a copy of
+    ``lkgd_tpu/utils/porting.py`` ``raft_export_key_map``)."""
+    k = re.sub(r"\blayer(\d)_(\d)\b", r"layer\1.\2", key)
+    k = k.replace("mask_conv1.", "mask_predictor.convrelu.0.")
+    k = k.replace("mask_conv2.", "mask_predictor.conv.")
+    k = re.sub(r"update_block\.flow_head_conv(\d)\.", r"update_block.flow_head.conv\1.", k)
+    k = re.sub(r"update_block\.conv([zrq])(\d)\.",
+               r"update_block.recurrent_block.convgru\2.conv\1.", k)
+    k = re.sub(r"update_block\.(conv(?:corr|flow)\d)\.", r"update_block.motion_encoder.\1.0.", k)
+    k = k.replace("update_block.conv.", "update_block.motion_encoder.conv.0.")
+    k = re.sub(r"\b(feature_encoder|context_encoder)\.conv2\.", r"\1.conv.", k)
+    norm_leaf = {"scale": "weight", "weight": "weight", "bias": "bias", "mean": "running_mean",
+                 "var": "running_var"}
+    k = re.sub(r"(layer\d\.\d\.)norm([12])_(scale|weight|bias|mean|var)$",
+               lambda m: m.group(1) + f"convnormrelu{m.group(2)}.1." + norm_leaf[m.group(3)], k)
+    k = re.sub(r"(encoder\.)norm1_(scale|weight|bias|mean|var)$",
+               lambda m: m.group(1) + "convnormrelu.1." + norm_leaf[m.group(2)], k)
+    k = re.sub(r"norm3_(scale|weight|bias|mean|var)$",
+               lambda m: "downsample.1." + norm_leaf[m.group(1)], k)
+    k = re.sub(r"(layer\d\.\d\.)conv([12])\.", r"\1convnormrelu\2.0.", k)
+    k = re.sub(r"\b(feature_encoder|context_encoder)\.conv1\.", r"\1.convnormrelu.0.", k)
+    return re.sub(r"(layer\d\.\d\.)downsample\.weight$", r"\1downsample.0.weight", k)
+
+
+def raft_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``RAFT``'s flat params -> ``lkgd_torch.models.raft.RAFT``'s state dict
+    (torchvision's names)."""
+    out = {}
+    for module, leaf, x in _flat_items(flat):
+        name, x = _torch_leaf(leaf, x)
+        out[raft_export_key_map(f"{module}.{name}")] = x
+    return _tensors(out)
+
+
+def rife_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``IFNet``'s flat params -> ``lkgd_torch.models.rife.IFNet``'s state dict
+    (IFNet_HDv3's names)."""
+    out = {}
+    for module, leaf, x in _flat_items(flat):
+        block, part = module.split(".")[:2]
+        m = re.match(r"(conv0|convblock\d|conv[12])_(\d)$", part)
+        head, idx = m.groups()
+        if leaf == "alpha":  # PReLU
+            name = f"{head}.1.weight" if head in ("conv1", "conv2") else f"{head}.{idx}.1.weight"
+        elif head in ("conv1", "conv2"):  # (conv1_0: deconv + PReLU, conv1_1: deconv)
+            t = "weight" if leaf == "tkernel" else leaf
+            x = x.transpose(2, 3, 0, 1) if leaf == "tkernel" else x
+            name = f"{head}.{'0' if idx == '0' else '2'}.{t}"
+        else:
+            t, x = _torch_leaf(leaf, x)
+            name = f"{head}.{idx}.0.{t}"
+        out[f"{block}.{name}"] = x
+    return _tensors(out)
+
+
+def _dead_fusion_unit(prefix: str, f: int, convs) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.{c}.{leaf}": np.zeros((f, f, 3, 3) if leaf == "weight" else (f,),
+                                             np.float32)
+            for c in convs for leaf in ("weight", "bias")}
+
+
+def dpt_hybrid_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``DPTHybridDepth``'s flat params -> ``lkgd_torch.models.midas.DPTHybridDepth``'s
+    state dict (isl-org MiDaS names)."""
+    out = {}
+    vit = "pretrained.model."
+    for module, leaf, x in _flat_items(flat):
+        leaf, x = _torch_leaf(leaf, x)
+        parts = module.split(".") if module else []
+        if parts and parts[0] == "backbone":
+            rest = ".".join(parts[1:])
+            rest = rest.replace("stem_conv", "stem.conv").replace("stem_norm", "stem.norm")
+            rest = re.sub(r"stages_(\d+)_blocks_(\d+)", r"stages.\1.blocks.\2", rest)
+            rest = rest.replace("downsample_conv", "downsample.conv").replace(
+                "downsample_norm", "downsample.norm")
+            name = f"{vit}patch_embed.backbone.{rest}.{leaf}"
+        elif module == "":
+            name = vit + leaf  # cls_token, pos_embed
+        elif module == "patch_embed_proj":
+            name = f"{vit}patch_embed.proj.{leaf}"
+        elif parts[0].startswith("blocks_"):
+            sub = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+                   "fc2": "mlp.fc2"}.get(parts[1], parts[1])
+            name = f"{vit}blocks.{parts[0][len('blocks_'):]}.{sub}.{leaf}"
+        elif parts[0].startswith("readout_"):
+            name = f"pretrained.act_postprocess{parts[0].split('_')[1]}.0.project.0.{leaf}"
+        elif parts[0].startswith("act_postprocess"):
+            n, what = re.match(r"act_postprocess(\d)_(conv|down)", parts[0]).groups()
+            name = f"pretrained.act_postprocess{n}.{3 if what == 'conv' else 4}.{leaf}"
+        elif parts[0].startswith("head_conv"):
+            name = f"scratch.output_conv.{2 * (int(parts[0][-1]) - 1)}.{leaf}"
+        else:  # layer<i>_rn, refinenet<n>.*
+            name = f"scratch.{module}.{leaf}"
+        out[name] = x
+    d = out[vit + "cls_token"].shape[-1]
+    f = out["scratch.layer1_rn.weight"].shape[0]
+    out[vit + "norm.weight"], out[vit + "norm.bias"] = np.ones(d, np.float32), np.zeros(d, np.float32)
+    out.update(_dead_fusion_unit("scratch.refinenet4.resConfUnit1", f, ("conv1", "conv2")))
+    return _tensors(out)
+
+
+def _hf_fusion_name(j: int, rest: str) -> str:
+    """A fusion block's inner names -> HF's (``resConfUnit``/``res`` -> ``residual_layer``,
+    ``conv`` -> ``convolution``, ``out_conv`` -> ``projection``) under fusion layer ``j``."""
+    rest = re.sub(r"^(resConfUnit|res)(\d)", r"residual_layer\2", rest)
+    rest = re.sub(r"\bconv(\d)\b", r"convolution\1", rest)
+    rest = rest.replace("out_conv", "projection")
+    return f"neck.fusion_stage.layers.{j}.{rest}"
+
+
+def dpt_large_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``DPTLargeDepth``'s flat params -> ``lkgd_torch.models.midas.DPTLargeDepth``'s
+    state dict (HF ``DPTForDepthEstimation`` names)."""
+    out = {}
+    for module, leaf, x in _flat_items(flat):
+        parts = module.split(".") if module else []
+        if re.match(r"reassemble[12]_resize$", module) and leaf == "kernel":
+            # the block upsample's (s, s, in, out) kernel -> ConvTranspose2d (in, out, s, s)
+            name, x = "weight", x.transpose(2, 3, 0, 1)
+        else:
+            name, x = _torch_leaf(leaf, x)
+        if module == "":
+            out[{"cls_token": "dpt.embeddings.cls_token",
+                 "pos_embed": "dpt.embeddings.position_embeddings"}[leaf]] = x
+        elif module == "patch_embed_proj":
+            out[f"dpt.embeddings.patch_embeddings.projection.{name}"] = x
+        elif parts[0].startswith("blocks_"):
+            layer = f"dpt.encoder.layer.{parts[0][len('blocks_'):]}."
+            if parts[1] == "qkv":
+                for part, y in zip(("query", "key", "value"), np.split(x, 3, axis=0)):
+                    out[f"{layer}attention.attention.{part}.{name}"] = y
+                continue
+            sub = {"norm1": "layernorm_before", "norm2": "layernorm_after",
+                   "proj": "attention.output.dense", "fc1": "intermediate.dense",
+                   "fc2": "output.dense"}[parts[1]]
+            out[f"{layer}{sub}.{name}"] = x
+        elif parts[0].startswith("readout_"):
+            i = int(parts[0].split("_")[1]) - 1
+            out[f"neck.reassemble_stage.readout_projects.{i}.0.{name}"] = x
+        elif parts[0].startswith("reassemble"):
+            i, what = re.match(r"reassemble(\d)_(proj|resize|down)", parts[0]).groups()
+            part = "projection" if what == "proj" else "resize"
+            out[f"neck.reassemble_stage.layers.{int(i) - 1}.{part}.{name}"] = x
+        elif parts[0].endswith("_rn"):
+            out[f"neck.convs.{int(parts[0][len('layer')]) - 1}.{name}"] = x
+        elif parts[0].startswith("refinenet"):
+            out[_hf_fusion_name(4 - int(parts[0][-1]), ".".join(parts[1:]) + "." + name)] = x
+        else:  # head_conv<k>
+            out[f"head.head.{2 * (int(parts[0][-1]) - 1)}.{name}"] = x
+    d = out["dpt.embeddings.cls_token"].shape[-1]
+    f = out["neck.convs.0.weight"].shape[0]
+    out["dpt.layernorm.weight"], out["dpt.layernorm.bias"] = (np.ones(d, np.float32),
+                                                              np.zeros(d, np.float32))
+    out.update(_dead_fusion_unit("neck.fusion_stage.layers.0.residual_layer1", f,
+                                 ("convolution1", "convolution2")))
+    return _tensors(out)
+
+
+def depth_anything_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``DepthAnything``'s flat params -> ``lkgd_torch.models.depth_anything``'s
+    state dict (HF ``DepthAnythingForDepthEstimation`` names). flax's ``ConvTranspose``
+    applies its kernel mirrored against torch's ``ConvTranspose2d``: the reassemble kernels
+    are flipped here, so that the port computes what the JAX module computes."""
+    out = {}
+    emb = "backbone.embeddings."
+    for module, leaf, x in _flat_items(flat):
+        parts = module.split(".") if module else []
+        if re.match(r"reassemble_[01]_resize$", module) and leaf == "kernel":
+            name, x = "weight", x[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            name, x = _torch_leaf(leaf, x)
+        if module == "":
+            out[emb + leaf] = x  # cls_token, position_embeddings
+        elif module == "patch_embed":
+            out[f"{emb}patch_embeddings.projection.{name}"] = x
+        elif parts[0].startswith("layer_"):
+            layer = f"backbone.encoder.layer.{parts[0][len('layer_'):]}."
+            if len(parts) == 1:  # layer_scale1, layer_scale2
+                out[f"{layer}{leaf}.lambda1"] = x
+                continue
+            sub = {"q": "attention.attention.query", "k": "attention.attention.key",
+                   "v": "attention.attention.value", "proj": "attention.output.dense",
+                   "fc1": "mlp.fc1", "fc2": "mlp.fc2"}.get(parts[1], parts[1])
+            out[f"{layer}{sub}.{name}"] = x
+        elif module == "backbone_norm":
+            out[f"backbone.layernorm.{name}"] = x
+        elif parts[0].startswith("reassemble_"):
+            j, what = re.match(r"reassemble_(\d)_(projection|resize)", parts[0]).groups()
+            out[f"neck.reassemble_stage.layers.{j}.{what}.{name}"] = x
+        elif parts[0].startswith("neck_convs_"):
+            out[f"neck.convs.{parts[0][-1]}.{name}"] = x
+        elif parts[0].startswith("fusion_"):
+            j, rest = re.match(r"fusion_(\d)_(\w+)", parts[0]).groups()
+            out[_hf_fusion_name(3 - int(j), ".".join([rest, *parts[1:], name]))] = x
+        else:  # head_conv<k>
+            out[f"head.conv{parts[0][-1]}.{name}"] = x
+    d = out[emb + "cls_token"].shape[-1]
+    f = out["neck.convs.0.weight"].shape[0]
+    out[emb + "mask_token"] = np.zeros((1, d), np.float32)
+    out.update(_dead_fusion_unit("neck.fusion_stage.layers.0.residual_layer1", f,
+                                 ("convolution1", "convolution2")))
+    return _tensors(out)

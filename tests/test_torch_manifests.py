@@ -1,5 +1,5 @@
 """The port's checkpoint manifests: its full-width modules, built on the meta device, have
-exactly the checked-in keys and shapes (1428, 374, 520 and 1022 keys); its JSON copies are
+exactly the checked-in keys and shapes (1428, 374, 520, 1022 and 124 keys); its JSON copies are
 the JAX package's byte for byte; a state dict of exactly those keys loads strictly into
 each module; the parameter totals are the published models'."""
 
@@ -12,9 +12,10 @@ import torch
 from lkgd_torch.utils import checkpoint_manifest as cm
 
 # keys and parameters of each checkpoint (SVD-xt's unet, vae and image encoder;
-# CogVideoX-5B-I2V's transformer without knowledge fusion)
+# CogVideoX-5B-I2V's transformer without knowledge fusion; torchvision's raft_large)
 SIZES = {"svd_xt_unet": (1428, 1524623082), "svd_vae": (374, 97742847),
-         "clip_vit_h": (520, 632076800), "cogvideox_5b_transformer": (1022, 5570473536)}
+         "clip_vit_h": (520, 632076800), "cogvideox_5b_transformer": (1022, 5570473536),
+         "raft_large": (124, 5257536)}
 JAX_DIR = os.path.join(os.path.dirname(__file__), "..", "lkgd_tpu", "utils", "manifests")
 
 
@@ -41,6 +42,7 @@ def test_synthetic_state_dicts_load_strictly():
     from lkgd_torch.models.cogvideox import CogVideoXTransformer3D
     from lkgd_torch.models.configs import (CLIPVisionConfig, CogVideoXConfig, SVDUNetConfig,
                                            TemporalVAEConfig)
+    from lkgd_torch.models.raft import RAFT, RAFTConfig
     from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
     from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 
@@ -50,6 +52,7 @@ def test_synthetic_state_dicts_load_strictly():
         "clip_vit_h": lambda: CLIPVisionModelWithProjection(CLIPVisionConfig()),
         "cogvideox_5b_transformer": lambda: CogVideoXTransformer3D(
             CogVideoXConfig.cogvideox_5b_i2v(knowledge_fusion=False)),
+        "raft_large": lambda: RAFT(RAFTConfig.large()),
     }
     for name, factory in factories.items():
         with torch.device("meta"):
@@ -67,7 +70,7 @@ def test_synthetic_state_dicts_load_strictly():
 
 def test_main_check_and_write(tmp_path, monkeypatch, capsys):
     cm.main(["--check"])
-    assert capsys.readouterr().out.count(": OK") == 4
+    assert capsys.readouterr().out.count(": OK") == 5
     monkeypatch.setattr(cm, "MANIFEST_DIR", str(tmp_path))
     cm.main(["--write"])
     for name in SIZES:

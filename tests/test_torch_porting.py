@@ -214,13 +214,14 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "embed_text", "t5_encoder", "sd2d_inpaint_pipeline",
                                    "sd2d_joint_control_pipeline", "sd2d_condition_pipeline",
                                    "sd2d_cli", "sd2d_training", "precompute_cache_cli",
-                                   "compute_metrics_cli", "inception", "i3d"])
+                                   "compute_metrics_cli", "inception", "i3d", "annotate_cli",
+                                   "raft", "rife", "dpt", "depth_anything"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import (compute_metrics, embed_text, precompute_cache,
+    from lkgd_torch.cli import (annotate, compute_metrics, embed_text, precompute_cache,
                                 run_inference_cogvideox, run_inference_sd2d,
                                 run_inference_svd, train_cogvideox_lora, train_svd_lora)
     from lkgd_torch.eval.fid_inception import build_inception
@@ -228,6 +229,10 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.models.depth_anything import DepthAnythingConfig, build_depth_anything
+    from lkgd_torch.models.midas import MidasConfig, build_dpt
+    from lkgd_torch.models.raft import RAFTConfig, build_raft
+    from lkgd_torch.models.rife import build_rife
     from lkgd_torch.models.t5_text import build_t5_encoder
     from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
     from lkgd_torch.pipelines import cogvideox_i2v as cog
@@ -294,6 +299,12 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
             ["--generated", str(tmp_path), "--reference", str(tmp_path)]),
         "inception": lambda: build_inception(),
         "i3d": lambda: build_i3d(),
+        "annotate_cli": lambda: annotate.main(["--input", str(tmp_path), "--output",
+                                               str(tmp_path / "labels")]),
+        "raft": lambda: build_raft(RAFTConfig.tiny()),
+        "rife": lambda: build_rife(),
+        "dpt": lambda: build_dpt("hybrid", MidasConfig.tiny()),
+        "depth_anything": lambda: build_depth_anything(DepthAnythingConfig.tiny()),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
