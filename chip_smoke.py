@@ -232,14 +232,15 @@ each printing its own lines; any failure raises and the script exits non-zero:
    key present and finite, seconds by stage (CLIP-H, InceptionV3 images/s, I3D clips/s, the
    Frechet fits on the host);
 8k. ``lkgd_torch/cli/annotate.py``'s build functions at full width on a synthetic 14x576x1024
-   video, cuDNN's convolutions in TF32 as PyTorch's default runs them (DPT-large and
-   DPT-hybrid one frame each with it off first, where cuDNN picks an FFT convolution):
-   ``flow`` (UniMatch), ``tracks`` (``raft_large`` from a random file of its manifest's keys,
-   loaded strictly), ``depth_anything`` small and base, ``depth_midas``, ``depth`` (random
-   state dicts written and loaded strictly) and RIFE 2x (27 frames): s/clip after a warm-up,
-   peak GiB, one frame (pair) under ``torch.profiler``, the launches of one clip asserted
-   (the fp32 flash form 12 a frame on ``depth_anything``, GroupNorm on ``depth_midas``, none
-   elsewhere), outputs finite and in range;
+   video in the CLI's own arithmetic, ``annotate.precision`` (fp32 throughout): ``flow``
+   (UniMatch), ``tracks`` (``raft_large`` from a random file of its manifest's keys, loaded
+   strictly), ``depth_anything`` small and base, ``depth_midas``, ``depth`` (random state
+   dicts written and loaded strictly); then RIFE 2x (27 frames), which has no CLI: s/clip
+   after a warm-up, peak GiB, one frame (pair) under ``torch.profiler``, the launches of one
+   clip asserted (the fp32 flash form 12 a frame on ``depth_anything``, GroupNorm on
+   ``depth_midas``, none elsewhere), outputs finite, in range and not constant; and how far
+   cuDNN's TF32 (PyTorch's default, which the CLI turns off) would move each CLI path's
+   frame (pair);
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
@@ -872,7 +873,11 @@ def phase_tiny_joint(dev: torch.device, mode: str) -> None:
 
 _KINDS = (("flash attention kernels", ("flash_fwd", "key_sq_max", "tf32_split")),
           ("GroupNorm kernels", ("gn_",)),
-          ("cuDNN convolutions", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad")),
+          # cuDNN's kernel names say what they compute (``sm90_xmma_fprop_implicit_gemm_*``);
+          # cuBLAS's share the ``xmma`` prefix (``sm80_xmma_gemm_*``), so it names neither
+          ("cuDNN convolutions", ("conv", "cudnn", "fprop", "implicit", "wgrad", "dgrad")),
+          # cuDNN's FFT convolution: its transforms and the complex ``gemvx`` products
+          ("cuDNN FFT convolutions", ("fft", "gemvx")),
           ("cuBLAS matrix products", ("gemm", "cutlass", "nvjet", "cublas", "gemv")),
           ("LayerNorm", ("layer_norm", "LayerNorm")),
           ("softmax", ("softmax",)),
@@ -4455,9 +4460,18 @@ def phase_annotate_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     return rows
 
 
-def _tiny_twins(build, dev: torch.device, seed: int):
-    """A model built on the CPU, random from ``seed``, and its copy on the card."""
+# the last bias of each depth head, before its final ReLU: ``init_params`` zeroes every bias,
+# and a positive one keeps the ReLU from zeroing the whole depth map
+LAST_BIAS = {"hybrid": "scratch.output_conv.4.bias", "large": "head.head.4.bias",
+             "depth_anything": "head.conv3.bias"}
+
+
+def _tiny_twins(build, dev: torch.device, seed: int, last_bias: str = ""):
+    """A model built on the CPU, random from ``seed`` (``last_bias``, where named, 0.5), and
+    its copy on the card."""
     cpu = build("cpu", torch.Generator().manual_seed(seed))
+    if last_bias:
+        cpu.state_dict()[last_bias].fill_(0.5)
     gpu = build(dev, None)
     gpu.load_state_dict(cpu.state_dict())
     return cpu, gpu
@@ -4469,7 +4483,9 @@ def phase_tiny_annotate(dev: torch.device) -> None:
     and visibility equal), a narrow RIFE (c=16) midpoint and 2x video, tiny DPT-hybrid on a
     non-square grid and DPT-large, and a tiny-width Depth-Anything at 462 x 462, whose 1090
     tokens run the fp32 flash form on the card (4 layers: 4 launches of kernels 1, 2 and 1a)
-    and its plain version on the CPU; depths compared over their largest value."""
+    and its plain version on the CPU; depths compared over their largest value, which must
+    pass 1e-3 (each head's last bias 0.5: ``init_params`` zeroes it, and the final ReLU of
+    a zero bias may zero the whole map)."""
     from lkgd_torch.models import depth_anything as da
     from lkgd_torch.models import midas, raft, rife
     from lkgd_torch.utils import point_tracker as pt
@@ -4501,84 +4517,46 @@ def phase_tiny_annotate(dev: torch.device) -> None:
 
     for kind, cfg, hw in (("hybrid", midas.MidasConfig.tiny(), (64, 96)),
                           ("large", midas.MidasConfig.tiny_large(), (64, 64))):
-        cpu, gpu = _tiny_twins(lambda d, gen: midas.build_dpt(kind, cfg, d, gen), dev, 33)
+        cpu, gpu = _tiny_twins(lambda d, gen: midas.build_dpt(kind, cfg, d, gen), dev, 33,
+                               LAST_BIAS[kind])
         x = torch.rand((2, *hw, 3), generator=g) * 2 - 1
         with torch.no_grad():
             want = cpu(x)
-            scale = want.abs().max().clamp(min=1e-6)
-            _close_line(label, f"DPT-{kind} depth / max|ref|", gpu(x.to(dev)) / scale.to(dev),
-                        want / scale)
+            scale = want.abs().max()
+            assert scale > 1e-3, f"DPT-{kind}: an all-zero reference proves nothing"
+            _close_line(label, f"DPT-{kind} depth / max|ref| (max|ref| {scale:.4g})",
+                        gpu(x.to(dev)) / scale.to(dev), want / scale)
 
     cfg = da.DepthAnythingConfig(image_size=462, patch_size=14, hidden_size=32, depth=4,
                                  num_heads=2, out_indices=(0, 1, 2, 3),
                                  neck_hidden_sizes=(8, 8, 16, 16), fusion_hidden_size=16,
                                  head_hidden_size=8)
-    cpu, gpu = _tiny_twins(lambda d, gen: da.build_depth_anything(cfg, d, gen), dev, 34)
+    cpu, gpu = _tiny_twins(lambda d, gen: da.build_depth_anything(cfg, d, gen), dev, 34,
+                           LAST_BIAS["depth_anything"])
     x = torch.randn((1, 462, 462, 3), generator=g)
     with torch.no_grad():
         want = cpu(x)
         _zero_counts()
         got = gpu(x.to(dev))
         counts = _read_counts()
-    scale = want.abs().max().clamp(min=1e-6)
-    _close_line(label, "Depth-Anything at 1090 tokens, depth / max|ref|",
-                got / scale.to(dev), want / scale)
+    scale = want.abs().max()
+    assert scale > 1e-3, "Depth-Anything: an all-zero reference proves nothing"
+    _close_line(label, f"Depth-Anything at 1090 tokens, depth / max|ref| (max|ref| "
+                f"{scale:.4g})", got / scale.to(dev), want / scale)
     launched = {k: v for k, v in counts.items() if v}
     print(f"[{label}] Depth-Anything's launches on the card: {launched}", flush=True)
     assert launched == dict.fromkeys(PRECOMPUTE, 4), launched
 
 
-STRICT_PROBE = (("large", (384, 384)), ("hybrid", (384, 384)), ("hybrid", (384, 672)))
-
-
-class _CudnnTF32:
-    """``with _CudnnTF32(on):`` cuDNN convolutions in TF32 (PyTorch's default) or not."""
-
-    def __init__(self, on: bool):
-        self.on = on
+class _CudnnTF32On:
+    """``with _CudnnTF32On():`` cuDNN's convolutions in TF32, PyTorch's default."""
 
     def __enter__(self):
         self.saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = self.on
+        torch.backends.cudnn.allow_tf32 = True
 
     def __exit__(self, *exc):
         torch.backends.cudnn.allow_tf32 = self.saved
-
-
-def _strict_fp32_probe(dev: torch.device, smi: str) -> None:
-    """DPT-large at 384 x 384 and DPT-hybrid at 384 x 384 and 384 x 672, one random frame
-    each, with cuDNN's TF32 off and on: ms a forward after a warm-up (host clock,
-    synchronised), peak GiB and the FFT kernels (cuDNN's FFT convolution: ``fft`` and its
-    complex ``gemvx``) of one forward under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from lkgd_torch.models import midas
-
-    for kind, hw in STRICT_PROBE:
-        model = midas.build_dpt(kind, None, dev, torch.Generator(device=dev).manual_seed(47))
-        x = torch.rand((1, *hw, 3), device=dev) * 2 - 1
-        parts = []
-        for on in (False, True):
-            with _CudnnTF32(on), torch.no_grad():
-                model(x)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-                t0 = time.perf_counter()
-                model(x)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    model(x)
-                    torch.cuda.synchronize()
-                fft = _kernels_by_name(prof, ("fft", "gemvx"))
-            parts.append(f"cuDNN TF32 {'on' if on else 'off'}: {ms:.1f} ms, peak {peak:.2f} "
-                         f"GiB, FFT kernels {sum(n for _, n in fft.values())} "
-                         f"({sum(t for t, _ in fft.values()):.1f} ms)")
-        print(f"[annotate] {smi} | DPT-{kind} one {hw[0]}x{hw[1]} forward, fp32 matmuls: "
-              + " | ".join(parts), flush=True)
-        del model
-        torch.cuda.empty_cache()
 
 
 def _random_raft_file(path: str, seed: int) -> None:
@@ -4608,44 +4586,99 @@ def _random_model_file(model: torch.nn.Module, path: str) -> None:
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
 
 
-def phase_annotate_full(dev: torch.device, smi: str) -> dict:
-    """8k: ``lkgd_torch/cli/annotate.py``'s own build functions at full width on a synthetic
-    14 x 576 x 1024 video (moving colour ramps with a seeded random texture): ``flow``
-    (UniMatch ``lkgd()``, random from ``--seed``), ``tracks`` (``RAFTConfig()`` from a
-    ``--weights`` file of the ``raft_large`` manifest's keys, random, loaded strictly; grid
-    16), ``depth_anything`` small and base, ``depth_midas`` (DPT-hybrid) and ``depth``
-    (DPT-large), each from a ``--weights`` file of a random model's state dict loaded
-    strictly, and RIFE 2x (14 -> 27 frames, random), with cuDNN's convolutions in TF32, as
-    PyTorch runs them by default (with TF32 off, cuDNN runs DPT's head convolution at
-    192 x 192 as an FFT of ~33,000 kernels, ~0.2 s and 18 GB a square frame:
-    ``_strict_fp32_probe`` measures it first). For each: s/clip after a warm-up
-    (host clock, synchronised), peak GiB, one frame (pair) under ``torch.profiler`` (busy
-    share, device operations, time by kind), the launches of one clip (the fp32 flash form
-    12 a frame on ``depth_anything``, GroupNorm once a norm of the BiT backbone on
-    ``depth_midas``, nothing of the port's kernels on the rest), outputs finite and in
-    range; tracks (14, 256, 2) with their visible share. Returns the launches by path."""
-    _strict_fp32_probe(dev, smi)
-    with _CudnnTF32(True):
-        return _annotate_paths(dev, smi)
-
-
-def _annotate_paths(dev: torch.device, smi: str) -> dict:
-    import argparse
-    import tempfile
-
-    from lkgd_torch.cli import annotate
-    from lkgd_torch.models import depth_anything as da
-    from lkgd_torch.models import midas, rife
-    from lkgd_torch.models.layers import GroupNorm
-    from lkgd_torch.utils import control_preprocess as cp
-
+def _annotate_clip() -> np.ndarray:
+    """The synthetic ``ANNOTATE_CLIP``, (T, H, W, 3) float32 in [0, 1]: moving colour ramps
+    with a seeded random texture."""
     t, h, w = ANNOTATE_CLIP
     g = torch.Generator().manual_seed(40)
     texture = torch.rand((h + 4 * t, w + 8 * t, 3), generator=g)
     yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-    frames = np.stack([(0.5 * texture[2 * i:2 * i + h, 4 * i:4 * i + w] + 0.5 * torch.stack(
+    return np.stack([(0.5 * texture[2 * i:2 * i + h, 4 * i:4 * i + w] + 0.5 * torch.stack(
         [(xx + 8 * i) % 256, (yy + 4 * i) % 256, (xx + yy + 16 * i) % 256], -1) / 255).numpy()
         for i in range(t)]).astype(np.float32)
+
+
+def _tf32_against_fp32(fn) -> str:
+    """``fn()``, one frame's (pair's) labels, with cuDNN's convolutions in TF32 (PyTorch's
+    default) against the CLI's fp32: for label images the largest difference and the share
+    of values more than half a level of the 8-bit label (1/510) apart; for tracks the
+    largest distance of a point and the visibility flags that differ."""
+    want = fn()
+    with _CudnnTF32On():
+        got = fn()
+    if isinstance(got, tuple):  # tracks, visibility
+        return (f"tracks {np.abs(got[0] - want[0]).max():.3e} px apart at most, visibility "
+                f"differs at {int((got[1] != want[1]).sum())} of {got[1].size}")
+    d = np.abs(got - want)
+    return (f"max|d| {d.max():.3e} ({255 * d.max():.3f} levels of 8 bits), "
+            f"{100 * (d > 1 / 510).mean():.4f}% of values over half a level")
+
+
+def _annotate_run(dev: torch.device, smi: str, name: str, fn, one, expect: dict, check,
+                  with_tf32: bool) -> dict:
+    """``fn()`` (a clip) after a warm-up: s/clip, peak GiB, the launches (which must equal
+    ``expect``), ``check``'s line; ``one`` = (what, a frame's or pair's call) under the
+    profiler and, where ``with_tf32``, in TF32 against fp32."""
+    t, h, w = ANNOTATE_CLIP
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"[annotate] {smi} | {name} on {t}x{h}x{w}: {seconds:.4f} s/clip (host clock, "
+          f"after a warm-up), peak {peak:.2f} GiB, launches {launched} | {check(out)}",
+          flush=True)
+    assert launched == expect, (name, launched, expect)
+    _profiled("annotate", f"{name}, {one[0]}", one[1])
+    if with_tf32:
+        print(f"[annotate] {name}, {one[0]}: cuDNN TF32 (PyTorch's default) against the "
+              f"CLI's fp32: {_tf32_against_fp32(one[1])}", flush=True)
+    return counts
+
+
+def phase_annotate_full(dev: torch.device, smi: str) -> dict:
+    """8k: ``lkgd_torch/cli/annotate.py``'s own build functions at full width on the
+    synthetic ``ANNOTATE_CLIP`` (14 x 576 x 1024) in the CLI's ``annotate.precision`` (fp32
+    throughout): ``flow`` (UniMatch ``lkgd()``, random from seed 0), ``tracks``
+    (``RAFTConfig()`` from a ``--weights`` file of the ``raft_large`` manifest's keys,
+    random, loaded strictly; grid 16), ``depth_anything`` small and base, ``depth_midas``
+    (DPT-hybrid) and ``depth`` (DPT-large), each from a ``--weights`` file of a random
+    model's state dict (the head's last bias 0.5) loaded strictly, registered in
+    ``control_preprocess`` for its path and unregistered after it; then RIFE 2x (14 -> 27
+    frames, random), which has no CLI. For each: s/clip after a warm-up (host clock,
+    synchronised), peak GiB, one frame (pair) under ``torch.profiler`` (busy share, device
+    operations, time by kind), the launches of one clip (the fp32 flash form 12 a frame on
+    ``depth_anything``, GroupNorm once a norm of the BiT backbone on ``depth_midas``,
+    nothing of the port's kernels on the rest), outputs finite, in range and not constant;
+    tracks (14, 256, 2) with their visible share; and each CLI path's frame (pair) with
+    cuDNN's TF32 on against the CLI's fp32. Returns the launches by path."""
+    from lkgd_torch.cli import annotate
+
+    frames = _annotate_clip()
+    with annotate.precision():
+        by_path = _annotate_cli_paths(dev, smi, frames)
+    by_path["annotate_rife"] = _rife_full(dev, smi, frames)
+    return by_path
+
+
+def _annotate_cli_paths(dev: torch.device, smi: str, frames: np.ndarray) -> dict:
+    import argparse
+    import shutil
+    import tempfile
+
+    from lkgd_torch.cli import annotate
+    from lkgd_torch.models import depth_anything as da
+    from lkgd_torch.models import midas
+    from lkgd_torch.models.layers import GroupNorm
+    from lkgd_torch.utils import control_preprocess as cp
+
+    t, h, w = ANNOTATE_CLIP
     work = Path(tempfile.mkdtemp(prefix="lkgd_annotate_"))
     parser = annotate.make_parser()
 
@@ -4653,32 +4686,16 @@ def _annotate_paths(dev: torch.device, smi: str) -> dict:
         return parser.parse_args(["--input", str(work), "--output", str(work), "--annotation",
                                   annotation, *extra])
 
-    def run(name: str, fn, one, expect: dict, check) -> dict:
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _zero_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = _read_counts()
-        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        launched = {k: v for k, v in counts.items() if v}
-        print(f"[annotate] {smi} | {name} on {t}x{h}x{w}: {seconds:.4f} s/clip (host clock, "
-              f"after a warm-up), peak {peak:.2f} GiB, launches {launched} | {check(out)}",
-              flush=True)
-        assert launched == expect, (name, launched, expect)
-        _profiled("annotate", f"{name}, {one[0]}", one[1])
-        return counts
+    def run(name, fn, one, expect, check) -> dict:
+        return _annotate_run(dev, smi, name, fn, one, expect, check, with_tf32=True)
 
     by_path = {}
-    # flow: UniMatch on the 13 consecutive pairs as one batch
+    # flow: UniMatch on the 13 consecutive pairs, FLOW_PAIRS a batch
     flow = annotate.build_flow_processor(args_for("flow"))
 
     def flow_check(images):
         assert images.shape == (t, h, w, 3) and np.isfinite(images).all()
-        assert images.min() >= 0.0 and images.max() <= 1.0
+        assert images.min() >= 0.0 and images.max() <= 1.0 and images.max() > images.min()
         return f"flow images {images.shape} in [{images.min():.3f}, {images.max():.3f}]"
 
     by_path["annotate_flow"] = run("flow", lambda: flow(frames),
@@ -4703,7 +4720,7 @@ def _annotate_paths(dev: torch.device, smi: str) -> dict:
 
     def depth_check(maps):
         assert maps.shape == (t, h, w, 3) and np.isfinite(maps).all()
-        assert maps.min() >= 0.0 and maps.max() <= 1.0
+        assert maps.min() >= 0.0 and maps.max() <= 1.0 and maps.max() > maps.min()
         return f"depth maps {maps.shape} in [{maps.min():.3f}, {maps.max():.3f}]"
 
     with torch.device("meta"):
@@ -4722,34 +4739,46 @@ def _annotate_paths(dev: torch.device, smi: str) -> dict:
                 "large", None, dev, torch.Generator(device=dev).manual_seed(45)), {})):
         path = str(work / f"{annotation}_{size}.pth")
         model = build()
+        model.state_dict()[LAST_BIAS["depth_anything" if annotation == "depth_anything"
+                                     else size]].fill_(0.5)
         _random_model_file(model, path)
         del model
         args = args_for(annotation, "--weights", path, "--model-size",
                         size if annotation == "depth_anything" else "small")
         cp.register_processor(annotation, annotate.build_depth_processor(args))
-        name = f"{annotation} ({size})"
-        by_path[f"annotate_{annotation}" + (f"_{size}" if annotation == "depth_anything"
-                                            else "")] = run(
-            name, lambda: cp.control_preprocess(frames, annotation),
-            ("one frame", lambda: cp.control_preprocess(frames[:1], annotation)), expect,
-            depth_check)
+        try:
+            by_path[f"annotate_{annotation}" + (f"_{size}" if annotation == "depth_anything"
+                                                else "")] = run(
+                f"{annotation} ({size})", lambda: cp.control_preprocess(frames, annotation),
+                ("one frame", lambda: cp.control_preprocess(frames[:1], annotation)), expect,
+                depth_check)
+        finally:  # the processor, and with it the model, leaves the card
+            cp._EXTERNAL.pop(annotation)
         os.remove(path)
         torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return by_path
 
+
+def _rife_full(dev: torch.device, smi: str, frames: np.ndarray) -> dict:
+    from lkgd_torch.models import rife
+
+    t = len(frames)
     model = rife.build_rife(device=dev, generator=torch.Generator(device=dev).manual_seed(46))
     video = torch.from_numpy(frames).to(dev)
 
     def rife_check(out):
-        assert tuple(out.shape) == (2 * t - 1, h, w, 3) and torch.isfinite(out).all()
+        assert tuple(out.shape) == (2 * t - 1, *frames.shape[1:]) and torch.isfinite(out).all()
         assert out.min() >= 0.0 and out.max() <= 1.0 and torch.equal(out[::2], video)
         return f"RIFE 2x: {tuple(out.shape)} in [{out.min():.3f}, {out.max():.3f}]"
 
-    by_path["annotate_rife"] = run("RIFE 2x", lambda: rife.interpolate_video(model, video),
-                                   ("one pair", lambda: rife.interpolate_video(model, video[:2])),
-                                   {}, rife_check)
+    counts = _annotate_run(dev, smi, "RIFE 2x",
+                           lambda: rife.interpolate_video(model, video),
+                           ("one pair", lambda: rife.interpolate_video(model, video[:2])), {},
+                           rife_check, with_tf32=False)
     del model, video
     torch.cuda.empty_cache()
-    return by_path
+    return counts
 
 
 def main() -> int:

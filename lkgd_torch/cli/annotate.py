@@ -14,8 +14,8 @@ Every ``*.mp4``, ``*.gif``, ``*.png`` and ``*.jpg`` of ``--input`` (at most
 * ``canny``, ``softedge`` (Sobel), ``tile`` and ``ip2p``: ``utils/control_preprocess.py``'s
   classical processors;
 * ``flow``: UniMatch (``UniMatchConfig.lkgd()``) flow images of consecutive frames, the
-  last repeated, ``FLOW_PAIRS`` pairs a batch; its weights are random from ``--seed``, as
-  the JAX CLI initialises its UniMatch with no file;
+  last repeated, ``FLOW_PAIRS`` pairs a batch; its weights are random from seed 0, as the
+  JAX CLI initialises its UniMatch from ``PRNGKey(0)`` with no file;
 * ``depth`` (HF Intel/dpt-large), ``depth_midas`` (isl-org DPT-hybrid) and
   ``depth_anything`` (HF Depth-Anything, ``--model-size small|base``): their checkpoints,
   loaded strictly from ``--weights``.
@@ -28,26 +28,25 @@ The annotators of HED, PiDiNet, OpenPose, line art and SegFormer are not ported 
 (ROADMAP.md Queue 1, item 14d): they are refused.
 
 It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
-unless ``--device cpu`` is given. The models are built by ``build_flow_processor``,
-``build_tracker`` and ``build_depth_processor``; ``main`` takes ``widths=`` for tiny
-models in tests and ``flow_model=`` for given UniMatch weights.
+unless ``--device cpu`` is given, in fp32 (``precision``). The models are
+built by ``build_flow_processor``, ``build_tracker`` and ``build_depth_processor`` at their
+published widths.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import contextlib
 import glob
 import os
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
 
 from lkgd_torch.models.depth_anything import DepthAnythingConfig
-from lkgd_torch.models.midas import MidasConfig
 from lkgd_torch.models.raft import RAFTConfig
-from lkgd_torch.models.unimatch import UniMatch, UniMatchConfig
+from lkgd_torch.models.unimatch import UniMatchConfig, build_unimatch
 from lkgd_torch.utils import control_preprocess as cp
 from lkgd_torch.utils.device import require_device
 from lkgd_torch.utils.porting import load_state_dict
@@ -64,16 +63,20 @@ NOT_PORTED = ("softedge_pidinet", "softedge_pidsafe", "scribble_pidinet", "softe
               "lineart_coarse", "lineart_anime", "segmentation", "openpose")
 
 
-@dataclasses.dataclass(frozen=True)
-class Widths:
-    """The annotators' configurations, the published ones by default; the CPU tests pass
-    tiny ones (``depth_anything=None``: the ``--model-size`` one)."""
-
-    unimatch: UniMatchConfig = UniMatchConfig.lkgd()
-    raft: RAFTConfig = RAFTConfig()
-    dpt_large: MidasConfig = MidasConfig.large()
-    dpt_hybrid: MidasConfig = MidasConfig()
-    depth_anything: Optional[DepthAnythingConfig] = None
+@contextlib.contextmanager
+def precision():
+    """The annotators' arithmetic: fp32 throughout, the precision at which the port's tests
+    hold each annotator to the JAX package. PyTorch's default runs cuDNN's convolutions in
+    TF32, which on an H100 moves a random UniMatch's flow image by up to its full scale and
+    DPT-hybrid's depth by 16 levels of 8 bits (PERF.md); so the switch is set here, whatever
+    the caller's. The price: cuDNN runs DPT-large's head convolution as an FFT (ROADMAP.md
+    Queue 2)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = False, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -89,7 +92,6 @@ def make_parser() -> argparse.ArgumentParser:
                    help="tracks: the query grid's side")
     p.add_argument("--fb-thresh", type=float, default=2.0,
                    help="tracks: the forward-backward cycle's visibility threshold (px)")
-    p.add_argument("--seed", type=int, default=0, help="flow: UniMatch's random weights")
     p.add_argument("--device", default="cuda",
                    help="the card by default; a run without one fails unless cpu is named")
     return p
@@ -100,18 +102,15 @@ def _load_strictly(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return model
 
 
-def build_flow_processor(args, widths: Widths = Widths(),
-                         model: Optional[UniMatch] = None) -> Callable:
-    """``frames (T, H, W, 3) [0, 1] -> (T, H, W, 3)`` flow images (the last repeated), from
-    ``model`` or a UniMatch random from ``args.seed`` on ``args.device``."""
-    from lkgd_torch.models.unimatch import build_unimatch
+def build_flow_processor(args) -> Callable:
+    """``frames (T, H, W, 3) [0, 1] -> (T, H, W, 3)`` flow images (the last repeated), from a
+    UniMatch random from seed 0 on ``args.device``."""
     from lkgd_torch.utils.flow_codec import flow_to_image_naive
     from lkgd_torch.utils.optical_flow import make_flow_fn
 
     device = require_device(args.device)
-    if model is None:
-        model = build_unimatch(widths.unimatch, device=device,
-                               generator=torch.Generator(device=device).manual_seed(args.seed))
+    model = build_unimatch(UniMatchConfig.lkgd(), device=device,
+                           generator=torch.Generator(device=device).manual_seed(0))
     flow_fns = {}
 
     def process(frames: np.ndarray) -> np.ndarray:
@@ -126,32 +125,32 @@ def build_flow_processor(args, widths: Widths = Widths(),
     return process
 
 
-def build_tracker(args, widths: Widths = Widths()) -> Callable:
+def build_tracker(args) -> Callable:
     """``frames (T, H, W, 3) [0, 1] -> (tracks, visibility)`` numpy, through RAFT loaded
     strictly from ``args.weights`` on ``args.device``."""
     from lkgd_torch.models.raft import build_raft
     from lkgd_torch.utils.point_tracker import track_video
 
-    model = _load_strictly(build_raft(widths.raft, device=args.device), args.weights)
+    model = _load_strictly(build_raft(RAFTConfig(), device=args.device), args.weights)
     return lambda frames: track_video(model, frames, grid_size=args.grid_size,
                                       fb_thresh=args.fb_thresh)
 
 
-def build_depth_processor(args, widths: Widths = Widths()) -> Callable:
+def build_depth_processor(args) -> Callable:
     """The ``args.annotation`` depth annotator, ``(H, W, 3) [0, 1] -> (H, W, 3) [0, 1]``,
     its model loaded strictly from ``args.weights`` on ``args.device``."""
     if args.annotation == "depth_anything":
         from lkgd_torch.models import depth_anything as da
 
-        cfg = widths.depth_anything or getattr(DepthAnythingConfig, args.model_size)()
+        cfg = getattr(DepthAnythingConfig, args.model_size)()
         model = da.build_depth_anything(cfg, device=args.device)
         return da.make_depth_processor(_load_strictly(model, args.weights))
     from lkgd_torch.models import midas
 
     if args.annotation == "depth":
-        model = midas.build_dpt("large", widths.dpt_large, device=args.device)
+        model = midas.build_dpt("large", device=args.device)
         return midas.make_depth_processor(_load_strictly(model, args.weights))
-    model = midas.build_dpt("hybrid", widths.dpt_hybrid, device=args.device)
+    model = midas.build_dpt("hybrid", device=args.device)
     return midas.make_midas_processor(_load_strictly(model, args.weights))
 
 
@@ -159,7 +158,8 @@ def _files(folder: str, exts) -> list:
     return sorted(sum([glob.glob(os.path.join(folder, e)) for e in exts], []))
 
 
-def main(argv=None, widths: Widths = Widths(), flow_model: Optional[UniMatch] = None) -> None:
+@precision()
+def main(argv=None) -> None:
     from lkgd_torch.data.video_io import load_input, write_video
 
     args = make_parser().parse_args(argv)
@@ -173,7 +173,7 @@ def main(argv=None, widths: Widths = Widths(), flow_model: Optional[UniMatch] = 
     os.makedirs(args.output, exist_ok=True)
 
     if args.annotation == "tracks":
-        track = build_tracker(args, widths)
+        track = build_tracker(args)
         for f in _files(args.input, ("*.mp4", "*.gif")):
             tracks, vis = track(load_input(f, max_frames=args.max_frames))
             out = os.path.join(args.output, os.path.splitext(os.path.basename(f))[0] + ".npz")
@@ -182,10 +182,10 @@ def main(argv=None, widths: Widths = Widths(), flow_model: Optional[UniMatch] = 
         return
 
     if args.annotation == "flow":
-        label = build_flow_processor(args, widths, flow_model)
+        label = build_flow_processor(args)
     else:
         if args.annotation in WEIGHTS:
-            cp.register_processor(args.annotation, build_depth_processor(args, widths))
+            cp.register_processor(args.annotation, build_depth_processor(args))
         label = lambda frames: cp.control_preprocess(frames, args.annotation)  # noqa: E731
     for f in _files(args.input, ("*.mp4", "*.gif", "*.png", "*.jpg")):
         labels = label(load_input(f, max_frames=args.max_frames))

@@ -4,20 +4,21 @@ both run in-process on the same tiny GIF (4 frames of 30 x 44, a drifting random
 * ``canny`` and ``tile``: the label GIFs decode to the same frames;
 * ``flow``: the JAX CLI with ``UniMatchConfig.lkgd`` set to ``tiny`` initialises its UniMatch
   from ``PRNGKey(0)``; those params, carried across by ``unimatch_state_dict``, are given to
-  the port's CLI (``flow_model=``, two pairs a batch); the label frames before the GIF agree at atol 2e-5,
-  2e-3 px on the flow image's scale of 1/100 a pixel: ``jax.image.resize`` of the 0-255
-  frames to the padded 32 x 48 is 2.3e-6 of full scale off (``tests/test_torch_unimatch.py``,
-  whose random model stays within 1e-3 px), and the CLI's flax-initialised model carries
-  it to 1.2e-3 px at 0.2% of the values;
+  the port's CLI (its ``build_unimatch`` monkeypatched to return them, two pairs a batch);
+  the label frames before the GIF agree at atol 2e-5, 2e-3 px on the flow image's scale of
+  1/100 a pixel: ``jax.image.resize`` of the 0-255 frames to the padded 32 x 48 is 2.3e-6
+  of full scale off (``tests/test_torch_unimatch.py``, whose random model stays within
+  1e-3 px), and the CLI's flax-initialised model carries it to 1.2e-3 px at 0.2% of the
+  values;
 * ``tracks``: a ``--weights`` file of the tiny RAFT's JAX params under torchvision's names,
-  read by the JAX CLI (``RAFTConfig`` set to ``tiny``) through its ``port_raft`` and by the
-  port's strictly: the ``.npz`` keys, shapes and values agree (tracks at rtol 1e-4, atol
-  2e-4 px, visibility equal);
+  read by the JAX CLI through its ``port_raft`` and by the port's strictly (``RAFTConfig``
+  set to ``tiny`` in both): the ``.npz`` keys, shapes and values agree (tracks at rtol
+  1e-4, atol 2e-4 px, visibility equal);
 * ``depth_anything``: a ``--weights`` file of the tiny model's JAX params through
-  ``depth_anything_state_dict`` against the JAX processor on those params (the JAX CLI
-  reads such a file through ``port_depth_anything``, which applies the reassemble
-  transposed kernels mirrored against HF's model: ROADMAP.md Queue 3), at rtol 1e-4, atol
-  2e-4;
+  ``depth_anything_state_dict``, read by the port's CLI (``DepthAnythingConfig.small`` set
+  to ``tiny``), against the JAX processor on those params (the JAX CLI reads such a file
+  through ``port_depth_anything``, which applies the reassemble transposed kernels mirrored
+  against HF's model: ROADMAP.md Queue 3), at rtol 1e-4, atol 2e-4;
 * ``--weights`` missing exits; an annotator of ROADMAP item 14d is refused, naming it."""
 
 import sys
@@ -104,9 +105,9 @@ def test_flow_with_the_same_unimatch(clip, tmp_path, monkeypatch):
     model = build_unimatch(UniMatchConfig.tiny(), device="cpu")
     model.load_state_dict(unimatch_state_dict(flatten(params[0])), strict=True)
     got = recorded(monkeypatch, video_io)
+    monkeypatch.setattr(annotate, "build_unimatch", lambda *args, **kw: model)
     monkeypatch.setattr(annotate, "FLOW_PAIRS", 2)  # the 3 pairs in two batches
-    annotate.main(argv + ["--output", str(tmp_path / "port"), "--device", "cpu"],
-                  flow_model=model)
+    annotate.main(argv + ["--output", str(tmp_path / "port"), "--device", "cpu"])
     assert got[0].shape == want[0].shape == (T, H, W, 3)
     np.testing.assert_array_equal(got[0][-1], got[0][-2])  # the last flow image repeats
     close(got[0], want[0], atol=2e-3 / 100, rtol=0)  # 2e-3 px on the image's 1/100 px scale
@@ -118,11 +119,11 @@ def test_tracks_from_a_weights_file(clip, tmp_path, monkeypatch):
     path = str(tmp_path / "raft.safetensors")
     save_safetensors({k: v.numpy() for k, v in raft_state_dict(flatten(params)).items()}, path)
     monkeypatch.setattr(jax_raft, "RAFTConfig", jax_raft.RAFTConfig.tiny)
+    monkeypatch.setattr(annotate, "RAFTConfig", RAFTConfig.tiny)
     argv = ["--input", str(clip), "--annotation", "tracks", "--weights", path,
             "--grid-size", "4"]
     run_jax(monkeypatch, argv + ["--output", str(tmp_path / "jax")])
-    annotate.main(argv + ["--output", str(tmp_path / "port"), "--device", "cpu"],
-                  widths=annotate.Widths(raft=RAFTConfig.tiny()))
+    annotate.main(argv + ["--output", str(tmp_path / "port"), "--device", "cpu"])
     got, want = (np.load(tmp_path / side / "clip.npz") for side in ("port", "jax"))
     assert sorted(got.files) == sorted(want.files) == ["tracks", "visibility"]
     assert got["tracks"].shape == want["tracks"].shape == (T, 16, 2)
@@ -138,9 +139,9 @@ def test_depth_anything_from_a_weights_file(clip, tmp_path, monkeypatch):
     save_safetensors({k: v.numpy() for k, v in
                       depth_anything_state_dict(flatten(params)).items()}, path)
     got = recorded(monkeypatch, video_io)
+    monkeypatch.setattr(DepthAnythingConfig, "small", classmethod(lambda cls: cls.tiny()))
     annotate.main(["--input", str(clip), "--annotation", "depth_anything", "--weights", path,
-                   "--output", str(tmp_path), "--device", "cpu"],
-                  widths=annotate.Widths(depth_anything=DepthAnythingConfig.tiny()))
+                   "--output", str(tmp_path), "--device", "cpu"])
     frames = video_io.load_input(str(clip / "clip.gif"))
     process = jax_da.make_depth_processor(params, cfg)
     want = np.stack([np.asarray(process(f)) for f in frames])

@@ -80,20 +80,21 @@ def test_midas_resize_shape_table():
 
 
 @pytest.mark.parametrize("annotation,kind", [("depth_midas", "hybrid"), ("depth", "large")])
-def test_processor_from_a_checkpoint_file(pairs, tmp_path, annotation, kind):
+def test_processor_from_a_checkpoint_file(pairs, tmp_path, monkeypatch, annotation, kind):
     model, params, _ = pairs[kind]
     path = str(tmp_path / f"{kind}.safetensors")
     save_safetensors({k: v.numpy() for k, v in KINDS[kind][3](flatten(params)).items()}, path)
     jcfg, pcfg = KINDS[kind][1], KINDS[kind][2]
+    # the CLI builds the published configurations: here the tiny ones stand in for them
     if kind == "hybrid":
         want_fn = J.make_midas_processor(path, jcfg)
-        widths = annotate.Widths(dpt_hybrid=pcfg)
+        monkeypatch.setattr(P, "MidasConfig", lambda: pcfg)
     else:
         want_fn = J.make_depth_processor(path, jcfg)
-        widths = annotate.Widths(dpt_large=pcfg)
+        monkeypatch.setattr(P.MidasConfig, "large", classmethod(lambda cls: pcfg))
     args = argparse.Namespace(annotation=annotation, weights=path, device="cpu",
                               model_size="small")
-    got_fn = annotate.build_depth_processor(args, widths)
+    got_fn = annotate.build_depth_processor(args)
     image = np.random.default_rng(2).uniform(size=(50, 70, 3)).astype(np.float32)
     want, got = want_fn(image), got_fn(image)
     assert got.shape == want.shape == (50, 70, 3) and got.dtype == np.float32
