@@ -60,6 +60,11 @@ each printing its own lines; any failure raises and the script exits non-zero:
    a narrow RIFE (midpoint and 2x), tiny DPT-hybrid and DPT-large, and a tiny-width
    Depth-Anything at 462x462, whose 1090 tokens run the fp32 flash form on the card (4
    launches of each of its kernels asserted) and its plain version on the CPU;
+4j. at fp32, GPU against CPU with the same random weights: HED, PiDiNet, the line-art
+   generator, Anime2Sketch, OpenPose, SegFormer, BLIP and CogVLM (logits; greedy ids equal),
+   then each of the twelve label annotators through ``cli/annotate.py``'s build functions from one
+   file on both, ``annotate.main`` on the card, and ``caption.main`` for BLIP and CogVLM on
+   both (``phase_tiny_labels``);
 4h. at fp32, GPU against CPU: the precompute encode at tiny widths on 64x64 frames (the fp32
    flash form at the VAE's mid block), InceptionV3 at 299 on 2 images, I3D on (1, 10, 64,
    64, 3), CLIP features and the Frechet distance of each device's features;
@@ -241,6 +246,16 @@ each printing its own lines; any failure raises and the script exits non-zero:
    ``depth_midas``, none elsewhere), outputs finite, in range and not constant; and how far
    cuDNN's TF32 (PyTorch's default, which the CLI turns off) would move each CLI path's
    frame (pair);
+8l. the twelve label annotators of HED, PiDiNet, line art, SegFormer (B0 and B4) and OpenPose
+   through ``cli/annotate.py``'s build functions at full width on the same 14x576x1024 video in
+   ``annotate.precision``, each from a random file under the published names loaded
+   strictly: s/clip, peak, one frame under ``torch.profiler``, TF32 against fp32, none of the
+   port's kernels launched (``phase_labels_full``);
+8m. BLIP-large (fp32) on one 384x384 frame at ``--max-length 20`` through ``cli/caption.py``'s
+   ``caption_blip``: s/caption; CogVLM2-Caption at ``caption_8b`` (19.5 B parameters, bf16,
+   built on the card from a seed, its names through ``port_cogvlm`` and loaded strictly) on
+   24 frames at 224x224 with 12 prompt ids and 20 new tokens: s/video split vision / decode,
+   peak, one decode step under ``torch.profiler`` (``phase_captions_full``);
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
@@ -272,6 +287,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -4586,10 +4602,10 @@ def _random_model_file(model: torch.nn.Module, path: str) -> None:
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
 
 
-def _annotate_clip() -> np.ndarray:
-    """The synthetic ``ANNOTATE_CLIP``, (T, H, W, 3) float32 in [0, 1]: moving colour ramps
-    with a seeded random texture."""
-    t, h, w = ANNOTATE_CLIP
+def _annotate_clip(t: int = ANNOTATE_CLIP[0]) -> np.ndarray:
+    """The synthetic ``ANNOTATE_CLIP`` (``t`` frames), (T, H, W, 3) float32 in [0, 1]: moving
+    colour ramps with a seeded random texture."""
+    h, w = ANNOTATE_CLIP[1:]
     g = torch.Generator().manual_seed(40)
     texture = torch.rand((h + 4 * t, w + 8 * t, 3), generator=g)
     yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
@@ -4609,7 +4625,8 @@ def _tf32_against_fp32(fn) -> str:
     if isinstance(got, tuple):  # tracks, visibility
         return (f"tracks {np.abs(got[0] - want[0]).max():.3e} px apart at most, visibility "
                 f"differs at {int((got[1] != want[1]).sum())} of {got[1].size}")
-    d = np.abs(got - want)
+    scale = 255.0 if want.dtype == np.uint8 else 1.0  # uint8 palette images: 0-255
+    d = np.abs(got.astype(np.float64) - want) / scale
     return (f"max|d| {d.max():.3e} ({255 * d.max():.3f} levels of 8 bits), "
             f"{100 * (d > 1 / 510).mean():.4f}% of values over half a level")
 
@@ -4781,6 +4798,393 @@ def _rife_full(dev: torch.device, smi: str, frames: np.ndarray) -> dict:
     return counts
 
 
+
+# ---------------------------------------------------------------- more labels, and captions
+LABELS = ("softedge_hed", "scribble_hed", "softedge_hedsafe", "scribble_hedsafe",
+          "softedge_pidinet", "softedge_pidsafe", "scribble_pidinet", "lineart",
+          "lineart_coarse", "lineart_anime", "segmentation", "openpose")
+TINY_BLIP = dict(image_size=32, patch_size=8, vision_hidden=48, vision_layers=2,
+                 vision_heads=2, vision_intermediate=96, vocab_size=64, text_hidden=32,
+                 text_layers=2, text_heads=2, text_intermediate=64, max_position_embeddings=32,
+                 bos_token_id=60, sep_token_id=61, pad_token_id=0)
+COGVLM_VIDEO = (24, 20, 12)  # frames, new tokens, prompt ids
+
+
+def _label_file(annotation: str, path: str, device, seed: int) -> None:
+    """A random model of ``annotation`` (from ``seed``, built on ``device`` at the size the
+    CLI's build function would build) saved to ``path`` under the published names: PiDiNet's raw
+    pixel-difference kernels (a radial difference's 3x3); HED's projection and PiDiNet's
+    classifier biases 1, so that the scribble's >127 lines exist; OpenPose's last heatmap
+    layer 0.1x with bias -2, so that no peak passes the 0.1 threshold (a random model's
+    heatmaps give thousands, and the host's pairwise limb matching would run for minutes)."""
+    from lkgd_torch.models import hed, lineart, lineart_anime, openpose, pidinet, segformer
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    if annotation.endswith(("_pidinet", "_pidsafe")):
+        with torch.device("meta"):
+            names = pidinet.PiDiNet().state_dict()
+        sd = {}
+        for name, t in names.items():
+            shape = torch.Size((t.shape[0], 1, 3, 3) if pidinet.pdc_op_for(name) == "rd"
+                               else t.shape)
+            x = torch.randn(shape, generator=g, device=device)
+            sd[f"module.{name}"] = x / shape[1:].numel() ** 0.5 if len(shape) == 4 else 0.1 * x
+        sd["module.classifier.bias"].fill_(1.0)
+    else:
+        if annotation.endswith(("_hed", "_hedsafe")):
+            model = hed.build_hed(device, g)
+            for i in range(1, 6):
+                getattr(model, f"block{i}").projection.bias.fill_(1.0)
+        elif annotation == "lineart_anime":
+            model = lineart_anime.build_lineart_anime(lineart_anime.LineartAnimeConfig(),
+                                                      device, g)
+        elif annotation.startswith("lineart"):
+            model = lineart.build_lineart(lineart.LineartConfig(), device, g)
+        elif annotation == "segmentation":
+            model = segformer.build_segformer(segformer.segformer_config("small"), device, g)
+        else:
+            model = openpose.build_openpose(openpose.OpenPoseConfig(), device, g)
+            model.model6_2.Mconv7_stage6_L2.weight.mul_(0.1)
+            model.model6_2.Mconv7_stage6_L2.bias.fill_(-2.0)
+        sd = model.state_dict()
+    torch.save({k: v.cpu() for k, v in sd.items()}, path)
+
+
+def _tiny_label_configs():
+    """The CLI's build functions at the tiny sizes of the tests: Anime2Sketch ``num_downs=6, ngf=8``,
+    SegFormer tiny, OpenPose at ``detect_resolution=64``."""
+    import contextlib
+    import functools
+
+    from lkgd_torch.models import lineart_anime, openpose, segformer
+
+    stack = contextlib.ExitStack()
+    anime = lineart_anime.LineartAnimeConfig
+    stack.enter_context(mock.patch.object(lineart_anime, "LineartAnimeConfig",
+                                          lambda: anime(num_downs=6, ngf=8)))
+    stack.enter_context(mock.patch.object(segformer, "segformer_config",
+                                          lambda size: segformer.SegformerConfig.tiny()))
+    stack.enter_context(mock.patch.object(openpose, "make_openpose_processor", functools.partial(
+        openpose.make_openpose_processor, detect_resolution=64)))
+    return stack
+
+
+def _labels_agree(label: str, name: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Label maps GPU against CPU: soft maps at rtol 1e-4, atol 2e-4; quantised ones (the
+    ``*safe`` steps, scribbles, palette images, skeletons) equal but on at most 1% of the
+    values, a value within rounding of a step falling either way."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (name, got.shape, want.shape)
+    differ = float((got != want).mean())
+    print(f"[{label}] GPU vs CPU {name} labels {want.shape} {want.dtype}: max|d| "
+          f"{np.abs(got.astype(np.float64) - want).max():.3e}, {100 * differ:.3f}% of values "
+          f"differ", flush=True)
+    if "safe" in name or "scribble" in name or name in ("segmentation", "openpose"):
+        assert differ <= 0.01, (name, differ)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-4, err_msg=name)
+
+
+def phase_tiny_labels(dev: torch.device) -> None:
+    """4j: at fp32, GPU against CPU with the same random weights: HED's edge (full width),
+    PiDiNet, the line-art generator (full width), Anime2Sketch (``num_downs=6, ngf=8``),
+    OpenPose's PAFs and heatmaps (full width), SegFormer tiny, BLIP and CogVLM at their tiny
+    configurations (logits, and greedy ids equal); then both CLIs on files under the
+    published names, written from random models at those sizes (the sizes of
+    ``tests/test_torch_annotate.py``'s label cases and ``tests/test_torch_caption.py``):
+    each of the twelve label annotators built by ``cli/annotate.py``'s own build function on the
+    card and on the CPU from one file over a 4-frame 32x48 clip (``_labels_agree``), and
+    ``annotate.main`` on the card for each; ``caption.main`` for BLIP and CogVLM (fp32) on
+    the card and on the CPU, the ids equal. Nothing of the port's kernels launches."""
+    import argparse
+    import shutil
+    import tempfile
+
+    from lkgd_torch.cli import annotate, caption
+    from lkgd_torch.data.video_io import write_video
+    from lkgd_torch.models import (blip, cogvlm, hed, lineart, lineart_anime, openpose,
+                                   pidinet, segformer)
+    from lkgd_torch.utils import control_preprocess as cp
+
+    label = "tiny-labels"
+    g = torch.Generator().manual_seed(50)
+    img = torch.rand((2, 32, 48, 3), generator=g)
+    _zero_counts()
+    for name, build, run, x in (
+            ("HED edge", hed.build_hed, hed.hed_edge, img),
+            ("PiDiNet edge", pidinet.build_pidinet, None, img),
+            ("line art", lambda d, gen: lineart.build_lineart(lineart.LineartConfig(), d, gen),
+             None, img),
+            ("Anime2Sketch", lambda d, gen: lineart_anime.build_lineart_anime(
+                lineart_anime.LineartAnimeConfig(num_downs=6, ngf=8), d, gen), None,
+             torch.rand((1, 64, 128, 3), generator=g) * 2 - 1),
+            ("OpenPose PAFs, heatmaps", lambda d, gen: openpose.build_openpose(
+                openpose.OpenPoseConfig(), d, gen), None,
+             torch.rand((1, 64, 96, 3), generator=g) - 0.5),
+            ("SegFormer tiny logits", lambda d, gen: segformer.build_segformer(
+                segformer.SegformerConfig.tiny(), d, gen), None,
+             torch.randn((2, 64, 96, 3), generator=g))):
+        cpu, gpu = _tiny_twins(build, dev, 51)
+        run = run or (lambda m, t: m(t))
+        with torch.no_grad():
+            want, got = run(cpu, x), run(gpu, x.to(dev))
+        for i, (a, b) in enumerate(zip(*(o if isinstance(o, tuple) else (o,)
+                                         for o in (got, want)))):
+            _close_line(label, f"{name} [{i}]", a, b)
+
+    cpu, gpu = _tiny_twins(lambda d, gen: blip.build_blip(blip.BlipConfig(**TINY_BLIP), d, gen),
+                           dev, 52)
+    pixels = torch.randn((2, 32, 32, 3), generator=g)
+    ids = torch.randint(1, 60, (2, 7), generator=g)
+    with torch.no_grad():
+        _close_line(label, "BLIP logits", gpu(pixels.to(dev), ids.to(dev)), cpu(pixels, ids))
+    want = blip.greedy_caption(cpu, pixels, 12)
+    got = blip.greedy_caption(gpu, pixels.to(dev), 12).cpu()
+    print(f"[{label}] BLIP greedy ids GPU {got.tolist()} CPU {want.tolist()}", flush=True)
+    assert torch.equal(got, want)
+
+    cfg = cogvlm.CogVLMConfig.tiny()
+    cpu, gpu = _tiny_twins(lambda d, gen: cogvlm.build_cogvlm(cfg, d, gen, torch.float32),
+                           dev, 53)
+    frames = torch.randn((1, 2, 32, 32, 3), generator=g)
+    prompt = torch.randint(3, 64, (1, 5), generator=g)
+    with torch.no_grad():
+        _close_line(label, "CogVLM logits", gpu(frames.to(dev), prompt.to(dev)),
+                    cpu(frames, prompt))
+    want = cogvlm.greedy_video_caption(cpu, frames, prompt, 8)
+    got = cogvlm.greedy_video_caption(gpu, frames.to(dev), prompt.to(dev), 8).cpu()
+    print(f"[{label}] CogVLM greedy ids GPU {got.tolist()} CPU {want.tolist()}", flush=True)
+    assert torch.equal(got, want)
+
+    work = Path(tempfile.mkdtemp(prefix="lkgd_labels_"))
+    clip = torch.rand((4, 32, 48, 3), generator=g).numpy()
+    write_video(str(work / "clip.gif"), clip)
+    parser = annotate.make_parser()
+    with _tiny_label_configs():
+        for i, annotation in enumerate(LABELS):
+            path = str(work / f"{annotation}.pth")
+            _label_file(annotation, path, "cpu", 60 + i)
+            labels = {}
+            for device in (str(dev), "cpu"):
+                args = parser.parse_args(["--input", str(work), "--output", str(work / device),
+                                          "--annotation", annotation, "--weights", path,
+                                          "--device", device])
+                cp.register_processor(annotation, annotate.PROCESSORS[annotation](args))
+                labels[device] = cp.control_preprocess(clip, annotation)
+                cp._EXTERNAL.pop(annotation)
+            _labels_agree(label, annotation, labels[str(dev)], labels["cpu"])
+            annotate.main(["--input", str(work), "--output", str(work / "labels"),
+                           "--annotation", annotation, "--weights", path, "--device", str(dev)])
+            assert (work / "labels" / f"clip_{annotation}.gif").exists()
+
+    torch.save(blip.build_blip(blip.BlipConfig(**TINY_BLIP), "cpu",
+                               torch.Generator().manual_seed(54)).state_dict(), work / "blip.pth")
+    torch.save(cogvlm.build_cogvlm(cfg, "cpu", torch.Generator().manual_seed(55),
+                                   torch.float32).state_dict(), work / "cogvlm.pth")
+    (work / "prompt.json").write_text(json.dumps([5, 9, 17]))
+    with mock.patch.object(blip.BlipConfig, "large", classmethod(lambda c: c(**TINY_BLIP))), \
+            mock.patch.object(cogvlm.CogVLMConfig, "caption_8b",
+                              classmethod(lambda c: c.tiny())), \
+            mock.patch.object(caption, "COGVLM_DTYPE", torch.float32):
+        for model, extra in (("blip", ["--max-length", "10"]),
+                             ("cogvlm", ["--prompt-ids", str(work / "prompt.json"),
+                                         "--max-length", "6", "--num-frames", "3"])):
+            out = {}
+            for device in (str(dev), "cpu"):
+                caption.main(["--model", model, "--input", str(work), "--weights",
+                              str(work / f"{model}.pth"), "--output",
+                              str(work / f"{model}_{device}.json"), "--device", device, *extra])
+                out[device] = json.loads((work / f"{model}_{device}.json").read_text())
+            print(f"[{label}] caption --model {model}: GPU {out[str(dev)]} CPU {out['cpu']}",
+                  flush=True)
+            assert out[str(dev)] == out["cpu"] and out["cpu"], model
+    shutil.rmtree(work)
+    launched = {k: v for k, v in _read_counts().items() if v}
+    assert not launched, launched
+
+
+def _label_check(annotation: str):
+    """What a clip's labels must be: (T, H, W, 3) finite in [0, 1] (``safe_step``'s [0, 1.5]
+    for the ``*safe`` ones: a saturated edge of 1.0 steps to 1.5) and not constant; the
+    scribbles (the random model's lines may cover the frame) and OpenPose's skeleton maps
+    (empty with the random model's held-down heatmaps) finite and in range;
+    ``segmentation``'s uint8 palette images (the processor divides the CLI's [0, 1] frames
+    by 255 again, as the JAX one does, so a random model may see one class throughout)."""
+    t, h, w = ANNOTATE_CLIP
+    top = 1.5 if "safe" in annotation else 1.0
+
+    def check(maps: np.ndarray) -> str:
+        assert maps.shape == (t, h, w, 3), maps.shape
+        if annotation == "segmentation":
+            assert maps.dtype == np.uint8
+            colours = len(np.unique(maps.reshape(-1, 3), axis=0))
+            return f"palette images {maps.shape}, {colours} palette colours"
+        assert np.isfinite(maps).all() and maps.min() >= 0.0 and maps.max() <= top
+        if annotation != "openpose" and not annotation.startswith("scribble"):
+            assert maps.max() > maps.min(), annotation
+        return (f"label maps {maps.shape} in [{maps.min():.3f}, {maps.max():.3f}], mean "
+                f"{maps.mean():.4f}")
+
+    return check
+
+
+def phase_labels_full(dev: torch.device, smi: str) -> dict:
+    """8l: the twelve label annotators through ``cli/annotate.py``'s own build functions at full
+    width on ``ANNOTATE_CLIP`` (14x576x1024) in the CLI's ``annotate.precision`` (fp32), each
+    from a ``--weights`` file of a random model under the published names (``_label_file``),
+    loaded strictly (SegFormer B0, ``--model-size small``, and B4, ``base``): s/clip after a
+    warm-up, peak GiB, one frame under ``torch.profiler``, no launch of the port's kernels,
+    the labels' check, and cuDNN's TF32 against the CLI's fp32 on that frame. Returns the
+    launches by path."""
+    import shutil
+    import tempfile
+
+    from lkgd_torch.cli import annotate
+    from lkgd_torch.utils import control_preprocess as cp
+
+    frames = _annotate_clip()
+    work = Path(tempfile.mkdtemp(prefix="lkgd_labels_"))
+    parser = annotate.make_parser()
+    by_path = {}
+    with annotate.precision():
+        for i, (annotation, size) in enumerate([(a, "small") for a in LABELS]
+                                               + [("segmentation", "base")]):
+            path = str(work / f"{annotation}.pth")
+            if size == "base":
+                from lkgd_torch.models import segformer
+
+                model = segformer.build_segformer(segformer.SegformerConfig.b4_ade(), dev,
+                                                  torch.Generator(device=dev).manual_seed(90))
+                torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+                del model
+            else:
+                _label_file(annotation, path, dev, 70 + i)
+            args = parser.parse_args(["--input", str(work), "--output", str(work),
+                                      "--annotation", annotation, "--weights", path,
+                                      "--model-size", size])
+            cp.register_processor(annotation, annotate.PROCESSORS[annotation](args))
+            name = annotation + (f" ({'B0' if size == 'small' else 'B4'})"
+                                 if annotation == "segmentation" else "")
+            try:
+                by_path[f"annotate_{annotation}" + ("_b4" if size == "base" else "")] = (
+                    _annotate_run(dev, smi, name,
+                                  lambda: cp.control_preprocess(frames, annotation),
+                                  ("one frame", lambda: cp.control_preprocess(frames[:1],
+                                                                              annotation)),
+                                  {}, _label_check(annotation), with_tf32=True))
+            finally:  # the processor, and with it the model, leaves the card
+                cp._EXTERNAL.pop(annotation)
+            os.remove(path)
+            torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return by_path
+
+
+def _timed_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_captions_full(dev: torch.device, smi: str) -> dict:
+    """8m: the captioners at their published widths, random weights from a seed built on the
+    card. BLIP-large (fp32, TF32 off) on one 384x384 frame through ``cli/caption.py``'s
+    ``caption_blip`` at ``--max-length 20``: s/caption after a warm-up, peak. CogVLM2-Caption
+    at ``caption_8b`` in bf16 (19.5 B parameters, never written to a file): its state dict's
+    names with THUDM's rotary buffers added go through ``port_cogvlm`` to exactly the module's
+    own and load strictly; a 24-frame 576x1024 video through ``video_clip`` (JAX's
+    antialiased bilinear to 224x224) and ``greedy_video_caption`` with 12 prompt ids and 20
+    new tokens: s/video split into the vision tower and the decode after a warm-up, peak, one
+    decode step under ``torch.profiler``. No launch of the port's kernels (attention: 257
+    tokens a frame, and a masked LM). Returns the launches by path."""
+    import argparse
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from lkgd_torch.cli import annotate, caption
+    from lkgd_torch.models import blip, cogvlm
+
+    label = "captions"
+    work = Path(tempfile.mkdtemp(prefix="lkgd_captions_"))
+    Image.fromarray((_annotate_clip(1)[0] * 255).astype(np.uint8)).save(work / "frame.png")
+    by_path = {}
+    with annotate.precision():
+        model = blip.build_blip(blip.BlipConfig.large(), dev,
+                                torch.Generator(device=dev).manual_seed(91))
+        args = argparse.Namespace(frame=0, max_length=20)
+        caption.caption_blip(model, args, str(work / "frame.png"))  # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        ids, seconds = _timed_s(lambda: caption.caption_blip(model, args, str(work / "frame.png")))
+        by_path["caption_blip"] = counts = _read_counts()
+        n = sum(p.numel() for p in model.parameters())
+        size = model.cfg.image_size
+        print(f"[{label}] {smi} | BLIP-large ({n / 1e6:.1f} M parameters, fp32) on one {size}x"
+              f"{size} frame, --max-length 20: {seconds:.4f} s/caption (host clock, after a warm-up), "
+              f"peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, {len(ids)} ids "
+              f"{ids}", flush=True)
+        assert not {k: v for k, v in counts.items() if v}
+        assert all(0 <= t < blip.BlipConfig.large().vocab_size for t in ids)
+        pixels = torch.from_numpy(blip.preprocess_images(_annotate_clip(1),
+                                                         model.cfg.image_size)).to(dev)
+        with torch.no_grad():
+            enc = model.vision_model(pixels)
+            step_ids = torch.zeros((1, 20), dtype=torch.long, device=dev)
+            _profiled(label, "BLIP-large, one decode step (20 positions)",
+                      lambda: model.text_decoder(step_ids, enc))
+        del model, enc
+        torch.cuda.empty_cache()
+
+    cfg = cogvlm.CogVLMConfig.caption_8b()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, build_s = _timed_s(lambda: cogvlm.build_cogvlm(
+        cfg, dev, torch.Generator(device=dev).manual_seed(92)))
+    sd = model.state_dict()
+    n = sum(v.numel() for v in sd.values())
+    published = {**sd, **{f"model.layers.{i}.self_attn.rotary_emb.inv_freq":
+                          torch.zeros(cfg.head_dim // 2, device=dev)
+                          for i in range(cfg.num_layers)}}
+    ported = cogvlm.port_cogvlm(published)
+    assert list(ported) == list(sd)
+    _, load_s = _timed_s(lambda: model.load_state_dict(ported, strict=True))
+    del sd, published, ported
+    print(f"[{label}] CogVLM2-Caption caption_8b: {n / 1e9:.3f} B parameters in bf16 built on "
+          f"the card from a seed in {build_s:.2f} s; its {len(model.state_dict())} names (THUDM's "
+          f"{cfg.num_layers} rotary buffers dropped by port_cogvlm) loaded strictly in "
+          f"{load_s:.2f} s", flush=True)
+    t, new_tokens, n_prompt = COGVLM_VIDEO
+    g = torch.Generator().manual_seed(93)
+    prompt = torch.randint(0, cfg.bos_token_id, (1, n_prompt), generator=g).to(dev)
+    clip = caption.video_clip(_annotate_clip(t), t, cfg.image_size, dev)
+    cogvlm.greedy_video_caption(model, clip, prompt, 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    with torch.no_grad():
+        img, vision_s = _timed_s(lambda: model.image_features(clip))
+    ids, total_s = _timed_s(lambda: cogvlm.greedy_video_caption(model, clip, prompt, new_tokens))
+    by_path["caption_cogvlm"] = counts = _read_counts()
+    seq = img.shape[1] + n_prompt + new_tokens
+    print(f"[{label}] {smi} | CogVLM2-Caption bf16, {t} frames at {cfg.image_size}^2 "
+          f"({img.shape[1]} image tokens), {n_prompt} prompt ids, {new_tokens} new tokens "
+          f"(LM over {seq} positions a step): {total_s:.3f} s/video (host clock, after a "
+          f"warm-up) = vision tower {vision_s:.3f} s + decode {total_s - vision_s:.3f} s "
+          f"({(total_s - vision_s) / new_tokens * 1e3:.1f} ms a token), peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB | ids {ids.tolist()}",
+          flush=True)
+    assert not {k: v for k, v in counts.items() if v}
+    assert ids.shape == (1, new_tokens) and bool(((ids >= 0) & (ids < cfg.vocab_size)).all())
+    full = torch.cat([prompt, ids], dim=1)
+    with torch.no_grad():
+        _profiled(label, f"CogVLM2-Caption, one decode step ({seq} positions)",
+                  lambda: model.lm_head(model.hidden(img, full)[:, -1]))
+    del model, img, clip
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return by_path
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -4817,6 +5221,7 @@ def main() -> int:
     phase_tiny_sd2d(dev)
     phase_tiny_fp32(dev)
     phase_tiny_annotate(dev)
+    phase_tiny_labels(dev)
     clip_launches = phase_full(dev)
     torch.cuda.empty_cache()
     trans_launches = phase_trans_full(dev)
@@ -4856,6 +5261,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     annotate_launches = phase_annotate_full(dev, smi)
     torch.cuda.empty_cache()
+    annotate_launches.update(phase_labels_full(dev, smi))
+    torch.cuda.empty_cache()
+    caption_launches = phase_captions_full(dev, smi)
+    torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
@@ -4871,7 +5280,7 @@ def main() -> int:
                "train_cogvideox": train_cogvideox_launches, **sd2d_launches,
                "train_sd2d": train_sd2d_launches, "experiments": experiment_launches,
                "precompute": precompute_launches, "compute_metrics": metrics_launches,
-               **annotate_launches}
+               **annotate_launches, **caption_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
            **dict.fromkeys(EXPERIMENTS, "experiments"), **dict.fromkeys(PRECOMPUTE, "precompute")}
     print(json.dumps({"kernels": [

@@ -7,6 +7,8 @@
       --weights raft_large.pth --output labels/
   python -m lkgd_torch.cli.annotate --input imgs --annotation depth_anything \
       --model-size base --weights depth_anything_base.safetensors --output labels/
+  python -m lkgd_torch.cli.annotate --input data/videos --annotation softedge_pidsafe \
+      --weights table5_pidinet.pth --output labels/
 
 Every ``*.mp4``, ``*.gif``, ``*.png`` and ``*.jpg`` of ``--input`` (at most
 ``--max-frames`` frames each) becomes ``<name>_<annotation>.gif``, a label map a frame:
@@ -17,20 +19,25 @@ Every ``*.mp4``, ``*.gif``, ``*.png`` and ``*.jpg`` of ``--input`` (at most
   last repeated, ``FLOW_PAIRS`` pairs a batch; its weights are random from seed 0, as the
   JAX CLI initialises its UniMatch from ``PRNGKey(0)`` with no file;
 * ``depth`` (HF Intel/dpt-large), ``depth_midas`` (isl-org DPT-hybrid) and
-  ``depth_anything`` (HF Depth-Anything, ``--model-size small|base``): their checkpoints,
-  loaded strictly from ``--weights``.
+  ``depth_anything`` (HF Depth-Anything, ``--model-size small|base``);
+* ``softedge_hed``, ``scribble_hed``, ``softedge_hedsafe``, ``scribble_hedsafe`` (HED),
+  ``softedge_pidinet``, ``softedge_pidsafe``, ``scribble_pidinet`` (PiDiNet), ``lineart``,
+  ``lineart_coarse`` (Informative-Drawings), ``lineart_anime`` (Anime2Sketch),
+  ``segmentation`` (SegFormer ADE20K, ``--model-size small`` B0, ``base`` B4) and
+  ``openpose`` (the CMU body model);
+
+each model-based one from its checkpoint (``WEIGHTS``), loaded strictly from ``--weights``.
 
 ``tracks`` writes ``<name>.npz`` of the videos alone: ``tracks`` (T, N, 2) xy float32 and
 ``visibility`` (T, N) bool of a ``--grid-size``^2 query grid carried by chained RAFT flow
 (torchvision ``raft_large`` from ``--weights``, loaded strictly), the labels
 ``utils/track_helpers.py`` reads. An annotation that needs ``--weights`` exits without it.
-The annotators of HED, PiDiNet, OpenPose, line art and SegFormer are not ported yet
-(ROADMAP.md Queue 1, item 14d): they are refused.
 
 It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
-unless ``--device cpu`` is given, in fp32 (``precision``). The models are
-built by ``build_flow_processor``, ``build_tracker`` and ``build_depth_processor`` at their
-published widths.
+unless ``--device cpu`` is given, in fp32 (``precision``). The models are built at their
+published widths by ``build_flow_processor``, ``build_tracker``, ``build_depth_processor``,
+``build_edge_processor``, ``build_segmentation_processor`` and ``build_openpose_processor``
+(``PROCESSORS`` maps each label map's name to its build function).
 """
 
 from __future__ import annotations
@@ -51,16 +58,24 @@ from lkgd_torch.utils import control_preprocess as cp
 from lkgd_torch.utils.device import require_device
 from lkgd_torch.utils.porting import load_state_dict
 
+_HED = "lllyasviel Annotators ControlNetHED.pth"
+_PIDINET = "lllyasviel Annotators table5_pidinet.pth"
 WEIGHTS = {"tracks": "torchvision raft_large state dict",
            "depth": "HF Intel/dpt-large state dict",
            "depth_midas": "isl-org dpt_hybrid-midas-501f0c75.pt",
-           "depth_anything": "HF depth-anything state dict"}
+           "depth_anything": "HF depth-anything state dict",
+           "softedge_hed": _HED, "scribble_hed": _HED, "softedge_hedsafe": _HED,
+           "scribble_hedsafe": _HED, "softedge_pidinet": _PIDINET,
+           "softedge_pidsafe": _PIDINET, "scribble_pidinet": _PIDINET,
+           "lineart": "Informative-Drawings sk_model.pth",
+           "lineart_coarse": "Informative-Drawings sk_model2.pth",
+           "lineart_anime": "Anime2Sketch netG.pth",
+           "segmentation": "HF nvidia/segformer-b0-finetuned-ade-512-512 state dict "
+                           "(--model-size small; b4 for base)",
+           "openpose": "controlnet_aux body_pose_model.pth"}
 # consecutive frame pairs in one UniMatch batch: its local correlations hold (2r+1)^2 = 81
 # shifted copies of a 128-channel quarter-resolution map a pair, ~1.5 GB at 576 x 1024
 FLOW_PAIRS = 4
-NOT_PORTED = ("softedge_pidinet", "softedge_pidsafe", "scribble_pidinet", "softedge_hed",
-              "scribble_hed", "softedge_hedsafe", "scribble_hedsafe", "lineart",
-              "lineart_coarse", "lineart_anime", "segmentation", "openpose")
 
 
 @contextlib.contextmanager
@@ -97,8 +112,9 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _load_strictly(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    model.load_state_dict(load_state_dict(path), strict=True)
+def _load_strictly(model: torch.nn.Module, path: str,
+                   port: Callable = lambda sd: sd) -> torch.nn.Module:
+    model.load_state_dict(port(load_state_dict(path)), strict=True)
     return model
 
 
@@ -154,6 +170,64 @@ def build_depth_processor(args) -> Callable:
     return midas.make_midas_processor(_load_strictly(model, args.weights))
 
 
+def build_edge_processor(args) -> Callable:
+    """The ``args.annotation`` edge or line-art annotator (HED, PiDiNet, Informative-Drawings
+    or Anime2Sketch), ``(H, W, 3) [0, 1] -> (H, W, 3) [0, 1]``, its model loaded strictly
+    from ``args.weights`` on ``args.device``."""
+    name = args.annotation
+    if name.endswith(("_hed", "_hedsafe")):
+        from lkgd_torch.models import hed
+
+        model = _load_strictly(hed.build_hed(args.device), args.weights, hed.port_hed)
+        return hed.make_hed_processor(model, scribble=name.startswith("scribble"),
+                                      safe=name.endswith("hedsafe"))
+    if name.endswith(("_pidinet", "_pidsafe")):
+        from lkgd_torch.models import pidinet
+
+        model = _load_strictly(pidinet.build_pidinet(args.device), args.weights,
+                               pidinet.port_pidinet)
+        return pidinet.make_pidinet_processor(model, safe=name.endswith("pidsafe"),
+                                              scribble=name.startswith("scribble"))
+    if name == "lineart_anime":
+        from lkgd_torch.models import lineart_anime as la
+
+        model = la.build_lineart_anime(la.LineartAnimeConfig(), args.device)
+        return la.make_lineart_anime_processor(_load_strictly(model, args.weights))
+    from lkgd_torch.models import lineart
+
+    model = lineart.build_lineart(lineart.LineartConfig(), args.device)
+    return lineart.make_lineart_processor(_load_strictly(model, args.weights))
+
+
+def build_segmentation_processor(args) -> Callable:
+    """The ``segmentation`` annotator, ``(H, W, 3) -> (H, W, 3)`` uint8 ADE20K palette image,
+    SegFormer B0 (``--model-size small``) or B4 (``base``) loaded strictly from
+    ``args.weights`` on ``args.device``."""
+    from lkgd_torch.models import segformer
+
+    model = segformer.build_segformer(segformer.segformer_config(args.model_size), args.device)
+    return segformer.make_segmentation_processor(_load_strictly(model, args.weights))
+
+
+def build_openpose_processor(args) -> Callable:
+    """The ``openpose`` annotator, ``(H, W, 3) [0, 1] -> (H, W, 3) [0, 1]`` skeleton map, the
+    body model loaded strictly from ``args.weights`` on ``args.device``."""
+    from lkgd_torch.models import openpose
+
+    model = openpose.build_openpose(openpose.OpenPoseConfig(), args.device)
+    return openpose.make_openpose_processor(_load_strictly(model, args.weights))
+
+
+PROCESSORS = {**dict.fromkeys(("depth", "depth_midas", "depth_anything"),
+                              build_depth_processor),
+              **dict.fromkeys(("softedge_hed", "scribble_hed", "softedge_hedsafe",
+                               "scribble_hedsafe", "softedge_pidinet", "softedge_pidsafe",
+                               "scribble_pidinet", "lineart", "lineart_coarse",
+                               "lineart_anime"), build_edge_processor),
+              "segmentation": build_segmentation_processor,
+              "openpose": build_openpose_processor}
+
+
 def _files(folder: str, exts) -> list:
     return sorted(sum([glob.glob(os.path.join(folder, e)) for e in exts], []))
 
@@ -163,9 +237,6 @@ def main(argv=None) -> None:
     from lkgd_torch.data.video_io import load_input, write_video
 
     args = make_parser().parse_args(argv)
-    if args.annotation in NOT_PORTED:
-        raise SystemExit(f"--annotation {args.annotation}: its model is not ported yet "
-                         f"(ROADMAP.md Queue 1, item 14d)")
     if args.annotation in WEIGHTS and not args.weights:
         raise SystemExit(f"--annotation {args.annotation} needs --weights "
                          f"({WEIGHTS[args.annotation]}; external)")
@@ -184,8 +255,8 @@ def main(argv=None) -> None:
     if args.annotation == "flow":
         label = build_flow_processor(args)
     else:
-        if args.annotation in WEIGHTS:
-            cp.register_processor(args.annotation, build_depth_processor(args))
+        if args.annotation in PROCESSORS:
+            cp.register_processor(args.annotation, PROCESSORS[args.annotation](args))
         label = lambda frames: cp.control_preprocess(frames, args.annotation)  # noqa: E731
     for f in _files(args.input, ("*.mp4", "*.gif", "*.png", "*.jpg")):
         labels = label(load_input(f, max_frames=args.max_frames))

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from lkgd_torch.ops.attention import dot_product_attention
 from lkgd_torch.ops.group_norm import group_norm
+from lkgd_torch.utils.device import require_device
 
 
 # --------------------------------------------------------------------------- building
@@ -67,6 +68,19 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         if hasattr(m, "init_extra"):
             m.init_extra(generator)
+
+
+def build_frozen(factory: Callable[[], nn.Module], device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32) -> nn.Module:
+    """``factory()`` frozen in eval mode on ``device`` (the card unless the CPU is named) in
+    ``dtype``, random from ``generator`` when one is given, else uninitialised for
+    ``load_state_dict``."""
+    device = require_device(device)
+    model = materialize(factory, device, dtype)
+    if generator is not None:
+        init_params(model, generator)
+    return model.eval().requires_grad_(False)
 
 
 def share_parameters(src: nn.Module, dst: nn.Module) -> nn.Module:

@@ -662,3 +662,212 @@ def depth_anything_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch
     out.update(_dead_fusion_unit("neck.fusion_stage.layers.0.residual_layer1", f,
                                  ("convolution1", "convolution2")))
     return _tensors(out)
+
+
+def _conv_items(flat: Mapping[str, np.ndarray]):
+    """``(module path, torch leaf name, array in torch's layout)`` of each flax leaf. A
+    transposed convolution's kernel (flax ``transpose_kernel=True``, (kh, kw, out, in)) takes
+    the convolution rule to torch's (in, out, kh, kw)."""
+    for module, leaf, x in _flat_items(flat):
+        name, x = _torch_leaf(leaf, x)
+        yield module, name, x
+
+
+def hed_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``ControlNetHED``'s flat params -> ``lkgd_torch.models.hed.ControlNetHED``'s
+    state dict (``ControlNetHED.pth``'s names: ``norm`` (1, 3, 1, 1), ``blockN.convs.i``)."""
+    out = {}
+    for module, name, x in _conv_items(flat):
+        if module == "":
+            out[name] = x.reshape(1, 3, 1, 1)
+        else:
+            out[re.sub(r"\.convs_(\d+)$", r".convs.\1", module) + "." + name] = x
+    return _tensors(out)
+
+
+def pidinet_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``PiDiNet``'s flat params (plain, converted kernels) ->
+    ``lkgd_torch.models.pidinet.PiDiNet``'s state dict (``table5_pidinet.pth``'s names, the
+    kernels as ``port_pidinet`` leaves them)."""
+    out = {}
+    for module, name, x in _conv_items(flat):
+        module = re.sub(r"^(dilations|attentions|conv_reduces)_(\d)", r"\1.\2", module)
+        out[f"{module}.{name}"] = x
+    return _tensors(out)
+
+
+def lineart_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``LineartGenerator``'s flat params -> ``lkgd_torch.models.lineart``'s state
+    dict (Informative-Drawings' ``model0`` ... ``model4`` names, the inverse of
+    ``lineart_key_map``)."""
+    table = {"stem": "model0.1", "down0": "model1.0", "down1": "model1.3", "up0": "model3.0",
+             "up1": "model3.3", "head": "model4.1"}
+    out = {}
+    for module, name, x in _conv_items(flat):
+        m = re.match(r"res(\d+)\.conv([12])$", module)
+        prefix = (f"model2.{m.group(1)}.conv_block.{1 if m.group(2) == '1' else 5}" if m
+                  else table[module])
+        out[f"{prefix}.{name}"] = x
+    return _tensors(out)
+
+
+def lineart_anime_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``LineartAnimeGenerator``'s flat params -> ``lkgd_torch.models.lineart_anime``'s
+    state dict (pix2pix's nested names, the inverse of ``port_lineart_anime``)."""
+    from lkgd_torch.models.lineart_anime import lineart_anime_key
+
+    items = list(_conv_items(flat))
+    num_downs = len({module.split(".")[0] for module, _, _ in items})
+    out = {}
+    for module, name, x in items:
+        level, updown = module.split(".")
+        out[f"{lineart_anime_key(int(level[len('level_'):]), num_downs, updown)}.{name}"] = x
+    return _tensors(out)
+
+
+def openpose_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``BodyPoseModel``'s flat params -> ``lkgd_torch.models.openpose``'s state dict
+    (controlnet_aux's ``model0.conv1_1`` ... ``model6_2.Mconv7_stage6_L2``)."""
+    out = {}
+    for module, name, x in _conv_items(flat):
+        block, conv = re.match(r"(model0|model\d_\d)_(\w+)$", module).groups()
+        out[f"{block}.{conv}.{name}"] = x
+    return _tensors(out)
+
+
+def segformer_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX SegFormer's flat params -> ``lkgd_torch.models.segformer``'s state dict (HF
+    ``SegformerForSemanticSegmentation`` names, the inverse of ``segformer_key_map``; the
+    decode head's ``num_batches_tracked``, which the JAX module does not hold, 0)."""
+    enc = "segformer.encoder."
+    block_parts = {"norm1": "layer_norm_1", "norm2": "layer_norm_2",
+                   "attn.query": "attention.self.query", "attn.key": "attention.self.key",
+                   "attn.value": "attention.self.value", "attn.sr": "attention.self.sr",
+                   "attn.sr_norm": "attention.self.layer_norm",
+                   "attn.out": "attention.output.dense", "mlp.dense1": "mlp.dense1",
+                   "mlp.dwconv": "mlp.dwconv.dwconv", "mlp.dense2": "mlp.dense2"}
+    bn = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+          "bn_var": "running_var"}
+    out = {}
+    for module, name, x in _conv_items(flat):
+        if module == "":
+            out[f"decode_head.batch_norm.{bn[name]}"] = x
+            continue
+        m = re.match(r"(patch_embed|patch_norm|stage_norm|linear_c)_(\d)$", module)
+        if m:
+            kind, i = m.groups()
+            prefix = {"patch_embed": f"{enc}patch_embeddings.{i}.proj",
+                      "patch_norm": f"{enc}patch_embeddings.{i}.layer_norm",
+                      "stage_norm": f"{enc}layer_norm.{i}",
+                      "linear_c": f"decode_head.linear_c.{i}.proj"}[kind]
+        elif module in ("linear_fuse", "classifier"):
+            prefix = f"decode_head.{module}"
+        else:
+            i, j, part, rest = re.match(r"block_(\d)_(\d+)_(norm1|norm2|attn|mlp)(.*)$",
+                                        module).groups()
+            prefix = f"{enc}block.{i}.{j}.{block_parts[part + rest]}"
+        out[f"{prefix}.{name}"] = x
+    out["decode_head.batch_norm.num_batches_tracked"] = np.zeros((), np.float32)
+    return _tensors(out)
+
+
+def blip_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``BlipCaptioner``'s flat params -> ``lkgd_torch.models.blip``'s state dict (HF
+    ``BlipForConditionalGeneration`` names, the inverse of ``port_blip``; the prediction
+    bias under both names HF ties it to)."""
+    vis, txt = "vision_model.", "text_decoder."
+    vision_parts = {"qkv": "self_attn.qkv", "projection": "self_attn.projection",
+                    "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    text_top = {"word_embeddings": "bert.embeddings.word_embeddings",
+                "position_embeddings": "bert.embeddings.position_embeddings",
+                "embeddings_LayerNorm": "bert.embeddings.LayerNorm",
+                "transform_dense": "cls.predictions.transform.dense",
+                "transform_LayerNorm": "cls.predictions.transform.LayerNorm",
+                "decoder": "cls.predictions.decoder"}
+    layer_parts = {"intermediate": "intermediate.dense", "output": "output.dense",
+                   "output_LayerNorm": "output.LayerNorm"}
+    out = {}
+    for module, leaf, x in _flat_items(flat):
+        name, x = _torch_leaf(leaf, x)
+        if name == "embedding":
+            name = "weight"
+        tower, *parts = module.split(".")
+        if tower == "vision_model":
+            if not parts:  # class_embedding (1, 1, D), position_embedding (1, N, D)
+                out[f"{vis}embeddings.{leaf}"] = x
+            elif parts[0] == "patch_embedding":
+                out[f"{vis}embeddings.patch_embedding.{name}"] = x
+            elif parts[0] == "post_layernorm":
+                out[f"{vis}post_layernorm.{name}"] = x
+            else:
+                i = parts[0][len("layers_"):]
+                out[f"{vis}encoder.layers.{i}.{vision_parts.get(parts[1], parts[1])}.{name}"] = x
+        elif parts[0] in text_top:
+            out[f"{txt}{text_top[parts[0]]}.{name}"] = x
+        else:
+            i = parts[0][len("layer_"):]
+            if parts[1] in ("attention", "crossattention"):
+                sub = {"dense": "output.dense", "LayerNorm": "output.LayerNorm"}.get(
+                    parts[2], f"self.{parts[2]}")
+                part = f"{parts[1]}.{sub}"
+            else:
+                part = layer_parts[parts[1]]
+            out[f"{txt}bert.encoder.layer.{i}.{part}.{name}"] = x
+    out[f"{txt}cls.predictions.bias"] = out[f"{txt}cls.predictions.decoder.bias"]
+    return _tensors(out)
+
+
+def cogvlm_export_name(path: str) -> str:
+    """A flat JAX ``CogVLMVideoCaptioner`` param path (``params/`` dropped) -> its THUDM
+    ``modeling_cogvlm.py`` / ``visual.py`` name, the inverse of ``cogvlm_key_map``."""
+    parts = path.split("/")
+    leaf = parts[-1]
+    if parts[0] in ("boi", "eoi"):
+        return f"model.vision.{parts[0]}"
+    if parts[0] == "final_norm":
+        return "model.norm.weight"
+    if parts[0] == "lm_head":
+        return "lm_head.weight"
+    if parts[0] == "embed_tokens":
+        return "model.embed_tokens.weight"
+    name = "weight" if leaf in ("kernel", "scale", "embedding") else leaf
+    if parts[0] == "vision":
+        v = parts[1:-1]
+        if v == []:
+            return {"cls_embedding": "model.vision.patch_embedding.cls_embedding",
+                    "position_embedding":
+                        "model.vision.patch_embedding.position_embedding.weight"}[leaf]
+        if v[0] == "patch_embedding":
+            return f"model.vision.patch_embedding.proj.{name}"
+        if v[0] == "conv":
+            return f"model.vision.conv.{name}"
+        if v[0].startswith("layers_"):
+            sub = {"query_key_value": "attention.query_key_value", "dense": "attention.dense",
+                   "fc1": "mlp.fc1", "fc2": "mlp.fc2"}.get(v[1], v[1])
+            return f"model.vision.transformer.layers.{v[0][len('layers_'):]}.{sub}.{name}"
+        return f"model.vision.linear_proj.{v[0]}.{name}"  # the GLU adapter
+    i = parts[0][len("layers_"):]
+    if len(parts) == 2:  # input_layernorm, post_attention_layernorm
+        return f"model.layers.{i}.{leaf}.weight"
+    proj, expert = parts[1], parts[2]
+    if proj in ("qkv", "dense"):
+        what = "query_key_value" if proj == "qkv" else "dense"
+        return f"model.layers.{i}.self_attn.{expert}_expert_{what}.{name}"
+    return f"model.layers.{i}.mlp.{expert}_mlp.{proj}.{name}"
+
+
+def cogvlm_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``CogVLMVideoCaptioner``'s flat params -> ``lkgd_torch.models.cogvlm``'s state
+    dict (THUDM's names: Dense kernels transposed, convolutions OIHW, the cls embedding
+    (1, D), the position embedding's table (N, D))."""
+    out = {}
+    for path, value in flat.items():
+        path = path[len("params/"):] if path.startswith("params/") else path
+        x = np.asarray(value, np.float32)
+        name = cogvlm_export_name(path)
+        if path.endswith("/kernel"):
+            x = x.T if x.ndim == 2 else x.transpose(3, 2, 0, 1)
+        elif path in ("vision/cls_embedding", "vision/position_embedding"):
+            x = x.reshape(-1, x.shape[-1])
+        out[name] = x
+    return _tensors(out)

@@ -19,7 +19,14 @@ both run in-process on the same tiny GIF (4 frames of 30 x 44, a drifting random
   to ``tiny``), against the JAX processor on those params (the JAX CLI reads such a file
   through ``port_depth_anything``, which applies the reassemble transposed kernels mirrored
   against HF's model: ROADMAP.md Queue 3), at rtol 1e-4, atol 2e-4;
-* ``--weights`` missing exits; an annotator of ROADMAP item 14d is refused, naming it."""
+* the twelve annotators of HED, PiDiNet, line art, SegFormer and OpenPose: each from a
+  ``--weights`` file of a random model under the published names (PiDiNet's raw
+  pixel-difference kernels), loaded strictly; the label frames the CLI writes are the ones
+  the annotator's processor gives on the model loaded from that file, so each name reaches its
+  own variant (soft, ``*safe``, scribble; fine or coarse; B0 for ``--model-size small``). Each
+  processor is held against the JAX package's in ``tests/test_torch_edge_annotators.py``,
+  ``test_torch_openpose.py`` and ``test_torch_segformer.py``;
+* ``--weights`` missing exits, naming the annotator's checkpoint."""
 
 import sys
 
@@ -167,12 +174,71 @@ def test_random_builds_are_seeded(model):
         assert torch.isfinite(x).all() and torch.equal(x, b[name]), name
 
 
+MODEL_LABELS = ("softedge_hed", "scribble_hed", "softedge_hedsafe", "scribble_hedsafe",
+                "softedge_pidinet", "softedge_pidsafe", "scribble_pidinet", "lineart",
+                "lineart_coarse", "lineart_anime", "segmentation", "openpose")
+
+
+def _label_model(annotation: str, monkeypatch):
+    """(a random model's file contents under the published names, the processor the name
+    must reach on the model loaded from them) at sizes the CPU runs quickly: the published
+    widths but for Anime2Sketch (``num_downs=6, ngf=8``) and SegFormer (tiny); OpenPose at
+    ``detect_resolution=64``."""
+    import functools
+
+    from lkgd_torch.models import hed, lineart, lineart_anime, openpose, pidinet, segformer
+
+    g = torch.Generator().manual_seed(len(annotation))
+    if annotation.endswith(("_hed", "_hedsafe")):
+        model = hed.build_hed("cpu", g)
+        return model.state_dict(), hed.make_hed_processor(
+            model, scribble=annotation.startswith("scribble"), safe=annotation.endswith("safe"))
+    if annotation.endswith(("_pidinet", "_pidsafe")):
+        with torch.device("meta"):
+            names = pidinet.PiDiNet().state_dict()
+        raw = {name: torch.randn((t.shape[0], 1, 3, 3) if pidinet.pdc_op_for(name) == "rd"
+                                 else t.shape, generator=g) * 0.3 for name, t in names.items()}
+        model = pidinet.build_pidinet("cpu")
+        model.load_state_dict(pidinet.port_pidinet(raw), strict=True)
+        return {f"module.{k}": v for k, v in raw.items()}, pidinet.make_pidinet_processor(
+            model, safe=annotation.endswith("pidsafe"), scribble=annotation.startswith("scribble"))
+    if annotation.startswith("lineart_anime"):
+        cfg = lineart_anime.LineartAnimeConfig(num_downs=6, ngf=8)
+        monkeypatch.setattr(lineart_anime, "LineartAnimeConfig", lambda: cfg)
+        model = lineart_anime.build_lineart_anime(cfg, "cpu", g)
+        return model.state_dict(), lineart_anime.make_lineart_anime_processor(model)
+    if annotation.startswith("lineart"):
+        model = lineart.build_lineart(lineart.LineartConfig(), "cpu", g)
+        return model.state_dict(), lineart.make_lineart_processor(model)
+    if annotation == "segmentation":
+        cfg = segformer.SegformerConfig.tiny()
+        monkeypatch.setattr(segformer, "segformer_config",
+                            lambda size: cfg if size == "small" else None)
+        model = segformer.build_segformer(cfg, "cpu", g)
+        return model.state_dict(), segformer.make_segmentation_processor(model)
+    monkeypatch.setattr(openpose, "make_openpose_processor", functools.partial(
+        openpose.make_openpose_processor, detect_resolution=64))
+    model = openpose.build_openpose(openpose.OpenPoseConfig(), "cpu", g)
+    return model.state_dict(), openpose.make_openpose_processor(model)
+
+
+@pytest.mark.parametrize("annotation", MODEL_LABELS)
+def test_model_labels_from_a_weights_file(clip, tmp_path, monkeypatch, annotation):
+    contents, process = _label_model(annotation, monkeypatch)
+    path = str(tmp_path / f"{annotation}.pth")
+    torch.save(contents, path)
+    got = recorded(monkeypatch, video_io)
+    annotate.main(["--input", str(clip), "--annotation", annotation, "--weights", path,
+                   "--output", str(tmp_path), "--device", "cpu"])
+    want = np.stack([process(f) for f in video_io.load_input(str(clip / "clip.gif"))])
+    assert got[0].shape == want.shape == (T, H, W, 3) and got[0].dtype == want.dtype
+    np.testing.assert_array_equal(got[0], want)
+    assert (tmp_path / f"clip_{annotation}.gif").exists()
+
+
 def test_refusals(clip, tmp_path):
-    for annotation in ("tracks", "depth", "depth_midas", "depth_anything"):
-        with pytest.raises(SystemExit, match="needs --weights"):
+    for annotation in ("tracks", "depth", "depth_midas", "depth_anything") + MODEL_LABELS:
+        with pytest.raises(SystemExit, match="needs --weights") as refused:
             annotate.main(["--input", str(clip), "--output", str(tmp_path), "--annotation",
                            annotation, "--device", "cpu"])
-    for annotation in annotate.NOT_PORTED:
-        with pytest.raises(SystemExit, match=r"ROADMAP.md Queue 1, item 14d"):
-            annotate.main(["--input", str(clip), "--output", str(tmp_path), "--annotation",
-                           annotation, "--device", "cpu", "--weights", "w.pth"])
+        assert annotate.WEIGHTS[annotation] in str(refused.value)

@@ -143,20 +143,26 @@ def test_init_params_is_seeded_and_shaped():
 
 
 def test_port_imports_no_jax():
-    """The machine with the card has no JAX, and the port shares no module with the JAX
-    package: importing every module under ``lkgd_torch/`` and ``chip_smoke`` (import only)
-    pulls in none of jax, jaxlib, flax, optax or lkgd_tpu."""
+    """The machine with the card has no JAX and no transformers, and the port shares no
+    module with the JAX package: importing every module under ``lkgd_torch/`` and
+    ``chip_smoke`` (import only) pulls in none of jax, jaxlib, flax, optax, transformers or
+    lkgd_tpu, and no source file of the port imports transformers anywhere."""
     code = ("import importlib, pkgutil, sys, lkgd_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(lkgd_torch.__path__, 'lkgd_torch.')]\n"
             "for name in names + ['chip_smoke']:\n"
             "    importlib.import_module(name)\n"
             "assert len(names) > 70, names\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'lkgd_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'lkgd_tpu'))\n"
             "print(len(names), bad); sys.exit(1 if bad else 0)")
+    root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=180, cwd=Path(__file__).resolve().parents[1])
+                          timeout=180, cwd=root)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    sources = sorted((root / "lkgd_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert not [str(f) for f in sources if any(
+        line.lstrip().startswith(("import transformers", "from transformers"))
+        for line in f.read_text().splitlines())]
 
 
 def test_video_io_copy_matches_jax_package(tmp_path):
@@ -215,20 +221,24 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "sd2d_joint_control_pipeline", "sd2d_condition_pipeline",
                                    "sd2d_cli", "sd2d_training", "precompute_cache_cli",
                                    "compute_metrics_cli", "inception", "i3d", "annotate_cli",
-                                   "raft", "rife", "dpt", "depth_anything"])
+                                   "raft", "rife", "dpt", "depth_anything", "hed", "pidinet",
+                                   "lineart", "lineart_anime", "openpose", "segformer", "blip",
+                                   "cogvlm", "caption_cli"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import (annotate, compute_metrics, embed_text, precompute_cache,
-                                run_inference_cogvideox, run_inference_sd2d,
+    from lkgd_torch.cli import (annotate, caption, compute_metrics, embed_text,
+                                precompute_cache, run_inference_cogvideox, run_inference_sd2d,
                                 run_inference_svd, train_cogvideox_lora, train_svd_lora)
     from lkgd_torch.eval.fid_inception import build_inception
     from lkgd_torch.eval.i3d import build_i3d
     from lkgd_torch.data.datasets import PrefetchLoader
     from lkgd_torch.experiments import (flash_bwd_ab, flash_variant_microbench, group_norm_ab,
                                         kernel_ab, matmul_microbench)
+    from lkgd_torch.models import (blip, cogvlm, hed, lineart, lineart_anime, openpose,
+                                   pidinet, segformer)
     from lkgd_torch.models.depth_anything import DepthAnythingConfig, build_depth_anything
     from lkgd_torch.models.midas import MidasConfig, build_dpt
     from lkgd_torch.models.raft import RAFTConfig, build_raft
@@ -305,6 +315,16 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "rife": lambda: build_rife(),
         "dpt": lambda: build_dpt("hybrid", MidasConfig.tiny()),
         "depth_anything": lambda: build_depth_anything(DepthAnythingConfig.tiny()),
+        "hed": lambda: hed.build_hed(),
+        "pidinet": lambda: pidinet.build_pidinet(),
+        "lineart": lambda: lineart.build_lineart(),
+        "lineart_anime": lambda: lineart_anime.build_lineart_anime(),
+        "openpose": lambda: openpose.build_openpose(),
+        "segformer": lambda: segformer.build_segformer(segformer.SegformerConfig.tiny()),
+        "blip": lambda: blip.build_blip(),
+        "cogvlm": lambda: cogvlm.build_cogvlm(cogvlm.CogVLMConfig.tiny()),
+        "caption_cli": lambda: caption.main(["--input", str(tmp_path), "--output",
+                                             str(tmp_path / "c.json"), "--weights", "w.pth"]),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
