@@ -60,6 +60,11 @@ each printing its own lines; any failure raises and the script exits non-zero:
    a narrow RIFE (midpoint and 2x), tiny DPT-hybrid and DPT-large, and a tiny-width
    Depth-Anything at 462x462, whose 1090 tokens run the fp32 flash form on the card (4
    launches of each of its kernels asserted) and its plain version on the CPU;
+3h. kernels 1, 2 and 1a at a Ulysses rank's (2, 17776, 24, 64) and kernels 7 and 8 at a ring
+   rank's (2, 8888, 48, 64) queries (113 text + 8775 video rows) against one 8775-key video
+   shard, as 3d holds them, with the library call's time and the bound; then the ring's merge
+   of two shards' (out, lse) against one LSE call on the unsplit keys, with key norms 100x
+   apart between the shards and with a shard scaled until rows fall back to kernel 8;
 4j. at fp32, GPU against CPU with the same random weights: HED, PiDiNet, the line-art
    generator, Anime2Sketch, OpenPose, SegFormer, BLIP and CogVLM (logits; greedy ids equal),
    then each of the twelve label annotators through ``cli/annotate.py``'s build functions from one
@@ -94,14 +99,14 @@ each printing its own lines; any failure raises and the script exits non-zero:
    one whole-clip decode under ``torch.profiler`` for their device time by kind;
 5b. the full-size frame-transition clip through ``lkgd_torch/cli/run_inference_svd.py``'s
    ``build_pipeline`` (``--mode trans --flip --temporal --lora-rank 4``): 2 streams x 14
-   frames at 576x1024, 25 steps, CFG batched as 56 UNet rows, bf16; a warm-up clip and a
+   frames at 576x1024, 25 steps, CFG batched as 56 UNet rows, bf16; a 2-step warm-up and a
    timed one with the denoise/decode split, peak memory, launch counts and fallback
    tiles; frames finite, the two streams different; one more clip with
    ``sequential_cfg`` for its time and peak memory; then one UNet step under
    ``torch.profiler`` for its device time by kind;
 5c. the full-width smoothing of a 50-frame 576x1024 synthetic video through the inference
    CLI's ``build_pipeline`` (``--mode smooth --flip --temporal --lora-rank 4``): 14-frame
-   joint chunks from step 10 of 25, CFG batched as 4 x 5 chunks = 20 UNet rows of 14
+   joint chunks from step 16 of 25, CFG batched as 4 x 5 chunks = 20 UNet rows of 14
    frames, bf16; a warm-up from step 24, then a timed run split into conditioning (timed
    alone), the denoising loop and the decode, with peak memory, launch counts (> 0 for the
    inference kernels, 0 for the others) and fallback tiles, frames finite and in [0, 1];
@@ -132,7 +137,24 @@ each printing its own lines; any failure raises and the script exits non-zero:
    13 latent frames to 49x480x720, with peaks, launches (kernels 1, 2 and 1a 42 times a
    step) and fallback tiles, latents and frames finite; one DiT step under
    ``torch.profiler``; the decode chunked (2 latent frames) and tiled (60x90 and 30x45
-   latent tiles), each timed with its peak;
+   latent tiles), each timed with its peak; then DDIM inversion (``utils/inversion.py``) of the
+   decoded clip's chunked encode, 13x60x90 latents, over a 3-step schedule with the DiT's
+   eps (one conditional row): seconds a step, launches 42 a step asserted;
+5i. sequence parallelism (``phase_sp_pair``): two processes on the one card over gloo (NCCL
+   refuses two ranks on one card; every collective goes through the host), each building the
+   CogVideoX-5B DiT through the CLI's ``build`` with ``--mesh context=2 --sequence-parallel
+   ring`` (weights checked equal by a checksum all-reduce): the joint attention at (2, 17776,
+   48, 64), Ulysses and ring, against the plain version (blocks of 4 heads) and one flash call
+   on the whole sequence; one full-width DiT step (CFG, 49x480x720, bf16) in each mode
+   against the unsharded step on rank 0 (max |d| <= SP_TOL x max|ref|; beside it the
+   unsharded step through kernel 2 instead of 1, bf16's own spread), with its seconds (two
+   ranks time-slicing one card: no scaling figure), the peak of each rank and the launches a
+   rank (ring: kernels 7/8 and 1a twice a layer, the 226-key text block plain; Ulysses:
+   kernels 1/2 and 1a once a layer, asserted);
+5j. ``cli/web_demo.py`` in ``base`` mode at full width (14x576x1024, 25 steps) on an
+   ephemeral port: two POSTs with different seeds, each a 200 whose mp4 OpenCV decodes to 14
+   frames of 576x1024, seconds a request, the inference kernels launched from the server's
+   handler thread;
 5h. SD2 at 512x512, bf16, random weights from a seed: inpaint, 50 DDIM steps, guidance 7.5,
    through ``lkgd_torch/cli/run_inference_sd2d.py``'s ``build`` and ``denoise`` (a warm-up
    image, then a counted one: s/image split into denoise and decode, peak, launches of
@@ -241,9 +263,9 @@ each printing its own lines; any failure raises and the script exits non-zero:
    (UniMatch), ``tracks`` (``raft_large`` from a random file of its manifest's keys, loaded
    strictly), ``depth_anything`` small and base, ``depth_midas``, ``depth`` (random state
    dicts written and loaded strictly); then RIFE 2x (27 frames), which has no CLI: s/clip
-   after a warm-up, peak GiB, one frame (pair) under ``torch.profiler``, the launches of one
-   clip asserted (the fp32 flash form 12 a frame on ``depth_anything``, GroupNorm on
-   ``depth_midas``, none elsewhere), outputs finite, in range and not constant; and how far
+   after a warm-up on one frame (pair), peak GiB, one frame (pair) under
+   ``torch.profiler``, the launches of one clip asserted (the fp32 flash form 12 a frame
+   on ``depth_anything``, GroupNorm on ``depth_midas``, none elsewhere), outputs finite, in range and not constant; and how far
    cuDNN's TF32 (PyTorch's default, which the CLI turns off) would move each CLI path's
    frame (pair);
 8l. the twelve label annotators of HED, PiDiNet, line art, SegFormer (B0 and B4) and OpenPose
@@ -256,6 +278,11 @@ each printing its own lines; any failure raises and the script exits non-zero:
    built on the card from a seed, its names through ``port_cogvlm`` and loaded strictly) on
    24 frames at 224x224 with 12 prompt ids and 20 new tokens: s/video split vision / decode,
    peak, one decode step under ``torch.profiler`` (``phase_captions_full``);
+8n. ``cli/verify_parity.py`` record then check at ``--config svd-xt`` on a safetensors file
+   written from seeded weights (1.5 B fp32 parameters); ``int8_matmul`` at (28 x 9216, 320) x
+   (320, 1280) and ``int8_conv2d`` 3x3 over (28, 72, 128, 320) against exact fp64 products of
+   their int8 codes, timed beside bf16 ``x @ w`` and ``F.conv2d``; ``collect_env``'s report
+   (``phase_tools``);
 9. the two microbenchmark entry points (``lkgd_torch/experiments``) at their full default
    shapes, with the launch counts of their kernels.
 
@@ -271,7 +298,10 @@ operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core
 67 TFLOP/s for fp32 arithmetic outside them); the five inference kernels also carry their
 row at the CogVideoX shapes of 3c under ``cogvideox``, and the training kernels and the
 key-norm kernel their row at 3d's shape under ``train_cogvideox``; every kernel of 3e its
-rows at the SD-2D shapes under ``sd2d`` (``ms`` the device time, ``wrapper_ms`` beside).
+rows at the SD-2D shapes under ``sd2d`` (``ms`` the device time, ``wrapper_ms`` beside); the
+kernels of 3h their rows under ``sequence_parallel``; ``launches_by_path`` also holds the
+inversion, a DiT step of each SP mode on rank 0 (``sp_ring``, ``sp_ulysses``), the web demo's
+two requests and ``verify_parity``'s check.
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -753,6 +783,19 @@ def phase_tiny(dev: torch.device) -> None:
     assert gn_calls > 0, "the tiny GPU pipeline must run the GroupNorm kernels"
 
 
+WARM_STEPS = 2  # a warm-up clip's denoising steps: a whole clip's shapes, a tenth of its time
+
+
+def _short(pipe, fn):
+    """``fn()`` with the SVD pipeline's schedule cut to ``WARM_STEPS`` steps: a warm-up."""
+    schedule = pipe.schedule
+    pipe.schedule = pipe.scheduler.set_timesteps(WARM_STEPS, pipe.device)
+    try:
+        return fn()
+    finally:
+        pipe.schedule = schedule
+
+
 def phase_full(dev: torch.device) -> dict:
     from lkgd_torch.ops import flash_attention as fa
     from lkgd_torch.pipelines.svd import SVDPipelineConfig, StableVideoDiffusionPipeline
@@ -778,7 +821,8 @@ def phase_full(dev: torch.device) -> dict:
         clip_gen = torch.Generator(device=dev).manual_seed(clip)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        latents = pipe.denoise(image, clip_gen)
+        latents = (pipe.denoise(image, clip_gen) if clip == 2
+                   else _short(pipe, lambda: pipe.denoise(image, clip_gen)))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         frames = pipe.decode_latents(latents)
@@ -788,8 +832,9 @@ def phase_full(dev: torch.device) -> dict:
             launches = _read_counts()
             recomputed = int(fa.recomputed_tiles(dev).item())
             peak = torch.cuda.max_memory_allocated(dev)
+        steps = cfg.num_inference_steps if clip == 2 else WARM_STEPS
         print(f"[full] clip {clip}{' (warm-up)' if clip == 1 else ''}: {t2 - t0:.3f} s/clip "
-              f"= denoise {t1 - t0:.3f} s ({cfg.num_inference_steps} steps) + decode "
+              f"= denoise {t1 - t0:.3f} s ({steps} steps) + decode "
               f"{t2 - t1:.3f} s", flush=True)
         assert frames.shape == (1, cfg.num_frames, cfg.height, cfg.width, 3), frames.shape
         assert torch.isfinite(latents).all(), "non-finite latents"
@@ -953,8 +998,9 @@ def _profile_unet_step(label: str, pipe, rows: int, gen: torch.Generator) -> Non
 
 
 def phase_trans_full(dev: torch.device) -> dict:
-    """The full-width frame-transition clip: a warm-up and a timed, counted clip with
-    batched CFG (56 UNet rows), then one with ``sequential_cfg`` on the same weights."""
+    """The full-width frame-transition clip: a warm-up (``WARM_STEPS``) and a timed, counted
+    clip with batched CFG (56 UNet rows), then one with ``sequential_cfg`` on the same
+    weights."""
     from lkgd_torch.cli import run_inference_svd as cli
     from lkgd_torch.ops import flash_attention as fa
 
@@ -984,8 +1030,9 @@ def phase_trans_full(dev: torch.device) -> dict:
 
     import dataclasses
 
-    def clip(seed: int, sequential: bool) -> dict:
-        """One clip from zeroed counters: its times, peaks, launch counts and outputs."""
+    def clip(seed: int, sequential: bool, steps: int) -> dict:
+        """One clip of ``steps`` steps (``WARM_STEPS`` or the whole schedule) from zeroed
+        counters: its times, peaks, launch counts and outputs."""
         pipe.config = dataclasses.replace(cfg, sequential_cfg=sequential)
         _zero_counts()
         fa.recomputed_tiles(dev).zero_()
@@ -993,7 +1040,8 @@ def phase_trans_full(dev: torch.device) -> dict:
         clip_gen = torch.Generator(device=dev).manual_seed(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        latents = pipe.denoise(images, clip_gen)
+        latents = (pipe.denoise(images, clip_gen) if steps == cfg.num_inference_steps
+                   else _short(pipe, lambda: pipe.denoise(images, clip_gen)))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         denoise_peak = torch.cuda.max_memory_allocated(dev)
@@ -1006,12 +1054,14 @@ def phase_trans_full(dev: torch.device) -> dict:
                 "latents": latents, "frames": frames}
 
     runs = {}
-    for label, seed, sequential in (("warm-up, batched CFG (56 UNet rows)", 1, False),
-                                    ("batched CFG (56 UNet rows)", 2, False),
-                                    ("sequential_cfg (2 x 28 UNet rows)", 2, True)):
-        runs[label] = r = clip(seed, sequential)
+    steps = cfg.num_inference_steps
+    for label, seed, sequential, n in (("warm-up, batched CFG (56 UNet rows)", 1, False,
+                                        WARM_STEPS),
+                                       ("batched CFG (56 UNet rows)", 2, False, steps),
+                                       ("sequential_cfg (2 x 28 UNet rows)", 2, True, steps)):
+        runs[label] = r = clip(seed, sequential, n)
         print(f"[trans] {label}: {r['s']:.3f} s/clip = denoise {r['denoise_s']:.3f} s "
-              f"({cfg.num_inference_steps} steps) + decode {r['decode_s']:.3f} s | peak memory "
+              f"({n} steps) + decode {r['decode_s']:.3f} s | peak memory "
               f"{r['peak'] / 2**30:.2f} GiB (denoise alone {r['denoise_peak'] / 2**30:.2f} GiB) "
               f"| launches { {k: v for k, v in r['launches'].items() if v} } | fallback tiles "
               f"recomputed {r['recomputed']}", flush=True)
@@ -1043,20 +1093,21 @@ def phase_trans_full(dev: torch.device) -> dict:
 
 
 SMOOTH_FRAMES = 50
+SMOOTH_START = 16  # the timed run's first step: its last 9 of the 25 steps
 
 
 def phase_smooth_full(dev: torch.device) -> dict:
     """The full-width smoothing of a 50-frame 576x1024 video in 14-frame joint chunks from
-    step 10 of 25 (CFG batched: 4 x 5 chunks = 20 UNet rows of 14 frames), bf16, through the
-    inference CLI's ``build_pipeline``: a warm-up from step 24 on the same shapes, then a
-    timed, counted run with its split into conditioning, the denoising loop and the decode;
+    step ``SMOOTH_START`` of 25 (CFG batched: 4 x 5 chunks = 20 UNet rows of 14 frames),
+    bf16, through the inference CLI's ``build_pipeline``: a warm-up from step 24 on the
+    same shapes, then a timed, counted run with its split into conditioning, the denoising loop and the decode;
     then one UNet step of 20 x 14 rows under ``torch.profiler``."""
     from lkgd_torch.cli import run_inference_svd as cli
     from lkgd_torch.ops import flash_attention as fa
 
     args = cli.make_parser().parse_args(
         ["--mode", "smooth", "--image", "-", "--flip", "--temporal", "--lora-rank", "4",
-         "--smooth-total-frames", str(SMOOTH_FRAMES), "--smooth-start-step", "10",
+         "--smooth-total-frames", str(SMOOTH_FRAMES), "--smooth-start-step", str(SMOOTH_START),
          "--decode-chunk-size", "14", "--seed", "0", "--device", str(dev)])
     t0 = time.perf_counter()
     pipe = cli.build_pipeline(args)
@@ -1104,7 +1155,7 @@ def phase_smooth_full(dev: torch.device) -> dict:
     print(f"[smooth] warm-up (1 step): {warm['s']:.3f} s, peak {warm['peak'] / 2**30:.2f} GiB",
           flush=True)
     del warm
-    r = run(10, 2)
+    r = run(SMOOTH_START, 2)
     # the conditioning alone on the same video: CLIP on every frame, the two VAE encodes
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -1116,7 +1167,7 @@ def phase_smooth_full(dev: torch.device) -> dict:
         torch.cuda.synchronize()
         cond_s = time.perf_counter() - c0
     launches, latents, frames = r["launches"], r["latents"], r["frames"]
-    n_steps = cfg.num_inference_steps - 10
+    n_steps = cfg.num_inference_steps - SMOOTH_START
     print(f"[smooth] {r['s']:.3f} s/clip = conditioning {cond_s:.3f} s (timed alone) + "
           f"denoise {r['denoise_s'] - cond_s:.3f} s ({n_steps} steps, "
           f"{(r['denoise_s'] - cond_s) / n_steps:.3f} s a step) + decode {r['decode_s']:.3f} s "
@@ -1302,7 +1353,8 @@ def phase_controlnet_full(dev: torch.device) -> dict:
     """The full-width ControlNet clip through the inference CLI's ``build_pipeline``
     (``--mode controlnet``): SVD widths, a ControlNet at the same widths with the embedder
     (16, 32, 96, 256), a synthetic 14-frame control video, 14x576x1024, 25 steps, bf16; a
-    warm-up, a timed batched-CFG clip (28 UNet rows) and a timed ``sequential_cfg`` clip;
+    warm-up (``WARM_STEPS``), a timed batched-CFG clip (28 UNet rows) and a timed
+    ``sequential_cfg`` clip;
     then one step under ``torch.profiler``, the ControlNet and the UNet apart."""
     import dataclasses
 
@@ -1330,9 +1382,13 @@ def phase_controlnet_full(dev: torch.device) -> dict:
                                     ("batched CFG (28 UNet rows)", 2, False),
                                     ("sequential_cfg (2 x 14 UNet rows)", 2, True)):
         pipe.config = dataclasses.replace(cfg, sequential_cfg=sequential)
-        runs[label] = r = _timed_clip(dev, lambda g: pipe.denoise(image, g, control=control),
-                                      pipe.decode_latents, seed)
-        print(_clip_line(f"controlnet] [{label}", r, cfg.num_inference_steps), flush=True)
+        warm = label.startswith("warm-up")
+        runs[label] = r = _timed_clip(
+            dev, lambda g: (_short(pipe, lambda: pipe.denoise(image, g, control=control))
+                            if warm else pipe.denoise(image, g, control=control)),
+            pipe.decode_latents, seed)
+        print(_clip_line(f"controlnet] [{label}", r,
+                         WARM_STEPS if warm else cfg.num_inference_steps), flush=True)
     pipe.config = cfg
     timed, seq = runs["batched CFG (28 UNet rows)"], runs["sequential_cfg (2 x 14 UNet rows)"]
     _check_clip("controlnet", timed, 1, cfg)
@@ -1591,6 +1647,53 @@ def _forward_rows(tag: str, label: str, shape, gen: torch.Generator, plain_in) -
     return rows
 
 
+def _lse_rows(tag: str, label: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              plain_in) -> dict:
+    """Kernels 7 and 8 (the LSE forwards) on bf16 q (B, S_q, H, D) and k, v (B, S_k, H, D)
+    against their plain versions (run as ``plain_in`` says): out within FLASH_TOL x max|ref|,
+    lse within LSE_TOL log2 units, with the kernels' device time, the wrappers', the
+    library call's and the bound; returns these rows by kernel."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    chunk, note = plain_in
+    dev = q.device
+    shape, s_k = tuple(q.shape), k.shape[1]
+    want_out, want_lse = chunk(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
+        *(x.float() for x in a)), (q, k, v))
+    out_tol = FLASH_TOL * want_out.abs().max().item()
+    lib_ms, least = sdpa_ms(q, k, v, reps=20), flash_bound(shape, s_k, rows_fp32=1)
+    keys = "" if s_k == shape[1] else f" x {s_k} keys"
+    rows = {}
+    for kernel, plain, form in (("flash_bound_lse", fa.flash_fwd_lse_bound_plain, "true,true>"),
+                                ("flash_maxtrack_lse", fa.flash_fwd_lse_maxtrack_plain,
+                                 "false,true>")):
+        if kernel == "flash_maxtrack_lse":
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+        try:
+            counter = fa.recomputed_tiles(dev)
+            counter.zero_()
+            out, lse = fa.flash_fwd_lse(q, k, v)
+            torch.cuda.synchronize()
+            recomputed = int(counter.item())
+            t = _timed_kernel(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_wgmma_kernel<", form)
+        finally:
+            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+        out_err = (out.float() - want_out).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        plain_ms = gpu_ms(lambda: chunk(plain, (q, k, v)), reps=1)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}{keys}: out max|d| {out_err:.3e} of "
+              f"max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x max|ref|), lse max|d| "
+              f"{lse_err:.3e} (tol {LSE_TOL}) | {_paced(t)} | plain {plain_ms:.3f} ms ({note}), "
+              f"library sdpa {lib_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']} ({_versus(t['ms'], lib_ms, least)}) | tiles recomputed "
+              f"{recomputed}", flush=True)
+        assert np.isfinite(out_err) and out_err <= out_tol, (kernel, label, out_err, out_tol)
+        assert np.isfinite(lse_err) and lse_err <= LSE_TOL, (kernel, label, lse_err)
+        rows[kernel] = {"max_abs_err": out_err, **t, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        **least}
+    return rows
+
+
 def _train_rows(tag: str, label: str, shape, gen: torch.Generator, plain_in) -> dict:
     """Kernels 5/6, 7/8 and 9/10 at a training step's (B, S, H, D) self-attention against
     their plain versions (run as ``plain_in`` says), with the kernels' device time, the
@@ -1616,38 +1719,7 @@ def _train_rows(tag: str, label: str, shape, gen: torch.Generator, plain_in) -> 
     del xs, split
 
     q, k, v, do = (randn(*shape) for _ in range(4))
-    want_out, want_lse = chunk(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
-        *(x.float() for x in a)), (q, k, v))
-    out_tol = FLASH_TOL * want_out.abs().max().item()
-    lib_ms, least = sdpa_ms(q, k, v, reps=20), flash_bound(shape, rows_fp32=1)
-    for kernel, plain, form in (("flash_bound_lse", fa.flash_fwd_lse_bound_plain, "true,true>"),
-                                ("flash_maxtrack_lse", fa.flash_fwd_lse_maxtrack_plain,
-                                 "false,true>")):
-        if kernel == "flash_maxtrack_lse":
-            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
-        try:
-            counter = fa.recomputed_tiles(dev)
-            counter.zero_()
-            out, lse = fa.flash_fwd_lse(q, k, v)
-            torch.cuda.synchronize()
-            recomputed = int(counter.item())
-            t = _timed_kernel(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_wgmma_kernel<", form)
-        finally:
-            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
-        out_err = (out.float() - want_out).abs().max().item()
-        lse_err = (lse - want_lse).abs().max().item()
-        plain_ms = gpu_ms(lambda: chunk(plain, (q, k, v)), reps=1)
-        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}: out max|d| {out_err:.3e} of "
-              f"max|ref| {out_tol / FLASH_TOL:.3e} (tol {FLASH_TOL} x max|ref|), lse max|d| "
-              f"{lse_err:.3e} (tol {LSE_TOL}) | {_paced(t)} | plain {plain_ms:.3f} ms ({note}), "
-              f"library sdpa {lib_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
-              f"{least['bound_by']} ({_versus(t['ms'], lib_ms, least)}) | tiles recomputed "
-              f"{recomputed}", flush=True)
-        assert np.isfinite(out_err) and out_err <= out_tol, (kernel, label, out_err, out_tol)
-        assert np.isfinite(lse_err) and lse_err <= LSE_TOL, (kernel, label, lse_err)
-        rows[kernel] = {"max_abs_err": out_err, **t, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        **least}
-    del want_out, want_lse
+    rows.update(_lse_rows(tag, label, q, k, v, plain_in))
 
     # the library's backward for kernels 9 and 10 together: autograd through its fused
     # attention on the same inputs
@@ -2034,7 +2106,9 @@ def phase_cogvideox_full(dev: torch.device) -> dict:
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | |d|/|whole| {dist:.4f}",
               flush=True)
         del out
-    return launches
+    torch.cuda.empty_cache()
+    inversion = _inversion(dev, pipe, vae, parser, frames, image_latents, prompt, domain, flow)
+    return {"cogvideox": launches, "inversion": inversion}
 
 
 def phase_train_options(dev: torch.device) -> None:
@@ -4227,25 +4301,14 @@ def phase_tiny_fp32(dev: torch.device) -> None:
     assert abs(fd["gpu"] - fd["cpu"]) <= 1e-4 * abs(fd["cpu"]) + 1e-6
 
 
-def _write_mp4(path: Path, frames: np.ndarray, fps: int = 7) -> None:
-    """(T, H, W, 3) uint8 RGB frames as an mp4 through OpenCV (the card's machine has no
-    imageio-ffmpeg)."""
-    import cv2
-
-    t, h, w, _ = frames.shape
-    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
-    assert vw.isOpened(), "cv2 cannot write mp4 here"
-    for frame in frames:
-        vw.write(np.ascontiguousarray(frame[..., ::-1]))
-    vw.release()
-
-
 def _write_clips(folder: Path, clips) -> None:
     """Synthetic mp4 clips of moving colour ramps, ``clips`` (name, frames, h, w) tuples."""
+    from lkgd_torch.data.video_io import write_mp4
+
     folder.mkdir(parents=True, exist_ok=True)
     for name, n, h, w in clips:
         yy, xx = np.mgrid[:h, :w]
-        _write_mp4(folder / f"{name}.mp4", np.stack(
+        write_mp4(folder / f"{name}.mp4", np.stack(
             [np.stack([(xx + 8 * t) % 256, (yy + 4 * t) % 256, (xx + yy + 16 * t) % 256], -1)
              for t in range(n)]).astype(np.uint8))
 
@@ -4341,7 +4404,7 @@ def phase_precompute_full(dev: torch.device, smi: str) -> dict:
 def _metrics_media(folder: Path, seed: int, kind: str) -> str:
     """METRICS_SET videos of moving sinusoids, as mp4 (OpenCV) or GIF (PIL, as the card's
     machine writes and reads them)."""
-    from lkgd_torch.data.video_io import write_video
+    from lkgd_torch.data.video_io import write_mp4, write_video
 
     n, t, size = METRICS_SET
     folder.mkdir(parents=True)
@@ -4353,7 +4416,7 @@ def _metrics_media(folder: Path, seed: int, kind: str) -> str:
                            + phase[1]), np.sin(4 * (xx + yy) + phase[2] + j / 5)], -1)
                            for j in range(t)]) * 0.5 + 0.5
         if kind == "mp4":
-            _write_mp4(folder / f"v{i}.mp4", (frames * 255).astype(np.uint8))
+            write_mp4(folder / f"v{i}.mp4", (frames * 255).astype(np.uint8))
         else:
             write_video(str(folder / f"v{i}.gif"), frames.astype(np.float32))
     return str(folder)
@@ -4633,11 +4696,11 @@ def _tf32_against_fp32(fn) -> str:
 
 def _annotate_run(dev: torch.device, smi: str, name: str, fn, one, expect: dict, check,
                   with_tf32: bool) -> dict:
-    """``fn()`` (a clip) after a warm-up: s/clip, peak GiB, the launches (which must equal
-    ``expect``), ``check``'s line; ``one`` = (what, a frame's or pair's call) under the
-    profiler and, where ``with_tf32``, in TF32 against fp32."""
+    """``fn()`` (a clip) after a warm-up on one frame (pair): s/clip, peak GiB, the launches
+    (which must equal ``expect``), ``check``'s line; ``one`` = (what, a frame's or pair's
+    call) under the profiler and, where ``with_tf32``, in TF32 against fp32."""
     t, h, w = ANNOTATE_CLIP
-    fn()  # warm-up
+    one[1]()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
@@ -5185,6 +5248,543 @@ def phase_captions_full(dev: torch.device, smi: str) -> dict:
     shutil.rmtree(work)
     return by_path
 
+# ------------------------------------------------------------------ sequence parallelism, tools
+SP_RANKS = 2  # the pair of processes on the one card, over gloo
+SP_ULYSSES = (2, 17776, 24, 64)  # a rank's Ulysses call: the whole joint sequence, H/2 heads
+SP_RING_Q = (2, 113 + 8775, 48, 64)  # a rank's ring queries: its 113 text rows + 8775 video
+SP_SHARD = 8775  # video keys a rank holds: 13 x 30 x 45 / 2
+SP_TOL = 5e-2  # a bf16 DiT step through 42 layers, sharded against whole, of max|ref|
+
+
+def phase_sp_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Kernels 1, 2 and 1a at a Ulysses rank's (2, 17776, 24, 64) and kernels 7 and 8 at a
+    ring rank's (2, 8888, 48, 64) queries against one 8775-key video shard, each against its
+    plain version (blocks of 4 heads), with the library call's time and the bound."""
+    rows = {"ulysses": _forward_rows("sp-kernel", "Ulysses head shard", SP_ULYSSES, gen,
+                                     heads_of(4))}
+    torch.cuda.empty_cache()
+    b, _, h, d = SP_RING_Q
+    q = torch.randn(SP_RING_Q, device=dev, generator=gen).bfloat16()
+    k, v = (torch.randn((b, SP_SHARD, h, d), device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    rows["ring"] = _lse_rows("sp-kernel", "ring rows x one video shard", q, k, v, heads_of(4))
+    for r in rows["ring"].values():
+        r["shape"], r["keys"] = list(SP_RING_Q), SP_SHARD
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _sp_ring_merge(dev: torch.device, gen: torch.Generator) -> None:
+    """A ring rank's queries against two video shards through ``attention_with_lse``
+    (kernel 7 guarded by 8), merged as ring attention merges them, against one call on the
+    unsplit keys: shards whose key norms differ 100x (each launch's bound shift its own,
+    both shards weighing in), and a shard with one outlier key that no query reads, whose
+    bound sends every row of the shard to kernel 8."""
+    from lkgd_torch.ops import flash_attention as fa
+    from lkgd_torch.ops.attention import attention_with_lse
+    from lkgd_torch.parallel.sequence import merge_partials
+
+    b, _, h, d = SP_RING_Q
+    q = torch.randn(SP_RING_Q, device=dev, generator=gen)
+    q[..., 0] = 0.0  # no query reads the outlier key's direction
+    q = q.bfloat16()
+    k = torch.randn((b, 2 * SP_SHARD, h, d), device=dev, generator=gen)
+    v = torch.randn((b, 2 * SP_SHARD, h, d), device=dev, generator=gen).bfloat16()
+    for label in ("key norms 100x apart", "an outlier key past the guard"):
+        ks = k.clone()
+        if label == "key norms 100x apart":  # both shards weigh in; their shifts differ
+            ks[:, SP_SHARD:] *= 0.01
+        else:  # one key of 60x the norm, orthogonal to every query: its shard's bound
+            ks[:, 0] = 0.0  # leaves every row sum below 2^-110, its logit 0 weighs little
+            ks[:, 0, :, 0] = 60.0 * d ** 0.5
+        ks = ks.bfloat16()
+        counter = fa.recomputed_tiles(dev)
+        counter.zero_()
+        parts = [attention_with_lse(q, ks[:, s], v[:, s])
+                 for s in (slice(0, SP_SHARD), slice(SP_SHARD, None))]
+        recomputed = int(counter.item())
+        out, lse = merge_partials(parts)
+        want_out, want_lse = attention_with_lse(q, ks, v)
+        err = ((out - want_out.float()).abs().max() / want_out.float().abs().max()).item()
+        lse_err = (lse - want_lse).abs().max().item()
+        print(f"[sp-kernel] ring merge of two shards' (out, lse), {label}: out max|d| {err:.3e} "
+              f"of max|ref| (tol {FLASH_TOL}), lse max|d| {lse_err:.3e} (tol {LSE_TOL}) against "
+              f"one call on the {2 * SP_SHARD} keys | tiles recomputed in the shards {recomputed}",
+              flush=True)
+        assert err <= FLASH_TOL and lse_err <= LSE_TOL, (label, err, lse_err)
+        if label.startswith("an outlier"):
+            assert recomputed > 0, "no row of the outlier's shard fell back to kernel 8"
+    del q, k, v, ks, parts, out
+
+
+def _sp_rank_main(rank: int, work: Path) -> int:
+    """One rank of the SP pair (``chip_smoke.py --sp-rank R DIR``, started by
+    ``phase_sp_pair``): joins the gloo group, then (1) the joint attention at CogVideoX's
+    shapes, Ulysses and ring, against one flash call and the plain version on the whole
+    sequence; (2) one full-width CogVideoX-5B DiT step in each mode against the unsharded
+    step on rank 0. Rank 0 writes the numbers to ``DIR/result.json``."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from lkgd_torch.cli import run_inference_cogvideox as cli
+    from lkgd_torch.models.cogvideox import CogVideoXTransformer3D
+    from lkgd_torch.models.layers import share_parameters
+    from lkgd_torch.ops import _build
+    from lkgd_torch.ops import flash_attention as fa
+    from lkgd_torch.parallel import mesh, sequence
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), SP_RANKS),
+                            rank=rank, world_size=SP_RANKS,
+                            timeout=datetime.timedelta(seconds=600))
+    pg = mesh.make_mesh(f"context={SP_RANKS}", dev)
+    _build.library()
+    tag = f"sp-pair r{rank}"
+    result = {"attention": {}, "dit": {}}
+
+    # (1) attention: the same q, k, v on both ranks, each rank its text + video shard
+    gen = torch.Generator(device=dev).manual_seed(91)
+    q, k, v = (torch.randn(COG_FLASH, device=dev, generator=gen).bfloat16() for _ in range(3))
+    text, n = 226, SP_SHARD
+
+    def shard(x):
+        return torch.cat([x[:, :text], x[:, text + rank * n:text + (rank + 1) * n]], 1)
+
+    if rank == 0:
+        plain = in_head_blocks(lambda *a: fa.flash_attention_maxtrack_plain(
+            *(x.float() for x in a)), (q, k, v), 4)
+        whole = fa.flash_attention(q, k, v)
+    for mode in ("ulysses", "ring"):
+        torch.cuda.synchronize()
+        dist.barrier()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = sequence.joint_sp_attention(shard(q), shard(k), shard(v), text, mode, pg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k_: c for k_, c in _read_counts().items() if c}
+        full = torch.cat([out[:, :text], sequence.all_gather(out[:, text:], 1, pg)], 1)
+        if rank == 0:
+            ref_max = plain.abs().max().item()
+            err = (full.float() - plain).abs().max().item() / ref_max
+            err_whole = (full.float() - whole.float()).abs().max().item() / ref_max
+            print(f"[{tag}] joint {mode} attention {COG_FLASH}, {SP_RANKS} ranks: max|d| "
+                  f"{err:.3e} of max|ref| against the plain version (tol {FLASH_TOL}), "
+                  f"{err_whole:.3e} against one flash call on the whole sequence | {seconds:.3f} "
+                  f"s a call (collectives through the host) | launches {counts}", flush=True)
+            assert err <= FLASH_TOL, (mode, err)
+            result["attention"][mode] = {"err": err, "err_whole": err_whole,
+                                         "seconds": seconds, "launches": counts}
+        del out, full
+    del q, k, v
+    if rank == 0:
+        del plain, whole
+    torch.cuda.empty_cache()
+
+    # (2) the DiT: built by the CLI's build (--mesh, ring; weights checked replicated),
+    # its Ulysses and unsharded twins on the same parameters
+    args = cli.make_parser().parse_args(
+        ["--image", "-", "--seed", "0", "--device", str(dev), "--mesh",
+         f"context={SP_RANKS}", "--sequence-parallel", "ring"])
+    t0 = time.perf_counter()
+    pipe, vae = cli.build(args)
+    del vae
+    gen = torch.Generator(device=dev).manual_seed(9)
+    _fill_fusion_output(pipe.transformer, gen)
+    models = {"ring": pipe.transformer}
+    cfg = pipe.transformer.config
+    for mode in ("ulysses", "none"):
+        with torch.device("meta"):
+            twin = CogVideoXTransformer3D(dataclasses.replace(cfg, sequence_parallel=mode))
+        models[mode] = share_parameters(pipe.transformer, twin).eval()
+    pcfg = pipe.config
+    rows = 2
+    model_in = torch.randn((rows, pipe.latent_frames, pcfg.latent_height, pcfg.latent_width,
+                            cfg.in_channels), generator=gen, device=dev).bfloat16()
+    prompt = torch.randn((1, cfg.max_text_seq_length, cfg.text_embed_dim), generator=gen,
+                         device=dev) * 0.2
+    ctx = torch.cat([torch.zeros_like(prompt), prompt]).bfloat16()
+    t_step = torch.full((rows,), 999.0, device=dev)
+    domain, flow = (torch.randn((1, 1, 1000), generator=gen, device=dev) for _ in range(2))
+    torch.cuda.synchronize()
+    print(f"[{tag}] CogVideoX-5B DiT {sum(p.numel() for p in pipe.transformer.parameters()) / 1e9:.3f} "
+          f"B built by run_inference_cogvideox.build (--mesh context={SP_RANKS} "
+          f"--sequence-parallel ring, weights checked equal on both ranks) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with torch.inference_mode():
+        ref = None
+        if rank == 0:
+            models["none"](model_in, ctx, t_step, domain, flow)  # warm-up of the cuBLAS plans
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            ref = models["none"](model_in, ctx, t_step, domain, flow).float()
+            torch.cuda.synchronize()
+            dense_s = time.perf_counter() - t0
+            dense = {k_: c for k_, c in _read_counts().items() if c}
+            # the bf16 noise floor: the same step through kernel 2 instead of kernel 1
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+            try:
+                alt = models["none"](model_in, ctx, t_step, domain, flow).float()
+            finally:
+                os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+            floor = ((alt - ref).abs().max() / ref.abs().max()).item()
+            floor_mean = ((alt - ref).abs().mean() / ref.abs().mean()).item()
+            del alt
+            print(f"[{tag}] unsharded DiT step ({rows} x {COG_FLASH[1]} tokens): {dense_s:.3f} s, "
+                  f"launches {dense} | the same step through kernel 2 instead of 1 differs by "
+                  f"max|d| {floor:.3e} of max|ref|, mean |d| {floor_mean:.3e} of mean |ref| "
+                  f"(bf16 rounding through {cfg.num_layers} layers)", flush=True)
+            result["dit"]["none"] = {"seconds": dense_s, "launches": dense,
+                                     "floor": floor, "floor_mean": floor_mean}
+        for mode in ("ring", "ulysses"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = models[mode](model_in, ctx, t_step, domain, flow)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _read_counts()
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            mesh.check_replicated([out], pg, "DiT outputs")
+            peaks = [None] * SP_RANKS
+            dist.all_gather_object(peaks, peak, group=pg)
+            all_counts = [None] * SP_RANKS
+            dist.all_gather_object(all_counts, counts, group=pg)
+            assert all(c == counts for c in all_counts), all_counts
+            assert torch.isfinite(out).all(), mode
+            if rank == 0:
+                err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+                mean = ((out.float() - ref).abs().mean() / ref.abs().mean()).item()
+                shown = {k_: c for k_, c in counts.items() if c}
+                print(f"[{tag}] {mode} DiT step, {SP_RANKS} ranks on one card: max|d| {err:.3e} "
+                      f"of max|ref| (tol {SP_TOL}), mean |d| {mean:.3e} of mean |ref| against "
+                      f"the unsharded step | {seconds:.3f} s (two ranks time-slicing one card, "
+                      f"collectives through the host: no scaling figure) | peak GiB a rank "
+                      f"{', '.join(f'{p:.2f}' for p in peaks)} | launches a rank {shown}",
+                      flush=True)
+                assert err <= SP_TOL, (mode, err)
+                result["dit"][mode] = {"err": err, "mean_err": mean, "seconds": seconds,
+                                       "peak_gib": peaks, "launches": counts}
+            del out
+    layers = cfg.num_layers
+    if rank == 0:
+        ring, uly = result["dit"]["ring"]["launches"], result["dit"]["ulysses"]["launches"]
+        # ring: the text block plain (226 keys), each video shard kernel 7 with its guard
+        for name in ("flash_bound_lse", "flash_maxtrack_lse", "flash_key_norm"):
+            assert ring[name] == 2 * layers, (name, ring[name])
+        assert ring["flash_bound"] == ring["flash_maxtrack"] == 0, ring
+        for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+            assert uly[name] == layers, (name, uly[name])
+        assert uly["flash_bound_lse"] == 0, uly
+        (work / "result.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sp_pair(dev: torch.device) -> dict:
+    """Sequence parallelism on the one card: two processes (``--sp-rank``) on cuda:0 over
+    gloo, since NCCL refuses two ranks on one card; every collective goes through the host.
+    Returns the launches of a DiT step on rank 0 by mode."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sp-rank",
+                                   str(r), work]) for r in range(SP_RANKS)]
+        try:
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        assert rcs == [0] * SP_RANKS, f"the SP ranks exited with {rcs}"
+        result = json.loads((Path(work) / "result.json").read_text())
+    print(f"[sp-pair] {SP_RANKS} ranks: attention max|d| ulysses "
+          f"{result['attention']['ulysses']['err']:.3e}, ring {result['attention']['ring']['err']:.3e}; "
+          f"DiT step ring {result['dit']['ring']['seconds']:.3f} s (max|d| "
+          f"{result['dit']['ring']['err']:.3e}), ulysses {result['dit']['ulysses']['seconds']:.3f} s "
+          f"(max|d| {result['dit']['ulysses']['err']:.3e}), unsharded "
+          f"{result['dit']['none']['seconds']:.3f} s | phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"sp_ring": result["dit"]["ring"]["launches"],
+            "sp_ulysses": result["dit"]["ulysses"]["launches"]}
+
+
+def _inversion(dev, pipe, vae, parser, frames, image_latents, prompt, domain, flow) -> dict:
+    """DDIM inversion (``utils/inversion.py``) of the clip's encoded 13x60x90 latents over a
+    3-step DDIM schedule, its eps from the full-width DiT (one conditional row, the image
+    condition in the first latent frame): seconds a step, launches."""
+    from lkgd_torch.cli import run_inference_cogvideox as cli
+    from lkgd_torch.schedulers.cogvideox_ddim import CogVideoXDDIMScheduler
+    from lkgd_torch.utils.inversion import ddim_inversion
+
+    chunked = parser.parse_args(["--image", "-", "--device", str(dev), "--vae-chunk-frames", "2"])
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        latents = cli.encode(vae, frames * 2.0 - 1.0, chunked)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+    scheduler = CogVideoXDDIMScheduler()
+    schedule = scheduler.set_timesteps(3)
+    cond = torch.zeros_like(latents)
+    cond[:, 0] = image_latents
+    acp = scheduler.alphas_cumprod
+    events = []
+
+    def model_eps(lat, t):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        x = torch.cat([lat, cond], dim=-1).bfloat16()
+        v = pipe.transformer(x, prompt.bfloat16(), torch.full((1,), float(t), device=dev),
+                             domain, flow).float()
+        a = float(acp[t])
+        return a ** 0.5 * v + (1.0 - a) ** 0.5 * lat  # v-prediction -> eps
+
+    _zero_counts()
+    with torch.inference_mode():
+        noise = ddim_inversion(model_eps, scheduler, schedule, latents)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+    launches = _read_counts()
+    per_step = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:] + [end])]
+    dist = ((noise - latents).norm() / latents.norm()).item()
+    print(f"[cogvideox] DDIM inversion of the clip's latents {tuple(latents.shape)} (chunked "
+          f"encode of the decoded frames {encode_s:.3f} s): {schedule.num_steps} steps of "
+          f"{', '.join(f'{s:.3f}' for s in per_step)} s (timesteps "
+          f"{schedule.timesteps[::-1].tolist()}) | |noise - latents| / |latents| {dist:.3f}, "
+          f"noise std {noise.std().item():.3f} | launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    assert torch.isfinite(noise).all() and dist > 0.1, dist
+    for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+        assert launches[name] == pipe.transformer.config.num_layers * schedule.num_steps, name
+    return launches
+
+
+def _png_b64(image: np.ndarray) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray((np.clip(image, 0, 1) * 255).astype(np.uint8)).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def phase_web_demo(dev: torch.device) -> dict:
+    """``cli/web_demo.py`` in ``base`` mode at full width (14x576x1024, 25 steps, bf16 random
+    weights) on an ephemeral port: two POSTs with different seeds, each a 200 whose mp4
+    OpenCV decodes to 14 frames of 576x1024; seconds a request, the launches of both (the
+    kernels run on the server's handler threads)."""
+    import argparse
+    import tempfile
+    import threading
+    import urllib.request
+
+    import cv2
+
+    from lkgd_torch.cli import web_demo
+
+    args = argparse.Namespace(mode="base", height=576, width=1024, num_frames=14,
+                              seed=23123134, device=str(dev))
+    t0 = time.perf_counter()
+    pipe = web_demo.build_svd(args)
+    httpd = web_demo.make_server(web_demo.build_generate_fn(pipe, "base"), "base", 0,
+                                 host="127.0.0.1")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    yy, xx = np.mgrid[0:720, 0:1280] / 720.0
+    start = np.stack([np.sin(3 * xx + 2 * yy + c) * 0.5 + 0.5 for c in (0.0, 2.1, 4.2)], -1)
+    print(f"[web-demo] pipeline built in {time.perf_counter() - t0:.1f} s, serving {url}",
+          flush=True)
+    assert urllib.request.urlopen(url + "/").status == 200
+    _zero_counts()
+    videos = []
+    try:
+        for seed in (1, 2):
+            body = json.dumps({"start": _png_b64(start), "seed": seed, "fps": 7}).encode()
+            t0 = time.perf_counter()
+            reply = urllib.request.urlopen(urllib.request.Request(url + "/generate", data=body),
+                                           timeout=300)
+            data = reply.read()
+            seconds = time.perf_counter() - t0
+            assert reply.status == 200, reply.status
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "clip.mp4")
+                Path(path).write_bytes(data)
+                cap = cv2.VideoCapture(path)
+                frames = []
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    frames.append(frame)
+                cap.release()
+            video = np.stack(frames)
+            print(f"[web-demo] POST /generate seed {seed}: 200, {len(data) / 1e6:.2f} MB mp4 "
+                  f"decoded to {video.shape}, {seconds:.3f} s a request", flush=True)
+            assert video.shape == (14, 576, 1024, 3), video.shape
+            videos.append(video.astype(np.float32))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launches = _read_counts()
+    diff = np.abs(videos[0] - videos[1]).mean()
+    print(f"[web-demo] two seeds' clips differ by {diff:.2f} levels on average | launches of "
+          f"both requests { {k: v for k, v in launches.items() if v} }", flush=True)
+    assert diff > 0.5, diff
+    for name in INFERENCE:
+        assert launches[name] > 0, f"kernel {name} was not launched by the web demo"
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _perturb_safetensors(path: str, name: str, delta: float) -> None:
+    """Adds ``delta`` to the fp32 tensor ``name`` of a safetensors file, in place."""
+    import struct
+
+    with open(path, "r+b") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        info = json.loads(f.read(n))[name]
+        assert info["dtype"] == "F32", info
+        start, end = info["data_offsets"]
+        f.seek(8 + n + start)
+        x = np.frombuffer(f.read(end - start), "<f4") + np.float32(delta)
+        f.seek(8 + n + start)
+        f.write(x.astype("<f4").tobytes())
+
+
+def phase_tools(dev: torch.device) -> dict:
+    """``verify_parity`` record then check at ``--config svd-xt`` on a safetensors file
+    written from seeded weights (and a perturbed copy that must fail), the w8a8 int8
+    products against exact products of the same codes at the UNet's shapes with their
+    times beside bf16, and ``collect_env``'s report. Returns the launches of the check."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from lkgd_torch.cli import collect_env, verify_parity
+    from lkgd_torch.models.configs import SVDUNetConfig
+    from lkgd_torch.models.layers import init_params, materialize
+    from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
+    from lkgd_torch.ops import quantization as tq
+    from lkgd_torch.utils.porting import save_safetensors
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        unet = materialize(lambda: UNetSpatioTemporalCondition(SVDUNetConfig()), dev,
+                           torch.float32)
+        init_params(unet, torch.Generator(device=dev).manual_seed(3))
+        state = {k: v.cpu().numpy() for k, v in unet.state_dict().items()}
+        del unet
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(tmp, "diffusion_pytorch_model.safetensors")
+        save_safetensors(state, ckpt)
+        n = sum(x.size for x in state.values())
+        del state
+        write_s = time.perf_counter() - t0
+        rec, report = os.path.join(tmp, "rec.npz"), os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        assert verify_parity.main(["record", "--config", "svd-xt", "--checkpoint", ckpt,
+                                   "--out", rec, "--device", str(dev)]) == 0
+        record_s = time.perf_counter() - t0
+        _zero_counts()
+        t0 = time.perf_counter()
+        assert verify_parity.main(["check", "--record", rec, "--checkpoint", ckpt, "--report",
+                                   report, "--device", str(dev)]) == 0
+        check_s = time.perf_counter() - t0
+        launches = _read_counts()
+        rep = json.loads(Path(report).read_text())
+        assert rep["pass"], rep
+        _perturb_safetensors(ckpt, "conv_out.weight", 0.05)
+        assert verify_parity.main(["check", "--record", rec, "--checkpoint", ckpt, "--report",
+                                   report, "--device", str(dev)]) == 1
+        bad = json.loads(Path(report).read_text())
+    print(f"[tools] verify_parity svd-xt: {n / 1e9:.3f} B fp32 parameters written from a seed "
+          f"({write_s:.1f} s), record {record_s:.1f} s, check {check_s:.1f} s: pass, max|d| "
+          f"{rep['max_abs_err']:.3e} | conv_out.weight + 0.05 in the file: fail, max|d| "
+          f"{bad['max_abs_err']:.3e} | launches of the first check "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    assert not bad["pass"], bad
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((28 * 9216, 320), generator=gen, device=dev).bfloat16()
+    w = torch.randn((320, 1280), generator=gen, device=dev).bfloat16() * 0.05
+    xq, _ = tq.quantize_rows(x)
+    wq, _ = tq.quantize_cols(w)
+    sums = tq.int_matmul(xq, wq)
+    exact = (xq.double() @ wq.double())  # |sums| <= 127^2 x 320 < 2^53: exact in fp64
+    assert torch.equal(sums.double(), exact), "int32 sums differ from the exact product"
+    int8_ms, bf16_ms = gpu_ms(lambda: tq.int8_matmul(x, w), 10), gpu_ms(lambda: x @ w, 10)
+    mm_ms = gpu_ms(lambda: tq.int_matmul(xq, wq), 10)
+    y, ref = tq.int8_matmul(x, w).float(), (x.float() @ w.float())
+    mm_err = ((y - ref).abs().max() / ref.abs().max()).item()
+    del exact, sums, y, ref
+    xc = torch.randn((28, 72, 128, 320), generator=gen, device=dev).bfloat16()
+    wc = (torch.randn((3, 3, 320, 320), generator=gen, device=dev) * 0.02).bfloat16()
+    got = tq.int8_conv2d(xc, wc)
+    xs = torch.clamp(xc.float().abs().amax(dim=(1, 2, 3), keepdim=True) / 127.0, min=1e-8)
+    ws = torch.clamp(wc.float().abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-8)
+    cq = torch.clamp(torch.round(xc.float() / xs), -127, 127).double().permute(0, 3, 1, 2)
+    kq = torch.clamp(torch.round(wc.float() / ws), -127, 127).double().permute(3, 2, 0, 1)
+    # integer sums < 2^53: exact in fp64 up to the algorithm's rounding, which .round() undoes
+    conv_exact = F.conv2d(cq, kq, padding=1).round().permute(0, 2, 3, 1)
+    want = (conv_exact.float() * xs * ws).bfloat16()
+    assert torch.equal(got, want), "int8_conv2d differs from the exact convolution of its codes"
+    del cq, kq, conv_exact, want
+    conv_ms = gpu_ms(lambda: tq.int8_conv2d(xc, wc), 5)
+    xn, wn = xc.permute(0, 3, 1, 2), wc.permute(3, 2, 0, 1).contiguous()
+    lib_conv_ms = gpu_ms(lambda: F.conv2d(xn, wn, padding=1), 5)
+    print(f"[tools] int8_matmul (258048,320)x(320,1280): int32 sums equal the exact product; "
+          f"{int8_ms:.3f} ms (the int32 product alone {mm_ms:.3f} ms) against bf16 x @ w "
+          f"{bf16_ms:.3f} ms; max|d| {mm_err:.3e} of max|ref| against fp32 | int8_conv2d 3x3 "
+          f"(28,72,128,320)x320: equal to the exact fp64 convolution of its codes, rescaled; "
+          f"{conv_ms:.3f} ms against bf16 F.conv2d {lib_conv_ms:.3f} ms", flush=True)
+    del x, w, xq, wq, xc, wc, got, xn, wn
+    torch.cuda.empty_cache()
+
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        collect_env.main([])
+    text = report.getvalue()
+    print("[tools] collect_env:\n" + text.rstrip(), flush=True)
+    assert "sm_90" in text and "SMs" in text, text
+    return launches
+
+
+def _phase_timed(name: str, fn, t_smoke: float):
+    """``fn``, printing its seconds and the smoke's running total when it returns."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        now = time.perf_counter()
+        print(f"[time] {name} {now - t0:.1f} s, the smoke {now - t_smoke:.1f} s so far",
+              flush=True)
+        return out
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check runs "
@@ -5194,11 +5794,17 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: no lkgd_torch/csrc next to {__file__}; run it from a "
                          f"checkout of the repository")
     sys.path.insert(0, str(root))
+    if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase_sp_pair's pair of processes
+        return _sp_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
     # fp32 phases compare exact fp32 arithmetic: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    t_smoke = time.perf_counter()  # every phase's time, to keep the whole within its limit
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _phase_timed(name, fn, t_smoke)
 
     smi, kind = phase_device()
     phase_build()
@@ -5212,6 +5818,8 @@ def main() -> int:
     gn_fp32 = fp32_kernels.pop("gn_fp32")
     kernels.update(fp32_kernels)
     annotate_kernels = phase_annotate_kernels(dev, torch.Generator(device=dev).manual_seed(81))
+    sp_kernels = phase_sp_kernels(dev, torch.Generator(device=dev).manual_seed(82))
+    _sp_ring_merge(dev, torch.Generator(device=dev).manual_seed(83))
     phase_tiny(dev)
     phase_tiny_joint(dev, "trans")
     phase_tiny_joint(dev, "smooth")
@@ -5235,6 +5843,9 @@ def main() -> int:
     flow_launches = phase_flow_full(dev)
     torch.cuda.empty_cache()
     cogvideox_launches = phase_cogvideox_full(dev)
+    torch.cuda.empty_cache()
+    sp_launches = phase_sp_pair(dev)
+    web_demo_launches = phase_web_demo(dev)
     torch.cuda.empty_cache()
     sd2d_launches = phase_sd2d_full(dev)
     torch.cuda.empty_cache()
@@ -5265,6 +5876,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     caption_launches = phase_captions_full(dev, smi)
     torch.cuda.empty_cache()
+    verify_parity_launches = phase_tools(dev)
+    torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
@@ -5274,7 +5887,8 @@ def main() -> int:
     by_path = {"clip": clip_launches, "trans": trans_launches, "smooth": smooth_launches,
                "controlnet": controlnet_launches, "deep_cache_2": deep_cache_launches[2],
                "deep_cache_3": deep_cache_launches[3], "flow": flow_launches,
-               "cogvideox": cogvideox_launches,
+               **cogvideox_launches, **sp_launches, "web_demo": web_demo_launches,
+               "verify_parity": verify_parity_launches,
                "train": train_launches, "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
                "train_cogvideox": train_cogvideox_launches, **sd2d_launches,
@@ -5293,7 +5907,9 @@ def main() -> int:
             if name in cogvideox_train_kernels else {}),
          **({"sd2d": sd2d_kernels[name]} if name in sd2d_kernels else {}),
          **({"precompute_fp32": gn_fp32[name]} if name in gn_fp32 else {}),
-         **({"annotate": annotate_kernels[name]} if name in annotate_kernels else {})}
+         **({"annotate": annotate_kernels[name]} if name in annotate_kernels else {}),
+         **({"sequence_parallel": sp_kernels[mode][name] for mode in sp_kernels
+             if name in sp_kernels[mode]})}
         for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

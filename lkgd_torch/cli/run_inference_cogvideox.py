@@ -16,14 +16,24 @@ Examples::
   python -m lkgd_torch.cli.run_inference_cogvideox --generate-type v2v --image clip.mp4 \
       --vae-tiling --vae-tile-latent 30 45
 
+  # sequence parallelism: the DiT's video tokens split over 2 processes, one card each
+  # (NCCL; gloo with --device cpu), ring attention (or ulysses: the heads split)
+  torchrun --nproc-per-node 2 -m lkgd_torch.cli.run_inference_cogvideox --image frame.png \
+      --mesh context=2 --sequence-parallel ring
+
 Prompts are T5 embeddings from ``--prompt-embeds`` (a ``.npy`` of (L, 4096) or (B, L,
 4096)), or zeros without it. It runs on the card: ``--device`` defaults to ``cuda`` and a
 machine without one fails unless ``--device cpu`` is given. The weights are random, drawn
 from ``--seed`` at the real shapes; ``--lora`` loads a LoRA safetensors (diffusers, peft or
-kohya names) into adapters on the transformer's ``attn1`` projections that it names. Not
-ported: ``--weights`` (no checkpoint or T5 model is in the repository: ROADMAP.md Queue 1,
-item 11) and the multi-chip flags ``--mesh``, ``--weight-sharding``,
-``--sequence-parallel`` (ROADMAP.md Queue 1, item 12), which are refused.
+kohya names) into adapters on the transformer's ``attn1`` projections that it names.
+
+``--mesh context=N --sequence-parallel ulysses|ring`` runs one process a rank (launched by
+``torchrun``): every rank builds the same weights and noise from ``--seed`` (a checksum
+all-reduce of the weights and of the final latents makes a divergence an error), the DiT
+splits its video tokens over the ranks (``parallel/sequence.py``), and rank 0 writes the
+video. Not ported: ``--weights`` (no checkpoint or T5 model is in the repository:
+ROADMAP.md Queue 1, item 11), ``--weight-sharding`` and the ``model`` and ``data`` mesh axes
+(ROADMAP.md Queue 1, item 12), which are refused.
 """
 
 from __future__ import annotations
@@ -80,11 +90,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "whole clip")
     p.add_argument("--device", default="cuda",
                    help="the card by default; a run without one fails unless cpu is named")
+    p.add_argument("--mesh", help="context=N: N processes (torchrun), the DiT's video tokens "
+                                  "split over them")
+    p.add_argument("--sequence-parallel", choices=["none", "ulysses", "ring"], default="none",
+                   help="sequence-parallel attention over the mesh's context axis: ulysses "
+                        "(the heads split, H %% N == 0) or ring (K/V passed round the ranks)")
     # not ported: refused with the ROADMAP item that holds them
     p.add_argument("--weights", help=argparse.SUPPRESS)
-    p.add_argument("--mesh", help=argparse.SUPPRESS)
     p.add_argument("--weight-sharding", help=argparse.SUPPRESS)
-    p.add_argument("--sequence-parallel", default="none", help=argparse.SUPPRESS)
     return p
 
 
@@ -93,11 +106,21 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--weights is not ported to lkgd_torch: no CogVideoX checkpoint or T5 model "
                 "is in the repository (ROADMAP.md Queue 1, item 11); weights are random from "
                 "--seed")
-    for flag, value in (("--mesh", args.mesh), ("--weight-sharding", args.weight_sharding),
-                        ("--sequence-parallel", args.sequence_parallel != "none")):
-        if value:
-            p.error(f"{flag} is not ported to lkgd_torch: multi-GPU waits for ROADMAP.md "
-                    f"Queue 1, item 12")
+    if args.weight_sharding:
+        p.error("--weight-sharding is not ported to lkgd_torch: weight sharding waits for "
+                "ROADMAP.md Queue 1, item 12")
+    if args.mesh:
+        from lkgd_torch.parallel.mesh import CONTEXT_AXIS, parse_mesh
+
+        try:
+            axes = parse_mesh(args.mesh)
+        except ValueError as e:
+            p.error(str(e))
+        if args.sequence_parallel == "none":
+            p.error(f"--mesh {CONTEXT_AXIS}={axes[CONTEXT_AXIS]} needs --sequence-parallel "
+                    f"ulysses or ring: the context axis splits the DiT's video tokens")
+    if args.sequence_parallel != "none" and not args.mesh:
+        p.error("--sequence-parallel needs --mesh with a 'context' axis")
     if args.generate_type != "t2v" and not args.image:
         p.error(f"--image is required for --generate-type {args.generate_type}")
     if args.variant == "2b" and args.generate_type == "i2v" and not args.tiny:
@@ -126,6 +149,8 @@ def transformer_config(args, lora=None) -> CogVideoXConfig:
         cfg = CogVideoXConfig.cogvideox_5b_i2v()
     if args.generate_type in ("t2v", "v2v"):  # T2V checkpoints have no image channels
         cfg = dataclasses.replace(cfg, in_channels=cfg.out_channels)
+    if args.sequence_parallel != "none":
+        cfg = dataclasses.replace(cfg, sequence_parallel=args.sequence_parallel)
     if lora is not None:
         cfg = dataclasses.replace(cfg, lora=LoraRouter((lora,)))
     return cfg
@@ -133,8 +158,17 @@ def transformer_config(args, lora=None) -> CogVideoXConfig:
 
 def build(args):
     """The pipeline of ``--generate-type`` and the VAE, random weights from ``--seed`` (and
-    ``--lora`` loaded). Returns (pipe, vae)."""
+    ``--lora`` loaded). Returns (pipe, vae). With ``--mesh`` it first joins (or makes) the
+    context process group, builds on this rank's device and checks that every rank holds
+    the same weights."""
     from lkgd_torch.utils.porting import load_safetensors, port_lora_safetensors
+
+    pg = None
+    if args.mesh:
+        from lkgd_torch.parallel import mesh
+
+        pg = mesh.make_mesh(args.mesh, args.device)
+        args.device = str(mesh.rank_device(args.device))
 
     lora_sd = load_safetensors(args.lora) if args.lora else None
     tcfg = transformer_config(args, lora_rule(lora_sd) if lora_sd else None)
@@ -159,6 +193,10 @@ def build(args):
     if lora_sd:
         n = port_lora_safetensors(lora_sd, pipe.transformer, "lora", strict=True)
         print(f"loaded {n} LoRA tensors from {args.lora}")
+    if pg is not None:
+        from lkgd_torch.parallel.mesh import check_replicated
+
+        check_replicated(list(pipe.transformer.parameters()) + list(vae.parameters()), pg)
     return pipe, vae
 
 
@@ -237,6 +275,10 @@ def main(argv=None) -> None:
 
     t0 = now()
     latents = generate(pipe, vae, args, prompt)
+    if args.mesh:
+        from lkgd_torch.parallel.mesh import check_replicated, group
+
+        check_replicated([latents], group(), "latents")
     t1 = now()
     with torch.inference_mode():
         video = decode(vae, latents, args)
@@ -245,6 +287,11 @@ def main(argv=None) -> None:
           f"{t1 - t0:.3f} s + decode {t2 - t1:.3f} s")
     # 1.5's temporal patching pads the latent clip: drop the extra decoded frames
     video = video[:, :args.num_frames].cpu().numpy()
+    if args.mesh:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:  # every rank holds the same video: rank 0 writes it
+            return
     write_video(args.output, video[0], fps=args.fps)
     print(f"wrote {args.output}: {video[0].shape}")
 

@@ -140,13 +140,21 @@ def write_video(path: str, frames: np.ndarray, fps: int = 7) -> None:
     try:
         iio.imwrite(path, arr, fps=fps)
     except (OSError, ImportError):  # no imageio-ffmpeg backend in this image
-        import cv2
+        write_mp4(path, arr, fps)
 
-        h, w = arr.shape[1:3]
-        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
-        for frame in arr:
-            vw.write(frame[..., ::-1])
-        vw.release()
+
+def write_mp4(path, frames: np.ndarray, fps: int = 7) -> None:
+    """uint8 (T, H, W, 3) RGB frames -> an ``mp4v`` mp4 through OpenCV alone (the card's
+    machine has no imageio-ffmpeg)."""
+    import cv2
+
+    h, w = frames.shape[1:3]
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not vw.isOpened():
+        raise RuntimeError(f"OpenCV cannot write an mp4 to {path}")
+    for frame in frames:
+        vw.write(np.ascontiguousarray(frame[..., ::-1]))
+    vw.release()
 
 
 def save_gifs_side_by_side(path: str, videos: Sequence[np.ndarray], fps: int = 7) -> None:

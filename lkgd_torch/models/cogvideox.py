@@ -19,6 +19,13 @@ rotation (cos 1, sin 0) over the text prefix and cast to the compute dtype, so e
 rotates the whole joint sequence. Attention goes through ``ops/attention.py``: the flash
 kernels at S >= 1024 (17776 tokens at 49x480x720), the plain form below.
 
+Sequence parallelism (``config.sequence_parallel``, inference only): after the patch
+embedding each rank of the ``sp_axis`` process group keeps its Sv/P video tokens and the
+matching rows of the rotary tables, the text stream replicated; every block runs on these
+tokens and only the attention communicates (``parallel/sequence.py`` ``joint_sp_attention``);
+the video tokens are gathered after ``proj_out`` (the final norms act token by token), before
+the unpatchify. GSPMD does this split implicitly in the JAX module.
+
 Parameter names are diffusers' ``CogVideoXTransformer3DModel`` names as the JAX package's
 ``cogvideox_export_key_map`` writes them (``transformer_blocks.{i}.attn1.to_q``,
 ``norm1.linear``, ``ff.net.0.proj``, ``patch_embed.proj``, ``norm_out.linear``, and
@@ -33,6 +40,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -43,6 +51,7 @@ from lkgd_torch.models.layers import (CastLinear, Conv2d, DenseWithLora, Timeste
                                       get_timestep_embedding)
 from lkgd_torch.ops.attention import dot_product_attention
 from lkgd_torch.ops.fusion import LatentKnowledgeFusion
+from lkgd_torch.parallel import mesh, sequence
 
 _FUSION, _EXPORTED = "knowledge_fusion.", "quaternion_lora_"
 
@@ -141,6 +150,7 @@ class CogVideoXAttention(nn.Module):
         super().__init__()
         inner, hd = config.inner_dim, config.attention_head_dim
         self.heads, self.head_dim = config.num_attention_heads, hd
+        self.sequence_parallel, self.sp_axis = config.sequence_parallel, config.sp_axis
         self.to_q = DenseWithLora(inner, inner, adapters=adapters["to_q"])
         self.to_k = DenseWithLora(inner, inner, adapters=adapters["to_k"])
         self.to_v = DenseWithLora(inner, inner, adapters=adapters["to_v"])
@@ -148,15 +158,22 @@ class CogVideoXAttention(nn.Module):
         self.norm_k = LayerNorm(hd, eps=1e-6)
         self.to_out = nn.ModuleList([DenseWithLora(inner, inner, adapters=adapters["to_out"])])
 
-    def forward(self, x: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
-        """x: the joint (B, S, inner) stream; rope: (S, D) tables in x's dtype or None."""
+    def forward(self, x: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                text_len: int = 0):
+        """x: the joint (B, S, inner) stream, ``text_len`` text tokens first (under sequence
+        parallelism the video tokens of this rank's shard); rope: (S, D) tables in x's dtype
+        or None."""
         b, s, _ = x.shape
         q = self.norm_q(self.to_q(x).view(b, s, self.heads, self.head_dim))
         k = self.norm_k(self.to_k(x).view(b, s, self.heads, self.head_dim))
         v = self.to_v(x).view(b, s, self.heads, self.head_dim)
         if rope is not None:
             q, k = apply_rotary(q, *rope), apply_rotary(k, *rope)
-        out = dot_product_attention(q, k, v)
+        if self.sequence_parallel != "none":
+            out = sequence.joint_sp_attention(q, k, v, text_len, self.sequence_parallel,
+                                              mesh.group(self.sp_axis))
+        else:
+            out = dot_product_attention(q, k, v)
         return self.to_out[0](out.reshape(b, s, self.heads * self.head_dim))
 
 
@@ -195,7 +212,7 @@ class CogVideoXBlock(nn.Module):
     def forward(self, hidden, encoder, temb, rope):
         text_len = encoder.shape[1]
         nh, ne, gate, e_gate = self.norm1(hidden, encoder, temb)
-        attn = self.attn1(torch.cat([ne, nh], dim=1), rope)
+        attn = self.attn1(torch.cat([ne, nh], dim=1), rope, text_len)
         hidden = hidden + gate * attn[:, text_len:]
         encoder = encoder + e_gate * attn[:, :text_len]
         nh, ne, gate, e_gate = self.norm2(hidden, encoder, temb)
@@ -301,6 +318,11 @@ class CogVideoXTransformer3D(nn.Module):
                                       cfg.temporal_interpolation_scale)
             video = video + pos.to(device, dtype)[None]
 
+        pg = None
+        if cfg.sequence_parallel != "none":
+            pg = mesh.group(cfg.sp_axis)
+            video, rope = _shard_tokens(video, rope, text.shape[1], pg)
+
         hidden, encoder = video, text
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
@@ -312,6 +334,8 @@ class CogVideoXTransformer3D(nn.Module):
 
         # norm_final acts token by token: the text rows it would also normalise are dropped
         hidden = self.proj_out(self.norm_out(self.norm_final(hidden), emb))
+        if pg is not None:
+            hidden = sequence.all_gather(hidden, 1, pg)
 
         c = cfg.out_channels
         if pt is None:  # inverse of the embed's (p, p, C) feature order
@@ -320,6 +344,23 @@ class CogVideoXTransformer3D(nn.Module):
             out = hidden.reshape(b, t // pt, h // p, w // p, pt, p, p, c)
             out = out.permute(0, 1, 4, 2, 5, 3, 6, 7)
         return out.reshape(b, t, h, w, c)
+
+
+def _shard_tokens(video: torch.Tensor, rope, text_len: int, pg):
+    """This rank's Sv/P video tokens (B, Sv, inner) and the rows of the rotary tables
+    (text prefix, then the video) that go with them."""
+    p, i = dist.get_world_size(pg), dist.get_rank(pg)
+    sv = video.shape[1]
+    if sv % p:
+        raise ValueError(f"sequence parallelism splits the {sv} video tokens over the {p} "
+                         f"ranks: {sv} does not divide by {p} (49 frames at 480x720 give "
+                         f"13 x 30 x 45 = 17550 tokens: 2, 3, 5 or 6 ranks)")
+    n = sv // p
+    video = video[:, i * n:(i + 1) * n]
+    if rope is not None:
+        rope = tuple(torch.cat([x[:text_len], x[text_len + i * n:text_len + (i + 1) * n]])
+                     for x in rope)
+    return video, rope
 
 
 def _exported_name(name: str) -> str:

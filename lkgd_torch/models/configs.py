@@ -242,8 +242,18 @@ class CogVideoXConfig:
     temporal_interpolation_scale: float = 1.0
     knowledge_fusion: bool = True
     lora: LoraRouter = EMPTY_ROUTER
+    # sequence parallelism over the video tokens (``parallel/sequence.py``): "ulysses" (an
+    # all-to-all head exchange) or "ring" (K/V passed round the ranks), over the process
+    # group ``parallel.mesh.make_mesh`` registered for ``sp_axis``; inference only
+    sequence_parallel: str = "none"  # none | ulysses | ring
+    sp_axis: str = "context"
     # gradient checkpointing: every transformer block recomputed in the backward pass
     remat: bool = False
+
+    def __post_init__(self):
+        if self.sequence_parallel not in ("none", "ulysses", "ring"):
+            raise ValueError(f"sequence_parallel={self.sequence_parallel!r}: none, ulysses "
+                             f"or ring")
 
     @property
     def inner_dim(self) -> int:

@@ -18,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from lkgd_torch.ops.flash_attention import flash_attention, flash_attention_differentiable
+from lkgd_torch.ops.flash_attention import (LOG2E, flash_attention,
+                                           flash_attention_differentiable, flash_fwd_lse)
 
 FLASH_MIN_SEQ = 1024
 
@@ -48,3 +49,24 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return flash_attention_differentiable(q, k, v)
         return flash_attention(q, k, v)
     return plain_attention(q, k, v, mask)
+
+
+def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(B, S, H, D) attention returning (out (B, S_q, H, D) in q.dtype, lse2 (B, S_q, H)
+    fp32): ``lse2`` is the log2-domain logsumexp of the scaled logits, so that partial
+    results over disjoint key blocks combine exactly as out = sum_i out_i 2^(lse_i - LSE),
+    LSE = log2 sum_i 2^lse_i (``lkgd_tpu/ops/attention.py`` ``attention_with_lse``).
+
+    Sequences of 1024 or more (``use_flash``): ``flash_fwd_lse``, whose kernel 7 subtracts
+    its own key block's Cauchy-Schwarz bound ``t`` and writes ``log2(l) - t``, the absolute
+    value whatever ``t`` is. Below: the plain formula, fp32 logits and sums."""
+    if use_flash(q, k, None):
+        out, lse = flash_fwd_lse(q, k, v)
+        return out, lse.transpose(1, 2)
+    scale = q.shape[-1] ** -0.5
+    logits2 = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (scale * LOG2E)
+    m = logits2.amax(dim=-1, keepdim=True)
+    p = torch.exp2(logits2 - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", (p / l).to(q.dtype), v)
+    return out, (m + torch.log2(l))[..., 0].transpose(1, 2)

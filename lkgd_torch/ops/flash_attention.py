@@ -182,7 +182,11 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
     of the block's shared memory; D <= 128: 128 query rows a block, Q's hi and lo resident;
     D = 256: 64 rows, Q resident; D = 512: 64 rows, Q streamed through the ring and 64 KB
     for the halves of S the two warpgroups exchange."""
-    if d <= 0 or d % 8 or d > FWD_MAX_D or (fp32 and lse):
+    if fp32 and lse:
+        raise ValueError("flash_plan: the LSE forward (kernels 7/8) has no fp32 form: no path "
+                         "of either package needs an fp32 logsumexp of 1024+ tokens (training "
+                         "and ring attention run in bf16 on the card)")
+    if d <= 0 or d % 8 or d > FWD_MAX_D:
         raise ValueError(f"flash_plan: head dim {d} (lse={lse}, fp32={fp32}) is not built")
     dp = _padded(d)
     if fp32:

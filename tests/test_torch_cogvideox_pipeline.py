@@ -230,6 +230,12 @@ def test_cli_prompt_embeds_and_lora(media, tmp_path):
 @pytest.mark.parametrize("flag", [["--weights", "w"], ["--mesh", "model=4"],
                                   ["--weight-sharding", "fsdp"], ["--sequence-parallel", "ring"]])
 def test_cli_refuses_unported_flags(flag, capsys):
+    """The flags that wait for files or for item 12's remainder name their item;
+    ``--sequence-parallel``, ported, is refused without the ``--mesh`` it needs."""
     with pytest.raises(SystemExit):
         cli.main(["--image", "x.png"] + flag)
-    assert "ROADMAP.md Queue 1, item 1" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag[0] == "--sequence-parallel":
+        assert "--sequence-parallel needs --mesh with a 'context' axis" in err
+    else:
+        assert "ROADMAP.md Queue 1, item 1" in err

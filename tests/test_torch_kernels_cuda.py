@@ -1413,3 +1413,58 @@ def test_tiny_sd2d_unet_gpu_matches_cpu(cuda_device, monkeypatch):
                               tracks=tuple(t.to(device) for t in tracks),
                               track_image_size=(64, 64)).cpu())
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skewed", "guard", "ring_rows"])
+def test_ring_merge_of_kernel_lse_equals_one_lse_call(cuda_device, case):
+    """Ring attention's merge of kernel 7's (out, lse) over key shards equals one LSE call on
+    the unsplit keys: shards whose key norms differ 100x (so each launch subtracts a bound
+    shift of its own), a shard whose outlier key sends its rows to kernel 8 (the 2^-110
+    guard), and the ring's 8888 query rows (113 text + 8775 video, no multiple of 128)
+    against two shards."""
+    from lkgd_torch.ops.attention import attention_with_lse
+    from lkgd_torch.parallel.sequence import merge_partials
+
+    b, s_q, s_k, h, d = {"skewed": (1, 2048, 2048, 4, 64), "guard": (1, 1100, 2200, 2, 64),
+                         "ring_rows": (1, 8888, 2 * 8775, 4, 64)}[case]
+    q = _randn(cuda_device, (b, s_q, h, d), seed=1)
+    q[..., 0] = 0.0  # no query reads the outlier key's direction
+    q = q.bfloat16()
+    k = _randn(cuda_device, (b, s_k, h, d), seed=2)
+    half = s_k // 2
+    if case == "skewed":  # both shards weigh in, their bound shifts far apart
+        k[:, half:] *= 0.01
+    elif case == "guard":  # one key of 60x the norm that no query reads: the shard's bound
+        k[:, 0] = 0.0  # leaves every row sum below 2^-110
+        k[:, 0, :, 0] = 60.0 * d ** 0.5
+    k, v = k.bfloat16(), _randn(cuda_device, (b, s_k, h, d), seed=3).bfloat16()
+    counter = tfa.recomputed_tiles(cuda_device)
+    counter.zero_()
+    parts = [attention_with_lse(q, k[:, s], v[:, s]) for s in (slice(0, half), slice(half, None))]
+    recomputed = int(counter.item())
+    out, lse = merge_partials(parts)
+    want_out, want_lse = attention_with_lse(q, k, v)
+    assert _rel_err(out, want_out) <= FLASH_TOL
+    assert (lse - want_lse).abs().max().item() <= 1e-2
+    plain_out, plain_lse = tfa.flash_fwd_lse_maxtrack_plain(q[:, :1100], k, v)
+    assert _rel_err(out[:, :1100], plain_out) <= FLASH_TOL
+    assert (lse[:, :1100] - plain_lse.transpose(1, 2)).abs().max().item() <= 1e-2
+    if case == "guard":
+        assert recomputed > 0
+
+
+@pytest.mark.cuda
+def test_int8_products_on_the_card_equal_the_plain_codes(cuda_device):
+    """``torch._int_mm`` and the unfolded convolution give the int32 sums of the plain
+    int64 product exactly (M, K, N padded to its shape rule)."""
+    from lkgd_torch.ops import quantization as tq
+
+    a = torch.randint(-127, 128, (37, 2900), dtype=torch.int8, device=cuda_device)
+    w = torch.randint(-127, 128, (2900, 21), dtype=torch.int8, device=cuda_device)
+    assert torch.equal(tq.int_matmul(a, w).cpu(), tq.int_matmul_plain(a.cpu(), w.cpu()))
+    x = _randn(cuda_device, (2, 12, 20, 40))
+    k = _randn(cuda_device, (3, 3, 40, 24), seed=4)
+    got = tq.int8_conv2d(x, k)
+    want = tq.int8_conv2d(x.cpu(), k.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

@@ -152,6 +152,11 @@ def test_port_imports_no_jax():
             "for name in names + ['chip_smoke']:\n"
             "    importlib.import_module(name)\n"
             "assert len(names) > 70, names\n"
+            "new = ['lkgd_torch.utils.inversion', 'lkgd_torch.ops.quantization', "
+            "'lkgd_torch.parallel.sequence', 'lkgd_torch.parallel.mesh', "
+            "'lkgd_torch.cli.verify_parity', 'lkgd_torch.cli.collect_env', "
+            "'lkgd_torch.cli.web_demo', 'lkgd_torch.cli.gradio_demo']\n"
+            "assert set(new) <= set(names), sorted(set(new) - set(names))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'lkgd_tpu'))\n"
             "print(len(names), bad); sys.exit(1 if bad else 0)")
@@ -223,15 +228,18 @@ def test_gif_without_imageio_is_the_same_file(tmp_path, monkeypatch):
                                    "compute_metrics_cli", "inception", "i3d", "annotate_cli",
                                    "raft", "rife", "dpt", "depth_anything", "hed", "pidinet",
                                    "lineart", "lineart_anime", "openpose", "segformer", "blip",
-                                   "cogvlm", "caption_cli"])
+                                   "cogvlm", "caption_cli", "cogvideox_sp_cli",
+                                   "verify_parity_cli", "collect_env_cli", "web_demo_cli",
+                                   "web_demo_cogvideox", "gradio_demo_cli"])
 def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
     """Every entry point defaults to the card; where there is none (here) it raises with a
     message that names the CPU switch, instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default does not raise")
-    from lkgd_torch.cli import (annotate, caption, compute_metrics, embed_text,
-                                precompute_cache, run_inference_cogvideox, run_inference_sd2d,
-                                run_inference_svd, train_cogvideox_lora, train_svd_lora)
+    from lkgd_torch.cli import (annotate, caption, collect_env, compute_metrics, embed_text,
+                                gradio_demo, precompute_cache, run_inference_cogvideox,
+                                run_inference_sd2d, run_inference_svd, train_cogvideox_lora,
+                                train_svd_lora, verify_parity, web_demo)
     from lkgd_torch.eval.fid_inception import build_inception
     from lkgd_torch.eval.i3d import build_i3d
     from lkgd_torch.data.datasets import PrefetchLoader
@@ -325,6 +333,15 @@ def test_default_device_is_the_card_and_its_absence_raises(entry, tmp_path):
         "cogvlm": lambda: cogvlm.build_cogvlm(cogvlm.CogVLMConfig.tiny()),
         "caption_cli": lambda: caption.main(["--input", str(tmp_path), "--output",
                                              str(tmp_path / "c.json"), "--weights", "w.pth"]),
+        "cogvideox_sp_cli": lambda: run_inference_cogvideox.main(
+            ["--image", str(tmp_path / "a.png"), "--mesh", "context=2", "--sequence-parallel",
+             "ring"]),
+        "verify_parity_cli": lambda: verify_parity.main(
+            ["check", "--record", str(tmp_path / "r.npz"), "--checkpoint", str(tmp_path)]),
+        "collect_env_cli": lambda: collect_env.main([]),
+        "web_demo_cli": lambda: web_demo.main(["--port", "0"]),
+        "web_demo_cogvideox": lambda: web_demo.main(["--mode", "cogvideox", "--tiny"]),
+        "gradio_demo_cli": lambda: gradio_demo.main([]),
     }
     with pytest.raises(RuntimeError, match="--device cpu"):
         calls[entry]()
