@@ -145,12 +145,30 @@ each printing its own lines; any failure raises and the script exits non-zero:
    CogVideoX-5B DiT through the CLI's ``build`` with ``--mesh context=2 --sequence-parallel
    ring`` (weights checked equal by a checksum all-reduce): the joint attention at (2, 17776,
    48, 64), Ulysses and ring, against the plain version (blocks of 4 heads) and one flash call
-   on the whole sequence; one full-width DiT step (CFG, 49x480x720, bf16) in each mode
-   against the unsharded step on rank 0 (max |d| <= SP_TOL x max|ref|; beside it the
-   unsharded step through kernel 2 instead of 1, bf16's own spread), with its seconds (two
-   ranks time-slicing one card: no scaling figure), the peak of each rank and the launches a
-   rank (ring: kernels 7/8 and 1a twice a layer, the 226-key text block plain; Ulysses:
-   kernels 1/2 and 1a once a layer, asserted);
+   on the whole sequence; one full-width ring DiT step (CFG, 49x480x720, bf16) against the
+   unsharded step on rank 0 (max |d| <= SP_TOL x max|ref|; beside it the unsharded step
+   through kernel 2 instead of 1, bf16's own spread), with its seconds (two ranks
+   time-slicing one card: no scaling figure), the peak of each rank and the launches a rank
+   (kernels 7/8 and 1a twice a layer, the 226-key text block plain, asserted); one Ulysses
+   DiT step at full width on the PAR_FRAMES clip of 5k (2 x 5626 tokens: the 49-frame step
+   is cut for the smoke's time) against the unsharded step of that clip, its launches a rank
+   (kernels 1, 2 and 1a once a layer) asserted;
+5k. weights, rows and frames split (``phase_par_pair``): a second pair of processes on
+   cuda:0 over gloo. The CogVideoX-5B DiT built by the CLI's ``build`` with ``--mesh model=2``,
+   tensor parallel (24 heads a rank) and then FSDP, one CFG step of a 13-frame clip (2 x 5626
+   tokens, full width: the 49-frame step's 84 all-reduces of 437 MB through the host do not
+   fit the smoke's time) against the unsharded step of the same seed on rank 0 (TP within
+   SP_TOL, FSDP bit-identical), with seconds, peak and weight bytes a rank and 42 launches of
+   kernels 1, 2 and 1a a rank asserted; the SVD base clip at 14x576x1024 (PAR_SVD_STEPS steps)
+   through ``run_inference_svd.build_pipeline`` with ``--data-parallel 2`` and with
+   ``--context-parallel 2`` against the unsharded pipeline and, for the floor, its
+   ``--sequential-cfg`` run (one row a call, as a data rank's), the frames of the same latents
+   bit-identical (the decode's chunks spread over context), launches a rank equal to the
+   unsplit loop's; ``train_svd_lora.build`` over both ranks with ZeRO (``zero_shard_opt_state``),
+   one step at 512x512x8f on a rank's row of a 2-row batch: the averaged gradients bit for bit
+   those of this process's one-row passes averaged, within max(1e-2, 1.5 x their own
+   distance) of one process's step on the whole batch, moment bytes a rank, launches a rank
+   equal to one process's;
 5j. ``cli/web_demo.py`` in ``base`` mode at full width (14x576x1024, 25 steps) on an
    ephemeral port: two POSTs with different seeds, each a 200 whose mp4 OpenCV decodes to 14
    frames of 576x1024, seconds a request, the inference kernels launched from the server's
@@ -186,7 +204,7 @@ each printing its own lines; any failure raises and the script exits non-zero:
    peak memory, each loss, every kernel's launch count (all eleven > 0, one key-norm
    launch for each bound launch, one split and one merge for each training forward and
    each backward: 54 relayout launches a step), the trainables moved, sampled frozen
-   weights did not, every gradient finite; then three more steps under ``torch.profiler``
+   weights did not, every gradient finite; then one more step (PROFILED_STEPS) under ``torch.profiler``
    for the device's busy share of that window and its flash kernels by name (the training
    forward must be the wgmma kernel's LSE form, the backward the wgmma dq and dk/dv
    kernels, with their device ms and launches a step); and the exported
@@ -221,7 +239,7 @@ each printing its own lines; any failure raises and the script exits non-zero:
    through ``make_flow_fn`` and ``flow_to_image_naive``; a warm-up step, three between CUDA
    events (sec/step split into UniMatch, the other frozen preprocessing and the train step,
    host CPU s/step, peak memory, launches: every inference and training kernel > 0) and
-   three under ``torch.profiler`` (device busy ms and operations a step); the UNet
+   one (PROFILED_STEPS) under ``torch.profiler`` (device busy ms and operations a step); the UNet
    bit-identical, the ControlNet and most of its EMA moved (an EMA entry moves by 1e-4 of
    its parameter's move, below fp32's step at 1.0 for the norm scales);
 8e. the flow-video fine-tune ("of") the same way: ``make_flow_batch_fn`` with UniMatch
@@ -234,7 +252,7 @@ each printing its own lines; any failure raises and the script exits non-zero:
    --remat`` (frozen bf16 DiT, fp32 LoRA and fusion, its zero-init output 0.02 x normal)
    through ``Trainer.fit`` from the cache: a warm-up step, three between CUDA events (the
    cache read and host-to-device copy apart from the train step, host CPU s/step, peak,
-   launches a step asserted: kernels 7/8 84, 9/10 42, 5/6 126, 1a 84) and three under
+   launches a step asserted: kernels 7/8 84, 9/10 42, 5/6 126, 1a 84) and one (PROFILED_STEPS) under
    ``torch.profiler`` (busy share, flash kernels by name); trainables moved, frozen weights
    bit-identical, one block's activations without remat, the export read back and one 2-step
    validation (kernels 1/2);
@@ -245,7 +263,7 @@ each printing its own lines; any failure raises and the script exits non-zero:
    bf16 with joint attention (``post="conv"``, mask (0, 1)) and a rank-64 LoRA on every
    ``attn1`` projection, the LoRA factors and the joint branch trained in fp32,
    ``snr_gamma=5``, ``joint_streams``, 77-token embeddings; a warm-up step, three between
-   CUDA events (s/step, host CPU s/step, peak) and three under ``torch.profiler`` (busy
+   CUDA events (s/step, host CPU s/step, peak) and one (PROFILED_STEPS) under ``torch.profiler`` (busy
    share); launches a step asserted: kernels 7/8, 9/10 and 1a 20, 5/6 40, kernels 1/2 none;
    trainables moved, sampled frozen weights bit-identical;
 8i. ``lkgd_torch/cli/precompute_cache.py`` at the published widths in fp32 (temporal VAE,
@@ -300,8 +318,10 @@ row at the CogVideoX shapes of 3c under ``cogvideox``, and the training kernels 
 key-norm kernel their row at 3d's shape under ``train_cogvideox``; every kernel of 3e its
 rows at the SD-2D shapes under ``sd2d`` (``ms`` the device time, ``wrapper_ms`` beside); the
 kernels of 3h their rows under ``sequence_parallel``; ``launches_by_path`` also holds the
-inversion, a DiT step of each SP mode on rank 0 (``sp_ring``, ``sp_ulysses``), the web demo's
-two requests and ``verify_parity``'s check.
+inversion, the ring's and the Ulysses DiT steps and the Ulysses joint attention call on rank
+0 (``sp_ring``, ``sp_ulysses``, ``sp_ulysses_attention``), 5k's paths a rank (``tp``,
+``fsdp``, ``svd_data``, ``svd_context``, ``train_data_parallel``), the web demo's two
+requests and ``verify_parity``'s check.
 
 The second-to-last line of standard output holds the card's name and power limit as
 ``nvidia-smi`` prints them, the last one ``{"ok": true, "device": {...}}``. fp32 phases
@@ -784,6 +804,8 @@ def phase_tiny(dev: torch.device) -> None:
 
 
 WARM_STEPS = 2  # a warm-up clip's denoising steps: a whole clip's shapes, a tenth of its time
+PROFILED_STEPS = 1  # a fine-tune's steps under torch.profiler, after its 3 timed ones
+FIT_STEPS = 4 + PROFILED_STEPS  # a fine-tune's steps in all: warm-up, 3 timed, profiled
 
 
 def _short(pipe, fn):
@@ -2762,7 +2784,7 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prof_step_s, prof_cpu_s = window(4, 7)
+            prof_step_s, prof_cpu_s = window(4, FIT_STEPS)
         device_ms, ckpt_ms, n_device, runtime = 0.0, 0.0, 0, {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
@@ -2777,7 +2799,7 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
                 runtime[e.key] = e.count
         relayout = _kernels_by_name(prof, ("relayout_",))
         flash = _kernels_by_name(prof, ("flash_", "key_sq_max"))
-        busy = device_ms / (prof_step_s * 3e3)
+        busy = device_ms / (prof_step_s * 1e3 * PROFILED_STEPS)
         syncs = {k: n for k, n in runtime.items() if "Synchronize" in k or "Memcpy" in k}
 
         relayouts_per_step = (launches["split_heads"] + launches["merge_heads"]) / 3
@@ -2790,17 +2812,18 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
               f"peak memory {peak / 2**30:.2f} GiB | losses {step_losses} | launches "
               f"{launches} | trainables moved {len(moved)}/{len(trainables)} | grads finite "
               f"{len(finite)} checks | {host_line()}", flush=True)
-        print(f"[{label}] profiled window: {prof_step_s:.3f} s/step (3 steps under "
-              f"torch.profiler), host CPU {prof_cpu_s:.3f} s/step, device busy "
-              f"{device_ms / 3:.1f} ms/step = {100 * busy:.1f}% of the window (kernels, copies "
-              f"and fills: {n_device / 3:.0f} a step; device-to-host copies after the window "
-              f"{ckpt_ms:.1f} ms left out) | host syncs and copies over the 3 steps and the "
-              f"checkpoint {syncs} | relayout kernels device ms, launches over the 3 steps "
+        print(f"[{label}] profiled window: {prof_step_s:.3f} s/step ({PROFILED_STEPS} step(s) "
+              f"under torch.profiler), host CPU {prof_cpu_s:.3f} s/step, device busy "
+              f"{device_ms / PROFILED_STEPS:.1f} ms/step = {100 * busy:.1f}% of the window "
+              f"(kernels, copies and fills: {n_device / PROFILED_STEPS:.0f} a step; "
+              f"device-to-host copies after the window {ckpt_ms:.1f} ms left out) | host syncs "
+              f"and copies over the window and the checkpoint {syncs} | relayout kernels "
+              f"device ms, launches over the window "
               f"{relayout}; relayout launches a step {relayouts_per_step:.0f} (split "
               f"{launches['split_heads'] / 3:.0f}, merge {launches['merge_heads'] / 3:.0f})",
               flush=True)
-        print(f"[{label}] profiled window, flash kernels by name (device ms, launches over the 3 "
-              f"steps): {flash}", flush=True)
+        print(f"[{label}] profiled window, flash kernels by name (device ms, launches over "
+              f"{PROFILED_STEPS} step(s)): {flash}", flush=True)
         # <DP, BOUND, LSE>: the training forward is the wgmma kernel's LSE form, both ways
         for form in ("<64,true,true>", "<64,false,true>"):
             assert f"flash_fwd_wgmma_kernel{form}" in flash, (form, sorted(flash))
@@ -2809,9 +2832,10 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
                                                        "flash_bwd_dkv_kernel<64>")}
         assert all(backward.values()), (backward, sorted(flash))
         print(f"[{label}] profiled window, backward kernels a step: " + ", ".join(
-            f"{name} {ms / 3:.3f} ms, {n / 3:.0f} launches" for name, (ms, n) in backward.items()),
+            f"{name} {ms / PROFILED_STEPS:.3f} ms, {n / PROFILED_STEPS:.0f} launches"
+            for name, (ms, n) in backward.items()),
             flush=True)
-        assert trainer.state.step == 7 and all(np.isfinite(step_losses)), step_losses
+        assert trainer.state.step == FIT_STEPS and all(np.isfinite(step_losses)), step_losses
         assert [r["step"] for r in records] == [1] and np.isfinite(records[0]["train_loss"])
         # trans mode: attn2's query and key adapters get no gradient (one key), and their
         # B factors, zero at init, stay where they were
@@ -3020,7 +3044,7 @@ def phase_train_tiny_variants(dev: torch.device) -> None:
 
 
 def _fit_windows(label: str, dev, trainer, clips: list, parts: dict) -> dict:
-    """A warm-up step, three timed steps and three under ``torch.profiler``, all through
+    """A warm-up step, three timed steps and PROFILED_STEPS under ``torch.profiler``, all through
     ``trainer.fit``. ``parts``: name -> list of (start, end) CUDA event pairs that the step
     appends to; each part's ms a step over the timed window. Returns sec/step, host CPU
     s/step, parts, device busy ms and operations a step, peak bytes, launches and losses."""
@@ -3068,7 +3092,7 @@ def _fit_windows(label: str, dev, trainer, clips: list, parts: dict) -> dict:
     part_ms = {name: sum(a.elapsed_time(b) for a, b in pairs) / 3
                for name, pairs in parts.items()}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prof_step_s, prof_cpu_s = window(4, 7)
+        prof_step_s, prof_cpu_s = window(4, FIT_STEPS)
     device_ms, n_device = 0.0, 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and "DtoH" not in e.key:
@@ -3076,8 +3100,9 @@ def _fit_windows(label: str, dev, trainer, clips: list, parts: dict) -> dict:
             n_device += e.count
     trainer.train_step = step
     return dict(step_s=step_s, cpu_s=cpu_s, part_ms=part_ms, peak=peak, launches=launches,
-                prof_step_s=prof_step_s, prof_cpu_s=prof_cpu_s, device_ms=device_ms / 3,
-                n_device=n_device / 3, losses=[x.item() for x in losses],
+                prof_step_s=prof_step_s, prof_cpu_s=prof_cpu_s,
+                device_ms=device_ms / PROFILED_STEPS, n_device=n_device / PROFILED_STEPS,
+                losses=[x.item() for x in losses],
                 flash=_kernels_by_name(prof, ("flash_", "key_sq_max")))
 
 
@@ -3092,8 +3117,8 @@ def _fit_lines(label: str, r: dict) -> None:
           f"host CPU {r['cpu_s']:.3f} s/step | peak memory {r['peak'] / 2**30:.2f} GiB | "
           f"losses {r['losses']} | launches { {k: v for k, v in r['launches'].items() if v} } | "
           f"{host_line()}", flush=True)
-    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step (3 steps under "
-          f"torch.profiler), host CPU {r['prof_cpu_s']:.3f} s/step, device busy "
+    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step ({PROFILED_STEPS} step(s) "
+          f"under torch.profiler), host CPU {r['prof_cpu_s']:.3f} s/step, device busy "
           f"{r['device_ms']:.1f} ms/step = {100 * r['device_ms'] / (r['prof_step_s'] * 1e3):.1f}% "
           f"of the window, {r['n_device']:.0f} device operations a step", flush=True)
     assert all(np.isfinite(r["losses"])), r["losses"]
@@ -3243,7 +3268,7 @@ def phase_train_controlnet_full(dev: torch.device) -> dict:
           f"gradient, {still}), its EMA {ema_moved}/{len(ema_start)} | step {state.step}",
           flush=True)
     assert unet_same and not any(p.requires_grad for p in unet.parameters())
-    assert 2 * ema_moved > len(ema_start) and state.step == 7
+    assert 2 * ema_moved > len(ema_start) and state.step == FIT_STEPS
     return r["launches"]
 
 
@@ -3301,7 +3326,7 @@ def phase_train_flow_full(dev: torch.device) -> dict:
     print(f"[{label}] trainables moved {len(start) - len(still)}/{len(start)} (unmoved: zero "
           f"and without a gradient, {still}) | sampled frozen weights bit-identical {same} | "
           f"step {state.step}", flush=True)
-    assert same and state.step == 7
+    assert same and state.step == FIT_STEPS
     return r["launches"]
 
 
@@ -3430,7 +3455,7 @@ def _train_cogvideox_lora(dev: torch.device, path: str, out_dir: str, gen: torch
     normal) on the cache at ``path``, read through the CLI's own dataset: a warm-up step,
     three between CUDA events (the cache read and host-to-device copy apart from the train
     step, host CPU s/step, peak memory, launches a step: kernels 7/8 84, 9/10 42, 5/6 126,
-    1a 84, no inference kernel) and three under ``torch.profiler`` (busy share, flash
+    1a 84, no inference kernel) and one (PROFILED_STEPS) under ``torch.profiler`` (busy share, flash
     kernels by name); the LoRA factors and the fusion moved, sampled frozen weights
     bit-identical, the trainable count, one block's activations without remat, the export
     read back, and one 2-step validation (kernels 1/2). Returns the launches of the timed
@@ -3490,14 +3515,15 @@ def _train_cogvideox_lora(dev: torch.device, path: str, out_dir: str, gen: torch
           f"step {per_step} | {host_line()}", flush=True)
     busy = r["device_ms"] / (r["prof_step_s"] * 1e3)
     flash = r["flash"]
-    flash_ms = sum(m for m, _ in flash.values()) / 3
-    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step (3 steps under "
-          f"torch.profiler), host CPU {r['prof_cpu_s']:.3f} s/step, device busy "
+    flash_ms = sum(m for m, _ in flash.values()) / PROFILED_STEPS
+    print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step ({PROFILED_STEPS} step(s) "
+          f"under torch.profiler), host CPU {r['prof_cpu_s']:.3f} s/step, device busy "
           f"{r['device_ms']:.1f} ms/step = {100 * busy:.1f}% of the window, "
           f"{r['n_device']:.0f} device operations a step | flash kernels "
           f"{flash_ms:.1f} ms/step = {100 * flash_ms / r['device_ms']:.1f}% of the device "
           f"time; by name (device ms a step, launches a step): " + ", ".join(
-              f"{k} {m / 3:.3f}, {n / 3:.0f}" for k, (m, n) in flash.items()), flush=True)
+              f"{k} {m / PROFILED_STEPS:.3f}, {n / PROFILED_STEPS:.0f}"
+              for k, (m, n) in flash.items()), flush=True)
     assert all(np.isfinite(r["losses"])) and r["device_ms"] > 0.0, r["losses"]
     want = {"flash_bound_lse": 84, "flash_maxtrack_lse": 84, "flash_bwd_dq": 42,
             "flash_bwd_dkv": 42, "split_heads": 126, "merge_heads": 126, "flash_key_norm": 84}
@@ -3510,7 +3536,7 @@ def _train_cogvideox_lora(dev: torch.device, path: str, out_dir: str, gen: torch
     print(f"[{label}] trainables moved {len(start) - len(still)}/{len(start)} (unmoved: "
           f"{still}) | sampled frozen weights bit-identical {same} | step {state.step}",
           flush=True)
-    assert same and not still and state.step == 7
+    assert same and not still and state.step == FIT_STEPS
 
     # the reckoning without --remat: the activations one block keeps for its backward
     captured = {}
@@ -3523,7 +3549,7 @@ def _train_cogvideox_lora(dev: torch.device, path: str, out_dir: str, gen: torch
               torch.tensor([500.0], device=dev), batch["domain_features"],
               batch["flow_features"])
     hook.remove()
-    hidden, encoder, emb, rope = captured.pop("args")
+    hidden, encoder, emb, rope, _ = captured.pop("args")  # the last: no context group
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     out = model.transformer_blocks[0](hidden.requires_grad_(), encoder.requires_grad_(), emb,
@@ -4006,7 +4032,7 @@ def phase_train_sd2d_full(dev: torch.device) -> dict:
     a rank-64 LoRA on every ``attn1`` projection (alpha 64), the LoRA factors and the joint
     branch trained in fp32 (its zero-init ``conv1n`` 0.02 x normal), ``snr_gamma=5``,
     ``joint_streams``, 77-token embeddings; a warm-up step, three between CUDA events and
-    three under ``torch.profiler``; the launches of kernels 5-10 and 1a a step asserted."""
+    one (PROFILED_STEPS) under ``torch.profiler``; the launches of kernels 5-10 and 1a a step asserted."""
     import tempfile
 
     from lkgd_torch.models.configs import JointAttentionConfig, LoraRouter, LoraRule, UNet2DConfig
@@ -4052,8 +4078,8 @@ def phase_train_sd2d_full(dev: torch.device) -> dict:
     print(f"[{label}] profiled window: {r['prof_step_s']:.3f} s/step, host CPU "
           f"{r['prof_cpu_s']:.3f} s/step, device busy {r['device_ms']:.1f} ms/step = "
           f"{100 * r['device_ms'] / (r['prof_step_s'] * 1e3):.1f}% of the window, "
-          f"{r['n_device']:.0f} device operations a step | flash kernels (ms, launches over 3 "
-          f"steps) {r['flash']}", flush=True)
+          f"{r['n_device']:.0f} device operations a step | flash kernels (ms, launches over "
+          f"{PROFILED_STEPS} step(s)) {r['flash']}", flush=True)
     flash_calls = 2 * SD2D_FLASH_A_FORWARD  # attn1 and the joint branch's attn1n
     want = {"flash_bound_lse": flash_calls, "flash_maxtrack_lse": flash_calls,
             "flash_key_norm": flash_calls, "flash_bwd_dq": flash_calls,
@@ -4069,7 +4095,7 @@ def phase_train_sd2d_full(dev: torch.device) -> dict:
     print(f"[{label}] launches a step as asserted {want}; trainables moved "
           f"{len(start) - len(still)}/{len(start)}, sampled frozen weights bit-identical {same}",
           flush=True)
-    assert same and state.step == 7
+    assert same and state.step == FIT_STEPS
     return r["launches"]
 
 
@@ -5249,7 +5275,8 @@ def phase_captions_full(dev: torch.device, smi: str) -> dict:
     return by_path
 
 # ------------------------------------------------------------------ sequence parallelism, tools
-SP_RANKS = 2  # the pair of processes on the one card, over gloo
+PAIR_RANKS = 2  # each pair of processes on the one card, over gloo
+PAR_FRAMES = 13  # the Ulysses, TP and FSDP DiT steps' clip: 4 latent frames, 226 + 4 x 30 x 45
 SP_ULYSSES = (2, 17776, 24, 64)  # a rank's Ulysses call: the whole joint sequence, H/2 heads
 SP_RING_Q = (2, 113 + 8775, 48, 64)  # a rank's ring queries: its 113 text rows + 8775 video
 SP_SHARD = 8775  # video keys a rank holds: 13 x 30 x 45 / 2
@@ -5318,6 +5345,47 @@ def _sp_ring_merge(dev: torch.device, gen: torch.Generator) -> None:
     del q, k, v, ks, parts, out
 
 
+def _join_pair(rank: int, work: Path, timeout: int) -> torch.device:
+    """One rank of a pair of processes on cuda:0: TF32 off, the gloo group joined through a
+    ``FileStore`` in ``work``, the kernels' library built. Returns the card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from lkgd_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), PAIR_RANKS),
+                            rank=rank, world_size=PAIR_RANKS,
+                            timeout=datetime.timedelta(seconds=timeout))
+    _build.library()
+    return dev
+
+
+def _spawn_pair(flag: str, work: str, timeout: int) -> dict:
+    """Run ``chip_smoke.py FLAG R WORK`` for both ranks and wait for them (a rank still
+    running at ``timeout`` is killed; any rank that fails fails the phase). Returns rank 0's
+    ``WORK/result.json``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag, str(r),
+                               work]) for r in range(PAIR_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    assert rcs == [0] * PAIR_RANKS, f"the {flag} ranks exited with {rcs}"
+    return json.loads((Path(work) / "result.json").read_text())
+
+
 def _sp_rank_main(rank: int, work: Path) -> int:
     """One rank of the SP pair (``chip_smoke.py --sp-rank R DIR``, started by
     ``phase_sp_pair``): joins the gloo group, then (1) the joint attention at CogVideoX's
@@ -5325,26 +5393,17 @@ def _sp_rank_main(rank: int, work: Path) -> int:
     sequence; (2) one full-width CogVideoX-5B DiT step in each mode against the unsharded
     step on rank 0. Rank 0 writes the numbers to ``DIR/result.json``."""
     import dataclasses
-    import datetime
 
     import torch.distributed as dist
 
     from lkgd_torch.cli import run_inference_cogvideox as cli
     from lkgd_torch.models.cogvideox import CogVideoXTransformer3D
     from lkgd_torch.models.layers import share_parameters
-    from lkgd_torch.ops import _build
     from lkgd_torch.ops import flash_attention as fa
     from lkgd_torch.parallel import mesh, sequence
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
-    torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), SP_RANKS),
-                            rank=rank, world_size=SP_RANKS,
-                            timeout=datetime.timedelta(seconds=600))
-    pg = mesh.make_mesh(f"context={SP_RANKS}", dev)
-    _build.library()
+    dev = _join_pair(rank, work, 600)
+    pg = mesh.make_mesh(f"context={PAIR_RANKS}", dev).groups["context"]
     tag = f"sp-pair r{rank}"
     result = {"attention": {}, "dit": {}}
 
@@ -5374,7 +5433,7 @@ def _sp_rank_main(rank: int, work: Path) -> int:
             ref_max = plain.abs().max().item()
             err = (full.float() - plain).abs().max().item() / ref_max
             err_whole = (full.float() - whole.float()).abs().max().item() / ref_max
-            print(f"[{tag}] joint {mode} attention {COG_FLASH}, {SP_RANKS} ranks: max|d| "
+            print(f"[{tag}] joint {mode} attention {COG_FLASH}, {PAIR_RANKS} ranks: max|d| "
                   f"{err:.3e} of max|ref| against the plain version (tol {FLASH_TOL}), "
                   f"{err_whole:.3e} against one flash call on the whole sequence | {seconds:.3f} "
                   f"s a call (collectives through the host) | launches {counts}", flush=True)
@@ -5387,11 +5446,13 @@ def _sp_rank_main(rank: int, work: Path) -> int:
         del plain, whole
     torch.cuda.empty_cache()
 
-    # (2) the DiT: built by the CLI's build (--mesh, ring; weights checked replicated),
-    # its Ulysses and unsharded twins on the same parameters
+    # (2) the DiT: built by the CLI's build (--mesh, ring; weights checked replicated), its
+    # Ulysses and unsharded twins on the same parameters; the ring step on the 49-frame clip,
+    # the Ulysses step on its first PAR_FRAMES frames (the 49-frame one is cut for the
+    # smoke's time), each against the unsharded step of its clip
     args = cli.make_parser().parse_args(
         ["--image", "-", "--seed", "0", "--device", str(dev), "--mesh",
-         f"context={SP_RANKS}", "--sequence-parallel", "ring"])
+         f"context={PAIR_RANKS}", "--sequence-parallel", "ring"])
     t0 = time.perf_counter()
     pipe, vae = cli.build(args)
     del vae
@@ -5403,6 +5464,7 @@ def _sp_rank_main(rank: int, work: Path) -> int:
         with torch.device("meta"):
             twin = CogVideoXTransformer3D(dataclasses.replace(cfg, sequence_parallel=mode))
         models[mode] = share_parameters(pipe.transformer, twin).eval()
+    models["ulysses"].context_group = pipe.transformer.context_group
     pcfg = pipe.config
     rows = 2
     model_in = torch.randn((rows, pipe.latent_frames, pcfg.latent_height, pcfg.latent_width,
@@ -5412,23 +5474,33 @@ def _sp_rank_main(rank: int, work: Path) -> int:
     ctx = torch.cat([torch.zeros_like(prompt), prompt]).bfloat16()
     t_step = torch.full((rows,), 999.0, device=dev)
     domain, flow = (torch.randn((1, 1, 1000), generator=gen, device=dev) for _ in range(2))
+    clips = {"ring": model_in, "ulysses": model_in[:, :(PAR_FRAMES - 1) // 4 + 1]}
     torch.cuda.synchronize()
     print(f"[{tag}] CogVideoX-5B DiT {sum(p.numel() for p in pipe.transformer.parameters()) / 1e9:.3f} "
-          f"B built by run_inference_cogvideox.build (--mesh context={SP_RANKS} "
+          f"B built by run_inference_cogvideox.build (--mesh context={PAIR_RANKS} "
           f"--sequence-parallel ring, weights checked equal on both ranks) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def tokens(x):
+        return ctx.shape[1] + x.shape[1] * pcfg.latent_height * pcfg.latent_width // 4
+
     with torch.inference_mode():
-        ref = None
+        refs = {}
         if rank == 0:
             models["none"](model_in, ctx, t_step, domain, flow)  # warm-up of the cuBLAS plans
-            torch.cuda.synchronize()
-            _zero_counts()
-            t0 = time.perf_counter()
-            ref = models["none"](model_in, ctx, t_step, domain, flow).float()
-            torch.cuda.synchronize()
-            dense_s = time.perf_counter() - t0
-            dense = {k_: c for k_, c in _read_counts().items() if c}
+            for mode, x in clips.items():
+                torch.cuda.synchronize()
+                _zero_counts()
+                t0 = time.perf_counter()
+                refs[mode] = models["none"](x, ctx, t_step, domain, flow).float()
+                torch.cuda.synchronize()
+                dense_s = time.perf_counter() - t0
+                dense = {k_: c for k_, c in _read_counts().items() if c}
+                result["dit"][f"none_{mode}"] = {"seconds": dense_s, "launches": dense}
+                print(f"[{tag}] unsharded DiT step ({rows} x {tokens(x)} tokens, the {mode} "
+                      f"step's clip): {dense_s:.3f} s, launches {dense}", flush=True)
             # the bf16 noise floor: the same step through kernel 2 instead of kernel 1
+            ref = refs["ring"]
             os.environ["LKGD_FLASH_MAXTRACK"] = "1"
             try:
                 alt = models["none"](model_in, ctx, t_step, domain, flow).float()
@@ -5437,38 +5509,39 @@ def _sp_rank_main(rank: int, work: Path) -> int:
             floor = ((alt - ref).abs().max() / ref.abs().max()).item()
             floor_mean = ((alt - ref).abs().mean() / ref.abs().mean()).item()
             del alt
-            print(f"[{tag}] unsharded DiT step ({rows} x {COG_FLASH[1]} tokens): {dense_s:.3f} s, "
-                  f"launches {dense} | the same step through kernel 2 instead of 1 differs by "
-                  f"max|d| {floor:.3e} of max|ref|, mean |d| {floor_mean:.3e} of mean |ref| "
-                  f"(bf16 rounding through {cfg.num_layers} layers)", flush=True)
-            result["dit"]["none"] = {"seconds": dense_s, "launches": dense,
-                                     "floor": floor, "floor_mean": floor_mean}
-        for mode in ("ring", "ulysses"):
+            print(f"[{tag}] the unsharded {rows} x {tokens(model_in)}-token step through kernel "
+                  f"2 instead of 1 differs by max|d| {floor:.3e} of max|ref|, mean |d| "
+                  f"{floor_mean:.3e} of mean |ref| (bf16 rounding through {cfg.num_layers} "
+                  f"layers)", flush=True)
+            result["dit"]["none_ring"].update(floor=floor, floor_mean=floor_mean)
+        for mode, x in clips.items():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             dist.barrier()
             _zero_counts()
             t0 = time.perf_counter()
-            out = models[mode](model_in, ctx, t_step, domain, flow)
+            out = models[mode](x, ctx, t_step, domain, flow)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = _read_counts()
             peak = torch.cuda.max_memory_allocated(dev) / 2**30
             mesh.check_replicated([out], pg, "DiT outputs")
-            peaks = [None] * SP_RANKS
+            peaks = [None] * PAIR_RANKS
             dist.all_gather_object(peaks, peak, group=pg)
-            all_counts = [None] * SP_RANKS
+            all_counts = [None] * PAIR_RANKS
             dist.all_gather_object(all_counts, counts, group=pg)
             assert all(c == counts for c in all_counts), all_counts
             assert torch.isfinite(out).all(), mode
             if rank == 0:
+                ref = refs[mode]
                 err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
                 mean = ((out.float() - ref).abs().mean() / ref.abs().mean()).item()
                 shown = {k_: c for k_, c in counts.items() if c}
-                print(f"[{tag}] {mode} DiT step, {SP_RANKS} ranks on one card: max|d| {err:.3e} "
-                      f"of max|ref| (tol {SP_TOL}), mean |d| {mean:.3e} of mean |ref| against "
-                      f"the unsharded step | {seconds:.3f} s (two ranks time-slicing one card, "
-                      f"collectives through the host: no scaling figure) | peak GiB a rank "
+                print(f"[{tag}] {mode} DiT step ({rows} x {tokens(x)} tokens), {PAIR_RANKS} "
+                      f"ranks on one card: max|d| {err:.3e} of max|ref| (tol {SP_TOL}), mean "
+                      f"|d| {mean:.3e} of mean |ref| against the unsharded step | "
+                      f"{seconds:.3f} s (two ranks time-slicing one card, collectives through "
+                      f"the host: no scaling figure) | peak GiB a rank "
                       f"{', '.join(f'{p:.2f}' for p in peaks)} | launches a rank {shown}",
                       flush=True)
                 assert err <= SP_TOL, (mode, err)
@@ -5482,9 +5555,13 @@ def _sp_rank_main(rank: int, work: Path) -> int:
         for name in ("flash_bound_lse", "flash_maxtrack_lse", "flash_key_norm"):
             assert ring[name] == 2 * layers, (name, ring[name])
         assert ring["flash_bound"] == ring["flash_maxtrack"] == 0, ring
+        # Ulysses: the whole sequence on half the heads, kernel 1 with its guard and 1a
         for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
             assert uly[name] == layers, (name, uly[name])
         assert uly["flash_bound_lse"] == 0, uly
+        uly_call = result["attention"]["ulysses"]["launches"]
+        for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+            assert uly_call[name] == 1, (name, uly_call[name])
         (work / "result.json").write_text(json.dumps(result))
     dist.barrier()
     dist.destroy_process_group()
@@ -5494,35 +5571,338 @@ def _sp_rank_main(rank: int, work: Path) -> int:
 def phase_sp_pair(dev: torch.device) -> dict:
     """Sequence parallelism on the one card: two processes (``--sp-rank``) on cuda:0 over
     gloo, since NCCL refuses two ranks on one card; every collective goes through the host.
-    Returns the launches of a DiT step on rank 0 by mode."""
+    Returns the launches a rank of each DiT step by mode and of the Ulysses attention call."""
     import tempfile
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sp-rank",
-                                   str(r), work]) for r in range(SP_RANKS)]
-        try:
-            for p in procs:
-                p.wait(timeout=600)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        rcs = [p.returncode for p in procs]
-        assert rcs == [0] * SP_RANKS, f"the SP ranks exited with {rcs}"
-        result = json.loads((Path(work) / "result.json").read_text())
-    print(f"[sp-pair] {SP_RANKS} ranks: attention max|d| ulysses "
+        result = _spawn_pair("--sp-rank", work, 600)
+    dit = result["dit"]
+    print(f"[sp-pair] {PAIR_RANKS} ranks: attention max|d| ulysses "
           f"{result['attention']['ulysses']['err']:.3e}, ring {result['attention']['ring']['err']:.3e}; "
-          f"DiT step ring {result['dit']['ring']['seconds']:.3f} s (max|d| "
-          f"{result['dit']['ring']['err']:.3e}), ulysses {result['dit']['ulysses']['seconds']:.3f} s "
-          f"(max|d| {result['dit']['ulysses']['err']:.3e}), unsharded "
-          f"{result['dit']['none']['seconds']:.3f} s | phase {time.perf_counter() - t0:.1f} s",
+          f"DiT step ring {dit['ring']['seconds']:.3f} s (max|d| {dit['ring']['err']:.3e}; "
+          f"unsharded {dit['none_ring']['seconds']:.3f} s), ulysses on {PAR_FRAMES} frames "
+          f"{dit['ulysses']['seconds']:.3f} s (max|d| {dit['ulysses']['err']:.3e}; unsharded "
+          f"{dit['none_ulysses']['seconds']:.3f} s) | phase {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return {"sp_ring": result["dit"]["ring"]["launches"],
-            "sp_ulysses": result["dit"]["ulysses"]["launches"]}
+    return {"sp_ring": dit["ring"]["launches"], "sp_ulysses": dit["ulysses"]["launches"],
+            "sp_ulysses_attention": result["attention"]["ulysses"]["launches"]}
+
+
+PAR_SVD_STEPS = 2  # the SVD base clip's denoising steps under data=2 and under context=2
+PAR_TRAIN = ["--height", "512", "--width", "512", "--num-frames", "8",
+             "--per-device-batch-size", "1", "--rank", "4", "--learning-rate", "2e-4", "--remat",
+             "--dtype", "bf16", "--checkpoint-every", "0", "--max-steps", "1", "--seed", "0"]
+
+
+def _timed_counted(fn):
+    """``fn()`` after a barrier with the counts zeroed: (result, seconds, launches, peak GiB)."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, _read_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def _shown(counts: dict) -> dict:
+    return {k: c for k, c in counts.items() if c}
+
+
+def _par_dit(rank: int, dev: torch.device, tag: str) -> dict:
+    """The CogVideoX-5B DiT built by the CLI's ``build`` with ``--mesh model=2``, tensor
+    parallel and then FSDP, one CFG step of the PAR_FRAMES clip each, against the unsharded
+    step of the same weights on rank 0 (``build`` without a mesh, the same seed)."""
+    from lkgd_torch.cli import run_inference_cogvideox as cli
+    from lkgd_torch.parallel import mesh, tp
+
+    base = ["--image", "-", "--seed", "0", "--device", str(dev), "--num-frames", str(PAR_FRAMES)]
+    result, ref, inputs = {}, None, None
+    for sharding in ("tp", "fsdp"):
+        t0 = time.perf_counter()
+        pipe, vae = cli.build(cli.make_parser().parse_args(
+            base + ["--mesh", f"model={PAIR_RANKS}", "--weight-sharding", sharding]))
+        del vae
+        torch.cuda.synchronize()
+        model, cfg = pipe.transformer, pipe.transformer.config
+        held = tp.per_device_param_bytes(model)
+        if inputs is None:
+            gen = torch.Generator(device=dev).manual_seed(9)
+            pcfg = pipe.config
+            inputs = (torch.randn((2, pipe.latent_frames, pcfg.latent_height, pcfg.latent_width,
+                                   cfg.in_channels), generator=gen, device=dev).bfloat16(),
+                      (torch.randn((2, cfg.max_text_seq_length, cfg.text_embed_dim),
+                                   generator=gen, device=dev) * 0.2).bfloat16(),
+                      torch.full((2,), 999.0, device=dev),
+                      torch.randn((1, 1, 1000), generator=gen, device=dev),
+                      torch.randn((1, 1, 1000), generator=gen, device=dev))
+        if rank == 0 and ref is None:
+            whole, wvae = cli.build(cli.make_parser().parse_args(base))
+            del wvae
+            whole_bytes = tp.per_device_param_bytes(whole.transformer)
+            with torch.inference_mode():
+                whole.transformer(*inputs)  # warm-up of the cuBLAS plans
+                torch.cuda.synchronize()
+                _zero_counts()
+                t1 = time.perf_counter()
+                ref = whole.transformer(*inputs)
+                torch.cuda.synchronize()
+            dense_s, dense = time.perf_counter() - t1, _shown(_read_counts())
+            del whole
+            torch.cuda.empty_cache()
+            print(f"[{tag}] unsharded DiT step ({2} x {226 + ref.shape[1] * 30 * 45} tokens): "
+                  f"{dense_s:.3f} s, {whole_bytes / 2**30:.3f} GiB of weights, launches {dense}",
+                  flush=True)
+            result["none"] = {"seconds": dense_s, "launches": dense, "bytes": whole_bytes}
+        with torch.inference_mode():
+            out, seconds, counts, peak = _timed_counted(lambda: model(*inputs))
+        mesh.check_replicated([out], None, "DiT outputs")
+        assert torch.isfinite(out).all(), sharding
+        peaks = [None] * PAIR_RANKS
+        torch.distributed.all_gather_object(peaks, (peak, held, _shown(counts)))
+        assert all(c == peaks[0][2] for *_, c in peaks), peaks
+        if rank == 0:
+            err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            print(f"[{tag}] {sharding} DiT step (model={PAIR_RANKS}, built by "
+                  f"run_inference_cogvideox.build in {time.perf_counter() - t0 - seconds:.1f} s): "
+                  f"max|d| {err:.3e} of max|ref| against the unsharded step | {seconds:.3f} s "
+                  f"(two ranks time-slicing one card, collectives through the host: no scaling "
+                  f"figure) | peak GiB a rank {', '.join(f'{p:.2f}' for p, *_ in peaks)} | "
+                  f"weights a rank {', '.join(f'{b / 2**30:.3f}' for _, b, _ in peaks)} GiB of "
+                  f"{result['none']['bytes'] / 2**30:.3f} | launches a rank {peaks[0][2]}",
+                  flush=True)
+            if sharding == "tp":
+                assert err <= SP_TOL, err
+            else:  # the same weights gathered: the same arithmetic
+                assert torch.equal(out, ref), err
+            for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+                assert counts[name] == result["none"]["launches"][name] == cfg.num_layers, (
+                    sharding, name, counts[name])
+            result[sharding] = {"err": err, "seconds": seconds, "peak_gib": [p for p, *_ in peaks],
+                                "bytes": [b for _, b, _ in peaks], "launches": counts}
+        del pipe, model, out
+        torch.cuda.empty_cache()
+    return result
+
+
+def _par_svd(rank: int, dev: torch.device, tag: str) -> dict:
+    """The base clip at full size (14x576x1024, PAR_SVD_STEPS steps) through
+    ``run_inference_svd.build_pipeline`` with ``--data-parallel 2`` and then
+    ``--context-parallel 2`` (the decode's two 7-frame chunks one a rank), against the
+    unsharded pipeline of the same seed on rank 0: the latents within SP_TOL of max|ref|, and
+    the frames of the same latents bit for bit."""
+    from lkgd_torch.cli import run_inference_svd as cli
+
+    argv = ["--image", "-", "--seed", "0", "--device", str(dev), "--num-inference-steps",
+            str(PAR_SVD_STEPS), "--decode-chunk-size", "7"]
+    image = torch.rand((1, 576, 1024, 3), generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+    result, ref = {}, None
+    if rank == 0:
+        ref = cli.build_pipeline(cli.make_parser().parse_args(argv))
+        _zero_counts()
+        ref_lat = ref(image, torch.Generator(device=dev).manual_seed(1), output_type="latent")
+        result["none"] = {"launches": _shown(_read_counts())}
+        # the floor: the same pipeline one CFG row a UNet call, as a data rank runs it
+        seq = cli.build_pipeline(cli.make_parser().parse_args(argv + ["--sequential-cfg"]))
+        seq_lat = seq(image, torch.Generator(device=dev).manual_seed(1), output_type="latent")
+        floor = ((seq_lat - ref_lat).abs().max() / ref_lat.abs().max()).item()
+        floor_mean = ((seq_lat - ref_lat).abs().mean() / ref_lat.abs().mean()).item()
+        del seq, seq_lat
+        torch.cuda.empty_cache()
+        print(f"[{tag}] SVD base clip, the unsharded pipeline with --sequential-cfg (one row a "
+              f"UNet call) against it batched: max|d| {floor:.3e} of max|ref|, mean |d| "
+              f"{floor_mean:.3e} (bf16 GEMMs tile 1 row and 2 differently)", flush=True)
+        result["floor"] = {"err": floor, "mean_err": floor_mean}
+    for axis, flags in (("data", ["--data-parallel", "2"]), ("context", ["--context-parallel", "2"])):
+        pipe = cli.build_pipeline(cli.make_parser().parse_args(argv + flags))
+        lat, seconds, counts, peak = _timed_counted(
+            lambda: pipe(image, torch.Generator(device=dev).manual_seed(1), output_type="latent"))
+        frames, dec_s, dec_counts, _ = _timed_counted(lambda: pipe.decode_latents(lat))
+        assert torch.isfinite(lat).all() and torch.isfinite(frames).all(), axis
+        if rank == 0:
+            err = ((lat - ref_lat).abs().max() / ref_lat.abs().max()).item()
+            mean = ((lat - ref_lat).abs().mean() / ref_lat.abs().mean()).item()
+            same = torch.equal(frames, ref.decode_latents(lat))
+            print(f"[{tag}] SVD base clip 14x576x1024, {PAR_SVD_STEPS} steps, {axis}=2: latents "
+                  f"max|d| {err:.3e} of max|ref| (tol {SP_TOL}), mean |d| {mean:.3e} against "
+                  f"the unsharded pipeline | frames of these latents equal to the unsharded "
+                  f"decode's: {same} | denoise {seconds:.3f} s, decode {dec_s:.3f} s (collectives "
+                  f"through the host: no scaling figure), peak {peak:.2f} GiB | launches a rank "
+                  f"{_shown(counts)}, the decode's {_shown(dec_counts)}", flush=True)
+            assert err <= SP_TOL and same, (axis, err, same)
+            assert _shown(counts) == result["none"]["launches"], (counts, result["none"])
+            result[axis] = {"err": err, "mean_err": mean, "seconds": seconds, "decode_s": dec_s,
+                            "launches": counts}
+        del pipe
+        torch.cuda.empty_cache()
+    return result
+
+
+def _train_args(out_dir: str, dev: torch.device):
+    from lkgd_torch.cli import train_svd_lora as cli
+
+    return cli.make_parser().parse_args(["--output-dir", out_dir, "--device", str(dev)]
+                                        + PAR_TRAIN)
+
+
+def _train_step_record(run, pixel_values) -> dict:
+    """One step of the training CLI's trainer: the gradients its optimizer clips, the loss,
+    the trained parameters after, the moment bytes, seconds and launches."""
+    from lkgd_torch.training.optim8bit import opt_state_bytes
+
+    opt = run.trainer.state.optimizer
+    grads = {}
+    clip = opt.clip_grads
+
+    def record():
+        grads.update({n: p.grad.detach().float().cpu() for n, p in opt.params.items()})
+        return clip()
+
+    opt.clip_grads = record
+    t0 = time.perf_counter()
+    _zero_counts()
+    _, loss = run.trainer.train_step(run.trainer.state, {"pixel_values": pixel_values},
+                                     run.trainer.generator)
+    torch.cuda.synchronize()
+    return {"grads": grads, "loss": float(loss), "seconds": time.perf_counter() - t0,
+            "launches": _shown(_read_counts()),
+            "params": {n: p.detach().float().cpu() for n, p in opt.params.items()},
+            "moment_bytes": opt_state_bytes(opt.adamw.state_dict())}
+
+
+def _par_pixels(dev: torch.device) -> torch.Tensor:
+    return torch.rand((PAIR_RANKS, 9, 512, 512, 3),
+                      generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 2 - 1
+
+
+def _par_train(rank: int, dev: torch.device, work: Path, tag: str) -> None:
+    """``train_svd_lora.build`` over the pair (the data axis of the whole world) with the
+    optimizer ZeRO-sharded (``zero_shard_opt_state``): one step on this rank's row of a
+    2-row batch, its record written to ``work`` for the parent's one-process step."""
+    import tempfile
+
+    from lkgd_torch.cli import train_svd_lora as cli
+    from lkgd_torch.training.trainer import zero_shard_opt_state
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        run = cli.build(_train_args(out_dir, dev))
+        state = run.trainer.state
+        zero_shard_opt_state(state, state.optimizer.group)
+        record = _train_step_record(run, _par_pixels(dev)[rank:rank + 1])
+    torch.save(record, work / f"train{rank}.pt")
+    print(f"[{tag}] LKGD fine-tune step 512x512x8f over {PAIR_RANKS} ranks (one row each, ZeRO): "
+          f"{record['seconds']:.3f} s, loss {record['loss']:.5f}, moment bytes a rank "
+          f"{record['moment_bytes'] / 2**20:.2f} MiB, launches a rank {record['launches']}",
+          flush=True)
+
+
+def _rows_emulated(cli, run, pixel_values) -> dict:
+    """The data-parallel step's arithmetic in this one process: each rank's row through
+    ``data_parallel_step`` from the same generator state, the optimizer's update skipped,
+    the gradients averaged in fp32 as the ranks' all-reduce averages them. ``run`` is left
+    as it was: parameters, optimizer and generator state."""
+    opt, gen = run.trainer.state.optimizer, run.trainer.generator
+    opt.adamw.step = lambda: None  # each row's gradients at the same parameters
+    start, grads = gen.get_state(), []
+    clip = opt.clip_grads
+
+    def record():
+        grads.append({n: p.grad.detach().float().cpu() for n, p in opt.params.items()})
+        return clip()
+
+    opt.clip_grads = record
+    try:
+        for r in range(PAIR_RANKS):
+            gen.set_state(start)
+            step = cli.data_parallel_step(run.step, run.preprocess, run.config, (r, PAIR_RANKS))
+            step(run.trainer.state, {"pixel_values": pixel_values[r:r + 1]}, gen)
+        torch.cuda.synchronize()
+    finally:
+        del opt.adamw.step, opt.clip_grads
+        gen.set_state(start)
+        run.trainer.state.step = 0
+    return {n: sum(g[n] for g in grads) / PAIR_RANKS for n in grads[0]}
+
+
+def _par_rank_main(rank: int, work: Path) -> int:
+    """One rank of the weight-, row- and frame-splitting pair (``chip_smoke.py --par-rank R
+    DIR``, started by ``phase_par_pair``): the DiT tensor parallel and FSDP, the SVD clip over
+    data and over context, a data-parallel ZeRO fine-tune step. Rank 0 writes the numbers to
+    ``DIR/result.json``."""
+    import torch.distributed as dist
+
+    dev = _join_pair(rank, work, 900)
+    tag = f"par-pair r{rank}"
+    result = {"dit": _par_dit(rank, dev, tag), "svd": _par_svd(rank, dev, tag)}
+    _par_train(rank, dev, work, tag)
+    if rank == 0:
+        (work / "result.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_par_pair(dev: torch.device) -> dict:
+    """Weights, rows and frames split over two processes on cuda:0 over gloo (``--par-rank``),
+    then the fine-tune step of the same 2-row batch in this one process, against which the
+    ranks' averaged gradients are held (1% of each tensor's largest). Returns the launches a
+    rank by path."""
+    import tempfile
+
+    from lkgd_torch.cli import train_svd_lora as cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        result = _spawn_pair("--par-rank", work, 900)
+        ranks = [torch.load(Path(work) / f"train{r}.pt") for r in range(PAIR_RANKS)]
+        with tempfile.TemporaryDirectory() as out_dir:
+            run = cli.build(_train_args(out_dir, dev))
+            rows = _rows_emulated(cli, run, _par_pixels(dev))
+            one = _train_step_record(run, _par_pixels(dev))
+            del run
+    torch.cuda.empty_cache()
+
+    def worst(grads, want):  # max|d| of each tensor over its largest gradient, the worst
+        errs = {n: (grads[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                for n, w in want.items()}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    for name in one["params"]:
+        assert all(torch.equal(r["params"][name], ranks[0]["params"][name]) for r in ranks), name
+    emulated, name_e = worst(ranks[0]["grads"], rows)
+    spread, name_s = worst(rows, one["grads"])
+    err, name = worst(ranks[0]["grads"], one["grads"])
+    moved = max((ranks[0]["params"][n] - p).abs().max().item() for n, p in one["params"].items())
+    print(f"[par-pair] fine-tune step over {PAIR_RANKS} ranks: gradients max|d| {emulated:.3e} "
+          f"of the tensor's largest against this process's one-row passes averaged (the same "
+          f"arithmetic; worst {name_e}), {err:.3e} against one process on the 2-row batch "
+          f"(worst {name}; the one-row passes' own distance from it {spread:.3e}, bf16 tiling 1 "
+          f"row against 2: the floor); loss {ranks[0]['loss']:.6f} against {one['loss']:.6f}, "
+          f"parameters after the step within {moved:.3e}; moment bytes a rank "
+          f"{ranks[0]['moment_bytes'] / 2**20:.2f} MiB of {one['moment_bytes'] / 2**20:.2f} "
+          f"(ZeRO); one process {one['seconds']:.3f} s, launches {one['launches']}", flush=True)
+    assert emulated <= 1e-4, (name_e, emulated)
+    assert err <= max(1e-2, 1.5 * spread), (name, err, spread)
+    assert ranks[0]["moment_bytes"] < 0.6 * one["moment_bytes"], (ranks[0]["moment_bytes"],
+                                                                 one["moment_bytes"])
+    assert all(r["launches"] == one["launches"] for r in ranks), (one["launches"],
+                                                                 [r["launches"] for r in ranks])
+    dit, svd = result["dit"], result["svd"]
+    print(f"[par-pair] DiT step tp {dit['tp']['seconds']:.3f} s (max|d| {dit['tp']['err']:.3e}), "
+          f"fsdp {dit['fsdp']['seconds']:.3f} s (bit-identical), unsharded "
+          f"{dit['none']['seconds']:.3f} s; SVD data=2 {svd['data']['seconds']:.3f} s (max|d| "
+          f"{svd['data']['err']:.3e}), context=2 {svd['context']['seconds']:.3f} s (max|d| "
+          f"{svd['context']['err']:.3e}) | phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"tp": dit["tp"]["launches"], "fsdp": dit["fsdp"]["launches"],
+            "svd_data": svd["data"]["launches"], "svd_context": svd["context"]["launches"],
+            "train_data_parallel": ranks[0]["launches"]}
 
 
 def _inversion(dev, pipe, vae, parser, frames, image_latents, prompt, domain, flow) -> dict:
@@ -5796,6 +6176,8 @@ def main() -> int:
     sys.path.insert(0, str(root))
     if sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase_sp_pair's pair of processes
         return _sp_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
+    if sys.argv[1:2] == ["--par-rank"]:  # one rank of phase_par_pair's pair of processes
+        return _par_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
     # fp32 phases compare exact fp32 arithmetic: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5845,6 +6227,7 @@ def main() -> int:
     cogvideox_launches = phase_cogvideox_full(dev)
     torch.cuda.empty_cache()
     sp_launches = phase_sp_pair(dev)
+    par_launches = phase_par_pair(dev)
     web_demo_launches = phase_web_demo(dev)
     torch.cuda.empty_cache()
     sd2d_launches = phase_sd2d_full(dev)
@@ -5887,7 +6270,8 @@ def main() -> int:
     by_path = {"clip": clip_launches, "trans": trans_launches, "smooth": smooth_launches,
                "controlnet": controlnet_launches, "deep_cache_2": deep_cache_launches[2],
                "deep_cache_3": deep_cache_launches[3], "flow": flow_launches,
-               **cogvideox_launches, **sp_launches, "web_demo": web_demo_launches,
+               **cogvideox_launches, **sp_launches, **par_launches,
+               "web_demo": web_demo_launches,
                "verify_parity": verify_parity_launches,
                "train": train_launches, "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
@@ -5900,7 +6284,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": by_path[own[name]][name],
-         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+         "launches_by_path": {path: counts.get(name, 0) for path, counts in by_path.items()},
          **kernels[name], **({"cogvideox": cogvideox_kernels[name]}
                              if name in cogvideox_kernels else {}),
          **({"train_cogvideox": cogvideox_train_kernels[name]}

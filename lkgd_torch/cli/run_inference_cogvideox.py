@@ -21,19 +21,30 @@ Examples::
   torchrun --nproc-per-node 2 -m lkgd_torch.cli.run_inference_cogvideox --image frame.png \
       --mesh context=2 --sequence-parallel ring
 
+  # the weights split over 2 processes: tensor parallel (24 of the 48 heads a rank) or FSDP
+  torchrun --nproc-per-node 2 -m lkgd_torch.cli.run_inference_cogvideox --image frame.png \
+      --mesh model=2 --weight-sharding tp
+
+  # the CFG rows over data, the video tokens over context, the weights over model: 8 ranks
+  torchrun --nproc-per-node 8 -m lkgd_torch.cli.run_inference_cogvideox --image frame.png \
+      --mesh data=2,context=2,model=2 --sequence-parallel ulysses --weight-sharding fsdp
+
 Prompts are T5 embeddings from ``--prompt-embeds`` (a ``.npy`` of (L, 4096) or (B, L,
 4096)), or zeros without it. It runs on the card: ``--device`` defaults to ``cuda`` and a
 machine without one fails unless ``--device cpu`` is given. The weights are random, drawn
 from ``--seed`` at the real shapes; ``--lora`` loads a LoRA safetensors (diffusers, peft or
 kohya names) into adapters on the transformer's ``attn1`` projections that it names.
 
-``--mesh context=N --sequence-parallel ulysses|ring`` runs one process a rank (launched by
-``torchrun``): every rank builds the same weights and noise from ``--seed`` (a checksum
-all-reduce of the weights and of the final latents makes a divergence an error), the DiT
-splits its video tokens over the ranks (``parallel/sequence.py``), and rank 0 writes the
-video. Not ported: ``--weights`` (no checkpoint or T5 model is in the repository:
-ROADMAP.md Queue 1, item 11), ``--weight-sharding`` and the ``model`` and ``data`` mesh axes
-(ROADMAP.md Queue 1, item 12), which are refused.
+``--mesh`` runs one process a rank (launched by ``torchrun``), the product of its axis sizes
+the world size: every rank builds the same weights and noise from ``--seed`` (a checksum
+all-reduce of the weights and of the final latents makes a divergence an error) and rank 0
+writes the video. ``context=N`` (with ``--sequence-parallel ulysses|ring``) splits the DiT's
+video tokens (``parallel/sequence.py``), ``data=N`` the CFG rows, ``model=N`` the
+transformer's weights as ``--weight-sharding`` says (``tp``, the default: tensor parallel;
+``fsdp``: gathered at use; ``parallel/tp.py``); the CLI prints the transformer's bytes a
+rank holds. Not ported: ``--weights`` (no checkpoint or T5 model is in the repository:
+ROADMAP.md Queue 1, item 11) and the ``stage`` mesh axis (ROADMAP.md Queue 1, item 12b.4),
+which are refused.
 """
 
 from __future__ import annotations
@@ -90,14 +101,18 @@ def make_parser() -> argparse.ArgumentParser:
                         "whole clip")
     p.add_argument("--device", default="cuda",
                    help="the card by default; a run without one fails unless cpu is named")
-    p.add_argument("--mesh", help="context=N: N processes (torchrun), the DiT's video tokens "
-                                  "split over them")
+    p.add_argument("--mesh", help="axis=size list, e.g. 'model=2' or "
+                                  "'data=2,context=2,model=2', one process (torchrun) a rank: "
+                                  "'data' splits the CFG rows, 'context' the DiT's video tokens, "
+                                  "'model' its weights")
     p.add_argument("--sequence-parallel", choices=["none", "ulysses", "ring"], default="none",
                    help="sequence-parallel attention over the mesh's context axis: ulysses "
                         "(the heads split, H %% N == 0) or ring (K/V passed round the ranks)")
+    p.add_argument("--weight-sharding", choices=["tp", "fsdp"],
+                   help="how the mesh's model axis splits the transformer's weights: tp "
+                        "(tensor parallel, the default) or fsdp (gathered at use)")
     # not ported: refused with the ROADMAP item that holds them
     p.add_argument("--weights", help=argparse.SUPPRESS)
-    p.add_argument("--weight-sharding", help=argparse.SUPPRESS)
     return p
 
 
@@ -106,21 +121,22 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
         p.error("--weights is not ported to lkgd_torch: no CogVideoX checkpoint or T5 model "
                 "is in the repository (ROADMAP.md Queue 1, item 11); weights are random from "
                 "--seed")
-    if args.weight_sharding:
-        p.error("--weight-sharding is not ported to lkgd_torch: weight sharding waits for "
-                "ROADMAP.md Queue 1, item 12")
-    if args.mesh:
-        from lkgd_torch.parallel.mesh import CONTEXT_AXIS, parse_mesh
+    from lkgd_torch.parallel.mesh import CONTEXT_AXIS, MODEL_AXIS, parse_mesh
 
+    axes = {}
+    if args.mesh:
         try:
             axes = parse_mesh(args.mesh)
         except ValueError as e:
             p.error(str(e))
-        if args.sequence_parallel == "none":
-            p.error(f"--mesh {CONTEXT_AXIS}={axes[CONTEXT_AXIS]} needs --sequence-parallel "
-                    f"ulysses or ring: the context axis splits the DiT's video tokens")
-    if args.sequence_parallel != "none" and not args.mesh:
+    if CONTEXT_AXIS in axes and args.sequence_parallel == "none":
+        p.error(f"--mesh {CONTEXT_AXIS}={axes[CONTEXT_AXIS]} needs --sequence-parallel "
+                f"ulysses or ring: the context axis splits the DiT's video tokens")
+    if args.sequence_parallel != "none" and CONTEXT_AXIS not in axes:
         p.error("--sequence-parallel needs --mesh with a 'context' axis")
+    if args.weight_sharding and MODEL_AXIS not in axes:
+        p.error("--weight-sharding needs --mesh with a 'model' axis: it says how that axis "
+                "splits the weights")
     if args.generate_type != "t2v" and not args.image:
         p.error(f"--image is required for --generate-type {args.generate_type}")
     if args.variant == "2b" and args.generate_type == "i2v" and not args.tiny:
@@ -159,15 +175,15 @@ def transformer_config(args, lora=None) -> CogVideoXConfig:
 def build(args):
     """The pipeline of ``--generate-type`` and the VAE, random weights from ``--seed`` (and
     ``--lora`` loaded). Returns (pipe, vae). With ``--mesh`` it first joins (or makes) the
-    context process group, builds on this rank's device and checks that every rank holds
-    the same weights."""
+    mesh's process groups, builds on this rank's device, checks that every rank holds the
+    same weights, then splits the transformer's over a ``model`` axis."""
     from lkgd_torch.utils.porting import load_safetensors, port_lora_safetensors
 
-    pg = None
+    grid = None
     if args.mesh:
         from lkgd_torch.parallel import mesh
 
-        pg = mesh.make_mesh(args.mesh, args.device)
+        grid = mesh.make_mesh(args.mesh, args.device)
         args.device = str(mesh.rank_device(args.device))
 
     lora_sd = load_safetensors(args.lora) if args.lora else None
@@ -177,7 +193,8 @@ def build(args):
         height=args.height, width=args.width, num_frames=args.num_frames,
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         scheduler=args.scheduler, vae_scale_factor_spatial=2 ** (len(vcfg.block_out_channels) - 1))
-    kw = dict(config=pcfg, transformer_config=tcfg, dtype=torch.bfloat16, device=args.device)
+    kw = dict(config=pcfg, transformer_config=tcfg, dtype=torch.bfloat16, device=args.device,
+              mesh=grid)
     if args.generate_type == "t2v":
         pipe = CogVideoXTextToVideoPipeline(**kw)
     elif args.generate_type == "v2v":
@@ -193,10 +210,19 @@ def build(args):
     if lora_sd:
         n = port_lora_safetensors(lora_sd, pipe.transformer, "lora", strict=True)
         print(f"loaded {n} LoRA tensors from {args.lora}")
-    if pg is not None:
-        from lkgd_torch.parallel.mesh import check_replicated
+    if grid is not None:
+        from lkgd_torch.parallel import tp
+        from lkgd_torch.parallel.mesh import MODEL_AXIS, check_replicated
 
-        check_replicated(list(pipe.transformer.parameters()) + list(vae.parameters()), pg)
+        check_replicated(list(pipe.transformer.parameters()) + list(vae.parameters()))
+        if MODEL_AXIS in grid.axes:
+            pg = grid.groups[MODEL_AXIS]
+            if (args.weight_sharding or "tp") == "tp":
+                tp.tensor_parallel(pipe.transformer, pg)
+            else:
+                tp.fully_shard(pipe.transformer, pg)
+        print(f"transformer bytes/rank: "
+              f"{tp.per_device_param_bytes(pipe.transformer) / 2**20:.0f} MiB")
     return pipe, vae
 
 
@@ -276,9 +302,9 @@ def main(argv=None) -> None:
     t0 = now()
     latents = generate(pipe, vae, args, prompt)
     if args.mesh:
-        from lkgd_torch.parallel.mesh import check_replicated, group
+        from lkgd_torch.parallel.mesh import check_replicated
 
-        check_replicated([latents], group(), "latents")
+        check_replicated([latents], None, "latents")
     t1 = now()
     with torch.inference_mode():
         video = decode(vae, latents, args)

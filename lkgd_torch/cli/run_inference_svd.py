@@ -26,6 +26,21 @@ Examples::
   # a flow video, conditioned on the frame itself as the flow-condition image
   python -m lkgd_torch.cli.run_inference_svd --mode flow --image frame.png
 
+  # 4 processes, one card each (NCCL; gloo with --device cpu): the CFG rows over 2 of them,
+  # the frames over 2; or the weights split over 2 (FSDP, gathered at use)
+  torchrun --nproc-per-node 4 -m lkgd_torch.cli.run_inference_svd --image frame.png \
+      --data-parallel 2 --context-parallel 2
+  torchrun --nproc-per-node 2 -m lkgd_torch.cli.run_inference_svd --image frame.png \
+      --model-parallel 2
+
+With ``--data-parallel``, ``--context-parallel`` or ``--model-parallel`` above 1 it runs one
+process a rank (``torchrun``, the product of the three the world size, ``parallel/mesh.py``
+with the axes data, context and model): every rank builds the same weights and noise from
+``--seed`` (checked by a checksum all-reduce), ``data`` and ``context`` split the base
+loop's CFG rows and frames and spread the decode's chunks (base mode only), ``model`` splits
+the UNet's, VAE's and CLIP's weights (``parallel/tp.py`` ``fully_shard``; the MiB a rank
+holds are printed), and rank 0 writes the video.
+
 It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
 unless ``--device cpu`` is given. The weights are random, drawn from ``--seed`` at the real
 shapes (smoke and benchmark mode): loading a checkpoint (``--weights``) waits until one is
@@ -41,6 +56,7 @@ import numpy as np
 import torch
 
 from lkgd_torch.models.controlnet_svd import ControlNetSDVConfig
+from lkgd_torch.parallel import mesh
 from lkgd_torch.models.configs import (CLIPVisionConfig, JointAttentionConfig, LoraRouter,
                                        LoraRule, SVDUNetConfig, TemporalVAEConfig)
 from lkgd_torch.pipelines.svd import StableVideoDiffusionPipeline, SVDPipelineConfig
@@ -106,10 +122,36 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--sequential-cfg", action="store_true",
                    help="run the two CFG halves one after the other: a lower peak of "
                         "activation memory in the denoising loop")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="mesh 'data' axis size: the CFG rows split over the ranks")
+    p.add_argument("--context-parallel", type=int, default=1,
+                   help="mesh 'context' axis size: the frames split over the ranks")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="mesh 'model' axis size: FSDP of the weights, each rank holding "
+                        "~1/N of them")
     p.add_argument("--device", default="cuda",
                    help="the card by default; a run without one fails unless cpu is named")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16")
     return p
+
+
+def build_mesh(args):
+    """The mesh of the three parallel flags (the axes above 1, in the order data, context,
+    model), or None when all are 1; ``args.device`` becomes this rank's device."""
+    axes = {"data": args.data_parallel, "context": args.context_parallel,
+            "model": args.model_parallel}
+    axes = {a: n for a, n in axes.items() if n > 1}
+    if not axes:
+        return None
+    if args.mode != "base" and set(axes) - {"model"}:
+        raise SystemExit(f"--data-parallel and --context-parallel split the base loop's "
+                         f"rows and frames: --mode {args.mode} takes --model-parallel only")
+    if args.model_parallel > 1 and args.sequential_cfg:
+        raise SystemExit("--model-parallel gathers the UNet's weights at use: "
+                         "--sequential-cfg's second UNet shares them ungathered")
+    grid = mesh.make_mesh(axes, args.device)
+    args.device = str(mesh.rank_device(args.device))
+    return grid
 
 
 def unet_config(args, widths: Widths = Widths()) -> SVDUNetConfig:
@@ -140,8 +182,11 @@ def build_pipeline(args, widths: Widths = Widths()) -> StableVideoDiffusionPipel
         max_guidance_scale=args.max_guidance_scale, fps=args.fps,
         motion_bucket_id=args.motion_bucket_id, noise_aug_strength=args.noise_aug_strength,
         decode_chunk_size=args.decode_chunk_size, sequential_cfg=args.sequential_cfg)
+    grid = build_mesh(args)
     kw = dict(config=config, unet_config=unet_config(args, widths), vae_config=widths.vae,
               clip_config=widths.clip, dtype=_DTYPES[args.dtype], device=args.device)
+    if grid is not None and args.mode == "base":
+        kw["mesh"] = grid
     if args.mode == "smooth":
         pipe = StableVideoDiffusionSmoothPipeline(
             **kw, start_step=args.smooth_start_step, total_frames=args.smooth_total_frames)
@@ -160,6 +205,17 @@ def build_pipeline(args, widths: Widths = Widths()) -> StableVideoDiffusionPipel
         pipe = StableVideoDiffusionPipeline(**kw)
     print("random weights from --seed (no checkpoint is loaded)")
     pipe.init_params(torch.Generator(device=pipe.device).manual_seed(args.seed))
+    if grid is not None:
+        from lkgd_torch.parallel import tp
+        from lkgd_torch.parallel.mesh import check_replicated
+
+        models = [m for m in vars(pipe).values() if isinstance(m, torch.nn.Module)]
+        check_replicated([p for m in models for p in m.parameters()])
+        if "model" in grid.axes:
+            for m in pipe.models:
+                tp.fully_shard(m, grid.groups["model"])
+            mib = sum(tp.per_device_param_bytes(m) for m in pipe.models) / 2**20
+            print(f"FSDP weight sharding over model={grid.axes['model']}: {mib:.0f} MiB/rank")
     return pipe
 
 
@@ -193,6 +249,10 @@ def main(argv=None, widths: Widths = Widths()) -> None:
         out = pipe(image, control=control[None], generator=generator)[0]
     else:
         out = pipe(image, generator=generator)[0]
+    if args.data_parallel * args.context_parallel * args.model_parallel > 1:
+        mesh.check_replicated([torch.from_numpy(np.ascontiguousarray(out))], None, "frames")
+        if torch.distributed.get_rank() != 0:  # every rank holds the same video
+            return
     write_video(args.output, out, fps=args.fps)
     print(f"wrote {args.output}: {out.shape}")
 

@@ -16,6 +16,16 @@ knowledge encoder stay frozen. Each step encodes its clips with the frozen model
   python -m lkgd_torch.cli.train_svd_lora --video-folder data/clips --output-dir out \\
       --width 512 --height 512 --num-frames 8 --rank 4 --learning-rate 2e-4 --remat
 
+Launched by ``torchrun`` with N processes (one card each over NCCL; gloo with
+``--device cpu``) it trains data-parallel over all of them, as the JAX CLI takes every
+device: the batch is ``--per-device-batch-size`` x N rows, each rank loads and encodes its
+rows, draws the step's noise at the whole batch's shape and keeps its rows (the same draws
+as one process on the whole batch), and the gradients are averaged over the ranks before the
+update; rank 0 alone writes metrics, checkpoints, validation and the export::
+
+  torchrun --nproc-per-node 2 -m lkgd_torch.cli.train_svd_lora --video-folder data/clips \
+      --output-dir out --width 512 --height 512 --num-frames 8
+
 The weights are random, drawn from ``--seed`` at the real shapes: loading a checkpoint
 (``--weights``) waits until one is in the repository. ``build(args)`` makes everything but
 the data, so that other callers (``chip_smoke.py``) run the same code on synthetic clips.
@@ -29,6 +39,7 @@ import os
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from lkgd_torch.models.clip_vision import CLIPVisionModelWithProjection, clip_normalize
 from lkgd_torch.models.configs import (CLIPVisionConfig, JointAttentionConfig, LoraRouter,
@@ -38,8 +49,10 @@ from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
 from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 from lkgd_torch.models.vit_mae import ViT, ViTConfig, encode_knowledge_features
 from lkgd_torch.ops.resize import resize_with_antialiasing
+from lkgd_torch.parallel import mesh
+from lkgd_torch.parallel.sequence import all_reduce
 from lkgd_torch.training.train_state import (SVDTrainConfig, init_train_state, make_optimizer,
-                                             make_svd_train_step, trainable_trans)
+                                             make_svd_train_step, svd_draws, trainable_trans)
 from lkgd_torch.training.trainer import Trainer, TrainerConfig, export_trainable_safetensors
 from lkgd_torch.utils.device import require_device
 from lkgd_torch.utils.trackers import make_tracker
@@ -110,13 +123,17 @@ class Widths:
 class TrainRun:
     """What ``build`` makes: the trainer, whose step is the frozen-encoder preprocessing
     ``preprocess(pixel_values, generator) -> batch`` and then the train step on that batch,
-    the UNet it trains and the predicate on parameter names that selects the trained
-    parameters."""
+    the UNet it trains, the predicate on parameter names that selects the trained
+    parameters, the train step on a preprocessed batch with its config (for
+    ``data_parallel_step``), and this process's (rank, world)."""
 
     trainer: Trainer
     preprocess: Callable
     unet: torch.nn.Module
     trainable: Callable[[str], bool]
+    step: Callable
+    config: SVDTrainConfig
+    ranks: tuple = (0, 1)  # (rank, world) of the data-parallel processes
 
 
 def unet_config(args, widths: Widths = Widths()) -> SVDUNetConfig:
@@ -196,17 +213,25 @@ def clip_embedding(clip: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
     return clip(clip_normalize((clip_in + 1.0) / 2.0).to(dtype))[:, None, :].float()
 
 
+def _rows(n: int, ranks: tuple) -> slice:
+    """Rank ``r`` of ``world``'s block of ``n``-row blocks of the whole batch."""
+    r, _ = ranks
+    return slice(r * n, (r + 1) * n)
+
+
 def make_preprocess(vae, clip, vit=None, trans: bool = False) -> Callable:
     """The frozen models' preprocessing, ``preprocess(pixel_values, generator) -> batch``:
     pixel_values (B, T+1, H, W, 3) in [-1, 1] -> the train step's batch (fp32) of the first
     T frames: scaled VAE latents, the unscaled latents of the first frame with 0.02 x
     normal noise, its CLIP embedding, and with ``vit`` the knowledge features. With
     ``trans`` the rows are [clip, time-flipped clip], each conditioned on its own first
-    frame (one pair only: ``ONE_PAIR``)."""
+    frame (one pair only: ``ONE_PAIR``). ``ranks=(r, world)``: ``pixel_values`` are rank
+    ``r``'s rows of a batch ``world`` times as large; the noise is drawn at its shape and the
+    rank's rows kept."""
     device, dtype = next(vae.parameters()).device, next(vae.parameters()).dtype
 
     @torch.no_grad()
-    def preprocess(pixel_values: torch.Tensor, gen: torch.Generator) -> dict:
+    def preprocess(pixel_values: torch.Tensor, gen: torch.Generator, ranks=(0, 1)) -> dict:
         frames = pixel_values.to(device, torch.float32)[:, :-1]
         if trans:
             if frames.shape[0] != 1:
@@ -216,7 +241,8 @@ def make_preprocess(vae, clip, vit=None, trans: bool = False) -> Callable:
         latents = vae.encode_mode(frames.reshape(b * t, *frames.shape[2:]).to(dtype))
         latents = latents.float().reshape(b, t, *latents.shape[1:]) * VAE_SCALING
         cond_img = frames[:, 0]
-        noise = torch.randn(cond_img.shape, generator=gen, device=device) * 0.02
+        noise = torch.randn((b * ranks[1],) + cond_img.shape[1:], generator=gen, device=device)
+        noise = noise[_rows(b, ranks)] * 0.02
         cond_latents = vae.encode_mode((cond_img + noise).to(dtype)).float()
         batch = {"latents": latents, "cond_latents": cond_latents,
                  "image_embeddings": clip_embedding(clip, frames[:, 0])}
@@ -237,6 +263,8 @@ def build(args, widths: Widths = Widths()) -> TrainRun:
     trans = args.mode == "trans"
     if trans and args.per_device_batch_size != 1:
         raise NotImplementedError(ONE_PAIR)
+    group = data_parallel_group(args)
+    ranks = (dist.get_rank(), dist.get_world_size()) if group is not None else (0, 1)
     device, dtype = require_device(args.device), _DTYPES[args.dtype]
     predicate = trainable_trans if trans else trainable
     unet = materialize(lambda: UNetSpatioTemporalCondition(unet_config(args, widths)), device,
@@ -257,11 +285,17 @@ def build(args, widths: Widths = Widths()) -> TrainRun:
     optimizer = make_optimizer(args.learning_rate, trainable_predicate=predicate,
                                use_8bit=args.use_8bit_adam)
     state = init_train_state(unet, optimizer)
-    step = make_svd_train_step(SVDTrainConfig(
-        conditioning_dropout_prob=args.conditioning_dropout_prob, tie_stream_pairs=trans))
+    config = SVDTrainConfig(conditioning_dropout_prob=args.conditioning_dropout_prob,
+                            tie_stream_pairs=trans)
+    step = make_svd_train_step(config)
 
     def train_step(state, batch, gen):
         return step(state, preprocess(batch["pixel_values"], gen), gen)
+
+    if group is not None:
+        mesh.check_replicated([p for m in (unet, *frozen) for p in m.parameters()], group)
+        optimizer.group = group
+        train_step = data_parallel_step(step, preprocess, config, ranks, group)
 
     trainer = Trainer(
         train_step, state,
@@ -269,8 +303,41 @@ def build(args, widths: Widths = Widths()) -> TrainRun:
                       checkpoint_every=args.checkpoint_every, seed=args.seed,
                       validation_every=args.validation_every or None),
         validation_fn=_validation_fn(args, unet, vae, clip, device, dtype),
-        tracker=make_tracker(args.report_to, args.output_dir, run_name=f"svd_{args.mode}"))
-    return TrainRun(trainer, preprocess, unet, predicate)
+        tracker=(make_tracker(args.report_to, args.output_dir, run_name=f"svd_{args.mode}")
+                 if ranks[0] == 0 else None))
+    return TrainRun(trainer, preprocess, unet, predicate, step, config, ranks)
+
+
+def data_parallel_step(step: Callable, preprocess: Callable, config: SVDTrainConfig,
+                       ranks: tuple, group=None) -> Callable:
+    """The step of rank ``r`` of ``world`` (``ranks``) on its rows of the batch: the
+    preprocessing's and the loss's draws made at the whole batch's shape, the rank's rows
+    kept, so that the ranks together draw what one process draws; the loss averaged over
+    ``group`` (None: this rank's own, as a one-process emulation of a rank takes it)."""
+
+    def train_step(state, batch, gen):
+        proc = preprocess(batch["pixel_values"], gen, ranks)
+        n = proc["latents"].shape[0]
+        whole = (n * ranks[1],) + proc["latents"].shape[1:]
+        draws = svd_draws(config, whole, gen, proc["latents"].device)
+        sigmas, noise, dropout_u = (None if x is None else x[_rows(n, ranks)] for x in draws)
+        state, loss = step(state, proc, None, sigmas=sigmas, noise=noise, dropout_u=dropout_u)
+        return state, loss if group is None else all_reduce(loss, group) / ranks[1]
+
+    return train_step
+
+
+def data_parallel_group(args):
+    """The ``data`` group over every process when there are several (a process group already
+    made, or ``torchrun``'s environment), else None; ``args.device`` becomes this rank's
+    device."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world == 1:
+        return None
+    grid = mesh.make_mesh({mesh.DATA_AXIS: world}, args.device)
+    args.device = str(mesh.rank_device(args.device))
+    return grid.groups[mesh.DATA_AXIS]
 
 
 def main(argv=None) -> None:
@@ -283,9 +350,14 @@ def main(argv=None) -> None:
     run = build(args)
     ds = MiniDataset(args.video_folder, sample_size=(args.height, args.width),
                      sample_n_frames=args.num_frames)
-    loader = PrefetchLoader(ds, batch_size=args.per_device_batch_size, device=args.device)
+    n, (rank, world) = args.per_device_batch_size, run.ranks
+    # this rank's rows of each batch of n x world
+    loader = PrefetchLoader(ds, batch_size=n * world, device=args.device,
+                            rows=_rows(n, (rank, world)))
     run.trainer.restore_latest()
     run.trainer.fit(iter(loader))
+    if rank != 0:
+        return
     path = f"{args.output_dir}/model.safetensors"
     n = export_trainable_safetensors(run.unet, run.trainable, path)
     print(f"exported {n} trainable tensors to {path}")

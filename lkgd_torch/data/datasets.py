@@ -376,7 +376,9 @@ class PrefetchLoader:
     raises when there is none: name ``"cpu"`` to get CPU tensors."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 prefetch: int = 2, device="cuda", drop_keys: Sequence[str] = ("caption",)):
+                 prefetch: int = 2, device="cuda", drop_keys: Sequence[str] = ("caption",),
+                 rows: slice = slice(None)):
+        self.rows = rows  # the rows of each batch this process loads (a data-parallel rank's)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -393,7 +395,7 @@ class PrefetchLoader:
         return idx[:n].reshape(-1, self.batch_size)
 
     def _batch(self, batch_idx) -> dict:
-        samples = [self.dataset[int(i)] for i in batch_idx]
+        samples = [self.dataset[int(i)] for i in batch_idx[self.rows]]
 
         def stack(values):  # torch tensors (a tensor cache's, bf16 too) stay tensors
             if isinstance(values[0], torch.Tensor):

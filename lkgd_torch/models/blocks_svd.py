@@ -14,6 +14,15 @@ the JAX package (``down_blocks.0.attentions.1.temporal_transformer_blocks.0.attn
 Layout: hidden states ``(B*T, H, W, C)`` channels-last; temb ``(B*T, temb_channels)``;
 image_only_indicator ``(B, T)``; spatial attention tokens ``(B*T, H*W, C)``.
 
+Frames split over the ``context`` axis (``frame_group``, set by the SVD pipeline on the
+two blocks that mix frames: ``SpatioTemporalResBlock`` and ``TransformerSpatioTemporalModel``):
+each rank holds the rows of its block of frames, every spatial layer runs on those, and each
+temporal half (the temporal ResBlock, whose (3,1,1) convolutions and GroupNorm statistics
+span every frame of a sample, and the temporal transformer blocks, with their frame
+positions) runs on the frames all-gathered from the group, after which the rank keeps its
+own. The temporal work is repeated on every rank; the kernels see the shapes they see
+unsplit.
+
 The JAX package's ``Upsample2D`` is nearest-2x followed by a 3x3 convolution; its
 ``FoldedUpsampleConv`` (the same math on four 2x2 convolutions) is a later optimisation.
 """
@@ -23,6 +32,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -43,6 +53,7 @@ from lkgd_torch.models.layers import (
     nearest_upsample_2x,
 )
 from lkgd_torch.ops.track_fusion import track_scatter_fusion
+from lkgd_torch.parallel.sequence import all_gather, shard
 
 
 # ------------------------------------------------------------------ resnet blocks
@@ -90,6 +101,8 @@ class TemporalResnetBlock(nn.Module):
 class SpatioTemporalResBlock(nn.Module):
     """Spatial ResBlock + temporal ResBlock + learned AlphaBlender."""
 
+    frame_group = None  # the context group when the frames are split (module docstring)
+
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int = 1280,
                  eps: float = 1e-5):
         super().__init__()
@@ -104,7 +117,13 @@ class SpatioTemporalResBlock(nn.Module):
         bf, hh, ww, c = h.shape
         b = bf // num_frames
         h_t = h.view(b, num_frames, hh * ww, c)
-        mix = self.temporal_res_block(h_t, temb.view(b, num_frames, temb.shape[-1]))
+        temb_t = temb.view(b, num_frames, temb.shape[-1])
+        pg = self.frame_group
+        if pg is None:
+            mix = self.temporal_res_block(h_t, temb_t)
+        else:  # every frame through the temporal half, this rank's block kept
+            mix = shard(self.temporal_res_block(all_gather(h_t, 1, pg), all_gather(temb_t, 1, pg)),
+                        1, pg, "frames")
         return self.time_mixer(h_t, mix, image_only_indicator).view(bf, hh, ww, c)
 
 
@@ -311,6 +330,8 @@ class TemporalBasicTransformerBlock(nn.Module, JointBranchMixin):
 class TransformerSpatioTemporalModel(nn.Module):
     """GroupNorm + proj_in + interleaved spatial/temporal blocks + AlphaBlender + proj_out."""
 
+    frame_group = None  # the context group when the frames are split (module docstring)
+
     def __init__(self, channels: int, num_layers: int, heads: int,
                  cross_attention_dim: int = 1024, lora: LoraRouter = EMPTY_ROUTER,
                  block_path: str = "", joint: Optional[JointAttentionConfig] = None,
@@ -339,17 +360,25 @@ class TransformerSpatioTemporalModel(nn.Module):
         bf, hh, ww, c = x.shape
         num_frames = image_only_indicator.shape[-1]
         b = bf // num_frames
-        # first-frame context per sample, consumed per sample by the temporal blocks
+        # first-frame context per sample, consumed per sample by the temporal blocks (the
+        # UNet's per-frame copies of one context: a rank's first frame holds it as well)
         ctx = encoder_hidden_states
         time_context = ctx.view(b, num_frames, *ctx.shape[1:])[:, 0]
+        pg = self.frame_group
+        frames = num_frames if pg is None else num_frames * dist.get_world_size(pg)
 
         h = self.proj_in(self.norm(x).view(bf, hh * ww, c))
-        frame_ids = torch.arange(num_frames, dtype=torch.float32, device=x.device).repeat(b)
+        frame_ids = torch.arange(frames, dtype=torch.float32, device=x.device).repeat(b)
         emb = self.time_pos_embed(get_timestep_embedding(frame_ids, h.shape[-1]).to(h.dtype))
         emb = emb[:, None, :]
         for block, temporal in zip(self.transformer_blocks, self.temporal_transformer_blocks):
             h = block(h, encoder_hidden_states, num_frames, joint_scale, temb)
-            h_mix = temporal(h + emb, num_frames, time_context)
+            if pg is None:
+                h_mix = temporal(h + emb, num_frames, time_context)
+            else:  # every frame through the temporal block, this rank's block kept
+                whole = all_gather(h.view(b, num_frames, *h.shape[1:]), 1, pg)
+                h_mix = temporal(whole.flatten(0, 1) + emb, frames, time_context)
+                h_mix = shard(h_mix.view(whole.shape), 1, pg, "frames").flatten(0, 1)
             h = self.time_mixer(h, h_mix, image_only_indicator)
         return self.proj_out(h).view(bf, hh, ww, c) + x
 

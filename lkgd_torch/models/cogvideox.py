@@ -20,7 +20,8 @@ rotates the whole joint sequence. Attention goes through ``ops/attention.py``: t
 kernels at S >= 1024 (17776 tokens at 49x480x720), the plain form below.
 
 Sequence parallelism (``config.sequence_parallel``, inference only): after the patch
-embedding each rank of the ``sp_axis`` process group keeps its Sv/P video tokens and the
+embedding each rank of ``context_group`` (the process group of the mesh's ``sp_axis``, which
+the pipeline built with ``mesh=`` sets) keeps its Sv/P video tokens and the
 matching rows of the rotary tables, the text stream replicated; every block runs on these
 tokens and only the attention communicates (``parallel/sequence.py`` ``joint_sp_attention``);
 the video tokens are gathered after ``proj_out`` (the final norms act token by token), before
@@ -51,7 +52,7 @@ from lkgd_torch.models.layers import (CastLinear, Conv2d, DenseWithLora, Timeste
                                       get_timestep_embedding)
 from lkgd_torch.ops.attention import dot_product_attention
 from lkgd_torch.ops.fusion import LatentKnowledgeFusion
-from lkgd_torch.parallel import mesh, sequence
+from lkgd_torch.parallel import sequence
 
 _FUSION, _EXPORTED = "knowledge_fusion.", "quaternion_lora_"
 
@@ -150,7 +151,7 @@ class CogVideoXAttention(nn.Module):
         super().__init__()
         inner, hd = config.inner_dim, config.attention_head_dim
         self.heads, self.head_dim = config.num_attention_heads, hd
-        self.sequence_parallel, self.sp_axis = config.sequence_parallel, config.sp_axis
+        self.sequence_parallel = config.sequence_parallel
         self.to_q = DenseWithLora(inner, inner, adapters=adapters["to_q"])
         self.to_k = DenseWithLora(inner, inner, adapters=adapters["to_k"])
         self.to_v = DenseWithLora(inner, inner, adapters=adapters["to_v"])
@@ -159,22 +160,22 @@ class CogVideoXAttention(nn.Module):
         self.to_out = nn.ModuleList([DenseWithLora(inner, inner, adapters=adapters["to_out"])])
 
     def forward(self, x: torch.Tensor, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                text_len: int = 0):
+                text_len: int = 0, pg=None):
         """x: the joint (B, S, inner) stream, ``text_len`` text tokens first (under sequence
-        parallelism the video tokens of this rank's shard); rope: (S, D) tables in x's dtype
-        or None."""
+        parallelism the video tokens of this rank's shard of ``pg``); rope: (S, D) tables in
+        x's dtype or None."""
         b, s, _ = x.shape
-        q = self.norm_q(self.to_q(x).view(b, s, self.heads, self.head_dim))
-        k = self.norm_k(self.to_k(x).view(b, s, self.heads, self.head_dim))
-        v = self.to_v(x).view(b, s, self.heads, self.head_dim)
+        # -1: the heads this rank's projections give (all, or H/P under tensor parallelism)
+        q = self.norm_q(self.to_q(x).view(b, s, -1, self.head_dim))
+        k = self.norm_k(self.to_k(x).view(b, s, -1, self.head_dim))
+        v = self.to_v(x).view(b, s, -1, self.head_dim)
         if rope is not None:
             q, k = apply_rotary(q, *rope), apply_rotary(k, *rope)
-        if self.sequence_parallel != "none":
-            out = sequence.joint_sp_attention(q, k, v, text_len, self.sequence_parallel,
-                                              mesh.group(self.sp_axis))
+        if pg is not None:
+            out = sequence.joint_sp_attention(q, k, v, text_len, self.sequence_parallel, pg)
         else:
             out = dot_product_attention(q, k, v)
-        return self.to_out[0](out.reshape(b, s, self.heads * self.head_dim))
+        return self.to_out[0](out.reshape(b, s, -1))
 
 
 class GELUProj(nn.Module):
@@ -209,10 +210,10 @@ class CogVideoXBlock(nn.Module):
         self.norm2 = CogVideoXLayerNormZero(config.time_embed_dim, inner)
         self.ff = FeedForward(inner)
 
-    def forward(self, hidden, encoder, temb, rope):
+    def forward(self, hidden, encoder, temb, rope, pg=None):
         text_len = encoder.shape[1]
         nh, ne, gate, e_gate = self.norm1(hidden, encoder, temb)
-        attn = self.attn1(torch.cat([ne, nh], dim=1), rope, text_len)
+        attn = self.attn1(torch.cat([ne, nh], dim=1), rope, text_len, pg)
         hidden = hidden + gate * attn[:, text_len:]
         encoder = encoder + e_gate * attn[:, :text_len]
         nh, ne, gate, e_gate = self.norm2(hidden, encoder, temb)
@@ -254,6 +255,8 @@ class CogVideoXTransformer3D(nn.Module):
         super().__init__()
         self.config = cfg = config
         self.compute_dtype = dtype
+        # the process group the video tokens split over under sequence parallelism
+        self.context_group = None
         inner = cfg.inner_dim
         self.time_embedding = TimestepEmbedding(inner, cfg.time_embed_dim)
         self.knowledge_fusion = None
@@ -320,17 +323,21 @@ class CogVideoXTransformer3D(nn.Module):
 
         pg = None
         if cfg.sequence_parallel != "none":
-            pg = mesh.group(cfg.sp_axis)
+            pg = self.context_group
+            if pg is None:
+                raise RuntimeError(f"sequence_parallel={cfg.sequence_parallel!r} needs the "
+                                   f"transformer's context_group: build the pipeline with a "
+                                   f"mesh= that has a {cfg.sp_axis!r} axis")
             video, rope = _shard_tokens(video, rope, text.shape[1], pg)
 
         hidden, encoder = video, text
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
             if remat:
-                hidden, encoder = checkpoint(block, hidden, encoder, emb, rope,
+                hidden, encoder = checkpoint(block, hidden, encoder, emb, rope, pg,
                                              use_reentrant=False)
             else:
-                hidden, encoder = block(hidden, encoder, emb, rope)
+                hidden, encoder = block(hidden, encoder, emb, rope, pg)
 
         # norm_final acts token by token: the text rows it would also normalise are dropped
         hidden = self.proj_out(self.norm_out(self.norm_final(hidden), emb))

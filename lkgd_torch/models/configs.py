@@ -243,8 +243,8 @@ class CogVideoXConfig:
     knowledge_fusion: bool = True
     lora: LoraRouter = EMPTY_ROUTER
     # sequence parallelism over the video tokens (``parallel/sequence.py``): "ulysses" (an
-    # all-to-all head exchange) or "ring" (K/V passed round the ranks), over the process
-    # group ``parallel.mesh.make_mesh`` registered for ``sp_axis``; inference only
+    # all-to-all head exchange) or "ring" (K/V passed round the ranks), over the group of
+    # the mesh's ``sp_axis`` (the transformer's ``context_group``); inference only
     sequence_parallel: str = "none"  # none | ulysses | ring
     sp_axis: str = "context"
     # gradient checkpointing: every transformer block recomputed in the backward pass

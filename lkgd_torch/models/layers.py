@@ -243,14 +243,18 @@ class DenseWithLora(CastLinear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = super().forward(x)
         for spec in self.adapters:
-            a = getattr(self, f"lora_{spec.name}_A").to(x.dtype)
-            b = getattr(self, f"lora_{spec.name}_B").to(x.dtype)
-            delta = (x @ a) @ b * spec.scaling
-            if spec.streams:
-                gate = stream_gate(spec.streams, x.shape[0], x.dtype, x.device)
-                delta = delta * gate.view(-1, *(1,) * (x.dim() - 1))
-            y = y + delta
+            y = y + lora_delta(x, getattr(self, f"lora_{spec.name}_A"),
+                               getattr(self, f"lora_{spec.name}_B"), spec)
         return y
+
+
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, spec: LoraSpec) -> torch.Tensor:
+    """One adapter's ``(x @ A) @ B * scaling`` in ``x``'s dtype, gated by its stream mask."""
+    delta = (x @ a.to(x.dtype)) @ b.to(x.dtype) * spec.scaling
+    if spec.streams:
+        gate = stream_gate(spec.streams, x.shape[0], x.dtype, x.device)
+        delta = delta * gate.view(-1, *(1,) * (x.dim() - 1))
+    return delta
 
 
 # --------------------------------------------------------------------------- attention

@@ -1,34 +1,57 @@
-"""The process group of sequence parallelism (the ``context`` axis of
-``lkgd_tpu/parallel/mesh.py`` ``make_mesh``), on ``torch.distributed``.
+"""The device mesh of ``lkgd_tpu/parallel/mesh.py`` ``make_mesh`` on ``torch.distributed``:
+one process a rank, one process group a line of each mesh axis.
 
-The JAX package names devices on a ``jax.sharding.Mesh``; here each process is one rank and
-the ``context`` axis is the default process group: ``--mesh context=N`` asks for N ranks,
-and N must be the world size. A process that has no group yet initialises one from the
-environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``):
-NCCL with one card a rank (``cuda:{LOCAL_RANK}``), gloo for ``--device cpu``. A process that
-already has one (the tests, the smoke's pair of processes on one card over gloo) keeps it.
+``--mesh data=2,context=2,model=2`` asks for 8 ranks (the product of the sizes must be the
+world size), laid out row-major over the axes in the order given, as JAX reshapes its
+device list (``np.asarray(devices).reshape(axes.values())``): rank ``r`` sits at the
+coordinates ``np.unravel_index(r, sizes)``. Each axis has one group per line of ranks that
+differ only in that axis; ``Mesh.groups[axis]`` is this rank's, handed to whatever splits
+its work over that axis. Every rank creates every group in the same order
+(``dist.new_group`` is collective). The axes:
 
-The ``model`` and ``data`` axes of the JAX mesh (weight sharding, CFG and data parallelism)
-and ``--weight-sharding`` are refused here: they wait for ROADMAP.md Queue 1, item 12.
+* ``data``: CFG and batch rows (``sequence.cfg_parallel_split``, data-parallel training);
+* ``context``: the DiT's video tokens (``sequence.py``), SVD's frames;
+* ``model``: the weights (``tp.py``: tensor parallel or FSDP).
+
+A process that has no default group yet initialises one from the environment ``torchrun``
+sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``): NCCL with one card a rank
+(``cuda:{LOCAL_RANK}``), gloo for ``--device cpu``. A process that already has one (the
+tests, the smoke's pairs of processes on one card over gloo) keeps it. Under gloo a
+collective carries a CUDA tensor through the host (``host_staged``).
+
+The ``stage`` axis (pipeline parallelism) waits for ``ITEM``; ``slice`` (the JAX mesh's
+multi-slice DCN axis) has no counterpart here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from lkgd_torch.utils.device import require_device
 
-CONTEXT_AXIS = "context"
-ITEM = ("weight sharding, pipeline and data parallelism wait for ROADMAP.md Queue 1, item 12 "
-        "(tp.py, pp.py, ZeRO, the model and data axes)")
+DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS = "data", "context", "model"
+AXES = (DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS)
+ITEM = "pipeline parallelism waits for ROADMAP.md Queue 1, item 12b.4 (parallel/pp.py)"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The axes' sizes in the order given and this rank's group along each."""
+
+    axes: Dict[str, int]
+    groups: Dict[str, dist.ProcessGroup]
 
 
 def parse_mesh(spec: Union[str, Dict[str, int]]) -> Dict[str, int]:
-    """``"context=2"`` (or a dict) -> ``{"context": 2}``; any other axis raises."""
+    """``"data=2,context=2"`` (or a dict) -> ``{"data": 2, "context": 2}``, in order; an axis
+    other than data, context and model raises."""
     if isinstance(spec, str):
         try:
             axes = {k.strip(): int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
@@ -36,12 +59,15 @@ def parse_mesh(spec: Union[str, Dict[str, int]]) -> Dict[str, int]:
             raise ValueError(f"--mesh {spec!r}: expected axis=size[,axis=size]") from None
     else:
         axes = dict(spec)
-    other = sorted(set(axes) - {CONTEXT_AXIS})
+    if "stage" in axes:
+        raise ValueError(f"--mesh axis 'stage' is not ported to lkgd_torch: {ITEM}")
+    other = sorted(set(axes) - set(AXES))
     if other:
         raise ValueError(f"--mesh axes {other} are not ported to lkgd_torch: only "
-                         f"{CONTEXT_AXIS!r} (sequence parallelism); {ITEM}")
-    if axes.get(CONTEXT_AXIS, 0) < 1:
-        raise ValueError(f"--mesh {spec!r}: the {CONTEXT_AXIS!r} axis needs a size >= 1")
+                         f"{', '.join(map(repr, AXES))}")
+    bad = [a for a, n in axes.items() if n < 1]
+    if bad or not axes:
+        raise ValueError(f"--mesh {spec!r}: every axis needs a size >= 1")
     return axes
 
 
@@ -53,30 +79,35 @@ def rank_device(device="cuda") -> torch.device:
     return device
 
 
-def make_mesh(spec: Union[str, Dict[str, int]], device="cuda") -> dist.ProcessGroup:
-    """The ``context`` process group for ``spec`` (``--mesh``): the default group, made from
-    the environment if the process has none (NCCL for a CUDA ``device``, gloo for the CPU).
-    Raises unless its size is the world size."""
+def make_mesh(spec: Union[str, Dict[str, int]], device="cuda") -> Mesh:
+    """The mesh of ``spec`` (``--mesh``) over the default group, made from the environment if
+    the process has none (NCCL for a CUDA ``device``, gloo for the CPU). Raises unless the
+    product of the axis sizes is the world size."""
     axes = parse_mesh(spec)
     device = require_device(rank_device(device))
     if not dist.is_initialized():
         if device.type == "cuda":
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    world = dist.get_world_size()
-    if axes[CONTEXT_AXIS] != world:
-        raise ValueError(f"--mesh {CONTEXT_AXIS}={axes[CONTEXT_AXIS]} needs "
-                         f"{axes[CONTEXT_AXIS]} processes, the world has {world} (launch "
-                         f"with torchrun --nproc-per-node {axes[CONTEXT_AXIS]})")
-    return dist.group.WORLD
-
-
-def group(axis: str = CONTEXT_AXIS) -> dist.ProcessGroup:
-    """The process group of mesh axis ``axis``: the default group, for ``context``."""
-    if axis != CONTEXT_AXIS or not dist.is_initialized():
-        raise RuntimeError(f"no process group for mesh axis {axis!r}: only {CONTEXT_AXIS!r}, "
-                           f"after lkgd_torch.parallel.mesh.make_mesh (--mesh {axis}=N)")
-    return dist.group.WORLD
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = math.prod(axes.values())
+    if n != world:
+        shown = ",".join(f"{a}={s}" for a, s in axes.items())
+        raise ValueError(f"--mesh {shown} needs {n} processes, the world has {world} (launch "
+                         f"with torchrun --nproc-per-node {n})")
+    sizes = tuple(axes.values())
+    grid = np.arange(world).reshape(sizes)
+    groups = {}
+    for d, axis in enumerate(axes):
+        if axes[axis] == world:
+            groups[axis] = dist.group.WORLD
+            continue
+        lines = np.moveaxis(grid, d, -1).reshape(-1, axes[axis])
+        for line in lines:  # every rank makes every group, in the same order
+            pg = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[axis] = pg
+    return Mesh(axes, groups)
 
 
 def host_staged(x: torch.Tensor, pg: Optional[dist.ProcessGroup] = None) -> bool:

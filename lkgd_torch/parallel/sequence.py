@@ -21,6 +21,11 @@ Ulysses slices the text heads of its head shard and all-gathers the text output'
 ring meets the text K/V block first, then the P video blocks, with the text queries padded
 to a multiple of P and each rank attending its slice of them, then all-gathered. All of it
 is inference only: nothing here carries a gradient.
+
+``cfg_parallel_split`` is the ``data`` axis of inference (xDiT's CFG parallelism): a rank's
+contiguous block of the CFG-doubled batch rows. ``all_gather`` and ``all_reduce`` are the
+collectives the other axes share (``tp.py``, the pipelines), staged through the host under
+gloo like the rest.
 """
 
 from __future__ import annotations
@@ -67,6 +72,33 @@ def all_gather(x: torch.Tensor, dim: int, pg) -> torch.Tensor:
     parts = [torch.empty_like(xs) for _ in range(dist.get_world_size(pg))]
     dist.all_gather(parts, xs, group=pg)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def all_reduce(x: torch.Tensor, pg) -> torch.Tensor:
+    """The sum of the ranks' ``x`` on every rank, added in fp32 (bf16 partial products of a
+    row-parallel layer are rounded once, after the sum) and returned in ``x``'s dtype."""
+    staged = host_staged(x, pg)
+    xs = x.float()
+    xs = xs.cpu() if staged else xs.clone() if xs.dtype == x.dtype else xs
+    dist.all_reduce(xs, group=pg)
+    return xs.to(x.device, x.dtype)
+
+
+def shard(x: torch.Tensor, dim: int, pg, what: str = "rows") -> torch.Tensor:
+    """This rank's contiguous block of ``x`` along ``dim`` (the inverse of ``all_gather``);
+    the size of ``dim`` must divide by the group's size."""
+    p, i = dist.get_world_size(pg), dist.get_rank(pg)
+    if x.shape[dim] % p:
+        raise ValueError(f"the mesh splits the {x.shape[dim]} {what} over {p} ranks: "
+                         f"{x.shape[dim]} does not divide by {p}")
+    n = x.shape[dim] // p
+    return x.narrow(dim, i * n, n)
+
+
+def cfg_parallel_split(batch: torch.Tensor, pg) -> torch.Tensor:
+    """This rank's block of the rows of ``batch``: the CFG halves are batch rows, so
+    splitting them over the ``data`` axis is CFG parallelism."""
+    return shard(batch, 0, pg, "batch rows")
 
 
 class _Ring:

@@ -10,6 +10,14 @@ model input is cast to the compute dtype and its output back to fp32. CogVideoX 
 the latent clip to a multiple of ``patch_size_t`` (the caller trims the extra decoded
 frames). The VAE is the caller's (``cli/run_inference_cogvideox.py``).
 
+``mesh`` (``parallel/mesh.py``, optional): the CFG-doubled rows split over its ``data``
+axis, each rank running its rows through the DiT, the predictions all-gathered before the
+guidance combine (``lkgd_tpu/pipelines/cogvideox_i2v.py:117-126`` shards the latents the
+same way); the scheduler state and the latents stay replicated. The ``context`` axis splits
+the DiT's video tokens (the transformer's ``sequence_parallel``: the pipeline hands it the
+axis's group as its ``context_group``) and the ``model`` axis its weights (``parallel/tp.py``,
+applied to the transformer by the caller).
+
 Randomness comes only from the ``torch.Generator`` passed in, or from pre-drawn standard
 normals: ``initial_noise`` (the starting latents), ``step_noise`` (DPM's noise, one draw a
 step, indexed by the schedule's step) and V2V's ``noise`` (its ``add_noise`` draw): the
@@ -37,6 +45,8 @@ import torch.nn as nn
 from lkgd_torch.models.cogvideox import CogVideoXTransformer3D
 from lkgd_torch.models.configs import CogVideoXConfig
 from lkgd_torch.models.layers import init_params, materialize
+from lkgd_torch.parallel import mesh as meshlib
+from lkgd_torch.parallel.sequence import all_gather, cfg_parallel_split
 from lkgd_torch.schedulers.cogvideox_ddim import CogVideoXDDIMConfig, CogVideoXDDIMScheduler
 from lkgd_torch.schedulers.cogvideox_dpm import CogVideoXDPMScheduler
 from lkgd_torch.utils.device import require_device
@@ -86,8 +96,12 @@ class CogVideoXImageToVideoPipeline:
                  transformer_config: CogVideoXConfig = CogVideoXConfig(),
                  scheduler_config: CogVideoXDDIMConfig = CogVideoXDDIMConfig(),
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
-                 transformer: Optional[CogVideoXTransformer3D] = None):
+                 transformer: Optional[CogVideoXTransformer3D] = None,
+                 mesh: Optional[meshlib.Mesh] = None):
         self.config = config
+        self.data_group = (mesh.groups[meshlib.DATA_AXIS]
+                           if mesh is not None and mesh.axes.get(meshlib.DATA_AXIS, 1) > 1
+                           else None)
         self.dtype = dtype
         self.device = require_device(device)
         if transformer is None:
@@ -95,6 +109,10 @@ class CogVideoXImageToVideoPipeline:
                                       self.device, dtype)
             transformer.eval().requires_grad_(False)
         self.transformer = transformer
+        sp_axis = transformer.config.sp_axis
+        if (mesh is not None and transformer.config.sequence_parallel != "none"
+                and sp_axis in mesh.axes):
+            transformer.context_group = mesh.groups[sp_axis]
         if config.scheduler == "dpm":
             self.scheduler = CogVideoXDPMScheduler(scheduler_config)
         elif config.scheduler == "ddim":
@@ -159,7 +177,7 @@ class CogVideoXImageToVideoPipeline:
                 model_in = torch.cat([model_in, img_rows], dim=-1)
             t = torch.full((model_in.shape[0],), float(self.schedule.timesteps[i]),
                            device=dev)
-            pred = self.transformer(model_in, ctx, t, domain_features, flow_features).float()
+            pred = self._predict(model_in, ctx, t, domain_features, flow_features)
             if do_cfg:
                 uncond, cond = pred.chunk(2)
                 pred = uncond + self._guidance(i) * (cond - uncond)
@@ -171,6 +189,21 @@ class CogVideoXImageToVideoPipeline:
             else:
                 latents, _ = self.scheduler.step(self.schedule, pred, i, latents)
         return latents
+
+    def _predict(self, model_in, ctx, t, domain_features, flow_features) -> torch.Tensor:
+        """The DiT's fp32 prediction for the rows of ``model_in``: with a ``data`` axis each
+        rank runs its block of the rows (and of the per-row inputs), then all-gathers."""
+        pg = self.data_group
+        if pg is None:
+            return self.transformer(model_in, ctx, t, domain_features, flow_features).float()
+        rows = model_in.shape[0]
+
+        def mine(x):  # per-row inputs split; one broadcast row (knowledge features) kept
+            return x if x is None or x.shape[0] != rows else cfg_parallel_split(x, pg)
+
+        pred = self.transformer(*map(mine, (model_in, ctx, t, domain_features,
+                                            flow_features))).float()
+        return all_gather(pred, 0, pg)
 
     @torch.inference_mode()
     def __call__(self, prompt_embeds, image_latents, negative_prompt_embeds=None,

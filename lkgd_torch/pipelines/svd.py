@@ -13,6 +13,15 @@ where JAX had ``lax.cond``). It is an approximation: the output changes. Layouts
 public methods are the JAX package's: images ``(B, H, W, 3)`` in [0, 1], latents
 ``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
 
+``mesh`` (``parallel/mesh.py``, base pipeline only; ``lkgd_tpu/pipelines/svd.py:85-92,
+299-340``): at each step the CFG-doubled rows split over its ``data`` axis and the frames
+over its ``context`` axis (the UNet's temporal halves gather the frames:
+``models/blocks_svd.py``), the predictions all-gathered before the guidance combine; the
+latents and the scheduler stay replicated. The equal-chunk decode spreads its chunks over
+``context`` when their number divides by it (chunk ``g * ctx + j`` on rank ``j``), the
+frames all-gathered after. The ``model`` axis splits the weights (``parallel/tp.py``
+``fully_shard``, applied to the models by the caller).
+
 Randomness comes only from the ``torch.Generator`` passed in, or from pre-drawn standard
 normals (``noise_aug=``, ``initial_noise=``) — the hook the parity tests use, since torch
 and JAX generators never agree.
@@ -25,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lkgd_torch.models.clip_vision import CLIPVisionModelWithProjection, clip_normalize
 from lkgd_torch.models.configs import (CLIPVisionConfig, SVDUNetConfig, TemporalVAEConfig,
@@ -33,6 +43,8 @@ from lkgd_torch.models.layers import init_params, materialize, share_parameters
 from lkgd_torch.models.unet_svd import UNetSpatioTemporalCondition
 from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 from lkgd_torch.ops.resize import resize_with_antialiasing
+from lkgd_torch.parallel import mesh as meshlib
+from lkgd_torch.parallel.sequence import all_gather, cfg_parallel_split, shard
 from lkgd_torch.schedulers.euler_discrete import EulerDiscreteConfig, EulerDiscreteScheduler
 from lkgd_torch.utils.device import require_device
 
@@ -77,6 +89,22 @@ def equal_chunks(n: int, max_chunk: int) -> int:
     return n
 
 
+def _check_splittable(pipe, config: SVDPipelineConfig, unet_config: SVDUNetConfig) -> None:
+    """The ``data`` and ``context`` axes split the base loop's batched CFG rows and its
+    frames: a pipeline of its own loop, sequential CFG, DeepCache, stream masks or joint
+    attention (which pair rows and reverse frames) are refused."""
+    if type(pipe) is not StableVideoDiffusionPipeline:
+        raise ValueError(f"{type(pipe).__name__}: the mesh's data and context axes split the "
+                         f"base pipeline's loop only")
+    if config.sequential_cfg or config.deep_cache_interval > 1:
+        raise ValueError("the mesh's data and context axes split the batched CFG loop: "
+                         "sequential_cfg and deep_cache_interval > 1 are refused with them")
+    if unet_config.joint is not None or unet_config.y_input_head_mask is not None or any(
+            rule.streams for rule in unet_config.lora.rules):
+        raise ValueError("the mesh's data and context axes split rows and frames: a UNet "
+                         "with joint attention or stream masks pairs them, and is refused")
+
+
 class StableVideoDiffusionPipeline:
     """Image -> video. The models are allocated on ``device`` (the card unless another is
     named; with no card and no explicit ``"cpu"`` the constructor raises) in ``dtype`` with
@@ -100,10 +128,17 @@ class StableVideoDiffusionPipeline:
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
         models: Optional[tuple] = None,
+        mesh: Optional[meshlib.Mesh] = None,
     ):
         if config.deep_cache_interval > 1 and not self.deep_cache:
             raise ValueError(f"{type(self).__name__} has no DeepCache loop: "
                              f"deep_cache_interval must be 1, got {config.deep_cache_interval}")
+        axes = {} if mesh is None else mesh.axes
+        self.data_group, self.context_group = (
+            mesh.groups[a] if axes.get(a, 1) > 1 else None
+            for a in (meshlib.DATA_AXIS, meshlib.CONTEXT_AXIS))
+        if self.data_group is not None or self.context_group is not None:
+            _check_splittable(self, config, unet_config)
         self.config = config
         self.dtype = dtype
         self.device = require_device(device)
@@ -124,6 +159,10 @@ class StableVideoDiffusionPipeline:
             with torch.device("meta"):
                 seq = UNetSpatioTemporalCondition(halve_stream_masks(unet_config))
             self.unet_seq = share_parameters(self.unet, seq).eval()
+        if self.context_group is not None:
+            for m in self.unet.modules():
+                if hasattr(m, "frame_group"):
+                    m.frame_group = self.context_group
         self.scheduler = EulerDiscreteScheduler(scheduler_config)
         self.schedule = self.scheduler.set_timesteps(config.num_inference_steps, self.device)
         self.vae_scaling = vae_config.scaling_factor
@@ -239,6 +278,9 @@ class StableVideoDiffusionPipeline:
                     noise_pred, cache = self.unet(
                         model_in, t, image_embeddings, added_time_ids,
                         deep_cache=None if i % dc == 0 else cache, return_deep_feature=True)
+                elif self.data_group is not None or self.context_group is not None:
+                    noise_pred = self._predict_split(model_in, t, image_embeddings,
+                                                     added_time_ids)
                 else:
                     noise_pred = self._predict(self.unet, model_in, t, image_embeddings,
                                                added_time_ids, extra)
@@ -248,6 +290,20 @@ class StableVideoDiffusionPipeline:
                     noise_pred = uncond + guidance * (cond - uncond)
             latents, _ = self.scheduler.step(self.schedule, noise_pred, i, latents)
         return latents
+
+    def _predict_split(self, model_in: torch.Tensor, t, emb: torch.Tensor,
+                       ati: torch.Tensor) -> torch.Tensor:
+        """One UNet call on this rank's block of the rows (``data``) and of the frames
+        (``context``), the prediction all-gathered over both."""
+        data, context = self.data_group, self.context_group
+        if data is not None:
+            model_in, emb, ati = (cfg_parallel_split(x, data) for x in (model_in, emb, ati))
+        if context is not None:
+            model_in = shard(model_in, 1, context, "frames")
+        pred = self.unet(model_in, t, emb, ati)
+        if context is not None:
+            pred = all_gather(pred, 1, context)
+        return pred if data is None else all_gather(pred, 0, data)
 
     @torch.inference_mode()
     def denoise(self, image: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -274,7 +330,14 @@ class StableVideoDiffusionPipeline:
         chunk = equal_chunks(t, cfg.decode_chunk_size)
         z = (latents.to(self.device, torch.float32) / self.vae_scaling).to(self.dtype)
         z = z.reshape(b * t // chunk, chunk, *latents.shape[2:])
-        frames = torch.cat([self.vae.decode(zc, chunk) for zc in z])
+        pg = self.context_group
+        if pg is not None and len(z) % dist.get_world_size(pg) == 0:
+            # chunk g * ctx + j on rank j, then every rank's chunks back in order
+            ctx, j = dist.get_world_size(pg), dist.get_rank(pg)
+            mine = torch.stack([self.vae.decode(zc, chunk) for zc in z[j::ctx]])
+            frames = all_gather(mine[:, None], 1, pg).flatten(0, 2)
+        else:
+            frames = torch.cat([self.vae.decode(zc, chunk) for zc in z])
         frames = frames.reshape(b, t, cfg.height, cfg.width, 3)
         return torch.clamp(frames.float() / 2.0 + 0.5, 0.0, 1.0)
 

@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from lkgd_torch.parallel.sequence import all_gather, all_reduce, shard
 from lkgd_torch.training import edm
 from lkgd_torch.training.optim8bit import adamw8bit
 
@@ -44,7 +46,14 @@ class MaskedAdamW:
     ``norm + 1e-6``), decided on the device with no host sync. torch's AdamW applies the
     decoupled weight decay ``p -= lr * wd * p`` and the bias-corrected Adam update as
     ``optax.adamw`` does. ``use_8bit``: the moments held in 8 bits
-    (``training/optim8bit.py`` ``adamw8bit``; ``"packed"`` for its flat-packed form)."""
+    (``training/optim8bit.py`` ``adamw8bit``; ``"packed"`` for its flat-packed form).
+
+    Data parallelism (``group``, a process group: each rank's loss over its rows of the
+    batch): the gradients are averaged over the group, in one fp32 all-reduce, before the
+    clip. ZeRO (``training/trainer.py`` ``zero_shard_opt_state`` sets ``shards``): the inner
+    optimizer holds this rank's block of each split parameter and its moments alone, steps
+    it on the same block of the averaged gradient, and the blocks are all-gathered into the
+    parameters after."""
 
     def __init__(self, learning_rate: float = 1e-4, weight_decay: float = 1e-2,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -57,6 +66,8 @@ class MaskedAdamW:
         self.use_8bit = use_8bit
         self.params: Dict[str, nn.Parameter] = {}
         self.adamw = None
+        self.group = None
+        self.shards: Dict[str, Tuple[Optional[int], torch.Tensor]] = {}
 
     def init(self, module: nn.Module) -> None:
         """Mark the trainable parameters (and only those) as requiring grad."""
@@ -67,14 +78,15 @@ class MaskedAdamW:
                 self.params[name] = p
         if not self.params:
             raise ValueError("MaskedAdamW: the predicate selects no parameter")
-        params = list(self.params.values())
+        self.adamw = self.inner(list(self.params.values()))
+
+    def inner(self, params):
+        """The AdamW (8-bit where asked) over ``params``."""
         if self.use_8bit:
             h = self.hyper
-            self.adamw = adamw8bit(params, h["lr"], *h["betas"], eps=h["eps"],
-                                   weight_decay=h["weight_decay"],
-                                   packed=self.use_8bit == "packed")
-        else:
-            self.adamw = torch.optim.AdamW(params, **self.hyper)
+            return adamw8bit(params, h["lr"], *h["betas"], eps=h["eps"],
+                             weight_decay=h["weight_decay"], packed=self.use_8bit == "packed")
+        return torch.optim.AdamW(params, **self.hyper)
 
     @torch.no_grad()
     def clip_grads(self) -> torch.Tensor:
@@ -89,16 +101,43 @@ class MaskedAdamW:
             g.mul_(scale.to(g.dtype))
         return norm
 
+    @torch.no_grad()
+    def average_grads(self) -> None:
+        """The gradients averaged over ``group``: one fp32 all-reduce of all of them."""
+        grads = [p.grad for p in self.params.values()]
+        flat = all_reduce(torch.cat([g.reshape(-1).float() for g in grads]), self.group)
+        flat /= dist.get_world_size(self.group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
     def step(self) -> torch.Tensor:
         for p in self.params.values():
             if p.grad is None:  # an unused trainable: optax still decays it
                 p.grad = torch.zeros_like(p)
+        if self.group is not None:
+            self.average_grads()
         norm = self.clip_grads()
-        self.adamw.step()
-        self.adamw.zero_grad(set_to_none=True)
+        if not self.shards:
+            self.adamw.step()
+            self.adamw.zero_grad(set_to_none=True)
+            return norm
+        with torch.no_grad():
+            for name, (dim, block) in self.shards.items():
+                if dim is not None:  # this rank's block of the gradient
+                    block.grad = shard(self.params[name].grad, dim, self.group).clone()
+            self.adamw.step()
+            self.adamw.zero_grad(set_to_none=True)
+            for name, (dim, block) in self.shards.items():
+                p = self.params[name]
+                p.grad = None
+                if dim is not None:
+                    p.copy_(all_gather(block, dim, self.group))
         return norm
 
     def state_dict(self) -> dict:
+        if self.shards:
+            raise NotImplementedError("a ZeRO optimizer holds this rank's moments only: its "
+                                      "state is not checkpointed")
         return self.adamw.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
@@ -147,6 +186,27 @@ class SVDTrainConfig:
     tie_stream_pairs: bool = False
 
 
+def svd_draws(config: SVDTrainConfig, shape, generator: Optional[torch.Generator], device,
+              sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+              dropout_u: Optional[torch.Tensor] = None) -> tuple:
+    """The step's random draws for latents of ``shape``, in ``svd_loss``'s order: sigmas
+    (B,) (one a stream pair under ``tie_stream_pairs``), the noise, and the conditioning
+    dropout's uniforms (B,) when the dropout is on (else None); given ones are kept. A
+    data-parallel rank draws them at the whole batch's shape and keeps its rows."""
+    bsz = shape[0]
+    if sigmas is None and config.tie_stream_pairs:
+        sigmas = edm.rand_cosine_interpolated((bsz // 2,), config.edm, generator=generator,
+                                              device=device).repeat_interleave(2)
+    elif sigmas is None:
+        sigmas = edm.rand_cosine_interpolated((bsz,), config.edm, generator=generator,
+                                              device=device)
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device)
+    if config.conditioning_dropout_prob and dropout_u is None:
+        dropout_u = torch.rand((bsz,), generator=generator, device=device)
+    return sigmas, noise, dropout_u
+
+
 def svd_loss(unet: nn.Module, batch: dict, config: SVDTrainConfig,
              generator: Optional[torch.Generator] = None,
              sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -161,22 +221,14 @@ def svd_loss(unet: nn.Module, batch: dict, config: SVDTrainConfig,
     latents = batch["latents"].float()
     bsz, num_frames = latents.shape[:2]
     device = latents.device
-    if sigmas is None and config.tie_stream_pairs:
-        sigmas = edm.rand_cosine_interpolated((bsz // 2,), config.edm, generator=generator,
-                                              device=device).repeat_interleave(2)
-    elif sigmas is None:
-        sigmas = edm.rand_cosine_interpolated((bsz,), config.edm, generator=generator,
-                                              device=device)
-    if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=device)
+    sigmas, noise, dropout_u = svd_draws(config, latents.shape, generator, device, sigmas,
+                                         noise, dropout_u)
     noisy, inp = edm.precondition_inputs(latents, noise.float(), sigmas.float())
     timesteps = edm.timesteps_from_sigmas(sigmas.float())
 
     ehs, cond_latents = batch["image_embeddings"], batch["cond_latents"]
     p = config.conditioning_dropout_prob
     if p:  # conditioning dropout for classifier-free guidance
-        if dropout_u is None:
-            dropout_u = torch.rand((bsz,), generator=generator, device=device)
         ehs = torch.where((dropout_u < 2 * p)[:, None, None], torch.zeros_like(ehs), ehs)
         image_mask = 1.0 - ((dropout_u >= p) & (dropout_u < 3 * p)).to(cond_latents.dtype)
         cond_latents = cond_latents * image_mask[:, None, None, None]

@@ -1,7 +1,8 @@
 """Sequence parallelism on ``torch.distributed`` against ``lkgd_tpu/parallel/sequence.py``.
 
 The port's ranks run as separate processes over gloo on the CPU (a ``FileStore`` in the
-test's directory: no port to collide on), 2 and 4 of them; the JAX package's functions run
+test's directory: no port to collide on; ``tests/test_torch_tensor_parallel.py`` ``launch``
+starts them), 2 and 4 of them; the JAX package's functions run
 on a CPU mesh of the same size. One launch of P processes runs every case of a size:
 ``ulysses_attention``, ``ring_attention`` and ``joint_sp_attention`` in both modes on the
 same numpy inputs, a ring whose key shards differ 100x in norm (each shard's bound shift its
@@ -12,22 +13,18 @@ past the 2^-110 guard, taken by the max-tracking version: the LSE forward's plai
 video tokens, P does not divide the heads for Ulysses, ``--mesh context=N`` against another
 world size). The CLI runs once more in 2 ranks with ``--sequence-parallel ring``.
 
-This module imports no JAX at import time: the ranks import it to run ``_rank_main``.
+This module imports no JAX at import time: the ranks import it to run ``_rank_cases``.
 Tolerances: rtol 1e-4 / atol 2e-4 at fp32; the pipeline rtol 2e-4 / atol 2e-5 (the JAX
 test's)."""
 
 import dataclasses
-import datetime
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+from tests.test_torch_tensor_parallel import launch
+
 TOL = dict(rtol=1e-4, atol=2e-4)
 PIPE_TOL = dict(rtol=2e-4, atol=2e-5)
 TEXT = 5  # text tokens of the joint cases: no multiple of 2 or 4 (the ring pads them)
@@ -68,7 +65,7 @@ def _attention_cases(rank, world, work, pg) -> dict:
     return out
 
 
-def _pipeline_cases(rank, world, work) -> dict:
+def _pipeline_cases(rank, world, work, grid) -> dict:
     from lkgd_torch.models.configs import CogVideoXConfig
     from lkgd_torch.pipelines import cogvideox_i2v as cog
 
@@ -77,7 +74,7 @@ def _pipeline_cases(rank, world, work) -> dict:
         tcfg = dataclasses.replace(CogVideoXConfig.tiny(), num_attention_heads=4,
                                    sequence_parallel=mode)
         pipe = cog.CogVideoXImageToVideoPipeline(cog.CogVideoXPipelineConfig(**PIPE), tcfg,
-                                                 dtype=torch.float32, device="cpu")
+                                                 dtype=torch.float32, device="cpu", mesh=grid)
         pipe.transformer.load_state_dict(work["state_dict"], strict=True)
         with torch.inference_mode():
             out[f"pipeline_{mode}"] = pipe(work["prompt"], work["image"],
@@ -102,7 +99,7 @@ def _fp32(pipeline_class):
     return lambda **kw: pipeline_class(**{**kw, "dtype": torch.float32})
 
 
-def _cli_case(rank, world, work_dir):
+def _cli_rank_cases(rank, world, work_dir) -> dict:
     """``run_inference_cogvideox.main`` with ``--mesh context=P --sequence-parallel ring``
     in fp32; the frames it would write saved as they are."""
     from lkgd_torch.cli import run_inference_cogvideox as cli
@@ -116,54 +113,14 @@ def _cli_case(rank, world, work_dir):
     return {}
 
 
-def _rank_main() -> None:
-    """One rank: joins the gloo group, runs ``SP_CASE``, saves its outputs."""
-    import torch.distributed as dist
+def _rank_cases(rank, world, work_dir) -> dict:
+    from lkgd_torch.parallel import mesh
 
-    rank, world = int(os.environ["SP_RANK"]), int(os.environ["SP_WORLD"])
-    work_dir = Path(os.environ["SP_DIR"])
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(str(work_dir / "store"), world),
-                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
-    try:
-        from lkgd_torch.parallel import mesh
-
-        if os.environ["SP_CASE"] == "cli":
-            out = _cli_case(rank, world, work_dir)
-        else:
-            pg = mesh.make_mesh(f"context={world}", "cpu")
-            work = torch.load(work_dir / "work.pt", weights_only=False)
-            out = {**_attention_cases(rank, world, work, pg),
-                   **_pipeline_cases(rank, world, work), **_refusals(rank, world, pg)}
-        torch.save(out, work_dir / f"out{rank}.pt")
-    finally:
-        dist.destroy_process_group()
-
-
-def _launch(case: str, world: int, work_dir: Path, timeout: float = 240.0) -> list:
-    """``world`` ranks of ``case`` as processes; a rank that fails or hangs fails the test."""
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from tests.test_torch_sequence_parallel import _rank_main; _rank_main()")
-    env = {**os.environ, "SP_WORLD": str(world), "SP_DIR": str(work_dir), "SP_CASE": case,
-           "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(ROOT)], cwd=ROOT,
-                              env={**env, "SP_RANK": str(r)}, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail(f"the {case} ranks did not finish in {timeout} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    return [torch.load(work_dir / f"out{r}.pt", weights_only=False) for r in range(world)]
+    grid = mesh.make_mesh(f"context={world}", "cpu")
+    pg = grid.groups["context"]
+    work = torch.load(work_dir / "work.pt", weights_only=False)
+    return {**_attention_cases(rank, world, work, pg),
+            **_pipeline_cases(rank, world, work, grid), **_refusals(rank, world, pg)}
 
 
 # ------------------------------------------------------------------ the JAX side
@@ -232,7 +189,7 @@ def runs(request, tmp_path_factory):
     work_dir = tmp_path_factory.mktemp(f"sp{world}")
     work, want = _jax_cases(world)
     torch.save(work, work_dir / "work.pt")
-    outs = _launch("all", world, work_dir)
+    outs = launch("tests.test_torch_sequence_parallel", world, work_dir)
     got = {}
     for name in outs[0]:
         if name.startswith("refuse"):
@@ -284,7 +241,7 @@ def test_sp_cli_ring_equals_one_process(tmp_path, monkeypatch):
 
     frame = np.random.default_rng(9).uniform(size=(1, 40, 56, 3)).astype(np.float32)
     video_io.write_video(str(tmp_path / "frame.png"), frame, fps=8)
-    _launch("cli", 2, tmp_path)
+    launch("tests.test_torch_sequence_parallel", 2, tmp_path, entry="_cli_rank_cases")
     monkeypatch.setattr(cli, "CogVideoXImageToVideoPipeline",
                         _fp32(cli.CogVideoXImageToVideoPipeline))
     monkeypatch.setattr(video_io, "write_video",
@@ -298,9 +255,10 @@ def test_sp_cli_ring_equals_one_process(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--mesh", "model=2", "--sequence-parallel", "ring"], "item 12"),
-    (["--mesh", "context=2,data=2", "--sequence-parallel", "ulysses"], "item 12"),
-    (["--weight-sharding", "tp"], "item 12"),
+    (["--mesh", "model=2", "--sequence-parallel", "ring"], "needs --mesh with a 'context' axis"),
+    (["--mesh", "data=2", "--sequence-parallel", "ulysses"],
+     "needs --mesh with a 'context' axis"),
+    (["--weight-sharding", "tp"], "needs --mesh with a 'model' axis"),
     (["--sequence-parallel", "ulysses"], "needs --mesh"),
     (["--mesh", "context=2"], "needs --sequence-parallel"),
 ], ids=["model_axis", "data_axis", "weight_sharding", "sp_without_mesh", "mesh_without_sp"])
