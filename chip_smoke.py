@@ -50,6 +50,14 @@ each printing its own lines; any failure raises and the script exits non-zero:
    plain version's, the library's fp32 SDPA with the backend that served it and its own
    max |d|, and the bound of three TF32 products at 495 TFLOP/s (the fp32 FMA bound at 67
    TFLOP/s beside it);
+3i. kernels 7, 8, 9 and 10 in fp32 (the LSE form of ``flash_fwd_tf32_kernel`` and the FFMA
+   backward of ``csrc/flash_attention_bwd_f32.cu``) against their plain fp32 versions (TF32
+   off) at the fp32 LKGD fine-tune's level 0 (14, 4096, 5, 64) and level 1 (14, 1024, 10,
+   64), a ragged (2, 1100, 5, 64) x 1030 keys and a guard input: out within FP32_TOL x
+   max|ref|, lse within FP32_TOL x max(1, max|lse|), dq, dk, dv within FP32_GRAD_TOL (1e-4)
+   x max|ref|, a second launch bit-identical, kernels 5/6 bit-exact on fp32 rows; device
+   time under the profiler, the plain version's, fp32 SDPA's forward or backward, and the
+   bound at 495 TFLOP/s x3 TF32 with the 67 TFLOP/s fp32 FMA bound beside it;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
 3g. the fp32 form of kernels 1, 2 and 1a at Depth-Anything's DINOv2 attention, (1, 1370, 6,
@@ -106,7 +114,7 @@ each printing its own lines; any failure raises and the script exits non-zero:
    ``torch.profiler`` for its device time by kind;
 5c. the full-width smoothing of a 50-frame 576x1024 synthetic video through the inference
    CLI's ``build_pipeline`` (``--mode smooth --flip --temporal --lora-rank 4``): 14-frame
-   joint chunks from step 16 of 25, CFG batched as 4 x 5 chunks = 20 UNet rows of 14
+   joint chunks from step 20 of 25, CFG batched as 4 x 5 chunks = 20 UNet rows of 14
    frames, bf16; a warm-up from step 24, then a timed run split into conditioning (timed
    alone), the denoising loop and the decode, with peak memory, launch counts (> 0 for the
    inference kernels, 0 for the others) and fallback tiles, frames finite and in [0, 1];
@@ -169,6 +177,13 @@ each printing its own lines; any failure raises and the script exits non-zero:
    those of this process's one-row passes averaged, within max(1e-2, 1.5 x their own
    distance) of one process's step on the whole batch, moment bytes a rank, launches a rank
    equal to one process's;
+5l. pipeline parallelism (``phase_pp_pair``): a third pair of processes on cuda:0 over gloo,
+   each building the CogVideoX-5B DiT through the CLI's ``build`` with ``--mesh stage=2``
+   (the whole model a rank, as the JAX CLI), one CFG step of the PAR_FRAMES clip whole, then
+   ``parallel/pp.py`` ``cogvideox_pp_blocks`` over the stage group (21 blocks a rank, the
+   other 21 dropped) at M=1 (bit-identical to the whole step) and M=2 (within PP_TOL, and bit
+   for bit the whole model on one CFG row at a time), weights a rank about half, kernels 1,
+   2 and 1a M x 21 times a rank asserted;
 5j. ``cli/web_demo.py`` in ``base`` mode at full width (14x576x1024, 25 steps) on an
    ephemeral port: two POSTs with different seeds, each a 200 whose mp4 OpenCV decodes to 14
    frames of 576x1024, seconds a request, the inference kernels launched from the server's
@@ -197,6 +212,16 @@ each printing its own lines; any failure raises and the script exits non-zero:
    the GPU against the CPU with the same weights and injected sigmas, noise and dropout:
    the loss, every trainable gradient (scaled by its largest entry) and the trainables
    after one AdamW step at rtol 1e-4, atol 2e-4, frozen weights bit-identical;
+7d. 7's step with 32 x 32 latents (256x256 frames): level 0 at 1024 tokens trains through the
+   fp32 kernels 7-10 and 5/6 on the card (asserted) and their plain versions on the CPU,
+   held as 7;
+8o. the LKGD fine-tune at the JAX fine-tune CLI's own precision and defaults: ``--dtype
+   fp32``, 512x512, 14 frames, batch 1, rank 4, no remat, through ``train_svd_lora.build``:
+   a warm-up step, three between CUDA events under the CLI's TF32 setting (PyTorch's
+   defaults) split into preprocessing and train step, peak, the busy share of one profiled
+   step, launches a step (the four fp32 forms > 0, no bf16 training form, no plain flash
+   version called); then one step's gradients through the kernels against plain attention,
+   TF32 off, within FP32_STEP_TOL of max(1% of the largest gradient, each tensor's largest);
 8. the LKGD fine-tune through ``lkgd_torch/cli/train_svd_lora.py``'s ``build`` at full
    width (SVD UNet, its VAE, CLIP-H, ViT-B/16-384; bf16 random frozen weights, fp32
    trainables), 512x512, 8 frames, batch 1, rank-4 temporal LoRA, remat, lr 2e-4: one
@@ -296,8 +321,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
    built on the card from a seed, its names through ``port_cogvlm`` and loaded strictly) on
    24 frames at 224x224 with 12 prompt ids and 20 new tokens: s/video split vision / decode,
    peak, one decode step under ``torch.profiler`` (``phase_captions_full``);
-8n. ``cli/verify_parity.py`` record then check at ``--config svd-xt`` on a safetensors file
-   written from seeded weights (1.5 B fp32 parameters); ``int8_matmul`` at (28 x 9216, 320) x
+8n. ``cli/verify_parity.py`` record (one record, ``--batch 1``) then check at ``--config
+   svd-xt`` on a safetensors file written from seeded weights (1.5 B fp32 parameters); ``int8_matmul`` at (28 x 9216, 320) x
    (320, 1280) and ``int8_conv2d`` 3x3 over (28, 72, 128, 320) against exact fp64 products of
    their int8 codes, timed beside bf16 ``x @ w`` and ``F.conv2d``; ``collect_env``'s report
    (``phase_tools``);
@@ -308,8 +333,9 @@ A line ``{"kernels": [...]}`` lists all twelve kernels and the key-norm kernel w
 launches on each path (base clip, trans clip, smoothing, ControlNet clip, DeepCache clips at
 ``dc=2`` and ``3``, flow clip, CogVideoX clip, the SD-2D inpaint, inpaint + ControlNet and
 the two joint-control images, LKGD, trans, ControlNet, flow, CogVideoX and SD-2D training,
-microbenchmarks, precompute, compute_metrics), the fp32 form's three rows among them (their
-other 3f shapes under ``shapes``),
+microbenchmarks, precompute, compute_metrics, the fp32 fine-tune), the fp32 form's three
+rows among them (their other 3f shapes under ``shapes``) and the four fp32 training forms'
+rows of 3i (launches from 8o's timed steps),
 error, time, the
 plain version's time, the library call's time and the bound, computed here from the shapes: the larger of the bytes moved over 3.35 TB/s and the
 operations over the card's peak for their type (989 TFLOP/s for bf16 tensor-core products,
@@ -320,7 +346,8 @@ rows at the SD-2D shapes under ``sd2d`` (``ms`` the device time, ``wrapper_ms`` 
 kernels of 3h their rows under ``sequence_parallel``; ``launches_by_path`` also holds the
 inversion, the ring's and the Ulysses DiT steps and the Ulysses joint attention call on rank
 0 (``sp_ring``, ``sp_ulysses``, ``sp_ulysses_attention``), 5k's paths a rank (``tp``,
-``fsdp``, ``svd_data``, ``svd_context``, ``train_data_parallel``), the web demo's two
+``fsdp``, ``svd_data``, ``svd_context``, ``train_data_parallel``), 5l's (``pp_m1``,
+``pp_m2``), ``train_fp32`` (8o's three timed steps), the web demo's two
 requests and ``verify_parity``'s check.
 
 The second-to-last line of standard output holds the card's name and power limit as
@@ -371,6 +398,11 @@ REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     "flash_bound_fp32": "lkgd_tpu/ops/flash_attention.py:40",
     "flash_maxtrack_fp32": "lkgd_tpu/ops/flash_attention.py:102",
     "flash_key_norm_fp32": "lkgd_tpu/ops/flash_attention.py:95",
+    # kernels 7-10 on fp32 operands (the JAX SVD fine-tune CLI's precision)
+    "flash_bound_lse_fp32": "lkgd_tpu/ops/flash_attention.py:150",
+    "flash_maxtrack_lse_fp32": "lkgd_tpu/ops/flash_attention.py:183",
+    "flash_bwd_dq_fp32": "lkgd_tpu/ops/flash_attention.py:218",
+    "flash_bwd_dkv_fp32": "lkgd_tpu/ops/flash_attention.py:246",
 }
 INFERENCE = ("flash_bound", "flash_maxtrack", "flash_key_norm", "gn_stats", "gn_apply")
 TRAINING = ("flash_bound_lse", "flash_maxtrack_lse", "flash_bwd_dq", "flash_bwd_dkv",
@@ -398,7 +430,11 @@ SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_variant": "lkgd_torch/csrc/flash_variant.cu",
            "flash_bound_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
            "flash_maxtrack_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
-           "flash_key_norm_fp32": "lkgd_torch/csrc/flash_attention_f32.cu"}
+           "flash_key_norm_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
+           "flash_bound_lse_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
+           "flash_maxtrack_lse_fp32": "lkgd_torch/csrc/flash_attention_f32.cu",
+           "flash_bwd_dq_fp32": "lkgd_torch/csrc/flash_attention_bwd_f32.cu",
+           "flash_bwd_dkv_fp32": "lkgd_torch/csrc/flash_attention_bwd_f32.cu"}
 
 
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_BF16) -> dict:
@@ -954,7 +990,7 @@ def phase_tiny_joint(dev: torch.device, mode: str) -> None:
             torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
 
 
-_KINDS = (("flash attention kernels", ("flash_fwd", "key_sq_max", "tf32_split")),
+_KINDS = (("flash attention kernels", ("flash_fwd", "flash_bwd", "key_sq_max", "tf32_split")),
           ("GroupNorm kernels", ("gn_",)),
           # cuDNN's kernel names say what they compute (``sm90_xmma_fprop_implicit_gemm_*``);
           # cuBLAS's share the ``xmma`` prefix (``sm80_xmma_gemm_*``), so it names neither
@@ -1115,7 +1151,7 @@ def phase_trans_full(dev: torch.device) -> dict:
 
 
 SMOOTH_FRAMES = 50
-SMOOTH_START = 16  # the timed run's first step: its last 9 of the 25 steps
+SMOOTH_START = 20  # the timed run's first step: its last 5 of the 25 steps
 
 
 def phase_smooth_full(dev: torch.device) -> dict:
@@ -2453,20 +2489,24 @@ def _cpu_step_from(start: dict, grads: dict) -> dict:
     return {name: p.detach() for name, p in zip(start, params)}
 
 
-def phase_train_tiny(dev: torch.device, mode: str) -> None:
+def phase_train_tiny(dev: torch.device, mode: str, hw: int = 8) -> None:
     """One train step of the tiny UNet of ``mode`` on the GPU against the CPU at fp32 with
     the same weights and injected draws: the loss, every trainable gradient (a trainable
     without one, attn2's query and key in trans mode, must lack it on both) and the
     trainables after the step, against the CPU's own step (lkgd mode) and against the CPU's
     AdamW applied to the GPU's gradients (both modes: Adam's first step divides each
     gradient by its own size plus 1e-8, so an entry near 1e-8 turns the gradients' last-bit
-    differences into differences of the step); frozen weights bit-identical."""
+    differences into differences of the step); frozen weights bit-identical. ``hw``: the
+    latents' side; at 32 (256x256 frames) level 0 reaches 1024 tokens, where the card's
+    step trains through the fp32 flash kernels (7-10 and 5/6, asserted) and the CPU's
+    through their plain versions (7d)."""
     from lkgd_torch.models.layers import init_params
+    from lkgd_torch.ops import flash_attention as fa
     from lkgd_torch.ops import group_norm as gn
     from lkgd_torch.training import train_state as ts
 
     label = {"lkgd": "train-tiny", "trans": "train-trans-tiny",
-             "joint_vf": "train-joint-vf-tiny"}[mode]
+             "joint_vf": "train-joint-vf-tiny"}[mode] + ("" if hw == 8 else f"-{hw * hw}")
     joint_vf, mode = mode == "joint_vf", "trans" if mode == "joint_vf" else mode
     cpu, trainable = _tiny_train_unet("cpu", mode)
     gen = torch.Generator().manual_seed(11)
@@ -2478,7 +2518,7 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
     gpu, _ = _tiny_train_unet(dev, mode)
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     rng = np.random.default_rng(21)
-    b, t, hw = 2, 4, 8
+    b, t = 2, 4
     batch = {"latents": rng.standard_normal((b, t, hw, hw, 4)) * 0.5,
              "cond_latents": rng.standard_normal((b, hw, hw, 4)),
              "image_embeddings": rng.standard_normal((b, 1, 64))}
@@ -2504,7 +2544,7 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
         state = ts.init_train_state(unet, ts.make_optimizer(1e-3, trainable_predicate=trainable))
         frozen = {n: p.detach().clone() for n, p in unet.named_parameters() if not trainable(n)}
         start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
-        gn_before = gn.launches["gn_stats"]
+        gn_before, flash_before = gn.launches["gn_stats"], dict(fa.launches)
         loss = ts.svd_loss(unet, {k: tensors[k] for k in batch}, config,
                            **{k: tensors[k] for k in draws})
         loss.backward()
@@ -2519,6 +2559,7 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
         results[side] = (loss.item(), grads,
                          {n: p.detach().cpu() for n, p in state.trainables.items()},
                          gn.launches["gn_stats"] - gn_before)
+        flash = {n: c - flash_before[n] for n, c in fa.launches.items() if c != flash_before[n]}
     (loss_c, grads_c, after_c, _), (loss_g, grads_g, after_g, gn_calls) = \
         results["cpu"], results["gpu"]
     want_g = _cpu_step_from(start, grads_g)
@@ -2533,7 +2574,8 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
           f"trainable grads, max |d|/max|ref| {grad_err:.3e} ({len(unused)} trainables "
           f"without a gradient on both) | after one step max|d| {step_err:.3e}, against the "
           f"CPU's step from the GPU's gradients {own_err:.3e} (rtol 1e-4, atol 2e-4) | frozen "
-          f"bit-identical | GroupNorm kernel launches {gn_calls}", flush=True)
+          f"bit-identical | GroupNorm kernel launches {gn_calls} | flash launches {flash}",
+          flush=True)
     assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
     assert all(".attn2.to_q." in n or ".attn2.to_k." in n for n in unused), unused
     for name in grads_c:
@@ -2548,6 +2590,9 @@ def phase_train_tiny(dev: torch.device, mode: str) -> None:
             torch.testing.assert_close(after_g[name], after_c[name], rtol=1e-4, atol=2e-4,
                                        msg=name)
     assert gn_calls > 0, "the tiny GPU train step must run the GroupNorm kernels"
+    if hw * hw >= 1024:  # level 0 trains through the fp32 flash kernels on the card
+        assert all(flash.get(n, 0) > 0 for n in TRAINING_FP32 + ("split_heads",)), flash
+        assert not any(flash.get(n) for n in TRAINING[:4]), flash  # no bf16 form
 
 
 def phase_tiny_cogvideox_train(dev: torch.device) -> None:
@@ -2878,6 +2923,171 @@ def phase_train_full(dev: torch.device, mode: str = "lkgd") -> dict:
             assert np.array_equal(value, trainables[name].detach().float().cpu().numpy()), name
         print(f"[{label}] export: {n} tensors, {os.path.getsize(path) / 2**20:.2f} MiB, read back "
               f"equal", flush=True)
+    return launches
+
+
+FP32_STEP_TOL = 1e-3  # fp32 train step, kernels against plain attention: of max(1% floor, max|g|)
+
+
+def _fp32_step_grads(run, batch: dict, draws: dict, plain: bool) -> dict:
+    """The trainables' gradients of one loss of the fp32 UNet on ``batch`` with the draws
+    given, through the flash kernels or (``plain``) plain attention; remat on, so that plain
+    attention's (B, H, S, S) probabilities live one block at a time."""
+    import dataclasses
+
+    from lkgd_torch.ops import attention
+    from lkgd_torch.training import train_state as ts
+
+    unet = run.unet
+    config, real = unet.config, attention.use_flash
+    unet.config = dataclasses.replace(config, remat=True)
+    if plain:
+        attention.use_flash = lambda *args, **kwargs: False
+    try:
+        for p in run.trainer.state.trainables.values():
+            p.grad = None
+        loss = ts.svd_loss(unet, batch, run.config, **draws)
+        loss.backward()
+    finally:
+        unet.config, attention.use_flash = config, real
+    return {n: p.grad.detach().clone() for n, p in run.trainer.state.trainables.items()
+            if p.grad is not None}
+
+
+def phase_train_fp32_full(dev: torch.device) -> dict:
+    """8o: the LKGD fine-tune at the JAX fine-tune CLI's own precision and defaults:
+    ``train_svd_lora.build`` with ``--dtype fp32`` (every model fp32, as
+    ``lkgd_tpu/cli/train_svd_lora.py:90-93`` builds them), 512x512, 14 frames, batch 1, rank 4,
+    no remat. The UNet's spatial attention at levels 0 (14, 4096, 5, 64) and 1 (14, 1024, 10,
+    64) trains through kernels 7-10 in fp32 and 5/6 on fp32 rows. A warm-up step, three
+    between CUDA events under the CLI's own TF32 setting (PyTorch's defaults: cuBLAS fp32,
+    cuDNN convolutions TF32): sec/step split into preprocessing and train step, host CPU,
+    peak, launches a step (the four fp32 forms > 0, the bf16 forms and every plain flash
+    version 0), one step under ``torch.profiler`` (busy share); then, TF32 off, one step's
+    gradients through the kernels against plain attention on the same batch and draws,
+    within FP32_STEP_TOL of max(1% of the largest gradient, each tensor's largest)."""
+    import contextlib
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lkgd_torch.cli import train_svd_lora as cli
+    from lkgd_torch.ops import flash_attention as fa
+
+    label = "train-fp32"
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = cli.make_parser().parse_args([
+            "--output-dir", out_dir, "--dtype", "fp32", "--device", str(dev),
+            "--checkpoint-every", "0", "--max-steps", "1", "--seed", "0"])
+        assert (args.mode, args.height, args.width, args.num_frames, args.per_device_batch_size,
+                args.rank, args.remat) == ("lkgd", 512, 512, 14, 1, 4, False), args
+        t0 = time.perf_counter()
+        run = cli.build(args)
+        trainer, unet = run.trainer, run.unet
+        assert all(p.dtype == torch.float32 for p in unet.parameters())
+        gen = torch.Generator(device=dev).manual_seed(6)
+        clips = [{"pixel_values": torch.rand((1, 15, 512, 512, 3), generator=gen, device=dev)
+                  * 2 - 1} for _ in range(6)]
+        torch.cuda.synchronize()
+        print(f"[{label}] lkgd fine-tune at fp32, 512x512x14, batch 1, rank 4, no remat (the "
+              f"JAX CLI's defaults): UNet {sum(p.numel() for p in unet.parameters()) / 1e9:.3f} "
+              f"B fp32 params, {len(trainer.state.trainables)} trainable tensors, set-up "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        trainer.fit(iter(clips[:1]))  # warm-up step
+        torch.cuda.synchronize()
+        print(f"[{label}] warm-up step {time.perf_counter() - t0:.3f} s", flush=True)
+
+        losses, marks, step = [], [], trainer.train_step
+
+        def recorded_step(state, batch, generator):
+            state, loss = step(state, batch, generator)
+            losses.append(loss)
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            return state, loss
+
+        trainer.train_step = recorded_step
+        trainer.config.log_every = 10 ** 9
+
+        def window(first: int, last: int) -> tuple[float, float]:
+            marks.clear()
+            opening = torch.cuda.Event(enable_timing=True)
+            trainer.config.max_steps = trainer.state.step + last - first
+            cpu0 = time.process_time()
+            opening.record()
+            trainer.fit(iter(clips[first:last]))
+            cpu_s = (time.process_time() - cpu0) / (last - first)
+            torch.cuda.synchronize()
+            return opening.elapsed_time(marks[-1]) / 1e3 / (last - first), cpu_s
+
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # the CLI sets nothing: PyTorch's default
+        try:
+            with contextlib.ExitStack() as spying:  # the plain flash versions' calls, counted
+                spies = {name: spying.enter_context(mock.patch.object(
+                    fa, name, wraps=getattr(fa, name))) for name in PLAIN_FLASH}
+                _zero_counts()
+                torch.cuda.reset_peak_memory_stats(dev)
+                step_s, cpu_s = window(1, 4)
+                launches = _read_counts()
+                peak = torch.cuda.max_memory_allocated(dev)
+                t0 = time.perf_counter()
+                for clip in clips[1:4]:
+                    run.preprocess(clip["pixel_values"], trainer.generator)
+                torch.cuda.synchronize()
+                pre_s = (time.perf_counter() - t0) / 3
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    prof_s, _ = window(4, 5)
+            device_ms = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA and "DtoH" not in e.key)
+            _, kinds, n_ops = _device_time_by_kind(prof)
+            plain_calls = {name: spy.call_count for name, spy in spies.items()}
+        finally:
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        a_step = {n: c / 3 for n, c in launches.items() if c}
+        step_losses = [x.item() for x in losses[:3]]
+        print(f"[{label}] {step_s:.3f} s/step = preprocessing {pre_s:.3f} s + train step "
+              f"{step_s - pre_s:.3f} s (3 steps after the warm-up, between CUDA events; cuDNN "
+              f"TF32 on, matmuls fp32, as the CLI runs), host CPU {cpu_s:.3f} s/step | peak "
+              f"{peak / 2**30:.2f} GiB | profiled step {prof_s:.3f} s, device busy "
+              f"{device_ms:.1f} ms = {100 * device_ms / (prof_s * 1e3):.1f}% | losses "
+              f"{step_losses} | launches a step {a_step} | plain flash calls {plain_calls} | "
+              f"{host_line()}", flush=True)
+        print(f"[{label}] profiled step by kind ({n_ops} device operations): " + ", ".join(
+            f"{k} {ms:.1f} ms ({100 * ms / device_ms:.1f}%)" for k, ms in kinds.items()),
+            flush=True)
+        assert all(np.isfinite(step_losses)), step_losses
+        assert all(launches.get(n, 0) > 0 for n in TRAINING_FP32), launches
+        assert not any(launches.get(n) for n in TRAINING[:4]), launches  # no bf16 form
+        assert launches["flash_bwd_dq_fp32"] == launches["flash_bwd_dkv_fp32"] \
+            == launches["flash_bound_lse_fp32"] == launches["flash_maxtrack_lse_fp32"], launches
+        assert launches["split_heads"] == launches["merge_heads"] \
+            == 2 * launches["flash_bound_lse_fp32"], launches
+        assert not any(plain_calls.values()), plain_calls
+
+        # one step's gradients through the kernels and through plain attention, TF32 off
+        batch = run.preprocess(clips[5]["pixel_values"], torch.Generator(device=dev).manual_seed(8))
+        g = torch.Generator(device=dev).manual_seed(9)
+        lat = batch["latents"]
+        draws = {"sigmas": torch.tensor([1.7], device=dev),
+                 "noise": torch.randn(lat.shape, generator=g, device=dev),
+                 "dropout_u": torch.tensor([0.9], device=dev)}
+        t0 = time.perf_counter()
+        kern = _fp32_step_grads(run, batch, draws, plain=False)
+        plain = _fp32_step_grads(run, batch, draws, plain=True)
+        floor = 1e-2 * max(x.abs().max().item() for x in plain.values())
+        errs = {n: (kern[n] - w).abs().max().item() / max(floor, w.abs().max().item())
+                for n, w in plain.items()}
+        worst = max(errs, key=errs.get)
+        print(f"[{label}] one step's gradients, kernels against plain attention (TF32 off, remat "
+              f"for plain attention's memory): {len(plain)} tensors, worst max|d| "
+              f"{errs[worst]:.3e} of max(1% floor {floor:.3e}, its largest) ({worst}; tol "
+              f"{FP32_STEP_TOL}) | {time.perf_counter() - t0:.1f} s", flush=True)
+        assert sorted(kern) == sorted(plain) and errs[worst] <= FP32_STEP_TOL, (worst, errs[worst])
+        del run, trainer, unet, clips, batch, kern, plain
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4263,6 +4473,177 @@ def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                       "gn_apply": [a for r in gn_rows for a in r["gn_apply"]]}
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------- fp32 training: kernels 7-10 at fp32
+FP32_GRAD_TOL = 1e-4  # of each gradient's max|ref|: the fp32 backward against its plain version
+FP32_TRAIN = (("fine-tune level 0", (14, 4096, 5, 64), None, 1.0),
+              ("fine-tune level 1", (14, 1024, 10, 64), None, 1.0),
+              ("ragged, S_q != S_k", (2, 1100, 5, 64), 1030, 1.0),
+              # norms x4 at D=64: the bound sits ~150 log2 units above every row's largest
+              # logit, and the guard recomputes the bound form's tiles
+              ("guard input", (1, 1100, 2, 64), None, 4.0))
+TRAINING_FP32 = ("flash_bound_lse_fp32", "flash_maxtrack_lse_fp32", "flash_bwd_dq_fp32",
+                 "flash_bwd_dkv_fp32")
+PLAIN_FLASH = ("flash_attention_bound_plain", "flash_attention_maxtrack_plain",
+               "flash_fwd_lse_bound_plain", "flash_fwd_lse_maxtrack_plain",
+               "flash_bwd_dq_plain", "flash_bwd_dkv_plain")
+
+
+def _fp32_train_case(label: str, shape, s_k, scale: float, gen: torch.Generator,
+                     rows: dict) -> None:
+    """Kernels 5/6, 7, 8, 9 and 10 in fp32 on one (B, S_q, H, D) input against their plain
+    fp32 versions (see 3i), their rows appended to ``rows`` by kernel."""
+    import torch.nn.functional as F
+
+    from lkgd_torch.ops import flash_attention as fa
+
+    tag, dev = "fp32-train-kernel", gen.device
+    b, s_q, h, d = shape
+    s_k = s_k or s_q
+    q = torch.randn(shape, device=dev, generator=gen) * scale
+    k = torch.randn((b, s_k, h, d), device=dev, generator=gen) * scale
+    v = torch.randn((b, s_k, h, d), device=dev, generator=gen)
+    do = torch.randn(shape, device=dev, generator=gen)
+    keys = "" if s_k == s_q else f" x {s_k} keys"
+    if s_k == s_q:  # kernels 5/6 on 4-byte rows: 256 bytes a row at D=64, bit-exact
+        split = fa.split_heads_many(q, k, v)
+        merged = fa.merge_heads_many(*split)
+        assert all(torch.equal(a, w) for a, w in zip(split, fa.split_heads_many_plain(q, k, v)))
+        assert all(torch.equal(a, w) for a, w in zip(merged, (q, k, v)))
+        del split, merged
+    # the library: fp32 SDPA forward, and its backward through autograd (dq, dk, dv)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        lib_fwd_ms = gpu_ms(lambda: F.scaled_dot_product_attention(*leaves), 5)
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_bwd_ms = gpu_ms(lambda: torch.autograd.grad(lib_out, leaves, do.transpose(1, 2),
+                                                    retain_graph=True), 5)
+    del lib_out, leaves
+    products = b * h * s_q * s_k * d
+
+    def bounds(n_products: int, q_side: int, k_side: int) -> tuple:
+        """(three TF32 products at 495 TFLOP/s, the fp32 FMA bound at 67 TFLOP/s): fp32
+        tensors on the query and key sides read or written once, lse and delta rows."""
+        nbytes = 4 * (q_side * b * s_q * h * d + k_side * b * s_k * h * d + 2 * b * h * s_q)
+        ops = 2 * n_products * products
+        return bound(3 * ops, nbytes, PEAK_TF32), bound(ops, nbytes, PEAK_FP32)["bound_ms"]
+
+    least, fma_ms = bounds(2, 2, 2)
+    for kernel, plain, form in (("flash_bound_lse_fp32", fa.flash_fwd_lse_bound_plain, "true>"),
+                                ("flash_maxtrack_lse_fp32", fa.flash_fwd_lse_maxtrack_plain,
+                                 "false>")):
+        bound_form = kernel == "flash_bound_lse_fp32"
+        if not bound_form:
+            os.environ["LKGD_FLASH_MAXTRACK"] = "1"
+        try:
+            counter = fa.recomputed_tiles(dev)
+            counter.zero_()
+            before = dict(fa.launches)
+            out, lse = fa.flash_fwd_lse(q, k, v)
+            out2, lse2 = fa.flash_fwd_lse(q, k, v)
+            torch.cuda.synchronize()
+            recomputed = int(counter.item())
+            delta = {n: fa.launches[n] - before[n] for n in fa.launches
+                     if fa.launches[n] != before[n]}
+            device = _device_kernel_ms(lambda: fa.flash_fwd_lse(q, k, v))
+            wrapper_ms = gpu_ms(lambda: fa.flash_fwd_lse(q, k, v), 20)
+        finally:
+            os.environ.pop("LKGD_FLASH_MAXTRACK", None)
+        main_ms = sum(t for n, t in device.items()
+                      if n.startswith("flash_fwd_tf32_kernel<") and n.endswith(form))
+        split_ms = sum(t for n, t in device.items() if n.startswith("tf32_split_kernel<"))
+        assert main_ms > 0.0 and split_ms > 0.0, device
+        t = {"ms": main_ms + split_ms, "main_ms": main_ms, "split_ms": split_ms,
+             "call_device_ms": sum(device.values()), "wrapper_ms": wrapper_ms}
+        want_out, want_lse = in_row_chunks(plain, (q, k, v), rows=2)
+        plain_ms = gpu_ms(lambda: in_row_chunks(plain, (q, k, v), rows=2), reps=1)
+        ref_max, lse_max = want_out.abs().max().item(), want_lse.abs().max().item()
+        err = (out - want_out).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        lse_tol = FP32_TOL * max(1.0, lse_max)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}{keys}: out max|d| {err:.3e} of "
+              f"max|ref| {ref_max:.3e} (tol {FP32_TOL} x max|ref|), lse max|d| {lse_err:.3e} "
+              f"of max|lse| {lse_max:.3e} (tol {lse_tol:.2e}) | {_paced(t)}: main "
+              f"{main_ms:.4f} + pre-pass {split_ms:.4f} ms | plain {plain_ms:.3f} ms (two rows "
+              f"at a time), library sdpa fp32 forward {lib_fwd_ms:.4f} ms, bound "
+              f"{least['bound_ms']:.4f} ms by {least['bound_by']} at 495 TFLOP/s TF32 x3 "
+              f"({_versus(t['ms'], lib_fwd_ms, least)}; fp32 FMA bound {fma_ms:.4f} ms at 67 "
+              f"TFLOP/s: {100 * fma_ms / t['ms']:.1f}%) | tiles recomputed {recomputed} | "
+              f"second launch bit-identical | launches of two forwards {delta}", flush=True)
+        assert out.dtype == lse.dtype == torch.float32
+        assert torch.equal(out, out2) and torch.equal(lse, lse2), (kernel, label)
+        assert np.isfinite(err) and err <= FP32_TOL * ref_max, (kernel, label, err, ref_max)
+        assert np.isfinite(lse_err) and lse_err <= lse_tol, (kernel, label, lse_err)
+        assert delta == {"flash_maxtrack_lse_fp32": 2, **({"flash_bound_lse_fp32": 2,
+                         "flash_key_norm_fp32": 2} if bound_form else {})}, delta
+        assert (recomputed > 0) == (scale > 1.0 and bound_form), recomputed
+        rows.setdefault(kernel, []).append(
+            {"shape": list(shape), "keys": s_k, "max_abs_err": err, "lse_max_abs_err": lse_err,
+             **t, "plain_ms": plain_ms, "library_ms": lib_fwd_ms, **least,
+             "bound_fp32_fma_ms": fma_ms})
+        del out, out2, lse, lse2, want_out, want_lse
+
+    # the backward from the guarded forward's out and lse, as the autograd Function
+    out, lse = fa.flash_fwd_lse(q, k, v)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    for kernel, fn, plain, names in (
+            ("flash_bwd_dq_fp32", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
+            ("flash_bwd_dkv_fp32", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
+        dkv = kernel == "flash_bwd_dkv_fp32"
+        got, again = fn(*args), fn(*args)
+        want = in_row_chunks(plain, args, rows=2)
+        got, again, want = (got, again, want) if dkv else ((got,), (again,), (want,))
+        errs = {}
+        for name, g, g2, w in zip(names, got, again, want):
+            assert g.dtype == torch.float32 and torch.isfinite(g).all(), (kernel, label, name)
+            assert torch.equal(g, g2), f"{kernel} {label}: {name} differs between launches"
+            errs[name] = ((g - w).abs().max().item(), w.abs().max().item())
+        del got, again, want
+        t = _timed_kernel(lambda: fn(*args), kernel.replace("_fp32", "_f32_kernel"))
+        plain_ms = gpu_ms(lambda: in_row_chunks(plain, args, rows=2), reps=1)
+        plan = fa.flash_bwd_plan(b, s_q, s_k, h, d, dkv, fp32=True)
+        # dq: 3 products, q, dO and dq, k and v; dk/dv: 4 products, q and dO, k, v, dk, dv
+        least, fma_ms = bounds(4 if dkv else 3, 2 if dkv else 3, 4 if dkv else 2)
+        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}{keys}: " + ", ".join(
+            f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {FP32_GRAD_TOL} x max|ref|)"
+            for n, (e, m) in errs.items()) + f", two launches bit-identical | {_paced(t)} | "
+              f"plain {plain_ms:.3f} ms (two rows at a time), library sdpa fp32 backward (dq, "
+              f"dk and dv together) {lib_bwd_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']} at 495 TFLOP/s TF32 x3, fp32 FMA bound {fma_ms:.4f} ms at "
+              f"67 TFLOP/s ({100 * fma_ms / t['ms']:.1f}% of it) | plan {plan.blocks} blocks, "
+              f"{plan.waves:.2f} waves, {plan.tile_rows} resident rows", flush=True)
+        for name, (e, m) in errs.items():
+            assert e <= FP32_GRAD_TOL * m, (kernel, label, name, e, m)
+        rows.setdefault(kernel, []).append(
+            {"shape": list(shape), "keys": s_k, "max_abs_err": max(e for e, _ in errs.values()),
+             **t, "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least,
+             "bound_fp32_fma_ms": fma_ms})
+    pair = rows["flash_bwd_dq_fp32"][-1]["ms"] + rows["flash_bwd_dkv_fp32"][-1]["ms"]
+    print(f"[{tag}] fp32 backward pair {label}: kernels 9 + 10 {pair:.4f} ms = "
+          f"{pair / lib_bwd_ms:.2f} x the library's fp32 backward ({lib_bwd_ms:.4f} ms)",
+          flush=True)
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
+
+
+def phase_fp32_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """3i: kernels 7, 8, 9 and 10 in fp32 (``csrc/flash_attention_f32.cu``'s LSE form,
+    ``csrc/flash_attention_bwd_f32.cu``) against their plain fp32 versions (TF32 off) at the
+    fp32 LKGD fine-tune's level 0 (14, 4096, 5, 64) and level 1 (14, 1024, 10, 64), a ragged
+    call with S_q != S_k and an input that trips the bound form's guard: out within
+    FP32_TOL x max|ref| and lse within FP32_TOL x max(1, max|lse|), dq, dk, dv within
+    FP32_GRAD_TOL x each one's max|ref|, a second launch bit-identical, kernels 5/6 on fp32
+    rows bit-exact; device time under the profiler beside the wrapper's, the plain
+    version's, the library's fp32 SDPA forward or backward, and the bound of three TF32
+    products at 495 TFLOP/s with the fp32 FMA bound at 67 TFLOP/s beside it. Returns the
+    rows by kernel: the first shape's, the others under ``shapes``."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rows: dict = {}
+    for label, shape, s_k, scale in FP32_TRAIN:
+        _fp32_train_case(label, shape, s_k, scale, gen, rows)
+    return {name: {**found[0], "shapes": found[1:]} for name, found in rows.items()}
 
 
 def _tiny_precompute(device):
@@ -5905,6 +6286,120 @@ def phase_par_pair(dev: torch.device) -> dict:
             "train_data_parallel": ranks[0]["launches"]}
 
 
+PP_TOL = 1.22e-2  # M=2 against the whole step, of max|ref|: the bf16 floor of a DiT step
+
+
+def _pp_rank_main(rank: int, work: Path) -> int:
+    """One rank of the pipeline pair (``chip_smoke.py --pp-rank R DIR``, started by
+    ``phase_pp_pair``): the CogVideoX-5B DiT built by the CLI's ``build`` with ``--mesh
+    stage=2`` (the whole model on each rank, as the JAX CLI replicates it over an axis that
+    nothing reads), one CFG step of the PAR_FRAMES clip whole; then ``parallel/pp.py``
+    ``cogvideox_pp_blocks`` over the stage group, which drops the other rank's 21 blocks: at
+    M=1 and M=2 microbatches, each against the whole step of the same process (M=1
+    bit-identical; M=2 within PP_TOL, and bit for bit the whole model run with its blocks on
+    one row at a time, the microbatches' arithmetic). Rank 0 writes the numbers to
+    ``DIR/result.json``."""
+    import torch.distributed as dist
+
+    from lkgd_torch.cli import run_inference_cogvideox as cli
+    from lkgd_torch.parallel import mesh, pp, tp
+
+    dev = _join_pair(rank, work, 600)
+    tag = f"pp-pair r{rank}"
+    base = ["--image", "-", "--seed", "0", "--device", str(dev), "--num-frames", str(PAR_FRAMES),
+            "--mesh", f"stage={PAIR_RANKS}"]
+    t0 = time.perf_counter()
+    pipe, vae = cli.build(cli.make_parser().parse_args(base))
+    del vae
+    model, cfg = pipe.transformer, pipe.transformer.config
+    grid = mesh.make_mesh(f"stage={PAIR_RANKS}", dev)
+    group = grid.groups[pp.STAGE_AXIS]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pcfg = pipe.config
+    inputs = (torch.randn((2, pipe.latent_frames, pcfg.latent_height, pcfg.latent_width,
+                           cfg.in_channels), generator=gen, device=dev).bfloat16(),
+              (torch.randn((2, cfg.max_text_seq_length, cfg.text_embed_dim), generator=gen,
+                           device=dev) * 0.2).bfloat16(),
+              torch.full((2,), 999.0, device=dev),
+              torch.randn((1, 1, 1000), generator=gen, device=dev),
+              torch.randn((1, 1, 1000), generator=gen, device=dev))
+    whole_bytes = tp.per_device_param_bytes(model)
+    build_s = time.perf_counter() - t0
+
+    def rows_one_at_a_time(hidden, encoder, emb, rope):
+        """The blocks on one CFG row at a time: the arithmetic of M=2 in one process."""
+        parts = []
+        for i in range(hidden.shape[0]):
+            h, e = hidden[i:i + 1], encoder[i:i + 1]
+            for block in model.transformer_blocks:
+                h, e = block(h, e, emb[i:i + 1], rope)
+            parts.append((h, e))
+        return torch.cat([h for h, _ in parts]), torch.cat([e for _, e in parts])
+
+    result = {}
+    with torch.inference_mode():
+        model(*inputs)  # warm-up of the cuBLAS plans
+        ref, ref_s, ref_counts, _ = _timed_counted(lambda: model(*inputs))
+        rows = model(*inputs, blocks_override=rows_one_at_a_time)
+        for m in (1, 2):
+            override = pp.cogvideox_pp_blocks(model, group, num_microbatches=m)
+            out, seconds, counts, peak = _timed_counted(
+                lambda: model(*inputs, blocks_override=override))
+            held = tp.per_device_param_bytes(model)
+            assert torch.isfinite(out).all(), m
+            err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            same_rows = torch.equal(out, rows) if m == 2 else None
+            shown = _shown(counts)
+            print(f"[{tag}] pipeline DiT step, stage={PAIR_RANKS} (21 blocks a rank), M={m}: "
+                  f"max|d| {err:.3e} of max|ref| against the whole step (tol "
+                  f"{0 if m == 1 else PP_TOL}){'' if m == 1 else f', bit for bit the whole model on one row at a time {same_rows}'} | "
+                  f"{seconds:.3f} s (whole {ref_s:.3f} s; two ranks time-slicing one card, "
+                  f"activations through the host: no scaling figure) | peak {peak:.2f} GiB | "
+                  f"weights {held / 2**30:.3f} GiB of {whole_bytes / 2**30:.3f} | launches "
+                  f"{shown}", flush=True)
+            for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
+                assert counts[name] == m * cfg.num_layers // PAIR_RANKS, (m, name, counts[name])
+                assert ref_counts[name] == cfg.num_layers, (name, ref_counts[name])
+            assert held < 0.6 * whole_bytes, (held, whole_bytes)
+            if m == 1:
+                assert torch.equal(out, ref), err
+            else:
+                assert err <= PP_TOL, err
+            result[f"m{m}"] = {"err": err, "seconds": seconds, "peak_gib": peak,
+                               "bytes": held, "launches": shown, "same_rows": same_rows}
+    outs = [None] * PAIR_RANKS
+    dist.all_gather_object(outs, result)
+    assert all(o["m2"]["err"] == outs[0]["m2"]["err"] for o in outs), outs
+    if rank == 0:
+        result.update(whole={"seconds": ref_s, "bytes": whole_bytes, "build_s": build_s,
+                             "launches": _shown(ref_counts)},
+                      ranks=outs)
+        (work / "result.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_pp_pair(dev: torch.device) -> dict:
+    """5l: pipeline parallelism over two processes on cuda:0 over gloo (``--pp-rank``): the
+    CLI's ``--mesh stage=2`` build, then ``cogvideox_pp_blocks`` at M=1 and M=2. Returns the
+    launches a rank by path."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        result = _spawn_pair("--pp-rank", work, 600)
+    whole = result["whole"]
+    print(f"[pp-pair] CogVideoX-5B DiT step at {PAR_FRAMES} frames over stage={PAIR_RANKS}: "
+          f"M=1 bit-identical in {result['m1']['seconds']:.3f} s, M=2 max|d| "
+          f"{result['m2']['err']:.3e} in {result['m2']['seconds']:.3f} s (the whole step "
+          f"{whole['seconds']:.3f} s); weights a rank {result['m2']['bytes'] / 2**30:.3f} of "
+          f"{whole['bytes'] / 2**30:.3f} GiB; build {whole['build_s']:.1f} s | phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert result["m2"]["same_rows"], "M=2 is not the one-row-at-a-time arithmetic"
+    return {"pp_m1": result["m1"]["launches"], "pp_m2": result["m2"]["launches"]}
+
+
 def _inversion(dev, pipe, vae, parser, frames, image_latents, prompt, domain, flow) -> dict:
     """DDIM inversion (``utils/inversion.py``) of the clip's encoded 13x60x90 latents over a
     3-step DDIM schedule, its eps from the full-width DiT (one conditional row, the image
@@ -6086,7 +6581,7 @@ def phase_tools(dev: torch.device) -> dict:
         rec, report = os.path.join(tmp, "rec.npz"), os.path.join(tmp, "report.json")
         t0 = time.perf_counter()
         assert verify_parity.main(["record", "--config", "svd-xt", "--checkpoint", ckpt,
-                                   "--out", rec, "--device", str(dev)]) == 0
+                                   "--out", rec, "--batch", "1", "--device", str(dev)]) == 0
         record_s = time.perf_counter() - t0
         _zero_counts()
         t0 = time.perf_counter()
@@ -6178,6 +6673,8 @@ def main() -> int:
         return _sp_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
     if sys.argv[1:2] == ["--par-rank"]:  # one rank of phase_par_pair's pair of processes
         return _par_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
+    if sys.argv[1:2] == ["--pp-rank"]:  # one rank of phase_pp_pair's pair of processes
+        return _pp_rank_main(int(sys.argv[2]), Path(sys.argv[3]))
     # fp32 phases compare exact fp32 arithmetic: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6199,6 +6696,7 @@ def main() -> int:
     fp32_kernels = phase_fp32_kernels(dev, torch.Generator(device=dev).manual_seed(80))
     gn_fp32 = fp32_kernels.pop("gn_fp32")
     kernels.update(fp32_kernels)
+    kernels.update(phase_fp32_train_kernels(dev, torch.Generator(device=dev).manual_seed(84)))
     annotate_kernels = phase_annotate_kernels(dev, torch.Generator(device=dev).manual_seed(81))
     sp_kernels = phase_sp_kernels(dev, torch.Generator(device=dev).manual_seed(82))
     _sp_ring_merge(dev, torch.Generator(device=dev).manual_seed(83))
@@ -6228,6 +6726,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sp_launches = phase_sp_pair(dev)
     par_launches = phase_par_pair(dev)
+    pp_launches = phase_pp_pair(dev)
     web_demo_launches = phase_web_demo(dev)
     torch.cuda.empty_cache()
     sd2d_launches = phase_sd2d_full(dev)
@@ -6236,8 +6735,11 @@ def main() -> int:
     phase_train_tiny(dev, "lkgd")
     phase_train_tiny(dev, "trans")
     phase_train_tiny(dev, "joint_vf")
+    phase_train_tiny(dev, "lkgd", hw=32)
     phase_train_tiny_variants(dev)
     train_launches = phase_train_full(dev)
+    torch.cuda.empty_cache()
+    train_fp32_launches = phase_train_fp32_full(dev)
     torch.cuda.empty_cache()
     train_trans_launches = phase_train_full(dev, "trans")
     torch.cuda.empty_cache()
@@ -6263,6 +6765,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_options(dev)
     experiment_launches = phase_experiments(dev)
+    from lkgd_torch.experiments._timing import trace_counts
+    print(f"[profiler] {trace_counts['traces']} short traces taken, {trace_counts['empty']} "
+          f"of them with no device operation and taken again", flush=True)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
     # the base clip, the training kernels' from the counted LKGD training steps, the
     # microbenchmark kernels' from their entry points); every path's count under
@@ -6270,17 +6775,19 @@ def main() -> int:
     by_path = {"clip": clip_launches, "trans": trans_launches, "smooth": smooth_launches,
                "controlnet": controlnet_launches, "deep_cache_2": deep_cache_launches[2],
                "deep_cache_3": deep_cache_launches[3], "flow": flow_launches,
-               **cogvideox_launches, **sp_launches, **par_launches,
+               **cogvideox_launches, **sp_launches, **par_launches, **pp_launches,
                "web_demo": web_demo_launches,
                "verify_parity": verify_parity_launches,
-               "train": train_launches, "train_trans": train_trans_launches,
+               "train": train_launches, "train_fp32": train_fp32_launches,
+               "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,
                "train_cogvideox": train_cogvideox_launches, **sd2d_launches,
                "train_sd2d": train_sd2d_launches, "experiments": experiment_launches,
                "precompute": precompute_launches, "compute_metrics": metrics_launches,
                **annotate_launches, **caption_launches}
     own = {**dict.fromkeys(INFERENCE, "clip"), **dict.fromkeys(TRAINING, "train"),
-           **dict.fromkeys(EXPERIMENTS, "experiments"), **dict.fromkeys(PRECOMPUTE, "precompute")}
+           **dict.fromkeys(EXPERIMENTS, "experiments"), **dict.fromkeys(PRECOMPUTE, "precompute"),
+           **dict.fromkeys(TRAINING_FP32, "train_fp32")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": by_path[own[name]][name],

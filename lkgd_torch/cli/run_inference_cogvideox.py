@@ -42,9 +42,11 @@ writes the video. ``context=N`` (with ``--sequence-parallel ulysses|ring``) spli
 video tokens (``parallel/sequence.py``), ``data=N`` the CFG rows, ``model=N`` the
 transformer's weights as ``--weight-sharding`` says (``tp``, the default: tensor parallel;
 ``fsdp``: gathered at use; ``parallel/tp.py``); the CLI prints the transformer's bytes a
-rank holds. Not ported: ``--weights`` (no checkpoint or T5 model is in the repository:
-ROADMAP.md Queue 1, item 11) and the ``stage`` mesh axis (ROADMAP.md Queue 1, item 12b.4),
-which are refused.
+rank holds. ``stage=N`` makes the mesh's stage groups and nothing reads them, as in the JAX
+CLI, which builds the axis and replicates the weights over it but never pipelines: each
+stage rank runs the whole model (the pipeline is ``parallel/pp.py`` ``cogvideox_pp_blocks``,
+a ``blocks_override`` of the transformer). Not ported: ``--weights`` (no checkpoint or T5
+model is in the repository: ROADMAP.md Queue 1, item 11), which is refused.
 """
 
 from __future__ import annotations
@@ -104,7 +106,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", help="axis=size list, e.g. 'model=2' or "
                                   "'data=2,context=2,model=2', one process (torchrun) a rank: "
                                   "'data' splits the CFG rows, 'context' the DiT's video tokens, "
-                                  "'model' its weights")
+                                  "'model' its weights; 'stage' is made and unread, as in the "
+                                  "JAX CLI")
     p.add_argument("--sequence-parallel", choices=["none", "ulysses", "ring"], default="none",
                    help="sequence-parallel attention over the mesh's context axis: ulysses "
                         "(the heads split, H %% N == 0) or ring (K/V passed round the ranks)")

@@ -16,6 +16,11 @@ knowledge encoder stay frozen. Each step encodes its clips with the frozen model
   python -m lkgd_torch.cli.train_svd_lora --video-folder data/clips --output-dir out \\
       --width 512 --height 512 --num-frames 8 --rank 4 --learning-rate 2e-4 --remat
 
+  # the JAX fine-tune CLI's own precision and defaults (512x512, 14 frames): every model in
+  # fp32, the UNet's attention at levels 0 and 1 on the fp32 flash kernels (7-10)
+  python -m lkgd_torch.cli.train_svd_lora --video-folder data/clips --output-dir out \\
+      --dtype fp32
+
 Launched by ``torchrun`` with N processes (one card each over NCCL; gloo with
 ``--device cpu``) it trains data-parallel over all of them, as the JAX CLI takes every
 device: the batch is ``--per-device-batch-size`` x N rows, each rank loads and encodes its
@@ -104,7 +109,11 @@ def make_parser() -> argparse.ArgumentParser:
                    help="the card by default; a run without one fails unless cpu is named")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
                    help="compute dtype and the dtype of the frozen weights (trained ones stay "
-                        "fp32); the CUDA flash kernels take bf16 only")
+                        "fp32). bf16, the default, is the JAX bench's bench_train precision; "
+                        "fp32 is the JAX fine-tune CLI's own (it builds every model in fp32), "
+                        "its attention of 1024+ tokens on the fp32 flash kernels. The CLI sets "
+                        "no TF32 flag: PyTorch's defaults hold (cuBLAS matmuls in fp32 without "
+                        "TF32, cuDNN convolutions with TF32)")
     return p
 
 

@@ -1,6 +1,6 @@
-// Flash-attention inference forward for Hopper at fp32: fp32 in and out, fp32-accurate
-// products on the TF32 tensor cores, fp32 sums; the form the bf16 kernels of
-// flash_attention_wgmma.cu take for float32 operands. lkgd_flash_forward
+// Flash-attention forward for Hopper at fp32: fp32 in and out, fp32-accurate products on the
+// TF32 tensor cores, fp32 sums; the form the bf16 kernels of flash_attention_wgmma.cu take
+// for float32 operands, inference and training alike. lkgd_flash_forward
 // (flash_attention_wgmma.cu) launches it from the same one C call, by the operands' type.
 //
 // Replaces, for fp32 operands, the Pallas TPU forward kernels of
@@ -13,7 +13,14 @@
 //   * BOUND=false, kernel 2 (_flash_kernel): the online-max form, launched after kernel 1
 //     as its guard (a block returns at once unless its tile's smallest row sum is <=
 //     2^-110; NaN is recomputed too), or alone (LKGD_FLASH_MAXTRACK=1);
-//   * key_sq_max_f32_kernel, kernel 1a at fp32: max_j|k_j|^2 of every (batch, head).
+//   * key_sq_max_f32_kernel, kernel 1a at fp32: max_j|k_j|^2 of every (batch, head);
+//   * with an lse to write (F32Args::lse), kernels 7 and 8 (_flash_bound_lse_kernel,
+//     _flash_fwd_lse_kernel) at fp32: the same two forms that also write the log2-domain
+//     logsumexp of every row, (B*H, S_q) fp32, with the contract of the bf16 LSE forms:
+//     log2(l) - t with the bound t the kernel used (absolute, whatever t is), or m + log2(l)
+//     with the running max; a recomputed tile overwrites both the output and the lse. The
+//     JAX SVD fine-tune CLI builds its UNet in fp32, and its train step sends the spatial
+//     attention of levels 0 and 1 (4096 and 1024 tokens) there; one fp32 store a row.
 //
 // Arithmetic, 3xTF32: every fp32 operand x is split into hi = x rounded to tf32
 // (cvt.rna) and lo = x - hi (exact in fp32), and each product is lo.hi + hi.lo + hi.hi on
@@ -228,6 +235,7 @@ struct F32Args {
   const float* k_sq_max;   // (B*H) largest squared key norm (bound kernel)
   float* tile_min;         // (B*H, n_q_tiles) smallest row sums: written by 1, read by 2
   int* recomputed;         // tiles the guarded max-tracking launch recomputed
+  float* lse;              // (B*H, s_q) log2-domain logsumexp (kernels 7 and 8), or null
 };
 
 struct Maps {
@@ -510,8 +518,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j + 1 < n_tiles; ++j) tile(j, std::false_type{});
     tile(n_tiles - 1, std::true_type{});
 
-    // out = O / l through the output strides. An underflowed row of the bound form may
-    // leave inf or NaN here: its tile's minimum is 0 and the guarded launch overwrites it.
+    // out = O / l through the output strides; with an lse the row's logsumexp from one of
+    // its four threads (where the warpgroups split O by columns both hold the same l: the
+    // first one writes). An underflowed row of the bound form may leave inf or NaN here: its
+    // tile's minimum is 0 and the guarded launch overwrites the whole tile.
     float* ob = a.o + (bh / a.heads) * a.os.b + (bh % a.heads) * a.os.h;
     const int col0 = SPLIT ? wg * (DP / 2) : 0;
     float mn = INFINITY;
@@ -523,6 +533,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = q0 + row_in_tile + 8 * r;
       if (row >= a.s_q) continue;
       mn = (l > kGuard) ? fminf(mn, l) : 0.f;  // an underflowed or NaN row: 0
+      if (a.lse != nullptr && t4 == 0 && (!SPLIT || wg == 0))
+        a.lse[(long long)bh * a.s_q + row] = BOUND ? log2f(l) - t_r[r] : m_r[r] + log2f(l);
       const float inv = 1.f / l;
 #pragma unroll
       for (int n = 0; n < NOS; ++n)
@@ -668,10 +680,11 @@ cudaError_t flash_key_sq_max_f32(const float* k, const Strides& ks, int batch, i
 // element strides st[0..3]; `scratch`: flash_f32_scratch_floats floats (the planes of the
 // pre-pass, |q_i|^2, the squared key norms, the tile minimums). bound: the pre-pass, the
 // key norms, kernel 1 and kernel 2 as its guard; else the pre-pass and kernel 2 alone.
+// lse: (B*H, s_q) fp32 written beside o (kernels 7 and 8), or null.
 cudaError_t flash_forward_f32(const void* q, const void* k, const void* v, void* o,
                               const Strides* st, int batch, int heads, int s_q, int s_k, int d,
-                              float scale_log2, float* scratch, int* recomputed, bool bound,
-                              cudaStream_t s) {
+                              float scale_log2, float* scratch, int* recomputed, float* lse,
+                              bool bound, cudaStream_t s) {
   SplitArgs in;
   in.q = static_cast<const float*>(q);
   in.k = static_cast<const float*>(k);
@@ -697,6 +710,7 @@ cudaError_t flash_forward_f32(const void* q, const void* k, const void* v, void*
   a.k_sq_max = nullptr;
   a.tile_min = nullptr;
   a.recomputed = recomputed;
+  a.lse = lse;
   const Scratch sc = scratch_layout(scratch, batch * heads, s_q, s_k, d);
   if (d <= 64) return forward<64>(in, a, batch, sc, bound, s);
   if (d <= 128) return forward<128>(in, a, batch, sc, bound, s);

@@ -61,8 +61,8 @@ cudaError_t flash_key_sq_max_f32(const float* k, const Strides& ks, int batch, i
                                  int d, float* out, cudaStream_t stream);
 cudaError_t flash_forward_f32(const void* q, const void* k, const void* v, void* o,
                               const Strides* st, int batch, int heads, int s_q, int s_k, int d,
-                              float scale_log2, float* scratch, int* recomputed, bool bound,
-                              cudaStream_t s);
+                              float scale_log2, float* scratch, int* recomputed, float* lse,
+                              bool bound, cudaStream_t s);
 }  // namespace lkgd
 
 namespace {
@@ -468,9 +468,9 @@ int lkgd_flash_smem_bytes(int d) {
 }
 
 // q, k, v, o: (B, S, H, D) bf16, or fp32 with fp32 != 0 (the fp32 form of
-// flash_attention_f32.cu, kernels 1 and 2 alone: no lse); `strides` packs their (b, s, h)
-// element strides, twelve int64 in that order. lse: (B*H, s_q) fp32
-// written beside o (kernels 7 and 8), or null (kernels 1 and 2). bound=1: the bound kernel
+// flash_attention_f32.cu); `strides` packs their (b, s, h) element strides, twelve int64 in
+// that order. lse: (B*H, s_q) fp32 written beside o (kernels 7 and 8), or null (kernels 1
+// and 2), in either dtype. bound=1: the bound kernel
 // after the key-norm kernel, then the max-tracking kernel as its guard, all on `stream` from
 // this one call; scratch: B*H floats for the squared key norms, then B*H * (query tiles) for
 // the bound kernel's smallest row sums. bound=0: the max-tracking kernel alone, no scratch.
@@ -479,8 +479,7 @@ int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
                        const void* strides, int batch, int heads, int s_q, int s_k, int d,
                        float scale_log2, float* scratch, int* recomputed, float* lse, int bound,
                        int fp32, int device, void* stream) {
-  if (d <= 0 || d > 512 || d % 8 != 0 || ((bound || fp32) && scratch == nullptr) ||
-      (fp32 && lse != nullptr))
+  if (d <= 0 || d > 512 || d % 8 != 0 || ((bound || fp32) && scratch == nullptr))
     return int(cudaErrorInvalidValue);
   // cudaSetDevice also makes the device's context current on this thread, which
   // cuTensorMapEncodeTiled needs: a thread whose first CUDA call this is (autograd's
@@ -494,7 +493,7 @@ int lkgd_flash_forward(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32)
     return int(lkgd::flash_forward_f32(q, k, v, o, st, batch, heads, s_q, s_k, d, scale_log2,
-                                       scratch, recomputed, bound != 0, s));
+                                       scratch, recomputed, lse, bound != 0, s));
   const Views in{q, k, v, st[0], st[1], st[2], batch};
   FwdArgs a;
   a.o = static_cast<bf16*>(o);

@@ -37,17 +37,31 @@ def time_ms(fn, device: torch.device, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def traced(fn, tries: int = 3):
+# what ``traced`` has taken in this process: traces, and those with no device operation
+trace_counts = {"traces": 0, "empty": 0}
+
+
+def traced(fn, tries: int = 8, pause_s: float = 0.05):
     """``fn()`` (which ends in a synchronise) under ``torch.profiler`` with CUDA activity:
     ``(profile, fn's result)``. Now and then the card's tracer records no device operation
-    at all; such a trace is no measurement, so it is taken again, up to ``tries`` times,
-    and then this raises."""
+    at all, in runs of a few short traces in a row. Such a trace is no measurement, so it
+    is taken again after a pause that doubles each time (``pause_s``, then twice that, ...:
+    6.35 s in all over 8 tries), and when every try came back empty this raises. Each
+    trace is counted in ``trace_counts``."""
+    import sys
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for k in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
+        trace_counts["traces"] += 1
         if any(e.device_type == DeviceType.CUDA for e in prof.key_averages()):
             return prof, out
+        trace_counts["empty"] += 1
+        if k + 1 < tries:
+            print(f"[profiler] trace {k + 1} of {tries} recorded no device operation; "
+                  f"tracing again in {pause_s * 2**k:.2f} s", file=sys.stderr, flush=True)
+            time.sleep(pause_s * 2**k)
     raise RuntimeError(f"torch.profiler recorded no device operation in {tries} traces")

@@ -27,6 +27,10 @@ tokens and only the attention communicates (``parallel/sequence.py`` ``joint_sp_
 the video tokens are gathered after ``proj_out`` (the final norms act token by token), before
 the unpatchify. GSPMD does this split implicitly in the JAX module.
 
+Pipeline parallelism: ``forward(..., blocks_override=)`` runs a callable in the place of the
+block loop, as the JAX module's ``blocks_override`` does (``parallel/pp.py``
+``cogvideox_pp_blocks``: the blocks split over the mesh's ``stage`` axis, GPipe-style).
+
 Parameter names are diffusers' ``CogVideoXTransformer3DModel`` names as the JAX package's
 ``cogvideox_export_key_map`` writes them (``transformer_blocks.{i}.attn1.to_q``,
 ``norm1.linear``, ``ff.net.0.proj``, ``patch_embed.proj``, ``norm_out.linear``, and
@@ -37,7 +41,7 @@ tree; its state-dict names are renamed to ``quaternion_lora_*`` on the way out a
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -291,8 +295,16 @@ class CogVideoXTransformer3D(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 timestep, domain_features: Optional[torch.Tensor] = None,
-                flow_features: Optional[torch.Tensor] = None) -> torch.Tensor:
+                flow_features: Optional[torch.Tensor] = None,
+                blocks_override: Optional[Callable] = None) -> torch.Tensor:
+        """``blocks_override(hidden, encoder, emb, rope) -> (hidden, encoder)``, given, runs in
+        the place of the block loop (``parallel/pp.py`` ``cogvideox_pp_blocks``: the blocks as
+        a pipeline over the mesh's ``stage`` axis), as in the JAX module; not with sequence
+        parallelism, which JAX never combines with it."""
         cfg = self.config
+        if blocks_override is not None and cfg.sequence_parallel != "none":
+            raise ValueError("blocks_override with sequence_parallel: the pipeline's stages "
+                             "run whole sequences (ROADMAP.md Queue 3, 'blocks_override')")
         dtype = self.compute_dtype or self.patch_embed.text_proj.weight.dtype
         b, t, h, w, _ = hidden_states.shape
         p, pt = cfg.patch_size, cfg.patch_size_t
@@ -332,12 +344,15 @@ class CogVideoXTransformer3D(nn.Module):
 
         hidden, encoder = video, text
         remat = cfg.remat and torch.is_grad_enabled()
-        for block in self.transformer_blocks:
-            if remat:
-                hidden, encoder = checkpoint(block, hidden, encoder, emb, rope, pg,
-                                             use_reentrant=False)
-            else:
-                hidden, encoder = block(hidden, encoder, emb, rope, pg)
+        if blocks_override is not None:
+            hidden, encoder = blocks_override(hidden, encoder, emb, rope)
+        else:
+            for block in self.transformer_blocks:
+                if remat:
+                    hidden, encoder = checkpoint(block, hidden, encoder, emb, rope, pg,
+                                                 use_reentrant=False)
+                else:
+                    hidden, encoder = block(hidden, encoder, emb, rope, pg)
 
         # norm_final acts token by token: the text rows it would also normalise are dropped
         hidden = self.proj_out(self.norm_out(self.norm_final(hidden), emb))

@@ -42,14 +42,19 @@ outside, from a small kernel of its own (``key_norm_max``; the TPU wrapper compu
 whole bound outside the Pallas kernel too). ``bound_t`` is that arithmetic's plain version.
 A forward is one call into C (``lkgd_flash_forward``), which makes all its launches.
 
-At fp32 the inference forward takes its fp32 form (``csrc/flash_attention_f32.cu``: 3xTF32
-products, hi.hi + hi.lo + lo.hi of each operand split into a tf32 hi and an fp32 lo, on
-``wgmma`` fed by TMA, after a pre-pass that writes the hi and lo planes of q, k and v's
-transpose into scratch) from the same one call: kernels 1, 2 and 1a with the same guard,
-counted as ``flash_bound_fp32``, ``flash_maxtrack_fp32`` and ``flash_key_norm_fp32``.
-The JAX kernels take fp32 operands with fp32 accumulation; the temporal VAE and CLIP-H of
-``cli/precompute_cache.py`` run in fp32, as the JAX CLI builds them. The training kernels
-(7-10) are bf16 only: an fp32 call that needs a gradient raises.
+At fp32 the forward takes its fp32 form (``csrc/flash_attention_f32.cu``: 3xTF32 products,
+hi.hi + hi.lo + lo.hi of each operand split into a tf32 hi and an fp32 lo, on ``wgmma`` fed
+by TMA, after a pre-pass that writes the hi and lo planes of q, k and v's transpose into
+scratch) from the same one call: kernels 1, 2 and 1a with the same guard, counted as
+``flash_bound_fp32``, ``flash_maxtrack_fp32`` and ``flash_key_norm_fp32``, and kernels 7
+and 8 (``flash_bound_lse_fp32``, ``flash_maxtrack_lse_fp32``), the same kernel writing the
+lse. The fp32 backward (``csrc/flash_attention_bwd_f32.cu``, ``lkgd_flash_bwd_f32``) is
+kernels 9 and 10 as plain tiled kernels whose products are fp32 FMAs on the CUDA cores
+(``flash_bwd_dq_fp32``, ``flash_bwd_dkv_fp32``), D <= 128. The JAX kernels take fp32
+operands with fp32 accumulation: the temporal VAE and CLIP-H of ``cli/precompute_cache.py``
+run in fp32, as the JAX CLI builds them, and so does the UNet of ``cli/train_svd_lora.py
+--dtype fp32``, the JAX fine-tune CLI's own precision, whose train step runs kernels 5-10
+on fp32 operands at levels 0 and 1. fp16 is taken nowhere.
 
 The JAX wrapper reruns kernel 2 when the smallest row sum of the whole call is <= 2^-110
 (``lax.cond`` on the device). Here kernel 2 is always launched after kernel 1 with
@@ -82,7 +87,8 @@ GUARD = 2.0 ** -110  # smallest row sum the bound kernel may leave (flash_attent
 launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_key_norm": 0, "flash_bound_lse": 0,
             "flash_maxtrack_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "split_heads": 0, "merge_heads": 0, "flash_bound_fp32": 0,
-            "flash_maxtrack_fp32": 0, "flash_key_norm_fp32": 0}
+            "flash_maxtrack_fp32": 0, "flash_key_norm_fp32": 0, "flash_bound_lse_fp32": 0,
+            "flash_maxtrack_lse_fp32": 0, "flash_bwd_dq_fp32": 0, "flash_bwd_dkv_fp32": 0}
 FWD_MAX_D = 512  # head dims the forward kernels (1, 2, 7, 8) are built for
 BWD_MAX_D = 128  # and the backward kernels (9, 10)
 _recomputed: dict[torch.device, torch.Tensor] = {}
@@ -113,7 +119,7 @@ def key_norm_max(k: torch.Tensor) -> torch.Tensor:
     from C)."""
     if k.device.type == "cpu":
         return key_norm_max_plain(k)
-    _check(k, k, k, fp32=True)
+    _check(k, k, k)
     b, s_k, h, d = k.shape
     _check_pairs(b, h)
     fp32 = k.dtype == torch.float32
@@ -176,16 +182,13 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
                sm_count: int = 132, fp32: bool = False) -> FlashPlan:
     """The tiling of a forward call over (b, s_q | s_k, h, d): a pure function of the
     shapes, static by d. The training forward (``lse``) is the inference kernel with one
-    more store a row, so it tiles the same way; ``s_k`` sets only the length of a
-    block's loop. ``fp32``: the fp32 form (``Plan`` in ``csrc/flash_attention_f32.cu``):
+    more store a row, so it tiles the same way, in either dtype; ``s_k`` sets only the
+    length of a block's loop. ``fp32``: the fp32 form (``Plan`` in
+    ``csrc/flash_attention_f32.cu``):
     64-key tiles; a ring of 16 KB units (64 rows x 32 fp32, hi and lo) filling what Q leaves
     of the block's shared memory; D <= 128: 128 query rows a block, Q's hi and lo resident;
     D = 256: 64 rows, Q resident; D = 512: 64 rows, Q streamed through the ring and 64 KB
     for the halves of S the two warpgroups exchange."""
-    if fp32 and lse:
-        raise ValueError("flash_plan: the LSE forward (kernels 7/8) has no fp32 form: no path "
-                         "of either package needs an fp32 logsumexp of 1024+ tokens (training "
-                         "and ring attention run in bf16 on the card)")
     if d <= 0 or d % 8 or d > FWD_MAX_D:
         raise ValueError(f"flash_plan: head dim {d} (lse={lse}, fp32={fp32}) is not built")
     dp = _padded(d)
@@ -209,24 +212,36 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
 
 class FlashBwdPlan(NamedTuple):
     """How a backward kernel tiles one call (the host side of ``BwdPlan`` in
-    ``csrc/flash_attention_bwd.cu``)."""
-    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10)
+    ``csrc/flash_attention_bwd.cu``, or of ``F32BwdPlan`` in ``flash_attention_bwd_f32.cu``)."""
+    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10); "dq_fp32", "dkv_fp32" at fp32
     tile_rows: int     # rows a block keeps resident: queries (dq) or keys (dkv), what
                        # lkgd_flash_bwd_block_rows answers
     stream_rows: int   # rows of a streamed tile: keys (dq) or queries (dkv)
-    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv)
+    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv); 1 at fp32
     smem_bytes: int    # dynamic shared memory a block asks for
     blocks: int        # the grid
     waves: float       # blocks over the SMs (one block an SM: its registers allow no more)
 
 
+F32_BWD_ROWS = 64  # rows of the fp32 backward's resident and streamed tiles
+
+
 def flash_bwd_plan(b: int, s_q: int, s_k: int, h: int, d: int, dkv: bool,
-                   sm_count: int = 132) -> FlashBwdPlan:
+                   sm_count: int = 132, fp32: bool = False) -> FlashBwdPlan:
     """The tiling of a backward call over (b, s_q | s_k, h, d): kernel 10 (``dkv``) or
-    kernel 9, a pure function of the shapes, static by d."""
+    kernel 9, a pure function of the shapes, static by d. ``fp32``: the fp32 form (``F32BwdPlan``
+    in ``csrc/flash_attention_bwd_f32.cu``): 64 resident rows and 64-row streamed tiles at a
+    pitch of D padded + 1 floats, one tile of each in shared memory (no ring), P and dS
+    beside them (dq: dS alone), and the tile's lse and delta."""
     if d <= 0 or d % 8 or d > BWD_MAX_D:
-        raise ValueError(f"flash_bwd_plan: head dim {d} (dkv={dkv}) is not built")
+        raise ValueError(f"flash_bwd_plan: head dim {d} (dkv={dkv}, fp32={fp32}) is not built")
     dp = 64 if d <= 64 else 128
+    if fp32:
+        rows = F32_BWD_ROWS
+        smem = 4 * (4 * rows * (dp + 1) + (2 if dkv else 1) * rows * (rows + 1) + 2 * rows)
+        blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
+        return FlashBwdPlan("dkv_fp32" if dkv else "dq_fp32", rows, rows, 1, smem, blocks,
+                            blocks / sm_count)
     rows = 128
     stream = 64 if dkv or dp > 64 else 128
     stages = 4 if dkv and dp > 64 else 6
@@ -346,22 +361,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _flash_cuda(q, k, v)
 
 
-TRAIN_DTYPE_ERROR = ("the training kernels (7-10: the LSE forwards and the backward) are "
-                     "built for bfloat16 only")
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # what every flash kernel takes on the card
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra, fp32: bool = False) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra) -> None:
     """Raise on what the kernels do not take; ``extra``: (name, tensor) pairs laid out
-    like q (dO in the backward); ``fp32``: float32 is taken too (the inference forward's
-    fp32 form), with all of q, k, v of one dtype."""
+    like q (dO in the backward). bf16, or fp32 (the fp32 forms), all of one dtype."""
     index = q.get_device()
     for name, x in (("q", q), ("k", k), ("v", v), *extra):
         if not x.is_cuda or x.get_device() != index:
             raise ValueError(f"flash_attention: {name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16 and not (fp32 and x.dtype == torch.float32):
-            raise TypeError(f"flash_attention: the CUDA kernels take bfloat16"
-                            f"{' or float32' if fp32 else ''}, {name} is {x.dtype}"
-                            f"{'' if fp32 else '; ' + TRAIN_DTYPE_ERROR}")
+        if x.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"flash_attention: the CUDA kernels take bfloat16 or float32, "
+                            f"{name} is {x.dtype}")
         if x.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {x.dtype}, q {q.dtype}")
         st = x.stride()
@@ -389,10 +401,10 @@ def _check_bwd(q: torch.Tensor) -> None:
 
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
-    """The inference forward (kernels 1/2, bf16 or their fp32 form) or, ``with_lse``, the
-    training forward (kernels 7/8, bf16) that also returns lse (B, H, S_q): one call into C
-    for all its launches."""
-    _check(q, k, v, fp32=not with_lse)
+    """The inference forward (kernels 1/2) or, ``with_lse``, the training forward (kernels
+    7/8) that also returns lse (B, H, S_q), bf16 or their fp32 form: one call into C for all
+    its launches."""
+    _check(q, k, v)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     fp32 = q.dtype == torch.float32
@@ -421,7 +433,7 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: boo
         d ** -0.5 * LOG2E, None if scratch is None else scratch.data_ptr(),
         recomputed_tiles(q.device).data_ptr(), None if lse is None else lse.data_ptr(),
         int(bound), int(fp32), *stream_of(q.device)))
-    suffix = "_lse" if with_lse else "_fp32" if fp32 else ""
+    suffix = ("_lse" if with_lse else "") + ("_fp32" if fp32 else "")
     if bound:  # the key norms, the bound kernel and its guard
         launches["flash_key_norm" + ("_fp32" if fp32 else "")] += 1
         launches["flash_bound" + suffix] += 1
@@ -433,8 +445,8 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """The training forward: (out (B, S_q, H, D), lse (B, H, S_q) fp32, log2 domain).
 
     CPU tensors: the plain version of the selected kernel. CUDA tensors: kernel 7 guarded
-    by kernel 8 (kernel 8 alone with ``LKGD_FLASH_MAXTRACK=1``), bf16 only, every D the
-    inference forward takes. The backward of this lse is built for D <= 128."""
+    by kernel 8 (kernel 8 alone with ``LKGD_FLASH_MAXTRACK=1``), bf16 or their fp32 form,
+    every D the inference forward takes. The backward of this lse is built for D <= 128."""
     if q.device.type == "cpu":
         plain = (flash_fwd_lse_maxtrack_plain if maxtrack_selected()
                  else flash_fwd_lse_bound_plain)
@@ -451,8 +463,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tenso
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                  lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """dq in q's layout. CPU tensors: ``flash_bwd_dq_plain``. CUDA tensors: kernel 9, bf16,
-    D <= 128."""
+    """dq in q's layout. CPU tensors: ``flash_bwd_dq_plain``. CUDA tensors: kernel 9, bf16 or
+    its fp32 form, D <= 128."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
@@ -471,7 +483,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
 
 
 def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
-    """Launch kernel 9 (``dq`` given) or kernel 10 (``dk`` and ``dv`` given)."""
+    """Launch kernel 9 (``dq`` given) or kernel 10 (``dk`` and ``dv`` given): the bf16 forms
+    or, for fp32 operands, the fp32 ones."""
     _check(q, k, v, ("dO", do))
     _check_bwd(q)
     b, s_q, h, d = q.shape
@@ -483,19 +496,21 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
             raise ValueError(f"flash_bwd: {name} must be a contiguous (B, H, S_q) float32 "
                              f"tensor on q's device, got {tuple(x.shape)} {x.dtype}")
     dkv = dq is None
-    if flash_bwd_plan(b, s_q, k.shape[1], h, d, dkv).blocks >= 2 ** 31:
+    fp32 = q.dtype == torch.float32
+    if flash_bwd_plan(b, s_q, k.shape[1], h, d, dkv, fp32=fp32).blocks >= 2 ** 31:
         raise ValueError(f"flash_bwd: the grid of q {tuple(q.shape)}, k {tuple(k.shape)} "
                          f"exceeds 2^31 blocks")
     outs = (q, dk, dv) if dkv else (dq, k, v)  # strides of the unused slots are not read
     strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, do, *outs)
                                          for s in x.stride()[:3]))
     scale = d ** -0.5
-    _build.check(_build.library().lkgd_flash_bwd(
+    lib = _build.library()
+    _build.check((lib.lkgd_flash_bwd_f32 if fp32 else lib.lkgd_flash_bwd)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), None if dkv else dq.data_ptr(), dk.data_ptr() if dkv else None,
         dv.data_ptr() if dkv else None, strides, b, h, s_q, k.shape[1], d, scale,
         scale * LOG2E, int(dkv), *stream_of(q.device)))
-    launches["flash_bwd_dkv" if dkv else "flash_bwd_dq"] += 1
+    launches[("flash_bwd_dkv" if dkv else "flash_bwd_dq") + ("_fp32" if fp32 else "")] += 1
 
 
 def split_heads_plain(x: torch.Tensor) -> torch.Tensor:
@@ -612,15 +627,16 @@ class FlashAttentionFunction(torch.autograd.Function):
     head-major copies (one launch of kernel 5), runs kernels 7/8, saves the copies, out and
     lse, and merges out back (kernel 6); the backward splits dO, computes delta =
     rowsum(dO * O) in fp32, runs kernels 9 and 10 and merges dq, dk, dv (one launch of
-    kernel 6). With one head, as in JAX, nothing is split or merged. A head dim above the
-    backward kernels' limit is refused here, in the forward: a training run fails at its
-    first step's forward and not inside ``backward()``."""
+    kernel 6). With one head, as in JAX, nothing is split or merged. bf16 or fp32 (the fp32
+    forms of 5-10). A dtype or a head dim the backward kernels do not take is refused
+    here, in the forward: a training run fails at its first step's forward and not inside
+    ``backward()``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.is_cuda and q.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention with a gradient: q is {q.dtype}; "
-                            f"{TRAIN_DTYPE_ERROR} (ROADMAP.md Queue 2)")
+        if q.is_cuda and q.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"flash_attention with a gradient: q is {q.dtype}; the training "
+                            f"kernels (7-10) take bfloat16 or float32")
         _check_bwd(q)
         ctx.split = q.shape[2] > 1
         if ctx.split:

@@ -11,7 +11,9 @@ its work over that axis. Every rank creates every group in the same order
 
 * ``data``: CFG and batch rows (``sequence.cfg_parallel_split``, data-parallel training);
 * ``context``: the DiT's video tokens (``sequence.py``), SVD's frames;
-* ``model``: the weights (``tp.py``: tensor parallel or FSDP).
+* ``model``: the weights (``tp.py``: tensor parallel or FSDP);
+* ``stage``: the DiT's blocks, L/S consecutive ones a rank (``pp.py``, a GPipe pipeline
+  through CogVideoX's ``blocks_override``).
 
 A process that has no default group yet initialises one from the environment ``torchrun``
 sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``): NCCL with one card a rank
@@ -19,8 +21,7 @@ sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``): NCCL with one 
 tests, the smoke's pairs of processes on one card over gloo) keeps it. Under gloo a
 collective carries a CUDA tensor through the host (``host_staged``).
 
-The ``stage`` axis (pipeline parallelism) waits for ``ITEM``; ``slice`` (the JAX mesh's
-multi-slice DCN axis) has no counterpart here.
+``slice`` (the JAX mesh's multi-slice DCN axis) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -36,9 +37,8 @@ import torch.distributed as dist
 
 from lkgd_torch.utils.device import require_device
 
-DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS = "data", "context", "model"
-AXES = (DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS)
-ITEM = "pipeline parallelism waits for ROADMAP.md Queue 1, item 12b.4 (parallel/pp.py)"
+DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS, STAGE_AXIS = "data", "context", "model", "stage"
+AXES = (DATA_AXIS, CONTEXT_AXIS, MODEL_AXIS, STAGE_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +51,7 @@ class Mesh:
 
 def parse_mesh(spec: Union[str, Dict[str, int]]) -> Dict[str, int]:
     """``"data=2,context=2"`` (or a dict) -> ``{"data": 2, "context": 2}``, in order; an axis
-    other than data, context and model raises."""
+    other than data, context, model and stage raises."""
     if isinstance(spec, str):
         try:
             axes = {k.strip(): int(v) for k, v in (kv.split("=") for kv in spec.split(","))}
@@ -59,8 +59,6 @@ def parse_mesh(spec: Union[str, Dict[str, int]]) -> Dict[str, int]:
             raise ValueError(f"--mesh {spec!r}: expected axis=size[,axis=size]") from None
     else:
         axes = dict(spec)
-    if "stage" in axes:
-        raise ValueError(f"--mesh axis 'stage' is not ported to lkgd_torch: {ITEM}")
     other = sorted(set(axes) - set(AXES))
     if other:
         raise ValueError(f"--mesh axes {other} are not ported to lkgd_torch: only "

@@ -227,12 +227,12 @@ def test_cli_prompt_embeds_and_lora(media, tmp_path):
     assert torch.isfinite(latents).all()
 
 
-@pytest.mark.parametrize("flag", [["--weights", "w"], ["--mesh", "stage=4"],
+@pytest.mark.parametrize("flag", [["--weights", "w"], ["--mesh", "slice=4"],
                                   ["--weight-sharding", "fsdp"], ["--sequence-parallel", "ring"]])
 def test_cli_refuses_unported_flags(flag, capsys):
-    """The flags that wait for files or for item 12b.4 (the ``stage`` axis) name their item;
-    ``--sequence-parallel`` and ``--weight-sharding``, ported, are refused without the
-    ``--mesh`` axis they act on."""
+    """The flag that waits for files names its item, and the JAX mesh's ``slice`` axis,
+    which has no counterpart, is refused; ``--sequence-parallel`` and ``--weight-sharding``,
+    ported, are refused without the ``--mesh`` axis they act on."""
     with pytest.raises(SystemExit):
         cli.main(["--image", "x.png"] + flag)
     err = capsys.readouterr().err
@@ -240,5 +240,7 @@ def test_cli_refuses_unported_flags(flag, capsys):
         assert "--sequence-parallel needs --mesh with a 'context' axis" in err
     elif flag[0] == "--weight-sharding":
         assert "--weight-sharding needs --mesh with a 'model' axis" in err
+    elif flag[0] == "--mesh":
+        assert "--mesh axes ['slice'] are not ported to lkgd_torch" in err
     else:
         assert "ROADMAP.md Queue 1, item 1" in err

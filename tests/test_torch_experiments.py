@@ -128,8 +128,8 @@ def test_flash_variant_microbench_main_tiny_on_cpu(capsys):
 
 def test_traced_takes_an_empty_trace_again(monkeypatch):
     """``experiments._timing.traced``: a trace in which the tracer recorded no device
-    operation is taken again, up to three times, and then it raises; a trace with one is
-    returned with the function's result."""
+    operation is taken again after a pause that doubles each time, up to eight tries, and
+    then it raises; a trace with one is returned with the function's result."""
     from types import SimpleNamespace
 
     import torch.profiler
@@ -153,13 +153,20 @@ def test_traced_takes_an_empty_trace_again(monkeypatch):
             return self.events
 
     monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    pauses = []
+    monkeypatch.setattr(_timing.time, "sleep", pauses.append)
     device_event = SimpleNamespace(device_type=DeviceType.CUDA)
     host_event = SimpleNamespace(device_type=DeviceType.CPU)
     calls = []
+    monkeypatch.setattr(_timing, "trace_counts", {"traces": 0, "empty": 0})
     recorded[:] = [[], [host_event], [host_event, device_event]]
     prof, out = _timing.traced(lambda: calls.append(1) or len(calls))
     assert out == 3 and prof.events[-1] is device_event and not recorded
-    recorded[:] = [[], [], []]
-    with pytest.raises(RuntimeError, match="no device operation in 3 traces"):
+    assert pauses == [0.05, 0.1] and _timing.trace_counts == {"traces": 3, "empty": 2}
+    recorded[:] = [[]] * 8
+    pauses.clear()
+    with pytest.raises(RuntimeError, match="no device operation in 8 traces"):
         _timing.traced(lambda: calls.append(1))
-    assert len(calls) == 6
+    assert len(calls) == 11 and not recorded
+    assert pauses == [0.05 * 2**k for k in range(7)]
+    assert _timing.trace_counts == {"traces": 11, "empty": 10}

@@ -10,8 +10,10 @@ and outputs: flash outputs within FLASH_TOL * max|ref|, GroupNorm <= 3e-2; fp32
 GroupNorm <= 1e-5 (summation order only). The training kernels: lse within 1e-2 log2
 units (summation order and exp2 only: lse is rounded nowhere), and dq, dk, dv within
 2e-2 * max|ref|, as the kernels round P and dS to bf16 before their products over up to
-4096 keys or queries. The head split and merge kernels copy bytes: bit-exact, one tensor
-or three a launch.
+4096 keys or queries. At fp32 (kernels 7-10 on fp32 operands, TF32 off in the plain
+versions) out within 2e-5 * max|ref|, lse within 2e-5 * max(1, max|lse|) log2 units and
+dq, dk, dv within 1e-4 * max|ref|. The head split and merge kernels copy bytes: bit-exact,
+one tensor or three a launch.
 
 The gradient tests hold the autograd Functions of flash attention and GroupNorm against
 autograd through the plain versions: on the card an output without a gradient would drop
@@ -304,19 +306,94 @@ def test_flash_kernel_rejects_fp16(cuda_device):
         tfa.flash_attention(q, k, v)
 
 
+# fp32 training (kernels 7-10 on fp32 operands, kernels 5/6 on 4-byte rows) against the
+# plain fp32 versions, TF32 off: out within 2e-5 of max|ref|, gradients within 1e-4
+FP32_TRAIN_SHAPES = [((2, 1100, 5, 64), 1030, 1.0), ((14, 1024, 10, 64), 1024, 1.0),
+                     ((1, 700, 3, 96), 700, 1.0), ((1, 1100, 2, 64), 1100, 4.0)]
+
+
 @pytest.mark.cuda
-def test_flash_fp32_with_gradient_raises(cuda_device):
-    """The training kernels (7-10) are bf16 only: an fp32 call that needs a gradient raises
-    before any launch, and so does the fp32 LSE forward."""
+@pytest.mark.parametrize("shape,s_k,scale", FP32_TRAIN_SHAPES,
+                         ids=["ragged", "unet_level1", "d96", "guard"])
+def test_flash_fp32_training_kernels_match_plain(cuda_device, monkeypatch, shape, s_k, scale):
+    """The LSE forward (kernel 7 guarded by 8) and kernels 9 and 10 at fp32: fp32 out, lse
+    within 2e-5 of max(1, max|lse|) log2 units, dq, dk, dv within 1e-4 of each one's
+    max|ref|; the launches counted under the fp32 forms' names."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
+    b, s_q, h, d = shape
+    q = _randn(cuda_device, shape, scale, seed=0)
+    k = _randn(cuda_device, (b, s_k, h, d), scale, seed=1)
+    v = _randn(cuda_device, (b, s_k, h, d), seed=2)
+    do = _randn(cuda_device, shape, seed=3)
+    before = dict(tfa.launches)
+    out, lse = tfa.flash_fwd_lse(q, k, v)
+    want_out, want_lse = tfa.flash_fwd_lse_bound_plain(q, k, v)
+    assert out.dtype == lse.dtype == torch.float32
+    assert _rel_err(out, want_out) <= 2e-5
+    assert (lse - want_lse).abs().max().item() <= 2e-5 * max(1.0, want_lse.abs().max().item())
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    got = tfa.flash_bwd(q, k, v, do, lse, delta)
+    want = tfa.flash_bwd_plain(q, k, v, do, lse, delta)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and _rel_err(g, w) <= 1e-4, (name, _rel_err(g, w))
+    delta_launches = {n: tfa.launches[n] - before[n] for n in tfa.launches
+                      if tfa.launches[n] != before[n]}
+    assert delta_launches == {"flash_key_norm_fp32": 1, "flash_bound_lse_fp32": 1,
+                              "flash_maxtrack_lse_fp32": 1, "flash_bwd_dq_fp32": 1,
+                              "flash_bwd_dkv_fp32": 1}, delta_launches
+
+
+@pytest.mark.cuda
+def test_flash_fp32_with_gradient_runs_the_fp32_kernels(cuda_device, monkeypatch):
+    """Through the dispatch with fp32 inputs that require grad: the autograd Function runs
+    kernels 5, 7/8, 6 forward and 5, 9/10, 6 backward in fp32, and dq, dk, dv equal autograd
+    through the plain version within 1e-4 of max|ref|."""
     from lkgd_torch.ops.attention import dot_product_attention
 
-    q, k, v = (_randn(cuda_device, (1, 1024, 2, 64), seed=i).requires_grad_() for i in range(3))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (_randn(cuda_device, (2, 1100, 5, 64), seed=i).requires_grad_() for i in range(3))
+    before = dict(tfa.launches)
+    out = dot_product_attention(q, k, v)
+    do = _randn(cuda_device, out.shape, seed=4)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ref = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(tfa.flash_attention_maxtrack_plain(*ref), ref, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and _rel_err(g, w) <= 1e-4, (name, _rel_err(g, w))
+    delta = {n: tfa.launches[n] - before[n] for n in tfa.launches if tfa.launches[n] != before[n]}
+    assert delta == {"split_heads": 2, "merge_heads": 2, "flash_key_norm_fp32": 1,
+                     "flash_bound_lse_fp32": 1, "flash_maxtrack_lse_fp32": 1,
+                     "flash_bwd_dq_fp32": 1, "flash_bwd_dkv_fp32": 1}, delta
+
+
+@pytest.mark.cuda
+def test_flash_fp16_with_gradient_raises(cuda_device):
+    """fp16 is taken by no kernel: a call that needs a gradient raises in the Function's
+    forward, before any launch, and so does the LSE forward."""
+    from lkgd_torch.ops.attention import dot_product_attention
+
+    q, k, v = (_randn(cuda_device, (1, 1024, 2, 64), seed=i).half().requires_grad_()
+               for i in range(3))
     before = dict(tfa.launches)
     with pytest.raises(TypeError, match="7-10"):
         dot_product_attention(q, k, v)
-    with pytest.raises(TypeError, match="7-10"):
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         tfa.flash_fwd_lse(q.detach(), k.detach(), v.detach())
     assert tfa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128])
+def test_flash_fp32_bwd_plan_is_the_kernels_tiling(cuda_device, d, dkv):
+    from lkgd_torch.ops import _build
+
+    lib = _build.library()
+    plan = tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv, fp32=True)
+    assert plan.tile_rows == lib.lkgd_flash_bwd_f32_block_rows(d)
+    assert plan.smem_bytes == lib.lkgd_flash_bwd_f32_smem_bytes(d, int(dkv))
+    assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
 
 
 def _tiny_precompute(device):
@@ -674,15 +751,18 @@ def test_flash_bwd_plan_is_the_kernels_tiling(cuda_device, d, dkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, FLASH_TOL), (torch.float32, 2e-5)],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("d", [256, 512])
-def test_flash_training_kernels_refuse_wide_heads(cuda_device, d):
-    """Above D=128 the LSE forward runs and matches its plain version; the backward
-    kernels refuse, and the autograd Function refuses in its forward already."""
-    q, k, v = _qkv(cuda_device, (1, 1024, 1, d))
+def test_flash_training_kernels_refuse_wide_heads(cuda_device, monkeypatch, d, dtype, tol):
+    """Above D=128 the LSE forward runs and matches its plain version, in both dtypes; the
+    backward kernels refuse, and the autograd Function refuses in its forward already."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = (x.to(dtype) for x in _qkv(cuda_device, (1, 1024, 1, d)))
     out, lse = tfa.flash_fwd_lse(q, k, v)
     want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q.float(), k.float(), v.float())
-    assert _rel_err(out, want_out) <= FLASH_TOL
-    assert (lse - want_lse).abs().max().item() <= 1e-2
+    assert out.dtype == dtype and _rel_err(out, want_out) <= tol
+    assert (lse - want_lse).abs().max().item() <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
     delta = torch.zeros_like(lse)
     with pytest.raises(NotImplementedError):
         tfa.flash_bwd(q, k, v, out, lse, delta)

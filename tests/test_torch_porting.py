@@ -146,7 +146,9 @@ def test_port_imports_no_jax():
     """The machine with the card has no JAX and no transformers, and the port shares no
     module with the JAX package: importing every module under ``lkgd_torch/`` and
     ``chip_smoke`` (import only) pulls in none of jax, jaxlib, flax, optax, transformers or
-    lkgd_tpu, and no source file of the port imports transformers anywhere."""
+    lkgd_tpu, and no source file of the port imports transformers anywhere. The modules of
+    the latest slices are among them (``parallel/pp.py``; the fp32 backward's source and
+    its C entries among the kernels the build binds)."""
     code = ("import importlib, pkgutil, sys, lkgd_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(lkgd_torch.__path__, 'lkgd_torch.')]\n"
             "for name in names + ['chip_smoke']:\n"
@@ -155,8 +157,12 @@ def test_port_imports_no_jax():
             "new = ['lkgd_torch.utils.inversion', 'lkgd_torch.ops.quantization', "
             "'lkgd_torch.parallel.sequence', 'lkgd_torch.parallel.mesh', "
             "'lkgd_torch.cli.verify_parity', 'lkgd_torch.cli.collect_env', "
-            "'lkgd_torch.cli.web_demo', 'lkgd_torch.cli.gradio_demo']\n"
+            "'lkgd_torch.cli.web_demo', 'lkgd_torch.cli.gradio_demo', "
+            "'lkgd_torch.parallel.pp']\n"
             "assert set(new) <= set(names), sorted(set(new) - set(names))\n"
+            "from lkgd_torch.ops import _build\n"
+            "assert 'flash_attention_bwd_f32.cu' in [p.name for p in _build.SOURCES]\n"
+            "assert {'lkgd_flash_bwd_f32', 'lkgd_flash_bwd_f32_smem_bytes'} <= set(_build._SIGNATURES)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'lkgd_tpu'))\n"
             "print(len(names), bad); sys.exit(1 if bad else 0)")

@@ -13,7 +13,7 @@
   ``tests/test_tensor_parallel.py``; the FSDP run also bit for bit against the port's
   unsharded pipeline. The bytes a rank holds equal JAX's ``per_device_param_bytes`` on a
   4-device CPU mesh, and the refusals (heads that ``model`` does not divide, a mesh whose
-  product is not the world, the ``stage`` axis) name their cause. The CogVideoX CLI runs once
+  product is not the world, the JAX mesh's ``slice`` axis) name their cause. The CogVideoX CLI runs once
   more in the same ranks with ``--mesh data=2,model=2 --weight-sharding fsdp``: rank 0 writes
   the frames the one-process CLI writes.
 
@@ -89,7 +89,7 @@ def _refusals() -> dict:
         six = CogVideoXTransformer3D(dataclasses.replace(port_config(), num_attention_heads=6))
     return {"heads": _refusal(lambda: tp.tensor_parallel(six, grid.groups["model"])),
             "world": _refusal(lambda: mesh.make_mesh("model=3", "cpu")),
-            "stage": _refusal(lambda: mesh.make_mesh("stage=4", "cpu"))}
+            "slice": _refusal(lambda: mesh.make_mesh("slice=4", "cpu"))}
 
 
 CLI_ARGS = ["--device", "cpu", "--tiny", "--height", "32", "--width", "48", "--num-frames",
@@ -311,7 +311,7 @@ def test_refusals(runs):
         got = o["refusals"]
         assert "6 heads" in got["heads"] and "does not divide by 4" in got["heads"]
         assert "model=3 needs 3 processes, the world has 4" in got["world"]
-        assert "item 12b.4" in got["stage"]
+        assert "axes ['slice'] are not ported" in got["slice"]
 
 
 # ------------------------------------------------------------------ the spec functions
