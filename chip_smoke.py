@@ -50,14 +50,16 @@ each printing its own lines; any failure raises and the script exits non-zero:
    plain version's, the library's fp32 SDPA with the backend that served it and its own
    max |d|, and the bound of three TF32 products at 495 TFLOP/s (the fp32 FMA bound at 67
    TFLOP/s beside it);
-3i. kernels 7, 8, 9 and 10 in fp32 (the LSE form of ``flash_fwd_tf32_kernel`` and the FFMA
-   backward of ``csrc/flash_attention_bwd_f32.cu``) against their plain fp32 versions (TF32
-   off) at the fp32 LKGD fine-tune's level 0 (14, 4096, 5, 64) and level 1 (14, 1024, 10,
-   64), a ragged (2, 1100, 5, 64) x 1030 keys and a guard input: out within FP32_TOL x
+3i. kernels 7, 8, 9 and 10 in fp32 (the LSE form of ``flash_fwd_tf32_kernel`` and the
+   backward of ``csrc/flash_attention_bwd_f32.cu``: 3xTF32 on wgmma after its pre-pass at D
+   <= 64, FFMA tiles above) against their plain fp32 versions (TF32 off) at the fp32 LKGD
+   fine-tune's level 0 (14, 4096, 5, 64) and level 1 (14, 1024, 10, 64), a ragged (2, 1100,
+   5, 64) x 1030 keys, a guard input, D=40 x 900 keys and D=128: out within FP32_TOL x
    max|ref|, lse within FP32_TOL x max(1, max|lse|), dq, dk, dv within FP32_GRAD_TOL (1e-4)
-   x max|ref|, a second launch bit-identical, kernels 5/6 bit-exact on fp32 rows; device
-   time under the profiler, the plain version's, fp32 SDPA's forward or backward, and the
-   bound at 495 TFLOP/s x3 TF32 with the 67 TFLOP/s fp32 FMA bound beside it;
+   x max|ref|, a second launch and the one-call pair (``flash_bwd``) bit-identical, kernels
+   5/6 bit-exact on fp32 rows; device time under the profiler (a backward kernel's with its
+   pre-pass), the pair's from one C call (``pair_ms``), the plain version's, fp32 SDPA's
+   forward or backward, and the bound at 495 TFLOP/s x3 TF32 with the 67 TFLOP/s fp32 FMA bound beside it;
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
 3g. the fp32 form of kernels 1, 2 and 1a at Depth-Anything's DINOv2 attention, (1, 1370, 6,
@@ -990,7 +992,8 @@ def phase_tiny_joint(dev: torch.device, mode: str) -> None:
             torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
 
 
-_KINDS = (("flash attention kernels", ("flash_fwd", "flash_bwd", "key_sq_max", "tf32_split")),
+_KINDS = (("flash attention kernels", ("flash_fwd", "flash_bwd", "key_sq_max", "tf32_split",
+                                       "bwd_split")),
           ("GroupNorm kernels", ("gn_",)),
           # cuDNN's kernel names say what they compute (``sm90_xmma_fprop_implicit_gemm_*``);
           # cuBLAS's share the ``xmma`` prefix (``sm80_xmma_gemm_*``), so it names neither
@@ -4482,7 +4485,11 @@ FP32_TRAIN = (("fine-tune level 0", (14, 4096, 5, 64), None, 1.0),
               ("ragged, S_q != S_k", (2, 1100, 5, 64), 1030, 1.0),
               # norms x4 at D=64: the bound sits ~150 log2 units above every row's largest
               # logit, and the guard recomputes the bound form's tiles
-              ("guard input", (1, 1100, 2, 64), None, 4.0))
+              ("guard input", (1, 1100, 2, 64), None, 4.0),
+              # every head dim the backward is built for: D=40 (zero-padded to 64), and D=128,
+              # where the backward runs its FFMA kernels
+              ("D=40, S_q != S_k", (1, 700, 3, 40), 900, 1.0),
+              ("D=128", (1, 1024, 4, 128), None, 1.0))
 TRAINING_FP32 = ("flash_bound_lse_fp32", "flash_maxtrack_lse_fp32", "flash_bwd_dq_fp32",
                  "flash_bwd_dkv_fp32")
 PLAIN_FLASH = ("flash_attention_bound_plain", "flash_attention_maxtrack_plain",
@@ -4584,10 +4591,15 @@ def _fp32_train_case(label: str, shape, s_k, scale: float, gen: torch.Generator,
              "bound_fp32_fma_ms": fma_ms})
         del out, out2, lse, lse2, want_out, want_lse
 
-    # the backward from the guarded forward's out and lse, as the autograd Function
+    # the backward from the guarded forward's out and lse, as the autograd Function: kernels 9
+    # and 10 each alone (its own pre-pass), then the pair from one C call (one pre-pass)
     out, lse = fa.flash_fwd_lse(q, k, v)
     delta = (do * out).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta)
+    tf32 = fa.flash_bwd_plan(b, s_q, s_k, h, d, False, fp32=True).kernel == "dq_tf32x3"
+    form = "_tf32_kernel" if tf32 else "_ffma_kernel<"
+    pair = fa.flash_bwd(*args)
+    least_pair = 0.0
     for kernel, fn, plain, names in (
             ("flash_bwd_dq_fp32", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
             ("flash_bwd_dkv_fp32", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
@@ -4596,34 +4608,49 @@ def _fp32_train_case(label: str, shape, s_k, scale: float, gen: torch.Generator,
         want = in_row_chunks(plain, args, rows=2)
         got, again, want = (got, again, want) if dkv else ((got,), (again,), (want,))
         errs = {}
-        for name, g, g2, w in zip(names, got, again, want):
+        for name, g, g2, w, g3 in zip(names, got, again, want, pair[1:] if dkv else pair):
             assert g.dtype == torch.float32 and torch.isfinite(g).all(), (kernel, label, name)
             assert torch.equal(g, g2), f"{kernel} {label}: {name} differs between launches"
+            assert torch.equal(g, g3), f"{kernel} {label}: {name} differs in the one-call pair"
             errs[name] = ((g - w).abs().max().item(), w.abs().max().item())
         del got, again, want
-        t = _timed_kernel(lambda: fn(*args), kernel.replace("_fp32", "_f32_kernel"))
+        device = _device_kernel_ms(lambda: fn(*args))
+        main_ms = sum(t for n, t in device.items() if n.startswith(kernel.replace("_fp32", form)))
+        split_ms = sum(t for n, t in device.items() if n.startswith("bwd_split_kernel"))
+        assert main_ms > 0.0 and (split_ms > 0.0) == tf32, device
+        t = {"ms": main_ms + split_ms, "main_ms": main_ms, "split_ms": split_ms,
+             "call_device_ms": sum(device.values()), "wrapper_ms": gpu_ms(lambda: fn(*args), 20)}
         plain_ms = gpu_ms(lambda: in_row_chunks(plain, args, rows=2), reps=1)
         plan = fa.flash_bwd_plan(b, s_q, s_k, h, d, dkv, fp32=True)
         # dq: 3 products, q, dO and dq, k and v; dk/dv: 4 products, q and dO, k, v, dk, dv
         least, fma_ms = bounds(4 if dkv else 3, 2 if dkv else 3, 4 if dkv else 2)
-        print(f"[{tag}] {kernel} {label} (B,S,H,D)={shape}{keys}: " + ", ".join(
+        least_pair += least["bound_ms"]
+        print(f"[{tag}] {kernel} ({plan.kernel}) {label} (B,S,H,D)={shape}{keys}: " + ", ".join(
             f"{n} max|d| {e:.3e} of max|ref| {m:.3e} (tol {FP32_GRAD_TOL} x max|ref|)"
-            for n, (e, m) in errs.items()) + f", two launches bit-identical | {_paced(t)} | "
+            for n, (e, m) in errs.items()) + f", two launches and the one-call pair "
+              f"bit-identical | {_paced(t)}: main {main_ms:.4f} + pre-pass {split_ms:.4f} ms | "
               f"plain {plain_ms:.3f} ms (two rows at a time), library sdpa fp32 backward (dq, "
               f"dk and dv together) {lib_bwd_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
-              f"{least['bound_by']} at 495 TFLOP/s TF32 x3, fp32 FMA bound {fma_ms:.4f} ms at "
-              f"67 TFLOP/s ({100 * fma_ms / t['ms']:.1f}% of it) | plan {plan.blocks} blocks, "
-              f"{plan.waves:.2f} waves, {plan.tile_rows} resident rows", flush=True)
+              f"{least['bound_by']} at 495 TFLOP/s TF32 x3 "
+              f"({100 * least['bound_ms'] / t['ms']:.1f}% of it), fp32 FMA bound {fma_ms:.4f} "
+              f"ms at 67 TFLOP/s | plan {plan.blocks} blocks, {plan.waves:.2f} waves, {plan.tile_rows} "
+              f"resident rows, {plan.stages} ring units", flush=True)
         for name, (e, m) in errs.items():
             assert e <= FP32_GRAD_TOL * m, (kernel, label, name, e, m)
         rows.setdefault(kernel, []).append(
             {"shape": list(shape), "keys": s_k, "max_abs_err": max(e for e, _ in errs.values()),
              **t, "plain_ms": plain_ms, "library_ms": lib_bwd_ms, **least,
              "bound_fp32_fma_ms": fma_ms})
-    pair = rows["flash_bwd_dq_fp32"][-1]["ms"] + rows["flash_bwd_dkv_fp32"][-1]["ms"]
-    print(f"[{tag}] fp32 backward pair {label}: kernels 9 + 10 {pair:.4f} ms = "
-          f"{pair / lib_bwd_ms:.2f} x the library's fp32 backward ({lib_bwd_ms:.4f} ms)",
-          flush=True)
+    del pair
+    pair_device = _device_kernel_ms(lambda: fa.flash_bwd(*args))
+    pair_ms = sum(pair_device.values())
+    for kernel in ("flash_bwd_dq_fp32", "flash_bwd_dkv_fp32"):
+        rows[kernel][-1]["pair_ms"] = pair_ms
+    print(f"[{tag}] fp32 backward pair {label}: kernels 9 + 10 from one C call {pair_ms:.4f} "
+          f"ms on the device (" + ", ".join(f"{n} {ms:.4f}" for n, ms in pair_device.items())
+          + f") = {pair_ms / lib_bwd_ms:.2f} x the library's fp32 backward ({lib_bwd_ms:.4f} "
+          f"ms), {100 * least_pair / pair_ms:.1f}% of its {least_pair:.4f} ms bound at 495 "
+          f"TFLOP/s TF32 x3", flush=True)
     del q, k, v, do, out, lse, delta, args
     torch.cuda.empty_cache()
 
@@ -4632,13 +4659,14 @@ def phase_fp32_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     """3i: kernels 7, 8, 9 and 10 in fp32 (``csrc/flash_attention_f32.cu``'s LSE form,
     ``csrc/flash_attention_bwd_f32.cu``) against their plain fp32 versions (TF32 off) at the
     fp32 LKGD fine-tune's level 0 (14, 4096, 5, 64) and level 1 (14, 1024, 10, 64), a ragged
-    call with S_q != S_k and an input that trips the bound form's guard: out within
-    FP32_TOL x max|ref| and lse within FP32_TOL x max(1, max|lse|), dq, dk, dv within
-    FP32_GRAD_TOL x each one's max|ref|, a second launch bit-identical, kernels 5/6 on fp32
-    rows bit-exact; device time under the profiler beside the wrapper's, the plain
-    version's, the library's fp32 SDPA forward or backward, and the bound of three TF32
-    products at 495 TFLOP/s with the fp32 FMA bound at 67 TFLOP/s beside it. Returns the
-    rows by kernel: the first shape's, the others under ``shapes``."""
+    call with S_q != S_k, an input that trips the bound form's guard, D=40 and D=128: out
+    within FP32_TOL x max|ref| and lse within FP32_TOL x max(1, max|lse|), dq, dk, dv within
+    FP32_GRAD_TOL x each one's max|ref|, a second launch and the one-call pair bit-identical,
+    kernels 5/6 on fp32 rows bit-exact; device time under the profiler beside the wrapper's
+    (a backward kernel's with its pre-pass; the pair's from one call under ``pair_ms``), the
+    plain version's, the library's fp32 SDPA forward or backward, and the bound of three TF32 products at 495
+    TFLOP/s with the fp32 FMA bound at 67 TFLOP/s beside it. Returns the rows by kernel: the
+    first shape's, the others under ``shapes``."""
     assert not torch.backends.cuda.matmul.allow_tf32
     rows: dict = {}
     for label, shape, s_k, scale in FP32_TRAIN:

@@ -90,9 +90,6 @@ constexpr float kGuard = 0x1p-110f;  // smallest row sum the bound kernel may le
 constexpr int kConsumers = 256;      // threads of the two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;
 constexpr int kBK = 64;              // keys a tile
-constexpr int kUnitCols = 32;        // fp32 columns of a unit: one 128-byte swizzled row
-constexpr int kPlaneBytes = 64 * 128;            // 64 rows of one plane
-constexpr int kUnitBytes = 2 * kPlaneBytes;      // hi, then lo
 constexpr int kSmemLimit = 232448;               // dynamic shared memory a block may use
 
 // Tiling by D padded to DP (a multiple of 64): see the note above.
@@ -153,12 +150,6 @@ struct SplitArgs {
   int heads, s_q, s_k, d, s_kp;
 };
 
-// position p of a group of 8 keys in V^T holds key perm(p): [0, 2, 4, 6, 1, 3, 5, 7]
-__device__ __forceinline__ int v_key(int p) {
-  const int q = p & 7;
-  return (p & ~7) + (q < 4 ? 2 * q : 2 * q - 7);
-}
-
 // The pre-pass: rows r0..r0+31 of q and of k, and keys r0..r0+31 of v (transposed), of one
 // (batch, head) into their hi and lo planes; |q_i|^2 of the q rows. A warp takes whole rows
 // (16-byte loads and stores along them); v goes through shared memory 64 columns at a time.
@@ -216,7 +207,7 @@ __global__ void __launch_bounds__(256) tf32_split_kernel(const SplitArgs a, cons
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int e = threadIdx.x + 256 * i, row = e / 32, p = e % 32;
-      const float x = tile[v_key(p)][row];
+      const float x = tile[tf32_perm(p)][row];
       const float hi = tf32_round(x);
       const long long out = ((long long)bh * DP + c0 + row) * a.s_kp + r0 + p;
       sc.vh[out] = hi;
@@ -592,23 +583,6 @@ cudaError_t key_sq_max_f32(const float* k, const Strides& ks, int batch, int hea
   return cudaGetLastError();
 }
 
-// A rank-4 map (cols, rows, B*H, 1) over a dense (B*H, rows, cols) fp32 plane, loading
-// boxes of 32 columns x 64 rows in the 128-byte swizzle; rows past `rows` arrive as zeros.
-cudaError_t plane_map(CUtensorMap* map, const float* base, int bh, int rows, int cols) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(bh), 1};
-  const cuuint64_t strides[3] = {cuuint64_t(cols) * 4, cuuint64_t(rows) * cols * 4,
-                                 cuuint64_t(bh) * rows * cols * 4};
-  const cuuint32_t box[4] = {cuuint32_t(kUnitCols), 64, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int DP, bool BOUND>
 cudaError_t launch(const Maps& m, const F32Args& a, int batch, cudaStream_t stream) {
   using P = Plan<DP>;
@@ -633,12 +607,12 @@ cudaError_t forward(const SplitArgs& in, F32Args a, int batch, const Scratch& sc
   tf32_split_kernel<DP><<<grid, 256, 0, s>>>(in, sc);
   cudaError_t err = cudaGetLastError();
   Maps m;
-  if (err == cudaSuccess) err = plane_map(&m.qh, sc.qh, bh, a.s_q, DP);
-  if (err == cudaSuccess) err = plane_map(&m.ql, sc.ql, bh, a.s_q, DP);
-  if (err == cudaSuccess) err = plane_map(&m.kh, sc.kh, bh, a.s_k, DP);
-  if (err == cudaSuccess) err = plane_map(&m.kl, sc.kl, bh, a.s_k, DP);
-  if (err == cudaSuccess) err = plane_map(&m.vh, sc.vh, bh, DP, in.s_kp);
-  if (err == cudaSuccess) err = plane_map(&m.vl, sc.vl, bh, DP, in.s_kp);
+  if (err == cudaSuccess) err = f32_plane_map(&m.qh, sc.qh, bh, a.s_q, DP);
+  if (err == cudaSuccess) err = f32_plane_map(&m.ql, sc.ql, bh, a.s_q, DP);
+  if (err == cudaSuccess) err = f32_plane_map(&m.kh, sc.kh, bh, a.s_k, DP);
+  if (err == cudaSuccess) err = f32_plane_map(&m.kl, sc.kl, bh, a.s_k, DP);
+  if (err == cudaSuccess) err = f32_plane_map(&m.vh, sc.vh, bh, DP, in.s_kp);
+  if (err == cudaSuccess) err = f32_plane_map(&m.vl, sc.vl, bh, DP, in.s_kp);
   if (err != cudaSuccess) return err;
   if (!bound) return launch<DP, false>(m, a, batch, s);
   a.q_sq = sc.q_sq;

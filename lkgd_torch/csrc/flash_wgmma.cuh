@@ -1,10 +1,10 @@
 // Hopper-only pieces of the port's warp-specialised kernels: the flash-attention forward
 // (flash_attention_wgmma.cu) and its fp32 form (flash_attention_f32.cu), the backward
-// (flash_attention_bwd.cu), the forward's variants (flash_variant.cu) and the blocked matrix
-// product (blocked_matmul.cu). mbarriers, TMA tile loads and stores through a tensor map and
-// the host code that encodes the map, shared-memory matrix descriptors for the 128-byte
-// swizzle, and wgmma.mma_async (bf16 in, or tf32 in, fp32 in registers). Everything here
-// needs sm_90a.
+// (flash_attention_bwd.cu) and its fp32 form (flash_attention_bwd_f32.cu), the forward's
+// variants (flash_variant.cu) and the blocked matrix product (blocked_matmul.cu). mbarriers,
+// TMA tile loads and stores through a tensor map and the host code that encodes the map,
+// shared-memory matrix descriptors for the 128-byte swizzle, and wgmma.mma_async (bf16 in, or
+// tf32 in, fp32 in registers). Everything here needs sm_90a.
 //
 // Shared tiles are "panels": rows of 64 bf16 (128 bytes), eight rows to a 1024-byte swizzle
 // atom, exactly what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and an inner box of 64
@@ -386,6 +386,24 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// ------------------------------------------------------------------ fp32 planes
+// The fp32 kernels (flash_attention_f32.cu, flash_attention_bwd_f32.cu) read operands split
+// into a tf32 hi plane and an fp32 lo plane by a pre-pass, in "units": a 64-row x 32-fp32 box
+// of a hi plane (one 128-byte swizzled row a row: 8 KB) and the same box of its lo plane.
+constexpr int kUnitCols = 32;
+constexpr int kPlaneBytes = 64 * 128;
+constexpr int kUnitBytes = 2 * kPlaneBytes;
+
+// A transposed plane (depth x sequence) keeps its sequence in groups of 8 laid out
+// [0, 2, 4, 6, 1, 3, 5, 7]: position p holds index tf32_perm(p). The accumulator of a product
+// gives a thread columns {2 t4, 2 t4 + 1} of each 8, and the register A operand of a k8 step
+// wants depths {t4, t4 + 4}: over the permuted plane the same registers are that A operand
+// as they stand (the product sums over the sequence, so permuting both sides changes nothing).
+__device__ __forceinline__ int tf32_perm(int p) {
+  const int q = p & 7;
+  return (p & ~7) + (q < 4 ? 2 * q : 2 * q - 7);
+}
+
 // ------------------------------------------------------------------ host: tensor maps
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -414,6 +432,23 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, const Strides& s
   const cuuint32_t box[4] = {cuuint32_t(kPanelCols), cuuint32_t(rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A rank-4 map (cols, rows, B*H, 1) over a dense (B*H, rows, cols) fp32 plane, loading units
+// (boxes of 32 columns x 64 rows) in the 128-byte swizzle; rows past `rows` arrive as zeros.
+inline cudaError_t f32_plane_map(CUtensorMap* map, const float* base, int bh, int rows, int cols) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(bh), 1};
+  const cuuint64_t strides[3] = {cuuint64_t(cols) * 4, cuuint64_t(rows) * cols * 4,
+                                 cuuint64_t(bh) * rows * cols * 4};
+  const cuuint32_t box[4] = {cuuint32_t(kUnitCols), 64, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

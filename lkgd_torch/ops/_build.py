@@ -51,8 +51,10 @@ _SIGNATURES = {
                                    _P], _I),
     "lkgd_flash_bwd_f32_block_rows": ([_I], _I),
     "lkgd_flash_bwd_f32_smem_bytes": ([_I, _I], _I),
+    "lkgd_flash_bwd_f32_stages": ([_I, _I], _I),
+    "lkgd_flash_bwd_f32_scratch_floats": ([_I] * 5, _LL),
     "lkgd_flash_bwd_f32": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I,
-                                       _I, _P], _I),
+                                       _P, _I, _P], _I),
     "lkgd_group_norm": ([_P] * 5 + [_B, _F, _I, _P], _I),
     "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P], _I),
     "lkgd_relayout_heads": ([_I, _I, _B, _P, _I, _I, _I, _I, _P], _I),

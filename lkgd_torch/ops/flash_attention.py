@@ -48,9 +48,13 @@ by TMA, after a pre-pass that writes the hi and lo planes of q, k and v's transp
 scratch) from the same one call: kernels 1, 2 and 1a with the same guard, counted as
 ``flash_bound_fp32``, ``flash_maxtrack_fp32`` and ``flash_key_norm_fp32``, and kernels 7
 and 8 (``flash_bound_lse_fp32``, ``flash_maxtrack_lse_fp32``), the same kernel writing the
-lse. The fp32 backward (``csrc/flash_attention_bwd_f32.cu``, ``lkgd_flash_bwd_f32``) is
-kernels 9 and 10 as plain tiled kernels whose products are fp32 FMAs on the CUDA cores
-(``flash_bwd_dq_fp32``, ``flash_bwd_dkv_fp32``), D <= 128. The JAX kernels take fp32
+lse. The fp32 backward (``csrc/flash_attention_bwd_f32.cu``, ``lkgd_flash_bwd_f32``, counted as
+``flash_bwd_dq_fp32`` and ``flash_bwd_dkv_fp32``) is kernels 9 and 10 as the same 3xTF32
+products on ``wgmma``, in the bf16 backward's structure, after a pre-pass that writes the hi
+and lo planes of q, k, v, dO and the transposes the tf32 operands need into scratch: at D <=
+64 (the fp32 UNet's heads); 64 < D <= 128 keeps plain tiled kernels whose products are fp32
+FMAs on the CUDA cores, as ``flash_bwd_plan``'s ``kernel`` says. ``flash_bwd`` is one call
+into C that splits each input once and launches both kernels. The JAX kernels take fp32
 operands with fp32 accumulation: the temporal VAE and CLIP-H of ``cli/precompute_cache.py``
 run in fp32, as the JAX CLI builds them, and so does the UNet of ``cli/train_svd_lora.py
 --dtype fp32``, the JAX fine-tune CLI's own precision, whose train step runs kernels 5-10
@@ -212,35 +216,53 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
 
 class FlashBwdPlan(NamedTuple):
     """How a backward kernel tiles one call (the host side of ``BwdPlan`` in
-    ``csrc/flash_attention_bwd.cu``, or of ``F32BwdPlan`` in ``flash_attention_bwd_f32.cu``)."""
-    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10); "dq_fp32", "dkv_fp32" at fp32
+    ``csrc/flash_attention_bwd.cu``, or of ``TPlan`` and ``F32BwdPlan`` in
+    ``flash_attention_bwd_f32.cu``)."""
+    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10) in bf16; at fp32 "dq_tf32x3",
+                       # "dkv_tf32x3" (D <= 64) or "dq_ffma", "dkv_ffma" (64 < D <= 128)
     tile_rows: int     # rows a block keeps resident: queries (dq) or keys (dkv), what
                        # lkgd_flash_bwd_block_rows answers
     stream_rows: int   # rows of a streamed tile: keys (dq) or queries (dkv)
-    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv); 1 at fp32
+    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv); at fp32
+                       # 16 KB units (tf32x3) or 1 (ffma: one tile of each)
     smem_bytes: int    # dynamic shared memory a block asks for
     blocks: int        # the grid
     waves: float       # blocks over the SMs (one block an SM: its registers allow no more)
 
 
-F32_BWD_ROWS = 64  # rows of the fp32 backward's resident and streamed tiles
+F32_BWD_TF32_MAX_D = 64  # head dims the fp32 backward runs as 3xTF32 on wgmma
+F32_BWD_ROWS = 64  # rows of the fp32 FFMA backward's resident and streamed tiles
 
 
 def flash_bwd_plan(b: int, s_q: int, s_k: int, h: int, d: int, dkv: bool,
                    sm_count: int = 132, fp32: bool = False) -> FlashBwdPlan:
     """The tiling of a backward call over (b, s_q | s_k, h, d): kernel 10 (``dkv``) or
-    kernel 9, a pure function of the shapes, static by d. ``fp32``: the fp32 form (``F32BwdPlan``
-    in ``csrc/flash_attention_bwd_f32.cu``): 64 resident rows and 64-row streamed tiles at a
-    pitch of D padded + 1 floats, one tile of each in shared memory (no ring), P and dS
-    beside them (dq: dS alone), and the tile's lse and delta."""
+    kernel 9, a pure function of the shapes, static by d. ``fp32``: the fp32 forms of
+    ``csrc/flash_attention_bwd_f32.cu``. At D <= 64 3xTF32 on wgmma (``TPlan``): 128 resident
+    rows (Q and dO, or K and V, hi and lo: 128 KB), 64-row streamed tiles through a ring of 16
+    KB units filling the rest (dk/dv also keeps two tiles' lse and delta). Above, the FFMA
+    kernels (``F32BwdPlan``): 64 resident rows and 64-row streamed tiles at a pitch of D padded
+    + 1 floats, one tile of each in shared memory (no ring), P and dS beside them (dq: dS
+    alone), and the tile's lse and delta."""
     if d <= 0 or d % 8 or d > BWD_MAX_D:
         raise ValueError(f"flash_bwd_plan: head dim {d} (dkv={dkv}, fp32={fp32}) is not built")
     dp = 64 if d <= 64 else 128
+    if fp32 and d <= F32_BWD_TF32_MAX_D:
+        rows = F32_ROWS
+        resident = 2 * rows // 64 * dp // 32 * F32_UNIT  # two tensors, hi and lo
+        lse_rows = 2 * 2 * 64 * 4 if dkv else 0  # two tiles' lse and delta
+        # 1024 of alignment slack and 512 for the barriers; one resident barrier and a
+        # full/empty pair a unit
+        stages = (SMEM_LIMIT - 1536 - resident - lse_rows) // F32_UNIT
+        smem = 1024 + resident + lse_rows + stages * F32_UNIT + 8 * (1 + 2 * stages)
+        blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
+        return FlashBwdPlan("dkv_tf32x3" if dkv else "dq_tf32x3", rows, 64, stages, smem, blocks,
+                            blocks / sm_count)
     if fp32:
         rows = F32_BWD_ROWS
         smem = 4 * (4 * rows * (dp + 1) + (2 if dkv else 1) * rows * (rows + 1) + 2 * rows)
         blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
-        return FlashBwdPlan("dkv_fp32" if dkv else "dq_fp32", rows, rows, 1, smem, blocks,
+        return FlashBwdPlan("dkv_ffma" if dkv else "dq_ffma", rows, rows, 1, smem, blocks,
                             blocks / sm_count)
     rows = 128
     stream = 64 if dkv or dp > 64 else 128
@@ -457,8 +479,13 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
               lse: torch.Tensor, delta: torch.Tensor):
     """dq, dk, dv (B, S, H, D) from the forward's lse and delta = rowsum(dO * O), both
-    (B, H, S_q) fp32: kernel 9 then kernel 10 (their plain versions on CPU tensors)."""
-    return flash_bwd_dq(q, k, v, do, lse, delta), *flash_bwd_dkv(q, k, v, do, lse, delta)
+    (B, H, S_q) fp32: kernel 9 then kernel 10 (their plain versions on CPU tensors); at fp32
+    one call into C, one pre-pass for both."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv)
+    return dq, dk, dv
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
@@ -483,8 +510,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
 
 
 def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
-    """Launch kernel 9 (``dq`` given) or kernel 10 (``dk`` and ``dv`` given): the bf16 forms
-    or, for fp32 operands, the fp32 ones."""
+    """Launch kernel 9 (``dq`` given) and/or kernel 10 (``dk`` and ``dv`` given): the bf16
+    forms, one C call each, or, for fp32 operands, the fp32 ones from one C call."""
     _check(q, k, v, ("dO", do))
     _check_bwd(q)
     b, s_q, h, d = q.shape
@@ -495,22 +522,34 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
                 or x.device != q.device:
             raise ValueError(f"flash_bwd: {name} must be a contiguous (B, H, S_q) float32 "
                              f"tensor on q's device, got {tuple(x.shape)} {x.dtype}")
-    dkv = dq is None
+    s_k = k.shape[1]
     fp32 = q.dtype == torch.float32
-    if flash_bwd_plan(b, s_q, k.shape[1], h, d, dkv, fp32=fp32).blocks >= 2 ** 31:
+    kernels = [dkv for dkv, out in ((False, dq), (True, dk)) if out is not None]
+    if any(flash_bwd_plan(b, s_q, s_k, h, d, dkv, fp32=fp32).blocks >= 2 ** 31
+           for dkv in kernels):
         raise ValueError(f"flash_bwd: the grid of q {tuple(q.shape)}, k {tuple(k.shape)} "
                          f"exceeds 2^31 blocks")
-    outs = (q, dk, dv) if dkv else (dq, k, v)  # strides of the unused slots are not read
+    # strides of the unused slots are not read
+    outs = (q if dq is None else dq, k if dk is None else dk, v if dv is None else dv)
     strides = (ctypes.c_longlong * 21)(*(s for x in (q, k, v, do, *outs)
                                          for s in x.stride()[:3]))
-    scale = d ** -0.5
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if dq is None else dq.data_ptr(),
+            None if dk is None else dk.data_ptr(), None if dv is None else dv.data_ptr(),
+            strides, b, h, s_q, s_k, d, d ** -0.5, d ** -0.5 * LOG2E)
     lib = _build.library()
-    _build.check((lib.lkgd_flash_bwd_f32 if fp32 else lib.lkgd_flash_bwd)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), None if dkv else dq.data_ptr(), dk.data_ptr() if dkv else None,
-        dv.data_ptr() if dkv else None, strides, b, h, s_q, k.shape[1], d, scale,
-        scale * LOG2E, int(dkv), *stream_of(q.device)))
-    launches[("flash_bwd_dkv" if dkv else "flash_bwd_dq") + ("_fp32" if fp32 else "")] += 1
+    if fp32:
+        _check_pairs(b, h)  # the pre-pass's grid
+        floats = lib.lkgd_flash_bwd_f32_scratch_floats(b, h, s_q, s_k, d)
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
+        which = sum(2 if dkv else 1 for dkv in kernels)  # 1: dq, 2: dk/dv, 3: both
+        _build.check(lib.lkgd_flash_bwd_f32(*args, which, None if scratch is None
+                                            else scratch.data_ptr(), *stream_of(q.device)))
+    else:
+        for dkv in kernels:
+            _build.check(lib.lkgd_flash_bwd(*args, int(dkv), *stream_of(q.device)))
+    for dkv in kernels:
+        launches[("flash_bwd_dkv" if dkv else "flash_bwd_dq") + ("_fp32" if fp32 else "")] += 1
 
 
 def split_heads_plain(x: torch.Tensor) -> torch.Tensor:

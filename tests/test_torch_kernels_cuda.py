@@ -391,9 +391,15 @@ def test_flash_fp32_bwd_plan_is_the_kernels_tiling(cuda_device, d, dkv):
 
     lib = _build.library()
     plan = tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv, fp32=True)
+    assert plan.kernel.endswith("_tf32x3" if d <= 64 else "_ffma")
     assert plan.tile_rows == lib.lkgd_flash_bwd_f32_block_rows(d)
     assert plan.smem_bytes == lib.lkgd_flash_bwd_f32_smem_bytes(d, int(dkv))
+    assert plan.stages == lib.lkgd_flash_bwd_f32_stages(d, int(dkv))
     assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    # the pre-pass's planes, hi and lo: q, dO (s_q rows), k, v (s_k rows) at D padded to 64;
+    # K^T (s_k rounded up to 32), Q^T and dO^T (s_q rounded up); none for the FFMA kernels
+    planes = 2 * 15 * 64 * (2 * 1100 + 2 * 1333 + 1344 + 2 * 1120) if d <= 64 else 0
+    assert lib.lkgd_flash_bwd_f32_scratch_floats(3, 5, 1100, 1333, d) == planes
 
 
 def _tiny_precompute(device):
