@@ -14,11 +14,18 @@ each printing its own lines; any failure raises and the script exits non-zero:
    frame-transition clip's shapes (56 and 4 rows) and the flash kernels at the whole-clip
    decode's (14, 9216, 1, 512), the plain flash version in row chunks; the key-norm kernel
    that feeds the bound kernels against its plain version at every flash case; at (2,
-   9216, 1, 512) the flash kernels must beat their plain versions; GroupNorm's a, b within
-   1e-4 relative of the plain statistics, the two kernels' device times under
-   ``torch.profiler`` beside their wrappers' (20 calls), one forward at most three device
-   operations (memset, statistics with their fold, normalise), and fp32 statistics with
-   mean 1e3 and std 1 against an fp64 reference, bit-identical over three calls;
+   9216, 1, 512) the flash kernels must beat their plain versions; GroupNorm at every
+   shape class of the UNet step (levels 0-2, spatial and temporal), the trans clip's and
+   the VAE's full resolution: the form ``fused_plan`` picks (one pass on a cluster, or
+   statistics then normalise) asserted from the launch counters, the one-pass kernel's own
+   a, b within 1e-4 relative of its plain merge order and its bits the same over two
+   calls, one device operation a one-pass forward and at most three a two-pass one (memset,
+   statistics with their fold, normalise), kernel 3's a, b within 1e-4 relative of the
+   plain statistics, kernel 4 alone against its plain version, device times under
+   ``torch.profiler`` beside the wrappers' (20 calls), the one-pass bound (x read once, y
+   written once), fp32 statistics with mean 1e3 and std 1 against an fp64 reference,
+   bit-identical over three calls, and the bf16 SiLU of both forms within a bf16 ulp of
+   t * sigmoid(t) over t in [-20, 20];
 3b. the two microbenchmark kernels against their plain versions: the blocked matmul at
    (258048, 320) x (320, 320 | 1280) and ragged shapes (max |d| <= 1e-2 * max|ref|), the
    flash variants at (140, 9216, 64) in every mode with all four tile shapes (max |d| <=
@@ -386,6 +393,8 @@ REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     # no Pallas kernel: the part of the wrapper's _bound_t that the bound kernel takes from
     # outside, max_j|k_j| per (batch, head)
     "flash_key_norm": "lkgd_tpu/ops/flash_attention.py:95",
+    # the one-pass form computes both Pallas kernels' work (and _sums_to_affine, :148)
+    "gn_one_pass": "lkgd_tpu/ops/group_norm.py:44 + lkgd_tpu/ops/group_norm.py:56",
     "gn_stats": "lkgd_tpu/ops/group_norm.py:44",
     "gn_apply": "lkgd_tpu/ops/group_norm.py:56",
     "flash_bound_lse": "lkgd_tpu/ops/flash_attention.py:150",
@@ -406,7 +415,9 @@ REPLACES = {  # the Pallas kernel body each CUDA kernel replaces
     "flash_bwd_dq_fp32": "lkgd_tpu/ops/flash_attention.py:218",
     "flash_bwd_dkv_fp32": "lkgd_tpu/ops/flash_attention.py:246",
 }
-INFERENCE = ("flash_bound", "flash_maxtrack", "flash_key_norm", "gn_stats", "gn_apply")
+INFERENCE = ("flash_bound", "flash_maxtrack", "flash_key_norm", "gn_one_pass", "gn_stats",
+             "gn_apply")
+GN_FORMS = ("gn_one_pass", "gn_stats", "gn_apply")
 TRAINING = ("flash_bound_lse", "flash_maxtrack_lse", "flash_bwd_dq", "flash_bwd_dkv",
             "split_heads", "merge_heads")
 EXPERIMENTS = ("blocked_matmul", "flash_variant")
@@ -420,6 +431,7 @@ PEAK_BYTES, PEAK_BF16, PEAK_FP32, PEAK_TF32 = 3.35e12, 989e12, 67e12, 495e12
 SOURCES = {"flash_bound": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_maxtrack": "lkgd_torch/csrc/flash_attention_wgmma.cu",
            "flash_key_norm": "lkgd_torch/csrc/flash_attention_wgmma.cu",
+           "gn_one_pass": "lkgd_torch/csrc/group_norm.cu",
            "gn_stats": "lkgd_torch/csrc/group_norm.cu",
            "gn_apply": "lkgd_torch/csrc/group_norm.cu",
            "flash_bound_lse": "lkgd_torch/csrc/flash_attention_wgmma.cu",
@@ -445,6 +457,23 @@ def bound(ops: float, nbytes: float, peak_ops: float = PEAK_BF16) -> dict:
     by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _gn_forwards(counts) -> int:
+    """GroupNorm forwards in launch counts: each is one launch of the one-pass kernel, or a
+    launch of the statistics and one of the normalise pass."""
+    return counts.get("gn_one_pass", 0) + counts.get("gn_apply", 0)
+
+
+def _by_forwards(counts: dict) -> dict:
+    """Launch counts of one run with GroupNorm's two forms folded into its forwards
+    (``gn_forwards``), for paths whose count of norms is known but not each norm's form;
+    every two-pass forward launched both of its kernels."""
+    assert counts.get("gn_stats", 0) == counts.get("gn_apply", 0), counts
+    out = {k: v for k, v in counts.items() if v and k not in GN_FORMS}
+    if _gn_forwards(counts):
+        out["gn_forwards"] = _gn_forwards(counts)
+    return out
 
 
 def flash_bound(shape, s_k: int | None = None, products: int = 2, q_tensors: int = 2,
@@ -608,8 +637,14 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
 
     import torch.nn.functional as F
 
+    # every shape class of the UNet step (the 960- and 1920-channel level-0 and level-1
+    # norms are their 320- and 640-channel classes' wider cases), the trans clip's 56 and 4
+    # rows, the VAE's full resolution, a ragged shape; one pass or two as fused_plan says
     gn_cases = [("unet level 0 spatial", (28, 9216, 320), torch.bfloat16),
                 ("unet level 0 temporal", (2, 14 * 9216, 320), torch.bfloat16),
+                ("unet level 1 spatial", (28, 2304, 640), torch.bfloat16),
+                ("unet level 1 temporal", (2, 14 * 2304, 640), torch.bfloat16),
+                ("unet level 2 spatial", (28, 576, 1280), torch.bfloat16),
                 ("trans level 0 spatial", (56, 9216, 320), torch.bfloat16),
                 ("trans level 0 temporal", (4, 14 * 9216, 320), torch.bfloat16),
                 ("vae decode full res", (7, 576 * 1024, 128), torch.bfloat16),
@@ -621,6 +656,7 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         w = (randn(shape[-1], scale=0.1) + 1.0).to(dtype)
         b = randn(shape[-1], scale=0.1).to(dtype)
         kw = dict(num_groups=32, eps=1e-5)
+        plan = gn.fused_plan(*shape, 32, x.element_size())
         a_want, b_want = gn.group_norm_affine_plain(x.float(), w.float(), b.float(), **kw)
         a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
         stats_err = max((a_got - a_want).abs().max().item(), (b_got - b_want).abs().max().item())
@@ -628,18 +664,41 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
         stats_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item()
                         for g, t in ((a_got, a_want), (b_got, b_want)))
         assert stats_rel <= 1e-4, (label, dtype, stats_rel)
+        form = "two passes"
+        if plan is not None:
+            # the one-pass form's own a, b against its plain merge order, and its bits over
+            # two calls
+            y1, a1, b1 = gn.group_norm_one_pass(x, w, b, act="silu", **kw)
+            want1 = gn.group_norm_affine_slabs_plain(x, w, b, plan=plan, **kw)
+            one_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item()
+                          for g, t in zip((a1, b1), want1))
+            same = all(torch.equal(g, f) for g, f in zip(
+                gn.group_norm_one_pass(x, w, b, act="silu", **kw), (y1, a1, b1)))
+            form = (f"one pass: slabs of {plan.slab_groups} groups, clusters of {plan.cluster} "
+                    f"x {plan.rows_per_block} rows, {plan.smem_bytes} B of shared memory a block; "
+                    f"its a, b relative {one_rel:.2e} (tol 1e-4), two calls bit-identical "
+                    f"{same}")
+            assert one_rel <= 1e-4 and same, (label, dtype, form)
+            del y1
         for act in (None, "silu"):
+            before = dict(gn.launches)
             got = gn.group_norm(x, w, b, act=act, **kw)
+            moved = {k: gn.launches[k] - before[k] for k in before if gn.launches[k] != before[k]}
+            assert moved == ({"gn_one_pass": 1} if plan else {"gn_stats": 1, "gn_apply": 1}), \
+                (label, moved)
             err = (got.float() - gn.group_norm_plain(x.float(), w.float(), b.float(), act=act,
                                                      **kw)).abs()
+            del got
             apply_want = gn.group_norm_apply_plain(x.float(), a_got, b_got, act)
             apply_err = (gn.group_norm_apply(x, a_got, b_got, act).float()
                          - apply_want).abs().max().item()
+            del apply_want
             tol = GN_TOL[dtype]
             stats_ms = gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 20)
             stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw))
             apply_ms = gpu_ms(lambda: gn.group_norm_apply(x, a_got, b_got, act), 20)
             apply_plain_ms = gpu_ms(lambda: gn.group_norm_apply_plain(x, a_got, b_got, act))
+            forward_ms = gpu_ms(lambda: gn.group_norm(x, w, b, act=act, **kw), 20)
             # the library's GroupNorm (+ SiLU) on the same memory: (N, M, C) is the
             # channels-last form of (N, C, M, 1)
             x_nchw = x.view(shape[0], shape[1], 1, shape[2]).permute(0, 3, 1, 2)
@@ -647,33 +706,46 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 F.group_norm(x_nchw, 32, w, b, 1e-5)))
             n_el, size = x.numel(), x.element_size()
             # stats: x read once, (N, C) fp32 a and b written, ~3 fp32 operations an element;
-            # apply: x read, y written, a and b read, ~8 operations an element with SiLU
+            # apply, and the whole forward: x read once, y written once (a and b read),
+            # ~8 operations an element with SiLU
             stats_least = bound(3 * n_el, n_el * size + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
             apply_least = bound((8 if act else 2) * n_el,
                                 2 * n_el * size + 2 * shape[0] * shape[2] * 4, PEAK_FP32)
-            # one launch of each kernel under the profiler (with SiLU, the resblocks' form),
-            # and the device operations of one whole forward: memset, stats+fold, apply
+            # each kernel alone under the profiler (with SiLU, the resblocks' form), and one
+            # whole forward: its device time and device operations
             dev_t = device_times(x, w, b, act) if act else {}
             print(f"[kernel] group_norm {label} {tuple(shape)} {str(dtype)[6:]} act={act}: "
-                  f"max|d| {err.max().item():.3e} mean|d| {err.mean().item():.3e} (tol {tol}) "
-                  f"| stats+fold {stats_ms:.4f} ms (20 calls), plain {stats_plain_ms:.3f} ms "
-                  f"(affine max|d| {stats_err:.3e}, relative {stats_rel:.2e}, tol 1e-4), bound "
+                  f"{form} | forward max|d| {err.max().item():.3e} mean|d| "
+                  f"{err.mean().item():.3e} (tol {tol}), {forward_ms:.4f} ms (20 calls) | "
+                  f"stats+fold {stats_ms:.4f} ms, plain {stats_plain_ms:.3f} ms (affine max|d| "
+                  f"{stats_err:.3e}, relative {stats_rel:.2e}, tol 1e-4), bound "
                   f"{stats_least['bound_ms']:.4f} ms | apply {apply_ms:.4f} ms, plain "
                   f"{apply_plain_ms:.3f} ms (max|d| {apply_err:.3e}), bound "
                   f"{apply_least['bound_ms']:.4f} ms | library group_norm"
                   f"{'+silu' if act else ''} (both passes) {lib_ms:.3f} ms" + (
-                      f" | device (torch.profiler): stats+fold {dev_t['stats_device_ms']:.4f} "
-                      f"ms ({100 * stats_least['bound_ms'] / dev_t['stats_device_ms']:.1f}% of "
-                      f"bound; kernel {dev_t['stats_kernel_ms']:.4f}), apply "
+                      f" | device (torch.profiler): forward {dev_t['forward_device_ms']:.4f} ms "
+                      f"({100 * apply_least['bound_ms'] / dev_t['forward_device_ms']:.1f}% of "
+                      f"the one-pass bound), {dev_t['forward_device_ops']:.0f} device "
+                      f"operations, {dev_t['form']}; stats+fold alone "
+                      f"{dev_t['stats_device_ms']:.4f} ms "
+                      f"({100 * stats_least['bound_ms'] / dev_t['stats_device_ms']:.1f}% of "
+                      f"bound; kernel {dev_t['stats_kernel_ms']:.4f}), apply alone "
                       f"{dev_t['apply_device_ms']:.4f} ms ("
                       f"{100 * apply_least['bound_ms'] / dev_t['apply_device_ms']:.1f}% of "
-                      f"bound), one forward {dev_t['forward_device_ops']:.0f} device "
-                      f"operations" if act else ""), flush=True)
+                      f"bound)" if act else ""), flush=True)
             assert err.max().item() <= tol, (label, dtype, act, err.max().item())
             assert apply_err <= tol, (label, dtype, act, apply_err)
-            assert not dev_t or dev_t["forward_device_ops"] <= 3, (label, dtype, dev_t)
+            if dev_t:
+                assert dev_t["forward_device_ops"] == 1 if plan else \
+                    dev_t["forward_device_ops"] <= 3, (label, dtype, dev_t)
             if label == "unet level 0 spatial" and dtype == torch.bfloat16 and act == "silu":
-                # library_ms is one call for both kernels' work: the same number in both
+                # library_ms is one call for the forward's work: the same number in all three
+                results["gn_one_pass"] = {"max_abs_err": err.max().item(),
+                                          "ms": forward_ms,
+                                          "device_ms": dev_t["forward_device_ms"],
+                                          "plain_ms": gpu_ms(lambda: gn.group_norm_plain(
+                                              x, w, b, act=act, **kw)),
+                                          "library_ms": lib_ms, **apply_least}
                 results["gn_stats"] = {"max_abs_err": stats_err, "ms": stats_ms,
                                        "device_ms": dev_t["stats_device_ms"],
                                        "plain_ms": stats_plain_ms, "library_ms": lib_ms,
@@ -682,9 +754,24 @@ def phase_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                                        "device_ms": dev_t["apply_device_ms"],
                                        "plain_ms": apply_plain_ms, "library_ms": lib_ms,
                                        **apply_least}
-        del x
+            if label == "unet level 0 temporal" and act == "silu":
+                # the kernel-4 row's own shape: the first the UNet runs two-pass
+                results["gn_apply"]["level0_temporal"] = {
+                    "max_abs_err": apply_err, "ms": apply_ms,
+                    "device_ms": dev_t["apply_device_ms"], "plain_ms": apply_plain_ms,
+                    "library_ms": lib_ms, **apply_least}
+            del err
+        del x, a_want, b_want, a_got, b_got
         torch.cuda.empty_cache()
     _gn_large_mean_check(gn, randn)
+    # the bf16 SiLU of both forms over t in [-20, 20], in bf16 ulps of t * sigmoid(t)
+    from lkgd_torch.experiments.group_norm_ab import silu_ulps
+
+    ulps = silu_ulps()
+    print(f"[kernel] group_norm bf16 silu against t * sigmoid(t) in fp64, bf16 ulps (tol 1): "
+          + "; ".join(f"{form} {v['max_ulps']:.4f} at t = {v['at_t']:.4g}"
+                      for form, v in ulps.items()), flush=True)
+    assert all(v["max_ulps"] <= 1.0 for v in ulps.values()), ulps
     return results
 
 
@@ -825,18 +912,18 @@ def phase_tiny(dev: torch.device) -> None:
     image = torch.from_numpy(rng.uniform(size=(1, 48, 48, 3)).astype(np.float32))
     noise_aug = torch.from_numpy(rng.standard_normal((1, 48, 48, 3)).astype(np.float32))
     init_noise = torch.from_numpy(rng.standard_normal((1, 4, 24, 24, 4)).astype(np.float32))
-    gn_before = gn.launches["gn_stats"]
+    gn_before = _gn_forwards(gn.launches)
     lat_cpu = cpu.denoise(image, noise_aug=noise_aug, initial_noise=init_noise)
     lat_gpu = gpu.denoise(image, noise_aug=noise_aug, initial_noise=init_noise)
     frames_cpu = cpu.decode_latents(lat_cpu)
     frames_gpu = gpu.decode_latents(lat_gpu)
     torch.cuda.synchronize()
-    gn_calls = gn.launches["gn_stats"] - gn_before
+    gn_calls = _gn_forwards(gn.launches) - gn_before
     for name, got, want in (("latents", lat_gpu, lat_cpu), ("frames", frames_gpu, frames_cpu)):
         got = got.cpu()
         err = (got - want).abs().max().item()
         print(f"[tiny] GPU vs CPU fp32 {name} {tuple(want.shape)}: max|d| {err:.3e} "
-              f"(rtol 1e-4, atol 2e-4) | GroupNorm kernel launches {gn_calls}", flush=True)
+              f"(rtol 1e-4, atol 2e-4) | GroupNorm forwards on the kernels {gn_calls}", flush=True)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
     assert gn_calls > 0, "the tiny GPU pipeline must run the GroupNorm kernels"
 
@@ -1136,7 +1223,9 @@ def phase_trans_full(dev: torch.device) -> dict:
     # the same seed through both forms: bf16 kernels see other batch shapes, so the forms
     # agree loosely (a 25-step loop amplifies bf16 rounding); reported, and held finite
     forms = (seq["latents"] - latents).abs().max().item()
-    print(f"[trans] timed clip: launches predicted flash 503 each, GroupNorm 2763 each | "
+    print(f"[trans] timed clip: launches predicted flash 503 each, GroupNorm 2763 forwards: "
+          f"{launches['gn_one_pass']} in one pass, {launches['gn_stats']} in two "
+          f"({_gn_forwards(launches)} in all) | "
           f"frames mean {frames.mean().item():.4f} std {frames.std().item():.4f} | streams "
           f"differ by max {streams:.3f} in the latents | sequential_cfg vs batched latents "
           f"max|d| {forms:.3f} of max|latent| {latents.abs().max().item():.3f} (bf16)",
@@ -1848,8 +1937,11 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
     elements stay small), with the kernels' device time, the wrappers', the library call's
     and the bound. In bf16 kernel 4 is held on the plain statistics; in fp32 on kernel 3's
     own a, b (kernel 3 held to the plain ones at 1e-4 relative), so that GN_TOL's 1e-5 is
-    kernel 4's rounding alone. Returns ``gn_stats``'s row and ``gn_apply``'s for each act
-    in ``acts``, a list."""
+    kernel 4's rounding alone. Where ``fused_plan`` finds a slab the forward is the one-pass
+    kernel: its a, b held to its plain merge order's at 1e-4 relative, two calls
+    bit-identical, its device time (one device operation asserted). Returns ``gn_stats``'s
+    row, and ``gn_apply``'s and ``gn_one_pass``'s for each act in ``acts`` (lists; the
+    latter empty for a two-pass shape)."""
     import torch.nn.functional as F
 
     from lkgd_torch.experiments.group_norm_ab import device_times
@@ -1863,6 +1955,7 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
     size = x.element_size()
     kw = dict(num_groups=32, eps=eps)
     plan = gn.chunk_plan(n, m, c, 32, x.element_size())
+    fused = gn.fused_plan(n, m, c, 32, x.element_size())
     a_got, b_got = gn.group_norm_affine(x, w, b, **kw)
     # the plain version on the same bf16 inputs (one-pass fp32 sums), its output unrounded
     a_want, b_want = gn.group_norm_affine_plain(x, w, b, **kw)
@@ -1877,7 +1970,18 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
     # apply: x read, y written, a and b read, ~8 operations an element with SiLU
     stats_least = bound(3 * n_el, n_el * size + 2 * n * c * 4, PEAK_FP32)
     stats_plain_ms = gpu_ms(lambda: gn.group_norm_affine_plain(x, w, b, **kw), 1)
-    stats, apply_rows = None, []
+    stats, apply_rows, one_rows = None, [], []
+    one_line = "two passes"
+    if fused is not None:
+        y1, a1, b1 = gn.group_norm_one_pass(x, w, b, **kw)
+        one_rel = max(((g - t).abs().max() / t.abs().max().clamp(min=1.0)).item() for g, t in
+                      zip((a1, b1), gn.group_norm_affine_slabs_plain(x, w, b, plan=fused, **kw)))
+        same = all(torch.equal(g, f) for g, f in zip(gn.group_norm_one_pass(x, w, b, **kw),
+                                                     (y1, a1, b1)))
+        assert one_rel <= 1e-4 and same, (label, one_rel, same)
+        one_line = (f"one pass ({fused.slab_groups} groups a slab, clusters of {fused.cluster}; "
+                    f"a, b relative {one_rel:.2e}, two calls bit-identical)")
+        del y1
     for act in acts:
         got = gn.group_norm(x, w, b, act=act, **kw)
         step = 1 << 21
@@ -1888,6 +1992,8 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
         del got
         assert np.isfinite(err) and err <= GN_TOL[dtype], (label, act, err)
         dev_t = device_times(x, w, b, act)
+        assert dev_t["forward_device_ops"] == 1 if fused else dev_t["forward_device_ops"] <= 3, \
+            (label, dev_t)
         stats = {"ms": dev_t["stats_kernel_ms"], "call_device_ms": dev_t["stats_device_ms"],
                  "wrapper_ms": gpu_ms(lambda: gn.group_norm_affine(x, w, b, **kw), 20)}
         apply = {"ms": dev_t["apply_device_ms"], "call_device_ms": dev_t["apply_device_ms"],
@@ -1896,9 +2002,13 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
         lib_ms = gpu_ms(lambda: (F.silu if act else (lambda y: y))(
             F.group_norm(x_nchw, 32, w, b, eps)), 5)
         apply_least = bound((8 if act else 2) * n_el, 2 * n_el * size + 2 * n * c * 4, PEAK_FP32)
+        forward = {"ms": dev_t["forward_device_ms"], "call_device_ms": dev_t["forward_device_ms"],
+                   "wrapper_ms": gpu_ms(lambda: gn.group_norm(x, w, b, act=act, **kw), 20)}
         print(f"[{tag}] group_norm {label} {tuple(shape)} {str(dtype)[6:]} eps {eps:g} act={act} "
-              f"({n_el / 2**31:.3f} x 2^31 elements; stats plan {plan.n_chunks} chunks of "
-              f"{plan.rows_per_chunk} rows, tile {plan.tile}): max|d| {err:.3e} (tol "
+              f"({n_el / 2**31:.3f} x 2^31 elements; {one_line}; the forward {_paced(forward)}, "
+              f"{dev_t['forward_device_ops']:.0f} device operations; stats plan "
+              f"{plan.n_chunks} chunks of {plan.rows_per_chunk} rows, tile {plan.tile}): "
+              f"max|d| {err:.3e} (tol "
               f"{GN_TOL[dtype]}), affine max|d| {stats_err:.3e}, relative "
               f"{stats_rel:.2e} (tol 1e-4) | stats+fold {_paced(stats)}, plain "
               f"{stats_plain_ms:.4f} ms, bound {stats_least['bound_ms']:.4f} ms | apply "
@@ -1909,11 +2019,15 @@ def _gn_rows(tag: str, label: str, shape, gen: torch.Generator, eps: float, acts
         apply_rows.append({"shape": list(shape), "eps": eps, "act": act, "max_abs_err": err,
                            **apply, "plain_ms": apply_plain_ms, "library_ms": lib_ms,
                            **apply_least})
+        if fused is not None:  # the plain forward: the two plain passes
+            one_rows.append({"shape": list(shape), "eps": eps, "act": act, "max_abs_err": err,
+                             **forward, "plain_ms": stats_plain_ms + apply_plain_ms,
+                             "library_ms": lib_ms, **apply_least})
     stats_row = {"shape": list(shape), "eps": eps, "max_abs_err": stats_err,
                  "max_rel_err": stats_rel, **stats, "plain_ms": stats_plain_ms,
                  "library_ms": lib_ms, **stats_least}
     del x, x_nchw, a_got, b_got, a_want, b_want
-    return {"gn_stats": stats_row, "gn_apply": apply_rows}
+    return {"gn_stats": stats_row, "gn_apply": apply_rows, "gn_one_pass": one_rows}
 
 
 def phase_cogvideox_kernels(dev: torch.device, gen: torch.Generator) -> dict:
@@ -2022,12 +2136,12 @@ def phase_tiny_cogvideox(dev: torch.device) -> None:
                  vae, x, tile_height=16, tile_width=24)}
     from lkgd_torch.ops import group_norm as gn
 
-    before = gn.launches["gn_stats"]
+    before = _gn_forwards(gn.launches)
     with torch.inference_mode():
         for name, fn in modes.items():
             _close_line("tiny-cogvideox vae", name, fn(gpu, video.to(dev), z.to(dev)),
                         fn(cpu, video, z))
-    assert gn.launches["gn_stats"] > before, "the tiny GPU VAE must run the GroupNorm kernels"
+    assert _gn_forwards(gn.launches) > before, "the tiny GPU VAE must run the GroupNorm kernels"
 
 
 def _fill_fusion_output(transformer, gen: torch.Generator) -> int:
@@ -2547,7 +2661,7 @@ def phase_train_tiny(dev: torch.device, mode: str, hw: int = 8) -> None:
         state = ts.init_train_state(unet, ts.make_optimizer(1e-3, trainable_predicate=trainable))
         frozen = {n: p.detach().clone() for n, p in unet.named_parameters() if not trainable(n)}
         start = {n: p.detach().cpu().clone() for n, p in state.trainables.items()}
-        gn_before, flash_before = gn.launches["gn_stats"], dict(fa.launches)
+        gn_before, flash_before = _gn_forwards(gn.launches), dict(fa.launches)
         loss = ts.svd_loss(unet, {k: tensors[k] for k in batch}, config,
                            **{k: tensors[k] for k in draws})
         loss.backward()
@@ -2561,7 +2675,7 @@ def phase_train_tiny(dev: torch.device, mode: str, hw: int = 8) -> None:
                 assert torch.equal(p, frozen[name]), f"{side}: frozen {name} moved"
         results[side] = (loss.item(), grads,
                          {n: p.detach().cpu() for n, p in state.trainables.items()},
-                         gn.launches["gn_stats"] - gn_before)
+                         _gn_forwards(gn.launches) - gn_before)
         flash = {n: c - flash_before[n] for n, c in fa.launches.items() if c != flash_before[n]}
     (loss_c, grads_c, after_c, _), (loss_g, grads_g, after_g, gn_calls) = \
         results["cpu"], results["gpu"]
@@ -2577,7 +2691,7 @@ def phase_train_tiny(dev: torch.device, mode: str, hw: int = 8) -> None:
           f"trainable grads, max |d|/max|ref| {grad_err:.3e} ({len(unused)} trainables "
           f"without a gradient on both) | after one step max|d| {step_err:.3e}, against the "
           f"CPU's step from the GPU's gradients {own_err:.3e} (rtol 1e-4, atol 2e-4) | frozen "
-          f"bit-identical | GroupNorm kernel launches {gn_calls} | flash launches {flash}",
+          f"bit-identical | GroupNorm forwards on the kernels {gn_calls} | flash launches {flash}",
           flush=True)
     assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= 2e-4 + 1e-4 * abs(loss_c)
     assert all(".attn2.to_q." in n or ".attn2.to_k." in n for n in unused), unused
@@ -3886,6 +4000,7 @@ def phase_sd2d_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             rows.setdefault(kernel, []).append(row)
     gn_rows = _gn_rows("sd2d-kernel", "unet level 0", SD2D_GN, gen, 1e-6, (None, "silu"))
     rows["gn_stats"], rows["gn_apply"] = [gn_rows["gn_stats"]], gn_rows["gn_apply"]
+    rows["gn_one_pass"] = gn_rows["gn_one_pass"]
     torch.cuda.empty_cache()
     return rows
 
@@ -4100,7 +4215,7 @@ def _sd2d_run(label: str, dev, run, decode, streams: int, flash_each: int, steps
     expect = steps * flash_each + 2
     for name in ("flash_bound", "flash_maxtrack", "flash_key_norm"):
         assert launches.get(name, 0) == expect, (label, name, launches.get(name), expect)
-    for name in ("gn_stats", "gn_apply"):
+    for name in GN_FORMS:  # level 0 one pass; the VAE's full resolution two
         assert launches.get(name, 0) > 0, (label, name)
     for name in TRAINING + EXPERIMENTS:
         assert launches.get(name, 0) == 0, (label, name)
@@ -4473,7 +4588,8 @@ def phase_fp32_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     gn_rows = [_gn_rows("fp32-kernel", label, shape, gen, 1e-6, acts, torch.float32)
                for label, shape, acts in FP32_GN]
     out["gn_fp32"] = {"gn_stats": [r["gn_stats"] for r in gn_rows],
-                      "gn_apply": [a for r in gn_rows for a in r["gn_apply"]]}
+                      "gn_apply": [a for r in gn_rows for a in r["gn_apply"]],
+                      "gn_one_pass": [a for r in gn_rows for a in r["gn_one_pass"]]}
     torch.cuda.empty_cache()
     return out
 
@@ -4518,6 +4634,19 @@ def _fp32_train_case(label: str, shape, s_k, scale: float, gen: torch.Generator,
         merged = fa.merge_heads_many(*split)
         assert all(torch.equal(a, w) for a, w in zip(split, fa.split_heads_many_plain(q, k, v)))
         assert all(torch.equal(a, w) for a, w in zip(merged, (q, k, v)))
+        # their times: three tensors read and written once a call
+        least = bound(0, 2 * 3 * q.numel() * 4)
+        lib_ms = gpu_ms(lambda: tuple(x.transpose(1, 2).contiguous() for x in (q, k, v)), 20)
+        for name, fn, plain in (
+                ("split_heads", lambda: fa.split_heads_many(q, k, v),
+                 lambda: fa.split_heads_many_plain(q, k, v)),
+                ("merge_heads", lambda: fa.merge_heads_many(*split),
+                 lambda: fa.merge_heads_many_plain(*split))):
+            t = _timed_kernel(fn, "relayout_heads_kernel")
+            print(f"[{tag}] {name} fp32 rows {label} 3 x (B,S,H,D)={shape}: {_paced(t)}, plain "
+                  f"{gpu_ms(plain, 20):.4f} ms, library transpose().contiguous() x3 "
+                  f"{lib_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']}",
+                  flush=True)
         del split, merged
     # the library: fp32 SDPA forward, and its backward through autograd (dq, dk, dv)
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
@@ -4706,7 +4835,7 @@ def phase_tiny_fp32(dev: torch.device) -> None:
     want = pc.encode_clip(enc_cpu, frames)
     for name in want:
         _close_line("tiny-fp32", f"precompute {name}", got[name], want[name])
-    assert counts["flash_bound_fp32"] == 1 and counts["gn_stats"] > 0, counts
+    assert counts["flash_bound_fp32"] == 1 and _gn_forwards(counts) > 0, counts
 
     net_cpu = fid_inception.build_inception(cpu, torch.Generator().manual_seed(6))
     net_gpu = fid_inception.build_inception(dev)
@@ -4782,12 +4911,11 @@ def phase_precompute_full(dev: torch.device, smi: str) -> dict:
     enc = pc.build(pc.make_parser().parse_args(argv), pc.Widths())
     n_gn = sum(isinstance(m, GroupNorm) for m in enc.vae.encoder.modules())
     per_clip = {name: 3 * n for name, n in (("flash_bound_fp32", 1), ("flash_maxtrack_fp32", 1),
-                                           ("flash_key_norm_fp32", 1), ("gn_stats", n_gn),
-                                           ("gn_apply", n_gn))}
+                                           ("flash_key_norm_fp32", 1), ("gn_forwards", n_gn))}
     print(f"[precompute] {smi} | main() on 3 clips of {t}x{h}x{w} and one of {t - 4} frames: "
           f"{wall:.2f} s with the build and the mp4 decode, peak {peak:.2f} GiB | launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-    assert {k: v for k, v in counts.items() if v} == per_clip, (counts, per_clip)
+    assert _by_forwards(counts) == per_clip, (counts, per_clip)
 
     cache = TensorCache(cache_path)
     names = sorted({k.split("/")[0] for k in cache.keys()})
@@ -4970,6 +5098,7 @@ def phase_annotate_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                          torch.float32)
             rows.setdefault("gn_stats", []).append(r["gn_stats"])
             rows.setdefault("gn_apply", []).extend(r["gn_apply"])
+            rows.setdefault("gn_one_pass", []).extend(r["gn_one_pass"])
     torch.cuda.empty_cache()
     return rows
 
@@ -5132,7 +5261,7 @@ def _tf32_against_fp32(fn) -> str:
 def _annotate_run(dev: torch.device, smi: str, name: str, fn, one, expect: dict, check,
                   with_tf32: bool) -> dict:
     """``fn()`` (a clip) after a warm-up on one frame (pair): s/clip, peak GiB, the launches
-    (which must equal ``expect``), ``check``'s line; ``one`` = (what, a frame's or pair's
+    (which must equal ``expect``, GroupNorm's counted as forwards), ``check``'s line; ``one`` = (what, a frame's or pair's
     call) under the profiler and, where ``with_tf32``, in TF32 against fp32."""
     t, h, w = ANNOTATE_CLIP
     one[1]()  # warm-up
@@ -5149,7 +5278,7 @@ def _annotate_run(dev: torch.device, smi: str, name: str, fn, one, expect: dict,
     print(f"[annotate] {smi} | {name} on {t}x{h}x{w}: {seconds:.4f} s/clip (host clock, "
           f"after a warm-up), peak {peak:.2f} GiB, launches {launched} | {check(out)}",
           flush=True)
-    assert launched == expect, (name, launched, expect)
+    assert _by_forwards(counts) == expect, (name, launched, expect)
     _profiled("annotate", f"{name}, {one[0]}", one[1])
     if with_tf32:
         print(f"[annotate] {name}, {one[0]}: cuDNN TF32 (PyTorch's default) against the "
@@ -5249,7 +5378,7 @@ def _annotate_cli_paths(dev: torch.device, smi: str, frames: np.ndarray) -> dict
              dict.fromkeys(PRECOMPUTE, da.DepthAnythingConfig.base().depth * t)),
             ("depth_midas", "hybrid", lambda: midas.build_dpt(
                 "hybrid", None, dev, torch.Generator(device=dev).manual_seed(44)),
-             {"gn_stats": n_gn * t, "gn_apply": n_gn * t}),
+             {"gn_forwards": n_gn * t}),
             ("depth", "large", lambda: midas.build_dpt(
                 "large", None, dev, torch.Generator(device=dev).manual_seed(45)), {})):
         path = str(work / f"{annotation}_{size}.pth")

@@ -1,5 +1,5 @@
-"""Device and host time of the GroupNorm kernels (kernels 3 and 4), across checkouts of this
-repository.
+"""Device and host time of the GroupNorm forward and its kernels (kernels 3 and 4, and the
+one-pass form where a tree has it), across checkouts of this repository.
 
     python -m lkgd_torch.experiments.group_norm_ab [ROOT ...] [--reps 20]
 
@@ -13,15 +13,24 @@ beside the difference), and prints one JSON line. At every ``SHAPES`` entry, bf1
   of everything one call enqueues, under ``torch.profiler`` (mean of 10 calls), and
   ``stats_kernel_ms`` of the launch named ``gn_stats_kernel`` alone;
 * ``apply_ms`` and ``apply_device_ms``: ``group_norm_apply`` (kernel 4) the same ways;
-* ``forward_ms``: ``group_norm`` (one whole forward), ``forward_device_ops``: the device
-  operations one forward enqueues (kernels, memsets and copies under the profiler);
+* ``forward_ms``: ``group_norm`` (one whole forward, whichever form the tree picks);
+  ``forward_device_ms``: the device time of everything one forward enqueues under the
+  profiler (mean of 10), ``forward_device_ops``: the device operations it enqueues (kernels,
+  memsets and copies), ``form``: the launch counters one forward moved (``gn_one_pass``, or
+  ``gn_stats`` and ``gn_apply``), read from the tree's own ``launches``;
 * ``library_ms``: ``F.silu(F.group_norm(...))`` on the same memory, both passes;
-* ``stats_bound_ms`` and ``apply_bound_ms``: x read once (and y written once) at 3.35 TB/s;
+* ``stats_bound_ms``: x read once; ``apply_bound_ms``, also the whole forward's bound: x
+  read once and y written once, at 3.35 TB/s;
 * ``bits_repeat``: whether three calls of ``group_norm_affine`` give the same bits.
 
+At every ``FP32_SHAPES`` entry, fp32 with and without SiLU, keyed by the shape, the act and
+``fp32``: ``forward_ms``, ``forward_device_ms``, ``forward_device_ops`` and ``form``, as
+above.
+
 And ``host_us``: host microseconds a ``group_norm`` call at ``HOST_SHAPE``, where the
-device's time is far below the host's (``relayout_ab._host_us``: the least of five rounds).
-The card's name and power limit come first. The card only: the kernels have no CPU form.
+device's time is far below the host's (``relayout_ab._host_us``: the least of five rounds);
+``silu_ulps``: ``silu_ulps()``, the bf16 SiLU's largest error in bf16 ulps. The card's name
+and power limit come first. The card only: the kernels have no CPU form.
 """
 
 from __future__ import annotations
@@ -31,7 +40,13 @@ import json
 
 import torch
 
-SHAPES = ((28, 9216, 320), (56, 9216, 320), (4, 129024, 320), (7, 589824, 128))
+# the UNet's level-0 spatial norm (base and trans clips), level 1 spatial and temporal, level
+# 2, the level-0 temporal norms, the VAE's full resolution and SD-2D's level 0
+SHAPES = ((28, 9216, 320), (56, 9216, 320), (28, 2304, 640), (2, 32256, 640),
+          (28, 576, 1280), (2, 129024, 320), (4, 129024, 320), (7, 589824, 128),
+          (2, 4096, 320))
+# the fp32 fine-tune's level-0 spatial norm and the UNet's level 0 at fp32
+FP32_SHAPES = ((14, 4096, 320), (28, 9216, 320))
 HOST_SHAPE = (2, 64, 320)
 PEAK_BYTES = 3.35e12
 
@@ -73,20 +88,25 @@ def named_ms(prof: dict, name: str) -> float:
 
 
 def device_times(x, w, b, act="silu") -> dict:
-    """Kernels 3 and 4 under the profiler on these inputs: the stats call's whole device
-    time and its kernel's, the apply kernel's, and the device operations of one forward."""
+    """Kernels 3 and 4 alone under the profiler on these inputs (the stats call's whole
+    device time and its kernel's, the apply kernel's), and one whole forward: its device
+    time, its device operations and the launch counters it moved (its form)."""
     from lkgd_torch.ops import group_norm as gn
 
     kw = dict(num_groups=32, eps=1e-5)
     stats = profiled(lambda: gn.group_norm_affine(x, w, b, **kw))
     a, b_ = gn.group_norm_affine(x, w, b, **kw)
     apply = profiled(lambda: gn.group_norm_apply(x, a, b_, act))
-    forward = profiled(lambda: gn.group_norm(x, w, b, act=act, **kw), calls=1)
+    forward = profiled(lambda: gn.group_norm(x, w, b, act=act, **kw))
+    before = dict(gn.launches)
+    gn.group_norm(x, w, b, act=act, **kw)
     return {"stats_device_ms": sum(stats["ms"].values()),
             "stats_kernel_ms": named_ms(stats, "gn_stats_kernel"),
             "stats_device_ops": stats["ops"],
             "apply_device_ms": named_ms(apply, "gn_apply_kernel"),
-            "forward_device_ops": forward["ops"]}
+            "forward_device_ms": sum(forward["ms"].values()),
+            "forward_device_ops": forward["ops"],
+            "form": "+".join(k for k in gn.launches if gn.launches[k] != before[k])}
 
 
 def _shape_row(shape, reps: int) -> dict:
@@ -116,6 +136,68 @@ def _shape_row(shape, reps: int) -> dict:
     return row
 
 
+def _fp32_row(shape, act, reps: int) -> dict:
+    from lkgd_torch.experiments._timing import time_ms
+    from lkgd_torch.ops import group_norm as gn
+
+    x, w, b = inputs(shape, torch.float32)
+    kw = dict(num_groups=32, eps=1e-5)
+    forward = profiled(lambda: gn.group_norm(x, w, b, act=act, **kw))
+    before = dict(gn.launches)
+    gn.group_norm(x, w, b, act=act, **kw)
+    row = {"forward_ms": time_ms(lambda: gn.group_norm(x, w, b, act=act, **kw),
+                                 torch.device("cuda"), reps),
+           "forward_device_ms": sum(forward["ms"].values()),
+           "forward_device_ops": forward["ops"],
+           "form": "+".join(k for k in gn.launches if gn.launches[k] != before[k])}
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| in units of the last place of ``want`` rounded to bf16 (8 significant
+    bits: 2^(e - 8) for ``want`` in [2^(e-1), 2^e))."""
+    _, e = torch.frexp(want.double())
+    return (got.double() - want.double()).abs() / torch.ldexp(torch.ones_like(want.double()),
+                                                              e - 8)
+
+
+def silu_ulps(device: str = "cuda") -> dict:
+    """The bf16 SiLU of both kernels against ``t * sigmoid(t)`` in fp64 on the exact
+    ``t``, in bf16 ulps (largest, and the ``t`` where it is): kernel 4 (``apply``) on every
+    bf16 value in [-20, 20] with a = 1, b = 0 (but those under 2^-100 in magnitude, whose
+    SiLU is near the bottom of the fp32 range); the one-pass kernel (``one_pass``, where the
+    tree has it) on rows spread evenly over [-1, 1] with weight 11.5 (t over about
+    [-20, 20]), its t from its own a and b."""
+    from lkgd_torch.ops import group_norm as gn
+
+    def worst(got, t):
+        t = t.double()
+        err = bf16_ulps(got, t * torch.sigmoid(t))
+        i = int(err.argmax())
+        return {"max_ulps": err.max().item(), "at_t": t.flatten()[i].item()}
+
+    bits = torch.arange(0x0D80, 0x41A1, dtype=torch.int32)  # bf16 2^-100 .. 20
+    pos = bits.to(torch.int16).view(torch.bfloat16)
+    vals = torch.cat([pos.new_zeros(1), pos, -pos])
+    c = 256
+    x = torch.zeros(-(-vals.numel() // c) * c, dtype=torch.bfloat16)
+    x[:vals.numel()] = vals
+    x = x.view(1, -1, c).to(device)
+    ones = torch.ones((1, c), device=device)
+    out = {"apply": worst(gn.group_norm_apply(x, ones, ones * 0, "silu"), x.float())}
+    if hasattr(gn, "group_norm_one_pass"):
+        shape = (2, 4096, 320)
+        rows = torch.linspace(-1.0, 1.0, shape[1], device=device)
+        x = rows[None, :, None].expand(shape).to(torch.bfloat16).contiguous()
+        w = torch.full((shape[2],), 11.5, device=device, dtype=torch.bfloat16)
+        y, a, b = gn.group_norm_one_pass(x, w, w * 0, num_groups=32, eps=1e-5, act="silu")
+        t = x.double() * a.double()[:, None, :] + b.double()[:, None, :]
+        out["one_pass"] = {**worst(y, t), "t_min": t.min().item(), "t_max": t.max().item()}
+    return out
+
+
 def host_us(calls: int = 1000) -> float:
     """Host us a ``group_norm`` call at ``HOST_SHAPE`` (bf16, SiLU)."""
     from lkgd_torch.experiments.relayout_ab import _host_us
@@ -128,7 +210,11 @@ def host_us(calls: int = 1000) -> float:
 
 def _time_here(reps: int) -> dict:
     out = {"x".join(map(str, s)): _shape_row(s, reps) for s in SHAPES}
+    for shape in FP32_SHAPES:
+        for act in ("silu", None):
+            out[f"{'x'.join(map(str, shape))} fp32 {act}"] = _fp32_row(shape, act, reps)
     out["host_us"] = host_us()
+    out["silu_ulps"] = silu_ulps()
     return out
 
 

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "lkgd_flash_bwd_f32": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I,
                                        _P, _I, _P], _I),
     "lkgd_group_norm": ([_P] * 5 + [_B, _F, _I, _P], _I),
-    "lkgd_gn_apply": ([_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _P], _I),
+    "lkgd_gn_apply": ([_P] * 4 + [_B, _I, _P], _I),
+    "lkgd_gn_one_pass": ([_P] * 5 + [_B, _F, _I, _P], _I),
     "lkgd_relayout_heads": ([_I, _I, _B, _P, _I, _I, _I, _I, _P], _I),
     "lkgd_matmul_plan": ([_I, _I, _I, _I, ctypes.POINTER(_I)], _I),
     "lkgd_blocked_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),

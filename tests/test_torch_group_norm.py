@@ -4,6 +4,10 @@ form ``group_norm_xla``, at fp32. On the CPU the port runs the plain versions of
 kernels; ``fold_chunk_stats``, the plain version of the CUDA stats kernel's fold of its
 per-chunk, per-group statistics, is checked here on statistics computed chunk by chunk in
 PyTorch, and ``chunk_plan``, the stats kernel's grid, by arithmetic at the models' shapes.
+The one-pass form: ``fused_plan``, its grid, by arithmetic and by the form it picks at each
+of the models' shapes, and ``group_norm_affine_slabs_plain``, its statistics merged in its
+order (each block's (mean, M2), merged in rank order with Chan's formula), against the JAX
+package and an fp64 reference.
 
 ``GroupNormFunction``, the op with a gradient, is held against ``jax.vjp`` of the JAX
 package's custom VJP (Pallas forward in interpret mode, backward through
@@ -12,6 +16,8 @@ package's custom VJP (Pallas forward in interpret mode, backward through
 Tolerance rtol 2e-5, atol 2e-5: fp32 statistics summed in another order (the Pallas path
 is one-pass, the port's plain fp32 form two-pass, as the XLA form); the same for the
 gradients, which both sides take through the same two-pass formula."""
+
+import math
 
 import numpy as np
 import pytest
@@ -192,3 +198,115 @@ def test_function_only_where_a_gradient_is_wanted(needs):
         assert grad.shape == wanted.shape and torch.isfinite(grad).all()
         with torch.no_grad():
             assert tgn.group_norm(x, w, b, num_groups=32, eps=1e-5).grad_fn is None
+
+
+# (shape, element size, one pass?): every GroupNorm shape class of the SVD UNet step (levels
+# 0-3, spatial over 28 rows of frames and temporal over 2 samples of 14 frames), the trans
+# clip's, the VAE's full resolution, its 1/2 and 1/4, SD-2D's level 0 and the fp32
+# fine-tune's. In whole 32-byte sectors a level-0 slab needs a cluster of 16, as do level
+# 2's temporal norm and the VAE's 1/4; the 960-channel level-0 norm, level 1's temporal one,
+# the full and half resolutions and a slab wider than a TMA box need two passes
+FORM_SHAPES = [
+    ((28, 9216, 320), 2, True), ((28, 9216, 640), 2, True), ((28, 9216, 960), 2, False),
+    ((2, 129024, 320), 2, False), ((4, 129024, 320), 2, False),
+    ((56, 9216, 320), 2, True), ((28, 2304, 640), 2, True),
+    ((28, 2304, 1280), 2, True), ((28, 2304, 1920), 2, True),
+    ((2, 32256, 640), 2, False), ((7, 36864, 512), 2, True),
+    ((7, 36864, 512), 4, False), ((28, 576, 1280), 2, True),
+    ((2, 8064, 1280), 2, True), ((2, 8064, 640), 2, True),
+    ((28, 144, 1280), 2, True), ((2, 2016, 1280), 2, True),
+    ((7, 589824, 128), 2, False), ((7, 147456, 256), 2, False), ((2, 4096, 320), 2, True),
+    ((14, 4096, 320), 4, True), ((14, 1024, 640), 4, True), ((1, 57344, 320), 4, False),
+    ((3, 1001, 96), 4, True), ((1, 64, 32 * 264), 2, False)]
+
+
+@pytest.mark.parametrize("shape,element_size,one_pass", FORM_SHAPES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_fused_plan_picks_one_pass_or_two(shape, element_size, one_pass):
+    """One pass where a (sample, slab) fits a cluster of 16 blocks, else two."""
+    plan = tgn.fused_plan(*shape, 32, element_size)
+    assert (plan is not None) == one_pass, plan
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+@pytest.mark.parametrize("num_groups", [32, 16])
+def test_fused_plan_covers_every_row_once_in_slabs_of_whole_groups(element_size, num_groups):
+    """At every shape that gets a plan: the slab is whole groups whose channels make rows of
+    whole 32-byte sectors, no wider than a warp's lanes or a TMA box (256 channels); the
+    cluster's blocks cover M once (only the last short) in whole TMA boxes of 64 rows; each
+    block's two buffers and the form's own shared memory fit 232,448 bytes; a cluster has
+    at most 16 blocks."""
+    shapes = {s for s, *_ in FORM_SHAPES} | {(1, 64, 64), (3, 1001, 96), (1, 1, 320)}
+    planned = 0
+    for shape in sorted(shapes):
+        n, m, c = shape
+        plan = tgn.fused_plan(n, m, c, num_groups, element_size)
+        if plan is None:
+            continue
+        planned += 1
+        cg = c // num_groups
+        row = plan.slab_groups * cg * element_size
+        assert num_groups % plan.slab_groups == 0 and row % 32 == 0
+        assert row // 16 <= 32 and plan.slab_groups <= tgn._MAX_SLAB_GROUPS
+        assert plan.slab_groups * cg <= 256
+        rows, k = plan.rows_per_block, plan.cluster
+        assert rows % 64 == 0
+        starts = range(0, k * rows, rows)
+        assert sum(min(rows, m - r) for r in starts) == m and all(r < m for r in starts)
+        assert 1 <= k <= 16
+        extra = tgn._fused_extra(plan.slab_groups * cg)
+        assert plan.smem_bytes == 2 * rows * row + extra <= 232448
+    assert planned >= 10
+
+
+def test_fused_plan_refuses_what_fits_no_cluster():
+    """A group of more channels than a block has threads for, or a sample whose slab needs
+    more blocks than the cluster allows, gets no plan; ``group_norm_one_pass`` raises."""
+    assert tgn.fused_plan(1, 64, 32 * 1100, 32, 4) is None  # 275 vectors a group
+    assert tgn.fused_plan(1, 10 ** 6, 320, 32, 2) is None
+    x = torch.zeros(1, 10 ** 6, 320)
+    with pytest.raises(ValueError, match="fits no cluster"):
+        tgn.group_norm_one_pass(x, torch.ones(320), torch.zeros(320), num_groups=32, eps=1e-5)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape", [(3, 1001, 96), (2, 1024, 320)], ids=["ragged", "chunked"])
+def test_one_pass_plain_matches_pallas_interpret_and_xla(shape, act):
+    """The one-pass form's plain version (each block's (mean, M2), merged in rank order with
+    Chan's formula) against the JAX package at fp32: the Pallas kernels in
+    interpret mode where M is a multiple of a chunk (at M = 1001 the JAX wrapper takes the
+    XLA form), and ``group_norm_xla``. rtol 1e-4, atol 2e-4: fp32 sums in another order."""
+    x, w, b = _inputs(shape, seed=11)
+    plan = tgn.fused_plan(*shape, 32, 4)
+    assert plan is not None and plan.cluster > 1, plan
+    y, a, bb = tgn.group_norm_one_pass(torch.from_numpy(x), torch.from_numpy(w),
+                                       torch.from_numpy(b), num_groups=32, eps=1e-5, act=act)
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    pallas = np.asarray(jgn.group_norm(*args, num_groups=32, eps=1e-5, act=act, interpret=True))
+    xla = np.asarray(jgn.group_norm_xla(*args, num_groups=32, eps=1e-5, act=act))
+    np.testing.assert_allclose(y.numpy(), pallas, rtol=1e-4, atol=2e-4)
+    np.testing.assert_allclose(y.numpy(), xla, rtol=1e-4, atol=2e-4)
+    want = tgn.group_norm_affine_plain(*(torch.from_numpy(v) for v in (x, w, b)), num_groups=32,
+                                       eps=1e-5)
+    for got, wt in zip((a, bb), want):
+        torch.testing.assert_close(got, wt, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("cluster", [1, 3, 8])
+def test_one_pass_plain_keeps_precision_when_the_mean_dwarfs_the_std(cluster):
+    """|mean| >> std (mean 1e3, std 1) at fp32: the blocks' (mean, M2) merged in rank order
+    (the weighted mean first, the M2 about it second) match an fp64 two-pass reference
+    within 2e-5 relative, at any number of blocks."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.normal(size=(3, 1001, 96)) + 1e3).astype(np.float32))
+    w, b = (torch.from_numpy(a) for a in _inputs((3, 1001, 96), seed=13)[1:])
+    rows = math.ceil(1001 / cluster)
+    plan = tgn.FusedPlan(4, cluster, rows, 0)
+    got = tgn.group_norm_affine_slabs_plain(x, w, b, num_groups=32, eps=1e-5, plan=plan)
+    xg = x.double().reshape(3, 1001, 32, 3)
+    mean64 = xg.mean(dim=(1, 3))
+    inv64 = torch.rsqrt(((xg - mean64[:, None, :, None]) ** 2).mean(dim=(1, 3)) + 1e-5)
+    a64 = inv64.repeat_interleave(3, dim=-1) * w.double()
+    want64 = (a64, b.double() - mean64.repeat_interleave(3, dim=-1) * a64)
+    for g, w64 in zip(got, want64):
+        assert ((g.double() - w64).abs().max() / w64.abs().max()).item() <= 2e-5

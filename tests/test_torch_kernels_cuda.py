@@ -449,6 +449,19 @@ def test_inception_gpu_matches_cpu(cuda_device, monkeypatch):
                                atol=2e-4)
 
 
+def _gn_moved(before):
+    """The GroupNorm launch counters that moved since ``before``, by how much."""
+    return {k: gn.launches[k] - before[k] for k in before if gn.launches[k] != before[k]}
+
+
+def _gn_form(shape, element_size):
+    """The counters one forward moves: the one-pass kernel's where ``fused_plan`` finds a
+    slab, else the two-pass pair's."""
+    if gn.fused_plan(*shape, 32, element_size) is not None:
+        return {"gn_one_pass": 1}
+    return {"gn_stats": 1, "gn_apply": 1}
+
+
 def _gn_inputs(device, shape, dtype, mean=0.5, std=2.0):
     x = (_randn(device, shape, std) + mean).to(dtype)
     w = (_randn(device, shape[-1:], 0.1, 1) + 1.0).to(dtype)
@@ -511,18 +524,102 @@ def test_group_norm_stats_keep_precision_when_the_mean_dwarfs_the_std(cuda_devic
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", [None, "silu"])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("shape", [(3, 1001, 96), (28, 2304, 320)])
+@pytest.mark.parametrize("shape", [(3, 1001, 96), (28, 2304, 320), (2, 32256, 640)])
 def test_group_norm_forward_matches_plain(cuda_device, shape, dtype, tol, act):
-    """One forward from one call into C (statistics, fold, normalise) against the plain
-    GroupNorm in fp32 on the same inputs; one launch of each kernel."""
+    """One forward from one call into C against the plain GroupNorm in fp32 on the same
+    inputs; one launch of the one-pass kernel where ``fused_plan`` finds a slab, else one
+    of each two-pass kernel (statistics with their fold, normalise)."""
     x, w, b = _gn_inputs(cuda_device, shape, dtype)
     before = dict(gn.launches)
     got = gn.group_norm(x, w, b, num_groups=32, eps=1e-6, act=act)
     assert got.dtype == dtype and got.shape == x.shape
-    assert {k: gn.launches[k] - before[k] for k in before} == {"gn_stats": 1, "gn_apply": 1}
+    one_pass = gn.fused_plan(*shape, 32, x.element_size()) is not None
+    assert one_pass == (shape != (2, 32256, 640))
+    want_counts = ({"gn_one_pass": 1, "gn_stats": 0, "gn_apply": 0} if one_pass
+                   else {"gn_one_pass": 0, "gn_stats": 1, "gn_apply": 1})
+    assert {k: gn.launches[k] - before[k] for k in before} == want_counts
     want = gn.group_norm_plain(x.float(), w.float(), b.float(), num_groups=32, eps=1e-6,
                                act=act)
     assert (got.float() - want).abs().max().item() <= tol
+
+
+# the one-pass form: one block a cluster, clusters of 16 blocks (non-portable) at the UNet's
+# level 0, a ragged M over 8 blocks, and a portable cluster of 4 at level 1
+ONE_PASS_SHAPES = [((28, 144, 1280), 1), ((28, 9216, 320), 16), ((3, 1001, 96), 8),
+                   ((28, 2304, 640), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape,cluster", ONE_PASS_SHAPES,
+                         ids=["one_block", "cluster16", "ragged", "cluster4"])
+def test_group_norm_one_pass_matches_plain(cuda_device, shape, cluster, dtype, tol, act):
+    """The one-pass kernel against the plain GroupNorm in fp32 on the same inputs (GN_TOL),
+    its a, b within 1e-4 relative of its plain merge order's, one launch, and the same bits
+    from a second call."""
+    x, w, b = _gn_inputs(cuda_device, shape, dtype)
+    plan = gn.fused_plan(*shape, 32, x.element_size())
+    assert plan is not None and plan.cluster == cluster, plan
+    before = gn.launches["gn_one_pass"]
+    got, a, b_ = gn.group_norm_one_pass(x, w, b, num_groups=32, eps=1e-5, act=act)
+    assert gn.launches["gn_one_pass"] == before + 1
+    want = gn.group_norm_plain(x.float(), w.float(), b.float(), num_groups=32, eps=1e-5,
+                               act=act)
+    assert got.dtype == dtype and (got.float() - want).abs().max().item() <= tol
+    want_ab = gn.group_norm_affine_slabs_plain(x, w, b, num_groups=32, eps=1e-5, plan=plan)
+    for g, wt in zip((a, b_), want_ab):
+        assert (g - wt).abs().max().item() <= 1e-4 * max(1.0, wt.abs().max().item())
+    again = gn.group_norm_one_pass(x, w, b, num_groups=32, eps=1e-5, act=act)
+    assert all(torch.equal(g, f) for g, f in zip(again, (got, a, b_)))
+
+
+@pytest.mark.cuda
+def test_group_norm_one_pass_keeps_precision_when_the_mean_dwarfs_the_std(cuda_device):
+    """fp32 with mean 1e3 and std 1 over a cluster of 8 blocks: the blocks' sums merged in
+    rank order, then the sums of squares about the mean, against an fp64 two-pass
+    reference, within 1e-4 relative."""
+    x, w, b = _gn_inputs(cuda_device, (3, 1001, 96), torch.float32, mean=1e3, std=1.0)
+    _, a, b_ = gn.group_norm_one_pass(x, w, b, num_groups=32, eps=1e-5)
+    xg = x.double().view(3, 1001, 32, 3)
+    mean = xg.mean(dim=(1, 3))
+    inv = torch.rsqrt(((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3)) + 1e-5)
+    a64 = inv.repeat_interleave(3, dim=-1) * w.double()
+    for g, wt in zip((a, b_), (a64, b.double() - mean.repeat_interleave(3, dim=-1) * a64)):
+        assert (g.double() - wt).abs().max().item() <= 1e-4 * wt.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_group_norm_one_pass_forward_is_one_device_operation(cuda_device):
+    """A one-pass forward enqueues one device operation, the kernel: no memset, no scratch,
+    no second pass, counted under ``torch.profiler``."""
+    from lkgd_torch.experiments.group_norm_ab import profiled
+
+    shape = (28, 2304, 320)
+    x, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16)
+    assert gn.fused_plan(*shape, 32, 2) is not None
+    before = dict(gn.launches)
+    prof = profiled(lambda: gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act="silu"),
+                    calls=1)
+    assert prof["ops"] == 1, prof
+    assert any("gn_one_pass_kernel" in k for k in prof["ms"]), prof
+    assert gn.launches["gn_one_pass"] - before["gn_one_pass"] == 2
+    assert gn.launches["gn_stats"] == before["gn_stats"]
+
+
+@pytest.mark.cuda
+def test_group_norm_bf16_silu_within_an_ulp(cuda_device):
+    """The bf16 SiLU of both forms against t * sigmoid(t) in fp64 on the exact t, in bf16
+    ulps of the reference, over t in [-20, 20] (``group_norm_ab.silu_ulps``): kernel 4 on
+    every bf16 value there, the one-pass kernel on a normalised ramp. A correctly rounded
+    result is within half an ulp; a form whose error is absolute (1 + tanh(t / 2) cancels for
+    t < 0) is hundreds of ulps off at t = -8."""
+    from lkgd_torch.experiments.group_norm_ab import silu_ulps
+
+    got = silu_ulps(str(cuda_device))
+    assert got["one_pass"]["t_min"] <= -19 and got["one_pass"]["t_max"] >= 19, got
+    for form in ("apply", "one_pass"):
+        assert got[form]["max_ulps"] <= 1.0, got
 
 
 @pytest.mark.cuda
@@ -547,12 +644,14 @@ def test_group_norm_one_sample_past_2_24_rows(cuda_device):
 
 @pytest.mark.cuda
 def test_group_norm_forward_is_three_device_operations(cuda_device):
-    """One GroupNorm forward on the card enqueues at most three device operations (the
-    tickets' memset, the statistics with their fold, the normalise pass), counted under
-    ``torch.profiler``; no PyTorch arithmetic runs between the two kernels."""
+    """A two-pass GroupNorm forward (a shape that fits no cluster of 8) enqueues at most
+    three device operations (the tickets' memset, the statistics with their fold, the
+    normalise pass), counted under ``torch.profiler``; no PyTorch arithmetic runs between
+    the two kernels."""
     from lkgd_torch.experiments.group_norm_ab import profiled
 
-    x, w, b = _gn_inputs(cuda_device, (28, 2304, 320), torch.bfloat16)
+    assert gn.fused_plan(2, 32256, 640, 32, 2) is None
+    x, w, b = _gn_inputs(cuda_device, (2, 32256, 640), torch.bfloat16)
     before = dict(gn.launches)
     prof = profiled(lambda: gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act="silu"),
                     calls=1)
@@ -573,6 +672,26 @@ def test_group_norm_apply_kernel_matches_plain(cuda_device, dtype, tol, act):
     a_, b_ = gn.group_norm_affine_plain(x.float(), w, b, num_groups=32, eps=1e-5)
     got = gn.group_norm_apply(x, a_, b_, act)
     assert got.dtype == dtype
+    want = gn.group_norm_apply_plain(x.float(), a_, b_, act)
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(2, 129024, 320), (1, 777, 8), (7, 4099, 128)])
+def test_group_norm_apply_kernel_on_its_grid_matches_plain(cuda_device, shape, dtype, tol, act):
+    """Kernel 4 alone on the stats kernel's grid (whole-row tiles, a and b in registers)
+    against ``group_norm_apply_plain``, on a GroupNorm's own a and b (the tolerances hold
+    for normalised outputs): the level-0 temporal norm, one vector a row, and a row count no
+    chunk divides; one launch."""
+    x = (_randn(cuda_device, shape, 2.0) + 0.5).to(dtype)
+    c = shape[-1]
+    w, b = _randn(cuda_device, (c,), 0.1, 1) + 1.0, _randn(cuda_device, (c,), 0.1, 2)
+    a_, b_ = gn.group_norm_affine_plain(x.float(), w, b, num_groups=min(32, c), eps=1e-5)
+    before = gn.launches["gn_apply"]
+    got = gn.group_norm_apply(x, a_, b_, act)
+    assert gn.launches["gn_apply"] == before + 1 and got.dtype == dtype
     want = gn.group_norm_apply_plain(x.float(), a_, b_, act)
     assert (got.float() - want).abs().max().item() <= tol
 
@@ -808,7 +927,7 @@ def test_group_norm_output_carries_gradient(cuda_device, dtype, tol, act):
     before = dict(gn.launches)
     y = gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act=act)
     assert y.requires_grad and y.grad_fn is not None
-    assert gn.launches["gn_stats"] == before["gn_stats"] + 1
+    assert _gn_moved(before) == _gn_form(x.shape, x.element_size())
     g = _randn(cuda_device, y.shape, seed=5).to(dtype)
     got = torch.autograd.grad(y, (x, w, b), g)
     ref = [t.detach().float().requires_grad_() for t in (x, w, b)]
@@ -1148,7 +1267,7 @@ def test_group_norm_at_the_smooth_shapes(cuda_device, shape, act):
     x, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16)
     before = dict(gn.launches)
     got = gn.group_norm(x, w, b, num_groups=32, eps=1e-5, act=act)
-    assert {k: gn.launches[k] - before[k] for k in before} == {"gn_stats": 1, "gn_apply": 1}
+    assert _gn_moved(before) == _gn_form(shape, 2)
     a, c = gn.group_norm_affine(x, w, b, num_groups=32, eps=1e-5)
     want_a, want_c = gn.group_norm_affine_plain(x.float(), w.float(), b.float(), num_groups=32,
                                                 eps=1e-5)
