@@ -58,15 +58,17 @@ each printing its own lines; any failure raises and the script exits non-zero:
    max |d|, and the bound of three TF32 products at 495 TFLOP/s (the fp32 FMA bound at 67
    TFLOP/s beside it);
 3i. kernels 7, 8, 9 and 10 in fp32 (the LSE form of ``flash_fwd_tf32_kernel`` and the
-   backward of ``csrc/flash_attention_bwd_f32.cu``: 3xTF32 on wgmma after its pre-pass at D
-   <= 64, FFMA tiles above) against their plain fp32 versions (TF32 off) at the fp32 LKGD
+   backward of ``csrc/flash_attention_bwd_f32.cu``: 3xTF32 on wgmma after its pre-pass, the
+   wide kernel above D = 64) against their plain fp32 versions (TF32 off) at the fp32 LKGD
    fine-tune's level 0 (14, 4096, 5, 64) and level 1 (14, 1024, 10, 64), a ragged (2, 1100,
    5, 64) x 1030 keys, a guard input, D=40 x 900 keys and D=128: out within FP32_TOL x
    max|ref|, lse within FP32_TOL x max(1, max|lse|), dq, dk, dv within FP32_GRAD_TOL (1e-4)
    x max|ref|, a second launch and the one-call pair (``flash_bwd``) bit-identical, kernels
    5/6 bit-exact on fp32 rows; device time under the profiler (a backward kernel's with its
    pre-pass), the pair's from one C call (``pair_ms``), the plain version's, fp32 SDPA's
-   forward or backward, and the bound at 495 TFLOP/s x3 TF32 with the 67 TFLOP/s fp32 FMA bound beside it;
+   forward or backward, and the bound at 495 TFLOP/s x3 TF32 with the 67 TFLOP/s fp32 FMA bound
+   beside it; then the backward alone at WIDE_BWD_FP32's shapes, the x60 guard input also
+   against a float64 witness (``_bwd_fp64``);
 4. the tiny end-to-end pipeline at fp32 on the GPU against the same weights and noise on
    the CPU (latents and frames at rtol 1e-4, atol 2e-4);
 3g. the fp32 form of kernels 1, 2 and 1a at Depth-Anything's DINOv2 attention, (1, 1370, 6,
@@ -214,9 +216,13 @@ each printing its own lines; any failure raises and the script exits non-zero:
    host microseconds a call, out max |d| <= FLASH_TOL * max|ref|, lse within 1e-2 log2
    units, dq/dk/dv max |d| <= 2e-2 * max|ref| and bit-identical over two launches, with
    the backward plan's blocks and waves, the pair's time as a multiple of the library
-   backward, and the kernels' fwd+bwd times beside the plain ones; the LSE forwards alone
-   (the backward kernels stop at D=128) also at the VAE's (2, 9216, 1, 512) and on a
-   huge-norm input at D=512, the plain version a row at a time;
+   backward, and the kernels' fwd+bwd times beside the plain ones; the LSE forwards also at
+   the VAE's (2, 9216, 1, 512), the plain version a row at a time; the wide backward (D >
+   128) on a huge-norm input at D=512 and at WIDE_BWD_BF16's shapes (``_wide_bwd_case``);
+6b. ``torch.autograd.grad`` through the full-width ``VAEAttention`` (512 channels) at
+   VAE_GRAD's latents with respect to to_q, to_k and to_v, launches of kernels 7/8, 9 and 10
+   counted, against the same module with ``plain_attention``, and faults planted in dq and
+   dk/dv failing that comparison;
 7. the tiny LKGD train step (knowledge fusion, rank-2 temporal LoRA, remat) at fp32 on
    the GPU against the CPU with the same weights and injected sigmas, noise and dropout:
    the loss, every trainable gradient (scaled by its largest entry) and the trainables
@@ -367,6 +373,7 @@ around it and a CUDA device; without either it fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2376,15 +2383,16 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
              ("unet level 1", (8, 1024, 10, 64), 1.0, 1024),
              ("ragged", (2, 1100, 5, 64), 1.0, 1100), ("fallback", (1, 1100, 2, 64), 60.0, 1100),
              ("sq_ne_sk", (2, 1100, 5, 64), 1.0, 1030), ("d128", (2, 2048, 4, 128), 1.0, 2048),
-             # the LSE forward alone: the backward kernels stop at D=128
+             # the LSE forward alone here: the wide backward's VAE shapes follow the loop
              ("vae mid", (2, 9216, 1, 512), 1.0, 9216),
+             # the huge-norm guard at D=512, forward and backward (the wide kernels)
              ("fallback wide", (1, 1100, 1, 512), 60.0, 1100)]
     for label, shape, scale, s_k in cases:
         kshape = (shape[0], s_k, *shape[2:])
         q, k, v, do = randn(*shape, scale=scale), randn(*kshape, scale=scale), randn(*kshape), \
             randn(*shape)
         # the plain versions whole, or at D=512 a row at a time
-        rows = 1 if shape[-1] > fa.BWD_MAX_D else shape[0]
+        rows = 1 if shape[-1] > 128 else shape[0]
         want_out, want_lse = in_row_chunks(lambda *a: fa.flash_fwd_lse_maxtrack_plain(
             *(x.float() for x in a)), (q, k, v), rows)
         # at the huge-norm input lse reaches ~2e4 log2 units, where fp32 logits carry ~1e-3
@@ -2423,7 +2431,7 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
                 assert recomputed > 0, "the huge-norm input must trip the fallback"
             row[kernel] = {"max_abs_err": out_err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": lib_ms, **least}
-        if shape[-1] > fa.BWD_MAX_D:
+        if label == "vae mid":
             del q, k, v, do, want_out, want_lse, out, lse
             torch.cuda.empty_cache()
             continue
@@ -2496,7 +2504,209 @@ def phase_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
             results = row
         del q, k, v, do, want_out, want_lse, out, lse, delta, ref, args
         torch.cuda.empty_cache()
+    # the wide kernels (D > 128) at the VAE mid block's widths, beside the level-0 rows
+    wide: dict = {}
+    for label, shape, s_k, scale in WIDE_BWD_BF16:
+        _wide_bwd_case(label, shape, s_k, scale, gen, wide)
+    for kernel, found in wide.items():
+        results[kernel]["wide"] = found
     return results
+
+
+# --------------------------------------------------- the wide backward (kernels 9 and 10)
+# (label, (B, S_q, H, D), S_k, scale): the VAE mid block's one head of 512 at the fine-tunes'
+# 512x512x8 latents and the 576x1024 clip's 14 frames, two heads of 256 (kernels 5/6 around
+# them), D past a 128-column unit on a ragged S_q != S_k
+WIDE_BWD_BF16 = (("vae mid 512x512x8f", (8, 4096, 1, 512), 4096, 1.0),
+                 ("vae mid 576x1024x14f", (14, 9216, 1, 512), 9216, 1.0),
+                 ("D=256, two heads", (8, 4096, 2, 256), 4096, 1.0),
+                 ("D=136, ragged", (2, 1100, 2, 136), 1030, 1.0))
+# the same at fp32, D = 128 where the device sets the pace, and the guard input at D=512: x4,
+# where fp32 logits hold 1e-4, and x60 as the bf16 phase's (logits of ~1e5 in the exp2
+# domain: see _fp32_logit_tol and _bwd_fp64)
+WIDE_BWD_FP32 = (("vae mid 512x512x8f", (8, 4096, 1, 512), 4096, 1.0),
+                 ("D=128", (8, 4096, 2, 128), 4096, 1.0),
+                 ("D=136, ragged", (2, 1100, 2, 136), 1030, 1.0),
+                 ("guard input x4, D=512", (1, 1100, 1, 512), 1100, 4.0),
+                 ("guard input x60, D=512", (1, 1100, 1, 512), 1100, 60.0))
+
+
+def _library_backward(q, k, v, do) -> tuple:
+    """The library's backward of kernels 9 and 10 together: autograd through
+    ``scaled_dot_product_attention`` on the same inputs, on the first of its fused backends
+    (flash, memory-efficient, cuDNN) that takes the shape. (ms, the backend's name), or
+    (None, "none") where none does (its math backend is the plain matrix products)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    grad = do.transpose(1, 2)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(*leaves)
+                ms = gpu_ms(lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True),
+                            reps=3)
+        except RuntimeError:
+            continue
+        return ms, backend.name.lower()
+    return None, "none"
+
+
+def _fp32_logit_tol(q, k) -> float:
+    """The fp32 backward's tolerance relative to max|ref|: FP32_GRAD_TOL, or where the logits
+    are so large that their own fp32 rounding moves P further, one rounding of the largest
+    possible logit in the exp2 domain, 2^-23 max_i |t_i| (t the bound kernel's Cauchy-Schwarz
+    bound, -|q_i| max_j|k_j| D^-0.5 log2 e): two fp32 computations of the same scores may differ
+    by that much (1.5e-2 at the x60 guard input at D=512, ~7e-5 at x4)."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    return max(FP32_GRAD_TOL, 2.0 ** -23 * fa.bound_t(q, k).abs().max().item())
+
+
+def _bwd_fp64(q, k, v, do, lse, delta) -> tuple:
+    """dq, dk, dv (B, S, H, D) of kernels 9 and 10 in float64 from the same inputs and the
+    same fp32 lse and delta: the second witness where ``_fp32_logit_tol`` holds the fp32
+    kernels above FP32_GRAD_TOL. The kernel is held within that tolerance of it too, and the
+    fp32 plain version's distance from it is printed beside the kernel's."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    qd, kd, vd, dod = (x.double().transpose(1, 2) for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp2(qd @ kd.transpose(-1, -2) * (scale * fa.LOG2E) - lse.double()[..., None])
+    ds = p * (dod @ vd.transpose(-1, -2) - delta.double()[..., None])
+    return tuple(g.transpose(1, 2) for g in (ds @ kd * scale, ds.transpose(-1, -2) @ qd * scale,
+                                             p.transpose(-1, -2) @ dod))
+
+
+class _tf32_matmuls:
+    """TF32 in matrix products inside the block: the plain backward of bf16 operands, whose
+    S and dP products are exact there (bf16 operands) and whose other three round P and dS to
+    TF32 (2^-11), below the kernels' own bf16 rounding of them (2^-9)."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def _wide_bwd_case(label: str, shape, s_k: int, scale: float, gen: torch.Generator, rows: dict,
+                   fp32: bool = False) -> None:
+    """Kernels 9 and 10 on the wide kernels (bf16 D > 128, fp32 D > 64) at one (B, S_q, H, D)
+    input, from the LSE forward's lse and delta as the autograd Function hands them (head-major
+    copies from kernel 5 where H > 1): each kernel alone and the pair from one ``flash_bwd``
+    call (CUDA events; at fp32 the main kernels and the pre-pass apart, under the profiler),
+    against the plain versions on the leading batch row(s) (at fp32 TF32 off, within
+    FP32_GRAD_TOL or ``_fp32_logit_tol``, and in the latter case also within it of the fp64
+    witness ``_bwd_fp64``; bf16 within GRAD_TOL, its plain products in TF32:
+    ``_tf32_matmuls``), the library's backward (``_library_backward``) and the bound (bf16
+    products at 989 TFLOP/s, or three TF32 products at 495). Two launches bit-identical; one
+    launch of each counter a call. Appends a row a kernel to ``rows``."""
+    from lkgd_torch.ops import flash_attention as fa
+
+    dev, dtype = gen.device, torch.float32 if fp32 else torch.bfloat16
+    suffix, tag = ("_fp32", "fp32-train-kernel") if fp32 else ("", "train-kernel")
+    b, s_q, h, d = shape
+    kshape = (b, s_k, h, d)
+    q = (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+    k = (torch.randn(kshape, device=dev, generator=gen) * scale).to(dtype)
+    v, do = (torch.randn(x, device=dev, generator=gen).to(dtype) for x in (kshape, shape))
+    if h > 1:  # the head-major copies of the Function
+        q, k, v = fa.split_heads_many(q, k, v)
+        (do,) = fa.split_heads_many(do)
+    out, lse = fa.flash_fwd_lse(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    del out
+    n = b if s_q * s_k * d <= 2 ** 30 else 1  # the plain versions' rows
+    head = tuple(x[:n] for x in args)
+    tol = _fp32_logit_tol(q, k) if fp32 else GRAD_TOL
+    witness = dict(zip(("dq", "dk", "dv"), _bwd_fp64(*head))) if fp32 and tol > FP32_GRAD_TOL \
+        else {}
+    lib_ms, backend = _library_backward(q, k, v, do)
+    pair = fa.flash_bwd(*args)
+    pair_ms = gpu_ms(lambda: fa.flash_bwd(*args))
+    device = _device_kernel_ms(lambda: fa.flash_bwd(*args)) if fp32 else {}
+    split_ms = sum(t for name, t in device.items() if name.startswith("bwd_split_kernel"))
+    products = 2 * b * h * s_q * s_k * d
+    least_pair = 0.0
+    for kernel, fn, plain, names in (
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, ("dq",)),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, ("dk", "dv"))):
+        dkv = kernel == "flash_bwd_dkv"
+        before = fa.launches[kernel + suffix]
+        got, again = fn(*args), fn(*args)
+        assert fa.launches[kernel + suffix] == before + 2, (kernel, label)
+        with contextlib.nullcontext() if fp32 else _tf32_matmuls():
+            want = plain(*(x.float() for x in head[:4]), *head[4:])
+            plain_ms = gpu_ms(lambda: plain(*(x.float() for x in head[:4]), *head[4:]), reps=1)
+        got, again, want = (got, again, want) if dkv else ((got,), (again,), (want,))
+        errs = {}
+        far = {}  # the kernel's and the fp32 plain version's distances from the fp64 witness
+        for name, g, g2, w, g3 in zip(names, got, again, want, pair[1:] if dkv else pair):
+            assert g.dtype == dtype and torch.isfinite(g).all(), (kernel, label, name)
+            assert torch.equal(g, g2), f"{kernel} {label}: {name} differs between launches"
+            assert torch.equal(g, g3), f"{kernel} {label}: {name} differs in the one-call pair"
+            errs[name] = ((g[:n].float() - w.float()).abs().max().item(),
+                          w.float().abs().max().item())
+            if name in witness:
+                far[name] = ((g[:n].double() - witness[name]).abs().max().item(),
+                             (w.double() - witness[name]).abs().max().item(),
+                             witness[name].abs().max().item())
+        del got, again, want
+        ms = gpu_ms(lambda: fn(*args))
+        main_ms = sum(t for name, t in device.items()
+                      if name.startswith("flash_bwd_tf32_wide_kernel<")
+                      and name.endswith("true>" if dkv else "false>"))
+        plan = fa.flash_bwd_plan(b, s_q, s_k, h, d, dkv, fp32=fp32)
+        # dq: 3 products, q, dO and dq on the query side, k and v; dk/dv: 4 products, q and
+        # dO, k, v, dk and dv; lse and delta
+        q_side, k_side, n_products = (2, 4, 4) if dkv else (3, 2, 3)
+        if fp32:
+            least = bound(3 * n_products * products,
+                          4 * (q_side * b * s_q * h * d + k_side * b * s_k * h * d
+                               + 2 * b * h * s_q), PEAK_TF32)
+        else:
+            least = flash_bound(shape, s_k, products=n_products, q_tensors=q_side,
+                                k_tensors=k_side, rows_fp32=2)
+        least_pair += least["bound_ms"]
+        print(f"[{tag}] {kernel}{suffix} ({plan.kernel}) {label} (B,S,H,D)={shape} S_k={s_k} "
+              f"x{scale}: " + ", ".join(f"{nm} max|d| {e:.3e} of max|ref| {m:.3e} (tol "
+                                        f"{tol:.3g} x max|ref|, rows :{n})"
+                                        for nm, (e, m) in errs.items())
+              + f", two launches and the one-call pair bit-identical | {ms:.4f} ms (CUDA "
+              f"events" + (f"; under the profiler main {main_ms:.4f} ms, the pair's pre-pass "
+                           f"{split_ms:.4f} ms" if fp32 else "")
+              + f"), plain {plain_ms:.3f} ms ({n} of {b} rows), bound {least['bound_ms']:.4f} "
+              f"ms by {least['bound_by']} ({100 * least['bound_ms'] / ms:.1f}% of it) | plan "
+              f"{plan.blocks} blocks ({plan.slices} column slices), {plan.waves:.2f} waves, "
+              f"{plan.stages} ring units a warpgroup", flush=True)
+        if far:
+            print(f"[{tag}] {kernel}{suffix} {label} against the fp64 witness (tol {tol:.3g} x "
+                  f"max|ref|; the fp32 plain version's distance beside): "
+                  + ", ".join(f"{nm} kernel {e:.3e}, fp32 plain {ep:.3e} ({e / m:.2e}, "
+                              f"{ep / m:.2e} of max|ref| {m:.3e})"
+                              for nm, (e, ep, m) in far.items()), flush=True)
+        for name, (e, m) in errs.items():
+            assert np.isfinite(e) and e <= tol * m, (kernel, label, name, e, m)
+        for name, (e, ep, m) in far.items():
+            assert e <= tol * m, (kernel, label, name, e, ep, m)
+        rows.setdefault(kernel + suffix, []).append(
+            {"label": label, "shape": list(shape), "keys": s_k,
+             "max_abs_err": max(e for e, _ in errs.values()), "ms": ms,
+             **({"main_ms": main_ms, "split_ms": split_ms} if fp32 else {}),
+             "plain_ms": plain_ms, "plain_rows": n, "library_ms": lib_ms,
+             "library_backend": backend, **least, "pair_ms": pair_ms})
+    lib_text = (f"{pair_ms / lib_ms:.2f} x the library backward ({lib_ms:.4f} ms, {backend})"
+                if lib_ms else "no fused library backend takes the shape")
+    print(f"[{tag}] backward pair{suffix} {label}: kernels 9 + 10 from one call {pair_ms:.4f} "
+          f"ms = {lib_text}, {100 * least_pair / pair_ms:.1f}% of its {least_pair:.4f} ms bound",
+          flush=True)
+    del q, k, v, do, lse, delta, args, head, pair
+    torch.cuda.empty_cache()
 
 
 def _relayout_check(fa, label: str, shape, s_k: int, randn) -> dict:
@@ -2551,6 +2761,116 @@ def _relayout_host_line() -> None:
           f"enqueues; device us of the same calls back to back beside): " + ", ".join(
               f"{k} {v:.2f} ({parts['device_us'][k]:.2f})" for k, v in parts["host_us"].items()),
           flush=True)
+
+
+# (label, (frames, latent height, width, channels), dtype): the temporal VAE's mid-block
+# attention at the fine-tunes' 512x512 clips of 8 frames and the 576x1024 clip's 14 frames
+VAE_GRAD = (("512x512x8f", (8, 64, 64, 512), torch.bfloat16),
+            ("512x512x8f", (8, 64, 64, 512), torch.float32),
+            ("576x1024x14f", (14, 72, 128, 512), torch.bfloat16))
+# the parameters whose gradients flow only through kernels 9 and 10: dq reaches to_q, dk
+# to_k, dv to_v. to_k's bias has none (a shift of every key by one vector moves each query's
+# logits by one constant, which the softmax cancels), and x's gradient is w, the residual's,
+# plus an attention share that bf16 rounds away beside it
+VAE_GRAD_PARAMS = ("to_q.weight", "to_q.bias", "to_k.weight", "to_v.weight", "to_v.bias")
+# (name, the fault on (dq, dk, dv), the gradients it must push past the tolerance): faults
+# planted in the backward's results, to show that 6b's comparison fails them
+VAE_GRAD_FAULTS = (("dq zeroed", lambda dq, dk, dv: (torch.zeros_like(dq), dk, dv),
+                    ("to_q.weight", "to_q.bias")),
+                   ("dk, dv x 1.1", lambda dq, dk, dv: (dq, dk * 1.1, dv * 1.1),
+                    ("to_k.weight", "to_v.weight", "to_v.bias")))
+
+
+def _vae_attention_grads(module, x: torch.Tensor, w: torch.Tensor) -> dict:
+    """``torch.autograd.grad`` of sum(module(x) * w) with respect to VAE_GRAD_PARAMS."""
+    params = dict(module.named_parameters())
+    grads = torch.autograd.grad((module(x) * w).float().sum(),
+                                [params[name] for name in VAE_GRAD_PARAMS])
+    return dict(zip(VAE_GRAD_PARAMS, grads))
+
+
+def _vae_attention_twin(module, x: torch.Tensor, w: torch.Tensor) -> dict:
+    """The same gradients from the same module and inputs with ``plain_attention`` (the
+    attention the VAE runs below 1024 tokens) in place of the flash Function: everything but
+    the attention and its gradient is the same computation, rounded the same way. bf16 with
+    TF32 in its fp32 products (``_tf32_matmuls``: exact on bf16 operands), fp32 without."""
+    from lkgd_torch.models import vae_temporal
+    from lkgd_torch.ops.attention import plain_attention
+
+    with mock.patch.object(vae_temporal, "dot_product_attention", plain_attention), \
+            (contextlib.nullcontext() if x.dtype == torch.float32 else _tf32_matmuls()):
+        return _vae_attention_grads(module, x, w)
+
+
+def _vae_grad_errs(got: dict, want: dict) -> dict:
+    """max|got - want| and max|want| by parameter."""
+    return {name: ((got[name].float() - w).abs().max().item(), w.abs().max().item())
+            for name, w in want.items()}
+
+
+def phase_vae_attention_grad(dev: torch.device) -> dict:
+    """6b, the slice's path through the model code: ``torch.autograd.grad`` of a weighted sum
+    of the temporal VAE's full-width mid-block attention (``VAEAttention``: 512 channels, one
+    head, its GroupNorm and residual) with respect to the projections that only kernels 9
+    and 10 reach (VAE_GRAD_PARAMS), at VAE_GRAD's latents. Every launch count is set to 0
+    just before the three gradients and read just after: the LSE forward (kernel 7 and its
+    guard 8), 9 and 10 in each dtype's forms must have run, once a call. Each gradient is
+    then held against its ``plain_attention`` twin (``_vae_attention_twin``) within GRAD_TOL
+    (bf16) or FP32_GRAD_TOL (fp32) of its own max|ref|. At the first shape of each dtype, each
+    of VAE_GRAD_FAULTS planted in the backward's results must fail that comparison on the
+    gradients it breaks. Returns the path's counts."""
+    from lkgd_torch.models import vae_temporal
+    from lkgd_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(85)
+    torch.manual_seed(85)
+    modules = {dt: vae_temporal.VAEAttention(VAE_GRAD[0][1][-1]).to(dev, dt)
+               for dt in (torch.bfloat16, torch.float32)}
+    runs = []
+    _zero_counts()
+    for label, shape, dtype in VAE_GRAD:
+        x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        w = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _vae_attention_grads(modules[dtype], x, w)
+        torch.cuda.synchronize()
+        runs.append((label, shape, dtype, x, w, got, time.perf_counter() - t0))
+    counts = _read_counts()
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        calls = sum(1 for _, _, dt, *_ in runs if dt == dtype)
+        for kernel in ("flash_bound_lse", "flash_maxtrack_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[kernel + suffix] == calls, (kernel + suffix, counts)
+    faulted = set()
+    for label, shape, dtype, x, w, got, seconds in runs:
+        tol = FP32_GRAD_TOL if dtype == torch.float32 else GRAD_TOL
+        want = _vae_attention_twin(modules[dtype], x, w)
+        errs = _vae_grad_errs(got, want)
+        print(f"[vae-attention-grad] VAEAttention(512) {label} {tuple(shape)} {dtype}: "
+              f"d/d(to_q, to_k, to_v) through the flash Function in {seconds:.3f} s (forward "
+              f"and backward, host clock) | against the plain_attention twin (tol {tol} x "
+              f"max|ref|): " + ", ".join(f"{n} max|d| {e:.3e} of max|ref| {m:.3e}"
+                                         for n, (e, m) in errs.items()), flush=True)
+        for name, (e, m) in errs.items():
+            assert torch.isfinite(got[name]).all() and e <= tol * m, (label, dtype, name, e, m)
+        if dtype in faulted:
+            continue
+        faulted.add(dtype)
+        for fault, breaks, broken in VAE_GRAD_FAULTS:
+            real = fa.flash_bwd
+            with mock.patch.object(fa, "flash_bwd", lambda *a: breaks(*real(*a))):
+                bad = _vae_grad_errs(_vae_attention_grads(modules[dtype], x, w), want)
+            print(f"[vae-attention-grad] planted fault, {fault}, {label} {dtype}: "
+                  + ", ".join(f"{n} max|d| {e:.3e} ({e / m:.2e} of max|ref|)"
+                              for n, (e, m) in bad.items() if n in broken), flush=True)
+            for name in broken:
+                e, m = bad[name]
+                assert e > tol * m, f"6b passed a planted fault: {fault} in {name} ({e}, {m})"
+    print(f"[vae-attention-grad] launches of the three gradients: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    del modules, runs
+    torch.cuda.empty_cache()
+    return counts
 
 
 COG_TRAIN = (1, 17776, 48, 64)  # one CFG-free row of the 5B DiT's joint sequence
@@ -4602,8 +4922,8 @@ FP32_TRAIN = (("fine-tune level 0", (14, 4096, 5, 64), None, 1.0),
               # norms x4 at D=64: the bound sits ~150 log2 units above every row's largest
               # logit, and the guard recomputes the bound form's tiles
               ("guard input", (1, 1100, 2, 64), None, 4.0),
-              # every head dim the backward is built for: D=40 (zero-padded to 64), and D=128,
-              # where the backward runs its FFMA kernels
+              # the narrow kernels' D=40 (zero-padded to 64), and D=128 on the wide kernels
+              # (the other wide shapes follow the loop: WIDE_BWD_FP32)
               ("D=40, S_q != S_k", (1, 700, 3, 40), 900, 1.0),
               ("D=128", (1, 1024, 4, 128), None, 1.0))
 TRAINING_FP32 = ("flash_bound_lse_fp32", "flash_maxtrack_lse_fp32", "flash_bwd_dq_fp32",
@@ -4725,8 +5045,14 @@ def _fp32_train_case(label: str, shape, s_k, scale: float, gen: torch.Generator,
     out, lse = fa.flash_fwd_lse(q, k, v)
     delta = (do * out).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta)
-    tf32 = fa.flash_bwd_plan(b, s_q, s_k, h, d, False, fp32=True).kernel == "dq_tf32x3"
-    form = "_tf32_kernel" if tf32 else "_ffma_kernel<"
+    wide = fa.flash_bwd_plan(b, s_q, s_k, h, d, False, fp32=True).kernel.endswith("_wide")
+
+    def main_kernel(name: str, dkv: bool) -> bool:  # the profiler's name of kernel 9 or 10
+        if wide:
+            return (name.startswith("flash_bwd_tf32_wide_kernel<")
+                    and name.endswith("true>" if dkv else "false>"))
+        return name.startswith("flash_bwd_dkv_tf32_kernel" if dkv else "flash_bwd_dq_tf32_kernel")
+
     pair = fa.flash_bwd(*args)
     least_pair = 0.0
     for kernel, fn, plain, names in (
@@ -4744,9 +5070,9 @@ def _fp32_train_case(label: str, shape, s_k, scale: float, gen: torch.Generator,
             errs[name] = ((g - w).abs().max().item(), w.abs().max().item())
         del got, again, want
         device = _device_kernel_ms(lambda: fn(*args))
-        main_ms = sum(t for n, t in device.items() if n.startswith(kernel.replace("_fp32", form)))
+        main_ms = sum(t for n, t in device.items() if main_kernel(n, dkv))
         split_ms = sum(t for n, t in device.items() if n.startswith("bwd_split_kernel"))
-        assert main_ms > 0.0 and (split_ms > 0.0) == tf32, device
+        assert main_ms > 0.0 and split_ms > 0.0, device
         t = {"ms": main_ms + split_ms, "main_ms": main_ms, "split_ms": split_ms,
              "call_device_ms": sum(device.values()), "wrapper_ms": gpu_ms(lambda: fn(*args), 20)}
         plain_ms = gpu_ms(lambda: in_row_chunks(plain, args, rows=2), reps=1)
@@ -4793,13 +5119,16 @@ def phase_fp32_train_kernels(dev: torch.device, gen: torch.Generator) -> dict:
     FP32_GRAD_TOL x each one's max|ref|, a second launch and the one-call pair bit-identical,
     kernels 5/6 on fp32 rows bit-exact; device time under the profiler beside the wrapper's
     (a backward kernel's with its pre-pass; the pair's from one call under ``pair_ms``), the
-    plain version's, the library's fp32 SDPA forward or backward, and the bound of three TF32 products at 495
-    TFLOP/s with the fp32 FMA bound at 67 TFLOP/s beside it. Returns the rows by kernel: the
-    first shape's, the others under ``shapes``."""
+    plain version's, the library's fp32 SDPA forward or backward, and the bound of three TF32
+    products at 495 TFLOP/s with the fp32 FMA bound at 67 TFLOP/s beside it. Then the wide
+    backward kernels alone at WIDE_BWD_FP32 (``_wide_bwd_case``). Returns the rows by kernel:
+    the first shape's, the others under ``shapes``."""
     assert not torch.backends.cuda.matmul.allow_tf32
     rows: dict = {}
     for label, shape, s_k, scale in FP32_TRAIN:
         _fp32_train_case(label, shape, s_k, scale, gen, rows)
+    for label, shape, s_k, scale in WIDE_BWD_FP32:
+        _wide_bwd_case(label, shape, s_k, scale, gen, rows, fp32=True)
     return {name: {**found[0], "shapes": found[1:]} for name, found in rows.items()}
 
 
@@ -6806,12 +7135,17 @@ def phase_tools(dev: torch.device) -> dict:
 
 
 def _phase_timed(name: str, fn, t_smoke: float):
-    """``fn``, printing its seconds and the smoke's running total when it returns."""
+    """``fn``, printing its seconds, the smoke's running total and the traces it took again
+    for lost operations (``_timing.trace_counts["lost"]``) when it returns."""
+    from lkgd_torch.experiments._timing import trace_counts
+
     def run(*args, **kwargs):
-        t0 = time.perf_counter()
+        t0, lost = time.perf_counter(), trace_counts["lost"]
         out = fn(*args, **kwargs)
         now = time.perf_counter()
-        print(f"[time] {name} {now - t0:.1f} s, the smoke {now - t_smoke:.1f} s so far",
+        retaken = trace_counts["lost"] - lost
+        print(f"[time] {name} {now - t0:.1f} s, the smoke {now - t_smoke:.1f} s so far"
+              + (f", {retaken} trace(s) taken again for lost operations" if retaken else ""),
               flush=True)
         return out
     return run
@@ -6889,6 +7223,7 @@ def main() -> int:
     sd2d_launches = phase_sd2d_full(dev)
     torch.cuda.empty_cache()
     kernels.update(phase_train_kernels(dev, torch.Generator(device=dev).manual_seed(4321)))
+    vae_grad_launches = phase_vae_attention_grad(dev)
     phase_train_tiny(dev, "lkgd")
     phase_train_tiny(dev, "trans")
     phase_train_tiny(dev, "joint_vf")
@@ -6924,7 +7259,8 @@ def main() -> int:
     experiment_launches = phase_experiments(dev)
     from lkgd_torch.experiments._timing import trace_counts
     print(f"[profiler] {trace_counts['traces']} short traces taken, {trace_counts['empty']} "
-          f"of them with no device operation and taken again", flush=True)
+          f"of them with no device operation and {trace_counts['lost']} that lost operations, "
+          f"each taken again", flush=True)
     # launches: each kernel's count on the path that is its own (the inference kernels' from
     # the base clip, the training kernels' from the counted LKGD training steps, the
     # microbenchmark kernels' from their entry points); every path's count under
@@ -6935,6 +7271,7 @@ def main() -> int:
                **cogvideox_launches, **sp_launches, **par_launches, **pp_launches,
                "web_demo": web_demo_launches,
                "verify_parity": verify_parity_launches,
+               "vae_attention_grad": vae_grad_launches,
                "train": train_launches, "train_fp32": train_fp32_launches,
                "train_trans": train_trans_launches,
                "train_controlnet": train_controlnet_launches, "train_flow": train_flow_launches,

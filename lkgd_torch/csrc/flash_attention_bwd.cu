@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 operands, fp32 accumulation, D <= 128.
+// Flash-attention backward for Hopper (sm_90a): bf16 operands, fp32 accumulation, every
+// D % 8 == 0 up to 512 (the JAX kernels' `supports`).
 //
 // Replaces the Pallas TPU kernels of lkgd_tpu/ops/flash_attention.py that _flash_bwd_bhsd
 // drives under the custom VJP _flash_core:
@@ -41,7 +42,9 @@
 //     tensor cores meanwhile (at D=128 dk/dv's two D-wide accumulators leave no registers
 //     for that: its products and its arithmetic take turns);
 //   * tiles by D padded to 64 or 128 (BwdPlan): dq streams 128-key tiles at D <= 64 and
-//     64-key tiles above; dk/dv streams 64-query tiles;
+//     64-key tiles above; dk/dv streams 64-query tiles. Above D = 128 (the VAE mid block's
+//     512) flash_bwd_wide_kernel below: 64 resident rows, the score work split between the
+//     two consumer warpgroups;
 //   * masks, not only zero fill: a zero key row would give p = exp2(0 - lse) != 0. Keys past
 //     S_k get P = 0 in dq (the last tile is peeled, so the loop's body has no branch on the
 //     tile's number); queries past S_q get lse = +inf in dk/dv, so P = exp2(s - inf) = 0 and
@@ -70,6 +73,7 @@ struct BwdArgs {
   bf16* out1;          // dv (dk/dv kernel)
   Strides os0, os1;
   int heads, s_q, s_k, d, n_tiles;  // n_tiles: blocks along the block's own rows per (b, h)
+  int n_slices;      // blocks along the output's columns (the wide kernels; else 1)
   float scale;       // D^-0.5
   float scale_log2;  // D^-0.5 * log2(e), as the forward that wrote lse used it
 };
@@ -478,6 +482,294 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------- 128 < D <= 512
+// flash_bwd_wide_kernel<DP, DKV> (DP 256 or 512: the VAE mid block's single 512-wide head,
+// and any D % 8 == 0 up to 512), kernels 9 (DKV=false) and 10 in one template. At these widths
+// a 64-row m64nD fp32 output is D/2 registers a thread: the two outputs of dk/dv cannot both
+// live in one warpgroup, nor dq's 512 columns, and one 128-row resident bf16 tile is 128 KB at
+// D = 512. So a block keeps 64 resident rows and gives its two consumer warpgroups two roles
+// that share one score tile through shared memory, no product computed twice:
+//   * dq: warpgroup 0 forms S = Q K^T and P, warpgroup 1 dP = dO V^T and, from P, dS; each
+//     accumulates dQ += dS K over half of dQ's columns (D/2 each: 128 registers at D = 512);
+//   * dk/dv: warpgroup 0 forms S^T = K Q^T and P^T and accumulates dV += P^T dO, warpgroup 1
+//     forms dP^T = V dO^T and, from P^T, dS^T, and accumulates dK += dS^T Q; each keeps up to
+//     256 output columns (128 registers), so at D = 512 the grid has two column slices and a
+//     slice's block recomputes S^T and dP^T: 6 products where one block would do 4 (1.5x).
+// P (then dS, in place) crosses in a 16 KB buffer laid out [register][thread]: both
+// warpgroups hold a 64 x 64 tile in the same accumulator layout, so a thread reads what the
+// same thread of the other warpgroup wrote, with no conflict. Two named barriers order it:
+// the writer arrives (bar.arrive), the reader waits (bar.sync).
+// Each warpgroup has its own producer warp, ring and barriers: its 64 rows of the score's A
+// operand (Q or dO for dq, K or V for dk/dv; resident at D = 256, streamed beside B at 512:
+// WidePlan::RES), then for each 64-row streamed tile the score operand's 128-column units (K
+// or V; Q or dO) and the units of the accumulating product's B operand (K's columns for dq;
+// dO's or Q's for dk/dv, read MN-major). A unit is 64 rows x 128 bf16 (two panels, 16 KB): K is
+// loaded once for S and again for dQ (2.5 D key columns a tile where 2 D would do). Inside a
+// warpgroup the score, the exchange and the accumulating product take turns: the other
+// warpgroup fills the tensor cores meanwhile. Masks as above: keys past S_k get
+// P = 0 (dq), queries past S_q lse = +inf and delta = 0 (dk/dv), nothing past D or past the
+// rows is written; D not a multiple of 128 arrives zero-padded from the hardware.
+constexpr int kWRows = 64;                           // resident rows a block
+constexpr int kWUnitCols = 2 * kPanelCols;           // bf16 columns of a unit
+constexpr int kWPanelBytes = 64 * kPanelRowBytes;    // a 64-row panel: 8 KB
+constexpr int kWUnitBytes = 2 * kWPanelBytes;        // a unit: 16 KB
+constexpr int kXBytes = 32 * 128 * 4;                // the exchange: 32 fp32 a thread
+constexpr int kSmemLimit = 232448;                   // dynamic shared memory a block may use
+
+template <int DP, bool DKV>
+struct WidePlan {
+  // the score's A operand resident where that leaves a ring of four units (D = 256); at
+  // D = 512 it would leave two, and A streams with B through a ring of six: in turns on one
+  // H100 (experiments/flash_bwd_ab.py, two builds of this constant) the pair at (8,4096,1,512)
+  // took 3.05-3.07 ms streamed against 3.60-3.61 resident, at (8,4096,2,256) 2.21-2.33
+  // streamed against 2.07 resident
+  static constexpr bool RES = DP < 512;
+  static constexpr int ND = DP / kWUnitCols;                        // depth units of a row
+  static constexpr int N = DKV ? (DP < 256 ? DP : 256) : DP / 2;    // output columns a warpgroup
+  static constexpr int NC = N / kWUnitCols;                         // its units a tile
+  static constexpr int W = DKV ? N : 2 * N;                         // output columns a block
+  static constexpr int res_bytes = RES ? ND * kWUnitBytes : 0;      // 64 resident rows
+  // a warpgroup's ring: its half of what is left after 1024 bytes of alignment slack, the
+  // exchange and 512 for barriers
+  static constexpr int NS = ((kSmemLimit - kAtomBytes - kXBytes - 512) / 2 - res_bytes) /
+                            kWUnitBytes;
+  static constexpr int wg_bytes = res_bytes + NS * kWUnitBytes;
+  static constexpr int bar_bytes = 2 * 8 * (1 + 2 * NS);  // a warpgroup: resident, full, empty
+  static constexpr int smem_bytes = kAtomBytes + 2 * wg_bytes + kXBytes + bar_bytes;
+};
+
+template <int DP, bool DKV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const BwdArgs a) {
+  using P = WidePlan<DP, DKV>;
+  constexpr int ND = P::ND, NC = P::NC, NS = P::NS;
+  constexpr bool RES = P::RES;
+  constexpr int UA = RES ? 1 : 2;  // ring units a depth unit of the scores: (A,) B
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1);
+  const uint32_t xch = base + 2 * P::wg_bytes;
+  const uint32_t bars = xch + kXBytes;
+  float* xf = reinterpret_cast<float*>(smem_raw + (xch - raw));
+  uint32_t* xu = reinterpret_cast<uint32_t*>(xf);
+
+  const int slice = blockIdx.x % a.n_slices;  // column slices innermost: they share rows
+  const int rest = blockIdx.x / a.n_slices;
+  const int bh = rest / a.n_tiles;
+  const int r0 = (rest % a.n_tiles) * kWRows;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int n_tiles = ((DKV ? a.s_q : a.s_k) + 63) / 64;  // streamed 64-row tiles
+
+  // this warpgroup's (consumer or producer) role, pipeline and first output column
+  const int w = threadIdx.x < kConsumers ? threadIdx.x / 128 : (threadIdx.x - kConsumers) / 32;
+  const uint32_t region = base + (w & 1) * P::wg_bytes, ring = region + P::res_bytes;
+  const uint32_t res_full = bars + (w & 1) * 8 * (1 + 2 * NS);
+  const uint32_t full0 = res_full + 8, empty0 = full0 + 8 * NS;
+  const int cc = slice * P::W + (DKV ? 0 : w * P::N);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * (1 + 2 * NS); ++i)
+      // resident and full barriers: the producer's arrive with the byte count; empty: lane 0
+      // of each of the warpgroup's four warps
+      mbar_init(bars + 8 * i, (i % (1 + 2 * NS)) > NS ? 4 : 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer warps 0 and 1
+    reg_dealloc<24>();
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      // dq: warpgroup 0 Q, K, K; 1 dO, V, K. dk/dv: 0 K, Q, dO; 1 V, dO, Q
+      const CUtensorMap* ma = DKV ? (w ? &map_v : &map_k) : (w ? &map_do : &map_q);
+      const CUtensorMap* mb = DKV ? (w ? &map_do : &map_q) : (w ? &map_v : &map_k);
+      const CUtensorMap* mc = DKV ? (w ? &map_q : &map_do) : &map_k;
+      if (RES) {
+        mbar_arrive_expect_tx(res_full, P::res_bytes);
+        for (int p = 0; p < 2 * ND; ++p)
+          tma_load_4d(region + p * kWPanelBytes, ma, res_full, p * kPanelCols, r0, h, b);
+      }
+      int x = 0;
+      auto unit = [&](const CUtensorMap* m, int col, int row) {
+        const int slot = x % NS, use = x / NS;
+        if (use > 0) mbar_wait(empty0 + 8 * slot, (use - 1) & 1);
+        const uint32_t bar = full0 + 8 * slot, dst = ring + slot * kWUnitBytes;
+        mbar_arrive_expect_tx(bar, kWUnitBytes);
+        tma_load_4d(dst, m, bar, col, row, h, b);
+        tma_load_4d(dst + kWPanelBytes, m, bar, col + kPanelCols, row, h, b);
+        ++x;
+      };
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int p = 0; p < ND; ++p) {
+          if (!RES) unit(ma, p * kWUnitCols, r0);
+          unit(mb, p * kWUnitCols, t * 64);
+        }
+        for (int c = 0; c < NC; ++c) unit(mc, cc + c * kWUnitCols, t * 64);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumer warpgroups
+    reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = threadIdx.x % 32, t4 = lane & 3;
+    const int row_in_tile = ((threadIdx.x / 32) % 4) * 16 + (lane >> 2);  // and + 8
+
+    float o[NC][64];  // output columns cc .. cc + N, a 128-column unit each
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[c][i] = 0.f;
+    // dq: lse and delta of this thread's two rows; rows past S_q (never stored) get P = 0
+    float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+    if (!DKV) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + row_in_tile + 8 * r;
+        const bool ok = row < a.s_q;
+        lse_r[r] = ok ? a.lse[(long long)bh * a.s_q + row] : INFINITY;
+        delta_r[r] = ok ? a.delta[(long long)bh * a.s_q + row] : 0.f;
+      }
+    }
+    float s[32];
+    uint32_t pk[16];
+    auto wait = [&](int i) { mbar_wait(full0 + 8 * (i % NS), (i / NS) & 1); };
+    auto at = [&](int i) { return ring + (i % NS) * kWUnitBytes; };
+    auto release = [&](int i) {  // ring unit i is read no more by this warp
+      if (lane == 0) mbar_arrive(empty0 + 8 * (i % NS));
+    };
+    if (RES) mbar_wait(res_full, 0);
+
+    int x = 0;  // this tile's first ring unit
+    for (int t = 0; t < n_tiles; ++t) {
+      // dk/dv: lse (warpgroup 0) or delta (1) of this thread's query columns, loaded while
+      // the scores run; queries past S_q: lse = +inf, delta = 0
+      float col_v[16];
+      if (DKV) {
+        const float* src = (w ? a.delta : a.lse) + (long long)bh * a.s_q;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = t * 64 + 8 * n + 2 * t4 + e;
+            col_v[2 * n + e] = col < a.s_q ? src[col] : (w ? 0.f : INFINITY);
+          }
+      }
+      // 1. the scores over the depth, a commit group a unit, each unit released once its
+      // group is done: S or dP (dq), S^T or dP^T (dk/dv), 64 x 64
+      auto release_unit = [&](int p) {  // the ring units of depth unit p
+#pragma unroll
+        for (int u = 0; u < UA; ++u) release(x + UA * p + u);
+      };
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < ND; ++p) {
+#pragma unroll
+        for (int u = 0; u < UA; ++u) wait(x + UA * p + u);
+        const uint64_t a_desc =
+            smem_desc(RES ? region + 2 * p * kWPanelBytes : at(x + UA * p), 16, kAtomBytes);
+        const uint64_t b_desc = smem_desc(at(x + UA * p + UA - 1), 16, kAtomBytes);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(s, desc_advance(a_desc, q * kWPanelBytes + kk * 32),
+                     desc_advance(b_desc, q * kWPanelBytes + kk * 32), (p | q | kk) != 0);
+        wgmma_commit();
+        if (p > 0) {
+          wgmma_wait<1>();
+          release_unit(p - 1);
+        }
+      }
+      wgmma_wait<0>();
+      reg_fence(s);
+      release_unit(ND - 1);
+      x += UA * ND;
+
+      // 2. P and dS through the exchange, then this warpgroup's A operand, packed to bf16
+      if (!DKV) {
+        if (w == 0) {
+          const int k0 = t * 64;
+          if (k0 + 64 > a.s_k) {  // keys past S_k: P = 0
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              if (k0 + (i >> 2) * 8 + 2 * t4 + (i & 1) >= a.s_k) s[i] = -INFINITY;
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            xf[i * 128 + tid] = ex2(fmaf(s[i], a.scale_log2, -lse_r[(i >> 1) & 1]));
+          named_barrier_arrive(1, kConsumers);
+          named_barrier_sync(2, kConsumers);  // dS is there, packed
+#pragma unroll
+          for (int j = 0; j < 16; ++j) pk[j] = xu[j * 128 + tid];
+        } else {
+          named_barrier_sync(1, kConsumers);  // P is there
+#pragma unroll
+          for (int i = 0; i < 32; ++i) s[i] = xf[i * 128 + tid] * (s[i] - delta_r[(i >> 1) & 1]);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            pk[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+            xu[j * 128 + tid] = pk[j];  // over this thread's own P, read above
+          }
+          named_barrier_arrive(2, kConsumers);
+        }
+      } else {
+        if (w == 0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            s[i] = ex2(fmaf(s[i], a.scale_log2, -col_v[2 * (i >> 2) + (i & 1)]));
+          if (t > 0) named_barrier_sync(2, kConsumers);  // the last tile's P^T is read
+#pragma unroll
+          for (int i = 0; i < 32; ++i) xf[i * 128 + tid] = s[i];
+          named_barrier_arrive(1, kConsumers);
+        } else {
+          named_barrier_sync(1, kConsumers);  // P^T is there
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            s[i] = xf[i * 128 + tid] * (s[i] - col_v[2 * (i >> 2) + (i & 1)]);
+          if (t + 1 < n_tiles) named_barrier_arrive(2, kConsumers);
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) pk[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      }
+
+      // 3. the accumulating product over the tile's 64 rows, 16 a step, B read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        wait(x + c);
+        const uint64_t c_desc = smem_desc(at(x + c), kWPanelBytes, kAtomBytes);
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          wgmma_rs(o[c], pk + 4 * kc, desc_advance(c_desc, kc * 16 * kPanelRowBytes));
+        wgmma_commit();
+        if (c > 0) {
+          wgmma_wait<1>();
+          release(x + c - 1);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) reg_fence(o[c]);
+      release(x + NC - 1);
+      x += NC;
+    }
+
+    // dq, or dv (warpgroup 0) and dk (1)
+    bf16* out = DKV ? (w ? a.out0 : a.out1) : a.out0;
+    const Strides& os = DKV && !w ? a.os1 : a.os0;
+    const float mul = DKV && !w ? 1.f : a.scale;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = cc + c * kWUnitCols;
+      store_rows<kWUnitCols>(out + b * os.b + h * os.h + col, os.s, r0 + row_in_tile,
+                             DKV ? a.s_k : a.s_q, a.d - col, o[c], mul, t4);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------- host side
 struct BwdViews {
   const void *q, *k, *v, *dout;
@@ -487,10 +779,24 @@ struct BwdViews {
 
 template <int DP, bool DKV>
 cudaError_t launch(const BwdViews& in, BwdArgs a, cudaStream_t stream) {
-  using P = BwdPlan<DP, DKV>;
-  a.n_tiles = ((DKV ? a.s_k : a.s_q) + kRows - 1) / kRows;
-  // the block's own rows are resident (kRows), the other side's are streamed (P::ST)
-  const int q_rows = DKV ? P::ST : kRows, k_rows = DKV ? kRows : P::ST;
+  constexpr bool WIDE = DP > 128;
+  // the block's own rows are resident (kRows; kWRows wide), the other side's are streamed
+  // (BwdPlan::ST; 64 wide)
+  int rows, streamed, smem;
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, BwdArgs);
+  if constexpr (WIDE) {
+    using P = WidePlan<DP, DKV>;
+    rows = kWRows, streamed = 64, smem = P::smem_bytes;
+    kernel = flash_bwd_wide_kernel<DP, DKV>;
+    a.n_slices = (a.d + P::W - 1) / P::W;
+  } else {
+    using P = BwdPlan<DP, DKV>;
+    rows = kRows, streamed = P::ST, smem = P::smem_bytes;
+    kernel = DKV ? flash_bwd_dkv_kernel<DP> : flash_bwd_dq_kernel<DP>;
+    a.n_slices = 1;
+  }
+  a.n_tiles = ((DKV ? a.s_k : a.s_q) + rows - 1) / rows;
+  const int q_rows = DKV ? streamed : rows, k_rows = DKV ? rows : streamed;
   CUtensorMap map_q, map_do, map_k, map_v;
   cudaError_t err = make_map(&map_q, in.q, in.qs, in.batch, a.s_q, a.heads, a.d, q_rows);
   if (err == cudaSuccess)
@@ -500,12 +806,20 @@ cudaError_t launch(const BwdViews& in, BwdArgs a, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = make_map(&map_v, in.v, in.vs, in.batch, a.s_k, a.heads, a.d, k_rows);
   if (err != cudaSuccess) return err;
-  auto kernel = DKV ? flash_bwd_dkv_kernel<DP> : flash_bwd_dq_kernel<DP>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)in.batch * a.heads * a.n_tiles;
-  kernel<<<unsigned(blocks), kThreads, P::smem_bytes, stream>>>(map_q, map_do, map_k, map_v, a);
+  const long long blocks = (long long)in.batch * a.heads * a.n_tiles * a.n_slices;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  kernel<<<unsigned(blocks), kThreads, smem, stream>>>(map_q, map_do, map_k, map_v, a);
   return cudaGetLastError();
+}
+
+template <bool DKV>
+cudaError_t dispatch(const BwdViews& in, const BwdArgs& a, cudaStream_t s) {
+  if (a.d <= 64) return launch<64, DKV>(in, a, s);
+  if (a.d <= 128) return launch<128, DKV>(in, a, s);
+  if (a.d <= 256) return launch<256, DKV>(in, a, s);
+  return launch<512, DKV>(in, a, s);
 }
 
 }  // namespace
@@ -513,28 +827,45 @@ cudaError_t launch(const BwdViews& in, BwdArgs a, cudaStream_t stream) {
 extern "C" {
 
 // Rows a block of the dq (dkv=0) or dk/dv (dkv=1) kernel keeps resident: query rows for dq,
-// keys for dk/dv.
+// keys for dk/dv; 64 in the wide kernels (D > 128).
 int lkgd_flash_bwd_block_rows(int d, int dkv) {
-  (void)d;
   (void)dkv;
-  return kRows;
+  return d <= 128 ? kRows : kWRows;
 }
 
 // Dynamic shared memory of the dq (dkv=0) or dk/dv (dkv=1) block for a head dim d.
 int lkgd_flash_bwd_smem_bytes(int d, int dkv) {
   if (d <= 64) return dkv ? BwdPlan<64, true>::smem_bytes : BwdPlan<64, false>::smem_bytes;
-  return dkv ? BwdPlan<128, true>::smem_bytes : BwdPlan<128, false>::smem_bytes;
+  if (d <= 128) return dkv ? BwdPlan<128, true>::smem_bytes : BwdPlan<128, false>::smem_bytes;
+  if (d <= 256) return dkv ? WidePlan<256, true>::smem_bytes : WidePlan<256, false>::smem_bytes;
+  return dkv ? WidePlan<512, true>::smem_bytes : WidePlan<512, false>::smem_bytes;
+}
+
+// Column slices of the grid (the wide kernels' output columns a block: dk/dv above D = 256)
+// and the ring's slots for a head dim d.
+int lkgd_flash_bwd_slices(int d, int dkv) {
+  if (d <= 128) return 1;
+  const int w = d <= 256 ? (dkv ? WidePlan<256, true>::W : WidePlan<256, false>::W)
+                         : (dkv ? WidePlan<512, true>::W : WidePlan<512, false>::W);
+  return (d + w - 1) / w;
+}
+
+int lkgd_flash_bwd_stages(int d, int dkv) {
+  if (d <= 64) return dkv ? BwdPlan<64, true>::NS : BwdPlan<64, false>::NS;
+  if (d <= 128) return dkv ? BwdPlan<128, true>::NS : BwdPlan<128, false>::NS;
+  if (d <= 256) return dkv ? WidePlan<256, true>::NS : WidePlan<256, false>::NS;
+  return dkv ? WidePlan<512, true>::NS : WidePlan<512, false>::NS;
 }
 
 // q, k, v, dout, dq, dk, dv: (B, S, H, D) bf16, strides[21] = (b, s, h) element strides of
 // q, k, v, dout, dq, dk, dv. lse, delta: (B*H, s_q) fp32. dkv=0 launches the dq kernel
-// (writes dq), dkv=1 the dk/dv kernel (writes dk and dv). D must be a multiple of 8, <= 128;
+// (writes dq), dkv=1 the dk/dv kernel (writes dk and dv). D must be a multiple of 8, <= 512;
 // s_q and s_k at least 1.
 int lkgd_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv,
                    const long long* strides, int batch, int heads, int s_q, int s_k, int d,
                    float scale, float scale_log2, int dkv, int device, void* stream) {
-  if (d <= 0 || d > 128 || d % 8 != 0 || s_q <= 0 || s_k <= 0) return int(cudaErrorInvalidValue);
+  if (d <= 0 || d > 512 || d % 8 != 0 || s_q <= 0 || s_k <= 0) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   BwdViews in;
@@ -557,12 +888,11 @@ int lkgd_flash_bwd(const void* q, const void* k, const void* v, const void* dout
   a.s_q = s_q;
   a.s_k = s_k;
   a.d = d;
-  a.n_tiles = 0;  // set by the launch from its plan
+  a.n_tiles = a.n_slices = 0;  // set by the launch from its plan
   a.scale = scale;
   a.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dkv) return int(d <= 64 ? launch<64, true>(in, a, s) : launch<128, true>(in, a, s));
-  return int(d <= 64 ? launch<64, false>(in, a, s) : launch<128, false>(in, a, s));
+  return int(dkv ? dispatch<true>(in, a, s) : dispatch<false>(in, a, s));
 }
 
 }  // extern "C"

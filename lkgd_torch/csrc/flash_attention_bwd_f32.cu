@@ -12,7 +12,8 @@
 //       dV = P^T dO,  dK = scale * dS^T Q.
 // lse is the forward's log2-domain logsumexp (B*H, S_q) and delta = rowsum(dO o O) (B*H,
 // S_q), both fp32, computed in PyTorch as JAX does. These kernels take D <= 64 (the fp32 UNet's
-// heads); 64 < D <= 128 runs the plain FFMA tiles of flash_bwd_{dq,dkv}_ffma_kernel below.
+// heads); 64 < D <= 512 runs flash_bwd_tf32_wide_kernel below, the same arithmetic in the
+// bf16 wide kernel's design.
 //
 // Arithmetic, 3xTF32, as the fp32 forward (flash_attention_f32.cu): each fp32 operand x is
 // split into hi = x rounded to tf32 (cvt.rna) and lo = x - hi, and each product is lo.hi +
@@ -31,15 +32,17 @@
 // S^T = K Q^T and dP^T = V dO^T have both operands K-major as the tensors lie, but dQ += dS K,
 // dV += P^T dO and dK += dS^T Q want K^T, dO^T and Q^T as their B operands. So a pre-pass
 // (bwd_split_kernel, replacing no TPU kernel: it exists for that rule), launched first from the
-// same call, writes hi and lo planes into the wrapper's scratch: Q, dO (B*H, S_q, 64), K, V
-// (B*H, S_k, 64), and for dq K^T (B*H, 64, S_k rounded up to 32), for dk/dv Q^T and dO^T (B*H,
-// 64, S_q rounded up), zeros past D and past S: 14 planes for the pair, each input read once
+// same call, writes hi and lo planes into the wrapper's scratch at D padded to DP (64, 128,
+// 256 or 512; a block of the pre-pass a 64-column block of D): Q, dO (B*H, S_q, DP), K, V
+// (B*H, S_k, DP), and for dq K^T (B*H, DP, S_k rounded up to 32), for dk/dv Q^T and dO^T (B*H,
+// DP, S_q rounded up), zeros past D and past S: 14 planes for the pair, each input read once
 // more for its transpose. The transposed planes keep their sequence permuted [0, 2, 4, 6, 1,
 // 3, 5, 7] in every 8 (tf32_perm), so that the S / dS (S^T, P^T / dS^T) accumulator registers
 // are the A operand of the next product as they stand.
 //
-// The structure of the bf16 backward (flash_attention_bwd.cu), in units of the forward's ring
-// (64 rows x 32 fp32 of a hi plane and of its lo plane, 16 KB):
+// The narrow kernels (D <= 64) have the structure of the bf16 backward (flash_attention_bwd.cu)
+// at D <= 128, in units of the forward's ring (64 rows x 32 fp32 of a hi plane and of its lo
+// plane, 16 KB):
 //   * the TPU's two-kernel split, no atomics: each output written once, deterministic;
 //   * three warpgroups. A producer warp loads the block's 128 resident rows once (Q and dO
 //     hi and lo for dq, K and V for dk/dv: 128 KB) and keeps a 6-unit ring in flight by
@@ -66,7 +69,8 @@
 // 3 S^2 D (dq) and 4 S^2 D (dk/dv) multiply-adds per batch and head: 2.733 + 3.644 ms at the
 // fine-tune's level 0 (14, 4096, 5, 64), against 6.731 + 8.975 ms for the same products as
 // fp32 FMAs at 67 TFLOP/s. Each (128-row block, 64-row tile) pair streams 96 KB (dq) or 128
-// KB (dk/dv) of hi and lo from L2 for 9.4 or 12.6 MFLOP: ~100 operations a byte.
+// KB (dk/dv) of hi and lo from L2 for 9.4 or 12.6 MFLOP: ~100 operations a byte. The wide
+// kernels' 64-row blocks stream twice that a flop (dq at D = 128: 192 KB for 9.4 MFLOP).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,20 +110,24 @@ struct TPlan {
 // has been read by then
 static_assert(TPlan<true>::NS < 8, "the lse slots assume less than a tile of units in the ring");
 
-// The scratch of the pre-pass (floats; every plane 16-byte aligned: s_qp, s_kp % 32 == 0).
+// D padded: 64, the narrow kernels' width, or the wide kernels' 128, 256 or 512
+inline int pad_d(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 512; }
+
+// The scratch of the pre-pass (floats; every plane 16-byte aligned: DP % 64 == 0 and s_qp,
+// s_kp % 32 == 0).
 struct TScratch {
-  float *qh, *ql, *oh, *ol;          // (B*H, s_q, 64): Q, dO
-  float *kh, *kl, *vh, *vl;          // (B*H, s_k, 64): K, V
-  float *kth, *ktl;                  // (B*H, 64, s_kp): K^T, keys permuted (dq)
-  float *qth, *qtl, *oth, *otl;      // (B*H, 64, s_qp): Q^T, dO^T, queries permuted (dk/dv)
+  float *qh, *ql, *oh, *ol;          // (B*H, s_q, DP): Q, dO
+  float *kh, *kl, *vh, *vl;          // (B*H, s_k, DP): K, V
+  float *kth, *ktl;                  // (B*H, DP, s_kp): K^T, keys permuted (dq)
+  float *qth, *qtl, *oth, *otl;      // (B*H, DP, s_qp): Q^T, dO^T, queries permuted (dk/dv)
   long long floats;
 };
 
 __host__ __device__ inline int round32(int s) { return (s + 31) / 32 * 32; }
 
-TScratch tscratch(float* base, int bh, int s_q, int s_k) {
-  const long long qp = (long long)bh * s_q * kDP, kp = (long long)bh * s_k * kDP,
-                  ktp = (long long)bh * kDP * round32(s_k), qtp = (long long)bh * kDP * round32(s_q);
+TScratch tscratch(float* base, int bh, int s_q, int s_k, int dp) {
+  const long long qp = (long long)bh * s_q * dp, kp = (long long)bh * s_k * dp,
+                  ktp = (long long)bh * dp * round32(s_k), qtp = (long long)bh * dp * round32(s_q);
   TScratch sc;
   sc.floats = 4 * qp + 4 * kp + 2 * ktp + 4 * qtp;
   if (base == nullptr) return sc;
@@ -139,26 +147,27 @@ struct TSplitArgs {
   int heads, s_q, s_k, d, which;
 };
 
-// The pre-pass: rows r0..r0+31 of q, dO, k and v of one (batch, head) into their hi and lo
-// planes (16-byte loads and stores along the rows), and their transposes where the launched
-// kernels want them (through shared memory, 64 columns of D x 32 rows, written 32 positions
-// a warp).
+// The pre-pass: rows r0..r0+31 x columns c0..c0+63 (blockIdx.z: DP / 64 column blocks) of
+// q, dO, k and v of one (batch, head) into their hi and lo planes (16-byte loads and stores
+// along the rows), and their transposes where the launched kernels want them (through shared
+// memory, 64 columns of D x 32 rows, written 32 positions a warp).
 __global__ void __launch_bounds__(256) bwd_split_kernel(const TSplitArgs a, const TScratch sc) {
-  __shared__ float tile[32][kDP + 1];
+  __shared__ float tile[32][64 + 1];
   const int bh = blockIdx.y, b = bh / a.heads, h = bh % a.heads;
-  const int r0 = blockIdx.x * 32;
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.z * 64;
+  const int dp = gridDim.z * 64;
 
   auto rows = [&](const float* x, const Strides& st, int s, float* hi, float* lo) {
     const float* xb = x + b * st.b + h * st.h;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int e = threadIdx.x + 256 * i, row = r0 + e / (kDP / 4), c = (e % (kDP / 4)) * 4;
+      const int e = threadIdx.x + 256 * i, row = r0 + e / 16, c = c0 + (e % 16) * 4;
       if (row >= s) continue;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (c < a.d) v = __ldg(reinterpret_cast<const float4*>(xb + (long long)row * st.s + c));
       const float4 vh = make_float4(tf32_round(v.x), tf32_round(v.y), tf32_round(v.z),
                                     tf32_round(v.w));
-      const long long out = ((long long)bh * s + row) * kDP + c;
+      const long long out = ((long long)bh * s + row) * dp + c;
       *reinterpret_cast<float4*>(hi + out) = vh;
       *reinterpret_cast<float4*>(lo + out) =
           make_float4(v.x - vh.x, v.y - vh.y, v.z - vh.z, v.w - vh.w);
@@ -170,10 +179,10 @@ __global__ void __launch_bounds__(256) bwd_split_kernel(const TSplitArgs a, cons
     __syncthreads();  // the last transpose's reads of the tile are done
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int e = threadIdx.x + 256 * i, row = e / (kDP / 4), c = (e % (kDP / 4)) * 4;
+      const int e = threadIdx.x + 256 * i, row = e / 16, c = (e % 16) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + row < s && c < a.d)
-        v = __ldg(reinterpret_cast<const float4*>(xb + (long long)(r0 + row) * st.s + c));
+      if (r0 + row < s && c0 + c < a.d)
+        v = __ldg(reinterpret_cast<const float4*>(xb + (long long)(r0 + row) * st.s + c0 + c));
       tile[row][c] = v.x;
       tile[row][c + 1] = v.y;
       tile[row][c + 2] = v.z;
@@ -185,7 +194,7 @@ __global__ void __launch_bounds__(256) bwd_split_kernel(const TSplitArgs a, cons
       const int e = threadIdx.x + 256 * i, col = e / 32, p = e % 32;
       const float val = tile[tf32_perm(p)][col];
       const float vh = tf32_round(val);
-      const long long out = ((long long)bh * kDP + col) * s_p + r0 + p;
+      const long long out = ((long long)bh * dp + c0 + col) * s_p + r0 + p;
       hi[out] = vh;
       lo[out] = val - vh;
     }
@@ -211,6 +220,7 @@ struct TArgs {
   float *dq, *dk, *dv;
   Strides dqs, dks, dvs;
   int heads, s_q, s_k, d, n_tiles;  // n_tiles: blocks along the block's own rows per (b, h)
+  int n_slices;      // blocks along the output's columns (the wide kernels; else 1)
   float scale;       // D^-0.5
   float scale_log2;  // D^-0.5 * log2(e), as the forward that wrote lse used it
 };
@@ -254,16 +264,17 @@ __device__ __forceinline__ void split_to(uint32_t* hi, uint32_t* lo, int at, flo
 __device__ __forceinline__ uint64_t udesc(uint32_t addr) { return smem_desc(addr, 16, kAtomBytes); }
 
 // big (+)= A_hi . B_hi and small (+)= A_lo . B_hi + A_hi . B_lo over one depth unit (four k8
-// steps): A a resident unit, B a ring unit, both K-major; `first`: the first unit of the sum
+// steps): A a resident unit, B a ring unit, both K-major; `first_big`, `first_small`: the
+// first unit of each sum
 __device__ __forceinline__ void unit_ss(float (&big)[32], float (&small)[32], uint32_t a, uint32_t b,
-                                        bool first) {
+                                        bool first_big, bool first_small) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint32_t off = kk * 32;
-    const int acc = (!first || kk != 0) ? 1 : 0;
-    wgmma_tf32_ss(small, udesc(a + kPlaneBytes + off), udesc(b + off), acc);
+    wgmma_tf32_ss(small, udesc(a + kPlaneBytes + off), udesc(b + off),
+                  (!first_small || kk != 0) ? 1 : 0);
     wgmma_tf32_ss(small, udesc(a + off), udesc(b + kPlaneBytes + off), 1);
-    wgmma_tf32_ss(big, udesc(a + off), udesc(b + off), acc);
+    wgmma_tf32_ss(big, udesc(a + off), udesc(b + off), (!first_big || kk != 0) ? 1 : 0);
   }
 }
 
@@ -416,13 +427,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int p = 0; p < kND; ++p) {
         cs.wait<NS>(uk + p);
-        unit_ss(sb, ss, sQ + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uk + p), p == 0);
+        unit_ss(sb, ss, sQ + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uk + p), p == 0, p == 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int p = 0; p < kND; ++p) {
         cs.wait<NS>(uv + p);
-        unit_ss(pb, ps, sO + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uv + p), p == 0);
+        unit_ss(pb, ps, sO + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uv + p), p == 0, p == 0);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -564,13 +575,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int p = 0; p < kND; ++p) {
         cs.wait<NS>(uq + p);
-        unit_ss(sb, ss, sK + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uq + p), p == 0);
+        unit_ss(sb, ss, sK + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uq + p), p == 0, p == 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int p = 0; p < kND; ++p) {
         cs.wait<NS>(uo + p);
-        unit_ss(pb, ps, sV + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uo + p), p == 0);
+        unit_ss(pb, ps, sV + (cs.wg * kND + p) * kUnitBytes, cs.at<NS>(uo + p), p == 0, p == 0);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -644,6 +655,281 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------- 64 < D <= 512
+// flash_bwd_tf32_wide_kernel<DP, DKV> (DP 128, 256 or 512), kernels 9 (DKV=false) and 10 in
+// one template: the bf16 wide kernel's design (flash_attention_bwd.cu) in the 3xTF32
+// arithmetic above. 128 resident rows of two tensors' hi and lo are 256 KB at D = 128, and
+// dk and dv beside four score accumulators are 256 registers a thread, so a block keeps 64
+// resident rows and gives its two consumer warpgroups two roles that share one score tile:
+//   * dq: warpgroup 0 forms S = Q K^T and P, warpgroup 1 dP = dO V^T and, from P, dS; each
+//     accumulates dQ += dS K over its half of the block's columns;
+//   * dk/dv: warpgroup 0 forms S^T = K Q^T and P^T and accumulates dV += P^T dO, warpgroup 1
+//     forms dP^T = V dO^T and, from P^T, dS^T, and accumulates dK += dS^T Q.
+// A warpgroup keeps at most 128 output columns (64 running registers beside the score's 64,
+// the A operand's 64 and a fresh 32-register accumulator), so the grid slices the columns:
+// dq keeps 256 a block (two slices at D = 512: 5 products where one block would do 3), dk/dv
+// 128 (two slices at D = 256: 6 products for 4; four at D = 512: 10 for 4). P (then dS, in
+// place) crosses in a 16 KB buffer laid out [register][thread], ordered by two named barriers
+// (the writer's bar.arrive, the reader's bar.sync). Each warpgroup has its own producer warp,
+// ring of 16 KB units (six) and barriers. The score's A operand (Q or dO; K or V) streams
+// unit by unit beside the score's B units, as do the accumulating product's B units (the
+// transposed planes K^T (dq), dO^T and Q^T (dk/dv), 64 columns of D x 32 rows each): A kept
+// resident at D = 128 (64 KB of hi and lo a warpgroup) leaves a ring of two units, and on the
+// card the deeper ring won although it reads A again for every tile (the pair at
+// (8,4096,2,128) 6.03 against 7.66 ms, in turns on one H100: experiments/flash_bwd_ab.py on
+// the two builds). The hi.hi
+// accumulator of a score restarts every 4 depth units (128 of D) and is added in fp32: the
+// truncated sums of one accumulator over all of D = 512 would land near the 1e-4 the
+// gradients are held to (the fp32 forward measured 2-4e-5 of max|ref| with one accumulator at
+// D = 512). Masks and zero fill as in the narrow kernels.
+constexpr int kXBytes = 32 * 128 * 4;  // the exchange: 32 fp32 a thread of one warpgroup
+constexpr int kGroup = 4;              // depth units a hi.hi accumulator sums
+
+template <int DP, bool DKV>
+struct WPlan {
+  static constexpr int ND = DP / kUnitCols;  // depth units of a row
+  static constexpr int N = DKV ? (DP < 128 ? DP : 128) : (DP / 2 < 128 ? DP / 2 : 128);
+  static constexpr int NC = N / 64;          // 64-column sets a warpgroup keeps
+  static constexpr int W = DKV ? N : 2 * N;  // output columns a block
+  // a warpgroup's ring: its half of what is left after 1024 bytes of alignment slack, the
+  // exchange and 512 for barriers
+  static constexpr int NS = (kSmemLimit - kAtomBytes - kXBytes - 512) / 2 / kUnitBytes;
+  static constexpr int wg_bytes = NS * kUnitBytes;
+  static constexpr int bar_bytes = 2 * 8 * 2 * NS;  // a warpgroup: a full and an empty a unit
+  static constexpr int smem_bytes = kAtomBytes + 2 * wg_bytes + kXBytes + bar_bytes;
+};
+
+template <int DP, bool DKV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_tf32_wide_kernel(const __grid_constant__ TMaps m, const TArgs a) {
+  using P = WPlan<DP, DKV>;
+  constexpr int ND = P::ND, NC = P::NC, NS = P::NS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtomBytes - 1) & ~uint32_t(kAtomBytes - 1);
+  const uint32_t xch = base + 2 * P::wg_bytes;
+  const uint32_t bars = xch + kXBytes;
+  float* xf = reinterpret_cast<float*>(smem_raw + (xch - raw));
+
+  const int slice = blockIdx.x % a.n_slices;  // column slices innermost: they share rows
+  const int rest = blockIdx.x / a.n_slices;
+  const int bh = rest / a.n_tiles;
+  const int r0 = (rest % a.n_tiles) * 64;
+  const int n_tiles = ((DKV ? a.s_q : a.s_k) + kTile - 1) / kTile;
+
+  // this warpgroup's (consumer or producer) role, pipeline and first output column
+  const int w = threadIdx.x < kConsumers ? threadIdx.x / 128 : (threadIdx.x - kConsumers) / 32;
+  const uint32_t ring = base + (w & 1) * P::wg_bytes;
+  const uint32_t full0 = bars + (w & 1) * 8 * 2 * NS, empty0 = full0 + 8 * NS;
+  const int cc = slice * P::W + (DKV ? 0 : w * P::N);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * 2 * NS; ++i)
+      // full barriers: the producer's arrive with the byte count; empty: lane 0 of each of the
+      // warpgroup's four warps
+      mbar_init(bars + 8 * i, (i % (2 * NS)) >= NS ? 4 : 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer warps 0 and 1
+    reg_dealloc<24>();
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      // dq: warpgroup 0 Q, K, K^T; 1 dO, V, K^T. dk/dv: 0 K, Q, dO^T; 1 V, dO, Q^T
+      const CUtensorMap *a_hi, *a_lo, *b_hi, *b_lo, *c_hi, *c_lo;
+      if (DKV) {
+        a_hi = w ? &m.vh : &m.kh;
+        a_lo = w ? &m.vl : &m.kl;
+        b_hi = w ? &m.oh : &m.qh;
+        b_lo = w ? &m.ol : &m.ql;
+        c_hi = w ? &m.t2h : &m.th;
+        c_lo = w ? &m.t2l : &m.tl;
+      } else {
+        a_hi = w ? &m.oh : &m.qh;
+        a_lo = w ? &m.ol : &m.ql;
+        b_hi = w ? &m.vh : &m.kh;
+        b_lo = w ? &m.vl : &m.kl;
+        c_hi = &m.th;
+        c_lo = &m.tl;
+      }
+      int x = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int p = 0; p < ND; ++p) {
+          load_unit<NS>(ring, full0, empty0, x++, a_hi, a_lo, p * kUnitCols, r0, bh);
+          load_unit<NS>(ring, full0, empty0, x++, b_hi, b_lo, p * kUnitCols, t * kTile, bh);
+        }
+        for (int c = 0; c < NC; ++c)
+          for (int u = 0; u < kTile / kUnitCols; ++u)
+            load_unit<NS>(ring, full0, empty0, x++, c_hi, c_lo, t * kTile + u * kUnitCols,
+                          cc + 64 * c, bh);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumer warpgroups
+    reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = threadIdx.x % 32, t4 = lane & 3;
+    const int row_in_tile = ((threadIdx.x / 32) % 4) * 16 + (lane >> 2);  // and + 8
+
+    float o[NC][32];  // output columns cc .. cc + N, 64 a set
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    // dq: lse and delta of this thread's two rows; rows past S_q (never stored) get P = 0
+    float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+    if (!DKV) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + row_in_tile + 8 * r;
+        const bool ok = row < a.s_q;
+        lse_r[r] = ok ? a.lse[(long long)bh * a.s_q + row] : INFINITY;
+        delta_r[r] = ok ? a.delta[(long long)bh * a.s_q + row] : 0.f;
+      }
+    }
+    auto wait = [&](int i) { mbar_wait(full0 + 8 * (i % NS), (i / NS) & 1); };
+    auto at = [&](int i) { return ring + (i % NS) * kUnitBytes; };
+    auto release = [&](int i) {  // ring unit i is read no more by this warp
+      if (lane == 0) mbar_arrive(empty0 + 8 * (i % NS));
+    };
+
+    int x = 0;  // this tile's first ring unit
+    for (int t = 0; t < n_tiles; ++t) {
+      // dk/dv: lse (warpgroup 0) or delta (1) of this thread's query columns, loaded while
+      // the scores run; queries past S_q: lse = +inf, delta = 0
+      float col_v[16];
+      if (DKV) {
+        const float* src = (w ? a.delta : a.lse) + (long long)bh * a.s_q;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = t * kTile + 8 * n + 2 * t4 + e;
+            col_v[2 * n + e] = col < a.s_q ? src[col] : (w ? 0.f : INFINITY);
+          }
+      }
+      // 1. the scores over the depth: a commit group a depth unit (its A and B ring units),
+      // released once its group is done; hi.hi restarts every kGroup units into an fp32 sum
+      float sb[32], ss[32], fold[32];
+      auto release_unit = [&](int p) {
+        release(x + 2 * p);
+        release(x + 2 * p + 1);
+      };
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < ND; ++p) {
+        wait(x + 2 * p);
+        wait(x + 2 * p + 1);
+        unit_ss(sb, ss, at(x + 2 * p), at(x + 2 * p + 1), p % kGroup == 0, p == 0);
+        wgmma_commit();
+        if (p % kGroup != 0) {
+          wgmma_wait<1>();
+          release_unit(p - 1);
+        }
+        if (p % kGroup == kGroup - 1 || p == ND - 1) {
+          wgmma_wait<0>();
+          reg_fence(sb);
+          reg_fence(ss);
+          release_unit(p);
+          if (ND > kGroup) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) fold[i] = (p < kGroup ? 0.f : fold[i]) + sb[i];
+            wgmma_fence();  // sb was read: the next group writes it
+          }
+        }
+      }
+      x += 2 * ND;
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = (ND > kGroup ? fold[i] : sb[i]) + ss[i];
+
+      // 2. P and dS through the exchange: S or dP (dq), S^T or dP^T (dk/dv) -> this
+      // warpgroup's A operand
+      if (!DKV) {
+        if (w == 0) {
+          const int k0 = t * kTile;
+          if (k0 + kTile > a.s_k) {  // keys past S_k: P = 0
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              if (k0 + (i >> 2) * 8 + 2 * t4 + (i & 1) >= a.s_k) sc[i] = -INFINITY;
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            xf[i * 128 + tid] = ex2(fmaf(sc[i], a.scale_log2, -lse_r[(i >> 1) & 1]));
+          named_barrier_arrive(1, kConsumers);
+          named_barrier_sync(2, kConsumers);  // dS is there
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] = xf[i * 128 + tid];
+        } else {
+          named_barrier_sync(1, kConsumers);  // P is there
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            sc[i] = xf[i * 128 + tid] * (sc[i] - delta_r[(i >> 1) & 1]);
+            xf[i * 128 + tid] = sc[i];  // over this thread's own P
+          }
+          named_barrier_arrive(2, kConsumers);
+        }
+      } else {
+        if (w == 0) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = ex2(fmaf(sc[i], a.scale_log2, -col_v[2 * (i >> 2) + (i & 1)]));
+          if (t > 0) named_barrier_sync(2, kConsumers);  // the last tile's P^T is read
+#pragma unroll
+          for (int i = 0; i < 32; ++i) xf[i * 128 + tid] = sc[i];
+          named_barrier_arrive(1, kConsumers);
+        } else {
+          named_barrier_sync(1, kConsumers);  // P^T is there
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = xf[i * 128 + tid] * (sc[i] - col_v[2 * (i >> 2) + (i & 1)]);
+          if (t + 1 < n_tiles) named_barrier_arrive(2, kConsumers);
+        }
+      }
+      uint32_t ah[32], al[32];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_to(ah, al, a_slot(n, e), sc[4 * n + e]);
+
+      // 3. the accumulating product, a 64-column set at a time over its two 32-row units of
+      // the transposed plane, into a fresh accumulator, then into the fp32 sums
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float acc[32];
+        wgmma_fence();
+        wait(x);
+        unit_rs(acc, ah, al, at(x), 0);
+        wgmma_commit();
+        wait(x + 1);
+        unit_rs(acc, ah, al, at(x + 1), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        release(x);
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release(x + 1);
+        x += 2;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] += acc[i];
+      }
+    }
+
+    // dq, or dv (warpgroup 0) and dk (1)
+    const int b = bh / a.heads, h = bh % a.heads;
+    float* out = DKV ? (w ? a.dk : a.dv) : a.dq;
+    const Strides& os = DKV ? (w ? a.dks : a.dvs) : a.dqs;
+    const float mul = DKV && !w ? 1.f : a.scale;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = cc + 64 * c;
+      store_rows(out + b * os.b + h * os.h + col, os.s, r0 + row_in_tile, DKV ? a.s_k : a.s_q,
+                 a.d - col, o[c], mul, t4);
+    }
+  }
+}
+
 template <bool DKV>
 cudaError_t launch_tf32(const TMaps& m, TArgs a, int batch, cudaStream_t stream) {
   using P = TPlan<DKV>;
@@ -652,323 +938,94 @@ cudaError_t launch_tf32(const TMaps& m, TArgs a, int batch, cudaStream_t stream)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
   if (err != cudaSuccess) return err;
   a.n_tiles = ((DKV ? a.s_k : a.s_q) + kRows - 1) / kRows;
+  a.n_slices = 1;
   const long long blocks = (long long)batch * a.heads * a.n_tiles;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
   kernel<<<unsigned(blocks), kThreads, P::smem_bytes, stream>>>(m, a);
   return cudaGetLastError();
 }
 
+template <int DP, bool DKV>
+cudaError_t launch_wide(const TMaps& m, TArgs a, int batch, cudaStream_t stream) {
+  using P = WPlan<DP, DKV>;
+  auto kernel = flash_bwd_tf32_wide_kernel<DP, DKV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::smem_bytes);
+  if (err != cudaSuccess) return err;
+  a.n_tiles = ((DKV ? a.s_k : a.s_q) + 63) / 64;
+  a.n_slices = (a.d + P::W - 1) / P::W;
+  const long long blocks = (long long)batch * a.heads * a.n_tiles * a.n_slices;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  kernel<<<unsigned(blocks), kThreads, P::smem_bytes, stream>>>(m, a);
+  return cudaGetLastError();
+}
+
+// the kernel of D padded to dp
+template <bool DKV>
+cudaError_t launch_by_width(const TMaps& m, const TArgs& a, int batch, int dp, cudaStream_t s) {
+  if (dp == 64) return launch_tf32<DKV>(m, a, batch, s);
+  if (dp == 128) return launch_wide<128, DKV>(m, a, batch, s);
+  if (dp == 256) return launch_wide<256, DKV>(m, a, batch, s);
+  return launch_wide<512, DKV>(m, a, batch, s);
+}
+
 // The pre-pass, then dq and dk/dv as `which` says, reading the planes through tensor maps.
 cudaError_t backward_tf32(const TSplitArgs& in, const TArgs& a, int batch, float* scratch,
                           cudaStream_t s) {
-  const int bh = batch * a.heads;
+  const int bh = batch * a.heads, dp = pad_d(a.d);
   if (bh > 65535) return cudaErrorInvalidValue;  // the pre-pass's grid
-  const TScratch sc = tscratch(scratch, bh, a.s_q, a.s_k);
-  const dim3 grid(((a.s_q > a.s_k ? a.s_q : a.s_k) + 31) / 32, bh);
+  const TScratch sc = tscratch(scratch, bh, a.s_q, a.s_k, dp);
+  const dim3 grid(((a.s_q > a.s_k ? a.s_q : a.s_k) + 31) / 32, bh, dp / 64);
   bwd_split_kernel<<<grid, 256, 0, s>>>(in, sc);
   cudaError_t err = cudaGetLastError();
   TMaps m;
   const struct {
     CUtensorMap* map;
     const float* plane;
-    int rows, cols;
-  } planes[] = {{&m.qh, sc.qh, a.s_q, kDP}, {&m.ql, sc.ql, a.s_q, kDP},
-                {&m.oh, sc.oh, a.s_q, kDP}, {&m.ol, sc.ol, a.s_q, kDP},
-                {&m.kh, sc.kh, a.s_k, kDP}, {&m.kl, sc.kl, a.s_k, kDP},
-                {&m.vh, sc.vh, a.s_k, kDP}, {&m.vl, sc.vl, a.s_k, kDP}};
+    int rows;
+  } planes[] = {{&m.qh, sc.qh, a.s_q}, {&m.ql, sc.ql, a.s_q}, {&m.oh, sc.oh, a.s_q},
+                {&m.ol, sc.ol, a.s_q}, {&m.kh, sc.kh, a.s_k}, {&m.kl, sc.kl, a.s_k},
+                {&m.vh, sc.vh, a.s_k}, {&m.vl, sc.vl, a.s_k}};
   for (const auto& p : planes)
-    if (err == cudaSuccess) err = f32_plane_map(p.map, p.plane, bh, p.rows, p.cols);
+    if (err == cudaSuccess) err = f32_plane_map(p.map, p.plane, bh, p.rows, dp);
   if (in.which & kDq) {
-    if (err == cudaSuccess) err = f32_plane_map(&m.th, sc.kth, bh, kDP, round32(a.s_k));
-    if (err == cudaSuccess) err = f32_plane_map(&m.tl, sc.ktl, bh, kDP, round32(a.s_k));
-    if (err == cudaSuccess) err = launch_tf32<false>(m, a, batch, s);
+    if (err == cudaSuccess) err = f32_plane_map(&m.th, sc.kth, bh, dp, round32(a.s_k));
+    if (err == cudaSuccess) err = f32_plane_map(&m.tl, sc.ktl, bh, dp, round32(a.s_k));
+    if (err == cudaSuccess) err = launch_by_width<false>(m, a, batch, dp, s);
   }
   if (in.which & kDkv) {
-    if (err == cudaSuccess) err = f32_plane_map(&m.th, sc.oth, bh, kDP, round32(a.s_q));
-    if (err == cudaSuccess) err = f32_plane_map(&m.tl, sc.otl, bh, kDP, round32(a.s_q));
-    if (err == cudaSuccess) err = f32_plane_map(&m.t2h, sc.qth, bh, kDP, round32(a.s_q));
-    if (err == cudaSuccess) err = f32_plane_map(&m.t2l, sc.qtl, bh, kDP, round32(a.s_q));
-    if (err == cudaSuccess) err = launch_tf32<true>(m, a, batch, s);
+    if (err == cudaSuccess) err = f32_plane_map(&m.th, sc.oth, bh, dp, round32(a.s_q));
+    if (err == cudaSuccess) err = f32_plane_map(&m.tl, sc.otl, bh, dp, round32(a.s_q));
+    if (err == cudaSuccess) err = f32_plane_map(&m.t2h, sc.qth, bh, dp, round32(a.s_q));
+    if (err == cudaSuccess) err = f32_plane_map(&m.t2l, sc.qtl, bh, dp, round32(a.s_q));
+    if (err == cudaSuccess) err = launch_by_width<true>(m, a, batch, dp, s);
   }
   return err;
 }
 
-// ---------------------------------------------------------------- FFMA kernels, 64 < D <= 128
-// The plain tiled kernels that preceded the tf32 ones, kept for the head dims those do not take
-// (no fp32 path trains there: the fp32 UNet's heads are 64 wide). A block of 256 threads (16 x
-// 16) owns a 64-row tile: 64 query rows for dq, looping over 64-key tiles; 64 keys for dk/dv, looping
-// over 64-query tiles. The tiles live in shared memory at a row pitch of D padded + 1 floats
-// (no bank conflicts down a column or along a row); a thread owns rows {ty + 16 r} x columns
-// {tx + 16 c} of every 64 x 64 score tile and of its output tile. S and dP in one pass over the
-// depth, P and dS through shared memory; products are exact fp32 FMAs. Bound: the fp32 FMA
-// rate at best; a thread's 4 x 4 score tile reads 16 shared words for 32 FMAs, so
-// shared-memory issue sets the pace.
-constexpr int kFfmaThreads = 256;  // 16 x 16
-constexpr int kFfmaTile = 64;      // rows of the resident tile and of a streamed tile
-constexpr int kFfmaSP = kFfmaTile + 1; // pitch of the P and dS tiles
-
-template <int DP>
-struct F32BwdPlan {
-  static constexpr int LD = DP + 1;      // pitch of a q, k, v or dO tile
-  static constexpr int NC = DP / 16;     // output columns a thread owns
-  // four (64, LD) tiles, then P and dS (dk/dv; dq: dS alone), then lse and delta
-  static constexpr int dq_floats = 4 * kFfmaTile * LD + kFfmaTile * kFfmaSP + 2 * kFfmaTile;
-  static constexpr int dkv_floats = 4 * kFfmaTile * LD + 2 * kFfmaTile * kFfmaSP + 2 * kFfmaTile;
+// A kernel's block for a head dim d: dynamic shared memory, ring units, column slices.
+struct BlockInfo {
+  int smem_bytes, stages, width;  // width: output columns a block
 };
-
-struct F32BwdArgs {
-  const float *q, *k, *v, *dout, *lse, *delta;
-  float *out0, *out1;  // dq, or dk and dv
-  Strides qs, ks, vs, dos, os0, os1;
-  int heads, s_q, s_k, d, n_tiles;
-  float scale, scale_log2;
-};
-
-// rows r0.. r0 + 63 of one (batch, head) of x into a (64, LD) tile, zeros past `rows` and
-// past d; 16-byte loads along the rows
-template <int DP>
-__device__ __forceinline__ void load_tile(float* tile, const float* x, const Strides& st, int b,
-                                          int h, int r0, int rows, int d) {
-  constexpr int LD = DP + 1, PER_ROW = DP / 4;
-  const float* base = x + b * st.b + h * st.h;
-  for (int e = threadIdx.x; e < kFfmaTile * PER_ROW; e += kFfmaThreads) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows && c < d)
-      v = __ldg(reinterpret_cast<const float4*>(base + (long long)(r0 + r) * st.s + c));
-    float* t = tile + r * LD + c;
-    t[0] = v.x;
-    t[1] = v.y;
-    t[2] = v.z;
-    t[3] = v.w;
-  }
-}
-
-// lse and delta of rows r0.. r0 + 63 (past s_q: +inf and 0, so that P and dS are 0)
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, const F32BwdArgs& a,
-                                          int bh, int r0) {
-  if (threadIdx.x < kFfmaTile) {
-    const int row = r0 + threadIdx.x;
-    const bool in = row < a.s_q;
-    lse_s[threadIdx.x] = in ? a.lse[(long long)bh * a.s_q + row] : INFINITY;
-    delta_s[threadIdx.x] = in ? a.delta[(long long)bh * a.s_q + row] : 0.f;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kFfmaThreads) flash_bwd_dq_ffma_kernel(const F32BwdArgs a) {
-  using P = F32BwdPlan<DP>;
-  constexpr int LD = P::LD, NC = P::NC;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + kFfmaTile * LD;
-  float* sK = sDO + kFfmaTile * LD;
-  float* sV = sK + kFfmaTile * LD;
-  float* sDS = sV + kFfmaTile * LD;
-  float* sLse = sDS + kFfmaTile * kFfmaSP;
-  float* sDelta = sLse + kFfmaTile;
-
-  const int bh = blockIdx.x / a.n_tiles, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = (blockIdx.x % a.n_tiles) * kFfmaTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<DP>(sQ, a.q, a.qs, b, h, q0, a.s_q, a.d);
-  load_tile<DP>(sDO, a.dout, a.dos, b, h, q0, a.s_q, a.d);
-  load_rows(sLse, sDelta, a, bh, q0);
-
-  float acc[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < a.s_k; k0 += kFfmaTile) {
-    __syncthreads();  // the last tile's K and dS are read no more
-    load_tile<DP>(sK, a.k, a.ks, b, h, k0, a.s_k, a.d);
-    load_tile<DP>(sV, a.v, a.vs, b, h, k0, a.s_k, a.d);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int x = 0; x < DP; ++x) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        qv[r] = sQ[(ty + 16 * r) * LD + x];
-        dov[r] = sDO[(ty + 16 * r) * LD + x];
-        kv[r] = sK[(tx + 16 * r) * LD + x];
-        vv[r] = sV[(tx + 16 * r) * LD + x];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-          dp[r][c] = fmaf(dov[r], vv[c], dp[r][c]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c;
-        const float p = k0 + j < a.s_k ? exp2f(s[r][c] * a.scale_log2 - sLse[i]) : 0.f;
-        sDS[i * kFfmaSP + j] = p * (dp[r][c] - sDelta[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kFfmaTile; ++j) {
-      float ds[4], kv[NC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) ds[r] = sDS[(ty + 16 * r) * kFfmaSP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = sK[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(ds[r], kv[c], acc[r][c]);
-    }
-  }
-
-  float* ob = a.out0 + b * a.os0.b + h * a.os0.h;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
-    if (row >= a.s_q) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < a.d) ob[(long long)row * a.os0.s + col] = acc[r][c] * a.scale;
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kFfmaThreads) flash_bwd_dkv_ffma_kernel(const F32BwdArgs a) {
-  using P = F32BwdPlan<DP>;
-  constexpr int LD = P::LD, NC = P::NC;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kFfmaTile * LD;
-  float* sQ = sV + kFfmaTile * LD;
-  float* sDO = sQ + kFfmaTile * LD;
-  float* sP = sDO + kFfmaTile * LD;  // P^T: keys x queries
-  float* sDS = sP + kFfmaTile * kFfmaSP;  // dS^T
-  float* sLse = sDS + kFfmaTile * kFfmaSP;
-  float* sDelta = sLse + kFfmaTile;
-
-  const int bh = blockIdx.x / a.n_tiles, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = (blockIdx.x % a.n_tiles) * kFfmaTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<DP>(sK, a.k, a.ks, b, h, k0, a.s_k, a.d);
-  load_tile<DP>(sV, a.v, a.vs, b, h, k0, a.s_k, a.d);
-
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
-
-  for (int q0 = 0; q0 < a.s_q; q0 += kFfmaTile) {
-    __syncthreads();  // the last tile's Q, dO, P and dS are read no more
-    load_tile<DP>(sQ, a.q, a.qs, b, h, q0, a.s_q, a.d);
-    load_tile<DP>(sDO, a.dout, a.dos, b, h, q0, a.s_q, a.d);
-    load_rows(sLse, sDelta, a, bh, q0);
-    __syncthreads();
-    // S^T and dP^T: keys {ty + 16 r} x queries {tx + 16 c}
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) st[r][c] = dpt[r][c] = 0.f;
-#pragma unroll 4
-    for (int x = 0; x < DP; ++x) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        kv[r] = sK[(ty + 16 * r) * LD + x];
-        vv[r] = sV[(ty + 16 * r) * LD + x];
-        qv[r] = sQ[(tx + 16 * r) * LD + x];
-        dov[r] = sDO[(tx + 16 * r) * LD + x];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          st[r][c] = fmaf(kv[r], qv[c], st[r][c]);
-          dpt[r][c] = fmaf(vv[r], dov[c], dpt[r][c]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = tx + 16 * c;
-        const float p = exp2f(st[r][c] * a.scale_log2 - sLse[i]);
-        sP[j * kFfmaSP + i] = p;
-        sDS[j * kFfmaSP + i] = p * (dpt[r][c] - sDelta[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < kFfmaTile; ++i) {
-      float p[4], ds[4], dov[NC], qv[NC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        p[r] = sP[(ty + 16 * r) * kFfmaSP + i];
-        ds[r] = sDS[(ty + 16 * r) * kFfmaSP + i];
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        dov[c] = sDO[i * LD + tx + 16 * c];
-        qv[c] = sQ[i * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv[r][c] = fmaf(p[r], dov[c], dv[r][c]);
-          dk[r][c] = fmaf(ds[r], qv[c], dk[r][c]);
-        }
-    }
-  }
-
-  float* kb = a.out0 + b * a.os0.b + h * a.os0.h;
-  float* vb = a.out1 + b * a.os1.b + h * a.os1.h;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = k0 + ty + 16 * r;
-    if (row >= a.s_k) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < a.d) {
-        kb[(long long)row * a.os0.s + col] = dk[r][c] * a.scale;
-        vb[(long long)row * a.os1.s + col] = dv[r][c];
-      }
-    }
-  }
-}
 
 template <int DP, bool DKV>
-cudaError_t launch_ffma(F32BwdArgs a, int batch, cudaStream_t stream) {
-  using P = F32BwdPlan<DP>;
-  auto kernel = DKV ? flash_bwd_dkv_ffma_kernel<DP> : flash_bwd_dq_ffma_kernel<DP>;
-  const int smem = 4 * (DKV ? P::dkv_floats : P::dq_floats);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  a.n_tiles = ((DKV ? a.s_k : a.s_q) + kFfmaTile - 1) / kFfmaTile;
-  const long long blocks = (long long)batch * a.heads * a.n_tiles;
-  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  kernel<<<unsigned(blocks), kFfmaThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+BlockInfo wide_info() {
+  using P = WPlan<DP, DKV>;
+  return {P::smem_bytes, P::NS, P::W};
+}
+
+BlockInfo block_info(int d, int dkv) {
+  switch (pad_d(d)) {
+    case 64:
+      return dkv ? BlockInfo{TPlan<true>::smem_bytes, TPlan<true>::NS, kDP}
+                 : BlockInfo{TPlan<false>::smem_bytes, TPlan<false>::NS, kDP};
+    case 128:
+      return dkv ? wide_info<128, true>() : wide_info<128, false>();
+    case 256:
+      return dkv ? wide_info<256, true>() : wide_info<256, false>();
+    default:
+      return dkv ? wide_info<512, true>() : wide_info<512, false>();
+  }
 }
 
 }  // namespace
@@ -976,39 +1033,35 @@ cudaError_t launch_ffma(F32BwdArgs a, int batch, cudaStream_t stream) {
 extern "C" {
 
 // Rows a block of the fp32 backward keeps resident (query rows for dq, keys for dk/dv), its
-// dynamic shared memory, its ring's units (1: the FFMA kernels' one tile of each) and the
-// scratch floats of the pre-pass, for a head dim d: the tf32 kernels at d <= 64, the FFMA ones
-// above.
-int lkgd_flash_bwd_f32_block_rows(int d) { return d <= kDP ? kRows : kFfmaTile; }
+// dynamic shared memory, its ring's units, the grid's column slices and the scratch floats
+// of the pre-pass, for a head dim d: the narrow kernels at d <= 64, the wide ones above.
+int lkgd_flash_bwd_f32_block_rows(int d) { return d <= kDP ? kRows : 64; }
 
-int lkgd_flash_bwd_f32_smem_bytes(int d, int dkv) {
-  if (d <= kDP) return dkv ? TPlan<true>::smem_bytes : TPlan<false>::smem_bytes;
-  return 4 * (dkv ? F32BwdPlan<128>::dkv_floats : F32BwdPlan<128>::dq_floats);
-}
+int lkgd_flash_bwd_f32_smem_bytes(int d, int dkv) { return block_info(d, dkv).smem_bytes; }
 
-int lkgd_flash_bwd_f32_stages(int d, int dkv) {
-  if (d <= kDP) return dkv ? TPlan<true>::NS : TPlan<false>::NS;
-  return 1;
+int lkgd_flash_bwd_f32_stages(int d, int dkv) { return block_info(d, dkv).stages; }
+
+int lkgd_flash_bwd_f32_slices(int d, int dkv) {
+  const int w = block_info(d, dkv).width;
+  return (d + w - 1) / w;
 }
 
 long long lkgd_flash_bwd_f32_scratch_floats(int batch, int heads, int s_q, int s_k, int d) {
-  return d <= kDP ? tscratch(nullptr, batch * heads, s_q, s_k).floats : 0;
+  return tscratch(nullptr, batch * heads, s_q, s_k, pad_d(d)).floats;
 }
 
 // lkgd_flash_bwd's arguments (flash_attention_bwd.cu) for fp32 tensors: q, k, v, dout, dq,
 // dk, dv (B, S, H, D) fp32 with strides[21] = the (b, s, h) element strides of the seven;
 // lse, delta (B*H, s_q) fp32. which: 1 the dq kernel (writes dq), 2 the dk/dv kernel (dk and
-// dv), 3 both (at d <= 64 from one pre-pass). scratch: lkgd_flash_bwd_f32_scratch_floats
-// floats (none for the FFMA kernels, d > 64). D a multiple of 8, <= 128; s_q and s_k at least
-// 1; every row 16-byte aligned.
+// dv), 3 both from one pre-pass. scratch: lkgd_flash_bwd_f32_scratch_floats floats. D a
+// multiple of 8, <= 512; s_q and s_k at least 1; every row 16-byte aligned.
 int lkgd_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, void* dk, void* dv,
                        const long long* strides, int batch, int heads, int s_q, int s_k, int d,
                        float scale, float scale_log2, int which, float* scratch, int device,
                        void* stream) {
-  const bool tf32 = d <= kDP;
-  if (d <= 0 || d > 128 || d % 8 != 0 || s_q <= 0 || s_k <= 0 || which < 1 || which > 3 ||
-      (tf32 && scratch == nullptr))
+  if (d <= 0 || d > 512 || d % 8 != 0 || s_q <= 0 || s_k <= 0 || which < 1 || which > 3 ||
+      scratch == nullptr)
     return int(cudaErrorInvalidValue);
   // cudaSetDevice also makes the device's context current on this thread, which
   // cuTensorMapEncodeTiled needs (autograd's backward thread may have none yet)
@@ -1016,71 +1069,37 @@ int lkgd_flash_bwd_f32(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return int(err);
   Strides st[7];
   for (int i = 0; i < 7; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tf32) {
-    TSplitArgs in;
-    in.q = static_cast<const float*>(q);
-    in.k = static_cast<const float*>(k);
-    in.v = static_cast<const float*>(v);
-    in.o = static_cast<const float*>(dout);
-    in.qs = st[0];
-    in.ks = st[1];
-    in.vs = st[2];
-    in.os = st[3];
-    in.heads = heads;
-    in.s_q = s_q;
-    in.s_k = s_k;
-    in.d = d;
-    in.which = which;
-    TArgs a;
-    a.lse = lse;
-    a.delta = delta;
-    a.dq = static_cast<float*>(dq);
-    a.dk = static_cast<float*>(dk);
-    a.dv = static_cast<float*>(dv);
-    a.dqs = st[4];
-    a.dks = st[5];
-    a.dvs = st[6];
-    a.heads = heads;
-    a.s_q = s_q;
-    a.s_k = s_k;
-    a.d = d;
-    a.n_tiles = 0;  // set by each launch
-    a.scale = scale;
-    a.scale_log2 = scale_log2;
-    return int(backward_tf32(in, a, batch, scratch, s));
-  }
-  F32BwdArgs a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.dout = static_cast<const float*>(dout);
+  TSplitArgs in;
+  in.q = static_cast<const float*>(q);
+  in.k = static_cast<const float*>(k);
+  in.v = static_cast<const float*>(v);
+  in.o = static_cast<const float*>(dout);
+  in.qs = st[0];
+  in.ks = st[1];
+  in.vs = st[2];
+  in.os = st[3];
+  in.heads = heads;
+  in.s_q = s_q;
+  in.s_k = s_k;
+  in.d = d;
+  in.which = which;
+  TArgs a;
   a.lse = lse;
   a.delta = delta;
-  a.qs = st[0];
-  a.ks = st[1];
-  a.vs = st[2];
-  a.dos = st[3];
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.dqs = st[4];
+  a.dks = st[5];
+  a.dvs = st[6];
   a.heads = heads;
   a.s_q = s_q;
   a.s_k = s_k;
   a.d = d;
-  a.n_tiles = 0;  // set by the launch
+  a.n_tiles = a.n_slices = 0;  // set by each launch
   a.scale = scale;
   a.scale_log2 = scale_log2;
-  if (which & kDq) {
-    a.out0 = static_cast<float*>(dq);
-    a.os0 = st[4];
-    err = launch_ffma<128, false>(a, batch, s);
-  }
-  if (err == cudaSuccess && (which & kDkv)) {
-    a.out0 = static_cast<float*>(dk);
-    a.out1 = static_cast<float*>(dv);
-    a.os0 = st[5];
-    a.os1 = st[6];
-    err = launch_ffma<128, true>(a, batch, s);
-  }
-  return int(err);
+  return int(backward_tf32(in, a, batch, scratch, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

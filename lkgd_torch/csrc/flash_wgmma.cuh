@@ -158,6 +158,12 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// this warp's arrival at barrier `id` without waiting: the threads that bar.sync on it see
+// this warp's earlier shared-memory writes once it completes (a producer's signal)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 // Shared-memory matrix descriptor for panels with the 128-byte swizzle. K-major operands
 // (the product's depth runs along a panel row: Q and K in Q.K^T) use only `sbo`, the

@@ -37,8 +37,9 @@ def time_ms(fn, device: torch.device, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# what ``traced`` has taken in this process: traces, and those with no device operation
-trace_counts = {"traces": 0, "empty": 0}
+# what ``traced`` has taken in this process: traces, those with no device operation, and
+# those that lost some calls' operations (``group_norm_ab.profiled`` counts these)
+trace_counts = {"traces": 0, "empty": 0, "lost": 0}
 
 
 def traced(fn, tries: int = 8, pause_s: float = 0.05):

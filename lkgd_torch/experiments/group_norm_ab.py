@@ -31,6 +31,11 @@ And ``host_us``: host microseconds a ``group_norm`` call at ``HOST_SHAPE``, wher
 device's time is far below the host's (``relayout_ab._host_us``: the least of five rounds);
 ``silu_ulps``: ``silu_ulps()``, the bf16 SiLU's largest error in bf16 ulps. The card's name
 and power limit come first. The card only: the kernels have no CPU form.
+
+With ``--lost-traces N`` a root prints instead ``lost_traces``: of N traces of 10 calls each
+(``_timing.traced``), how many lost some calls' operations (an operation's count not a
+multiple of 10, the trace ``profiled`` takes again), for the forward and the statistics at
+each ``LOST_SHAPES`` entry, in a process that runs nothing else.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ SHAPES = ((28, 9216, 320), (56, 9216, 320), (28, 2304, 640), (2, 32256, 640),
 # the fp32 fine-tune's level-0 spatial norm and the UNet's level 0 at fp32
 FP32_SHAPES = ((14, 4096, 320), (28, 9216, 320))
 HOST_SHAPE = (2, 64, 320)
+# chip_smoke.py phase 3c's (COG_GN): the CogVideoX decoder's full resolution and level 2
+LOST_SHAPES = ((1, 49 * 480 * 720, 128), (1, 25 * 240 * 360, 256))
 PEAK_BYTES = 3.35e12
 
 
@@ -60,12 +67,18 @@ def inputs(shape, dtype=torch.bfloat16, seed=0):
     return x, w, b
 
 
-def profiled(fn, calls: int = 10) -> dict:
+def profiled(fn, calls: int = 10, tries: int = 4) -> dict:
     """Device ms a call of ``fn`` by kernel name, and device operations a call, under
-    ``torch.profiler`` (``calls`` calls after a warm-up)."""
+    ``torch.profiler`` (``calls`` calls after a warm-up). Every call enqueues the same
+    operations, so each one's count is a multiple of ``calls``; a trace where one is not has
+    lost events (the card's tracer has dropped one call's operations) and is taken again, up
+    to ``tries`` times (each one counted in ``_timing.trace_counts["lost"]``), then this
+    raises."""
+    import sys
+
     from torch.autograd import DeviceType
 
-    from lkgd_torch.experiments._timing import traced
+    from lkgd_torch.experiments._timing import trace_counts, traced
 
     def run():
         for _ in range(calls):
@@ -74,12 +87,21 @@ def profiled(fn, calls: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    prof, _ = traced(run)
+    for k in range(tries):
+        prof, _ = traced(run)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if all(e.count % calls == 0 for e in events):
+            break
+        trace_counts["lost"] += 1
+        print(f"[profiler] trace {k + 1} of {tries} lost operations ("
+              + ", ".join(f"{e.key[:60]} x{e.count}" for e in events) + f" over {calls} "
+              f"calls); tracing again", file=sys.stderr, flush=True)
+    else:
+        raise RuntimeError(f"torch.profiler lost operations in {tries} traces of {calls} calls")
     ms, ops = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            ms[e.key] = ms.get(e.key, 0.0) + e.self_device_time_total / 1e3 / calls
-            ops += e.count
+    for e in events:
+        ms[e.key] = ms.get(e.key, 0.0) + e.self_device_time_total / 1e3 / calls
+        ops += e.count
     return {"ms": ms, "ops": ops / calls}
 
 
@@ -208,6 +230,32 @@ def host_us(calls: int = 1000) -> float:
                     calls)[0]
 
 
+def lost_traces(n: int, calls: int = 10) -> dict:
+    """Of ``n`` traces of ``calls`` calls, how many lost operations, by shape and call."""
+    from torch.autograd import DeviceType
+
+    from lkgd_torch.experiments._timing import traced
+    from lkgd_torch.ops import group_norm as gn
+
+    kw, out = dict(num_groups=32, eps=1e-6), {}
+    for shape in LOST_SHAPES:
+        x, w, b = inputs(shape)
+        for name, fn in (("forward", lambda: gn.group_norm(x, w, b, act="silu", **kw)),
+                         ("stats", lambda: gn.group_norm_affine(x, w, b, **kw))):
+            def run():
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+
+            run()
+            out[f"{'x'.join(map(str, shape))} {name}"] = sum(
+                any(e.count % calls for e in traced(run)[0].key_averages()
+                    if e.device_type == DeviceType.CUDA) for _ in range(n))
+        del x
+        torch.cuda.empty_cache()
+    return {"lost_traces": out, "traces_each": n}
+
+
 def _time_here(reps: int) -> dict:
     out = {"x".join(map(str, s)): _shape_row(s, reps) for s in SHAPES}
     for shape in FP32_SHAPES:
@@ -222,10 +270,13 @@ def main(argv=None) -> list:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("roots", nargs="*", help="checkouts to time, in turn (default: this one)")
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--lost-traces", type=int, default=0, metavar="N",
+                   help="count lost traces in N traces a call instead of timing")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:  # inside a root: its own lkgd_torch, no other module of this checkout
-        print(json.dumps(_time_here(args.reps)), flush=True)
+        print(json.dumps(lost_traces(args.lost_traces) if args.lost_traces
+                         else _time_here(args.reps)), flush=True)
         return []
 
     from lkgd_torch.experiments._timing import device_line
@@ -233,7 +284,8 @@ def main(argv=None) -> list:
     from lkgd_torch.utils.device import require_device
 
     print(device_line(require_device("cuda")), flush=True)
-    return run_roots(__file__, args.roots, ["--reps", str(args.reps)])
+    return run_roots(__file__, args.roots, ["--reps", str(args.reps),
+                                            "--lost-traces", str(args.lost_traces)])
 
 
 if __name__ == "__main__":

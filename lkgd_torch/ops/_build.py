@@ -47,11 +47,14 @@ _SIGNATURES = {
     "lkgd_flash_f32_scratch_floats": ([_I] * 5, _LL),
     "lkgd_flash_bwd_block_rows": ([_I, _I], _I),
     "lkgd_flash_bwd_smem_bytes": ([_I, _I], _I),
+    "lkgd_flash_bwd_stages": ([_I, _I], _I),
+    "lkgd_flash_bwd_slices": ([_I, _I], _I),
     "lkgd_flash_bwd": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                    _P], _I),
     "lkgd_flash_bwd_f32_block_rows": ([_I], _I),
     "lkgd_flash_bwd_f32_smem_bytes": ([_I, _I], _I),
     "lkgd_flash_bwd_f32_stages": ([_I, _I], _I),
+    "lkgd_flash_bwd_f32_slices": ([_I, _I], _I),
     "lkgd_flash_bwd_f32_scratch_floats": ([_I] * 5, _LL),
     "lkgd_flash_bwd_f32": ([_P] * 9 + [ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _F, _F, _I,
                                        _P, _I, _P], _I),

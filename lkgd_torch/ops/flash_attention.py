@@ -22,11 +22,12 @@ place of the JAX custom VJP ``_flash_core``:
   ``_flash_bwd_bhsd``): dq, and dk with dv, from the saved lse and ``delta =
   rowsum(dO * O)`` (fp32, PyTorch, as JAX computes it). On the card they are two
   warp-specialised ``wgmma``/TMA kernels (``csrc/flash_attention_bwd.cu``) with the TPU's
-  split and no atomics, tiled as ``flash_bwd_plan`` says: dq keeps 128 query rows of Q and
-  dO resident and streams key tiles, dk/dv keeps 128 keys of K and V and streams query
-  tiles. Both read q, k, v and dO through their strides, head-major copies and
-  ``(B, S, H, D)`` projection views alike. D <= 128 only; above, the backward wrappers
-  raise, and the Function raises in its forward already;
+  split and no atomics, tiled as ``flash_bwd_plan`` says, at every D the forward takes: to
+  D = 128 dq keeps 128 query rows of Q and dO resident and streams key tiles, dk/dv keeps
+  128 keys of K and V and streams query tiles; above (the VAE mid block's D = 512), the
+  wide kernel keeps 64 rows and gives its two consumer warpgroups the two halves of the
+  score work, P and dS crossing between them in shared memory. All read q, k, v and dO
+  through their strides, head-major copies and ``(B, S, H, D)`` projection views alike;
 * kernels 5 and 6, the head split and merge copies (``_split_heads_kernel`` /
   ``_merge_heads_kernel``, each the other's VJP): with more than one head the Function
   splits q, k, v and dO into head-major copies and merges out, dq, dk and dv back, as
@@ -52,8 +53,8 @@ lse. The fp32 backward (``csrc/flash_attention_bwd_f32.cu``, ``lkgd_flash_bwd_f3
 ``flash_bwd_dq_fp32`` and ``flash_bwd_dkv_fp32``) is kernels 9 and 10 as the same 3xTF32
 products on ``wgmma``, in the bf16 backward's structure, after a pre-pass that writes the hi
 and lo planes of q, k, v, dO and the transposes the tf32 operands need into scratch: at D <=
-64 (the fp32 UNet's heads); 64 < D <= 128 keeps plain tiled kernels whose products are fp32
-FMAs on the CUDA cores, as ``flash_bwd_plan``'s ``kernel`` says. ``flash_bwd`` is one call
+64 (the fp32 UNet's heads) the narrow kernels, above the wide ones of the bf16 backward's
+design, as ``flash_bwd_plan``'s ``kernel`` says. ``flash_bwd`` is one call
 into C that splits each input once and launches both kernels. The JAX kernels take fp32
 operands with fp32 accumulation: the temporal VAE and CLIP-H of ``cli/precompute_cache.py``
 run in fp32, as the JAX CLI builds them, and so does the UNet of ``cli/train_svd_lora.py
@@ -93,8 +94,7 @@ launches = {"flash_bound": 0, "flash_maxtrack": 0, "flash_key_norm": 0, "flash_b
             "split_heads": 0, "merge_heads": 0, "flash_bound_fp32": 0,
             "flash_maxtrack_fp32": 0, "flash_key_norm_fp32": 0, "flash_bound_lse_fp32": 0,
             "flash_maxtrack_lse_fp32": 0, "flash_bwd_dq_fp32": 0, "flash_bwd_dkv_fp32": 0}
-FWD_MAX_D = 512  # head dims the forward kernels (1, 2, 7, 8) are built for
-BWD_MAX_D = 128  # and the backward kernels (9, 10)
+FWD_MAX_D = 512  # head dims every flash kernel (1, 2, 7-10) is built for
 _recomputed: dict[torch.device, torch.Tensor] = {}
 
 
@@ -215,39 +215,49 @@ def flash_plan(b: int, s_q: int, s_k: int, h: int, d: int, lse: bool = False,
 
 
 class FlashBwdPlan(NamedTuple):
-    """How a backward kernel tiles one call (the host side of ``BwdPlan`` in
-    ``csrc/flash_attention_bwd.cu``, or of ``TPlan`` and ``F32BwdPlan`` in
+    """How a backward kernel tiles one call (the host side of ``BwdPlan`` and ``WidePlan`` in
+    ``csrc/flash_attention_bwd.cu``, or of ``TPlan`` and ``WPlan`` in
     ``flash_attention_bwd_f32.cu``)."""
-    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10) in bf16; at fp32 "dq_tf32x3",
-                       # "dkv_tf32x3" (D <= 64) or "dq_ffma", "dkv_ffma" (64 < D <= 128)
+    kernel: str        # "dq" (kernel 9) or "dkv" (kernel 10) in bf16 at D <= 128, "dq_wide",
+                       # "dkv_wide" above; at fp32 "dq_tf32x3", "dkv_tf32x3" (D <= 64),
+                       # "dq_tf32x3_wide", "dkv_tf32x3_wide" above
     tile_rows: int     # rows a block keeps resident: queries (dq) or keys (dkv), what
                        # lkgd_flash_bwd_block_rows answers
     stream_rows: int   # rows of a streamed tile: keys (dq) or queries (dkv)
-    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv); at fp32
-                       # 16 KB units (tf32x3) or 1 (ffma: one tile of each)
+    stages: int        # ring slots: K or V tiles (dq), Q and dO tile pairs (dkv); 16 KB
+                       # units at fp32 and in the wide kernels (a ring each warpgroup there)
     smem_bytes: int    # dynamic shared memory a block asks for
     blocks: int        # the grid
     waves: float       # blocks over the SMs (one block an SM: its registers allow no more)
+    slices: int        # blocks along the output's columns (the wide kernels; else 1)
 
 
-F32_BWD_TF32_MAX_D = 64  # head dims the fp32 backward runs as 3xTF32 on wgmma
-F32_BWD_ROWS = 64  # rows of the fp32 FFMA backward's resident and streamed tiles
+WIDE_ROWS = 64  # resident rows a block of the wide backward kernels
+BWD_EXCHANGE = 16384  # bytes the wide kernels' two warpgroups pass P and dS through
 
 
 def flash_bwd_plan(b: int, s_q: int, s_k: int, h: int, d: int, dkv: bool,
                    sm_count: int = 132, fp32: bool = False) -> FlashBwdPlan:
     """The tiling of a backward call over (b, s_q | s_k, h, d): kernel 10 (``dkv``) or
-    kernel 9, a pure function of the shapes, static by d. ``fp32``: the fp32 forms of
-    ``csrc/flash_attention_bwd_f32.cu``. At D <= 64 3xTF32 on wgmma (``TPlan``): 128 resident
-    rows (Q and dO, or K and V, hi and lo: 128 KB), 64-row streamed tiles through a ring of 16
-    KB units filling the rest (dk/dv also keeps two tiles' lse and delta). Above, the FFMA
-    kernels (``F32BwdPlan``): 64 resident rows and 64-row streamed tiles at a pitch of D padded
-    + 1 floats, one tile of each in shared memory (no ring), P and dS beside them (dq: dS
-    alone), and the tile's lse and delta."""
-    if d <= 0 or d % 8 or d > BWD_MAX_D:
+    kernel 9, a pure function of the shapes, static by d padded. Every D % 8 == 0 up to 512,
+    in both dtypes.
+
+    bf16 at D <= 128 (``BwdPlan``): 128 resident rows (Q and dO, or K and V), streamed tiles of
+    128 keys (dq at D <= 64) or 64 rows through a ring of tiles. fp32 at D <= 64 (``TPlan``):
+    3xTF32 on wgmma, 128 resident rows of two tensors' hi and lo (128 KB), 64-row streamed
+    tiles through a ring of 16 KB units filling the rest (dk/dv also keeps two tiles' lse and
+    delta). Above (bf16 D > 128, fp32 D > 64) the wide kernels (``WidePlan``, ``WPlan``): 64
+    rows a block and two consumer warpgroups that share one score tile through a 16 KB
+    exchange, each with its own ring of 16 KB units (64 rows x 128 bf16 columns, or 64 x 32
+    fp32 columns hi and lo), beside its 64 resident rows in bf16 at D = 256, with those rows
+    streamed through it too at D = 512 and at fp32; a block writes up to 512 (bf16 dq), 256
+    (bf16 dk/dv, fp32 dq) or 128 (fp32 dk/dv) output columns, and the grid has ``slices``
+    blocks across D."""
+    if d <= 0 or d % 8 or d > FWD_MAX_D:
         raise ValueError(f"flash_bwd_plan: head dim {d} (dkv={dkv}, fp32={fp32}) is not built")
-    dp = 64 if d <= 64 else 128
-    if fp32 and d <= F32_BWD_TF32_MAX_D:
+    dp = _padded(d)
+    own = s_k if dkv else s_q  # the block's own rows
+    if fp32 and dp == 64:
         rows = F32_ROWS
         resident = 2 * rows // 64 * dp // 32 * F32_UNIT  # two tensors, hi and lo
         lse_rows = 2 * 2 * 64 * 4 if dkv else 0  # two tiles' lse and delta
@@ -255,27 +265,39 @@ def flash_bwd_plan(b: int, s_q: int, s_k: int, h: int, d: int, dkv: bool,
         # full/empty pair a unit
         stages = (SMEM_LIMIT - 1536 - resident - lse_rows) // F32_UNIT
         smem = 1024 + resident + lse_rows + stages * F32_UNIT + 8 * (1 + 2 * stages)
-        blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
+        blocks = b * h * math.ceil(own / rows)
         return FlashBwdPlan("dkv_tf32x3" if dkv else "dq_tf32x3", rows, 64, stages, smem, blocks,
-                            blocks / sm_count)
-    if fp32:
-        rows = F32_BWD_ROWS
-        smem = 4 * (4 * rows * (dp + 1) + (2 if dkv else 1) * rows * (rows + 1) + 2 * rows)
-        blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
-        return FlashBwdPlan("dkv_ffma" if dkv else "dq_ffma", rows, rows, 1, smem, blocks,
-                            blocks / sm_count)
-    rows = 128
-    stream = 64 if dkv or dp > 64 else 128
-    stages = 4 if dkv and dp > 64 else 6
-    # 1024 of alignment slack, the two resident tiles, the ring (dkv: a Q and a dO tile a
-    # slot, and a slot's lse and delta), one barrier for the resident tiles and a full/empty
-    # pair a slot
-    tiles = 2 if dkv else 1
-    smem = (1024 + 2 * rows * dp * 2 + stages * tiles * stream * dp * 2
-            + (stages * 2 * stream * 4 if dkv else 0) + 8 * (1 + 2 * stages))
-    blocks = b * h * math.ceil((s_k if dkv else s_q) / rows)
-    return FlashBwdPlan("dkv" if dkv else "dq", rows, stream, stages, smem, blocks,
-                        blocks / sm_count)
+                            blocks / sm_count, 1)
+    if not fp32 and dp <= 128:
+        rows = 128
+        stream = 64 if dkv or dp > 64 else 128
+        stages = 4 if dkv and dp > 64 else 6
+        # 1024 of alignment slack, the two resident tiles, the ring (dkv: a Q and a dO tile a
+        # slot, and a slot's lse and delta), one barrier for the resident tiles and a
+        # full/empty pair a slot
+        tiles = 2 if dkv else 1
+        smem = (1024 + 2 * rows * dp * 2 + stages * tiles * stream * dp * 2
+                + (stages * 2 * stream * 4 if dkv else 0) + 8 * (1 + 2 * stages))
+        blocks = b * h * math.ceil(own / rows)
+        return FlashBwdPlan("dkv" if dkv else "dq", rows, stream, stages, smem, blocks,
+                            blocks / sm_count, 1)
+    if fp32:  # 32 fp32 columns a unit; the block's own rows stream through the ring too
+        units, cap = 0, 128
+    else:  # 128 bf16 columns a unit, the block's own rows resident at D <= 256
+        units, cap = dp // 128 if dp < 512 else 0, 256
+    per_wg = min(dp, cap) if dkv else min(dp // 2, cap)  # output columns a warpgroup
+    width = per_wg if dkv else 2 * per_wg  # and a block
+    resident = units * F32_UNIT
+    # a warpgroup's ring: its half of what 1024 of alignment slack, the exchange and 512 for
+    # barriers leave; each warpgroup a full/empty pair a unit (and in bf16 the resident rows'
+    # barrier)
+    stages = ((SMEM_LIMIT - 1024 - BWD_EXCHANGE - 512) // 2 - resident) // F32_UNIT
+    smem = (1024 + 2 * (resident + stages * F32_UNIT) + BWD_EXCHANGE
+            + 2 * 8 * (int(not fp32) + 2 * stages))
+    slices = math.ceil(d / width)
+    blocks = b * h * math.ceil(own / WIDE_ROWS) * slices
+    kernel = ("dkv" if dkv else "dq") + ("_tf32x3" if fp32 else "") + "_wide"
+    return FlashBwdPlan(kernel, WIDE_ROWS, 64, stages, smem, blocks, blocks / sm_count, slices)
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -415,13 +437,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra) -> None:
                          f"{FWD_MAX_D}")
 
 
-def _check_bwd(q: torch.Tensor) -> None:
-    if q.shape[-1] > BWD_MAX_D:
-        raise NotImplementedError(
-            f"flash attention backward kernels: head dim {q.shape[-1]} > {BWD_MAX_D} is not "
-            f"built yet (ROADMAP.md Queue 2, the D > 128 backward)")
-
-
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """The inference forward (kernels 1/2) or, ``with_lse``, the training forward (kernels
     7/8) that also returns lse (B, H, S_q), bf16 or their fp32 form: one call into C for all
@@ -468,7 +483,7 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
     CPU tensors: the plain version of the selected kernel. CUDA tensors: kernel 7 guarded
     by kernel 8 (kernel 8 alone with ``LKGD_FLASH_MAXTRACK=1``), bf16 or their fp32 form,
-    every D the inference forward takes. The backward of this lse is built for D <= 128."""
+    every D the inference forward takes, as the backward does."""
     if q.device.type == "cpu":
         plain = (flash_fwd_lse_maxtrack_plain if maxtrack_selected()
                  else flash_fwd_lse_bound_plain)
@@ -491,7 +506,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tenso
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                  lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """dq in q's layout. CPU tensors: ``flash_bwd_dq_plain``. CUDA tensors: kernel 9, bf16 or
-    its fp32 form, D <= 128."""
+    its fp32 form."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
@@ -513,7 +528,6 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
     """Launch kernel 9 (``dq`` given) and/or kernel 10 (``dk`` and ``dv`` given): the bf16
     forms, one C call each, or, for fp32 operands, the fp32 ones from one C call."""
     _check(q, k, v, ("dO", do))
-    _check_bwd(q)
     b, s_q, h, d = q.shape
     if do.shape != q.shape:
         raise ValueError(f"flash_bwd: dO {tuple(do.shape)} is not shaped as q {tuple(q.shape)}")
@@ -540,11 +554,11 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv) -> None:
     lib = _build.library()
     if fp32:
         _check_pairs(b, h)  # the pre-pass's grid
-        floats = lib.lkgd_flash_bwd_f32_scratch_floats(b, h, s_q, s_k, d)
-        scratch = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
+        scratch = torch.empty(lib.lkgd_flash_bwd_f32_scratch_floats(b, h, s_q, s_k, d),
+                              dtype=torch.float32, device=q.device)
         which = sum(2 if dkv else 1 for dkv in kernels)  # 1: dq, 2: dk/dv, 3: both
-        _build.check(lib.lkgd_flash_bwd_f32(*args, which, None if scratch is None
-                                            else scratch.data_ptr(), *stream_of(q.device)))
+        _build.check(lib.lkgd_flash_bwd_f32(*args, which, scratch.data_ptr(),
+                                            *stream_of(q.device)))
     else:
         for dkv in kernels:
             _build.check(lib.lkgd_flash_bwd(*args, int(dkv), *stream_of(q.device)))
@@ -667,16 +681,15 @@ class FlashAttentionFunction(torch.autograd.Function):
     lse, and merges out back (kernel 6); the backward splits dO, computes delta =
     rowsum(dO * O) in fp32, runs kernels 9 and 10 and merges dq, dk, dv (one launch of
     kernel 6). With one head, as in JAX, nothing is split or merged. bf16 or fp32 (the fp32
-    forms of 5-10). A dtype or a head dim the backward kernels do not take is refused
-    here, in the forward: a training run fails at its first step's forward and not inside
-    ``backward()``."""
+    forms of 5-10). A dtype the backward kernels do not take is refused here, in the
+    forward: a training run fails at its first step's forward and not inside
+    ``backward()``. Every head dim the forward takes has its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         if q.is_cuda and q.dtype not in KERNEL_DTYPES:
             raise TypeError(f"flash_attention with a gradient: q is {q.dtype}; the training "
                             f"kernels (7-10) take bfloat16 or float32")
-        _check_bwd(q)
         ctx.split = q.shape[2] > 1
         if ctx.split:
             q, k, v = split_heads_many(q, k, v)

@@ -170,3 +170,41 @@ def test_traced_takes_an_empty_trace_again(monkeypatch):
     assert len(calls) == 11 and not recorded
     assert pauses == [0.05 * 2**k for k in range(7)]
     assert _timing.trace_counts == {"traces": 11, "empty": 10}
+
+
+def test_profiled_takes_a_trace_that_lost_calls_again(monkeypatch):
+    """``experiments.group_norm_ab.profiled`` (the smoke's device times by kernel and its
+    GroupNorm one-operation check): every call enqueues the same operations, so a trace in
+    which an operation's count is not a multiple of the calls made is taken again and
+    counted in ``_timing.trace_counts["lost"]``; after four such traces it raises. A whole
+    trace gives device ms and operations a call."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from lkgd_torch.experiments import _timing, group_norm_ab
+
+    def event(key, count):
+        return SimpleNamespace(device_type=DeviceType.CUDA, key=key, count=count,
+                               self_device_time_total=250.0 * count)
+
+    host = SimpleNamespace(device_type=DeviceType.CPU, key="cudaLaunchKernel", count=7,
+                           self_device_time_total=0.0)
+    traces = [[event("stats", 9), event("apply", 10), host],
+              [event("stats", 10), event("apply", 10), host]]
+
+    def traced(run):
+        events = traces.pop(0)
+        return SimpleNamespace(key_averages=lambda: events), run()
+
+    monkeypatch.setattr(_timing, "traced", traced)
+    monkeypatch.setattr(_timing, "trace_counts", {"traces": 0, "empty": 0, "lost": 0})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    out = group_norm_ab.profiled(lambda: calls.append(1), calls=10)
+    assert out == {"ms": {"stats": 0.25, "apply": 0.25}, "ops": 2.0}
+    assert len(calls) == 21 and not traces and _timing.trace_counts["lost"] == 1
+    traces[:] = [[event("stats", 19)]] * 4
+    with pytest.raises(RuntimeError, match="lost operations in 4 traces"):
+        group_norm_ab.profiled(lambda: None, calls=10)
+    assert not traces and _timing.trace_counts["lost"] == 5

@@ -206,7 +206,7 @@ def test_lse_plan_is_the_inference_plan(shape):
     """Kernels 7 and 8 are kernels 1 and 2 with one more store a row: one plan, and with
     it one guard tile, for both."""
     assert tfa.flash_plan(*shape, lse=True) == tfa.flash_plan(*shape)
-    assert tfa.FWD_MAX_D == 512 and tfa.BWD_MAX_D == 128
+    assert tfa.FWD_MAX_D == 512 and not hasattr(tfa, "BWD_MAX_D")  # one limit, 7-10 alike
 
 
 # the backward kernels' tiling (csrc/flash_attention_bwd.cu BwdPlan): the fine-tune's UNet
@@ -235,27 +235,53 @@ def test_flash_bwd_plan_at_the_train_path_shapes(shape, dkv):
     assert plan.smem_bytes >= 2 * 128 * 64 * 2 + plan.stages * per_slot
 
 
+@pytest.mark.parametrize("fp32", [False, True], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
-@pytest.mark.parametrize("d", [8, 40, 64, 96, 128])
-def test_flash_bwd_plan_by_head_dim(d, dkv):
-    plan = tfa.flash_bwd_plan(1, 1100, 1030, 2, d, dkv)
-    dp = 64 if d <= 64 else 128
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128, 136, 192, 256, 512])
+def test_flash_bwd_plan_by_head_dim(d, dkv, fp32):
+    """Every D % 8 == 0 up to 512 has a backward in both dtypes. bf16 to D = 128 and fp32 to
+    D = 64: 128 resident rows (the narrow kernels; fp32's are ``test_fp32_bwd_plan_by_head_dim``
+    of ``tests/test_torch_flash_f32_train.py``). Above: the wide kernels' 64 resident rows,
+    64-row streamed tiles, two rings of 16 KB units beside the 16 KB exchange, and column
+    slices where a block's outputs would not fit in registers."""
+    plan = tfa.flash_bwd_plan(1, 1100, 1030, 2, d, dkv, fp32=fp32)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+    own = 1030 if dkv else 1100
     assert plan.smem_bytes <= tfa.SMEM_LIMIT
-    assert plan.tile_rows == 128
-    # 64-row streamed tiles, except dq's 128-key tiles at D <= 64
-    assert plan.stream_rows == (128 if not dkv and dp == 64 else 64)
-    assert plan.blocks == 2 * -(-(1030 if dkv else 1100) // 128)
-    per_slot = (2 if dkv else 1) * plan.stream_rows * dp * 2
-    assert plan.smem_bytes >= 2 * 128 * dp * 2 + plan.stages * per_slot
-    # one plan a padded width: D=8 and D=64 tile alike, as D=96 and D=128 do
-    assert plan == tfa.flash_bwd_plan(1, 1100, 1030, 2, dp, dkv)
+    if dp <= (64 if fp32 else 128):
+        assert plan.tile_rows == 128 and plan.slices == 1
+        assert plan.blocks == 2 * -(-own // 128)
+        if not fp32:
+            # 64-row streamed tiles, except dq's 128-key tiles at D <= 64
+            assert plan.kernel == ("dkv" if dkv else "dq")
+            assert plan.stream_rows == (128 if not dkv and dp == 64 else 64)
+            per_slot = (2 if dkv else 1) * plan.stream_rows * dp * 2
+            assert plan.smem_bytes >= 2 * 128 * dp * 2 + plan.stages * per_slot
+    else:
+        assert plan.kernel == ("dkv" if dkv else "dq") + ("_tf32x3" if fp32 else "") + "_wide"
+        assert (plan.tile_rows, plan.stream_rows) == (tfa.WIDE_ROWS, 64)
+        # output columns a block: bf16 dq all of D, bf16 dk/dv and fp32 dq 256, fp32 dk/dv 128
+        width = (128 if dkv else 256) if fp32 else (256 if dkv else 512)
+        assert plan.slices == -(-d // min(width, dp))
+        assert plan.blocks == 2 * -(-own // 64) * plan.slices
+        # the resident 64 rows (bf16 at D = 256; else they stream), two rings, the exchange
+        resident = 64 * dp * 2 if not fp32 and dp == 256 else 0
+        assert plan.smem_bytes == (1024 + 2 * (resident + plan.stages * tfa.F32_UNIT)
+                                   + tfa.BWD_EXCHANGE + 16 * (int(not fp32) + 2 * plan.stages))
+        assert plan.stages >= 2 and tfa.SMEM_LIMIT - plan.smem_bytes < 2 * tfa.F32_UNIT
+    assert plan.waves == plan.blocks / 132
+    # one plan a padded width: D=8 and D=64 tile alike, as D=96 and D=128 do (the wide
+    # kernels' slices follow D itself)
+    if plan.slices == 1:
+        assert plan == tfa.flash_bwd_plan(1, 1100, 1030, 2, dp, dkv, fp32=fp32)
 
 
-@pytest.mark.parametrize("d", [0, 12, 136, 256])
+@pytest.mark.parametrize("d", [0, 12, 520, 1024])
 def test_flash_bwd_plan_refuses_head_dims_the_kernels_do_not_take(d):
     for dkv in (False, True):
-        with pytest.raises(ValueError):
-            tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv)
+        for fp32 in (False, True):
+            with pytest.raises(ValueError):
+                tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv, fp32=fp32)
 
 
 # kernel 1 sums |q_i| itself and takes max_j|k_j| from the key-norm kernel; their plain
@@ -344,26 +370,16 @@ def test_lse_forward_plain_matches_pallas_at_wide_heads(kernel):
     np.testing.assert_allclose(_lse(lse), np.asarray(lse_j)[..., :s], rtol=1e-5, atol=1e-5)
 
 
-def test_function_refuses_wide_heads_in_its_forward(monkeypatch):
-    """Above the backward kernels' limit the LSE forward alone runs (ring attention's need,
-    ``flash_attention_with_lse``); the differentiable Function raises before it computes
-    anything, in the forward and not inside ``backward()``."""
+def test_lse_forward_bound_form_matches_maxtrack_at_a_wide_head(monkeypatch):
+    """``flash_fwd_lse`` at D=256 (ring attention's ``flash_attention_with_lse``): the bound
+    form that runs by default against kernel 8's plain version."""
     monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
-    d = 2 * tfa.BWD_MAX_D
-    q, k, v = (torch.from_numpy(x) for x in _qkv(17, (1, 64, 1, d)))
+    q, k, v = (torch.from_numpy(x) for x in _qkv(17, (1, 64, 1, 256)))
     out, lse = tfa.flash_fwd_lse(q, k, v)
     want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q, k, v)
     # fp32, two forms of one softmax over 64 keys: rtol 1e-5 / atol 1e-5
     np.testing.assert_allclose(out.numpy(), want_out.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5, atol=1e-5)
-    calls = []
-    monkeypatch.setattr(tfa, "flash_fwd_lse", lambda *a: calls.append(1))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention_differentiable(q.requires_grad_(), k, v)
-    assert not calls
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa._check_bwd(q)
-    tfa._check_bwd(q[..., :tfa.BWD_MAX_D])
 
 
 def test_lse_forward_underflow_fallback_matches_pallas(monkeypatch):
@@ -404,12 +420,14 @@ def test_backward_plain_matches_pallas(s):
 
 
 @pytest.mark.parametrize("b,s_q,s_k,h,d", [(1, 200, 300, 2, 64), (1, 256, 256, 2, 40),
-                                           (1, 256, 256, 1, 128)],
-                         ids=["sq_ne_sk", "d40", "d128"])
+                                           (1, 256, 256, 1, 128), (1, 200, 330, 2, 136),
+                                           (1, 256, 256, 1, 256), (1, 256, 256, 1, 512)],
+                         ids=["sq_ne_sk", "d40", "d128", "d136_ragged", "d256", "d512"])
 def test_backward_plain_matches_pallas_at_other_shapes(b, s_q, s_k, h, d):
     """Kernels 9 and 10 where the card's kernels tile differently: fewer queries than keys,
     both ragged (the Pallas kernels see 256 zero-padded query rows and 384 keys, masked),
-    and the head dims 40 and 128 (D < 64 zero-padded to a panel; D=128 two panels)."""
+    the head dims 40 and 128 (D < 64 zero-padded to a panel; D=128 two panels), and the wide
+    kernels' 136 (ragged, D past a 128-column unit), 256 and the VAE's 512."""
     rng = np.random.default_rng(18)
     q, do = (rng.normal(size=(b, s_q, h, d)).astype(np.float32) for _ in range(2))
     k, v = (rng.normal(size=(b, s_k, h, d)).astype(np.float32) for _ in range(2))
@@ -449,6 +467,79 @@ def test_function_grads_match_jax_grad(monkeypatch, s):
     (out * torch.from_numpy(w)).sum().backward()
     for name, x, g in zip(("dq", "dk", "dv"), inputs, want):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 2, 256), (1, 256, 1, 512)], ids=["d256", "d512"])
+def test_function_grads_match_jax_grad_at_wide_heads(monkeypatch, shape):
+    """The Function past D = 128, where the card runs the wide backward kernels: two heads of
+    256 (the head split and merge around it) and the VAE's one head of 512, against jax.grad
+    through the custom VJP of ``flash_attention`` (its Pallas kernels in interpret mode)."""
+    monkeypatch.delenv("LKGD_FLASH_MAXTRACK", raising=False)
+    q, k, v = _qkv(26, shape)
+    w = np.random.default_rng(27).normal(size=q.shape).astype(np.float32)
+
+    def loss_j(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v) * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss_j, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    inputs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention_differentiable(*inputs)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, x, g in zip(("dq", "dk", "dv"), inputs, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), err_msg=name, **GRAD_TOL)
+
+
+def test_vae_attention_gradient_at_512_channels_matches_jax_grad(monkeypatch):
+    """The VAE mid block's attention (one head of 512 channels, its GroupNorm and residual)
+    on a 32x32 latent: 1024 tokens, so a call that needs a gradient goes to the flash
+    Function (kernels 7-10; their plain versions on the CPU), as every gradient through the
+    VAEs' mid blocks at 1024 or more latent tokens does. Held against jax.grad through the JAX
+    ``VAEAttention`` (XLA's attention on the CPU) on the same random weights, carried over by
+    ``utils/porting.py``'s rules. The input's gradient at GRAD_TOL; the projections' weight
+    gradients, each a sum over the 1024 tokens, within 1e-4 of their own max|ref| (an entry
+    near zero carries the rounding of the whole sum, so an entry-wise rtol does not apply)."""
+    from flax import traverse_util
+
+    from lkgd_tpu.models.vae_temporal import VAEAttention as JaxVAEAttention
+    from lkgd_torch.models.vae_temporal import VAEAttention
+    from lkgd_torch.utils.porting import from_flax_params
+
+    rng = np.random.default_rng(25)
+    x = rng.normal(size=(1, 32, 32, 512)).astype(np.float32)
+    w = rng.normal(size=x.shape).astype(np.float32)
+    jmod = JaxVAEAttention(512)
+    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    flat = {}
+    for path, leaf in traverse_util.flatten_dict(shapes, sep="/").items():
+        z = rng.normal(size=leaf.shape).astype(np.float32)
+        flat[path] = (0.05 * z if path.endswith("kernel") else 1 + 0.1 * z
+                      if path.endswith("scale") else 0.1 * z)
+    params = traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()},
+                                          sep="/")
+
+    def loss_j(params, x):
+        return jnp.sum(jmod.apply(params, x) * w)
+
+    want_p, want_x = jax.jit(jax.grad(loss_j, argnums=(0, 1)))(params, jnp.asarray(x))
+
+    module = VAEAttention(512)
+    module.load_state_dict(from_flax_params(flat), strict=True)
+    routes = []
+    real_fn = tattn.flash_attention_differentiable
+    monkeypatch.setattr(tattn, "flash_attention_differentiable",
+                        lambda *a: routes.append(a[0].shape) or real_fn(*a))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = module(xt)
+    assert routes == [(1, 1024, 1, 512)]
+    names = ("to_q", "to_k", "to_v")
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                              [xt] + [getattr(module, n).weight for n in names])
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want_x), err_msg="dx", **GRAD_TOL)
+    for name, g in zip(names, got[1:]):
+        ref = np.asarray(want_p["params"][name]["kernel"]).T  # flax (in, out) -> (out, in)
+        assert np.abs(g.numpy() - ref).max() <= 1e-4 * np.abs(ref).max(), name
 
 
 @pytest.mark.parametrize("grad,mode", [(True, "enabled"), (True, "no_grad"),

@@ -2,20 +2,21 @@
 the fp32 backward, and the training CLI's precision flag. The kernels themselves run only on
 the card (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py`` phases 3i, 7d, 8o).
 
-At D <= 64 the fp32 backward (``csrc/flash_attention_bwd_f32.cu``) multiplies as 3xTF32 on the
-tensor cores, as the fp32 forward does (``tests/test_torch_flash_f32.py``): each operand split
-into a tf32 hi and an fp32 lo, lo.hi + hi.lo + hi.hi, each k8 step's sum truncated by the
-accumulator. So the arithmetic can go wrong, not only the tile loop. A test-local emulation of
-both kernels' arithmetic and accumulation structure (S and dP, or S^T and dP^T, with hi.hi and
-the small products in two accumulators; P and dS split after they are formed; each 64-row
-tile's dQ, dK, dV in a fresh accumulator added to fp32 sums; keys past S_k with P = 0 in dq,
-queries past S_q with lse = +inf and delta = 0 in dk/dv) is held against the JAX package's
-fp32 backward run in TPU interpret mode within 1e-4 of each gradient's max|ref|:
-``chip_smoke.py``'s FP32_GRAD_TOL for the kernels against their plain fp32 versions. One TF32
-product in the place of three misses it. Above D = 64 the backward keeps fp32 FMA tiles,
-whose products are exact: there the emulation is their tile loop. The forward's LSE form is
-the fp32 forward of ``tests/test_torch_flash_f32.py`` with one more store a row; its plan is
-that forward's.
+At every head dim the fp32 backward (``csrc/flash_attention_bwd_f32.cu``) multiplies as
+3xTF32 on the tensor cores, as the fp32 forward does (``tests/test_torch_flash_f32.py``): each
+operand split into a tf32 hi and an fp32 lo, lo.hi + hi.lo + hi.hi, each k8 step's sum
+truncated by the accumulator. So the arithmetic can go wrong, not only the tile loop. A
+test-local emulation of the kernels' arithmetic and accumulation structure (S and dP, or S^T
+and dP^T, with hi.hi and the small products in two accumulators, hi.hi restarting every 128
+of D into an fp32 sum (the wide kernels' fold; one accumulator to D = 128); P and dS split
+after they are formed; each 64-row tile's dQ, dK, dV in a fresh accumulator added to fp32
+sums; keys past S_k with P = 0 in dq, queries past S_q with lse = +inf and delta = 0 in dk/dv)
+is held against the JAX package's fp32 backward run in TPU interpret mode within 1e-4 of each
+gradient's max|ref|: ``chip_smoke.py``'s FP32_GRAD_TOL for the kernels against their plain
+fp32 versions. One TF32 product in the place of three misses it. The narrow kernels (D <= 64)
+and the wide ones (above, 64 resident rows) share that arithmetic; where they differ (how a
+block splits its rows and columns) changes no sum. The forward's LSE form is the fp32 forward
+of ``tests/test_torch_flash_f32.py`` with one more store a row; its plan is that forward's.
 """
 
 import math
@@ -35,7 +36,7 @@ from tests.test_torch_flash_f32 import _mma, _split, _tf32  # noqa: E402
 
 FP32_GRAD_TOL = 1e-4  # of each gradient's max|ref|, as chip_smoke.py holds the kernels
 LOG2E = 1.4426950408889634
-TILE = tfa.F32_BWD_ROWS
+FOLD = 128  # depth a hi.hi accumulator sums before the wide kernels add it in fp32
 
 
 def _padded(x: np.ndarray, s_pad: int) -> jnp.ndarray:
@@ -71,53 +72,6 @@ def _jax_backward(q, k, v, do):
             _unpadded(grads[2], b, h, s_k))
 
 
-def emulate_backward(q, k, v, do, lse, delta):
-    """The FFMA backward kernels' tile loops in fp32 (64 < D <= 128): dq a 64-query tile at a
-    time over
-    64-key tiles, dk and dv a 64-key tile at a time over 64-query tiles, each output tile
-    accumulated in fp32 tile by tile, with the kernels' masks."""
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
-    scale = d ** -0.5
-    qt, kt, vt, dot = (x.transpose(1, 2).float() for x in (q, k, v, do))  # (B, H, S, D)
-    dq, dk, dv = torch.zeros_like(qt), torch.zeros_like(kt), torch.zeros_like(vt)
-
-    def tile(q0, k0):
-        """P and dS of queries q0.. and keys k0.. (64 each, padded as the kernels load)."""
-        rows = torch.arange(q0, q0 + TILE)
-        keys = torch.arange(k0, k0 + TILE)
-        qs, dos = (torch.nn.functional.pad(x[:, :, q0:q0 + TILE], (0, 0, 0, q0 + TILE - min(
-            s_q, q0 + TILE))) for x in (qt, dot))
-        ks, vs = (torch.nn.functional.pad(x[:, :, k0:k0 + TILE], (0, 0, 0, k0 + TILE - min(
-            s_k, k0 + TILE))) for x in (kt, vt))
-        lse_r = torch.where(rows < s_q, torch.nn.functional.pad(
-            lse[:, :, q0:q0 + TILE], (0, q0 + TILE - min(s_q, q0 + TILE))), math.inf)
-        delta_r = torch.nn.functional.pad(delta[:, :, q0:q0 + TILE],
-                                          (0, q0 + TILE - min(s_q, q0 + TILE)))
-        s = qs @ ks.transpose(-1, -2)
-        p = torch.exp2(s * (scale * LOG2E) - lse_r[..., None])
-        p = torch.where(keys < s_k, p, 0.0)
-        ds = p * (dos @ vs.transpose(-1, -2) - delta_r[..., None])
-        return qs, dos, ks, p, ds
-
-    for q0 in range(0, s_q, TILE):  # kernel 9
-        acc = torch.zeros(b, h, TILE, d)
-        for k0 in range(0, s_k, TILE):
-            _, _, ks, _, ds = tile(q0, k0)
-            acc = acc + ds @ ks
-        dq[:, :, q0:q0 + TILE] = (acc * scale)[:, :, :min(TILE, s_q - q0)]
-    for k0 in range(0, s_k, TILE):  # kernel 10
-        acc_k, acc_v = torch.zeros(b, h, TILE, d), torch.zeros(b, h, TILE, d)
-        for q0 in range(0, s_q, TILE):
-            qs, dos, _, p, ds = tile(q0, k0)
-            acc_v = acc_v + p.transpose(-1, -2) @ dos
-            acc_k = acc_k + ds.transpose(-1, -2) @ qs
-        n = min(TILE, s_k - k0)
-        dk[:, :, k0:k0 + TILE] = (acc_k * scale)[:, :, :n]
-        dv[:, :, k0:k0 + TILE] = acc_v[:, :, :n]
-    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
-
-
 def _one_tf32(x: torch.Tensor):
     """One TF32 product in the place of three: the tensor core's reading of x, no lo."""
     return _tf32(x), torch.zeros_like(x)
@@ -130,25 +84,30 @@ def _three(acc, a, b, k0):
 
 
 def _scores(a, b):
-    """(M, 64) . (64, N) as S and dP are summed: hi.hi in one accumulator, lo.hi + hi.lo in
-    another, over the depth's k8 steps, added in fp32."""
-    big = torch.zeros(a[0].shape[0], b[0].shape[1], dtype=torch.float64)
-    small = torch.zeros_like(big)
-    for k0 in range(0, a[0].shape[1], 8):
-        small = _mma(_mma(small, a[1], b[0], k0), a[0], b[1], k0)
-        big = _mma(big, a[0], b[0], k0)
-    return big.float() + small.float()
+    """(M, DP) . (DP, N) as S and dP are summed: lo.hi + hi.lo in one accumulator over the
+    depth's k8 steps, hi.hi in another that restarts every FOLD of the depth into an fp32
+    sum; the two added in fp32."""
+    small = torch.zeros(a[0].shape[0], b[0].shape[1], dtype=torch.float64)
+    total = None
+    for g0 in range(0, a[0].shape[1], FOLD):
+        big = torch.zeros_like(small)
+        for k0 in range(g0, min(g0 + FOLD, a[0].shape[1]), 8):
+            small = _mma(_mma(small, a[1], b[0], k0), a[0], b[1], k0)
+            big = _mma(big, a[0], b[0], k0)
+        total = big.float() if total is None else total + big.float()
+    return total + small.float()
 
 
 def _tf32_head(q, k, v, do, lse, delta, split):
     """Both tf32 kernels on one (batch, head): q, dO (S_q, D), k, v (S_k, D), lse and delta
-    (S_q,), zero-padded as the pre-pass and TMA give them (D to 64, sequences to 64-row
-    tiles)."""
+    (S_q,), zero-padded as the pre-pass and TMA give them (D to 64, 128, 256 or 512,
+    sequences to 64-row tiles)."""
     s_q, d = q.shape
     s_k = k.shape[0]
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
     qp, kp = -(-s_q // 64) * 64, -(-s_k // 64) * 64
-    q, do = (torch.nn.functional.pad(x, (0, 64 - d, 0, qp - s_q)) for x in (q, do))
-    k, v = (torch.nn.functional.pad(x, (0, 64 - d, 0, kp - s_k)) for x in (k, v))
+    q, do = (torch.nn.functional.pad(x, (0, dp - d, 0, qp - s_q)) for x in (q, do))
+    k, v = (torch.nn.functional.pad(x, (0, dp - d, 0, kp - s_k)) for x in (k, v))
     lse = torch.cat([lse, torch.full((qp - s_q,), math.inf)])
     delta = torch.cat([delta, torch.zeros(qp - s_q)])
     sq, sk, sv, so = (tuple(x.double() for x in split(t)) for t in (q, k, v, do))
@@ -157,23 +116,23 @@ def _tf32_head(q, k, v, do, lse, delta, split):
     scale = d ** -0.5
     scale2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
 
-    dq = torch.zeros(qp, 64)  # kernel 9: over 64-key tiles
+    dq = torch.zeros(qp, dp)  # kernel 9: over 64-key tiles
     for j in range(0, kp, 64):
         s = _scores(sq, cols(sk, j))
         s = torch.where(torch.arange(j, j + 64) < s_k, s, -math.inf)
         p = torch.exp2(s * scale2 - lse[:, None])
         ds = tuple(x.double() for x in split(p * (_scores(so, cols(sv, j)) - delta[:, None])))
-        acc = torch.zeros(qp, 64, dtype=torch.float64)
+        acc = torch.zeros(qp, dp, dtype=torch.float64)
         for k0 in range(0, 64, 8):
             acc = _three(acc, ds, rows(sk, j), k0)
         dq = dq + acc.float()
-    dk, dv = torch.zeros(kp, 64), torch.zeros(kp, 64)  # kernel 10: over 64-query tiles
+    dk, dv = torch.zeros(kp, dp), torch.zeros(kp, dp)  # kernel 10: over 64-query tiles
     for i in range(0, qp, 64):
         p = torch.exp2(_scores(sk, cols(sq, i)) * scale2 - lse[None, i:i + 64])
         ds = p * (_scores(sv, cols(so, i)) - delta[None, i:i + 64])
         for out, a, b in ((dv, p, so), (dk, ds, sq)):
             a = tuple(x.double() for x in split(a))
-            acc = torch.zeros(kp, 64, dtype=torch.float64)
+            acc = torch.zeros(kp, dp, dtype=torch.float64)
             for k0 in range(0, 64, 8):
                 acc = _three(acc, a, rows(b, i), k0)
             out += acc.float()
@@ -181,8 +140,9 @@ def _tf32_head(q, k, v, do, lse, delta, split):
 
 
 def emulate_tf32_backward(q, k, v, do, lse, delta, one_product=False):
-    """The 3xTF32 backward kernels (D <= 64) on (B, S, H, D) fp32 tensors with lse and delta
-    (B, H, S_q): dq, dk, dv as (B, S, H, D). ``one_product``: one TF32 product a product."""
+    """The 3xTF32 backward kernels (every D <= 512) on (B, S, H, D) fp32 tensors with lse and
+    delta (B, H, S_q): dq, dk, dv as (B, S, H, D). ``one_product``: one TF32 product a
+    product."""
     split = _one_tf32 if one_product else _split
     outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
     for b in range(q.shape[0]):
@@ -205,22 +165,24 @@ def _inputs(shape, s_k, scale):
 
 
 # the fp32 UNet's head dim, ragged against the 64-row tiles, S_q != S_k, D = 40 (zero-padded
-# to 64) and 128, and the guard input: norms x4, where the bound form's rows underflow
+# to 64), 128 and 200 (zero-padded to 256, hi.hi restarted once), and the guard input: norms
+# x4, where the bound form's rows underflow
 CASES = [((1, 300, 2, 64), 300, 1.0), ((1, 200, 2, 40), 330, 1.0),
-         ((1, 256, 1, 128), 256, 1.0), ((1, 300, 2, 64), 300, 4.0)]
+         ((1, 256, 1, 128), 256, 1.0), ((1, 300, 2, 64), 300, 4.0),
+         ((1, 100, 1, 200), 130, 1.0)]
 
 
 @pytest.mark.parametrize("shape,s_k,scale", CASES, ids=["ragged", "sq_ne_sk_d40", "d128",
-                                                        "guard"])
+                                                        "guard", "d200_fold"])
 def test_tile_loop_matches_jax_fp32_backward(shape, s_k, scale):
-    """The kernel the plan names, emulated: 3xTF32 at D <= 64, the FFMA tile loop at D=128."""
+    """The kernel the plan names, emulated: 3xTF32 at every D, on the narrow kernels' plan to
+    D = 64 and the wide ones' above."""
     q, k, v, do = _inputs(shape, s_k, scale)
     lse, delta, *want = _jax_backward(q, k, v, do)
     tensors = [torch.from_numpy(x) for x in (q, k, v, do)]
-    tf32 = tfa.flash_bwd_plan(*shape[:2], s_k, *shape[2:], False, fp32=True).kernel == \
-        "dq_tf32x3"
-    assert tf32 == (shape[3] <= 64)
-    got = (emulate_tf32_backward if tf32 else emulate_backward)(*tensors, lse, delta)
+    kernel = tfa.flash_bwd_plan(*shape[:2], s_k, *shape[2:], False, fp32=True).kernel
+    assert kernel == ("dq_tf32x3" if shape[3] <= 64 else "dq_tf32x3_wide")
+    got = emulate_tf32_backward(*tensors, lse, delta)
     plain = tfa.flash_bwd_plain(*tensors, lse, delta)
     for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
         assert g.shape == w.shape, name
@@ -256,9 +218,10 @@ def test_fp32_bwd_plan_by_head_dim(d, dkv):
     """D <= 64, ``TPlan``: 128 resident rows of two tensors' hi and lo planes (128 KB), 64-row
     streamed tiles through a ring of 16 KB units that fills the rest of the 227 KB a block may
     use (dk/dv: beside two tiles' lse and delta), a grid of (B*H, 128-row tiles). Above,
-    ``F32BwdPlan``: the FFMA kernels' 64 resident rows and 64-row streamed tiles at a pitch of
-    D padded (128) + 1 floats, one tile each of q, dO, k and v, then dS (and P for dk/dv) at
-    a pitch of 65 and the tile's lse and delta; a grid of (B*H, 64-row tiles)."""
+    ``WPlan``, the wide kernels at D padded to 128: 64 rows a block, each consumer warpgroup
+    with its own ring of six 16 KB units through which its score operand's 64 rows stream
+    with the other operands, the 16 KB exchange between the two warpgroups; a grid of (B*H,
+    64-row tiles), one column slice (dq 64 columns a warpgroup, dk/dv 128)."""
     plan = tfa.flash_bwd_plan(2, 1100, 1030, 5, d, dkv, fp32=True)
     n = 1030 if dkv else 1100
     if d <= 64:
@@ -270,15 +233,15 @@ def test_fp32_bwd_plan_by_head_dim(d, dkv):
         assert plan.smem_bytes == fixed + plan.stages * tfa.F32_UNIT + 8 * (1 + 2 * plan.stages)
         assert plan.blocks == 2 * 5 * -(-n // 128)
     else:
-        assert plan.kernel == ("dkv_ffma" if dkv else "dq_ffma")
-        assert (plan.tile_rows, plan.stream_rows, plan.stages) == (TILE, TILE, 1)
-        assert plan.smem_bytes == 4 * (4 * TILE * 129 + (2 if dkv else 1) * TILE * (TILE + 1)
-                                       + 2 * TILE)
-        assert plan.blocks == 2 * 5 * -(-n // TILE)
+        assert plan.kernel == ("dkv_tf32x3_wide" if dkv else "dq_tf32x3_wide")
+        assert (plan.tile_rows, plan.stream_rows, plan.stages, plan.slices) == (64, 64, 6, 1)
+        assert plan.smem_bytes == (1024 + 2 * 6 * tfa.F32_UNIT + tfa.BWD_EXCHANGE
+                                   + 2 * 8 * 2 * 6)
+        assert plan.blocks == 2 * 5 * -(-n // 64)
     assert plan.smem_bytes <= tfa.SMEM_LIMIT and plan.waves == plan.blocks / 132
 
 
-@pytest.mark.parametrize("d", [136, 256, 512])
+@pytest.mark.parametrize("d", [520, 776, 1024])
 def test_fp32_bwd_plan_refuses_wide_heads(d):
     with pytest.raises(ValueError, match="not built"):
         tfa.flash_bwd_plan(1, 1024, 1024, 1, d, True, fp32=True)

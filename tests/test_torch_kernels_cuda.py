@@ -385,20 +385,22 @@ def test_flash_fp16_with_gradient_raises(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
-@pytest.mark.parametrize("d", [8, 40, 64, 96, 128])
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128, 136, 256, 264, 512])
 def test_flash_fp32_bwd_plan_is_the_kernels_tiling(cuda_device, d, dkv):
     from lkgd_torch.ops import _build
 
     lib = _build.library()
     plan = tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv, fp32=True)
-    assert plan.kernel.endswith("_tf32x3" if d <= 64 else "_ffma")
+    assert plan.kernel.endswith("_tf32x3" if d <= 64 else "_tf32x3_wide")
     assert plan.tile_rows == lib.lkgd_flash_bwd_f32_block_rows(d)
     assert plan.smem_bytes == lib.lkgd_flash_bwd_f32_smem_bytes(d, int(dkv))
     assert plan.stages == lib.lkgd_flash_bwd_f32_stages(d, int(dkv))
+    assert plan.slices == lib.lkgd_flash_bwd_f32_slices(d, int(dkv))
     assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
-    # the pre-pass's planes, hi and lo: q, dO (s_q rows), k, v (s_k rows) at D padded to 64;
-    # K^T (s_k rounded up to 32), Q^T and dO^T (s_q rounded up); none for the FFMA kernels
-    planes = 2 * 15 * 64 * (2 * 1100 + 2 * 1333 + 1344 + 2 * 1120) if d <= 64 else 0
+    # the pre-pass's planes, hi and lo: q, dO (s_q rows), k, v (s_k rows) at D padded;
+    # K^T (s_k rounded up to 32), Q^T and dO^T (s_q rounded up)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
+    planes = 2 * 15 * dp * (2 * 1100 + 2 * 1333 + 1344 + 2 * 1120)
     assert lib.lkgd_flash_bwd_f32_scratch_floats(3, 5, 1100, 1333, d) == planes
 
 
@@ -862,39 +864,66 @@ def test_flash_backward_kernels_are_deterministic(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dkv", [False, True], ids=["dq", "dkv"])
-@pytest.mark.parametrize("d", [8, 40, 64, 96, 128])
+@pytest.mark.parametrize("d", [8, 40, 64, 96, 128, 136, 256, 264, 512])
 def test_flash_bwd_plan_is_the_kernels_tiling(cuda_device, d, dkv):
-    """The host-side backward plan and the library agree on resident rows and shared
-    memory, and the card grants that much to a block."""
+    """The host-side backward plan and the library agree on resident rows, shared memory,
+    ring slots and column slices at every width built, and the card grants that much to a
+    block."""
     from lkgd_torch.ops import _build
 
     lib = _build.library()
     plan = tfa.flash_bwd_plan(1, 1024, 1024, 1, d, dkv)
     assert plan.tile_rows == lib.lkgd_flash_bwd_block_rows(d, int(dkv))
     assert plan.smem_bytes == lib.lkgd_flash_bwd_smem_bytes(d, int(dkv))
+    assert plan.stages == lib.lkgd_flash_bwd_stages(d, int(dkv))
+    assert plan.slices == lib.lkgd_flash_bwd_slices(d, int(dkv))
     assert plan.smem_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
 
 
+# the wide backward kernels (D > 128 in bf16, D > 64 at fp32): D past a 128-column unit with
+# a ragged S_q != S_k, two heads of 256, and the VAE's one head of 512 (two column slices of
+# dk/dv in bf16, four at fp32), then at fp32 D = 72 and 128 (one unit of 128 resident)
+WIDE_BWD = [((2, 1100, 2, 136), 1030), ((1, 1024, 2, 256), 1024), ((2, 1030, 1, 512), 1030)]
+WIDE_BWD_CASES = ([(torch.bfloat16, *case) for case in WIDE_BWD]
+                  + [(torch.float32, *case) for case in WIDE_BWD]
+                  + [(torch.float32, (1, 700, 2, 72), 900),
+                     (torch.float32, (2, 1024, 2, 128), 1024)])
+WIDE_BWD_IDS = ["bf16_d136_ragged", "bf16_d256", "bf16_d512", "fp32_d136_ragged", "fp32_d256",
+                "fp32_d512", "fp32_d72", "fp32_d128"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, FLASH_TOL), (torch.float32, 2e-5)],
-                         ids=["bf16", "fp32"])
-@pytest.mark.parametrize("d", [256, 512])
-def test_flash_training_kernels_refuse_wide_heads(cuda_device, monkeypatch, d, dtype, tol):
-    """Above D=128 the LSE forward runs and matches its plain version, in both dtypes; the
-    backward kernels refuse, and the autograd Function refuses in its forward already."""
+@pytest.mark.parametrize("dtype,shape,s_k", WIDE_BWD_CASES, ids=WIDE_BWD_IDS)
+def test_flash_wide_backward_kernels_match_plain(cuda_device, monkeypatch, dtype, shape, s_k):
+    """Kernels 9 and 10 on the wide kernels against their plain versions (TF32 off), from the
+    LSE forward's lse and delta as the autograd Function hands them: bf16 within 2e-2 of each
+    gradient's max|ref| (P and dS rounded to bf16), fp32 within 1e-4 (chip_smoke.py's
+    GRAD_TOL and FP32_GRAD_TOL)."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    q, k, v = (x.to(dtype) for x in _qkv(cuda_device, (1, 1024, 1, d)))
+    b, _, h, d = shape
+    fp32 = dtype == torch.float32
+    q = _randn(cuda_device, shape).to(dtype)
+    k, v = (_randn(cuda_device, (b, s_k, h, d), seed=i).to(dtype) for i in (1, 2))
+    do = _randn(cuda_device, shape, seed=3).to(dtype)
     out, lse = tfa.flash_fwd_lse(q, k, v)
+    # the LSE forward the backward starts from, as the refusal test that preceded this one
+    # held it
     want_out, want_lse = tfa.flash_fwd_lse_maxtrack_plain(q.float(), k.float(), v.float())
-    assert out.dtype == dtype and _rel_err(out, want_out) <= tol
-    assert (lse - want_lse).abs().max().item() <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
-    delta = torch.zeros_like(lse)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_bwd(q, k, v, out, lse, delta)
+    assert out.dtype == dtype and _rel_err(out, want_out) <= (2e-5 if fp32 else FLASH_TOL)
+    assert (lse - want_lse).abs().max().item() <= (1e-4 if fp32 else 1e-2)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    suffix = "_fp32" if fp32 else ""
     before = dict(tfa.launches)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_differentiable(q.requires_grad_(), k, v)
-    assert tfa.launches == before
+    got = tfa.flash_bwd(q, k, v, do, lse, delta)
+    assert tfa.launches["flash_bwd_dq" + suffix] == before["flash_bwd_dq" + suffix] + 1
+    assert tfa.launches["flash_bwd_dkv" + suffix] == before["flash_bwd_dkv" + suffix] + 1
+    want = tfa.flash_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse, delta)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= (1e-4 if fp32 else 2e-2), (name, _rel_err(g, w))
+    again = tfa.flash_bwd(q, k, v, do, lse, delta)
+    for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(g, g2), name  # no atomics
 
 
 @pytest.mark.cuda
