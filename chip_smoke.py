@@ -121,7 +121,8 @@ each printing its own lines; any failure raises and the script exits non-zero:
    frames at 576x1024, 25 steps, CFG batched as 56 UNet rows, bf16; a 2-step warm-up and a
    timed one with the denoise/decode split, peak memory, launch counts and fallback
    tiles; frames finite, the two streams different; one more clip with
-   ``sequential_cfg`` for its time and peak memory; then one UNet step under
+   ``sequential_cfg`` on the warm-up's seed and 2-step schedule, for its time and peak
+   memory and its distance from the warm-up's latents; then one UNet step under
    ``torch.profiler`` for its device time by kind;
 5c. the full-width smoothing of a 50-frame 576x1024 synthetic video through the inference
    CLI's ``build_pipeline`` (``--mode smooth --flip --temporal --lora-rank 4``): 14-frame
@@ -183,8 +184,16 @@ each printing its own lines; any failure raises and the script exits non-zero:
    ``--context-parallel 2`` against the unsharded pipeline and, for the floor, its
    ``--sequential-cfg`` run (one row a call, as a data rank's), the frames of the same latents
    bit-identical (the decode's chunks spread over context), launches a rank equal to the
-   unsplit loop's; ``train_svd_lora.build`` over both ranks with ZeRO (``zero_shard_opt_state``),
-   one step at 512x512x8f on a rank's row of a 2-row batch: the averaged gradients bit for bit
+   unsplit loop's; ``--mode`` trans (``--flip --temporal --lora-rank 4``), smooth (28 frames
+   from step 24, decode chunks of 14, ``--sequential-cfg``: two ranks' batched loops do not
+   fit on one card), controlnet and flow (decode chunks of 7) at full size,
+   one step each, through ``build_pipeline`` with ``--context-parallel 2`` (PAR_MODES): the
+   loop whole on each rank (no loop group, no UNet module gathering frames), the latents
+   equal on both ranks by a checksum all-reduce and bit for bit the unsplit loop's on rank 0,
+   the frames bit for bit the unsplit decode's (one chunk of every two a rank), launches a
+   rank equal to the unsplit loop's, denoise and decode seconds and peaks;
+   ``train_svd_lora.build`` over both ranks with ZeRO (``zero_shard_opt_state``), one step
+   at 512x512x8f on a rank's row of a 2-row batch: the averaged gradients bit for bit
    those of this process's one-row passes averaged, within max(1e-2, 1.5 x their own
    distance) of one process's step on the whole batch, moment bytes a rank, launches a rank
    equal to one process's;
@@ -361,7 +370,8 @@ rows at the SD-2D shapes under ``sd2d`` (``ms`` the device time, ``wrapper_ms`` 
 kernels of 3h their rows under ``sequence_parallel``; ``launches_by_path`` also holds the
 inversion, the ring's and the Ulysses DiT steps and the Ulysses joint attention call on rank
 0 (``sp_ring``, ``sp_ulysses``, ``sp_ulysses_attention``), 5k's paths a rank (``tp``,
-``fsdp``, ``svd_data``, ``svd_context``, ``train_data_parallel``), 5l's (``pp_m1``,
+``fsdp``, ``svd_data``, ``svd_context``, ``svd_<mode>_context`` for the four other modes,
+``train_data_parallel``), 5l's (``pp_m1``,
 ``pp_m2``), ``train_fp32`` (8o's three timed steps), the web demo's two
 requests and ``verify_parity``'s check.
 
@@ -1155,7 +1165,7 @@ def _profile_unet_step(label: str, pipe, rows: int, gen: torch.Generator) -> Non
 def phase_trans_full(dev: torch.device) -> dict:
     """The full-width frame-transition clip: a warm-up (``WARM_STEPS``) and a timed, counted
     clip with batched CFG (56 UNet rows), then one with ``sequential_cfg`` on the same
-    weights."""
+    weights, seed and short schedule as the warm-up."""
     from lkgd_torch.cli import run_inference_svd as cli
     from lkgd_torch.ops import flash_attention as fa
 
@@ -1213,7 +1223,8 @@ def phase_trans_full(dev: torch.device) -> dict:
     for label, seed, sequential, n in (("warm-up, batched CFG (56 UNet rows)", 1, False,
                                         WARM_STEPS),
                                        ("batched CFG (56 UNet rows)", 2, False, steps),
-                                       ("sequential_cfg (2 x 28 UNet rows)", 2, True, steps)):
+                                       ("sequential_cfg (2 x 28 UNet rows)", 1, True,
+                                        WARM_STEPS)):
         runs[label] = r = clip(seed, sequential, n)
         print(f"[trans] {label}: {r['s']:.3f} s/clip = denoise {r['denoise_s']:.3f} s "
               f"({n} steps) + decode {r['decode_s']:.3f} s | peak memory "
@@ -1222,20 +1233,22 @@ def phase_trans_full(dev: torch.device) -> dict:
               f"recomputed {r['recomputed']}", flush=True)
     pipe.config = cfg
     timed, seq = runs["batched CFG (56 UNet rows)"], runs["sequential_cfg (2 x 28 UNet rows)"]
+    warm = runs["warm-up, batched CFG (56 UNet rows)"]
     launches, latents, frames = timed["launches"], timed["latents"], timed["frames"]
     assert frames.shape == (2, cfg.num_frames, cfg.height, cfg.width, 3), frames.shape
     assert torch.isfinite(latents).all() and torch.isfinite(frames).all(), "non-finite output"
     assert frames.min().item() >= 0.0 and frames.max().item() <= 1.0
     streams = (latents[0] - latents[1]).abs().max().item()
-    # the same seed through both forms: bf16 kernels see other batch shapes, so the forms
-    # agree loosely (a 25-step loop amplifies bf16 rounding); reported, and held finite
-    forms = (seq["latents"] - latents).abs().max().item()
+    # the same seed and schedule through both forms: bf16 kernels see other batch shapes, so
+    # the forms agree loosely; reported, and held finite
+    forms = (seq["latents"] - warm["latents"]).abs().max().item()
     print(f"[trans] timed clip: launches predicted flash 503 each, GroupNorm 2763 forwards: "
           f"{launches['gn_one_pass']} in one pass, {launches['gn_stats']} in two "
           f"({_gn_forwards(launches)} in all) | "
           f"frames mean {frames.mean().item():.4f} std {frames.std().item():.4f} | streams "
           f"differ by max {streams:.3f} in the latents | sequential_cfg vs batched latents "
-          f"max|d| {forms:.3f} of max|latent| {latents.abs().max().item():.3f} (bf16)",
+          f"({WARM_STEPS} steps) max|d| {forms:.3f} of max|latent| "
+          f"{warm['latents'].abs().max().item():.3f} (bf16)",
           flush=True)
     assert streams > 1e-3, "the two streams must differ"
     assert torch.isfinite(seq["frames"]).all(), "non-finite sequential_cfg output"
@@ -1243,7 +1256,7 @@ def phase_trans_full(dev: torch.device) -> dict:
         assert launches.get(name, 0) > 0, f"kernel {name} was not launched by the trans clip"
     for name in TRAINING + EXPERIMENTS:
         assert launches.get(name, 0) == 0, f"kernel {name} was launched by the trans clip"
-    del frames, latents, runs, timed, seq
+    del frames, latents, runs, timed, seq, warm
 
     _profile_unet_step("trans", pipe, 2 * images.shape[0], gen)
     return launches
@@ -6456,7 +6469,18 @@ def phase_sp_pair(dev: torch.device) -> dict:
             "sp_ulysses_attention": result["attention"]["ulysses"]["launches"]}
 
 
-PAR_SVD_STEPS = 2  # the SVD base clip's denoising steps under data=2 and under context=2
+PAR_SVD_STEPS = 1  # the SVD base clip's denoising steps under data=2 and under context=2
+# the other modes under context=2, one step each (smooth: step 24 of 25): the loop whole on
+# each rank, the decode's chunks one a rank in every mode. Smooth runs its CFG sides one after
+# the other: two ranks' batched 12-row loops (~35 GiB each with the allocator's cache) do not
+# fit on the one card beside each other and the parent process
+PAR_MODES = {"trans": ["--flip", "--temporal", "--lora-rank", "4", "--decode-chunk-size", "14",
+                       "--num-inference-steps", "1"],
+             "smooth": ["--flip", "--temporal", "--lora-rank", "4", "--smooth-total-frames",
+                        "28", "--smooth-start-step", "24", "--decode-chunk-size", "14",
+                        "--sequential-cfg"],
+             "controlnet": ["--decode-chunk-size", "7", "--num-inference-steps", "1"],
+             "flow": ["--decode-chunk-size", "7", "--num-inference-steps", "1"]}
 PAR_TRAIN = ["--height", "512", "--width", "512", "--num-frames", "8",
              "--per-device-batch-size", "1", "--rank", "4", "--learning-rate", "2e-4", "--remat",
              "--dtype", "bf16", "--checkpoint-every", "0", "--max-steps", "1", "--seed", "0"]
@@ -6611,6 +6635,74 @@ def _par_svd(rank: int, dev: torch.device, tag: str) -> dict:
     return result
 
 
+def _par_svd_modes(rank: int, dev: torch.device, tag: str) -> dict:
+    """Trans, smooth, ControlNet and flow at full size (14x576x1024, one step) through
+    ``run_inference_svd.build_pipeline`` with ``--context-parallel 2``: no loop group and no
+    UNet module gathering frames, the latents equal on both ranks (a checksum all-reduce),
+    rank 0's frames bit for bit the unsplit decode of the same latents, and the launches a
+    rank those of the unsplit loop (rank 0 runs it again with the pipeline's groups
+    cleared, as one process builds it)."""
+    import torch.distributed as dist
+
+    from lkgd_torch.cli import run_inference_svd as cli
+    from lkgd_torch.parallel import mesh
+    from lkgd_torch.pipelines.svd import equal_chunks
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    image = torch.rand((2, 576, 1024, 3), generator=gen, device=dev)
+    video = torch.rand((28, 576, 1024, 3), generator=gen, device=dev)
+    calls = {"trans": lambda p, g: p.denoise(image, g),
+             "smooth": lambda p, g: p.denoise(video, g),
+             "controlnet": lambda p, g: p.denoise(image[:1], g),
+             "flow": lambda p, g: p.denoise(image[:1], g, flow_cond=image[:1])}
+    result = {}
+    for mode, flags in PAR_MODES.items():
+        t0 = time.perf_counter()
+        pipe = cli.build_pipeline(cli.make_parser().parse_args(
+            ["--mode", mode, "--image", "-", "--seed", "0", "--device", str(dev),
+             "--context-parallel", "2", *flags]))
+        gathering = sum(getattr(m, "frame_group", None) is not None for m in pipe.unet.modules())
+        assert pipe.data_group is None and pipe.context_group is None and not gathering, mode
+        assert dist.get_world_size(pipe.decode_group) == PAIR_RANKS, mode
+        decode = pipe._frames if mode == "flow" else pipe.decode_latents  # as __call__ decodes
+        build_s = time.perf_counter() - t0
+        lat, seconds, counts, peak = _timed_counted(
+            lambda: calls[mode](pipe, torch.Generator(device=dev).manual_seed(1)))
+        mesh.check_replicated([lat], None, f"{mode} latents")
+        frames, dec_s, dec_counts, dec_peak = _timed_counted(lambda: decode(lat))
+        assert torch.isfinite(lat).all() and torch.isfinite(frames).all(), mode
+        torch.cuda.empty_cache()
+        if rank == 0:
+            pipe.decode_group = None  # the pipeline one process builds
+            b, t = lat.shape[:2]
+            chunks = b * t // equal_chunks(t, pipe.config.decode_chunk_size)
+            assert chunks % PAIR_RANKS == 0, (mode, chunks)  # spread, not decoded whole
+            same = torch.equal(frames, decode(lat))
+            _zero_counts()
+            again = calls[mode](pipe, torch.Generator(device=dev).manual_seed(1))
+            whole = _shown(_read_counts())
+            loop_same = torch.equal(again, lat)
+            del again
+            print(f"[{tag}] SVD {mode} 14x576x1024 at context=2 (built in {build_s:.1f} s), one "
+                  f"step: latents equal on both ranks, bit for bit the unsplit loop's: "
+                  f"{loop_same} | frames {tuple(frames.shape)} equal to the unsplit decode's: "
+                  f"{same} ({chunks} chunks, {chunks // PAIR_RANKS} a rank) | denoise "
+                  f"{seconds:.3f} s, decode {dec_s:.3f} s (two ranks time-slicing one card, "
+                  f"collectives through the host: no scaling figure) | peak {peak:.2f} GiB, "
+                  f"decode {dec_peak:.2f} | launches a rank {_shown(counts)} (unsplit loop "
+                  f"{whole}), the decode's {_shown(dec_counts)}", flush=True)
+            assert same and loop_same, (mode, same, loop_same)
+            assert _shown(counts) == whole, (mode, counts, whole)
+            for name in INFERENCE:
+                assert counts.get(name, 0) > 0, (mode, name)
+            result[mode] = {"seconds": seconds, "decode_s": dec_s, "peak_gib": peak,
+                            "decode_peak_gib": dec_peak, "launches": counts}
+        del pipe, lat, frames
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return result
+
+
 def _train_args(out_dir: str, dev: torch.device):
     from lkgd_torch.cli import train_svd_lora as cli
 
@@ -6706,7 +6798,8 @@ def _par_rank_main(rank: int, work: Path) -> int:
 
     dev = _join_pair(rank, work, 900)
     tag = f"par-pair r{rank}"
-    result = {"dit": _par_dit(rank, dev, tag), "svd": _par_svd(rank, dev, tag)}
+    result = {"dit": _par_dit(rank, dev, tag), "svd": _par_svd(rank, dev, tag),
+              "svd_modes": _par_svd_modes(rank, dev, tag)}
     _par_train(rank, dev, work, tag)
     if rank == 0:
         (work / "result.json").write_text(json.dumps(result))
@@ -6761,14 +6854,17 @@ def phase_par_pair(dev: torch.device) -> dict:
                                                                  one["moment_bytes"])
     assert all(r["launches"] == one["launches"] for r in ranks), (one["launches"],
                                                                  [r["launches"] for r in ranks])
-    dit, svd = result["dit"], result["svd"]
+    dit, svd, modes = result["dit"], result["svd"], result["svd_modes"]
     print(f"[par-pair] DiT step tp {dit['tp']['seconds']:.3f} s (max|d| {dit['tp']['err']:.3e}), "
           f"fsdp {dit['fsdp']['seconds']:.3f} s (bit-identical), unsharded "
           f"{dit['none']['seconds']:.3f} s; SVD data=2 {svd['data']['seconds']:.3f} s (max|d| "
           f"{svd['data']['err']:.3e}), context=2 {svd['context']['seconds']:.3f} s (max|d| "
-          f"{svd['context']['err']:.3e}) | phase {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{svd['context']['err']:.3e}); at context=2, denoise + decode: "
+          + ", ".join(f"{m} {r['seconds']:.3f} + {r['decode_s']:.3f} s" for m, r in modes.items())
+          + f" | phase {time.perf_counter() - t0:.1f} s", flush=True)
     return {"tp": dit["tp"]["launches"], "fsdp": dit["fsdp"]["launches"],
             "svd_data": svd["data"]["launches"], "svd_context": svd["context"]["launches"],
+            **{f"svd_{m}_context": r["launches"] for m, r in modes.items()},
             "train_data_parallel": ranks[0]["launches"]}
 
 

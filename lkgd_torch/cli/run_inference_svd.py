@@ -37,9 +37,10 @@ With ``--data-parallel``, ``--context-parallel`` or ``--model-parallel`` above 1
 process a rank (``torchrun``, the product of the three the world size, ``parallel/mesh.py``
 with the axes data, context and model): every rank builds the same weights and noise from
 ``--seed`` (checked by a checksum all-reduce), ``data`` and ``context`` split the base
-loop's CFG rows and frames and spread the decode's chunks (base mode only), ``model`` splits
-the UNet's, VAE's and CLIP's weights (``parallel/tp.py`` ``fully_shard``; the MiB a rank
-holds are printed), and rank 0 writes the video.
+loop's CFG rows and frames, ``context`` spreads the decode's chunks in every mode (the other
+modes' loops run whole on each rank, as the JAX pipelines' do), ``model`` splits the UNet's,
+VAE's and CLIP's weights (``parallel/tp.py`` ``fully_shard``; the MiB a rank holds are
+printed), and rank 0 writes the video.
 
 It runs on the card: ``--device`` defaults to ``cuda`` and a machine without one fails
 unless ``--device cpu`` is given. The weights are random, drawn from ``--seed`` at the real
@@ -143,9 +144,6 @@ def build_mesh(args):
     axes = {a: n for a, n in axes.items() if n > 1}
     if not axes:
         return None
-    if args.mode != "base" and set(axes) - {"model"}:
-        raise SystemExit(f"--data-parallel and --context-parallel split the base loop's "
-                         f"rows and frames: --mode {args.mode} takes --model-parallel only")
     if args.model_parallel > 1 and args.sequential_cfg:
         raise SystemExit("--model-parallel gathers the UNet's weights at use: "
                          "--sequential-cfg's second UNet shares them ungathered")
@@ -184,9 +182,8 @@ def build_pipeline(args, widths: Widths = Widths()) -> StableVideoDiffusionPipel
         decode_chunk_size=args.decode_chunk_size, sequential_cfg=args.sequential_cfg)
     grid = build_mesh(args)
     kw = dict(config=config, unet_config=unet_config(args, widths), vae_config=widths.vae,
-              clip_config=widths.clip, dtype=_DTYPES[args.dtype], device=args.device)
-    if grid is not None and args.mode == "base":
-        kw["mesh"] = grid
+              clip_config=widths.clip, dtype=_DTYPES[args.dtype], device=args.device,
+              mesh=grid)
     if args.mode == "smooth":
         pipe = StableVideoDiffusionSmoothPipeline(
             **kw, start_step=args.smooth_start_step, total_frames=args.smooth_total_frames)
@@ -226,14 +223,12 @@ def main(argv=None, widths: Widths = Widths()) -> None:
 
     pipe = build_pipeline(args, widths)
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
+    # the first frame; in smooth mode the first --smooth-total-frames
+    first = args.smooth_total_frames if args.mode == "smooth" else 1
+    image = process_frames(load_input(args.image)[:first], args.height, args.width)
     if args.mode == "smooth":
-        video = load_input(args.image)[:args.smooth_total_frames]
-        out = pipe(process_frames(video, args.height, args.width), generator=generator)[0]
-        write_video(args.output, out, fps=args.fps)
-        print(f"wrote {args.output}: {out.shape}")
-        return
-    image = process_frames(load_input(args.image)[:1], args.height, args.width)
-    if args.mode == "trans":
+        out = pipe(image, generator=generator)[0]
+    elif args.mode == "trans":
         end_frames = load_input(args.end_image or args.image)
         end_image = process_frames(end_frames[-1:], args.height, args.width)[0]
         video = pipe(image[0], end_image, generator=generator)

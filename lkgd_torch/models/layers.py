@@ -306,9 +306,9 @@ class FrameAxisAttention(nn.Module):
 
     ``encoder_hidden_states``: None (self-attention over frames), a partner stream of the
     input's own shape ``(B*T, HW, C)`` (joint attention: K and V come from it), or, with
-    ``per_sample_ctx=True``, a per-sample single-token ``(B, 1, kv_dim)`` context (SVD's
-    CLIP embedding; longer per-sample contexts are not ported). ``adapters`` as for
-    :class:`Attention`."""
+    ``per_sample_ctx=True``, a per-sample ``(B, L, kv_dim)`` context whose L keys every frame
+    and pixel of the sample attends to (SVD's CLIP embedding is one token, L = 1).
+    ``adapters`` as for :class:`Attention`."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int, kv_dim: Optional[int] = None,
                  adapters: Optional[dict] = None):
@@ -323,12 +323,19 @@ class FrameAxisAttention(nn.Module):
         b, heads, d = bt // num_frames, self.heads, self.dim_head
         ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
         if per_sample_ctx:
-            if ctx.shape[1] != 1:
-                raise NotImplementedError("per-sample contexts longer than one token")
-            # one key per sample: attention is to_out(v) broadcast over frames and pixels
-            out = self.to_out[0](self.to_v(ctx))  # (B, 1, C)
-            out = out[:, None].expand(b, num_frames, hw, out.shape[-1])
-            return out.reshape(bt, hw, out.shape[-1])
+            if ctx.shape[1] == 1:
+                # one key per sample: attention is to_out(v) broadcast over frames and pixels
+                out = self.to_out[0](self.to_v(ctx))  # (B, 1, C)
+                out = out[:, None].expand(b, num_frames, hw, out.shape[-1])
+                return out.reshape(bt, hw, out.shape[-1])
+            # L keys per sample, shared by its frames and pixels (plain torch: the JAX
+            # package leaves these einsums to XLA)
+            q = self.to_q(hidden_states).view(b, num_frames, hw, heads, d)
+            k, v = (p(ctx).view(b, -1, heads, d) for p in (self.to_k, self.to_v))
+            logits = torch.einsum("bqphd,blhd->bphql", q.float(), k.float()) * d ** -0.5
+            probs = torch.softmax(logits, dim=-1).to(v.dtype)
+            out = torch.einsum("bphql,blhd->bqphd", probs, v)
+            return self.to_out[0](out.reshape(bt, hw, heads * d))
 
         def to_tok(x):
             x = x.view(b, num_frames, hw, heads, d)

@@ -13,13 +13,15 @@ where JAX had ``lax.cond``). It is an approximation: the output changes. Layouts
 public methods are the JAX package's: images ``(B, H, W, 3)`` in [0, 1], latents
 ``(B, T, h, w, 4)``, frames ``(B, T, H, W, 3)``.
 
-``mesh`` (``parallel/mesh.py``, base pipeline only; ``lkgd_tpu/pipelines/svd.py:85-92,
-299-340``): at each step the CFG-doubled rows split over its ``data`` axis and the frames
-over its ``context`` axis (the UNet's temporal halves gather the frames:
+``mesh`` (``parallel/mesh.py``; ``lkgd_tpu/pipelines/svd.py:85-92, 299-340``): in the
+base pipeline's loop, at each step, the CFG-doubled rows split over its ``data`` axis and
+the frames over its ``context`` axis (the UNet's temporal halves gather the frames:
 ``models/blocks_svd.py``), the predictions all-gathered before the guidance combine; the
-latents and the scheduler stay replicated. The equal-chunk decode spreads its chunks over
-``context`` when their number divides by it (chunk ``g * ctx + j`` on rank ``j``), the
-frames all-gathered after. The ``model`` axis splits the weights (``parallel/tp.py``
+latents and the scheduler stay replicated. The subclasses' loops, like their JAX
+counterparts', split nothing: each rank runs the whole loop. In every class the equal-chunk
+decode spreads its chunks over ``context`` when their number divides by it (chunk
+``g * ctx + j`` on rank ``j``), the frames all-gathered after, and decodes them whole on
+each rank otherwise. The ``model`` axis splits the weights (``parallel/tp.py``
 ``fully_shard``, applied to the models by the caller).
 
 Randomness comes only from the ``torch.Generator`` passed in, or from pre-drawn standard
@@ -89,13 +91,10 @@ def equal_chunks(n: int, max_chunk: int) -> int:
     return n
 
 
-def _check_splittable(pipe, config: SVDPipelineConfig, unet_config: SVDUNetConfig) -> None:
+def _check_splittable(config: SVDPipelineConfig, unet_config: SVDUNetConfig) -> None:
     """The ``data`` and ``context`` axes split the base loop's batched CFG rows and its
-    frames: a pipeline of its own loop, sequential CFG, DeepCache, stream masks or joint
-    attention (which pair rows and reverse frames) are refused."""
-    if type(pipe) is not StableVideoDiffusionPipeline:
-        raise ValueError(f"{type(pipe).__name__}: the mesh's data and context axes split the "
-                         f"base pipeline's loop only")
+    frames: sequential CFG, DeepCache, stream masks or joint attention (which pair rows and
+    reverse frames) are refused."""
     if config.sequential_cfg or config.deep_cache_interval > 1:
         raise ValueError("the mesh's data and context axes split the batched CFG loop: "
                          "sequential_cfg and deep_cache_interval > 1 are refused with them")
@@ -113,10 +112,11 @@ class StableVideoDiffusionPipeline:
     built on ``device`` (a trainer's, for validation), run as they are: nothing is
     allocated or copied, and their ``requires_grad`` flags are left alone.
 
-    Subclasses that run a loop of their own set ``deep_cache = False``: they refuse a
-    ``deep_cache_interval`` above 1, which the JAX package's counterparts ignore."""
+    Subclasses whose JAX counterparts run a loop of their own set ``base_loop = False``:
+    they refuse a ``deep_cache_interval`` above 1, which those counterparts ignore, and the
+    mesh spreads their decode alone."""
 
-    deep_cache = True
+    base_loop = True
 
     def __init__(
         self,
@@ -130,15 +130,18 @@ class StableVideoDiffusionPipeline:
         models: Optional[tuple] = None,
         mesh: Optional[meshlib.Mesh] = None,
     ):
-        if config.deep_cache_interval > 1 and not self.deep_cache:
+        if config.deep_cache_interval > 1 and not self.base_loop:
             raise ValueError(f"{type(self).__name__} has no DeepCache loop: "
                              f"deep_cache_interval must be 1, got {config.deep_cache_interval}")
         axes = {} if mesh is None else mesh.axes
-        self.data_group, self.context_group = (
-            mesh.groups[a] if axes.get(a, 1) > 1 else None
-            for a in (meshlib.DATA_AXIS, meshlib.CONTEXT_AXIS))
+        data, context = (mesh.groups[a] if axes.get(a, 1) > 1 else None
+                         for a in (meshlib.DATA_AXIS, meshlib.CONTEXT_AXIS))
+        # the decode's chunks spread over context in every class; the loop's rows and
+        # frames split in the base loop alone
+        self.decode_group = context
+        self.data_group, self.context_group = (data, context) if self.base_loop else (None, None)
         if self.data_group is not None or self.context_group is not None:
-            _check_splittable(self, config, unet_config)
+            _check_splittable(config, unet_config)
         self.config = config
         self.dtype = dtype
         self.device = require_device(device)
@@ -330,7 +333,7 @@ class StableVideoDiffusionPipeline:
         chunk = equal_chunks(t, cfg.decode_chunk_size)
         z = (latents.to(self.device, torch.float32) / self.vae_scaling).to(self.dtype)
         z = z.reshape(b * t // chunk, chunk, *latents.shape[2:])
-        pg = self.context_group
+        pg = self.decode_group
         if pg is not None and len(z) % dist.get_world_size(pg) == 0:
             # chunk g * ctx + j on rank j, then every rank's chunks back in order
             ctx, j = dist.get_world_size(pg), dist.get_rank(pg)

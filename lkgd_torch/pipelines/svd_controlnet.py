@@ -30,7 +30,7 @@ class StableVideoDiffusionControlNetPipeline(StableVideoDiffusionPipeline):
     -> frames ``(B, T, H, W, 3)``. The ControlNet is built on ``device`` in ``dtype`` beside
     the UNet (uninitialised: ``init_params`` or ``controlnet.load_state_dict``)."""
 
-    deep_cache = False
+    base_loop = False  # the JAX pipeline's loop has neither DeepCache nor a split
 
     def __init__(self, *args, controlnet_config: Optional[ControlNetSDVConfig] = None,
                  controlnet_cond_scale: float = 1.0, controlnet_scale: float = 1.0,

@@ -29,7 +29,7 @@ from lkgd_torch.utils.flow_codec import flow_latent_normalize, flow_latent_unnor
 
 
 class _FlowBase(StableVideoDiffusionPipeline):
-    deep_cache = False
+    base_loop = False  # the JAX pipeline's loop has neither DeepCache nor a split
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

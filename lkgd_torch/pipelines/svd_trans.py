@@ -30,7 +30,7 @@ class StableVideoDiffusionTransPipeline(StableVideoDiffusionPipeline):
     """images ``(2, H, W, 3)`` = ``[start_frame, end_frame]`` -> ``(2, T, H, W, 3)``: stream
     0 is the start -> end transition, stream 1 its end-conditioned twin."""
 
-    deep_cache = False  # the JAX pipeline's loop has none
+    base_loop = False  # the JAX pipeline's loop has neither DeepCache nor a split
 
     def denoise(self, image: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noise_aug: Optional[torch.Tensor] = None,

@@ -13,10 +13,18 @@ One launch of 4 gloo ranks (``tests/test_torch_tensor_parallel.py`` ``launch``) 
   the port's unsharded frames bit for bit, and JAX's at the same parity tolerance;
 * the tiny CogVideoX I2V pipeline at ``data=2,context=2`` (Ulysses) against the port's
   unsharded one;
+* the tiny trans, smooth, ControlNet and flow pipelines at ``data=2,context=2`` (each loop
+  whole on every rank, the decode's chunks spread over ``context``), on JAX's weights and
+  draws: against the JAX pipeline of the same class built with ``mesh=`` over 4 CPU devices
+  (run in the test process while the ranks run) at the unsharded parity's rtol 1e-4 /
+  atol 2e-4;
 * the SVD CLI with ``--data-parallel 2 --context-parallel 2`` and with
   ``--model-parallel 4``: rank 0 writes the frames one process writes (FSDP bit for bit,
   the split rows and frames at rtol/atol 1e-4: the CLI's random weights at their fan-in
-  scales);
+  scales); and in ``--mode`` trans, smooth, controlnet and flow with
+  ``--data-parallel 2 --context-parallel 2``: rank 0 alone writes, the frames one process
+  writes bit for bit (one thread a rank), the pipeline's loop split nowhere and its decode
+  spread over ``context`` (smooth at 5 frames: 5 chunks, decoded whole on every rank);
 * ``train_svd_lora``'s step over the 4 ranks (one row each) against one process on the
   whole 4-row batch: the averaged gradients at a 1% floor of each tensor's largest, the
   loss at rtol 1e-5;
@@ -56,6 +64,31 @@ CLI_ARGS = ["--height", str(H), "--width", str(W), "--num-frames", str(T),
             "--num-inference-steps", "2", "--decode-chunk-size", "2", "--device", "cpu",
             "--dtype", "fp32", "--seed", "3"]
 LR = 1e-3
+# the subclass pipelines at data=2,context=2: every loop whole on each rank, the decode's
+# chunks spread over context
+SUB_MODES = ("trans", "smooth", "controlnet", "flow")
+SUB_CLASSES = {"trans": "StableVideoDiffusionTransPipeline",
+               "smooth": "StableVideoDiffusionSmoothPipeline",
+               "controlnet": "StableVideoDiffusionControlNetPipeline",
+               "flow": "StableVideoDiffusionFlowPipeline"}
+SUB_PIPE = dict(TINY_PIPE, num_inference_steps=2)
+SMOOTH = dict(start_step=1, total_frames=4)  # 2 decode chunks of 2 frames
+CN_EMBEDDING = (16, 32)  # one stride-2 convolution: TINY_VAE's factor of 2
+# the joint UNet of trans and smooth: tests/test_pipelines_variants.py:18-28
+JOINT = dict(post="conv", flip=True, mask=(0, 1, 0, 1), spatial=True, temporal=True)
+RULES = (dict(pattern="*attn1n*", name="yx", rank=2, streams=(0, 1, 0, 1)),
+         dict(pattern="*temporal*attn1.*", name="xy", rank=2, streams=(1, 0, 1, 0)))
+# the CLI in each mode but base at --data-parallel 2 --context-parallel 2: name -> (flags,
+# frames out, decode chunks in all); smooth at 5 frames makes 5 chunks of 1, which context=2
+# does not divide
+JOINT_FLAGS = ["--flip", "--temporal", "--lora-rank", "2"]
+SMOOTH_FLAGS = ["--mode", "smooth", "--smooth-start-step", "1", *JOINT_FLAGS]
+CLI_MODES = {"trans": (["--mode", "trans", *JOINT_FLAGS], T, 4),
+             "smooth": (SMOOTH_FLAGS + ["--smooth-total-frames", "4"], 4, 2),
+             "smooth_whole_decode": (SMOOTH_FLAGS + ["--smooth-total-frames", "5"], 5, 5),
+             "controlnet": (["--mode", "controlnet"], T, 2),
+             "flow": (["--mode", "flow"], T, 2)}
+DATA_CONTEXT = ["--data-parallel", "2", "--context-parallel", "2"]
 
 
 # ------------------------------------------------------------------ the ranks' side
@@ -68,6 +101,46 @@ def svd_pipeline(mesh=None):
         vae_config=tcfg.TemporalVAEConfig(**TINY_VAE),
         clip_config=tcfg.CLIPVisionConfig(**TINY_CLIP), dtype=torch.float32, device="cpu",
         mesh=mesh)
+
+
+def subclass_pipeline(pkg: str, mode: str, **kw):
+    """The tiny ``mode`` pipeline of ``pkg`` (``lkgd_torch``, or ``lkgd_tpu`` in the test
+    process) at fp32; ``kw``: ``dtype``, ``mesh`` and the port's ``device``."""
+    import importlib
+
+    def of(module):
+        return importlib.import_module(f"{pkg}.{module}")
+
+    c = of("models.configs")
+    joint = {}
+    if mode in ("trans", "smooth"):
+        joint = dict(joint=c.JointAttentionConfig(**JOINT),
+                     lora=c.LoraRouter(tuple(c.LoraRule(**r) for r in RULES)))
+    unet = c.SVDUNetConfig(**TINY_UNET, **joint)
+    extra = {"smooth": SMOOTH, "controlnet": dict(
+        controlnet_config=of("models.controlnet_svd").ControlNetSDVConfig(
+            unet=unet, conditioning_embedding_out_channels=CN_EMBEDDING))}.get(mode, {})
+    cls = getattr(of(f"pipelines.svd_{mode}"), SUB_CLASSES[mode])
+    return cls(config=of("pipelines.svd").SVDPipelineConfig(**SUB_PIPE), unet_config=unet,
+               vae_config=of("models.vae_temporal").TemporalVAEConfig(**TINY_VAE),
+               clip_config=of("models.clip_vision").CLIPVisionConfig(**TINY_CLIP), **extra, **kw)
+
+
+def _subclass_cases(work) -> dict:
+    """Each subclass pipeline at ``data=2,context=2`` on JAX's weights and draws: its
+    frames."""
+    from lkgd_torch.parallel import mesh
+
+    grid = mesh.make_mesh("data=2,context=2", "cpu")
+    out = {}
+    for mode in SUB_MODES:
+        case = work["sub"][mode]
+        pipe = subclass_pipeline("lkgd_torch", mode, dtype=torch.float32, device="cpu",
+                                 mesh=grid)
+        for name, sd in case["weights"].items():
+            getattr(pipe, name).load_state_dict(sd, strict=True)
+        out[f"sub_{mode}"] = pipe(*case["args"], output_type="pt", **case["kw"])
+    return out
 
 
 def _svd_run(pipe, work, fsdp_group=None) -> dict:
@@ -123,15 +196,54 @@ def _save_frames(path, frames, fps):
 
 
 def _cli_cases(rank, work_dir) -> dict:
+    """The CLI over the ranks: base mode with rows and frames split and with FSDP, then
+    every other mode at ``DATA_CONTEXT``, each mode's pipeline and decode calls recorded.
+    Every rank that writes leaves a ``<output>.rank<r>`` mark."""
+    import torch.distributed as dist
+
     from lkgd_torch.cli import run_inference_svd as cli
     from lkgd_torch.data import video_io
+    from lkgd_torch.models.vae_temporal import AutoencoderKLTemporalDecoder as VAE
 
-    video_io.write_video = _save_frames
-    for name, flags in (("dc", ["--data-parallel", "2", "--context-parallel", "2"]),
-                        ("mp", ["--model-parallel", str(WORLD)])):
+    def write(path, frames, fps):
+        _save_frames(path, frames, fps)
+        Path(f"{path}.rank{rank}").touch()
+
+    video_io.write_video = write
+    for name, flags in (("dc", DATA_CONTEXT), ("mp", ["--model-parallel", str(WORLD)])):
         cli.main(CLI_ARGS + ["--image", str(work_dir / "frame.png"), "--output",
                              str(work_dir / f"{name}.gif"), *flags], widths())
-    return {}
+    built, decodes = [], []
+    build, decode = cli.build_pipeline, VAE.decode
+
+    def recorded_build(args, w):
+        built.append(build(args, w))
+        return built[-1]
+
+    def counted_decode(self, *args, **kw):
+        decodes.append(1)
+        return decode(self, *args, **kw)
+
+    cli.build_pipeline, VAE.decode = recorded_build, counted_decode
+    out = {}
+    for name, (flags, *_) in CLI_MODES.items():
+        decodes.clear()
+        cli.main(cli_mode_argv(work_dir, name, flags, DATA_CONTEXT), widths())
+        pipe = built[-1]
+        out[name] = {"class": type(pipe).__name__, "decodes": len(decodes),
+                     "loop_split": pipe.data_group is not None or pipe.context_group is not None,
+                     "decode_ranks": dist.get_world_size(pipe.decode_group),
+                     "frame_groups": sum(getattr(m, "frame_group", None) is not None
+                                         for m in pipe.unet.modules())}
+    return {"cli": out}
+
+
+def cli_mode_argv(work_dir, name, flags, extra=()) -> list:
+    """The CLI's arguments for ``CLI_MODES[name]``: smooth reads the clip's frames, the
+    other modes the one frame."""
+    image = work_dir / ("clip" if name.startswith("smooth") else "frame.png")
+    return CLI_ARGS + ["--image", str(image), "--output", str(work_dir / f"{name}.gif"),
+                       *flags, *extra]
 
 
 def widths():
@@ -139,7 +251,8 @@ def widths():
     from lkgd_torch.models import configs as tcfg
 
     return cli.Widths(unet=TINY_UNET, vae=tcfg.TemporalVAEConfig(**TINY_VAE),
-                      clip=tcfg.CLIPVisionConfig(**TINY_CLIP))
+                      clip=tcfg.CLIPVisionConfig(**TINY_CLIP),
+                      controlnet_embedding=CN_EMBEDDING)
 
 
 def train_widths():
@@ -250,8 +363,8 @@ def _zero_cases(rank) -> dict:
 
 def _rank_cases(rank, world, work_dir) -> dict:
     work = torch.load(work_dir / "work.pt", weights_only=False)
-    out = {**_svd_cases(work), **_cogvideox_cases(work)}
-    _cli_cases(rank, work_dir)
+    out = {**_svd_cases(work), **_subclass_cases(work), **_cogvideox_cases(work)}
+    out.update(_cli_cases(rank, work_dir))
     out.update(_train_cases(rank, work, work_dir))
     out.update(_zero_cases(rank))
     return out
@@ -290,15 +403,92 @@ def _inputs(work_dir: Path) -> tuple:
             * 2 - 1}
     frame = rng.uniform(size=(1, 40, 56, 3)).astype(np.float32)
     video_io.write_video(str(work_dir / "frame.png"), frame, fps=8)
+    (work_dir / "clip").mkdir()
+    for i, f in enumerate(rng.uniform(size=(5, 40, 56, 3))):  # CLI_MODES' longest smooth
+        video_io.write_video(str(work_dir / "clip" / f"{i:03d}.png"), f[None], fps=8)
     return work, want
+
+
+def _subclass_inputs() -> tuple:
+    """The subclass pipelines' weights (every leaf random) and inputs with JAX's draws, for
+    the ranks; and the JAX pipelines of the same classes built with ``mesh=`` over
+    ``data=2,context=2`` on 4 CPU devices, with a function that returns their frames."""
+    import jax
+    import jax.numpy as jnp
+
+    from lkgd_tpu.parallel import mesh as meshlib
+    from tests.test_torch_porting import KEY_MAPS, port_state_dict, randomize
+
+    grid = meshlib.make_mesh({"data": 2, "context": 2}, jax.devices()[:WORLD])
+    rng = np.random.default_rng(12)
+
+    def uniform(*shape):
+        return rng.uniform(size=shape).astype(np.float32)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def jax_normal(key, *shape):
+        return np.array(jax.random.normal(key, shape, jnp.float32))
+
+    h, w, total = H // 2, W // 2, SMOOTH["total_frames"]
+    sub, runs, shapes = {}, {}, {}
+    for i, mode in enumerate(SUB_MODES):
+        jpipe = subclass_pipeline("lkgd_tpu", mode, dtype=jnp.float32, mesh=grid)
+        models = {"smooth": "trans", "flow": "controlnet"}.get(mode, mode)  # the same shapes
+        if models not in shapes:
+            shapes[models] = jax.eval_shape(jpipe.init_params, jax.random.PRNGKey(0))
+        params = randomize({k: v for k, v in shapes[models].items()
+                            if k != "controlnet" or mode == "controlnet"}, seed=60 + i)
+        weights = {k: port_state_dict(params[k], KEY_MAPS[k]) for k in KEY_MAPS}
+        if mode == "controlnet":
+            weights["controlnet"] = port_state_dict(params["controlnet"])
+        key = jax.random.PRNGKey(20 + i)
+        if mode == "trans":
+            kw = dict(noise_aug=normal(2, H, W, 3), initial_noise=normal(2, T, h, w, 4))
+            args, jkw = (uniform(2, H, W, 3),), kw
+        elif mode == "smooth":  # the JAX pipeline's own draws: svd_smooth.py:53, 58, 67, 82
+            rng_aug, rng_noise, rng_offsets = jax.random.split(key, 3)
+            steps = jpipe.schedule.num_steps - SMOOTH["start_step"]
+            kw = dict(noise_aug=jax_normal(rng_aug, total, H, W, 3),
+                      initial_noise=jax_normal(rng_noise, 1, total, h, w, 4),
+                      offsets=np.asarray(jax.random.randint(rng_offsets, (steps,), 0, T)).tolist())
+            args, jkw = (uniform(total, H, W, 3),), dict(rng=key)
+        elif mode == "controlnet":
+            kw = dict(control=uniform(T, H, W, 3), noise_aug=normal(1, H, W, 3),
+                      initial_noise=normal(1, T, h, w, 4))
+            args, jkw = (uniform(1, H, W, 3),), kw
+        else:  # the JAX pipeline's own draws: svd_flow.py:40, 70
+            rng_aug, _, rng_lat = jax.random.split(key, 3)
+            kw = dict(flow_cond=uniform(1, H, W, 3), noise_aug=jax_normal(rng_aug, 1, H, W, 3),
+                      initial_noise=jax_normal(rng_lat, 1, T, h, w, 4))
+            args, jkw = (uniform(1, H, W, 3),), dict(flow_cond=kw["flow_cond"], rng=key)
+        sub[mode] = {"weights": weights, "args": tuple(map(torch.from_numpy, args)),
+                     "kw": {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                            for k, v in kw.items()}}
+        runs[mode] = (jpipe, params, args, jkw)
+
+    def frames() -> dict:
+        out = {}
+        with jax.set_mesh(grid):
+            for mode, (jpipe, params, args, jkw) in runs.items():
+                replicated = jax.device_put(params, meshlib.replicated(grid))
+                out[mode] = np.asarray(jpipe(replicated, *args, **jkw), np.float32)
+        return out
+
+    return sub, frames
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     work_dir = tmp_path_factory.mktemp("dp")
     work, want = _inputs(work_dir)
+    work["sub"], jax_frames = _subclass_inputs()
     torch.save(work, work_dir / "work.pt")
-    outs = launch("tests.test_torch_data_parallel", WORLD, work_dir)
+    sub_want = {}
+    outs = launch("tests.test_torch_data_parallel", WORLD, work_dir,
+                  meanwhile=lambda: sub_want.update(jax_frames()))
+    work["sub_want"] = sub_want
     return work_dir, work, want, outs
 
 
@@ -363,13 +553,68 @@ def test_svd_cli_flags_equal_one_process(runs, name, flags, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_svd_cli_refuses_rows_and_frames_outside_base_mode():
+@pytest.mark.parametrize("mode", SUB_MODES)
+def test_subclass_pipeline_over_data_context_matches_jax(runs, mode):
+    """Every rank's frames equal, and within the unsharded parity's tolerance of the JAX
+    pipeline of the same class built with ``mesh=`` over 4 CPU devices."""
+    _, work, _, outs = runs
+    got = _same_on_every_rank(outs, f"sub_{mode}").numpy()
+    want = work["sub_want"][mode]
+    assert got.shape == want.shape and np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, **JAX_TOL)
+
+
+@pytest.mark.parametrize("mode", SUB_MODES)
+def test_svd_cli_accepts_data_and_context_in_every_mode(runs, mode):
+    """``--data-parallel 2 --context-parallel 2`` builds the mode's pipeline on every rank:
+    no row or frame group on its loop, no UNet module gathering frames, the decode over the
+    2 ranks of context with half of the chunks a rank."""
+    *_, outs = runs
+    chunks = CLI_MODES[mode][2]
+    for o in outs:
+        got = o["cli"][mode]
+        assert got == {"class": SUB_CLASSES[mode], "decodes": chunks // 2, "loop_split": False,
+                       "decode_ranks": 2, "frame_groups": 0}, got
+
+
+def test_svd_cli_decodes_whole_where_context_does_not_divide_the_chunks(runs):
+    """Smooth at 5 frames makes 5 decode chunks: every rank decodes all of them."""
+    *_, outs = runs
+    assert [o["cli"]["smooth_whole_decode"]["decodes"] for o in outs] == [5] * WORLD
+
+
+@pytest.mark.parametrize("name", list(CLI_MODES))
+def test_svd_cli_mode_over_data_context_equals_one_process(runs, name, monkeypatch):
+    """Rank 0 alone writes, and its frames are those of the CLI in one process bit for bit:
+    the loop runs whole on every rank and each decode chunk is one process's chunk (the
+    ranks' ``check_replicated`` held every rank's frames equal)."""
+    from lkgd_torch.cli import run_inference_svd as cli
+    from lkgd_torch.data import video_io
+
+    work_dir, *_ = runs
+    monkeypatch.setattr(video_io, "write_video", _save_frames)
+    flags, frames, _ = CLI_MODES[name]
+    one = cli_mode_argv(work_dir, name, flags)
+    one[one.index("--output") + 1] = str(work_dir / f"one_{name}.gif")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks' threading: the same reductions
+    try:
+        cli.main(one, widths())
+    finally:
+        torch.set_num_threads(threads)
+    assert [p.name for p in work_dir.glob(f"{name}.gif.rank*")] == [f"{name}.gif.rank0"]
+    got, want = np.load(work_dir / f"{name}.gif.npy"), np.load(work_dir / f"one_{name}.gif.npy")
+    assert got.shape == want.shape == (frames, H, 2 * W if name == "trans" else W, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_svd_cli_refuses_model_parallel_with_sequential_cfg():
     from lkgd_torch.cli import run_inference_svd as cli
 
-    with pytest.raises(SystemExit, match="--mode trans takes --model-parallel only"):
+    with pytest.raises(SystemExit, match="--sequential-cfg's second UNet shares them"):
         cli.build_pipeline(cli.make_parser().parse_args(
-            ["--image", "a.png", "--mode", "trans", "--device", "cpu", "--data-parallel", "2"]),
-            widths())
+            ["--image", "a.png", "--mode", "trans", "--device", "cpu", "--model-parallel", "2",
+             "--sequential-cfg"]), widths())
 
 
 def test_train_step_over_ranks_equals_one_process(runs, tmp_path):

@@ -95,13 +95,30 @@ def test_frame_axis_attention(ctx_len):
     np.testing.assert_allclose(_run(port, x, **tkw), want, **TOL)
 
 
-def test_frame_axis_attention_refuses_long_per_sample_context():
-    """SVD's per-sample context is one CLIP token; longer ones are not ported."""
-    port = tlayers.materialize(lambda: tlayers.FrameAxisAttention(32, 2, 16, kv_dim=24), "cpu",
-                               torch.float32)
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(8, 6, 32), 4, encoder_hidden_states=torch.zeros(2, 3, 24),
-             per_sample_ctx=True)
+@pytest.mark.parametrize("ctx_len", [1, 3], ids=["single_key", "three_keys"])
+def test_frame_axis_attention_per_sample_context_with_lora(ctx_len):
+    """A per-sample context of L tokens, LoRA adapters on ``to_k`` and ``to_v``: L = 3 takes
+    the softmax over the sample's keys, L = 1 the shortcut (the control)."""
+    rng = np.random.default_rng(5)
+    b, t, hw = 2, 3, 5
+    x, ctx = _np(rng, b * t, hw, 32), _np(rng, b, ctx_len, 24)
+    spec = dict(name="ctx", rank=2, alpha=3.0)
+    jmod = jlayers.FrameAxisAttention(32, heads=2, dim_head=16, kv_dim=24,
+                                      adapters_k=(jlayers.LoraSpec(**spec),),
+                                      adapters_v=(jlayers.LoraSpec(**spec),))
+    adapters = {"to_k": (tlayers.LoraSpec(**spec),), "to_v": (tlayers.LoraSpec(**spec),)}
+    kw = dict(num_frames=t, per_sample_ctx=True)
+    params, port = _pair(jmod, lambda: tlayers.FrameAxisAttention(32, 2, 16, kv_dim=24,
+                                                                  adapters=adapters),
+                         jnp.asarray(x), encoder_hidden_states=jnp.asarray(ctx), **kw)
+    assert {"to_k.ctx_A", "to_v.ctx_B"} <= {n.replace("lora_", "") for n in port.state_dict()}
+    want = _apply(jmod, params, x, encoder_hidden_states=jnp.asarray(ctx), **kw)
+    got = _run(port, x, kw["num_frames"], torch.from_numpy(ctx), per_sample_ctx=True)
+    assert got.shape == (b * t, hw, 32)
+    np.testing.assert_allclose(got, want, **TOL)
+    # the output varies over frames and pixels exactly when there is more than one key
+    varies = np.abs(got - got[:1, :1]).reshape(b, -1).max(axis=1)
+    assert (varies > 1e-3).all() if ctx_len > 1 else (varies[0] < 1e-6)
 
 
 @pytest.mark.parametrize("cin", [32, 64])
@@ -131,6 +148,27 @@ def test_tiny_unet():
         tcfg.SVDUNetConfig(**TINY_UNET)), *jargs)
     want = _apply(jmod, params, sample, timesteps, ehs, ids)
     np.testing.assert_allclose(_run(port, sample, timesteps, ehs, ids), want, **TOL)
+
+
+def test_tiny_unet_three_token_context():
+    """An ``encoder_hidden_states`` of 3 tokens: the spatial cross-attention and the
+    temporal blocks' per-sample context both attend over the 3 keys."""
+    rng = np.random.default_rng(6)
+    b, t, h, w = 2, 4, 8, 8
+    sample = _np(rng, b, t, h, w, 8)
+    timesteps = np.array([0.3, -1.2], np.float32)
+    ehs = _np(rng, b, 3, 64)
+    ids = np.array([[6, 127, 0.02], [6, 127, 0.02]], np.float32)
+    jmod = JaxUNet(JaxUNetConfig(**TINY_UNET), dtype=jnp.float32)
+    jargs = tuple(jnp.asarray(a) for a in (sample, timesteps, ehs, ids))
+    params, port = _pair(jmod, lambda: UNetSpatioTemporalCondition(
+        tcfg.SVDUNetConfig(**TINY_UNET)), *jargs)
+    want = _apply(jmod, params, sample, timesteps, ehs, ids)
+    got = _run(port, sample, timesteps, ehs, ids)
+    np.testing.assert_allclose(got, want, **TOL)
+    # the 3 tokens are not one: the first token alone, repeated, gives another output
+    alone = _run(port, sample, timesteps, np.repeat(ehs[:, :1], 3, axis=1), ids)
+    assert np.abs(alone - got).max() > 1e-3
 
 
 def test_tiny_vae_encode_and_decode():

@@ -136,10 +136,11 @@ def _rank_main() -> None:
 
 
 def launch(module: str, world: int, work_dir: Path, timeout: float = 240.0,
-           entry: str = "_rank_cases") -> list:
+           entry: str = "_rank_cases", meanwhile=None) -> list:
     """``world`` ranks as processes over gloo (a ``FileStore`` in ``work_dir``), each running
     ``module.entry(rank, world, work_dir)``; a rank that fails or hangs fails the test.
-    Returns each rank's outputs."""
+    ``meanwhile()``, if given, runs in this process while the ranks run. Returns each rank's
+    outputs."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "from tests.test_torch_tensor_parallel import _rank_main; _rank_main()")
     env = {**os.environ, "LAUNCH_WORLD": str(world), "LAUNCH_DIR": str(work_dir),
@@ -151,6 +152,8 @@ def launch(module: str, world: int, work_dir: Path, timeout: float = 240.0,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
+        if meanwhile is not None:
+            meanwhile()
         for p in procs:
             logs.append(p.communicate(timeout=timeout)[0])
     except subprocess.TimeoutExpired:
